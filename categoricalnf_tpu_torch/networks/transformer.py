@@ -1,0 +1,95 @@
+"""Permutation-equivariant transformer coupling network (set tasks).
+
+Counterpart of ``categoricalnf_tpu/networks/transformer.py``.  No
+positional embeddings; keys of invalid elements are masked with -1e9.
+A CUDA tensor always runs the whole net in one CUDA kernel
+(``ops/cuda/fused_transformer.py``), which raises on what it does not take
+(a key mask, a condition, sets above 32); a CPU tensor takes the unfused
+path, ``plain_forward``, which is also the kernel's plain version.  The
+reference's ``fused`` switch has no counterpart: the device chooses.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from categoricalnf_tpu_torch.networks.common import (Dense, concat_cond,
+                                                     layer_norm, torch_dtype)
+from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+
+
+class _Block(nn.Module):
+    def __init__(self, h: int, mlp_ratio: int, generator):
+        super().__init__()
+        self.qkv = Dense(h, 3 * h, generator=generator)
+        self.proj = Dense(h, h, scale=0.5, generator=generator)
+        self.fc1 = Dense(h, mlp_ratio * h, generator=generator)
+        self.fc2 = Dense(mlp_ratio * h, h, scale=0.5, generator=generator)
+
+
+class SetTransformer(nn.Module):
+    def __init__(self, in_dim: int, out_dim: int, cond_dim: int = 0, *,
+                 hidden_dim: int = 128, num_heads: int = 4,
+                 num_layers: int = 2, mlp_ratio: int = 2,
+                 compute_dtype: str = "bfloat16", generator=None):
+        super().__init__()
+        self.hidden_dim = hidden_dim
+        self.num_heads = num_heads
+        self.num_layers = num_layers
+        self.mlp_ratio = mlp_ratio
+        self.compute_dtype = compute_dtype
+        self._packed = None
+        self.embed = Dense(in_dim + cond_dim, hidden_dim, generator=generator)
+        self.out = Dense(hidden_dim, out_dim, zero=True, generator=generator)
+        self.blocks = nn.ModuleList(
+            _Block(hidden_dim, mlp_ratio, generator)
+            for _ in range(num_layers))
+
+    def _attention(self, blk, h, mask, cd):
+        B, T, H = h.shape
+        nh, hd = self.num_heads, H // self.num_heads
+        qkv = blk.qkv(layer_norm(h), cd).reshape(B, T, 3, nh, hd)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        # bf16 operands, fp32 sums: the products are exact in fp32
+        logits = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(hd)
+        if mask is not None:
+            logits = logits.masked_fill(~mask.bool()[:, None, None, :], -1e9)
+        attn = torch.softmax(logits, dim=-1)
+        out = attn.to(cd).float() @ v.float()
+        return blk.proj(out.transpose(1, 2).reshape(B, T, H), cd)
+
+    def _packed_weights(self, cd):
+        """The kernel's weights, cast once and kept until a parameter is
+        replaced (``.to``) or written in place (loading, data init)."""
+        params = tuple(self.parameters())
+        key = (cd,) + tuple((id(p), p._version) for p in params)
+        if self._packed is None or self._packed[0] != key:
+            # holding ``params`` keeps their ids from being reused
+            self._packed = (key, params,
+                            ft.PackedWeights(ft.flatten_params(self), cd))
+        return self._packed[2]
+
+    def forward(self, x, cond=None, mask=None):
+        if not x.is_cuda:
+            return self.plain_forward(x, cond, mask)
+        if cond is not None or mask is not None:
+            raise NotImplementedError(
+                "the fused SetTransformer kernel takes no condition or key "
+                "mask yet (ROADMAP.md, Queue B 3)")
+        return ft.fused_set_transformer(
+            self._packed_weights(torch_dtype(self.compute_dtype)), x,
+            num_heads=self.num_heads)
+
+    def plain_forward(self, x, cond=None, mask=None):
+        """The unfused net on any device: the kernel's plain version."""
+        cd = torch_dtype(self.compute_dtype)
+        h = self.embed(concat_cond(x, cond), cd)
+        for blk in self.blocks:
+            h = h + self._attention(blk, h, mask, cd)
+            m = F.gelu(blk.fc1(layer_norm(h), cd), approximate="tanh")
+            h = h + blk.fc2(m, cd)
+        return self.out(layer_norm(h), cd)

@@ -1,0 +1,110 @@
+"""Logistic / mixture-of-logistics primitives in fp32 (plain PyTorch).
+
+Counterpart of ``categoricalnf_tpu/ops/numerics.py``: the same log-space
+formulas, the same clip of the log-scales, the same 42-bisection + 3-Newton
+inverse.  These functions are the plain versions of the CUDA mixture
+kernels (``ops/cuda/mixture.py``) and the path every CPU tensor takes.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+# Lower bound keeps every component resolvable in fp32 (see the reference's
+# note); it must stay below the encoder's min log-sigma (-4.6).
+LOG_SCALE_MIN = -5.0
+LOG_SCALE_MAX = 7.0
+
+# Uniform noise is clipped away from {0, 1} before the logit.
+NOISE_EPS = 1e-6
+
+
+def _like(v, ref: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=torch.float32, device=ref.device)
+
+
+def logistic_log_pdf(x, mean, log_scale) -> torch.Tensor:
+    """log pdf of Logistic(mean, exp(log_scale)) at x, in fp32."""
+    x = x.float()
+    mean, log_scale = _like(mean, x), _like(log_scale, x)
+    z = (x - mean) * torch.exp(-log_scale)
+    return -z - 2.0 * F.softplus(-z) - log_scale
+
+
+def uniform_noise(shape, *, generator=None, device=None) -> torch.Tensor:
+    """Uniform in [NOISE_EPS, 1 - NOISE_EPS), as ``jax.random.uniform``
+    with minval/maxval draws it."""
+    u = torch.rand(shape, generator=generator, device=device,
+                   dtype=torch.float32)
+    return u * (1.0 - 2.0 * NOISE_EPS) + NOISE_EPS
+
+
+def logistic_sample(shape, mean=0.0, log_scale=0.0, *, generator=None,
+                    noise=None, device=None) -> torch.Tensor:
+    """Inverse-CDF logistic sample.  ``noise`` (uniform, ``shape``) replaces
+    the draw so that a caller can feed both frameworks the same numbers."""
+    if noise is None:
+        noise = uniform_noise(shape, generator=generator, device=device)
+    u = noise.float().clamp(NOISE_EPS, 1.0 - NOISE_EPS)
+    logit_u = torch.log(u) - torch.log1p(-u)
+    return _like(mean, u) + torch.exp(_like(log_scale, u)) * logit_u
+
+
+def _log_sigmoid_pair(z: torch.Tensor):
+    """(log sigmoid(z), log sigmoid(-z)) from one softplus, via the exact
+    identity log sigmoid(-z) = log sigmoid(z) - z."""
+    lsp = F.logsigmoid(z)
+    return lsp, lsp - z
+
+
+def _prep(pi_logits, means, log_scales):
+    log_pi = torch.log_softmax(pi_logits.float(), dim=-1)
+    log_scales = log_scales.float().clamp(LOG_SCALE_MIN, LOG_SCALE_MAX)
+    return log_pi, means.float(), log_scales
+
+
+def mixture_logit_cdf_and_ldj(x, pi_logits, means, log_scales):
+    """y = log F(x) - log(1 - F(x)) and ldj = log f - log F - log(1 - F)
+    for a K-logistic mixture; parameters are ``[..., K]``, x is ``[...]``."""
+    log_pi, means, log_scales = _prep(pi_logits, means, log_scales)
+    z = (x.float()[..., None] - means) * torch.exp(-log_scales)
+    lsp, lsn = _log_sigmoid_pair(z)
+    log_cdf = torch.logsumexp(log_pi + lsp, dim=-1)
+    log_sf = torch.logsumexp(log_pi + lsn, dim=-1)
+    log_pdf = torch.logsumexp(log_pi + lsp + lsn - log_scales, dim=-1)
+    return log_cdf - log_sf, log_pdf - log_cdf - log_sf
+
+
+def mixture_inverse_logit_cdf(y, pi_logits, means, log_scales, *,
+                              num_bisect: int = 42,
+                              num_newton: int = 3) -> torch.Tensor:
+    """Invert x -> logit F(x): bisection in the exact bracket
+    [min_k, max_k](mu_k + s_k y), then Newton steps clipped to it."""
+    y = y.float()
+    log_pi, means, log_scales = _prep(pi_logits, means, log_scales)
+    cand = means + torch.exp(log_scales) * y[..., None]
+    lo0 = cand.min(dim=-1).values
+    hi0 = cand.max(dim=-1).values
+    inv_scales = torch.exp(-log_scales)
+
+    def parts(x):
+        z = (x[..., None] - means) * inv_scales
+        lsp, lsn = _log_sigmoid_pair(z)
+        return lsp, lsn, (torch.logsumexp(log_pi + lsp, dim=-1),
+                          torch.logsumexp(log_pi + lsn, dim=-1))
+
+    lo, hi = lo0, hi0
+    for _ in range(num_bisect):
+        mid = 0.5 * (lo + hi)
+        _, _, (log_cdf, log_sf) = parts(mid)
+        go_right = (log_cdf - log_sf) < y
+        lo = torch.where(go_right, mid, lo)
+        hi = torch.where(go_right, hi, mid)
+    x = 0.5 * (lo + hi)
+    for _ in range(num_newton):
+        lsp, lsn, (log_cdf, log_sf) = parts(x)
+        log_pdf = torch.logsumexp(log_pi + lsp + lsn - log_scales, dim=-1)
+        step = (log_cdf - log_sf - y) * torch.exp(log_cdf + log_sf - log_pdf)
+        x = torch.minimum(torch.maximum(x - step, lo), hi)
+    return x

@@ -1,0 +1,144 @@
+"""Set shuffling task (counterpart of ``categoricalnf_tpu/tasks/set_modeling.py``).
+
+Uniform distribution over permutations of S distinct tokens; the analytic
+optimum log2(S!)/S bits/var is the correctness beacon.  Permutations are
+drawn with numpy here (the port keeps its own generator).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+from categoricalnf_tpu_torch import flows
+from categoricalnf_tpu_torch.encodings import create_encoding
+from categoricalnf_tpu_torch.models.categorical_flow import CategoricalFlow
+from categoricalnf_tpu_torch.networks import SetTransformer
+from categoricalnf_tpu_torch.training.task import TaskTemplate
+from categoricalnf_tpu_torch.utils.device import resolve_device
+
+SAMPLE_CHUNK = 1024
+
+
+def build_set_flow(dim: int, num_layers: int = 8, hidden_dim: int = 96,
+                   num_heads: int = 4, num_mixtures: int = 8,
+                   compute_dtype: str = "float32",
+                   scan_blocks: Optional[bool] = None, remat: bool = False,
+                   unroll: int = 1, *,
+                   generator=None) -> flows.FlowModel:
+    """Unrolled coupling stack: num_layers x [ActNorm, InvertibleLinear,
+    MixtureCDFCoupling(SetTransformer), SoftClamp], parities alternating.
+
+    ``remat`` and ``unroll`` only act on a scanned stack, which is not
+    ported; ``scan_blocks=None`` resolves as the reference does (scanned
+    above 8 layers).  The reference's ``fused`` has no counterpart: on the
+    card every coupling net runs the fused kernel.
+    """
+    if scan_blocks is None:
+        scan_blocks = num_layers > 8
+    if scan_blocks and num_layers % 2 == 0 and num_layers >= 4:
+        raise NotImplementedError(
+            "scanned coupling stacks are not ported yet (ROADMAP.md, "
+            "Queue A: ScannedBlocks)")
+    out_dim = dim * (2 + 3 * num_mixtures)
+    layers = []
+    for i in range(num_layers):
+        net = SetTransformer(dim, out_dim, hidden_dim=hidden_dim,
+                             num_heads=num_heads, num_layers=2,
+                             compute_dtype=compute_dtype, generator=generator)
+        layers += [flows.ActNorm(dim),
+                   flows.InvertibleLinear(dim, generator=generator),
+                   flows.MixtureCDFCoupling(net, dim, parity=i % 2,
+                                            num_mixtures=num_mixtures,
+                                            generator=generator),
+                   flows.SoftClamp()]
+    return flows.FlowModel(layers)
+
+
+@dataclasses.dataclass
+class SetShufflingTask(TaskTemplate):
+    """Uniform over permutations of S tokens."""
+
+    set_size: int = 16
+    batch_size: int = 1024
+    encoding_dim: int = 4
+    encoding_name: str = "mixture"
+    num_layers: int = 8
+    hidden_dim: int = 96
+    num_mixtures: int = 8
+    eval_batches_count: int = 4
+    compute_dtype: str = "float32"
+    # decoder, remat, scan_blocks and unroll are kept so that a saved
+    # config asking for what is not ported raises instead of restoring
+    # another model; a saved ``fused`` is dropped by ``build_task``, since
+    # the device alone picks the kernel
+    decoder: str = "bayes"
+    remat: bool = False
+    scan_blocks: Optional[bool] = None
+    unroll: int = 1
+    seed: int = 0
+    device: Optional[str] = None
+    name: str = "set_shuffling"
+
+    def __post_init__(self):
+        if self.decoder != "bayes":
+            raise NotImplementedError(
+                f"decoder {self.decoder!r} is not ported yet (ROADMAP.md, "
+                "Queue A: the other encodings)")
+        self.device = resolve_device(self.device)
+        self.init_params(self.seed)
+
+    def build_model(self, generator):
+        enc = create_encoding(self.encoding_name, self.set_size,
+                              self.encoding_dim, generator=generator)
+        flow = build_set_flow(enc.dim, self.num_layers, self.hidden_dim,
+                              num_mixtures=self.num_mixtures,
+                              compute_dtype=self.compute_dtype,
+                              scan_blocks=self.scan_blocks, remat=self.remat,
+                              unroll=self.unroll,
+                              generator=generator)
+        return CategoricalFlow(enc, flow)
+
+    def _gen(self, rng: np.random.Generator, n: int) -> np.ndarray:
+        return np.argsort(rng.random((n, self.set_size)),
+                          axis=1).astype(np.int64)
+
+    def train_batches(self, rng: np.random.Generator) -> Iterator[dict]:
+        while True:
+            yield {"x": self._gen(rng, self.batch_size)}
+
+    def eval_batches(self) -> list[dict]:
+        rng = np.random.default_rng(1234)
+        return [{"x": self._gen(rng, self.batch_size)}
+                for _ in range(self.eval_batches_count)]
+
+    def analytic_optimum_bpd(self) -> float:
+        return math.log2(math.factorial(self.set_size)) / self.set_size
+
+    def sample_metrics(self, generator=None, num_samples: int | None = None,
+                       temperature: float = 1.0) -> dict:
+        """Fraction of sampled sequences that are exact permutations."""
+        x = _sample_set(self.model, num_samples or SAMPLE_CHUNK,
+                        self.set_size, temperature, generator)
+        is_perm = (np.sort(x, axis=1)
+                   == np.arange(self.set_size)[None, :]).all(axis=1)
+        return {"permutation_validity": float(is_perm.mean()),
+                "metric_num_samples": float(len(x))}
+
+
+@torch.no_grad()
+def _sample_set(model, num_samples: int, set_size: int, temperature: float,
+                generator=None) -> np.ndarray:
+    """Samples in chunks of up to 1024 sets; returns int [n, set_size]."""
+    chunk = min(num_samples, SAMPLE_CHUNK)
+    out, done = [], 0
+    while done < num_samples:
+        x = model.sample(chunk, set_size, temperature=float(temperature),
+                         generator=generator)
+        out.append(x.cpu().numpy())
+        done += chunk
+    return np.concatenate(out)[:num_samples]

@@ -1,0 +1,90 @@
+"""Task protocol (counterpart of ``categoricalnf_tpu/training/task.py``).
+
+A task owns its data generator and its ``CategoricalFlow`` model.  Batches
+are dicts with ``x`` [B, T] and optionally ``mask`` and ``cond``, as numpy
+arrays or tensors.  Density evaluations run in the fp32 twin
+(``eval_model``), which shares every parameter with ``model``.
+"""
+
+from __future__ import annotations
+
+import copy
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def force_f32(module: nn.Module) -> nn.Module:
+    """A structural copy of ``module`` whose every ``compute_dtype`` is
+    float32.  Parameters and buffers are the SAME tensors, so in-place
+    updates (loading a checkpoint, data init) reach both."""
+    twin = copy.copy(module)
+    twin._modules = {k: None if v is None else force_f32(v)
+                     for k, v in module._modules.items()}
+    twin._parameters = dict(module._parameters)
+    twin._buffers = dict(module._buffers)
+    if getattr(module, "compute_dtype", "float32") != "float32":
+        twin.compute_dtype = "float32"
+    return twin
+
+
+class TaskTemplate:
+    name: str = "task"
+    model: nn.Module
+    device: torch.device
+
+    def build_model(self, generator: torch.Generator) -> nn.Module:
+        raise NotImplementedError
+
+    @property
+    def eval_model(self) -> nn.Module:
+        """fp32-compute twin of ``model`` for density evaluations: bf16
+        noise inflates the importance-sampled bound through the logsumexp
+        (Jensen), so likelihoods are evaluated in fp32, as the reference
+        does."""
+        m = getattr(self, "_eval_model_cache", None)
+        if m is None:
+            m = self._eval_model_cache = force_f32(self.model)
+        return m
+
+    def _tensor(self, a, dtype=None):
+        return None if a is None else torch.as_tensor(a, dtype=dtype,
+                                                      device=self.device)
+
+    # -- hooks ------------------------------------------------------------
+
+    def init_params(self, seed: int) -> None:
+        """(Re)build the model from ``seed`` on the task's device."""
+        self.model = self.build_model(
+            torch.Generator().manual_seed(int(seed))).to(self.device)
+        self._eval_model_cache = None
+
+    @torch.no_grad()
+    def data_init(self, batch: dict, *, generator=None, noise=None) -> None:
+        self.model.data_init(self._tensor(batch["x"], torch.long),
+                             mask=self._tensor(batch.get("mask")),
+                             cond=self._tensor(batch.get("cond")),
+                             generator=generator, noise=noise)
+
+    @torch.no_grad()
+    def eval_step(self, batch: dict, num_samples: int, *, generator=None,
+                  noise=None) -> torch.Tensor:
+        """Per-example importance-sampled bpd for one batch (fp32)."""
+        return self.eval_model.eval_bpd(
+            self._tensor(batch["x"], torch.long), num_samples=num_samples,
+            mask=self._tensor(batch.get("mask")),
+            cond=self._tensor(batch.get("cond")), generator=generator,
+            noise=noise)
+
+    def sample_metrics(self, generator=None, **kw) -> dict:
+        return {}
+
+    def analytic_optimum_bpd(self):
+        return None
+
+    def train_batches(self, rng: np.random.Generator):
+        raise NotImplementedError
+
+    def eval_batches(self) -> list:
+        raise NotImplementedError

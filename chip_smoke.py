@@ -1,0 +1,535 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (categoricalnf_tpu_torch).
+
+Run from the root of a checkout on a machine with one NVIDIA card:
+
+    python3 chip_smoke.py [--seed 0]
+
+1. Prints the card's name and power limit and builds every CUDA kernel of
+   the serving path (one nvcc per source, started together).
+2. Holds each kernel against its plain PyTorch version on the card, at the
+   shapes the serving path gives it (a 1024-sample chunk; the fp32 net and
+   a second mixture forward at eval_bpd's 1024 sets x 4 chains), twice,
+   with a synchronize after each launch; times both with CUDA events
+   around runs of back-to-back launches.
+3. Serves the flagship set-shuffling flow (runs/set16/config.json as it
+   is, seeded random weights, data init on one batch) over HTTP:
+   /health, /sample, /sample_metrics; then the fp32 importance-sampled
+   bits/var of one batch.  Checks the answers, checks that every kernel
+   launched during this phase, and checks the served model against the
+   plain path on the CPU on a small input.
+4. Prints one JSON line of kernel numbers, then, as the last line,
+   {"ok": true, "device": {...}}.
+
+Exits non-zero, printing no result, without a CUDA card, outside a checkout
+of the repo, or when any check fails.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import http.client
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, FLOP/s.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+# Slice shapes: one sampling chunk of the flagship; eval_bpd runs its IS
+# chains as a batch of EVAL_CHAINS x B sets.
+B, S, D, K, H, HEADS = 1024, 16, 4, 8, 96, 4
+OUT = D * (2 + 3 * K)
+EVAL_CHAINS = 4
+
+# Float operations per mixture component, as the kernels do them (a
+# transcendental counts as one): the parameter set-up (log-softmax, clip,
+# exp of the scale) and one evaluation of the three logsumexps.
+MIX_SETUP_OPS = 10
+MIX_EVAL_OPS = 24
+
+
+class CheckFailed(RuntimeError):
+    pass
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise CheckFailed(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    return out.splitlines()[0]
+
+
+_CYCLES_PER_MS: list = []
+
+
+def spin(ms: float) -> None:
+    """Keeps the card busy for about ``ms``, so that the calls queued
+    meanwhile then run back to back, with no host time between them."""
+    import torch
+    if not _CYCLES_PER_MS:
+        torch.cuda._sleep(1_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(20_000_000)
+        end.record()
+        end.synchronize()
+        _CYCLES_PER_MS.append(20_000_000 / start.elapsed_time(end))
+    torch.cuda._sleep(int(ms * _CYCLES_PER_MS[0]))
+
+
+def cuda_ms(fn, n: int) -> tuple[float, float]:
+    """(device ms, host ms) per call of ``fn``.  Device: ``n`` calls queued
+    behind a spin run back to back between one pair of CUDA events; their
+    time over ``n``, median of three such runs.  Host: the wall time the
+    caller spends queuing one call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        spin(1.5 * host_ms * n + 1.0)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / n)
+    return statistics.median(runs), host_ms
+
+
+def twice(fn):
+    """Run ``fn`` twice, synchronizing after each launch; the kernels are
+    deterministic, so both results must be identical."""
+    import torch
+    outs = []
+    for _ in range(2):
+        r = fn()
+        torch.cuda.synchronize()
+        outs.append(r if isinstance(r, tuple) else (r,))
+    for a, b in zip(*outs):
+        check(torch.equal(a, b), "kernel result differs between two runs")
+    return outs[0] if len(outs[0]) > 1 else outs[0][0]
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def close(a, b, tol: float) -> bool:
+    import torch
+    return bool(torch.allclose(a.float(), b.float(), rtol=tol, atol=tol))
+
+
+def mixture_inputs(gen, shape, k, device):
+    import torch
+    def n(*s):
+        return torch.randn(*s, generator=gen, device=device)
+    return (n(*shape) * 2.0, n(*shape, k), n(*shape, k) * 2.0,
+            n(*shape, k) * 0.5 - 0.5)
+
+
+def timed(kernel, plain, n_kernel: int, n_plain: int) -> dict:
+    ms, host_ms = cuda_ms(kernel, n_kernel)
+    plain_ms, _ = cuda_ms(plain, n_plain)
+    return dict(ms=ms, host_ms=host_ms, plain_ms=plain_ms)
+
+
+def check_mixture(device, gen, report):
+    import torch
+    from categoricalnf_tpu_torch.ops import numerics as nm
+    from categoricalnf_tpu_torch.ops.cuda import mixture as cm
+
+    x, pi, mu, ls = mixture_inputs(gen, (B, S, D), K, device)
+    m = x.numel()
+
+    # #2 forward
+    y, ldj = twice(lambda: cm.mixture_forward_cuda(x, pi, mu, ls))
+    y_p, ldj_p = nm.mixture_logit_cdf_and_ldj(x, pi, mu, ls)
+    check(close(y, y_p, 1e-4) and close(ldj, ldj_p, 1e-4),
+          f"mixture_forward off: y {max_err(y, y_p)}, "
+          f"ldj {max_err(ldj, ldj_p)}")
+    fwd_err = max(max_err(y, y_p), max_err(ldj, ldj_p))
+    report["mixture_forward"] = dict(
+        max_abs_err=fwd_err, m=m,
+        **timed(lambda: cm.mixture_forward_cuda(x, pi, mu, ls),
+                lambda: nm.mixture_logit_cdf_and_ldj(x, pi, mu, ls), 50, 20),
+        bytes=m * (4 + 12 * K + 8),
+        ops=m * K * (MIX_SETUP_OPS + MIX_EVAL_OPS), dtype="float32")
+
+    # #2 at the shape eval_bpd gives it: its 1024 sets x 4 chains
+    xe, pie, mue, lse = mixture_inputs(gen, (EVAL_CHAINS * B, S, D), K,
+                                       device)
+    ye, ldje = twice(lambda: cm.mixture_forward_cuda(xe, pie, mue, lse))
+    ye_p, ldje_p = nm.mixture_logit_cdf_and_ldj(xe, pie, mue, lse)
+    check(close(ye, ye_p, 1e-4) and close(ldje, ldje_p, 1e-4),
+          f"mixture_forward (eval shape) off: y {max_err(ye, ye_p)}, "
+          f"ldj {max_err(ldje, ldje_p)}")
+    me = xe.numel()
+    report["mixture_forward_eval"] = dict(
+        max_abs_err=max(max_err(ye, ye_p), max_err(ldje, ldje_p)), m=me,
+        **timed(lambda: cm.mixture_forward_cuda(xe, pie, mue, lse),
+                lambda: nm.mixture_logit_cdf_and_ldj(xe, pie, mue, lse),
+                50, 10),
+        bytes=me * (4 + 12 * K + 8),
+        ops=me * K * (MIX_SETUP_OPS + MIX_EVAL_OPS), dtype="float32")
+
+    # #1 inverse: against the plain 42 + 3 version, and back to x
+    xi = twice(lambda: cm.mixture_inverse_cuda(y_p, pi, mu, ls))
+    xi_p = nm.mixture_inverse_logit_cdf(y_p, pi, mu, ls)
+    check(close(xi, xi_p, 1e-4),
+          f"mixture_inverse off the plain version: {max_err(xi, xi_p)}")
+    check(close(xi, x, 1e-3), f"mixture_inverse round trip: "
+          f"{max_err(xi, x)}")
+    inv_err = max_err(xi, xi_p)
+
+    # the Newton two-cycle case of the reference's tests
+    pi2 = torch.tensor([0.6, 1.614, 0.921, 1.032, 0.278, -1.363, 2.304,
+                        0.68], device=device).expand(256, 8)
+    mu2 = torch.tensor([-1.708, 5.648, 0.566, -2.809, -0.082, 1.026, -2.156,
+                        0.744], device=device).expand(256, 8)
+    ls2 = torch.tensor([-0.095, -1.146, -0.103, 0.93, -0.74, -0.958, -0.81,
+                        -0.332], device=device).expand(256, 8)
+    y2 = torch.full((256,), -1.2907967567443848, device=device)
+    x2 = twice(lambda: cm.mixture_inverse_cuda(y2, pi2, mu2, ls2))
+    check(close(x2, torch.full_like(x2, -2.456364393234253), 1e-4),
+          f"two-cycle case did not converge: {max_err(x2, -2.456364393234253 + 0 * x2)}")
+
+    # odd sizes: K=3, M=91
+    x3, pi3, mu3, ls3 = mixture_inputs(gen, (7, 13), 3, device)
+    y3, _ = nm.mixture_logit_cdf_and_ldj(x3, pi3, mu3, ls3)
+    xi3 = twice(lambda: cm.mixture_inverse_cuda(y3, pi3, mu3, ls3))
+    check(close(xi3, x3, 1e-3), f"K=3, M=91 round trip: {max_err(xi3, x3)}")
+    yk3, ldjk3 = twice(lambda: cm.mixture_forward_cuda(x3, pi3, mu3, ls3))
+    _, ldj3 = nm.mixture_logit_cdf_and_ldj(x3, pi3, mu3, ls3)
+    check(close(yk3, y3, 1e-4) and close(ldjk3, ldj3, 1e-4),
+          "K=3, M=91 forward off")
+
+    report["mixture_inverse"] = dict(
+        max_abs_err=inv_err, m=m,
+        **timed(lambda: cm.mixture_inverse_cuda(y_p, pi, mu, ls),
+                lambda: nm.mixture_inverse_logit_cdf(y_p, pi, mu, ls), 50, 5),
+        bytes=m * (4 + 12 * K + 4),
+        ops=m * K * (MIX_SETUP_OPS + MIX_EVAL_OPS * cm.NUM_ITERS),
+        dtype="float32")
+
+
+def net_macs_per_row(in_dim, hidden, heads, layers, mlp, out_dim, s):
+    hd = hidden // heads
+    attn = heads * s * hd * 2  # QK^T and A.V for one query row
+    block = hidden * 3 * hidden + attn + hidden * hidden + 2 * hidden * mlp
+    return in_dim * hidden + layers * block + hidden * out_dim
+
+
+def check_fused(device, gen, report):
+    """#3 in bf16 at a sampling chunk's 16,384 rows, and in fp32 at the
+    65,536 rows of eval_bpd (1024 sets x 4 chains), the only caller of the
+    fp32 variant."""
+    import torch
+    from categoricalnf_tpu_torch.networks import SetTransformer
+    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+
+    for cd, sets, name in (("float32", EVAL_CHAINS * B,
+                            "fused_set_transformer_f32"),
+                           ("bfloat16", B, "fused_set_transformer_bf16")):
+        rows = sets * S
+        x = torch.randn(sets, S, D, generator=gen, device=device)
+        net = SetTransformer(D, OUT, hidden_dim=H, num_heads=HEADS,
+                             compute_dtype=cd,
+                             generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            # a zero output layer would make y == bias: randomize it
+            net.out.w.copy_(torch.randn(net.out.w.shape,
+                                        generator=torch.Generator()
+                                        .manual_seed(1)) * 0.1)
+        net = net.to(device)
+        tdt = getattr(torch, cd)
+        with torch.no_grad():
+            ws = ft.flatten_params(net)
+            packed = ft.PackedWeights(ws, tdt)
+            y = twice(lambda: ft.fused_set_transformer(packed, x,
+                                                       num_heads=HEADS))
+            y_p = net.plain_forward(x)
+            check(y.shape == (sets, S, OUT) and y.dtype == tdt,
+                  f"{cd}: output {tuple(y.shape)} {y.dtype}")
+            if cd == "float32":
+                check(close(y, y_p, 1e-4),
+                      f"fused fp32 off the unfused path: {max_err(y, y_p)}")
+            else:
+                err = (y.float() - y_p.float()).abs()
+                bad = float((err > 0.05 * y_p.float().abs().clamp_min(1.0))
+                            .float().mean())
+                check(bad < 0.02, f"fused bf16: {bad:.4f} of elements off "
+                      "by more than 5%")
+            t = timed(lambda: ft.fused_set_transformer(packed, x,
+                                                       num_heads=HEADS),
+                      lambda: net.plain_forward(x), 20, 5)
+        elt = 2 if cd == "bfloat16" else 4
+        n_w = sum(w.numel() for w in ws[0::2])
+        n_b = sum(b.numel() for b in ws[1::2])
+        macs = rows * net_macs_per_row(D, H, HEADS, 2, 2 * H, OUT, S)
+        report[name] = dict(
+            max_abs_err=max_err(y, y_p), rows=rows, **t,
+            bytes=rows * (D + OUT) * elt + n_w * elt + n_b * 4,
+            ops=2 * macs, dtype=cd)
+
+
+def http_json(port, method, path, body=None):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        t0 = time.perf_counter()
+        conn.request(method, path,
+                     body=None if body is None else json.dumps(body))
+        r = conn.getresponse()
+        payload = json.loads(r.read())
+        return r.status, payload, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def serve_flagship(seed: int, timings: dict, device: str = "cuda"):
+    """Drive the serving path; returns the launch counts of this phase."""
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+    from categoricalnf_tpu_torch import inference
+    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+    from categoricalnf_tpu_torch.ops.cuda import mixture as cm
+    from categoricalnf_tpu_torch.serve import RunServer, make_handler
+    from categoricalnf_tpu_torch.training.checkpoint import CheckpointManager
+    from categoricalnf_tpu_torch.utils.config import load_config, save_config
+
+    cfg = load_config(os.path.join(REPO, "runs", "set16"))
+    # the saved config as it is: on the card the coupling nets run kernel
+    # #3 whatever the reference's ``fused`` flag says
+    args = {**cfg["args"], "seed": seed}
+    task = inference.build_task(cfg["task"], args, device=device)
+    with torch.no_grad():
+        # zero-initialised output layers make every coupling the identity;
+        # random ones make the kernels' results matter
+        g = torch.Generator().manual_seed(seed + 1)
+        for layer in task.model.flow.layers:
+            net = getattr(layer, "net", None)
+            if net is not None:
+                net.out.w.copy_(torch.randn(net.out.w.shape, generator=g)
+                                .to(net.out.w.device) * 0.05)
+    batch = next(task.train_batches(np.random.default_rng(seed)))
+    task.data_init(batch, generator=torch.Generator(device).manual_seed(seed))
+
+    with tempfile.TemporaryDirectory() as run_dir:
+        save_config(run_dir, {"task": cfg["task"], "args": args})
+        CheckpointManager(run_dir).save(0, task.model)
+
+        for k in cm.LAUNCHES:
+            cm.LAUNCHES[k] = 0
+        for k in ft.LAUNCHES:
+            ft.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        server = RunServer(run_dir, device=device)
+        timings["load_run_s"] = time.perf_counter() - t0
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(server))
+        th = threading.Thread(target=httpd.serve_forever, daemon=True)
+        th.start()
+        try:
+            port = httpd.server_port
+            st, health, _ = http_json(port, "GET", "/health")
+            check(st == 200 and health["status"] == "ok"
+                  and health["task"] == "set_shuffling", f"/health {health}")
+            st, out, dt = http_json(port, "POST", "/sample",
+                                    {"num_samples": 4})
+            check(st == 200, f"/sample answered {st}: {out}")
+            x = np.asarray(out["samples"])
+            check(x.shape == (4, S) and x.dtype.kind == "i"
+                  and x.min() >= 0 and x.max() < S, f"samples {x}")
+            timings["sample_4_first_s"] = dt  # includes lazy CUDA set-up
+            st, out, dt = http_json(port, "POST", "/sample",
+                                    {"num_samples": 4})
+            check(st == 200 and len(out["samples"]) == 4, f"/sample {st}")
+            timings["sample_4_s"] = dt
+            st, met, dt = http_json(port, "POST", "/sample_metrics",
+                                    {"num_samples": 2048})
+            check(st == 200 and met["metric_num_samples"] == 2048.0,
+                  f"/sample_metrics answered {st}: {met}")
+            check(0.0 <= met["permutation_validity"] <= 1.0, f"{met}")
+            timings["sample_metrics_2048_s"] = dt
+            timings["samples_per_s"] = 2048 / dt
+            timings["permutation_validity"] = met["permutation_validity"]
+            st, out, _ = http_json(port, "POST", "/sample",
+                                   {"num_samples": 0})
+            check(st == 400 and "error" in out, "bad request not refused")
+
+            eval_batch = task.eval_batches()[0]
+            t0 = time.perf_counter()
+            bpd = server.handle.eval_bpd(eval_batch, seed=seed,
+                                         num_samples=4)
+            timings["eval_bpd_1024x4_s"] = time.perf_counter() - t0
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            th.join(timeout=60)
+        launches = {**cm.LAUNCHES,
+                    **{f"fused_set_transformer_{'bf16' if k == 'bfloat16' else 'f32'}": v
+                       for k, v in ft.LAUNCHES.items()}}
+        optimum = task.analytic_optimum_bpd()
+        mean_bpd = float(np.mean(bpd))
+        timings["eval_bpd_mean"] = mean_bpd
+        check(bpd.shape == (B,) and np.isfinite(bpd).all(),
+              "eval_bpd not finite")
+        check(mean_bpd > optimum,
+              f"bpd {mean_bpd} below the optimum {optimum}")
+        for name, n in launches.items():
+            check(n > 0, f"kernel {name} was not launched while serving")
+        check_against_cpu(server.handle.task, seed)
+    return launches
+
+
+def check_against_cpu(task, seed: int):
+    """The served model (kernels on the card) against a CPU copy of it
+    (plain path) on a small input with shared noise, in the fp32 twin."""
+    import numpy as np
+    import torch
+    from categoricalnf_tpu_torch.inference import build_task
+    from categoricalnf_tpu_torch.ops.numerics import uniform_noise
+
+    args = {"set_size": task.set_size, "encoding_dim": task.encoding_dim,
+            "num_layers": task.num_layers, "hidden_dim": task.hidden_dim,
+            "num_mixtures": task.num_mixtures,
+            "compute_dtype": task.compute_dtype}
+    cpu = build_task("set_shuffling", args, device="cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               task.model.state_dict().items()})
+    g = torch.Generator().manual_seed(seed + 7)
+    x = torch.as_tensor(cpu._gen(np.random.default_rng(seed + 7), 64))
+    noise = uniform_noise((4, 64, S, D), generator=g)
+    with torch.no_grad():
+        bpd_cpu = cpu.eval_model.eval_bpd(x, 4, noise=noise)
+        bpd_gpu = task.eval_model.eval_bpd(
+            x.to(task.device), 4, noise=noise.to(task.device)).cpu()
+        check(torch.allclose(bpd_gpu, bpd_cpu, rtol=1e-3, atol=1e-3),
+              f"eval_bpd card vs CPU: {max_err(bpd_gpu, bpd_cpu)}")
+        # The card inverts each coupling by rtsafe (24 steps), the CPU by
+        # 42 bisections + 3 Newton steps; they agree to ~1e-5 a layer, and
+        # 8 random layers can stretch that where a mixture is steep.  So
+        # hold the bulk of z and the decoded sets, not the worst element.
+        u = uniform_noise((64, S, D), generator=g)
+        z_cpu = cpu.eval_model.flow.sample((64, S, D), noise=u)
+        z_gpu = task.eval_model.flow.sample(
+            (64, S, D), noise=u.to(task.device))
+        z_near = float(((z_gpu.cpu() - z_cpu).abs()
+                        <= 1e-3 + 1e-3 * z_cpu.abs()).float().mean())
+        same = float((cpu.model.encoding.decode(z_cpu) == task.model.encoding
+                      .decode(z_gpu).cpu()).float().mean())
+        check(z_near >= 0.99 and same >= 0.99,
+              f"sampled z card vs CPU: {z_near:.4f} of z within 1e-3, "
+              f"{same:.4f} of tokens equal")
+    print(f"card vs CPU (fp32, 64 sets): bpd max err "
+          f"{max_err(bpd_gpu, bpd_cpu):.3g}; z within 1e-3: {z_near:.4f}, "
+          f"max err {max_err(z_gpu.cpu(), z_cpu):.3g}; tokens equal: {same:.4f}",
+          flush=True)
+
+
+SOURCES = {
+    "mixture_inverse": ("categoricalnf_tpu_torch/csrc/mixture.cu",
+                        "categoricalnf_tpu/ops/pallas/mixture.py:137"),
+    "mixture_forward": ("categoricalnf_tpu_torch/csrc/mixture.cu",
+                        "categoricalnf_tpu/ops/pallas/mixture.py:196"),
+    "fused_set_transformer_bf16": (
+        "categoricalnf_tpu_torch/csrc/fused_transformer.cu",
+        "categoricalnf_tpu/ops/pallas/fused_transformer.py:286"),
+    "fused_set_transformer_f32": (
+        "categoricalnf_tpu_torch/csrc/fused_transformer.cu",
+        "categoricalnf_tpu/ops/pallas/fused_transformer.py:286"),
+}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(REPO, "categoricalnf_tpu_torch")):
+        print("chip_smoke: run it from a checkout of the repo",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from categoricalnf_tpu_torch.ops.cuda import build
+    from categoricalnf_tpu_torch.utils.device import resolve_device
+
+    t_start = time.perf_counter()
+    card = card_line()
+    print(card, flush=True)  # name, power limit: as nvidia-smi gives them
+    t0 = time.perf_counter()
+    logs = build.build_all(["mixture", "fused_transformer"])
+    print(f"built kernels in {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"  {name}: {line.strip()}", flush=True)
+
+    device = resolve_device("cuda")
+    gen = torch.Generator(device).manual_seed(args.seed)
+    report: dict = {}
+    check_mixture(device, gen, report)
+    check_fused(device, gen, report)
+    for r in report.values():
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = r["ops"] / PEAK_FLOPS[r["dtype"]] * 1e3
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    for name, r in report.items():
+        size = f"M={r['m']}" if "m" in r else f"rows={r['rows']}"
+        print(f"{name} ({size}): kernel {r['ms']!r} ms (host "
+              f"{r['host_ms']!r} ms a call), plain {r['plain_ms']!r} ms, "
+              f"bound {r['bound_ms']!r} ms ({r['bound_by']}), max abs err "
+              f"{r['max_abs_err']:.3g}", flush=True)
+
+    timings: dict = {}
+    launches = serve_flagship(args.seed, timings)
+    print("serving: " + json.dumps(timings), flush=True)
+
+    kernels = []
+    for name, (src, replaces) in SOURCES.items():
+        r = report[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
+    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
