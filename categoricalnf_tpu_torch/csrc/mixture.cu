@@ -3,6 +3,9 @@
 // Replaces the TPU kernels in categoricalnf_tpu/ops/pallas/mixture.py:
 //   mixture_inverse_f32  <- mixture_inverse_pallas (_inverse_kernel)
 //   mixture_forward_f32  <- mixture_forward_pallas (_forward_kernel)
+//   mixture_forward_bwd_f32: its backward, which has no Pallas
+//     counterpart (the reference differentiates the plain math,
+//     numerics.mixture_logit_cdf_and_ldj, with XLA's autodiff)
 //
 // Bound on an H100.  The inverse reads y and 3 x K fp32 parameters once
 // and writes x: 4 + 12K + 4 bytes an element (104 at K=8), 6.8 MB at
@@ -10,7 +13,7 @@
 // transcendentals and 30 float operations for each of the K components,
 // so it is bound by operations (the SFU's transcendental rate first).  The
 // forward does one such pass and moves 4 + 12K + 8 bytes an element, so it
-// is bound by bytes.
+// is bound by bytes; so is its backward (4 + 12K + 8 in, 4 + 12K out).
 //
 // Design.  One thread per element.  The K parameters are loaded once and
 // kept in registers for the whole root-find (the TPU kernel kept them in
@@ -175,6 +178,82 @@ __global__ void mixture_forward_kernel(
   ldj[i] = log_pdf - log_cdf - log_sf;
 }
 
+// Backward of mixture_forward_kernel: given the cotangents gy, gldj of
+// y = A - B and ldj = C - A - B (A, B, C the three logsumexps), pull them
+// back to x, the raw logits (through the log-softmax), the means and the
+// raw log-scales (zero where the clip is active, as torch.clamp).  The
+// per-component terms are recomputed here, as the forward computes them,
+// rather than saved as [M, K] intermediates.
+template <int KMAX>
+__global__ void mixture_forward_bwd_kernel(
+    const float* __restrict__ x, const float* __restrict__ pi, long pi_stride,
+    const float* __restrict__ mu, long mu_stride,
+    const float* __restrict__ ls, long ls_stride,
+    const float* __restrict__ gy, const float* __restrict__ gldj,
+    float* __restrict__ gx, float* __restrict__ gpi, float* __restrict__ gmu,
+    float* __restrict__ gls, long m, int k) {
+  const long i = blockIdx.x * (long)blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  float log_pi[KMAX], mean[KMAX], neg_ls[KMAX], inv_s[KMAX];
+  load_params<KMAX>(pi, pi_stride, mu, mu_stride, ls, ls_stride, i, k,
+                    log_pi, mean, neg_ls);
+  const float xi = x[i];
+  float z[KMAX], lsp[KMAX], a[KMAX], b[KMAX], c[KMAX];
+  float ma = -INFINITY, mb = -INFINITY, mc = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j) {
+    if (j < k) {
+      inv_s[j] = expf(neg_ls[j]);
+      z[j] = (xi - mean[j]) * inv_s[j];
+      float lsn;
+      log_sigmoid_pair(z[j], lsp[j], lsn);
+      a[j] = log_pi[j] + lsp[j];
+      b[j] = log_pi[j] + lsn;
+      c[j] = log_pi[j] + lsp[j] + lsn + neg_ls[j];
+      ma = fmaxf(ma, a[j]);
+      mb = fmaxf(mb, b[j]);
+      mc = fmaxf(mc, c[j]);
+    }
+  }
+  float sa = 0.0f, sb = 0.0f, sc = 0.0f;
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j) {
+    if (j < k) {
+      sa += expf(a[j] - ma);
+      sb += expf(b[j] - mb);
+      sc += expf(c[j] - mc);
+    }
+  }
+  const float lse_a = ma + logf(sa), lse_b = mb + logf(sb);
+  const float lse_c = mc + logf(sc);
+  const float g_y = gy[i], g_l = gldj[i];
+  const float g_a = g_y - g_l, g_b = -g_y - g_l, g_c = g_l;
+  float g_x = 0.0f, g_lp_sum = 0.0f;
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j) {
+    if (j < k) {
+      const float ga = g_a * expf(a[j] - lse_a);
+      const float gb = g_b * expf(b[j] - lse_b);
+      const float gc = g_c * expf(c[j] - lse_c);
+      // d lsp/dz = sigmoid(-z) = exp(lsn), d lsn/dz = -sigmoid(z), where
+      // lsn = lsp - z exactly as log_sigmoid_pair computes it
+      const float gz =
+          (ga + gc) * expf(lsp[j] - z[j]) - (gb + gc) * expf(lsp[j]);
+      g_x = fmaf(gz, inv_s[j], g_x);
+      gmu[i * k + j] = -gz * inv_s[j];
+      const float raw = ls[i * ls_stride + j];
+      const bool inside = raw >= kLogScaleMin && raw <= kLogScaleMax;
+      gls[i * k + j] = inside ? -gc - gz * z[j] : 0.0f;
+      a[j] = ga + gb + gc;  // d/d log_pi
+      g_lp_sum += a[j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j)
+    if (j < k) gpi[i * k + j] = a[j] - expf(log_pi[j]) * g_lp_sum;
+  gx[i] = g_x;
+}
+
 constexpr int kThreads = 256;
 
 inline unsigned blocks_for(long m) {
@@ -214,6 +293,25 @@ int mixture_forward_f32(const float* x, const float* pi, long pi_stride,
   else
     mixture_forward_kernel<16><<<blocks_for(m), kThreads, 0, s>>>(
         x, pi, pi_stride, mu, mu_stride, ls, ls_stride, y, ldj, m, k);
+  return (int)cudaGetLastError();
+}
+
+// gpi, gmu and gls are written as contiguous [m, k]; gx as [m].
+int mixture_forward_bwd_f32(const float* x, const float* pi, long pi_stride,
+                            const float* mu, long mu_stride, const float* ls,
+                            long ls_stride, const float* gy, const float* gldj,
+                            float* gx, float* gpi, float* gmu, float* gls,
+                            long m, int k, void* stream) {
+  if (m == 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (k <= 8)
+    mixture_forward_bwd_kernel<8><<<blocks_for(m), kThreads, 0, s>>>(
+        x, pi, pi_stride, mu, mu_stride, ls, ls_stride, gy, gldj, gx, gpi,
+        gmu, gls, m, k);
+  else
+    mixture_forward_bwd_kernel<16><<<blocks_for(m), kThreads, 0, s>>>(
+        x, pi, pi_stride, mu, mu_stride, ls, ls_stride, gy, gldj, gx, gpi,
+        gmu, gls, m, k);
   return (int)cudaGetLastError();
 }
 

@@ -4,8 +4,10 @@ Counterpart of ``categoricalnf_tpu/networks/transformer.py``.  No
 positional embeddings; keys of invalid elements are masked with -1e9.
 A CUDA tensor always runs the whole net in one CUDA kernel
 (``ops/cuda/fused_transformer.py``), which raises on what it does not take
-(a key mask, a condition, sets above 32); a CPU tensor takes the unfused
-path, ``plain_forward``, which is also the kernel's plain version.  The
+(a key mask, a condition, sets above 32); with grad on, its backward is the
+backward kernel.  A CPU tensor takes the unfused path, ``plain_forward``,
+which is also the kernels' plain version (autograd through it for the
+backward).  The
 reference's ``fused`` switch has no counterpart: the device chooses.
 """
 
@@ -80,9 +82,13 @@ class SetTransformer(nn.Module):
             raise NotImplementedError(
                 "the fused SetTransformer kernel takes no condition or key "
                 "mask yet (ROADMAP.md, Queue B 3)")
-        return ft.fused_set_transformer(
-            self._packed_weights(torch_dtype(self.compute_dtype)), x,
-            num_heads=self.num_heads)
+        packed = self._packed_weights(torch_dtype(self.compute_dtype))
+        if torch.is_grad_enabled():
+            # kernel #3 forward, kernel #4 backward; the stacks of
+            # flatten_params carry the weight gradients to the parameters
+            return ft.FusedSetTransformer.apply(x, packed, self.num_heads,
+                                                *ft.flatten_params(self))
+        return ft.fused_set_transformer(packed, x, num_heads=self.num_heads)
 
     def plain_forward(self, x, cond=None, mask=None):
         """The unfused net on any device: the kernel's plain version."""

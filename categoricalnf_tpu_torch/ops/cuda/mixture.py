@@ -5,6 +5,12 @@ Their plain versions are ``ops.numerics.mixture_inverse_logit_cdf`` and
 ``ops.numerics.mixture_logit_cdf_and_ldj``; ``ops.dispatch`` sends CPU
 tensors there.  These wrappers take CUDA tensors only and raise on anything
 the kernels do not take.  ``LAUNCHES`` counts the kernel launches.
+
+The forward is differentiable: ``MixtureForward`` pulls gradients back
+through the hand-written backward kernel (``mixture_forward_bwd_f32``),
+whose plain version is autograd through the numerics.  The inverse has no
+backward (sampling runs under ``no_grad``, and the reference never
+differentiates it), so its wrapper raises on inputs that need a gradient.
 """
 
 from __future__ import annotations
@@ -20,7 +26,8 @@ MAX_K = 16
 # operation counts only
 NUM_ITERS = 24
 
-LAUNCHES = {"mixture_inverse": 0, "mixture_forward": 0}
+LAUNCHES = {"mixture_inverse": 0, "mixture_forward": 0,
+            "mixture_forward_bwd": 0}
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
 
@@ -34,6 +41,10 @@ def _lib():
         lib.mixture_forward_f32.argtypes = [_P, _P, _L, _P, _L, _P, _L, _P,
                                             _P, _L, _I, _P]
         lib.mixture_forward_f32.restype = _I
+        lib.mixture_forward_bwd_f32.argtypes = [_P, _P, _L, _P, _L, _P, _L,
+                                                _P, _P, _P, _P, _P, _P, _L,
+                                                _I, _P]
+        lib.mixture_forward_bwd_f32.restype = _I
         lib._cnf_typed = True
     return lib
 
@@ -73,12 +84,14 @@ def _check(x: torch.Tensor, pi, mu, ls, what: str) -> int:
 
 def mixture_inverse_cuda(y, pi_logits, means, log_scales) -> torch.Tensor:
     """x with logit F(x) = y, by rtsafe in the kernel; shapes as numerics."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (y, pi_logits, means, log_scales)):
+        raise RuntimeError("mixture_inverse_cuda has no backward: call it "
+                           "under torch.no_grad() or on detached tensors")
     k = _check(y, pi_logits, means, log_scales, "mixture_inverse")
     m = y.numel()
     y1 = y.contiguous()
-    pi, mu, ls = (_rows(t, m, k, n) for t, n in ((pi_logits, "pi_logits"),
-                                                  (means, "means"),
-                                                  (log_scales, "log_scales")))
+    pi, mu, ls = _params(m, k, pi_logits, means, log_scales)
     out = torch.empty_like(y1)
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -91,14 +104,17 @@ def mixture_inverse_cuda(y, pi_logits, means, log_scales) -> torch.Tensor:
     return out
 
 
-def mixture_forward_cuda(x, pi_logits, means, log_scales):
-    """(y, ldj) of x -> logit F(x) in the kernel; shapes as numerics."""
+def _params(m, k, pi_logits, means, log_scales):
+    return tuple(_rows(t, m, k, n) for t, n in ((pi_logits, "pi_logits"),
+                                                 (means, "means"),
+                                                 (log_scales, "log_scales")))
+
+
+def _forward_launch(x, pi_logits, means, log_scales):
     k = _check(x, pi_logits, means, log_scales, "mixture_forward")
     m = x.numel()
     x1 = x.contiguous()
-    pi, mu, ls = (_rows(t, m, k, n) for t, n in ((pi_logits, "pi_logits"),
-                                                  (means, "means"),
-                                                  (log_scales, "log_scales")))
+    pi, mu, ls = _params(m, k, pi_logits, means, log_scales)
     y = torch.empty_like(x1)
     ldj = torch.empty_like(x1)
     with torch.cuda.device(x.device):
@@ -110,3 +126,56 @@ def mixture_forward_cuda(x, pi_logits, means, log_scales):
     build.check(err, "mixture_forward_f32")
     LAUNCHES["mixture_forward"] += 1
     return y, ldj
+
+
+def mixture_forward_bwd_cuda(x, pi_logits, means, log_scales, gy, gldj):
+    """(gx, gpi, gmu, gls): the cotangents ``gy``, ``gldj`` of
+    ``mixture_forward_cuda``'s (y, ldj) pulled back to its four inputs by
+    the backward kernel, which recomputes the per-component terms.  The gls
+    of a clipped log-scale is 0 (``torch.clamp``'s gradient)."""
+    k = _check(x, pi_logits, means, log_scales, "mixture_forward_bwd")
+    for name, t in (("gy", gy), ("gldj", gldj)):
+        if t.device != x.device or t.dtype != torch.float32:
+            raise TypeError(f"mixture_forward_bwd: {name} must be float32 on "
+                            f"{x.device}")
+        if tuple(t.shape) != tuple(x.shape):
+            raise ValueError(f"mixture_forward_bwd: {name} shape "
+                             f"{tuple(t.shape)}, want {tuple(x.shape)}")
+    m = x.numel()
+    x1, gy1, gl1 = x.contiguous(), gy.contiguous(), gldj.contiguous()
+    pi, mu, ls = _params(m, k, pi_logits, means, log_scales)
+    gx = torch.empty_like(x1)
+    gpi, gmu, gls = (torch.empty(m, k, dtype=torch.float32, device=x.device)
+                     for _ in range(3))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().mixture_forward_bwd_f32(
+            x1.data_ptr(), pi.data_ptr(), pi.stride(0), mu.data_ptr(),
+            mu.stride(0), ls.data_ptr(), ls.stride(0), gy1.data_ptr(),
+            gl1.data_ptr(), gx.data_ptr(), gpi.data_ptr(), gmu.data_ptr(),
+            gls.data_ptr(), m, k, stream)
+    build.check(err, "mixture_forward_bwd_f32")
+    LAUNCHES["mixture_forward_bwd"] += 1
+    shape = tuple(pi_logits.shape)
+    return (gx.view(x.shape), gpi.view(shape), gmu.view(shape),
+            gls.view(shape))
+
+
+class MixtureForward(torch.autograd.Function):
+    """(y, ldj) of the forward kernel; its backward is the backward kernel.
+    Nothing but the inputs is saved: the backward recomputes the rest."""
+
+    @staticmethod
+    def forward(ctx, x, pi_logits, means, log_scales):
+        ctx.save_for_backward(x, pi_logits, means, log_scales)
+        return _forward_launch(x, pi_logits, means, log_scales)
+
+    @staticmethod
+    def backward(ctx, gy, gldj):
+        return mixture_forward_bwd_cuda(*ctx.saved_tensors, gy, gldj)
+
+
+def mixture_forward_cuda(x, pi_logits, means, log_scales):
+    """(y, ldj) of x -> logit F(x) in the kernel; shapes as numerics.
+    Differentiable in all four inputs (``MixtureForward``)."""
+    return MixtureForward.apply(x, pi_logits, means, log_scales)

@@ -1,7 +1,9 @@
 """Route the mixture-CDF hot paths by device.
 
 A CUDA tensor always goes to the hand-written kernel (``ops/cuda/mixture``),
-a CPU tensor to the plain fp32 version in ``ops.numerics``.  There is no size
+a CPU tensor to the plain fp32 version in ``ops.numerics``.  On the card the
+forward is ``MixtureForward``, whose backward is a kernel too; the inverse
+raises when a gradient is asked of it.  There is no size
 threshold: the TPU's was measured on a TPU, and one for the H100 has not
 been measured yet.
 """
@@ -21,7 +23,7 @@ def mixture_inverse(y, pi_logits, means, log_scales):
 
 
 def mixture_forward(x, pi_logits, means, log_scales):
-    """(logit F(x), its log-derivative)."""
+    """(logit F(x), its log-derivative); differentiable on both devices."""
     if x.is_cuda:
         return cuda_mixture.mixture_forward_cuda(x, pi_logits, means,
                                                  log_scales)

@@ -67,6 +67,18 @@ class TaskTemplate:
                              cond=self._tensor(batch.get("cond")),
                              generator=generator, noise=noise)
 
+    def loss(self, batch: dict, beta=1.0, *, generator=None, noise=None):
+        """The training objective of one batch (mean bits/var), through the
+        model in its own compute dtype; the fp32 twin only evaluates."""
+        return self.model.loss_bpd(self._tensor(batch["x"], torch.long), beta,
+                                   mask=self._tensor(batch.get("mask")),
+                                   cond=self._tensor(batch.get("cond")),
+                                   generator=generator, noise=noise)
+
+    def test_batches(self) -> list:
+        """Held-out test split; defaults to the validation batches."""
+        return self.eval_batches()
+
     @torch.no_grad()
     def eval_step(self, batch: dict, num_samples: int, *, generator=None,
                   noise=None) -> torch.Tensor:

@@ -5,7 +5,19 @@ from __future__ import annotations
 
 import json
 import os
+import random
 from typing import Any, Optional
+
+import numpy as np
+import torch
+
+
+def set_seed(seed: int) -> None:
+    """Seed Python's, numpy's and torch's global generators (the port's own
+    noise comes from explicit generators; this covers everything else)."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
 
 
 def save_config(out_dir: str, config: Any, name: str = "config.json") -> str:

@@ -5,20 +5,31 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 
     python3 chip_smoke.py [--seed 0]
 
-1. Prints the card's name and power limit and builds every CUDA kernel of
-   the serving path (one nvcc per source, started together).
+1. Prints the card's name and power limit and builds every CUDA kernel
+   (one nvcc per source, started together).
 2. Holds each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it (a 1024-sample chunk; the fp32 net and
-   a second mixture forward at eval_bpd's 1024 sets x 4 chains), twice,
-   with a synchronize after each launch; times both with CUDA events
-   around runs of back-to-back launches.
+   shapes the serving and training paths give it (a 1024-sample chunk; the
+   fp32 net and a second mixture forward at eval_bpd's 1024 sets x 4
+   chains; the backward kernels at a training step's 16,384 rows and
+   M = 65,536, the fp32 backward at 4,096 rows), twice, with a synchronize
+   after each launch; times both with CUDA events around runs of
+   back-to-back launches.
 3. Serves the flagship set-shuffling flow (runs/set16/config.json as it
    is, seeded random weights, data init on one batch) over HTTP:
    /health, /sample, /sample_metrics; then the fp32 importance-sampled
-   bits/var of one batch.  Checks the answers, checks that every kernel
-   launched during this phase, and checks the served model against the
-   plain path on the CPU on a small input.
-4. Prints one JSON line of kernel numbers, then, as the last line,
+   bits/var of one batch.  Checks the answers, checks that every serving
+   kernel launched during this phase, and checks the served model against
+   the plain path on the CPU on a small input.
+4. Trains the flagship (runs/set16/config.json: bf16, batch 1024) for 200
+   steps through the port's Trainer (evals at 100 and 200): finite losses,
+   the best bpd 0.2 bits/var below the untrained one and above the
+   optimum, no integrity alarm, every training kernel launched; prints
+   set_shuffling_train_samples_per_s over steps 101-200; serves the run.
+5. One fp32 train step of the flagship (64 sets) on the card against a CPU
+   copy: every parameter's gradient within 1e-3 relative; against the
+   plain path on the card within KERNELS_VS_PLAIN_CARD, a limit below what
+   the same gradients rounded once to bf16 read.
+6. Prints one JSON line of kernel numbers, then, as the last line,
    {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA card, outside a checkout
@@ -28,6 +39,8 @@ of the repo, or when any check fails.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import http.client
 import json
 import os
@@ -55,6 +68,9 @@ EVAL_CHAINS = 4
 # exp of the scale) and one evaluation of the three logsumexps.
 MIX_SETUP_OPS = 10
 MIX_EVAL_OPS = 24
+# and the backward's pull-back of the three logsumexps to the component's
+# logit, mean and log-scale (exps of the three weights, the sigmoid pair)
+MIX_BWD_OPS = 30
 
 
 class CheckFailed(RuntimeError):
@@ -296,6 +312,104 @@ def check_fused(device, gen, report):
             ops=2 * macs, dtype=cd)
 
 
+def rel_err(a, b) -> float:
+    return float((a.float() - b.float()).norm()
+                 / b.float().norm().clamp_min(1e-30))
+
+
+def check_mixture_bwd(device, gen, report):
+    """#2's backward at the training step's M = 1024 x 16 x 4 against
+    ``torch.func.vjp`` of the numerics (its plain version), log-scales on
+    both sides of the clip."""
+    import torch
+    from categoricalnf_tpu_torch.ops import numerics as nm
+    from categoricalnf_tpu_torch.ops.cuda import mixture as cm
+
+    x, pi, mu, ls = mixture_inputs(gen, (B, S, D), K, device)
+    ls = ls * 6.0
+    gy = torch.randn(B, S, D, generator=gen, device=device)
+    gl = torch.randn(B, S, D, generator=gen, device=device)
+    got = twice(lambda: cm.mixture_forward_bwd_cuda(x, pi, mu, ls, gy, gl))
+    _, vjp = torch.func.vjp(nm.mixture_logit_cdf_and_ldj, x, pi, mu, ls)
+    want = vjp((gy, gl))
+    for name, a, w in zip(("gx", "gpi", "gmu", "gls"), got, want):
+        check(close(a, w, 1e-4), f"mixture_forward_bwd {name} off the "
+              f"plain version: {max_err(a, w)}")
+    m = x.numel()
+    report["mixture_forward_bwd"] = dict(
+        max_abs_err=max(max_err(a, w) for a, w in zip(got, want)), m=m,
+        **timed(lambda: cm.mixture_forward_bwd_cuda(x, pi, mu, ls, gy, gl),
+                lambda: vjp((gy, gl)), 50, 20),
+        bytes=m * ((4 + 12 * K + 8) + (4 + 12 * K)),
+        ops=m * K * (MIX_SETUP_OPS + MIX_EVAL_OPS + MIX_BWD_OPS),
+        dtype="float32")
+
+
+def check_fused_bwd(device, gen, report):
+    """#4 in bf16 at the training step's 16,384 rows and in fp32 at 4,096
+    rows against autograd through plain_forward (its plain version): the
+    whole backward of the net, through ``FusedSetTransformer`` and the
+    stacks of ``flatten_params``, against the parameters' gradients."""
+    import torch
+    from categoricalnf_tpu_torch.networks import SetTransformer
+    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+
+    for cd, sets, name in (("bfloat16", B, "fused_set_transformer_bwd_bf16"),
+                           ("float32", B // 4,
+                            "fused_set_transformer_bwd_f32")):
+        rows = sets * S
+        tdt = getattr(torch, cd)
+        net = SetTransformer(D, OUT, hidden_dim=H, num_heads=HEADS,
+                             compute_dtype=cd,
+                             generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            net.out.w.copy_(torch.randn(net.out.w.shape,
+                                        generator=torch.Generator()
+                                        .manual_seed(1)) * 0.1)
+        net = net.to(device)
+        params = list(net.parameters())
+        x = torch.randn(sets, S, D, generator=gen, device=device)
+        g = torch.randn(sets, S, OUT, generator=gen, device=device).to(tdt)
+
+        def grads(plain):
+            xr = x.clone().requires_grad_(True)
+            y = net.plain_forward(xr) if plain else net(xr)
+            return torch.autograd.grad(y, [xr] + params, g)
+
+        got = twice(lambda: grads(False))
+        want = grads(True)
+        errs = [rel_err(a, w) for a, w in zip(got, want)]
+        for a, w in zip(got, want):
+            if cd == "float32":
+                check(close(a, w, 2e-4), f"{name} off autograd of the "
+                      f"plain path: {max_err(a, w)}")
+        if cd == "bfloat16":
+            check(max(errs) <= 0.03, f"{name}: relative error {max(errs)}")
+        packed = net._packed_weights(tdt)
+        # the kernel alone, and the plain path's backward alone
+        xr = x.clone().requires_grad_(True)
+        y_p = net.plain_forward(xr)
+        t = timed(lambda: ft.fused_set_transformer_bwd(packed, x, g,
+                                                       num_heads=HEADS),
+                  lambda: torch.autograd.grad(y_p, [xr] + params, g,
+                                              retain_graph=True), 10, 5)
+        elt = 2 if cd == "bfloat16" else 4
+        ws = ft.flatten_params(net)
+        n_w = sum(w.numel() for w in ws[0::2])
+        n_b = sum(b.numel() for b in ws[1::2])
+        macs = rows * net_macs_per_row(D, H, HEADS, 2, 2 * H, OUT, S)
+        report[name] = dict(
+            max_abs_err=max(max_err(a, w) for a, w in zip(got, want)),
+            rel_err=max(errs), rows=rows, **t,
+            bytes=(rows * (2 * D + OUT) * elt + n_w * elt + n_b * 4
+                   + (n_w + n_b) * 4),
+            ops=3 * 2 * macs, dtype=cd,
+            scratch_mb=ft.bwd_grid(rows, S, ft.bwd_smem_bytes(
+                S, D, H, 2 * H, OUT, HEADS, 2), torch.cuda
+                .get_device_properties(device).multi_processor_count)
+            * (n_w + n_b) * 4 / 2**20)
+
+
 def http_json(port, method, path, body=None):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     try:
@@ -316,8 +430,6 @@ def serve_flagship(seed: int, timings: dict, device: str = "cuda"):
     import numpy as np
     import torch
     from categoricalnf_tpu_torch import inference
-    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
-    from categoricalnf_tpu_torch.ops.cuda import mixture as cm
     from categoricalnf_tpu_torch.serve import RunServer, make_handler
     from categoricalnf_tpu_torch.training.checkpoint import CheckpointManager
     from categoricalnf_tpu_torch.utils.config import load_config, save_config
@@ -343,10 +455,7 @@ def serve_flagship(seed: int, timings: dict, device: str = "cuda"):
         save_config(run_dir, {"task": cfg["task"], "args": args})
         CheckpointManager(run_dir).save(0, task.model)
 
-        for k in cm.LAUNCHES:
-            cm.LAUNCHES[k] = 0
-        for k in ft.LAUNCHES:
-            ft.LAUNCHES[k] = 0
+        reset_launches()
         t0 = time.perf_counter()
         server = RunServer(run_dir, device=device)
         timings["load_run_s"] = time.perf_counter() - t0
@@ -390,9 +499,7 @@ def serve_flagship(seed: int, timings: dict, device: str = "cuda"):
             httpd.shutdown()
             httpd.server_close()
             th.join(timeout=60)
-        launches = {**cm.LAUNCHES,
-                    **{f"fused_set_transformer_{'bf16' if k == 'bfloat16' else 'f32'}": v
-                       for k, v in ft.LAUNCHES.items()}}
+        launches = read_launches()
         optimum = task.analytic_optimum_bpd()
         mean_bpd = float(np.mean(bpd))
         timings["eval_bpd_mean"] = mean_bpd
@@ -400,8 +507,9 @@ def serve_flagship(seed: int, timings: dict, device: str = "cuda"):
               "eval_bpd not finite")
         check(mean_bpd > optimum,
               f"bpd {mean_bpd} below the optimum {optimum}")
-        for name, n in launches.items():
-            check(n > 0, f"kernel {name} was not launched while serving")
+        for name in SERVING_KERNELS:
+            check(launches[name] > 0,
+                  f"kernel {name} was not launched while serving")
         check_against_cpu(server.handle.task, seed)
     return launches
 
@@ -451,6 +559,255 @@ def check_against_cpu(task, seed: int):
           flush=True)
 
 
+def reset_launches():
+    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+    from categoricalnf_tpu_torch.ops.cuda import mixture as cm
+    for counts in (cm.LAUNCHES, ft.LAUNCHES, ft.BWD_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_launches() -> dict:
+    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+    from categoricalnf_tpu_torch.ops.cuda import mixture as cm
+    short = {"bfloat16": "bf16", "float32": "f32"}
+    return {**cm.LAUNCHES,
+            **{f"fused_set_transformer_{short[k]}": v
+               for k, v in ft.LAUNCHES.items()},
+            **{f"fused_set_transformer_bwd_{short[k]}": v
+               for k, v in ft.BWD_LAUNCHES.items()}}
+
+
+TRAIN_STEPS, TRAIN_EVAL_EVERY, TRAIN_LOG_EVERY = 200, 100, 20
+
+
+def train_flagship(seed: int, timings: dict, card: str,
+                   device: str = "cuda") -> dict:
+    """Train the flagship (runs/set16/config.json: bf16, 8 layers, hidden
+    96, batch 1024) for 200 steps through the port's Trainer, then serve the
+    run.  Returns the launch counts of the training run."""
+    import numpy as np
+    import torch
+    from categoricalnf_tpu_torch import inference
+    from categoricalnf_tpu_torch.networks import SetTransformer
+    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+    from categoricalnf_tpu_torch.training.engine import TrainConfig, Trainer
+    from categoricalnf_tpu_torch.training.schedules import ScheduleSpec
+    from categoricalnf_tpu_torch.training.state import OptimizerConfig
+    from categoricalnf_tpu_torch.utils.config import load_config, save_config
+
+    cfg = load_config(os.path.join(REPO, "runs", "set16"))
+    a = cfg["args"]
+    args = {**a, "seed": seed, "eval_batches_count": 1}
+    task = inference.build_task(cfg["task"], args, device=device)
+    tcfg = TrainConfig(
+        num_steps=TRAIN_STEPS, eval_every=TRAIN_EVAL_EVERY, eval_samples=4,
+        final_eval_samples=4, log_every=TRAIN_LOG_EVERY, seed=seed,
+        optimizer=OptimizerConfig(learning_rate=a["lr"],
+                                  grad_clip_norm=a["grad_clip"]),
+        beta_schedule=ScheduleSpec(kind="sigmoid", start=0.5,
+                                   end=a["beta_end"],
+                                   center=a["beta_warmup"], rate=0.002))
+    with tempfile.TemporaryDirectory() as out_dir:
+        tcfg = dataclasses.replace(tcfg, out_dir=out_dir)
+        save_config(out_dir, {"task": cfg["task"], "args": args})
+        trainer = Trainer(task, tcfg)
+        # the untrained bpd of the model that train() starts from: the
+        # seed's parameters, data-initialised on the first training batch
+        trainer.init_model(next(task.train_batches(
+            np.random.default_rng(seed))))
+        bpd0 = trainer.evaluate(4, 0)["bpd"]
+        start = {k: v.clone() for k, v in task.model.state_dict().items()}
+        started_from = []
+        init_model = trainer.init_model
+
+        def spy(batch):
+            init_model(batch)
+            started_from.append({k: v.clone() for k, v in
+                                 task.model.state_dict().items()})
+
+        trainer.init_model = spy
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        final = trainer.train(resume=False)
+        torch.cuda.synchronize()
+        timings["train_200_steps_s"] = time.perf_counter() - t0
+        launches = read_launches()
+        check(len(started_from) == 1 and all(
+            torch.equal(started_from[0][k], v) for k, v in start.items()),
+            "the trainer started from another model than the untrained one")
+        timings["train_peak_mem_gib"] = (torch.cuda.max_memory_allocated()
+                                         / 2**30)
+        rows = [json.loads(line) for line in
+                open(os.path.join(out_dir, "metrics.jsonl"))]
+        train = [r for r in rows if r["prefix"] == "train"]
+        vals = [r for r in rows if r["prefix"] == "val"]
+        check(len(train) == TRAIN_STEPS // TRAIN_LOG_EVERY
+              and all(np.isfinite(r["loss"]) for r in train),
+              f"training loss not finite at every logged step: {train}")
+        check(all(r["integrity_alarm"] == 0 for r in vals),
+              f"integrity alarm: {vals}")
+        optimum = task.analytic_optimum_bpd()
+        best = final["best_bpd"]
+        timings.update(untrained_bpd=bpd0, best_bpd=best,
+                       val_bpd=[r["bpd"] for r in vals],
+                       permutation_validity=final["permutation_validity"],
+                       test_bpd=final["test_bpd"])
+        check(best < bpd0 - 0.2, f"training did not lower the bpd by 0.2: "
+              f"{bpd0} -> {best}")
+        check(best > optimum, f"best bpd {best} below the optimum {optimum}")
+        # steps 101..200: the windows' rates count training steps only
+        late = [r for r in train if r["step"] > TRAIN_EVAL_EVERY]
+        secs = sum(TRAIN_LOG_EVERY / r["steps_per_s"] for r in late)
+        sps = len(late) * TRAIN_LOG_EVERY * task.batch_size / secs
+        timings["train_samples_per_s"] = sps
+        for name in ("mixture_forward", "mixture_forward_bwd",
+                     "fused_set_transformer_bf16",
+                     "fused_set_transformer_bwd_bf16"):
+            check(launches[name] > 0, f"kernel {name} was not launched "
+                  "while training")
+
+        # the host cost of recasting the weights after an optimizer step
+        nets = [m for m in task.model.modules()
+                if isinstance(m, SetTransformer)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for net in nets:
+            ft.PackedWeights(ft.flatten_params(net), torch.bfloat16)
+        torch.cuda.synchronize()
+        timings["repack_ms_per_step"] = (time.perf_counter() - t0) * 1e3
+
+        # serve the run that was just written
+        from http.server import ThreadingHTTPServer
+
+        from categoricalnf_tpu_torch.serve import RunServer, make_handler
+        server = RunServer(out_dir, device=device)
+        check(server.handle.step in (TRAIN_EVAL_EVERY, TRAIN_STEPS),
+              f"served step {server.handle.step}")
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(server))
+        th = threading.Thread(target=httpd.serve_forever, daemon=True)
+        th.start()
+        try:
+            st, met, dt = http_json(httpd.server_port, "POST",
+                                    "/sample_metrics", {"num_samples": 1024})
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            th.join(timeout=60)
+        check(st == 200 and met["metric_num_samples"] == 1024.0,
+              f"/sample_metrics of the trained run answered {st}: {met}")
+        timings["trained_sample_metrics_1024_s"] = dt
+        timings["trained_permutation_validity"] = met["permutation_validity"]
+    print(json.dumps({"metric": "set_shuffling_train_samples_per_s",
+                      "value": sps, "unit": "samples/s", "steps": "101-200",
+                      "batch_size": task.batch_size, "device": card}),
+          flush=True)
+    return launches
+
+
+@contextlib.contextmanager
+def plain_path_on_card():
+    """Sends the card's nets and mixture forwards through their plain
+    versions, as a CPU tensor goes, so that a whole train step through the
+    kernels can be held against the same step through the plain path on
+    the same card."""
+    from categoricalnf_tpu_torch.networks import SetTransformer
+    from categoricalnf_tpu_torch.ops import dispatch
+    from categoricalnf_tpu_torch.ops import numerics as nm
+    fwd, mix = SetTransformer.forward, dispatch.mixture_forward
+    SetTransformer.forward = SetTransformer.plain_forward
+    dispatch.mixture_forward = nm.mixture_logit_cdf_and_ldj
+    try:
+        yield
+    finally:
+        SetTransformer.forward, dispatch.mixture_forward = fwd, mix
+
+
+# Relative gradient error per tensor allowed between the kernels and the
+# plain path, both on the card, in the fp32 train step: between its sound
+# reading (1.9e-4 at worst on an H100 80GB HBM3 at 700 W) and the least
+# that the kernels' gradients rounded once to bf16 read (4.0e-4 there, 1.7e-3
+# the median tensor), which the script reads and holds above it in every
+# run.
+KERNELS_VS_PLAIN_CARD = 3e-4
+
+
+def check_train_step_against_cpu(seed: int, report: dict) -> dict:
+    """One train step's gradients on the card (kernels) against a CPU copy
+    (plain path): the flagship at full width, fp32 compute, 64 sets, shared
+    noise.  Every parameter with a CPU gradient gets a non-zero one on the
+    card, within 1e-3 relative per tensor; so does the plain path on the
+    card.  The kernels against the plain path on the card are held at
+    KERNELS_VS_PLAIN_CARD, which must lie below what each of the kernels'
+    gradients rounded to bf16 reads.  Returns the launches of the kernels' step."""
+    import numpy as np
+    import torch
+    from categoricalnf_tpu_torch.inference import build_task
+    from categoricalnf_tpu_torch.ops.numerics import uniform_noise
+    from categoricalnf_tpu_torch.utils.config import load_config
+
+    a = load_config(os.path.join(REPO, "runs", "set16"))["args"]
+    args = {**a, "seed": seed, "compute_dtype": "float32"}
+    cpu = build_task("set_shuffling", args, device="cpu")
+    gpu = build_task("set_shuffling", args, device="cuda")
+    x = cpu._gen(np.random.default_rng(seed + 3), 64)
+    cpu.data_init({"x": x}, generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(seed + 4)
+        for name, p in cpu.model.named_parameters():
+            if name.endswith("net.out.w"):  # zero output layers: identity
+                p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    noise = uniform_noise((64, S, D), generator=torch.Generator()
+                          .manual_seed(seed + 5))
+    cpu.loss({"x": x}, 0.7, noise=noise).backward()
+
+    def card_grads():
+        gpu.model.zero_grad(set_to_none=True)
+        gpu.loss({"x": x}, 0.7, noise=noise.to(gpu.device)).backward()
+        torch.cuda.synchronize()
+        return {k: p.grad for k, p in gpu.model.named_parameters()}
+
+    reset_launches()
+    kern = card_grads()
+    launches = read_launches()
+    with plain_path_on_card():
+        plain = card_grads()
+    limits = {"kernels_vs_cpu": 1e-3, "plain_card_vs_cpu": 1e-3,
+              "kernels_vs_plain_card": KERNELS_VS_PLAIN_CARD}
+    worst = {k: (0.0, "") for k in limits}
+    control = []
+    for name, p in cpu.model.named_parameters():
+        if p.grad is None or not p.grad.abs().max() > 0:
+            continue
+        gk, gp = kern[name], plain[name]
+        check(gk is not None and bool(gk.abs().max() > 0),
+              f"{name} has a CPU gradient and none on the card")
+        for key, err in (("kernels_vs_cpu", rel_err(gk.cpu(), p.grad)),
+                         ("plain_card_vs_cpu", rel_err(gp.cpu(), p.grad)),
+                         ("kernels_vs_plain_card", rel_err(gk, gp))):
+            check(err <= limits[key], f"{name}: {key} gradient off by {err}")
+            worst[key] = max(worst[key], (err, name))
+        control.append(rel_err(gk.bfloat16(), gp))
+    n = len(control)
+    nets = sum(1 for k in kern if k.endswith("net.out.w"))
+    check(n > 20 * nets, f"only {n} parameters got a gradient")
+    check(min(control) > KERNELS_VS_PLAIN_CARD,
+          f"a gradient rounded to bf16 reads {min(control)}, inside the "
+          f"limit {KERNELS_VS_PLAIN_CARD}: the limit cannot tell it")
+    report.update(n_gradients=n, **{k: v[0] for k, v in worst.items()},
+                  **{f"{k}_worst": v[1] for k, v in worst.items()},
+                  bf16_rounded_vs_plain_card_min=min(control),
+                  bf16_rounded_vs_plain_card_median=statistics.median(
+                      control),
+                  bf16_rounded_vs_plain_card_max=max(control))
+    print("train step card vs CPU (fp32, 64 sets): " + json.dumps(report),
+          flush=True)
+    return launches
+
+
 SOURCES = {
     "mixture_inverse": ("categoricalnf_tpu_torch/csrc/mixture.cu",
                         "categoricalnf_tpu/ops/pallas/mixture.py:137"),
@@ -462,7 +819,24 @@ SOURCES = {
     "fused_set_transformer_f32": (
         "categoricalnf_tpu_torch/csrc/fused_transformer.cu",
         "categoricalnf_tpu/ops/pallas/fused_transformer.py:286"),
+    # no Pallas counterpart: the reference differentiates the plain math of
+    # mixture_forward_pallas's reference with XLA
+    "mixture_forward_bwd": ("categoricalnf_tpu_torch/csrc/mixture.cu",
+                            "categoricalnf_tpu/ops/pallas/mixture.py:196"),
+    "fused_set_transformer_bwd_bf16": (
+        "categoricalnf_tpu_torch/csrc/fused_transformer.cu",
+        "categoricalnf_tpu/ops/pallas/fused_transformer.py:303"),
+    "fused_set_transformer_bwd_f32": (
+        "categoricalnf_tpu_torch/csrc/fused_transformer.cu",
+        "categoricalnf_tpu/ops/pallas/fused_transformer.py:303"),
 }
+SERVING_KERNELS = ("mixture_inverse", "mixture_forward",
+                   "fused_set_transformer_bf16", "fused_set_transformer_f32")
+# the path whose launches each kernel's line reports
+PATH_OF = {**{k: "serving" for k in SERVING_KERNELS},
+           "mixture_forward_bwd": "training",
+           "fused_set_transformer_bwd_bf16": "training",
+           "fused_set_transformer_bwd_f32": "train_step_fp32"}
 
 
 def main() -> int:
@@ -498,6 +872,8 @@ def main() -> int:
     report: dict = {}
     check_mixture(device, gen, report)
     check_fused(device, gen, report)
+    check_mixture_bwd(device, gen, report)
+    check_fused_bwd(device, gen, report)
     for r in report.values():
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["ops"] / PEAK_FLOPS[r["dtype"]] * 1e3
@@ -508,18 +884,30 @@ def main() -> int:
         print(f"{name} ({size}): kernel {r['ms']!r} ms (host "
               f"{r['host_ms']!r} ms a call), plain {r['plain_ms']!r} ms, "
               f"bound {r['bound_ms']!r} ms ({r['bound_by']}), max abs err "
-              f"{r['max_abs_err']:.3g}", flush=True)
+              f"{r['max_abs_err']:.3g}"
+              + (f", relative error {r['rel_err']:.3g}" if "rel_err" in r
+                 else "")
+              + (f", scratch {r['scratch_mb']:.1f} MB" if "scratch_mb" in r
+                 else ""), flush=True)
 
     timings: dict = {}
-    launches = serve_flagship(args.seed, timings)
+    launches = {"serving": serve_flagship(args.seed, timings)}
     print("serving: " + json.dumps(timings), flush=True)
+    train_timings: dict = {}
+    launches["training"] = train_flagship(args.seed, train_timings, card)
+    print("training: " + json.dumps(train_timings), flush=True)
+    launches["train_step_fp32"] = check_train_step_against_cpu(args.seed,
+                                                               {})
+    check(launches["train_step_fp32"]["fused_set_transformer_bwd_f32"] > 0,
+          "the fp32 train step did not launch the fp32 backward kernel")
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         r = report[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": launches[PATH_OF[name]][name],
+            "path": PATH_OF[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})

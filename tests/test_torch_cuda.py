@@ -175,3 +175,164 @@ def test_tiny_task_on_card_matches_cpu(dev):
                cpu.model.flow.sample((16, 6, 2), noise=u), 1e-3)
     # 2 layers: a forward pass per IS chunk, an inverse for the sample
     assert ft.LAUNCHES["float32"] == n + 4
+
+
+# -- backward kernels (#4 and the mixture forward's backward) -------------
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(
+        1e-30))
+
+
+def _net_grads(net, x, wy, plain):
+    """d sum(y * wy) / d (x, every parameter), through the kernels or
+    through autograd of plain_forward."""
+    x = x.clone().requires_grad_(True)
+    y = net.plain_forward(x) if plain else net(x)
+    params = list(net.parameters())
+    return torch.autograd.grad((y.float() * wy).sum(), [x] + params)
+
+
+@pytest.mark.parametrize("b,s,hidden,heads", [(64, 16, 96, 4), (3, 16, 96, 4),
+                                              (5, 6, 24, 4)])
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_fused_bwd_matches_autograd_of_plain(dev, b, s, hidden, heads, cd):
+    """#4 against autograd through plain_forward: fp32 to 2e-4 (the
+    tolerance of the reference's own gradient test), bf16 to 3% of each
+    tensor's norm.  (3, 16) has a ragged last tile; S=6 pads the tile."""
+    net = _net(cd, dev, hidden, heads)
+    g = torch.Generator(dev).manual_seed(3)
+    x = torch.randn(b, s, 4, generator=g, device=dev)
+    wy = torch.randn(b, s, 104, generator=g, device=dev)
+    n = ft.BWD_LAUNCHES[cd]
+    got = _net_grads(net, x, wy, plain=False)
+    want = _net_grads(net, x, wy, plain=True)
+    torch.cuda.synchronize()
+    assert ft.BWD_LAUNCHES[cd] == n + 1
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and a.dtype == w.dtype
+        if cd == "float32":
+            _close(a, w, 2e-4)
+        else:
+            assert _rel(a, w) <= 0.03
+    assert all(float(a.abs().max()) > 0 for a in got)
+
+
+def test_fused_bwd_is_deterministic(dev):
+    net = _net("bfloat16", dev)
+    x = torch.randn(256, 16, 4, device=dev)
+    gy = torch.randn(256, 16, 104, device=dev).bfloat16()
+    packed = net._packed_weights(torch.bfloat16)
+    one = ft.fused_set_transformer_bwd(packed, x, gy, num_heads=4)
+    two = ft.fused_set_transformer_bwd(packed, x, gy, num_heads=4)
+    torch.cuda.synchronize()
+    assert torch.equal(one[0], two[0])
+    assert all(torch.equal(a, b) for a, b in zip(one[1], two[1]))
+
+
+def _mix_grads(x, pi, mu, ls, gy, gl, kernel):
+    ins = [t.detach().clone().requires_grad_(True) for t in (x, pi, mu, ls)]
+    fn = cm.mixture_forward_cuda if kernel else nm.mixture_logit_cdf_and_ldj
+    y, ldj = fn(*ins)
+    return torch.autograd.grad((y * gy).sum() + (ldj * gl).sum(), ins)
+
+
+@pytest.mark.parametrize("shape,k", [((64, 16, 4), 8), ((7, 13), 3),
+                                     ((5, 3), 16)])
+def test_mixture_bwd_matches_autograd_of_numerics(dev, shape, k):
+    """The backward kernel against autograd of the numerics to 1e-4, with
+    log-scales on both sides of the clip (their gradient is 0 there)."""
+    x, pi, mu, ls = _mix(shape, k, dev, seed=5)
+    ls = ls * 6.0  # many outside [-5, 7]
+    g = torch.Generator(dev).manual_seed(6)
+    gy = torch.randn(shape, generator=g, device=dev)
+    gl = torch.randn(shape, generator=g, device=dev)
+    n = cm.LAUNCHES["mixture_forward_bwd"]
+    got = _mix_grads(x, pi, mu, ls, gy, gl, kernel=True)
+    want = _mix_grads(x, pi, mu, ls, gy, gl, kernel=False)
+    torch.cuda.synchronize()
+    assert cm.LAUNCHES["mixture_forward_bwd"] == n + 1
+    for a, w in zip(got, want):
+        _close(a, w, 1e-4)
+    clipped = (ls < nm.LOG_SCALE_MIN) | (ls > nm.LOG_SCALE_MAX)
+    assert clipped.any() and bool((got[3][clipped] == 0).all())
+
+
+def test_mixture_bwd_takes_strided_slices_and_is_deterministic(dev):
+    K = 8
+    g = torch.Generator(dev).manual_seed(7)
+    raw = torch.randn(32, 16, 4, 2 + 3 * K, generator=g, device=dev)
+    x = torch.randn(32, 16, 4, generator=g, device=dev)
+    gy, gl = torch.randn(2, 32, 16, 4, generator=g, device=dev)
+    pi, mu, ls = raw[..., 2:2 + K], raw[..., 2 + K:2 + 2 * K], raw[..., 2 + 2 * K:]
+    one = cm.mixture_forward_bwd_cuda(x, pi, mu, ls, gy, gl)
+    two = cm.mixture_forward_bwd_cuda(x, pi, mu, ls, gy, gl)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    want = _mix_grads(x, pi, mu, ls, gy, gl, kernel=False)
+    for a, w in zip(one, want):
+        _close(a, w, 1e-4)
+
+
+def test_wrappers_without_backward_raise_on_grad(dev):
+    """The inverse has no backward and the plain forward wrapper of #3
+    keeps no graph: with grad on they raise rather than drop it."""
+    x, pi, mu, ls = _mix((4, 4), 8, dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        cm.mixture_inverse_cuda(x, pi.requires_grad_(True), mu, ls)
+    with torch.no_grad():
+        assert cm.mixture_inverse_cuda(x, pi, mu, ls).shape == x.shape
+    net = _net("float32", dev)
+    xr = torch.randn(2, 16, 4, device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="autograd graph"):
+        ft.fused_set_transformer(net._packed_weights(torch.float32), xr,
+                                 num_heads=4)
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_train_step_on_card_gives_every_parameter_a_gradient(dev, cd):
+    """After one training step on the card (kernels #3/#4 and the mixture
+    forward with its backward), every parameter that has a gradient on the
+    CPU (plain path) has a non-zero one; in fp32 each within 1e-3 of the
+    CPU's (relative to the tensor's norm).  The optimizer then moves every
+    one of them."""
+    from categoricalnf_tpu_torch.inference import build_task
+    from categoricalnf_tpu_torch.training.state import (OptimizerConfig,
+                                                        TrainState)
+    args = dict(set_size=8, num_layers=2, hidden_dim=32, num_mixtures=4,
+                encoding_dim=4, compute_dtype=cd)
+    cpu = build_task("set_shuffling", args, device="cpu")
+    x = np.argsort(np.random.default_rng(0).random((32, 8)), axis=1)
+    cpu.data_init({"x": x}, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(1)
+        for name, p in cpu.model.named_parameters():
+            if name.endswith("net.out.w"):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+    gpu = build_task("set_shuffling", args, device=dev)
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    noise = nm.uniform_noise((32, 8, 4), generator=torch.Generator()
+                             .manual_seed(2))
+    cpu.loss({"x": x}, 0.8, noise=noise).backward()
+    state = TrainState.create(gpu.model, OptimizerConfig())
+    n = (ft.BWD_LAUNCHES[cd], cm.LAUNCHES["mixture_forward_bwd"])
+    gpu.loss({"x": x}, 0.8, noise=noise.to(dev)).backward()
+    torch.cuda.synchronize()
+    assert ft.BWD_LAUNCHES[cd] == n[0] + 2
+    assert cm.LAUNCHES["mixture_forward_bwd"] == n[1] + 2
+    before = {k: p.detach().clone() for k, p in gpu.model.named_parameters()}
+    gp = dict(gpu.model.named_parameters())
+    checked = 0
+    for name, p in cpu.model.named_parameters():
+        if p.grad is None or not p.grad.abs().max() > 0:
+            continue
+        g_card = gp[name].grad
+        assert g_card is not None and float(g_card.abs().max()) > 0, name
+        if cd == "float32":
+            assert _rel(g_card.cpu(), p.grad) <= 1e-3, name
+        checked += 1
+    assert checked > 20 * 2
+    state.apply_gradients()
+    for name, p in cpu.model.named_parameters():
+        if p.grad is not None and p.grad.abs().max() > 0:
+            assert not torch.equal(gp[name].detach(), before[name]), name
