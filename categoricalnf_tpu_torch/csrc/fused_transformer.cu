@@ -1,5 +1,7 @@
 // Fused SetTransformer forward and backward for Hopper (sm_90a).  The
-// backward (kernel #4) is described where it starts, further down.
+// backward (kernel #4) is described where it starts, further down; this
+// file builds it in fp32 only, and the bf16 backward is the tensor-core
+// kernel of fused_transformer_bwd.cu.
 //
 // Replaces the TPU kernel categoricalnf_tpu/ops/pallas/fused_transformer.py
 // _fused_fwd (body _fwd_kernel -> _net_forward): the whole coupling net,
@@ -42,38 +44,14 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "fused_transformer.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRowsPerThread = 8;  // rows of one dense output per thread
 constexpr int kMaxSet = 32;        // largest set size attention handles
 constexpr int kTileTarget = 32;    // rows a tile aims for (whole sets)
-
-template <typename T>
-struct Cd;
-
-template <>
-struct Cd<float> {
-  static __device__ __forceinline__ float load(const float* p, long i) {
-    return p[i];
-  }
-  static __device__ __forceinline__ float round(float v) { return v; }
-  static __device__ __forceinline__ float store(float v) { return v; }
-};
-
-template <>
-struct Cd<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p,
-                                               long i) {
-    return __bfloat162float(p[i]);
-  }
-  static __device__ __forceinline__ float round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
-  static __device__ __forceinline__ __nv_bfloat16 store(float v) {
-    return __float2bfloat16_rn(v);
-  }
-};
 
 // The 12 tensors of flatten_params: matrices in the compute dtype, biases
 // fp32; block weights stacked on a leading layer axis.
@@ -95,22 +73,6 @@ struct Dims {
 };
 
 enum Epi { kStore, kResidual, kGelu, kGlobal };
-
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float c = 0.7978845608028654f;  // sqrt(2 / pi)
-  return x * (0.5f * (1.0f + tanhf(c * (x + 0.044715f * (x * x * x)))));
-}
-
-// d gelu_tanh / dx, as PyTorch's GeluBackward (approximate="tanh") computes
-// it in fp32.
-__device__ __forceinline__ float gelu_tanh_grad(float x) {
-  const float beta = 0.7978845608028654f, kappa = 0.044715f;
-  const float x_sq = x * x;
-  const float t = tanhf(beta * (x + kappa * x_sq * x));
-  const float left = 0.5f * x, right = 1.0f + t;
-  return 0.5f * right +
-         left * (1.0f - t * t) * beta * (1.0f + 3.0f * kappa * x_sq);
-}
 
 // out[r, c] <- epilogue(in[r, :kd] @ w[kd, n] + b[c]) for the tile's rows.
 // Threads walk (column, group of 8 rows): neighbouring threads read
@@ -274,7 +236,7 @@ fused_set_transformer_fwd(const T* __restrict__ x, Weights<T> wt,
 }
 
 // ---------------------------------------------------------------------------
-// Backward (kernel #4): replaces _fused_bwd (body _bwd_kernel), which
+// Backward (kernel #4, fp32): replaces _fused_bwd (body _bwd_kernel), which
 // recomputes a tile's forward and pulls the cotangent back with jax.vjp.
 // There is no autodiff here, so each backward is written out: dense
 // layers, LN without affine (fp32 statistics), tanh-gelu, the softmax per
@@ -550,23 +512,6 @@ __device__ __forceinline__ void copy_tile(const float* src, float* dst,
     dst[i] = src[i];
 }
 
-// Offsets of the 12 gradients in one flat fp32 vector, in flatten_params
-// order; off[12] is the total.
-struct Offsets {
-  long off[13];
-};
-
-__host__ __device__ inline Offsets grad_offsets(const Dims& dm) {
-  const long H = dm.hidden, L = dm.layers, RH = dm.mlp;
-  const long sizes[12] = {dm.in_dim * H, H,      L * H * 3 * H, L * 3 * H,
-                          L * H * H,     L * H,  L * H * RH,    L * RH,
-                          L * RH * H,    L * H,  H * dm.out_dim, dm.out_dim};
-  Offsets o;
-  o.off[0] = 0;
-  for (int j = 0; j < 12; ++j) o.off[j + 1] = o.off[j] + sizes[j];
-  return o;
-}
-
 template <typename T>
 __device__ void load_x_tile(const T* __restrict__ x, long row0, int valid,
                             float* dst, const Dims& dm) {
@@ -729,22 +674,6 @@ fused_set_transformer_bwd(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
-// dw[i] = sum over the grid's slices of part[s][i], in slice order; the
-// matrices' gradients are rounded to the compute dtype (the transpose of
-// their cast), the biases' stay fp32.
-template <typename T>
-__global__ void reduce_wgrad(const float* __restrict__ part, int slices,
-                             Offsets og, float* __restrict__ dw) {
-  const long i = blockIdx.x * (long)blockDim.x + threadIdx.x;
-  const long total = og.off[12];
-  if (i >= total) return;
-  float s = 0.0f;
-  for (int b = 0; b < slices; ++b) s += part[b * total + i];
-  int j = 0;
-  while (i >= og.off[j + 1]) ++j;
-  dw[i] = j % 2 == 0 ? Cd<T>::round(s) : s;
-}
-
 // Shared-memory floats of one backward block (see fused_set_transformer_bwd).
 inline size_t bwd_smem_floats(const Dims& dm) {
   return (size_t)dm.tile_pad *
@@ -864,22 +793,11 @@ int fused_set_transformer_fwd_f32(const void* x, const void* const* w,
                        layers, mlp, out_dim, stream);
 }
 
-// Backward: x [rows, in] and g [rows, out] in the compute dtype; writes
-// dx [rows, in] (compute dtype) and the 12 fp32 weight gradients, flat in
-// flatten_params order, to dw.  part is fp32 scratch of grid x (the size of
-// dw); grid (<= the number of tiles) is the number of persistent blocks.
-int fused_set_transformer_bwd_bf16(const void* x, const void* g,
-                                   const void* const* w,
-                                   const float* const* b, void* dx,
-                                   float* part, float* dw, long rows,
-                                   int set_size, int in_dim, int hidden,
-                                   int heads, int layers, int mlp,
-                                   int out_dim, int grid, void* stream) {
-  return launch_bwd<__nv_bfloat16>(x, g, w, b, dx, part, dw, rows, set_size,
-                                   in_dim, hidden, heads, layers, mlp,
-                                   out_dim, grid, stream);
-}
-
+// Backward in fp32: x [rows, in] and g [rows, out]; writes dx [rows, in]
+// and the 12 fp32 weight gradients, flat in flatten_params order, to dw.
+// part is fp32 scratch of grid x (the size of dw); grid (<= the number of
+// tiles) is the number of persistent blocks.  The bf16 backward is the
+// tensor-core kernel of fused_transformer_bwd.cu.
 int fused_set_transformer_bwd_f32(const void* x, const void* g,
                                   const void* const* w, const float* const* b,
                                   void* dx, float* part, float* dw, long rows,

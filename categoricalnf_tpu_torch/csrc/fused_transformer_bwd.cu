@@ -1,0 +1,908 @@
+// Fused SetTransformer backward (kernel #4) in bf16, on Hopper's tensor
+// cores (sm_90a).
+//
+// Replaces the TPU kernel categoricalnf_tpu/ops/pallas/fused_transformer.py
+// _fused_bwd (body _bwd_kernel, math _net_forward), which recomputes a
+// tile's forward and pulls the cotangent back with jax.vjp.  The function
+// and its rounding points are those of the fp32/bf16 template backward in
+// fused_transformer.cu, which this file replaces for bf16: every cotangent
+// is rounded to bf16 where the forward rounds its primal, as autograd
+// through plain_forward does; LN statistics, softmax, gelu and every
+// epilogue run in fp32.
+//
+// Bound on an H100.  At the flagship width (H=96, 4 heads, 2 blocks, S=16,
+// in 4, out 104) the backward does about 3x the forward's 164k
+// multiply-adds a row (recompute, input and weight gradients): 16 GFLOP at
+// 16,384 rows, 16 us at 989 TFLOP/s, against 0.4 MB of x, g and dx and
+// 1 MB of weights and fp32 gradients.  It is bound by operations.
+//
+// Design.  The structure is the template kernel's: a persistent grid, each
+// block walking the tiles blockIdx.x, blockIdx.x + gridDim.x, ...; per tile
+// the forward is rerun keeping only the residual stream h at each block
+// boundary, then the blocks are walked in reverse, each recomputed from its
+// h; dx goes to global memory and the weight gradients to the block's own
+// fp32 scratch slice, which reduce_wgrad sums in slice order (bitwise
+// deterministic, no float atomics).  What the template kernel lost time on,
+// and what this one does about it:
+// 1. No tensor cores.  Every dense product (the forward recompute, the
+//    input gradients, the weight gradients) runs on
+//    mma.sync.m16n8k16.bf16 with fp32 accumulators; A comes from shared
+//    memory by ldmatrix (ldmatrix.trans for the weight gradients' X^T and
+//    G), B of the forward and input-gradient products straight from L2 in
+//    the layouts PackedWeights builds once a repack (W^T and W, zero-padded
+//    to multiples of 16), loaded four k-steps at a time one chunk ahead.
+//    Only attention, LayerNorm and the bias gradients stay on the CUDA
+//    cores (about 4% of the multiply-adds).
+// 2. Shared-memory bound loops.  ldmatrix moves a 16 x 16 operand in one
+//    instruction per warp, against one load per FMA (two in the weight
+//    gradients' row walk).  The CUDA-core phases hold their own row in
+//    registers and read the rows they share as broadcasts.  They are out of
+//    line (__noinline__) and the attention unrolls its set loops only as far
+//    as the set needs (16 or 32): inlined at every call site and unrolled
+//    to 32, their code made the kernel about 1.5x slower on an H100.
+// 3. Footprint and latency.  Every value the bf16 kernel kept in shared
+//    memory was already rounded to bf16, so it is stored as bf16 (only the
+//    softmax statistics stay fp32): 194 KB for a 64-row tile at the
+//    flagship width, one block of 8 warps an SM (32-row tiles where a
+//    wider or deeper net would not fit).  Leading dimensions are a
+//    multiple of 16 plus 8 elements, so ldmatrix's eight 16-byte rows fall
+//    in distinct banks.
+// 4. Scratch traffic.  A 64-row tile (4 sets of 16) halves the number of
+//    read-modify-writes of the 159,368 fp32 gradients a row, and the slice's
+//    old values are loaded before the products that add to them.
+// Padded lanes of the A operands are zero (shared memory is cleared once a
+// block, every producer writes zeros past the true width, and the weight
+// layouts' pads are zero), so the padding adds nothing.  Rows past the
+// last valid set carry zero cotangents, so they add nothing to dW.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "fused_transformer.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxSet = 32;                // largest set size handled
+constexpr int kTileTarget = 64;            // rows a tile aims for
+constexpr int kMaxMTiles = kTileTarget / 16;  // 16-row m-tiles in a tile
+constexpr int kKChunk = 4;   // k-steps whose B fragments load together
+constexpr int kChunk = 8;    // row values held in registers at a time
+constexpr int kLnVals = 8;   // LN values a lane holds: hidden <= 256
+
+struct Dims {
+  long rows;
+  int set_size, in_dim, hidden, heads, layers, mlp, out_dim;
+  int tile, tile_pad;                 // rows of a tile; padded to 16
+  int p_in, p_h, p_big, p_f, p_out;   // widths padded to 16
+  int ld_h, ld_big, ld_f, ld_g, ld_x, ld_r2;  // shared-memory rows (bf16)
+};
+
+// The 6 matrices (embed, qkv, proj, fc1, fc2, out), each W [kd, n] (layer
+// stacked) as wt = W^T [pad(n), pad(kd)] for the forward products and
+// w = W [pad(kd), pad(n)] for the input gradients, and the 6 fp32 biases.
+struct PadWeights {
+  const bf16* wt[6];
+  const bf16* w[6];
+  const float* b[6];
+};
+
+__host__ __device__ inline int pad16(int n) { return (n + 15) / 16 * 16; }
+
+__device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float rnd(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Four 8x8 bf16 matrices; lane l gives the row address of matrix l / 8.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// d += a (16x16, row) . b (16x8, col), bf16 in, fp32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ldg_pair(const bf16* p) {
+  return __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+
+enum Epi {
+  kStore,      // out = R(acc + b)
+  kResidual,   // out = R(out + R(acc + b))
+  kGelu,       // out = R(gelu(R(acc + b)))
+  kFc1,        // out = f = R(acc + b), out2 = R(gelu(f))
+  kBwdStore,   // out = R(acc)
+  kBwdGelu,    // out = R(R(acc) * gelu'(out))   (out holds f)
+  kBwdGlobal,  // gout[r, c] = R(acc) for rows < valid, c < n
+};
+
+// out[r, c] <- epilogue(A[r, :] . B[:, c]) for the tile's rows and c <
+// np, on the tensor cores.  A: bf16 [tile_pad, lda] in shared memory, kp
+// columns (a multiple of 16, zero past the true width).  bt: B^T [np, kp]
+// in global memory (W^T for a forward product, W for an input gradient),
+// zero past the true sizes.  One warp per 8-column n-tile, over all the
+// tile's m-tiles; the B fragments of kKChunk k-steps are loaded one chunk
+// ahead.  Columns n <= c < np are written as zeros (kBwdGlobal skips
+// them), so a buffer's pad stays zero for its next use as A.
+template <int EPI>
+__device__ void mma_dense(const bf16* A, int lda, int kp,
+                          const bf16* __restrict__ bt, int np, int n,
+                          const float* __restrict__ bias, bf16* out,
+                          int ld_out, bf16* out2, bf16* __restrict__ gout,
+                          int valid, const Dims& dm) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int mtiles = dm.tile_pad >> 4, nk = kp >> 4;
+  for (int j = warp; j < (np >> 3); j += kWarps) {
+    float acc[kMaxMTiles][4];
+#pragma unroll
+    for (int mt = 0; mt < kMaxMTiles; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][e] = 0.0f;
+    // lane (g, t) reads B^T[j * 8 + g][k0 + 2t, +1] and [k0 + 8 + 2t, +1]
+    const bf16* bp = bt + (long)(j * 8 + g) * kp + 2 * t;
+    uint32_t bq[kKChunk][2], bn[kKChunk][2];
+#pragma unroll
+    for (int s = 0; s < kKChunk; ++s)
+      if (s < nk) {
+        bq[s][0] = ldg_pair(bp + s * 16);
+        bq[s][1] = ldg_pair(bp + s * 16 + 8);
+      }
+    for (int kc = 0; kc < nk; kc += kKChunk) {
+#pragma unroll
+      for (int s = 0; s < kKChunk; ++s)
+        if (kc + kKChunk + s < nk) {
+          bn[s][0] = ldg_pair(bp + (kc + kKChunk + s) * 16);
+          bn[s][1] = ldg_pair(bp + (kc + kKChunk + s) * 16 + 8);
+        }
+#pragma unroll
+      for (int s = 0; s < kKChunk; ++s) {
+        if (kc + s < nk) {
+          const int k0 = (kc + s) * 16 + (lane >> 4) * 8;
+#pragma unroll
+          for (int mt = 0; mt < kMaxMTiles; ++mt) {
+            if (mt < mtiles) {
+              uint32_t a[4];
+              ldsm_x4(a, A + (mt * 16 + (lane & 15)) * lda + k0);
+              mma_bf16(acc[mt], a, bq[s][0], bq[s][1]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < kKChunk; ++s) {
+        bq[s][0] = bn[s][0];
+        bq[s][1] = bn[s][1];
+      }
+    }
+
+    const int c = j * 8 + 2 * t;  // this lane's columns c, c + 1
+#pragma unroll
+    for (int mt = 0; mt < kMaxMTiles; ++mt) {
+      if (mt >= mtiles) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = mt * 16 + g + 8 * half;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool in = c + e < n;
+          float a = acc[mt][2 * half + e];
+          if constexpr (EPI == kStore || EPI == kResidual || EPI == kGelu ||
+                        EPI == kFc1)
+            a = in ? rnd(a + bias[c + e]) : 0.0f;
+          else
+            a = in ? rnd(a) : 0.0f;
+          v[e] = a;
+        }
+        if constexpr (EPI == kBwdGlobal) {
+          if (r < valid) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (c + e < n)
+                gout[(long)r * n + c + e] = __float2bfloat16_rn(v[e]);
+          }
+        } else {
+          __nv_bfloat162* o =
+              reinterpret_cast<__nv_bfloat162*>(out + r * ld_out + c);
+          if constexpr (EPI == kStore || EPI == kBwdStore) {
+            *o = __floats2bfloat162_rn(v[0], v[1]);
+          } else if constexpr (EPI == kResidual) {
+            const float2 h = __bfloat1622float2(*o);
+            *o = __floats2bfloat162_rn(h.x + v[0], h.y + v[1]);
+          } else if constexpr (EPI == kGelu) {
+            *o = __floats2bfloat162_rn(gelu_tanh(v[0]), gelu_tanh(v[1]));
+          } else if constexpr (EPI == kFc1) {
+            *o = __floats2bfloat162_rn(v[0], v[1]);
+            *reinterpret_cast<__nv_bfloat162*>(out2 + r * ld_out + c) =
+                __floats2bfloat162_rn(gelu_tanh(v[0]), gelu_tanh(v[1]));
+          } else {  // kBwdGelu
+            const float2 f = __bfloat1622float2(*o);
+            *o = __floats2bfloat162_rn(v[0] * gelu_tanh_grad(f.x),
+                                       v[1] * gelu_tanh_grad(f.y));
+          }
+        }
+      }
+    }
+  }
+}
+
+// The weight and bias gradients of a dense layer over the tile's rows,
+// added into this block's fp32 scratch slice (the block's first tile
+// stores): pw[k, c] (+)= sum_r X[r, k] G[r, c] on the tensor cores, one
+// warp per 16 x 32 block of pw (A = X^T and B = G by ldmatrix.trans), and
+// pb[c] (+)= sum_r G[r, c] on the CUDA cores.  Each element is always
+// written by the same thread, so no atomics are needed.
+__device__ __noinline__ void mma_wgrad(const bf16* X, int ldx, int kd,
+                                       const bf16* G, int ldg, int n,
+                                       float* __restrict__ pw,
+                                       float* __restrict__ pb, bool first,
+                                       const Dims& dm) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, m8 = lane >> 3, l8 = lane & 7;
+  const int mtiles = (kd + 15) >> 4, ngroups = (n + 31) >> 5;
+  const int nk = dm.tile_pad >> 4;
+  for (int task = warp; task < mtiles * ngroups; task += kWarps) {
+    const int k0 = (task / ngroups) * 16, c0 = (task % ngroups) * 32;
+    const bool two = c0 + 16 < n;  // n-tiles 2 and 3 hold columns < n
+    // element i of n-tile q: row k0 + g + 8 (i >> 1), column c0 + 8q + 2t
+    // + (i & 1), as the accumulator fragment lays it out; the slice's old
+    // values are loaded before the products
+    float old[4][4], acc[4][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = k0 + g + 8 * (i >> 1), c = c0 + 8 * q + 2 * t + (i & 1);
+        old[q][i] = !first && k < kd && c < n ? pw[(long)k * n + c] : 0.0f;
+        acc[q][i] = 0.0f;
+      }
+    for (int s = 0; s < nk; ++s) {
+      uint32_t a[4], b[4];
+      // A[m][kk] = X[16s + kk][k0 + m]: matrix m8 holds rows 16s + 8 (m8
+      // >> 1) + l8, columns k0 + 8 (m8 & 1)
+      ldsm_x4_trans(a, X + (s * 16 + (m8 >> 1) * 8 + l8) * ldx + k0 +
+                           (m8 & 1) * 8);
+      // B[kk][c] = G[16s + kk][c0 + c]: matrix m8 holds rows 16s + 8 (m8
+      // & 1) + l8, columns c0 + 8 (m8 >> 1) (+ 16 for n-tiles 2, 3)
+      const bf16* gb = G + (s * 16 + (m8 & 1) * 8 + l8) * ldg + c0 +
+                       (m8 >> 1) * 8;
+      ldsm_x4_trans(b, gb);
+      mma_bf16(acc[0], a, b[0], b[1]);
+      mma_bf16(acc[1], a, b[2], b[3]);
+      if (two) {
+        ldsm_x4_trans(b, gb + 16);
+        mma_bf16(acc[2], a, b[0], b[1]);
+        mma_bf16(acc[3], a, b[2], b[3]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = k0 + g + 8 * (i >> 1), c = c0 + 8 * q + 2 * t + (i & 1);
+        if (k < kd && c < n) pw[(long)k * n + c] = old[q][i] + acc[q][i];
+      }
+  }
+  for (int c = threadIdx.x; c < n; c += blockDim.x) {
+    float s = 0.0f;
+#pragma unroll 8
+    for (int r = 0; r < dm.tile_pad; ++r) s += bf(G[r * ldg + c]);
+    pb[c] = first ? s : pb[c] + s;
+  }
+}
+
+// LayerNorm without affine and its backward: one warp per row, two rows at
+// a time, each lane holding the row's columns lane + 32 i (i < kLnVals) in
+// registers; fp32 mean and biased variance.
+struct LnRow {
+  float x[kLnVals];
+  float mean, inv;
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ void ln_stats(const bf16* row, int h, LnRow& ln) {
+  const int lane = threadIdx.x & 31;
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kLnVals; ++i) {
+    const int c = lane + 32 * i;
+    ln.x[i] = c < h ? bf(row[c]) : 0.0f;
+    s += ln.x[i];
+  }
+  ln.mean = warp_sum(s) / h;
+  float v = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kLnVals; ++i) {
+    const float d = ln.x[i] - ln.mean;
+    if (lane + 32 * i < h) v = fmaf(d, d, v);
+  }
+  ln.inv = rsqrtf(warp_sum(v) / h + 1e-5f);
+}
+
+// out = R(LN(in)) for the tile's rows.
+__device__ __noinline__ void layer_norm_tile(const bf16* in, bf16* out,
+                                             const Dims& dm) {
+  const int lane = threadIdx.x & 31, h = dm.hidden;
+  for (int r0 = (threadIdx.x >> 5) * 2; r0 < dm.tile_pad; r0 += 2 * kWarps) {
+    LnRow ln[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) ln_stats(in + (r0 + q) * dm.ld_h, h, ln[q]);
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int i = 0; i < kLnVals; ++i) {
+        const int c = lane + 32 * i;
+        if (c < h)
+          out[(r0 + q) * dm.ld_h + c] =
+              __float2bfloat16_rn((ln[q].x[i] - ln[q].mean) * ln[q].inv);
+      }
+  }
+}
+
+// Backward of LN without affine, from the forward's input x and the
+// output's (rounded) cotangent g: dx = inv * (g - mean(g) - xhat *
+// mean(g * xhat)), rounded; with RES it is added to gout (the residual
+// branch's gradient) and rounded again.
+template <bool RES>
+__device__ __noinline__ void layer_norm_bwd_tile(const bf16* x, const bf16* g,
+                                                 bf16* gout, const Dims& dm) {
+  const int lane = threadIdx.x & 31, h = dm.hidden;
+  for (int r0 = (threadIdx.x >> 5) * 2; r0 < dm.tile_pad; r0 += 2 * kWarps) {
+    LnRow ln[2];
+    float gr[2][kLnVals], mg[2], mgx[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) ln_stats(x + (r0 + q) * dm.ld_h, h, ln[q]);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      float sg = 0.0f, sgx = 0.0f;
+#pragma unroll
+      for (int i = 0; i < kLnVals; ++i) {
+        const int c = lane + 32 * i;
+        gr[q][i] = c < h ? bf(g[(r0 + q) * dm.ld_h + c]) : 0.0f;
+        if (c < h) {
+          sg += gr[q][i];
+          sgx = fmaf(gr[q][i], (ln[q].x[i] - ln[q].mean) * ln[q].inv, sgx);
+        }
+      }
+      mg[q] = warp_sum(sg) / h;
+      mgx[q] = warp_sum(sgx) / h;
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int i = 0; i < kLnVals; ++i) {
+        const int c = lane + 32 * i;
+        if (c < h) {
+          const float xhat = (ln[q].x[i] - ln[q].mean) * ln[q].inv;
+          const float d = rnd(ln[q].inv * (gr[q][i] - mg[q] - xhat * mgx[q]));
+          bf16* o = gout + (r0 + q) * dm.ld_h + c;
+          *o = __float2bfloat16_rn(RES ? bf(*o) + d : d);
+        }
+      }
+  }
+}
+
+// The attention runs on the CUDA cores, one thread per (head, row), with
+// the loops over a set's rows unrolled to MAXS (16 or 32: attention<>
+// picks the smaller that holds the set) so their values stay in registers,
+// and each thread's own row held in registers kChunk values at a time, so
+// that the other rows, which every thread of the set reads, are broadcasts.
+
+// dot[j] += sum_{d < hd} mine[d] * rows[j * ld + d] for j < S, in order of
+// d (mine: this thread's row; rows: the set's rows, read by all its
+// threads).
+template <int MAXS>
+__device__ __forceinline__ void set_dots(const bf16* mine, const bf16* rows,
+                                         int ld, int hd, int S,
+                                         float (&dot)[MAXS]) {
+  for (int d0 = 0; d0 < hd; d0 += kChunk) {
+    float v[kChunk];
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e)
+      v[e] = d0 + e < hd ? bf(mine[d0 + e]) : 0.0f;
+#pragma unroll
+    for (int j = 0; j < MAXS; ++j) {
+      if (j < S) {
+        const bf16* rj = rows + j * ld + d0;
+#pragma unroll
+        for (int e = 0; e < kChunk; ++e)
+          if (d0 + e < hd) dot[j] = fmaf(v[e], bf(rj[e]), dot[j]);
+      }
+    }
+  }
+}
+
+// The softmax row of query r in head hh: p[j] (fp32, unrounded) for j < S,
+// with its max and sum.
+template <int MAXS>
+__device__ __forceinline__ void attn_row(const bf16* qkv, int r, int hh,
+                                         const Dims& dm, float (&p)[MAXS],
+                                         float& mx, float& sum) {
+  const int H = dm.hidden, hd = H / dm.heads, S = dm.set_size;
+  const float inv_root = 1.0f / sqrtf((float)hd);
+#pragma unroll
+  for (int j = 0; j < MAXS; ++j) p[j] = 0.0f;
+  set_dots<MAXS>(qkv + r * dm.ld_big + hh * hd,
+                 qkv + (r / S) * S * dm.ld_big + H + hh * hd, dm.ld_big, hd,
+                 S, p);
+  mx = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < MAXS; ++j) {
+    if (j < S) {
+      p[j] = p[j] * inv_root;
+      mx = fmaxf(mx, p[j]);
+    }
+  }
+  sum = 0.0f;
+#pragma unroll
+  for (int j = 0; j < MAXS; ++j) {
+    if (j < S) {
+      p[j] = expf(p[j] - mx);
+      sum += p[j];
+    }
+  }
+  const float inv_sum = 1.0f / sum;
+#pragma unroll
+  for (int j = 0; j < MAXS; ++j)
+    if (j < S) p[j] = p[j] * inv_sum;
+}
+
+// out[d] = R(sum_{j < S} w[j] * rows[j * ld + d]) for d < hd.
+template <int MAXS>
+__device__ __forceinline__ void set_combine(const float (&w)[MAXS],
+                                            const bf16* rows, int ld, int hd,
+                                            int S, bf16* out) {
+  for (int d = 0; d < hd; ++d) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int j = 0; j < MAXS; ++j)
+      if (j < S) acc = fmaf(w[j], bf(rows[j * ld + d]), acc);
+    out[d] = __float2bfloat16_rn(acc);
+  }
+}
+
+// Attention within each set: the probabilities rounded before A.V, the
+// output rounded.
+template <int MAXS>
+__device__ __noinline__ void attention_tile(const bf16* qkv, bf16* out,
+                                            const Dims& dm) {
+  const int H = dm.hidden, nh = dm.heads, hd = H / nh, S = dm.set_size;
+  for (int item = threadIdx.x; item < dm.tile * nh; item += blockDim.x) {
+    const int hh = item / dm.tile;
+    const int r = item % dm.tile;
+    float p[MAXS], mx, sum;
+    attn_row<MAXS>(qkv, r, hh, dm, p, mx, sum);
+#pragma unroll
+    for (int j = 0; j < MAXS; ++j)
+      if (j < S) p[j] = rnd(p[j]);
+    set_combine<MAXS>(p, qkv + (r / S) * S * dm.ld_big + 2 * H + hh * hd,
+                      dm.ld_big, hd, S, out + r * dm.ld_h + hh * hd);
+  }
+}
+
+// Attention backward, phase 1: one thread per (head, query row).  Writes
+// the query gradient R(sum_j gl_ij / sqrt(hd) * k_j), with gl_ij = p_ij
+// (gP_ij - D_i), gP_ij = R(go_i . v_j) the cotangent of the rounded
+// probabilities and D_i = sum_j p_ij gP_ij, and keeps the row's max, sum
+// and D_i for phase 2.  Rows past the last whole set, and the columns
+// past 3H, get zeros.
+template <int MAXS>
+__device__ __noinline__ void attention_bwd_q(const bf16* qkv, const bf16* go,
+                                             bf16* gqkv, float* stats,
+                                             const Dims& dm) {
+  const int H = dm.hidden, nh = dm.heads, hd = H / nh, S = dm.set_size;
+  const float inv_root = 1.0f / sqrtf((float)hd);
+  const bf16 zero = __float2bfloat16_rn(0.0f);
+  const int wpad = dm.p_big - 3 * H;
+  if (wpad > 0)
+    for (int i = threadIdx.x; i < dm.tile_pad * wpad; i += blockDim.x)
+      gqkv[(i / wpad) * dm.ld_big + 3 * H + i % wpad] = zero;
+  for (int item = threadIdx.x; item < dm.tile_pad * nh;
+       item += blockDim.x) {
+    const int hh = item / dm.tile_pad;
+    const int r = item % dm.tile_pad;
+    bf16* gq = gqkv + r * dm.ld_big + hh * hd;
+    if (r >= dm.tile) {
+      for (int d = 0; d < hd; ++d) gq[d] = gq[H + d] = gq[2 * H + d] = zero;
+      continue;
+    }
+    const bf16* set = qkv + (r / S) * S * dm.ld_big;
+    float p[MAXS], mx, sum, gp[MAXS];
+    attn_row<MAXS>(qkv, r, hh, dm, p, mx, sum);
+#pragma unroll
+    for (int j = 0; j < MAXS; ++j) gp[j] = 0.0f;
+    set_dots<MAXS>(go + r * dm.ld_h + hh * hd, set + 2 * H + hh * hd,
+                   dm.ld_big, hd, S, gp);
+    float D = 0.0f;
+#pragma unroll
+    for (int j = 0; j < MAXS; ++j) {
+      if (j < S) {
+        gp[j] = rnd(gp[j]);
+        D = fmaf(p[j], gp[j], D);
+      }
+    }
+    // the softmax's backward, then the 1/sqrt(hd) scale of the logits
+#pragma unroll
+    for (int j = 0; j < MAXS; ++j)
+      if (j < S) gp[j] = p[j] * (gp[j] - D) * inv_root;
+    set_combine<MAXS>(gp, set + H + hh * hd, dm.ld_big, hd, S, gq);
+    float* st = stats + (hh * dm.tile_pad + r) * 3;
+    st[0] = mx;
+    st[1] = sum;
+    st[2] = D;
+  }
+}
+
+// Phase 2: one thread per (head, key row j): gk_j = R(sum_i gl_ij /
+// sqrt(hd) * q_i) and gv_j = R(sum_i R(p_ij) go_i), over the queries of
+// j's set, with p_ij recomputed from the row statistics of phase 1.
+template <int MAXS>
+__device__ __noinline__ void attention_bwd_kv(const bf16* qkv, const bf16* go,
+                                              bf16* gqkv, const float* stats,
+                                              const Dims& dm) {
+  const int H = dm.hidden, nh = dm.heads, hd = H / nh, S = dm.set_size;
+  const float inv_root = 1.0f / sqrtf((float)hd);
+  for (int item = threadIdx.x; item < dm.tile * nh; item += blockDim.x) {
+    const int hh = item / dm.tile;
+    const int j = item % dm.tile;
+    const int set0 = (j / S) * S;
+    float gl[MAXS], pq[MAXS];
+#pragma unroll
+    for (int ii = 0; ii < MAXS; ++ii) gl[ii] = pq[ii] = 0.0f;
+    // q_i . k_j and go_i . v_j for the set's queries i
+    set_dots<MAXS>(qkv + j * dm.ld_big + H + hh * hd,
+                   qkv + set0 * dm.ld_big + hh * hd, dm.ld_big, hd, S, gl);
+    set_dots<MAXS>(qkv + j * dm.ld_big + 2 * H + hh * hd,
+                   go + set0 * dm.ld_h + hh * hd, dm.ld_h, hd, S, pq);
+#pragma unroll
+    for (int ii = 0; ii < MAXS; ++ii) {
+      if (ii < S) {
+        const float* st = stats + (hh * dm.tile_pad + set0 + ii) * 3;
+        const float p = expf(gl[ii] * inv_root - st[0]) * (1.0f / st[1]);
+        gl[ii] = p * (rnd(pq[ii]) - st[2]) * inv_root;
+        pq[ii] = rnd(p);
+      }
+    }
+    bf16* gk = gqkv + j * dm.ld_big + H + hh * hd;
+    set_combine<MAXS>(gl, qkv + set0 * dm.ld_big + hh * hd, dm.ld_big, hd,
+                      S, gk);
+    set_combine<MAXS>(pq, go + set0 * dm.ld_h + hh * hd, dm.ld_h, hd, S,
+                      gk + H);
+  }
+}
+
+// The three attention passes at the smallest unroll that holds a set.
+__device__ __forceinline__ void attention(const bf16* qkv, bf16* out,
+                                          const Dims& dm) {
+  if (dm.set_size <= 16)
+    attention_tile<16>(qkv, out, dm);
+  else
+    attention_tile<kMaxSet>(qkv, out, dm);
+}
+
+__device__ __forceinline__ void attention_bwd(const bf16* qkv,
+                                              const bf16* go, bf16* gqkv,
+                                              float* stats, const Dims& dm) {
+  if (dm.set_size <= 16) {
+    attention_bwd_q<16>(qkv, go, gqkv, stats, dm);
+    __syncthreads();
+    attention_bwd_kv<16>(qkv, go, gqkv, stats, dm);
+  } else {
+    attention_bwd_q<kMaxSet>(qkv, go, gqkv, stats, dm);
+    __syncthreads();
+    attention_bwd_kv<kMaxSet>(qkv, go, gqkv, stats, dm);
+  }
+}
+
+// 16-byte copies and clears; every region is a multiple of 16 bytes and
+// 16-byte aligned.
+__device__ __forceinline__ void copy16(const void* src, void* dst,
+                                       int bytes) {
+  const uint4* s = static_cast<const uint4*>(src);
+  uint4* d = static_cast<uint4*>(dst);
+  for (int i = threadIdx.x; i < bytes / 16; i += blockDim.x) d[i] = s[i];
+}
+
+__device__ __forceinline__ void clear16(void* dst, int bytes) {
+  uint4* d = static_cast<uint4*>(dst);
+  for (int i = threadIdx.x; i < bytes / 16; i += blockDim.x)
+    d[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// A [tile_pad, ld] tile of a [rows, width] bf16 input, zero past valid
+// rows and past width.
+__device__ void load_rows(const bf16* __restrict__ src, long row0, int valid,
+                          int width, bf16* dst, int ld, const Dims& dm) {
+  const bf16 zero = __float2bfloat16_rn(0.0f);
+  for (int i = threadIdx.x; i < dm.tile_pad * ld; i += blockDim.x) {
+    const int r = i / ld, c = i % ld;
+    dst[i] = r < valid && c < width ? src[(row0 + r) * width + c] : zero;
+  }
+}
+
+// Shared-memory bytes of one block: the residual stream at each of the
+// layers + 1 block boundaries, five [tile, ld_h] buffers (gh, a, o, hm,
+// gs), qkv, a region for the MLP pair / the qkv gradient / g / x (all
+// bf16), and the fp32 softmax statistics.
+__host__ __device__ inline size_t smem_bytes(const Dims& dm) {
+  return 2 * (size_t)dm.tile_pad *
+             ((dm.layers + 6) * dm.ld_h + dm.ld_big + dm.ld_r2) +
+         4 * (size_t)dm.tile_pad * 3 * dm.heads;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+fused_set_transformer_bwd(const bf16* __restrict__ x,
+                          const bf16* __restrict__ g, PadWeights wt,
+                          bf16* __restrict__ dx, float* __restrict__ part,
+                          Dims dm) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int H = dm.hidden, RH = dm.mlp, L = dm.layers, OUT = dm.out_dim;
+  const int TP = dm.tile_pad, IN = dm.in_dim;
+  const int PH = dm.p_h, PB = dm.p_big, PF = dm.p_f;
+  const int hsz = TP * dm.ld_h;
+  bf16* hs = smem;                   // [L + 1] residual streams
+  bf16* gh = hs + (L + 1) * hsz;     // d loss / d h
+  bf16* a = gh + hsz;                // LN outputs
+  bf16* o = a + hsz;                 // attention output (rounded)
+  bf16* hm = o + hsz;                // h after the attention residual
+  bf16* gs = hm + hsz;               // ga, ga2, go, ga1
+  bf16* qkv = gs + hsz;              // [TP, ld_big]
+  bf16* r2 = qkv + TP * dm.ld_big;   // [TP, ld_r2]: f | m, gqkv, g, x
+  float* stats = reinterpret_cast<float*>(r2 + TP * dm.ld_r2);
+  bf16* f = r2;                      // [TP, ld_f] pre-gelu, then its grad
+  bf16* m = r2 + TP * dm.ld_f;       // [TP, ld_f] R(gelu(f))
+  const Offsets og = grad_offsets(dm);
+  float* pw = part + blockIdx.x * og.off[12];
+  const long ntiles = (dm.rows + dm.tile - 1) / dm.tile;
+
+  clear16(smem_raw, (int)smem_bytes(dm));
+  __syncthreads();
+  for (long t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const bool first = t == blockIdx.x;
+    const long row0 = t * dm.tile;
+    const long left = dm.rows - row0;
+    const int valid = left < dm.tile ? (int)left : dm.tile;
+
+    // 1. forward, keeping h at each block boundary
+    load_rows(x, row0, valid, IN, r2, dm.ld_x, dm);
+    __syncthreads();
+    mma_dense<kStore>(r2, dm.ld_x, dm.p_in, wt.wt[0], PH, H, wt.b[0], hs,
+                      dm.ld_h, nullptr, nullptr, valid, dm);
+    __syncthreads();
+    for (int l = 0; l < L; ++l) {
+      bf16* h = hs + (l + 1) * hsz;
+      copy16(hs + l * hsz, h, 2 * hsz);
+      __syncthreads();
+      layer_norm_tile(h, a, dm);
+      __syncthreads();
+      mma_dense<kStore>(a, dm.ld_h, PH, wt.wt[1] + (long)l * PB * PH, PB,
+                        3 * H, wt.b[1] + l * 3 * H, qkv, dm.ld_big, nullptr,
+                        nullptr, valid, dm);
+      __syncthreads();
+      attention(qkv, o, dm);
+      __syncthreads();
+      mma_dense<kResidual>(o, dm.ld_h, PH, wt.wt[2] + (long)l * PH * PH, PH,
+                           H, wt.b[2] + l * H, h, dm.ld_h, nullptr, nullptr,
+                           valid, dm);
+      __syncthreads();
+      layer_norm_tile(h, a, dm);
+      __syncthreads();
+      mma_dense<kGelu>(a, dm.ld_h, PH, wt.wt[3] + (long)l * PF * PH, PF, RH,
+                       wt.b[3] + l * RH, m, dm.ld_f, nullptr, nullptr, valid,
+                       dm);
+      __syncthreads();
+      mma_dense<kResidual>(m, dm.ld_f, PF, wt.wt[4] + (long)l * PH * PF, PH,
+                           H, wt.b[4] + l * H, h, dm.ld_h, nullptr, nullptr,
+                           valid, dm);
+      __syncthreads();
+    }
+
+    // 2. output layer: y = dense(R(LN(h_L)))
+    layer_norm_tile(hs + L * hsz, a, dm);
+    load_rows(g, row0, valid, OUT, r2, dm.ld_g, dm);
+    __syncthreads();
+    mma_wgrad(a, dm.ld_h, H, r2, dm.ld_g, OUT, pw + og.off[10],
+              pw + og.off[11], first, dm);
+    mma_dense<kBwdStore>(r2, dm.ld_g, dm.p_out, wt.w[5], PH, H, nullptr, gs,
+                         dm.ld_h, nullptr, nullptr, valid, dm);
+    __syncthreads();
+    layer_norm_bwd_tile<false>(hs + L * hsz, gs, gh, dm);
+    __syncthreads();
+
+    // 3. the blocks in reverse, each recomputed from its input h
+    for (int l = L - 1; l >= 0; --l) {
+      const bf16* h = hs + l * hsz;
+      layer_norm_tile(h, a, dm);
+      copy16(h, hm, 2 * hsz);
+      __syncthreads();
+      mma_dense<kStore>(a, dm.ld_h, PH, wt.wt[1] + (long)l * PB * PH, PB,
+                        3 * H, wt.b[1] + l * 3 * H, qkv, dm.ld_big, nullptr,
+                        nullptr, valid, dm);
+      __syncthreads();
+      attention(qkv, o, dm);
+      __syncthreads();
+      mma_dense<kResidual>(o, dm.ld_h, PH, wt.wt[2] + (long)l * PH * PH, PH,
+                           H, wt.b[2] + l * H, hm, dm.ld_h, nullptr, nullptr,
+                           valid, dm);
+      __syncthreads();
+      layer_norm_tile(hm, a, dm);
+      __syncthreads();
+      mma_dense<kFc1>(a, dm.ld_h, PH, wt.wt[3] + (long)l * PF * PH, PF, RH,
+                      wt.b[3] + l * RH, f, dm.ld_f, m, nullptr, valid, dm);
+      __syncthreads();
+      // MLP: h_out = R(hm + R(m @ W2 + b2)), m = R(gelu(f))
+      mma_wgrad(m, dm.ld_f, RH, gh, dm.ld_h, H,
+                pw + og.off[8] + (long)l * RH * H, pw + og.off[9] + l * H,
+                first, dm);
+      mma_dense<kBwdGelu>(gh, dm.ld_h, PH, wt.w[4] + (long)l * PF * PH, PF,
+                          RH, nullptr, f, dm.ld_f, nullptr, nullptr, valid,
+                          dm);
+      __syncthreads();
+      mma_wgrad(a, dm.ld_h, H, f, dm.ld_f, RH,
+                pw + og.off[6] + (long)l * H * RH, pw + og.off[7] + l * RH,
+                first, dm);
+      mma_dense<kBwdStore>(f, dm.ld_f, PF, wt.w[3] + (long)l * PH * PF, PH,
+                           H, nullptr, gs, dm.ld_h, nullptr, nullptr, valid,
+                           dm);
+      __syncthreads();
+      layer_norm_bwd_tile<true>(hm, gs, gh, dm);
+      __syncthreads();
+      // attention: hm = R(h + R(o @ Wp + bp))
+      mma_wgrad(o, dm.ld_h, H, gh, dm.ld_h, H,
+                pw + og.off[4] + (long)l * H * H, pw + og.off[5] + l * H,
+                first, dm);
+      mma_dense<kBwdStore>(gh, dm.ld_h, PH, wt.w[2] + (long)l * PH * PH, PH,
+                           H, nullptr, gs, dm.ld_h, nullptr, nullptr, valid,
+                           dm);
+      layer_norm_tile(h, a, dm);  // a1 again, for the qkv weights
+      __syncthreads();
+      attention_bwd(qkv, gs, r2, stats, dm);
+      __syncthreads();
+      mma_wgrad(a, dm.ld_h, H, r2, dm.ld_big, 3 * H,
+                pw + og.off[2] + (long)l * H * 3 * H,
+                pw + og.off[3] + l * 3 * H, first, dm);
+      mma_dense<kBwdStore>(r2, dm.ld_big, PB, wt.w[1] + (long)l * PH * PB,
+                           PH, H, nullptr, gs, dm.ld_h, nullptr, nullptr,
+                           valid, dm);
+      __syncthreads();
+      layer_norm_bwd_tile<true>(h, gs, gh, dm);
+      __syncthreads();
+    }
+
+    // 4. embed: h_0 = R(x @ We + be)
+    load_rows(x, row0, valid, IN, r2, dm.ld_x, dm);
+    __syncthreads();
+    mma_wgrad(r2, dm.ld_x, IN, gh, dm.ld_h, H, pw + og.off[0],
+              pw + og.off[1], first, dm);
+    mma_dense<kBwdGlobal>(gh, dm.ld_h, PH, wt.w[0], dm.p_in, IN, nullptr,
+                          nullptr, 0, nullptr, dx + row0 * IN, valid, dm);
+    __syncthreads();
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Backward in bf16: x [rows, in] and g [rows, out] in bf16; writes dx
+// [rows, in] (bf16) and the 12 fp32 weight gradients, flat in
+// flatten_params order (the matrices' rounded to bf16), to dw.  w holds 12
+// bf16 matrices: the 6 forward layouts W^T [pad(n), pad(kd)], then the 6
+// input-gradient layouts W [pad(kd), pad(n)] (embed, qkv, proj, fc1, fc2,
+// out; layer-stacked; zero-padded to multiples of 16); b the 6 fp32
+// biases.  part is fp32 scratch of grid x (the size of dw); grid (<= the
+// number of tiles) is the number of persistent blocks.
+int fused_set_transformer_bwd_bf16(const void* x, const void* g,
+                                   const void* const* w,
+                                   const float* const* b, void* dx,
+                                   float* part, float* dw, long rows,
+                                   int set_size, int in_dim, int hidden,
+                                   int heads, int layers, int mlp,
+                                   int out_dim, int grid, void* stream) {
+  if (set_size < 1 || set_size > kMaxSet || heads < 1 || hidden % heads ||
+      hidden > 32 * kLnVals || grid < 1 || rows % set_size)
+    return (int)cudaErrorInvalidValue;
+  Dims dm;
+  dm.rows = rows;
+  dm.set_size = set_size;
+  dm.in_dim = in_dim;
+  dm.hidden = hidden;
+  dm.heads = heads;
+  dm.layers = layers;
+  dm.mlp = mlp;
+  dm.out_dim = out_dim;
+  dm.p_in = pad16(in_dim);
+  dm.p_h = pad16(hidden);
+  dm.p_big = pad16(3 * hidden);
+  dm.p_f = pad16(mlp);
+  dm.p_out = pad16(out_dim);
+  // a multiple of 16 elements plus 8: ldmatrix's 16-byte rows at an odd
+  // multiple of 16 bytes apart fall in distinct banks
+  dm.ld_h = dm.p_h + 8;
+  dm.ld_big = dm.p_big + 8;
+  dm.ld_f = dm.p_f + 8;
+  dm.ld_g = dm.p_out + 8;
+  dm.ld_x = dm.p_in + 8;
+  int r2 = 2 * dm.ld_f;
+  if (dm.ld_big > r2) r2 = dm.ld_big;
+  if (dm.ld_g > r2) r2 = dm.ld_g;
+  if (dm.ld_x > r2) r2 = dm.ld_x;
+  dm.ld_r2 = r2;
+  int dev = 0, max_smem = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  // 64-row tiles, or 32-row ones where a net too wide or deep for 64 rows
+  // (not the flagship) would not fit in shared memory
+  size_t smem = 0;
+  for (int target = kTileTarget; target >= kTileTarget / 2; target /= 2) {
+    dm.tile = (target >= set_size ? target / set_size : 1) * set_size;
+    dm.tile_pad = pad16(dm.tile);
+    smem = smem_bytes(dm);
+    if (smem <= (size_t)max_smem) break;
+  }
+  if (rows == 0) return (int)cudaSuccess;
+  const long ntiles = (rows + dm.tile - 1) / dm.tile;
+  if (grid > ntiles) return (int)cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(
+      fused_set_transformer_bwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  PadWeights wt;
+  for (int j = 0; j < 6; ++j) {
+    wt.wt[j] = (const bf16*)w[j];
+    wt.w[j] = (const bf16*)w[6 + j];
+    wt.b[j] = b[j];
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  fused_set_transformer_bwd<<<grid, kThreads, smem, s>>>(
+      (const bf16*)x, (const bf16*)g, wt, (bf16*)dx, part, dm);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const Offsets og = grad_offsets(dm);
+  reduce_wgrad<bf16><<<(unsigned)((og.off[12] + kThreads - 1) / kThreads),
+                       kThreads, 0, s>>>(part, grid, og, dw);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -2,14 +2,16 @@
 
 Each ``csrc/<name>.cu`` is compiled on first use into a shared library with
 a plain C interface, ``_build/<name>-<hash>.so`` beside the package (the
-directory is git-ignored).  The hash covers the source and the flags, so an
-edited source is rebuilt and an unchanged one is reused.  Nothing here runs
+directory is git-ignored).  The hash covers the source, every header of
+``csrc/`` and the flags, so an edited source or header is rebuilt and an
+unchanged one is reused.  Nothing here runs
 at import time: the CPU tests import every module of the package.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -40,9 +42,16 @@ def _nvcc() -> str:
 
 def _target(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src, *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+
+
+def library_path(name: str) -> str:
+    """Where ``csrc/<name>.cu``'s library is (or will be) built."""
+    return _target(name)[1]
 
 
 def _start(name: str):

@@ -1,5 +1,6 @@
-"""Wrappers of the fused SetTransformer kernels
-(``csrc/fused_transformer.cu``): the forward (#3) and its backward (#4).
+"""Wrappers of the fused SetTransformer kernels: the forward (#3,
+``csrc/fused_transformer.cu``) and its backward (#4: in fp32 in the same
+file, in bf16 the tensor-core kernel of ``csrc/fused_transformer_bwd.cu``).
 
 Counterparts of ``_fused_fwd`` and ``_fused_bwd`` in
 ``categoricalnf_tpu/ops/pallas/fused_transformer.py``.  The kernels' plain
@@ -7,9 +8,10 @@ version is the unfused path of ``networks.transformer.SetTransformer``
 (``plain_forward``, and autograd through it), which every CPU tensor takes;
 these wrappers take CUDA tensors only and raise on what the kernels do not
 take.  ``PackedWeights`` checks and casts the weights once, so a launch does
-neither.  ``FusedSetTransformer`` ties the two kernels together for
-autograd, as ``defvjp`` does in the reference.  ``LAUNCHES`` and
-``BWD_LAUNCHES`` count launches by compute dtype.
+neither; the bf16 backward's padded operand layouts (``padded_layouts``) are
+made from it on first use.  ``FusedSetTransformer`` ties the two kernels
+together for autograd, as ``defvjp`` does in the reference.  ``LAUNCHES``
+and ``BWD_LAUNCHES`` count launches by compute dtype.
 """
 
 from __future__ import annotations
@@ -22,9 +24,11 @@ import torch
 from categoricalnf_tpu_torch.ops.cuda import build
 
 # Must agree with csrc/fused_transformer.cu (kMaxSet, kTileTarget,
-# kRowsPerThread) and the H100's 227 KB of shared memory per block.
+# kRowsPerThread), csrc/fused_transformer_bwd.cu (kTileTarget, 16-row
+# m-tiles) and the H100's 227 KB of shared memory per block.
 MAX_SET = 32
 TILE_TARGET = 32
+BWD_TILE_TARGET = 64  # bf16; fp32 takes TILE_TARGET
 ROWS_PER_THREAD = 8
 MAX_SMEM = 232_448
 # an H100 SM's shared memory, of which the runtime reserves 1 KB a block
@@ -36,8 +40,11 @@ BWD_LAUNCHES = {"bfloat16": 0, "float32": 0}
 
 _ENTRY = {torch.bfloat16: ("fused_set_transformer_fwd_bf16", "bfloat16"),
           torch.float32: ("fused_set_transformer_fwd_f32", "float32")}
-_BWD_ENTRY = {torch.bfloat16: "fused_set_transformer_bwd_bf16",
-              torch.float32: "fused_set_transformer_bwd_f32"}
+# (source, entry point) of the backward
+_BWD_ENTRY = {torch.bfloat16: ("fused_transformer_bwd",
+                               "fused_set_transformer_bwd_bf16"),
+              torch.float32: ("fused_transformer",
+                              "fused_set_transformer_bwd_f32")}
 
 
 def flatten_params(net) -> tuple:
@@ -63,28 +70,79 @@ def smem_bytes(set_size: int, in_dim: int, hidden: int, mlp: int) -> int:
     return 4 * tile_pad * (2 * (hidden + 1) + ld_big)
 
 
-def _tile(set_size: int) -> tuple[int, int]:
-    tile = max(1, TILE_TARGET // set_size) * set_size
-    return tile, -(-tile // ROWS_PER_THREAD) * ROWS_PER_THREAD
+def _tile(set_size: int, target: int = TILE_TARGET,
+          pad: int = ROWS_PER_THREAD) -> tuple[int, int]:
+    tile = max(1, target // set_size) * set_size
+    return tile, -(-tile // pad) * pad
 
 
-def bwd_smem_bytes(set_size: int, in_dim: int, hidden: int, mlp: int,
-                   out_dim: int, heads: int, layers: int) -> int:
-    """Dynamic shared memory of one backward block, as the kernel computes
-    it: the residual stream at each of the layers + 1 block boundaries,
+def pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def bwd_shape(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
+              mlp: int, out_dim: int, heads: int,
+              layers: int) -> tuple[int, int]:
+    """(rows of a tile, dynamic shared memory of one block) of the backward,
+    as the kernel picks them.  bf16: whole sets up to 64 rows, padded to
+    16-row m-tiles, rows of bf16 a multiple of 16 plus 8 wide; 32-row tiles
+    where 64 do not fit (nets wider or deeper than the flagship).  fp32:
+    up to 32 rows padded to 8, rows one float wider than the data.  Both
+    hold the residual stream at each of the layers + 1 block boundaries,
     five [tile, H] buffers, qkv, a region for the MLP pair / the qkv
-    gradient / g, and the softmax statistics."""
-    _, tile_pad = _tile(set_size)
-    ld_h, ld_big, ld_f = hidden + 1, 3 * hidden + 1, mlp + 1
-    ld_r2 = max(2 * ld_f, ld_big, out_dim + 1, in_dim)
-    return 4 * tile_pad * ((layers + 6) * ld_h + ld_big + ld_r2 + 3 * heads)
+    gradient / g / x, and the fp32 softmax statistics."""
+    if dtype != torch.bfloat16:
+        tile, tile_pad = _tile(set_size)
+        ld_h, ld_big, ld_f = hidden + 1, 3 * hidden + 1, mlp + 1
+        ld_r2 = max(2 * ld_f, ld_big, out_dim + 1, in_dim)
+        return tile, 4 * tile_pad * ((layers + 6) * ld_h + ld_big + ld_r2
+                                     + 3 * heads)
+    ld_h, ld_big, ld_f = (pad16(n) + 8 for n in (hidden, 3 * hidden, mlp))
+    ld_r2 = max(2 * ld_f, ld_big, pad16(out_dim) + 8, pad16(in_dim) + 8)
+    for target in (BWD_TILE_TARGET, BWD_TILE_TARGET // 2):
+        tile, tile_pad = _tile(set_size, target, 16)
+        smem = (2 * tile_pad * ((layers + 6) * ld_h + ld_big + ld_r2)
+                + 4 * tile_pad * 3 * heads)
+        if smem <= MAX_SMEM:
+            break
+    return tile, smem
 
 
-def bwd_grid(rows: int, set_size: int, smem: int, sms: int) -> int:
+def bwd_blocks_per_sm(smem: int) -> int:
+    return max(1, SMEM_PER_SM // (smem + 1024))
+
+
+def bwd_grid(rows: int, tile: int, smem: int, sms: int) -> int:
     """Persistent blocks of the backward: as many as fit on the card at
     once, never more than there are tiles."""
-    tiles = -(-rows // _tile(set_size)[0])
-    return max(1, min(tiles, sms * max(1, SMEM_PER_SM // (smem + 1024))))
+    return max(1, min(-(-rows // tile), sms * bwd_blocks_per_sm(smem)))
+
+
+def padded_layouts(mats) -> list:
+    """The bf16 backward's operand layouts of the weights ``mats`` (each W
+    [..., kd, n], any device, in the compute dtype), zero-padded to
+    multiples of 16: the 6 forward layouts W^T [..., pad16(n), pad16(kd)],
+    the B operands of the products x @ W, then the 6 input-gradient layouts
+    W [..., pad16(kd), pad16(n)], those of g @ W^T.  Each is contiguous,
+    rows along the output, so a tensor-core fragment reads two neighbouring
+    contraction values at once.  They are views of one zeroed buffer: one
+    fill, and one copy a layout."""
+    shapes = []
+    for w in mats:
+        *lead, kd, n = w.shape
+        shapes.append(((*lead, pad16(n), pad16(kd)),
+                       (*lead, pad16(kd), pad16(n))))
+    fwd_shapes, bwd_shapes = zip(*shapes)
+    shapes = list(fwd_shapes + bwd_shapes)
+    sizes = [math.prod(shape) for shape in shapes]
+    buf = torch.zeros(sum(sizes), dtype=mats[0].dtype,
+                      device=mats[0].device)
+    views = [v.view(shape) for v, shape in zip(buf.split(sizes), shapes)]
+    for w, fwd, bwd in zip(mats, views[:len(mats)], views[len(mats):]):
+        kd, n = w.shape[-2:]
+        fwd[..., :n, :kd].copy_(w.detach().transpose(-1, -2))
+        bwd[..., :kd, :n].copy_(w.detach())
+    return views
 
 
 def supported(x, cond, mask, hidden_dim: int, num_heads: int,
@@ -99,20 +157,21 @@ def supported(x, cond, mask, hidden_dim: int, num_heads: int,
                       mlp_ratio * hidden_dim) <= MAX_SMEM
 
 
-def _lib():
-    lib = build.load("fused_transformer")
-    if not getattr(lib, "_cnf_typed", False):
-        p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-        for name, _ in _ENTRY.values():
-            fn = getattr(lib, name)
-            fn.argtypes = [p, p, p, p, l, i, i, i, i, i, i, i, p]
-            fn.restype = i
-        for name in _BWD_ENTRY.values():
-            fn = getattr(lib, name)
-            fn.argtypes = [p, p, p, p, p, p, p, l, i, i, i, i, i, i, i, i, p]
-            fn.restype = i
-        lib._cnf_typed = True
-    return lib
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+_FWD_ARGS = [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P]
+_BWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I,
+             _P]
+_fns: dict = {}
+
+
+def _fn(source: str, name: str, argtypes):
+    """Entry point ``name`` of ``csrc/<source>.cu``, typed on first use."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(build.load(source), name)
+        fn.argtypes, fn.restype = argtypes, _I
+        _fns[name] = fn
+    return fn
 
 
 class PackedWeights:
@@ -159,6 +218,21 @@ class PackedWeights:
                                               for t in self.mats))
         self.b_ptrs = (ctypes.c_void_p * 6)(*(t.data_ptr()
                                               for t in self.biases))
+        self._bwd_ptrs = None
+
+    def bwd_w_ptrs(self):
+        """The pointers the backward takes as its matrices: in fp32 the 6
+        cast matrices; in bf16 the 6 forward layouts W^T, then the 6
+        input-gradient layouts W (``padded_layouts``), made on first use
+        and kept with the pack (serving never makes them)."""
+        if self.dtype != torch.bfloat16:
+            return self.w_ptrs
+        if self._bwd_ptrs is None:
+            with torch.no_grad():
+                self.bwd_mats = padded_layouts(self.mats)
+            self._bwd_ptrs = (ctypes.c_void_p * 12)(*(t.data_ptr()
+                                                      for t in self.bwd_mats))
+        return self._bwd_ptrs
 
 
 def _check_x(packed: PackedWeights, x, num_heads: int, what: str):
@@ -184,7 +258,7 @@ def _forward_launch(packed: PackedWeights, x, num_heads: int):
     name, key = _ENTRY[packed.dtype]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(_lib(), name)(
+        err = _fn("fused_transformer", name, _FWD_ARGS)(
             x2.data_ptr(), packed.w_ptrs, packed.b_ptrs, y.data_ptr(), B * S,
             S, in_dim, packed.hidden, num_heads, packed.layers, packed.mlp,
             packed.out_dim, stream)
@@ -219,7 +293,7 @@ def fused_set_transformer_bwd(packed: PackedWeights, x, g, *,
                          f"{tuple(g.shape)} on {g.device}, want "
                          f"{(B, S, packed.out_dim)} on {x.device}")
     H, L, RH, OUT = packed.hidden, packed.layers, packed.mlp, packed.out_dim
-    smem = bwd_smem_bytes(S, in_dim, H, RH, OUT, num_heads, L)
+    tile, smem = bwd_shape(packed.dtype, S, in_dim, H, RH, OUT, num_heads, L)
     if smem > MAX_SMEM:
         raise ValueError(f"fused SetTransformer backward: a tile needs "
                          f"{smem} bytes of shared memory, over {MAX_SMEM}")
@@ -228,15 +302,16 @@ def fused_set_transformer_bwd(packed: PackedWeights, x, g, *,
     sizes = [math.prod(shape) for shape in packed.shapes]
     total = sum(sizes)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    grid = bwd_grid(B * S, S, smem, sms)
+    grid = bwd_grid(B * S, tile, smem, sms)
     dx = torch.empty_like(x2)
     part = torch.empty(grid, total, dtype=torch.float32, device=x.device)
     dw = torch.empty(total, dtype=torch.float32, device=x.device)
-    name = _BWD_ENTRY[packed.dtype]
+    source, name = _BWD_ENTRY[packed.dtype]
+    w_ptrs = packed.bwd_w_ptrs()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(_lib(), name)(
-            x2.data_ptr(), g2.data_ptr(), packed.w_ptrs, packed.b_ptrs,
+        err = _fn(source, name, _BWD_ARGS)(
+            x2.data_ptr(), g2.data_ptr(), w_ptrs, packed.b_ptrs,
             dx.data_ptr(), part.data_ptr(), dw.data_ptr(), B * S, S, in_dim,
             H, num_heads, L, RH, OUT, grid, stream)
     build.check(err, name)

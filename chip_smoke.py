@@ -6,7 +6,9 @@ Run from the root of a checkout on a machine with one NVIDIA card:
     python3 chip_smoke.py [--seed 0]
 
 1. Prints the card's name and power limit and builds every CUDA kernel
-   (one nvcc per source, started together).
+   (one nvcc per source, started together), printing ptxas's registers
+   and spills of each; checks that the bf16 backward's SASS holds
+   tensor-core (HMMA) instructions.
 2. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it (a 1024-sample chunk; the
    fp32 net and a second mixture forward at eval_bpd's 1024 sets x 4
@@ -24,7 +26,9 @@ Run from the root of a checkout on a machine with one NVIDIA card:
    steps through the port's Trainer (evals at 100 and 200): finite losses,
    the best bpd 0.2 bits/var below the untrained one and above the
    optimum, no integrity alarm, every training kernel launched; prints
-   set_shuffling_train_samples_per_s over steps 101-200; serves the run.
+   set_shuffling_train_samples_per_s over steps 101-200; then traces 10
+   more train steps with torch.profiler (the device's busy time a step by
+   kernel, its idle share); serves the run.
 5. One fp32 train step of the flagship (64 sets) on the card against a CPU
    copy: every parameter's gradient within 1e-3 relative; against the
    plain path on the card within KERNELS_VS_PLAIN_CARD, a limit below what
@@ -398,16 +402,19 @@ def check_fused_bwd(device, gen, report):
         n_w = sum(w.numel() for w in ws[0::2])
         n_b = sum(b.numel() for b in ws[1::2])
         macs = rows * net_macs_per_row(D, H, HEADS, 2, 2 * H, OUT, S)
+        tile, smem = ft.bwd_shape(tdt, S, D, H, 2 * H, OUT, HEADS, 2)
+        grid = ft.bwd_grid(rows, tile, smem, torch.cuda
+                           .get_device_properties(device)
+                           .multi_processor_count)
         report[name] = dict(
             max_abs_err=max(max_err(a, w) for a, w in zip(got, want)),
             rel_err=max(errs), rows=rows, **t,
             bytes=(rows * (2 * D + OUT) * elt + n_w * elt + n_b * 4
                    + (n_w + n_b) * 4),
             ops=3 * 2 * macs, dtype=cd,
-            scratch_mb=ft.bwd_grid(rows, S, ft.bwd_smem_bytes(
-                S, D, H, 2 * H, OUT, HEADS, 2), torch.cuda
-                .get_device_properties(device).multi_processor_count)
-            * (n_w + n_b) * 4 / 2**20)
+            scratch_mb=grid * (n_w + n_b) * 4 / 2**20,
+            tile=tile, smem=smem, grid=grid,
+            blocks_per_sm=ft.bwd_blocks_per_sm(smem))
 
 
 def http_json(port, method, path, body=None):
@@ -579,6 +586,65 @@ def read_launches() -> dict:
 
 
 TRAIN_STEPS, TRAIN_EVAL_EVERY, TRAIN_LOG_EVERY = 200, 100, 20
+# train steps traced after the measured run: untraced warm-up, then traced
+PROFILE_WARMUP, PROFILE_STEPS = 5, 10
+
+
+def profile_steps(task, optimizer, seed: int) -> dict:
+    """Traces the card's kernels (torch.profiler, CUDA activity only) over
+    PROFILE_STEPS train steps of the trained model after PROFILE_WARMUP
+    untraced ones: the Trainer's step (batch to the card, loss, backward,
+    clip and update, a fresh optimizer), run after the measured training
+    so that the profiler cannot slow the steps the metric reads.  Gives
+    the wall ms a step (a synchronize at both ends), the device's busy ms a
+    step (the kernels' and copies' durations summed: one stream, so they do
+    not overlap), its idle share, and the busy time by kernel group and by
+    the largest kernels."""
+    import numpy as np
+    import torch
+    from categoricalnf_tpu_torch.data.prefetch import to_device
+    from categoricalnf_tpu_torch.training.state import TrainState
+
+    state = TrainState.create(task.model, optimizer)
+    batches = task.train_batches(np.random.default_rng(seed + 11))
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    for i in range(PROFILE_WARMUP + PROFILE_STEPS):
+        if i == PROFILE_WARMUP:
+            torch.cuda.synchronize()
+            prof.__enter__()
+            t0 = time.perf_counter()
+        loss = task.loss(to_device(next(batches), task.device), 1.0)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.apply_gradients()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+    prof.__exit__(None, None, None)
+    kernels: dict = {}
+    for evt in prof.key_averages():
+        if str(evt.device_type).endswith("CUDA"):
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = evt.self_cuda_time_total
+            kernels[evt.key] = kernels.get(evt.key, 0.0) + us / 1e3
+    if not kernels:
+        return {"measured": False, "error": "no device time in the trace"}
+    groups: dict = {}
+    for name, ms in kernels.items():
+        group = next((g for g in ("fused_set_transformer_bwd",
+                                  "fused_set_transformer_fwd", "reduce_wgrad",
+                                  "mixture_forward_bwd", "mixture_forward")
+                      if g in name), "plain torch")
+        groups[group] = groups.get(group, 0.0) + ms / PROFILE_STEPS
+    busy = sum(kernels.values()) / PROFILE_STEPS
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    return {"measured": True, "steps": PROFILE_STEPS,
+            "wall_ms_per_step": wall, "device_busy_ms_per_step": busy,
+            "device_idle_share": 1.0 - busy / wall,
+            "groups_ms_per_step": dict(sorted(groups.items())),
+            "top_kernels_ms_per_step": [[k[:80], ms / PROFILE_STEPS]
+                                        for k, ms in top]}
 
 
 def train_flagship(seed: int, timings: dict, card: str,
@@ -669,6 +735,7 @@ def train_flagship(seed: int, timings: dict, card: str,
             check(launches[name] > 0, f"kernel {name} was not launched "
                   "while training")
 
+        timings["step_profile"] = profile_steps(task, tcfg.optimizer, seed)
         # the host cost of recasting the weights after an optimizer step
         nets = [m for m in task.model.modules()
                 if isinstance(m, SetTransformer)]
@@ -808,6 +875,19 @@ def check_train_step_against_cpu(seed: int, report: dict) -> dict:
     return launches
 
 
+def tensor_core_instructions(source: str) -> int:
+    """HMMA instructions in the SASS of ``csrc/<source>.cu``'s library, as
+    ``cuobjdump -sass`` lists them."""
+    from categoricalnf_tpu_torch.ops.cuda import build
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    out = subprocess.run(
+        [os.path.join(cuda_home, "bin", "cuobjdump"), "-sass",
+         build.library_path(source)], capture_output=True, text=True,
+        timeout=300, check=True).stdout
+    return sum(1 for line in out.splitlines() if "HMMA" in line)
+
+
+SOURCE_NAMES = ["mixture", "fused_transformer", "fused_transformer_bwd"]
 SOURCES = {
     "mixture_inverse": ("categoricalnf_tpu_torch/csrc/mixture.cu",
                         "categoricalnf_tpu/ops/pallas/mixture.py:137"),
@@ -824,7 +904,7 @@ SOURCES = {
     "mixture_forward_bwd": ("categoricalnf_tpu_torch/csrc/mixture.cu",
                             "categoricalnf_tpu/ops/pallas/mixture.py:196"),
     "fused_set_transformer_bwd_bf16": (
-        "categoricalnf_tpu_torch/csrc/fused_transformer.cu",
+        "categoricalnf_tpu_torch/csrc/fused_transformer_bwd.cu",
         "categoricalnf_tpu/ops/pallas/fused_transformer.py:303"),
     "fused_set_transformer_bwd_f32": (
         "categoricalnf_tpu_torch/csrc/fused_transformer.cu",
@@ -860,12 +940,17 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)  # name, power limit: as nvidia-smi gives them
     t0 = time.perf_counter()
-    logs = build.build_all(["mixture", "fused_transformer"])
+    logs = build.build_all(SOURCE_NAMES)
     print(f"built kernels in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("entry function", "registers", "spill",
+                                       "error")):
                 print(f"  {name}: {line.strip()}", flush=True)
+    hmma = tensor_core_instructions("fused_transformer_bwd")
+    print(f"fused_set_transformer_bwd_bf16: {hmma} HMMA instructions in the "
+          "SASS of fused_transformer_bwd.cu", flush=True)
+    check(hmma > 0, "the bf16 backward has no tensor-core instruction")
 
     device = resolve_device("cuda")
     gen = torch.Generator(device).manual_seed(args.seed)
@@ -887,7 +972,9 @@ def main() -> int:
               f"{r['max_abs_err']:.3g}"
               + (f", relative error {r['rel_err']:.3g}" if "rel_err" in r
                  else "")
-              + (f", scratch {r['scratch_mb']:.1f} MB" if "scratch_mb" in r
+              + (f", scratch {r['scratch_mb']:.1f} MB, tile {r['tile']} "
+                 f"rows, {r['smem']} B of shared memory, {r['blocks_per_sm']}"
+                 f" block(s) an SM, grid {r['grid']}" if "scratch_mb" in r
                  else ""), flush=True)
 
     timings: dict = {}

@@ -230,6 +230,43 @@ def test_fused_bwd_is_deterministic(dev):
     assert all(torch.equal(a, b) for a, b in zip(one[1], two[1]))
 
 
+@pytest.mark.parametrize("b,s,hidden,heads", [(4, 32, 96, 4), (7, 16, 96, 4),
+                                              (11, 6, 24, 4), (3, 32, 48, 2)])
+def test_fused_bwd_bf16_tile_edges(dev, b, s, hidden, heads):
+    """The bf16 tensor-core backward at the edges of its 64-row tiles, to
+    3% of each tensor's norm of autograd through plain_forward: S=32 (two
+    sets a tile), 112 and 96 rows (a ragged last tile), and 66 rows of S=6
+    (60-row tiles padded to 64, the last holding one set)."""
+    net = _net("bfloat16", dev, hidden, heads)
+    g = torch.Generator(dev).manual_seed(5)
+    x = torch.randn(b, s, 4, generator=g, device=dev)
+    wy = torch.randn(b, s, 104, generator=g, device=dev)
+    n = ft.BWD_LAUNCHES["bfloat16"]
+    got = _net_grads(net, x, wy, plain=False)
+    want = _net_grads(net, x, wy, plain=True)
+    torch.cuda.synchronize()
+    assert ft.BWD_LAUNCHES["bfloat16"] == n + 1
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and a.dtype == w.dtype
+        assert _rel(a, w) <= 0.03
+    assert all(float(a.abs().max()) > 0 for a in got)
+
+
+def test_fused_bwd_bf16_is_deterministic_at_the_training_shape(dev):
+    """Two calls at a flagship train step's 16,384 rows are bitwise equal."""
+    net = _net("bfloat16", dev)
+    g = torch.Generator(dev).manual_seed(6)
+    x = torch.randn(1024, 16, 4, generator=g, device=dev)
+    gy = torch.randn(1024, 16, 104, generator=g, device=dev).bfloat16()
+    packed = net._packed_weights(torch.bfloat16)
+    one = ft.fused_set_transformer_bwd(packed, x, gy, num_heads=4)
+    two = ft.fused_set_transformer_bwd(packed, x, gy, num_heads=4)
+    torch.cuda.synchronize()
+    assert torch.equal(one[0], two[0])
+    assert all(torch.equal(a, b) for a, b in zip(one[1], two[1]))
+    assert all(float(a.abs().max()) > 0 for a in one[1])
+
+
 def _mix_grads(x, pi, mu, ls, gy, gl, kernel):
     ins = [t.detach().clone().requires_grad_(True) for t in (x, pi, mu, ls)]
     fn = cm.mixture_forward_cuda if kernel else nm.mixture_logit_cdf_and_ldj
