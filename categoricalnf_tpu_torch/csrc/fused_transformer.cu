@@ -1,7 +1,7 @@
-// Fused SetTransformer forward and backward for Hopper (sm_90a).  The
-// backward (kernel #4) is described where it starts, further down; this
-// file builds it in fp32 only, and the bf16 backward is the tensor-core
-// kernel of fused_transformer_bwd.cu.
+// Fused SetTransformer forward and backward for Hopper (sm_90a), in fp32:
+// the eval_model twin's forward (kernel #3) and the fp32 backward (kernel
+// #4, described where it starts, further down).  The bf16 forward and
+// backward are the tensor-core kernels of fused_transformer_bf16.cu.
 //
 // Replaces the TPU kernel categoricalnf_tpu/ops/pallas/fused_transformer.py
 // _fused_fwd (body _fwd_kernel -> _net_forward): the whole coupling net,
@@ -10,10 +10,10 @@
 // tile of whole sets.
 //
 // Bound on an H100.  At the flagship width (H=96, 4 heads, 2 blocks, S=16,
-// in 4, out 104) the net does about 164k multiply-adds a row, 5.4 GFLOP at
-// 16,384 rows, while it reads 16 B and writes 208 B a row in bf16 plus
-// 0.3 MB of weights: it is bound by operations (989 TFLOP/s bf16 on the
-// tensor cores, 67 TFLOP/s fp32 without them), not by bytes.
+// in 4, out 104) the net does about 164k multiply-adds a row, 21.5 GFLOP at
+// eval_bpd's 65,536 rows, while it reads 16 B and writes 416 B a row in
+// fp32 plus 0.6 MB of weights: it is bound by operations (67 TFLOP/s fp32
+// without the tensor cores), not by bytes.
 //
 // Design (first, simple version).  One block of 256 threads per tile of
 // whole sets (32 rows at S=16); no row is carried across blocks and the
@@ -21,19 +21,17 @@
 // memory for the whole net (h, an LN/attention buffer, and one buffer for
 // qkv or the MLP hidden layer: 62 KB at the flagship tile), so the only
 // device-memory traffic is x in, y out and the weights, which every block
-// reads from global memory and which stay in L2 (316 KB in bf16, more than
-// one block's shared memory).  The products are fp32 FMAs on operands
-// rounded to the compute dtype: bf16 x bf16 products are exact in fp32, so
-// this reproduces the reference's bf16 -> fp32-accumulate contraction; the
-// fp32 variant never uses TF32.  Attention runs per set and per head (the
-// TPU kernel's block-diagonal over-compute existed only for its matrix
-// unit).  Leading dimensions in shared memory are odd, so the attention's
-// row-strided reads do not collide in one bank.  The cast points are the
-// reference's: LN statistics in fp32 and its output in the compute dtype;
-// every dense output rounded once after the fp32 bias add; the residual add
-// rounded in the compute dtype; attention logits and softmax in fp32, the
-// probabilities rounded before A.V; head outputs rounded at the proj input.
-// Tensor-core products (mma/wgmma) are later work.
+// reads from global memory and which stay in L2.  The products are fp32
+// FMAs and never use TF32.  The kernels are templates on the compute dtype
+// (the helpers of fused_transformer.cuh round to it), built for fp32 only.
+// Attention runs per set and per head (the TPU kernel's block-diagonal
+// over-compute existed only for its matrix unit).  Leading dimensions in
+// shared memory are odd, so the attention's row-strided reads do not
+// collide in one bank.  The cast points are the reference's: LN statistics
+// in fp32 and its output in the compute dtype; every dense output rounded
+// once after the fp32 bias add; the residual add rounded in the compute
+// dtype; attention logits and softmax in fp32, the probabilities rounded
+// before A.V; head outputs rounded at the proj input.
 //
 // The backward does about 3x the forward's multiply-adds (recompute, dX,
 // dW; 4x as written, since it reruns each block's forward once more) and
@@ -773,17 +771,8 @@ int launch(const void* x, const void* const* w, const float* const* b,
 
 extern "C" {
 
-// w: the 6 matrices (embed, qkv, proj, fc1, fc2, out) in the compute dtype;
-// b: their 6 fp32 biases, in the same order.  Returns cudaGetLastError().
-int fused_set_transformer_fwd_bf16(const void* x, const void* const* w,
-                                   const float* const* b, void* y, long rows,
-                                   int set_size, int in_dim, int hidden,
-                                   int heads, int layers, int mlp,
-                                   int out_dim, void* stream) {
-  return launch<__nv_bfloat16>(x, w, b, y, rows, set_size, in_dim, hidden,
-                               heads, layers, mlp, out_dim, stream);
-}
-
+// w: the 6 fp32 matrices (embed, qkv, proj, fc1, fc2, out); b: their 6
+// fp32 biases, in the same order.  Returns cudaGetLastError().
 int fused_set_transformer_fwd_f32(const void* x, const void* const* w,
                                   const float* const* b, void* y, long rows,
                                   int set_size, int in_dim, int hidden,
@@ -797,7 +786,7 @@ int fused_set_transformer_fwd_f32(const void* x, const void* const* w,
 // and the 12 fp32 weight gradients, flat in flatten_params order, to dw.
 // part is fp32 scratch of grid x (the size of dw); grid (<= the number of
 // tiles) is the number of persistent blocks.  The bf16 backward is the
-// tensor-core kernel of fused_transformer_bwd.cu.
+// tensor-core kernel of fused_transformer_bf16.cu.
 int fused_set_transformer_bwd_f32(const void* x, const void* g,
                                   const void* const* w, const float* const* b,
                                   void* dx, float* part, float* dw, long rows,

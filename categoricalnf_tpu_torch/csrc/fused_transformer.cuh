@@ -1,6 +1,6 @@
-// Pieces shared by the fused SetTransformer forward/backward
-// (fused_transformer.cu) and the bf16 tensor-core backward
-// (fused_transformer_bwd.cu): the compute-dtype casts, tanh-gelu and its
+// Pieces shared by the fp32 fused SetTransformer forward/backward
+// (fused_transformer.cu) and the bf16 tensor-core forward and backward
+// (fused_transformer_bf16.cu): the compute-dtype casts, tanh-gelu and its
 // derivative, the layout of the flat weight gradient, and the fixed-order
 // sum of the backward's per-block gradient slices.
 #pragma once

@@ -1,8 +1,27 @@
-// Fused SetTransformer backward (kernel #4) in bf16, on Hopper's tensor
-// cores (sm_90a).
+// Fused SetTransformer forward (kernel #3) and backward (kernel #4) in
+// bf16, on Hopper's tensor cores (sm_90a).  Both kernels are built from the
+// same device functions, so the forward and the backward's recompute are
+// one arithmetic: the same tiles, sum order and epilogues.  The fp32
+// kernels are the templates of fused_transformer.cu.
 //
-// Replaces the TPU kernel categoricalnf_tpu/ops/pallas/fused_transformer.py
-// _fused_bwd (body _bwd_kernel, math _net_forward), which recomputes a
+// Forward (fused_set_transformer_fwd, at the end of the file) replaces the
+// TPU kernel categoricalnf_tpu/ops/pallas/fused_transformer.py _fused_fwd
+// (body _fwd_kernel -> _net_forward): embed -> L x [LN -> QKV -> per-set,
+// per-head attention -> proj + residual; LN -> fc1 -> gelu(tanh) -> fc2 +
+// residual] -> LN -> out, for a tile of whole sets.  At the flagship width
+// it does about 164k multiply-adds a row (5.4 GFLOP at 16,384 rows, 5.4 us
+// at 989 TFLOP/s) against 224 B of x and y a row and 0.3 MB of weights: it
+// is bound by operations.  Its design is the backward's phase 1 without
+// what only the backward needs (the residual copies, the weight-gradient
+// scratch): three bf16 buffers in shared memory (the residual h; the LN
+// output, then the attention output; qkv or the MLP hidden layer), 63 KB
+// for a 64-row tile at the flagship width, so two blocks of 8 warps share
+// an SM with the registers to spare (kFwdBlocks); one block a tile, no
+// persistent loop; every dense product on mma.sync as below, the output
+// layer's straight to global memory.
+//
+// Backward (fused_set_transformer_bwd) replaces _fused_bwd (body
+// _bwd_kernel, math _net_forward), which recomputes a
 // tile's forward and pulls the cotangent back with jax.vjp.  The function
 // and its rounding points are those of the fp32/bf16 template backward in
 // fused_transformer.cu, which this file replaces for bf16: every cotangent
@@ -74,6 +93,11 @@ constexpr int kMaxMTiles = kTileTarget / 16;  // 16-row m-tiles in a tile
 constexpr int kKChunk = 4;   // k-steps whose B fragments load together
 constexpr int kChunk = 8;    // row values held in registers at a time
 constexpr int kLnVals = 8;   // LN values a lane holds: hidden <= 256
+// Forward blocks an SM that the launch bounds give registers for.  Shared
+// memory holds three at the flagship tile, but at 16,384 rows the 256 tiles
+// fill only two an SM, and the registers of three (80 a thread) spill: the
+// kernel took 0.155 ms at three against 0.132 ms at two on an H100.
+constexpr int kFwdBlocks = 2;
 
 struct Dims {
   long rows;
@@ -145,6 +169,7 @@ enum Epi {
   kBwdStore,   // out = R(acc)
   kBwdGelu,    // out = R(R(acc) * gelu'(out))   (out holds f)
   kBwdGlobal,  // gout[r, c] = R(acc) for rows < valid, c < n
+  kGlobal,     // gout[r, c] = R(acc + b) for rows < valid, c < n
 };
 
 // out[r, c] <- epilogue(A[r, :] . B[:, c]) for the tile's rows and c <
@@ -153,10 +178,11 @@ enum Epi {
 // in global memory (W^T for a forward product, W for an input gradient),
 // zero past the true sizes.  One warp per 8-column n-tile, over all the
 // tile's m-tiles; the B fragments of kKChunk k-steps are loaded one chunk
-// ahead.  Columns n <= c < np are written as zeros (kBwdGlobal skips
-// them), so a buffer's pad stays zero for its next use as A.
+// ahead.  Columns n <= c < np are written as zeros (kBwdGlobal and kGlobal
+// skip them), so a buffer's pad stays zero for its next use as A.  Inlined,
+// so that each kernel has its own copy, compiled to its register budget.
 template <int EPI>
-__device__ void mma_dense(const bf16* A, int lda, int kp,
+__device__ __forceinline__ void mma_dense(const bf16* A, int lda, int kp,
                           const bf16* __restrict__ bt, int np, int n,
                           const float* __restrict__ bias, bf16* out,
                           int ld_out, bf16* out2, bf16* __restrict__ gout,
@@ -220,13 +246,13 @@ __device__ void mma_dense(const bf16* A, int lda, int kp,
           const bool in = c + e < n;
           float a = acc[mt][2 * half + e];
           if constexpr (EPI == kStore || EPI == kResidual || EPI == kGelu ||
-                        EPI == kFc1)
+                        EPI == kFc1 || EPI == kGlobal)
             a = in ? rnd(a + bias[c + e]) : 0.0f;
           else
             a = in ? rnd(a) : 0.0f;
           v[e] = a;
         }
-        if constexpr (EPI == kBwdGlobal) {
+        if constexpr (EPI == kBwdGlobal || EPI == kGlobal) {
           if (r < valid) {
 #pragma unroll
             for (int e = 0; e < 2; ++e)
@@ -356,7 +382,10 @@ __device__ __forceinline__ void ln_stats(const bf16* row, int h, LnRow& ln) {
   ln.inv = rsqrtf(warp_sum(v) / h + 1e-5f);
 }
 
-// out = R(LN(in)) for the tile's rows.
+// out = R(LN(in)) for the tile's rows.  BLOCKS, here and in the attention,
+// is the calling kernel's blocks an SM (the backward's 1 by default): each
+// kernel calls its own out-of-line copy, compiled to its register budget.
+template <int BLOCKS = 1>
 __device__ __noinline__ void layer_norm_tile(const bf16* in, bf16* out,
                                              const Dims& dm) {
   const int lane = threadIdx.x & 31, h = dm.hidden;
@@ -500,7 +529,7 @@ __device__ __forceinline__ void set_combine(const float (&w)[MAXS],
 
 // Attention within each set: the probabilities rounded before A.V, the
 // output rounded.
-template <int MAXS>
+template <int MAXS, int BLOCKS>
 __device__ __noinline__ void attention_tile(const bf16* qkv, bf16* out,
                                             const Dims& dm) {
   const int H = dm.hidden, nh = dm.heads, hd = H / nh, S = dm.set_size;
@@ -609,12 +638,13 @@ __device__ __noinline__ void attention_bwd_kv(const bf16* qkv, const bf16* go,
 }
 
 // The three attention passes at the smallest unroll that holds a set.
+template <int BLOCKS = 1>
 __device__ __forceinline__ void attention(const bf16* qkv, bf16* out,
                                           const Dims& dm) {
   if (dm.set_size <= 16)
-    attention_tile<16>(qkv, out, dm);
+    attention_tile<16, BLOCKS>(qkv, out, dm);
   else
-    attention_tile<kMaxSet>(qkv, out, dm);
+    attention_tile<kMaxSet, BLOCKS>(qkv, out, dm);
 }
 
 __device__ __forceinline__ void attention_bwd(const bf16* qkv,
@@ -818,28 +848,77 @@ fused_set_transformer_bwd(const bf16* __restrict__ x,
   }
 }
 
-}  // namespace
+// Shared-memory bytes of one forward block: h and a [tile, ld_h], and the
+// region that holds x, then qkv or the MLP hidden layer (all bf16).
+__host__ __device__ inline int fwd_ld_big(const Dims& dm) {
+  const int w = dm.ld_big > dm.ld_f ? dm.ld_big : dm.ld_f;
+  return w > dm.ld_x ? w : dm.ld_x;
+}
 
-extern "C" {
+__host__ __device__ inline size_t fwd_smem_bytes(const Dims& dm) {
+  return 2 * (size_t)dm.tile_pad * (2 * dm.ld_h + fwd_ld_big(dm));
+}
 
-// Backward in bf16: x [rows, in] and g [rows, out] in bf16; writes dx
-// [rows, in] (bf16) and the 12 fp32 weight gradients, flat in
-// flatten_params order (the matrices' rounded to bf16), to dw.  w holds 12
-// bf16 matrices: the 6 forward layouts W^T [pad(n), pad(kd)], then the 6
-// input-gradient layouts W [pad(kd), pad(n)] (embed, qkv, proj, fc1, fc2,
-// out; layer-stacked; zero-padded to multiples of 16); b the 6 fp32
-// biases.  part is fp32 scratch of grid x (the size of dw); grid (<= the
-// number of tiles) is the number of persistent blocks.
-int fused_set_transformer_bwd_bf16(const void* x, const void* g,
-                                   const void* const* w,
-                                   const float* const* b, void* dx,
-                                   float* part, float* dw, long rows,
-                                   int set_size, int in_dim, int hidden,
-                                   int heads, int layers, int mlp,
-                                   int out_dim, int grid, void* stream) {
-  if (set_size < 1 || set_size > kMaxSet || heads < 1 || hidden % heads ||
-      hidden > 32 * kLnVals || grid < 1 || rows % set_size)
-    return (int)cudaErrorInvalidValue;
+// The forward: one block a tile, the same steps as the backward's phase 1
+// with one residual stream h.  a holds the LN output, then the attention
+// output (the LN output is spent once qkv is made); big holds x, qkv, then
+// the MLP hidden layer.  Rows past the last set (tile <= r < tile_pad) and
+// past valid hold finite values that no valid row reads: every dense
+// product, LN and the epilogues act row by row, and attention within sets.
+__global__ void __launch_bounds__(kThreads, kFwdBlocks)
+fused_set_transformer_fwd(const bf16* __restrict__ x, PadWeights wt,
+                          bf16* __restrict__ y, Dims dm) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int H = dm.hidden, RH = dm.mlp, L = dm.layers, TP = dm.tile_pad;
+  const int PH = dm.p_h, PB = dm.p_big, PF = dm.p_f;
+  bf16* h = reinterpret_cast<bf16*>(smem_raw);  // [TP, ld_h] residual
+  bf16* a = h + TP * dm.ld_h;                   // [TP, ld_h] LN / attention
+  bf16* big = a + TP * dm.ld_h;                 // x, qkv, MLP hidden layer
+  const long row0 = blockIdx.x * (long)dm.tile;
+  const long left = dm.rows - row0;
+  const int valid = left < dm.tile ? (int)left : dm.tile;
+
+  clear16(smem_raw, (int)fwd_smem_bytes(dm));
+  __syncthreads();
+  load_rows(x, row0, valid, dm.in_dim, big, dm.ld_x, dm);
+  __syncthreads();
+  mma_dense<kStore>(big, dm.ld_x, dm.p_in, wt.wt[0], PH, H, wt.b[0], h,
+                    dm.ld_h, nullptr, nullptr, valid, dm);
+  __syncthreads();
+  for (int l = 0; l < L; ++l) {
+    layer_norm_tile<kFwdBlocks>(h, a, dm);
+    __syncthreads();
+    mma_dense<kStore>(a, dm.ld_h, PH, wt.wt[1] + (long)l * PB * PH, PB,
+                      3 * H, wt.b[1] + l * 3 * H, big, dm.ld_big, nullptr,
+                      nullptr, valid, dm);
+    __syncthreads();
+    attention<kFwdBlocks>(big, a, dm);
+    __syncthreads();
+    mma_dense<kResidual>(a, dm.ld_h, PH, wt.wt[2] + (long)l * PH * PH, PH, H,
+                         wt.b[2] + l * H, h, dm.ld_h, nullptr, nullptr, valid,
+                         dm);
+    __syncthreads();
+    layer_norm_tile<kFwdBlocks>(h, a, dm);
+    __syncthreads();
+    mma_dense<kGelu>(a, dm.ld_h, PH, wt.wt[3] + (long)l * PF * PH, PF, RH,
+                     wt.b[3] + l * RH, big, dm.ld_f, nullptr, nullptr, valid,
+                     dm);
+    __syncthreads();
+    mma_dense<kResidual>(big, dm.ld_f, PF, wt.wt[4] + (long)l * PH * PF, PH,
+                         H, wt.b[4] + l * H, h, dm.ld_h, nullptr, nullptr,
+                         valid, dm);
+    __syncthreads();
+  }
+  // output layer: y = R(R(LN(h_L)) @ Wo + bo), straight to global memory
+  layer_norm_tile<kFwdBlocks>(h, a, dm);
+  __syncthreads();
+  mma_dense<kGlobal>(a, dm.ld_h, PH, wt.wt[5], dm.p_out, dm.out_dim, wt.b[5],
+                     nullptr, 0, nullptr, y + row0 * dm.out_dim, valid, dm);
+}
+
+// The widths of a call (the caller picks the tile).
+Dims make_dims(long rows, int set_size, int in_dim, int hidden, int heads,
+               int layers, int mlp, int out_dim) {
   Dims dm;
   dm.rows = rows;
   dm.set_size = set_size;
@@ -866,18 +945,98 @@ int fused_set_transformer_bwd_bf16(const void* x, const void* g,
   if (dm.ld_g > r2) r2 = dm.ld_g;
   if (dm.ld_x > r2) r2 = dm.ld_x;
   dm.ld_r2 = r2;
-  int dev = 0, max_smem = 0;
+  return dm;
+}
+
+// Whole sets up to `target` rows (one set where a set is larger), padded
+// to 16-row m-tiles.
+void set_tile(Dims& dm, int target) {
+  dm.tile = (target >= dm.set_size ? target / dm.set_size : 1) * dm.set_size;
+  dm.tile_pad = pad16(dm.tile);
+}
+
+cudaError_t max_smem_optin(int* max_smem) {
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(max_smem,
+                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Forward in bf16: x [rows, in] (bf16) to y [rows, out] (bf16).  w holds
+// the 6 forward layouts W^T [pad(n), pad(kd)] of the backward's w (embed,
+// qkv, proj, fc1, fc2, out; layer-stacked; zero-padded to multiples of 16),
+// b the 6 fp32 biases.
+int fused_set_transformer_fwd_bf16(const void* x, const void* const* w,
+                                   const float* const* b, void* y, long rows,
+                                   int set_size, int in_dim, int hidden,
+                                   int heads, int layers, int mlp,
+                                   int out_dim, void* stream) {
+  if (set_size < 1 || set_size > kMaxSet || heads < 1 || hidden % heads ||
+      hidden > 32 * kLnVals || rows % set_size)
+    return (int)cudaErrorInvalidValue;
+  Dims dm = make_dims(rows, set_size, in_dim, hidden, heads, layers, mlp,
+                      out_dim);
+  int max_smem = 0;
+  cudaError_t err = max_smem_optin(&max_smem);
+  if (err != cudaSuccess) return (int)err;
+  // 64-row tiles, or 32-row ones where a net too wide for 64 rows (not the
+  // flagship) would not fit in shared memory
+  size_t smem = 0;
+  for (int target = kTileTarget; target >= kTileTarget / 2; target /= 2) {
+    set_tile(dm, target);
+    smem = fwd_smem_bytes(dm);
+    if (smem <= (size_t)max_smem) break;
+  }
+  if (rows == 0) return (int)cudaSuccess;
+  err = cudaFuncSetAttribute(fused_set_transformer_fwd,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  PadWeights wt;
+  for (int j = 0; j < 6; ++j) {
+    wt.wt[j] = (const bf16*)w[j];
+    wt.w[j] = nullptr;
+    wt.b[j] = b[j];
+  }
+  const unsigned grid = (unsigned)((rows + dm.tile - 1) / dm.tile);
+  fused_set_transformer_fwd<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const bf16*)x, wt, (bf16*)y, dm);
+  return (int)cudaGetLastError();
+}
+
+// Backward in bf16: x [rows, in] and g [rows, out] in bf16; writes dx
+// [rows, in] (bf16) and the 12 fp32 weight gradients, flat in
+// flatten_params order (the matrices' rounded to bf16), to dw.  w holds 12
+// bf16 matrices: the 6 forward layouts W^T [pad(n), pad(kd)], then the 6
+// input-gradient layouts W [pad(kd), pad(n)] (embed, qkv, proj, fc1, fc2,
+// out; layer-stacked; zero-padded to multiples of 16); b the 6 fp32
+// biases.  part is fp32 scratch of grid x (the size of dw); grid (<= the
+// number of tiles) is the number of persistent blocks.
+int fused_set_transformer_bwd_bf16(const void* x, const void* g,
+                                   const void* const* w,
+                                   const float* const* b, void* dx,
+                                   float* part, float* dw, long rows,
+                                   int set_size, int in_dim, int hidden,
+                                   int heads, int layers, int mlp,
+                                   int out_dim, int grid, void* stream) {
+  if (set_size < 1 || set_size > kMaxSet || heads < 1 || hidden % heads ||
+      hidden > 32 * kLnVals || grid < 1 || rows % set_size)
+    return (int)cudaErrorInvalidValue;
+  Dims dm = make_dims(rows, set_size, in_dim, hidden, heads, layers, mlp,
+                      out_dim);
+  int max_smem = 0;
+  cudaError_t err = max_smem_optin(&max_smem);
   if (err != cudaSuccess) return (int)err;
   // 64-row tiles, or 32-row ones where a net too wide or deep for 64 rows
   // (not the flagship) would not fit in shared memory
   size_t smem = 0;
   for (int target = kTileTarget; target >= kTileTarget / 2; target /= 2) {
-    dm.tile = (target >= set_size ? target / set_size : 1) * set_size;
-    dm.tile_pad = pad16(dm.tile);
+    set_tile(dm, target);
     smem = smem_bytes(dm);
     if (smem <= (size_t)max_smem) break;
   }

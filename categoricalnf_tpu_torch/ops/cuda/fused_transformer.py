@@ -1,6 +1,6 @@
-"""Wrappers of the fused SetTransformer kernels: the forward (#3,
-``csrc/fused_transformer.cu``) and its backward (#4: in fp32 in the same
-file, in bf16 the tensor-core kernel of ``csrc/fused_transformer_bwd.cu``).
+"""Wrappers of the fused SetTransformer kernels: the forward (#3) and its
+backward (#4), in fp32 the template kernels of ``csrc/fused_transformer.cu``,
+in bf16 the tensor-core kernels of ``csrc/fused_transformer_bf16.cu``.
 
 Counterparts of ``_fused_fwd`` and ``_fused_bwd`` in
 ``categoricalnf_tpu/ops/pallas/fused_transformer.py``.  The kernels' plain
@@ -8,10 +8,11 @@ version is the unfused path of ``networks.transformer.SetTransformer``
 (``plain_forward``, and autograd through it), which every CPU tensor takes;
 these wrappers take CUDA tensors only and raise on what the kernels do not
 take.  ``PackedWeights`` checks and casts the weights once, so a launch does
-neither; the bf16 backward's padded operand layouts (``padded_layouts``) are
-made from it on first use.  ``FusedSetTransformer`` ties the two kernels
-together for autograd, as ``defvjp`` does in the reference.  ``LAUNCHES``
-and ``BWD_LAUNCHES`` count launches by compute dtype.
+neither; in bf16 it casts them straight into the padded operand layouts
+that both tensor-core kernels read (``padded_layouts``).
+``FusedSetTransformer`` ties the two kernels together for autograd, as
+``defvjp`` does in the reference.  ``LAUNCHES`` and ``BWD_LAUNCHES`` count
+launches by compute dtype.
 """
 
 from __future__ import annotations
@@ -24,12 +25,16 @@ import torch
 from categoricalnf_tpu_torch.ops.cuda import build
 
 # Must agree with csrc/fused_transformer.cu (kMaxSet, kTileTarget,
-# kRowsPerThread), csrc/fused_transformer_bwd.cu (kTileTarget, 16-row
-# m-tiles) and the H100's 227 KB of shared memory per block.
+# kRowsPerThread), csrc/fused_transformer_bf16.cu (kTileTarget, 16-row
+# m-tiles, kLnVals) and the H100's 227 KB of shared memory per
+# block.
 MAX_SET = 32
 TILE_TARGET = 32
-BWD_TILE_TARGET = 64  # bf16; fp32 takes TILE_TARGET
+BF16_TILE_TARGET = 64  # both bf16 kernels; fp32 takes TILE_TARGET
+# bf16 forward blocks an SM its launch bounds give registers for (kFwdBlocks)
+FWD_BLOCKS = 2
 ROWS_PER_THREAD = 8
+MAX_HIDDEN_BF16 = 256  # LN rows held in registers, 8 values a lane
 MAX_SMEM = 232_448
 # an H100 SM's shared memory, of which the runtime reserves 1 KB a block
 SMEM_PER_SM = 233_472
@@ -38,13 +43,16 @@ NUM_W = 12
 LAUNCHES = {"bfloat16": 0, "float32": 0}
 BWD_LAUNCHES = {"bfloat16": 0, "float32": 0}
 
-_ENTRY = {torch.bfloat16: ("fused_set_transformer_fwd_bf16", "bfloat16"),
-          torch.float32: ("fused_set_transformer_fwd_f32", "float32")}
-# (source, entry point) of the backward
-_BWD_ENTRY = {torch.bfloat16: ("fused_transformer_bwd",
+# (source, entry point) of the forward and of the backward
+_ENTRY = {torch.bfloat16: ("fused_transformer_bf16",
+                           "fused_set_transformer_fwd_bf16"),
+          torch.float32: ("fused_transformer",
+                          "fused_set_transformer_fwd_f32")}
+_BWD_ENTRY = {torch.bfloat16: ("fused_transformer_bf16",
                                "fused_set_transformer_bwd_bf16"),
               torch.float32: ("fused_transformer",
                               "fused_set_transformer_bwd_f32")}
+_KEY = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
 
 
 def flatten_params(net) -> tuple:
@@ -64,7 +72,8 @@ def flatten_params(net) -> tuple:
 
 
 def smem_bytes(set_size: int, in_dim: int, hidden: int, mlp: int) -> int:
-    """Dynamic shared memory of one block, as the kernel computes it."""
+    """Dynamic shared memory of one block of the fp32 forward, as the kernel
+    computes it."""
     _, tile_pad = _tile(set_size)
     ld_big = max(3 * hidden, mlp, in_dim) + 1
     return 4 * tile_pad * (2 * (hidden + 1) + ld_big)
@@ -99,7 +108,7 @@ def bwd_shape(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
                                      + 3 * heads)
     ld_h, ld_big, ld_f = (pad16(n) + 8 for n in (hidden, 3 * hidden, mlp))
     ld_r2 = max(2 * ld_f, ld_big, pad16(out_dim) + 8, pad16(in_dim) + 8)
-    for target in (BWD_TILE_TARGET, BWD_TILE_TARGET // 2):
+    for target in (BF16_TILE_TARGET, BF16_TILE_TARGET // 2):
         tile, tile_pad = _tile(set_size, target, 16)
         smem = (2 * tile_pad * ((layers + 6) * ld_h + ld_big + ld_r2)
                 + 4 * tile_pad * 3 * heads)
@@ -108,25 +117,52 @@ def bwd_shape(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
     return tile, smem
 
 
-def bwd_blocks_per_sm(smem: int) -> int:
+def fwd_shape(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
+              mlp: int) -> tuple[int, int]:
+    """(rows of a tile, dynamic shared memory of one block) of the forward,
+    as the kernel picks them.  bf16: whole sets up to 64 rows, padded to
+    16-row m-tiles, or up to 32 where 64 would not fit (nets much wider than
+    the flagship); three bf16 buffers, h and the LN/attention output
+    [tile, H] and the region for x, qkv or the MLP hidden layer, rows a
+    multiple of 16 plus 8 wide.  fp32: ``smem_bytes``' 32-row tile."""
+    if dtype != torch.bfloat16:
+        return _tile(set_size)[0], smem_bytes(set_size, in_dim, hidden, mlp)
+    ld_h = pad16(hidden) + 8
+    ld_big = max(pad16(n) + 8 for n in (3 * hidden, mlp, in_dim))
+    for target in (BF16_TILE_TARGET, BF16_TILE_TARGET // 2):
+        tile, tile_pad = _tile(set_size, target, 16)
+        smem = 2 * tile_pad * (2 * ld_h + ld_big)
+        if smem <= MAX_SMEM:
+            break
+    return tile, smem
+
+
+def fwd_blocks_per_sm(smem: int) -> int:
+    """Blocks of the bf16 forward an SM holds: as many as its shared memory
+    allows, up to the FWD_BLOCKS its launch bounds give registers for."""
+    return min(FWD_BLOCKS, smem_blocks_per_sm(smem))
+
+
+def smem_blocks_per_sm(smem: int) -> int:
+    """Blocks of ``smem`` bytes of shared memory that fit on an SM."""
     return max(1, SMEM_PER_SM // (smem + 1024))
 
 
 def bwd_grid(rows: int, tile: int, smem: int, sms: int) -> int:
     """Persistent blocks of the backward: as many as fit on the card at
     once, never more than there are tiles."""
-    return max(1, min(-(-rows // tile), sms * bwd_blocks_per_sm(smem)))
+    return max(1, min(-(-rows // tile), sms * smem_blocks_per_sm(smem)))
 
 
-def padded_layouts(mats) -> list:
-    """The bf16 backward's operand layouts of the weights ``mats`` (each W
-    [..., kd, n], any device, in the compute dtype), zero-padded to
-    multiples of 16: the 6 forward layouts W^T [..., pad16(n), pad16(kd)],
-    the B operands of the products x @ W, then the 6 input-gradient layouts
-    W [..., pad16(kd), pad16(n)], those of g @ W^T.  Each is contiguous,
-    rows along the output, so a tensor-core fragment reads two neighbouring
-    contraction values at once.  They are views of one zeroed buffer: one
-    fill, and one copy a layout."""
+def padded_layouts(mats, dtype: torch.dtype | None = None) -> list:
+    """The bf16 kernels' operand layouts of the weights ``mats`` (each W
+    [..., kd, n], any device), cast to ``dtype`` (by default theirs) and
+    zero-padded to multiples of 16: the 6 forward layouts W^T [...,
+    pad16(n), pad16(kd)], the B operands of the products x @ W, then the 6
+    input-gradient layouts W [..., pad16(kd), pad16(n)], those of g @ W^T.
+    Each is contiguous, rows along the output, so a tensor-core fragment
+    reads two neighbouring contraction values at once.  They are views of
+    one zeroed buffer: one fill, and one copy a layout, which casts."""
     shapes = []
     for w in mats:
         *lead, kd, n = w.shape
@@ -135,7 +171,7 @@ def padded_layouts(mats) -> list:
     fwd_shapes, bwd_shapes = zip(*shapes)
     shapes = list(fwd_shapes + bwd_shapes)
     sizes = [math.prod(shape) for shape in shapes]
-    buf = torch.zeros(sum(sizes), dtype=mats[0].dtype,
+    buf = torch.zeros(sum(sizes), dtype=dtype or mats[0].dtype,
                       device=mats[0].device)
     views = [v.view(shape) for v, shape in zip(buf.split(sizes), shapes)]
     for w, fwd, bwd in zip(mats, views[:len(mats)], views[len(mats):]):
@@ -146,15 +182,20 @@ def padded_layouts(mats) -> list:
 
 
 def supported(x, cond, mask, hidden_dim: int, num_heads: int,
-              mlp_ratio: int = 2) -> bool:
-    """Whether the kernel covers this call: no cond or mask, x [B, S, IN]
-    with S <= 32, heads dividing the width, and a tile that fits."""
+              mlp_ratio: int = 2,
+              compute_dtype: torch.dtype = torch.float32) -> bool:
+    """Whether the forward kernel of ``compute_dtype`` covers this call: no
+    cond or mask, x [B, S, IN] with S <= 32, heads dividing the width, in
+    bf16 a width of at most 256, and a tile that fits."""
     if cond is not None or mask is not None or x.dim() != 3:
         return False
     if hidden_dim % num_heads != 0 or not 1 <= x.shape[1] <= MAX_SET:
         return False
-    return smem_bytes(x.shape[1], x.shape[2], hidden_dim,
-                      mlp_ratio * hidden_dim) <= MAX_SMEM
+    if compute_dtype == torch.bfloat16 and hidden_dim > MAX_HIDDEN_BF16:
+        return False
+    _, smem = fwd_shape(compute_dtype, x.shape[1], x.shape[2], hidden_dim,
+                        mlp_ratio * hidden_dim)
+    return smem <= MAX_SMEM
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
@@ -174,10 +215,25 @@ def _fn(source: str, name: str, argtypes):
     return fn
 
 
+def pack_matrices(ws, compute_dtype: torch.dtype) -> tuple[list, list]:
+    """The matrices of the 12-tuple ``ws`` (fp32) as the kernels of
+    ``compute_dtype`` read them: (the forward's, the backward's).  fp32: the
+    6 matrices, for both.  bf16: the 12 ``padded_layouts``, cast straight
+    from fp32 (one fill and 12 casting copies a repack); the forward reads
+    the 6 W^T layouts, the backward all 12."""
+    mats = [ws[j].detach() for j in (0, 2, 4, 6, 8, 10)]
+    if compute_dtype != torch.bfloat16:
+        mats = [m.to(compute_dtype).contiguous() for m in mats]
+        return mats, mats
+    layouts = padded_layouts(mats, compute_dtype)
+    return layouts[:6], layouts
+
+
 class PackedWeights:
     """The 12-tuple ``ws`` (fp32, on the card) checked and made ready for
-    the kernel once: the 6 matrices cast to the compute dtype, the 6 fp32
-    biases contiguous, and their pointers; reused by every launch."""
+    the kernels once: the matrices as ``pack_matrices`` lays them out, the
+    6 fp32 biases contiguous, and their pointers; reused by every launch of
+    the forward and the backward."""
 
     def __init__(self, ws, compute_dtype: torch.dtype):
         if compute_dtype not in _ENTRY:
@@ -210,29 +266,16 @@ class PackedWeights:
         self.dtype = compute_dtype
         self.shapes = tuple(tuple(t.shape) for t in ws)
         with torch.no_grad():
-            self.mats = [ws[j].detach().to(compute_dtype).contiguous()
-                         for j in (0, 2, 4, 6, 8, 10)]
+            self.mats, self.bwd_mats = pack_matrices(ws, compute_dtype)
             self.biases = [ws[j].detach().contiguous()
                            for j in (1, 3, 5, 7, 9, 11)]
-        self.w_ptrs = (ctypes.c_void_p * 6)(*(t.data_ptr()
-                                              for t in self.mats))
-        self.b_ptrs = (ctypes.c_void_p * 6)(*(t.data_ptr()
-                                              for t in self.biases))
-        self._bwd_ptrs = None
+        self.w_ptrs = _ptrs(self.mats)
+        self.bwd_w_ptrs = _ptrs(self.bwd_mats)
+        self.b_ptrs = _ptrs(self.biases)
 
-    def bwd_w_ptrs(self):
-        """The pointers the backward takes as its matrices: in fp32 the 6
-        cast matrices; in bf16 the 6 forward layouts W^T, then the 6
-        input-gradient layouts W (``padded_layouts``), made on first use
-        and kept with the pack (serving never makes them)."""
-        if self.dtype != torch.bfloat16:
-            return self.w_ptrs
-        if self._bwd_ptrs is None:
-            with torch.no_grad():
-                self.bwd_mats = padded_layouts(self.mats)
-            self._bwd_ptrs = (ctypes.c_void_p * 12)(*(t.data_ptr()
-                                                      for t in self.bwd_mats))
-        return self._bwd_ptrs
+
+def _ptrs(tensors):
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
 def _check_x(packed: PackedWeights, x, num_heads: int, what: str):
@@ -244,7 +287,7 @@ def _check_x(packed: PackedWeights, x, num_heads: int, what: str):
                          f"weights on {packed.device}")
     if (x.shape[2] != packed.in_dim
             or not supported(x, None, None, packed.hidden, num_heads,
-                             packed.mlp // packed.hidden)):
+                             packed.mlp // packed.hidden, packed.dtype)):
         raise ValueError(f"fused SetTransformer {what}: unsupported call x "
                          f"{tuple(x.shape)}, H={packed.hidden}, "
                          f"heads={num_heads}")
@@ -255,15 +298,15 @@ def _forward_launch(packed: PackedWeights, x, num_heads: int):
     B, S, in_dim = x.shape
     x2 = x.detach().to(packed.dtype).contiguous()
     y = torch.empty(B, S, packed.out_dim, dtype=packed.dtype, device=x.device)
-    name, key = _ENTRY[packed.dtype]
+    source, name = _ENTRY[packed.dtype]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fn("fused_transformer", name, _FWD_ARGS)(
+        err = _fn(source, name, _FWD_ARGS)(
             x2.data_ptr(), packed.w_ptrs, packed.b_ptrs, y.data_ptr(), B * S,
             S, in_dim, packed.hidden, num_heads, packed.layers, packed.mlp,
             packed.out_dim, stream)
     build.check(err, name)
-    LAUNCHES[key] += 1
+    LAUNCHES[_KEY[packed.dtype]] += 1
     return y
 
 
@@ -307,15 +350,14 @@ def fused_set_transformer_bwd(packed: PackedWeights, x, g, *,
     part = torch.empty(grid, total, dtype=torch.float32, device=x.device)
     dw = torch.empty(total, dtype=torch.float32, device=x.device)
     source, name = _BWD_ENTRY[packed.dtype]
-    w_ptrs = packed.bwd_w_ptrs()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _fn(source, name, _BWD_ARGS)(
-            x2.data_ptr(), g2.data_ptr(), w_ptrs, packed.b_ptrs,
+            x2.data_ptr(), g2.data_ptr(), packed.bwd_w_ptrs, packed.b_ptrs,
             dx.data_ptr(), part.data_ptr(), dw.data_ptr(), B * S, S, in_dim,
             H, num_heads, L, RH, OUT, grid, stream)
     build.check(err, name)
-    BWD_LAUNCHES[_ENTRY[packed.dtype][1]] += 1
+    BWD_LAUNCHES[_KEY[packed.dtype]] += 1
     dws = tuple(t.view(shape) for t, shape in
                 zip(dw.split(sizes), packed.shapes))
     return dx.to(x.dtype), dws

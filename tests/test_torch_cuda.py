@@ -37,6 +37,11 @@ def _close(a, b, tol):
     torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
 
 
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(
+        1e-30))
+
+
 @pytest.mark.parametrize("shape,k", [((64, 16, 4), 8), ((7, 13), 3),
                                      ((5, 3), 16), ((1,), 1)])
 def test_mixture_kernels_match_plain(dev, shape, k):
@@ -108,10 +113,11 @@ def _net(cd, dev, hidden=96, heads=4, in_dim=4, out_dim=104):
                                               (9, 1, 24, 3)])
 @pytest.mark.parametrize("cd", ["float32", "bfloat16"])
 def test_fused_net_matches_unfused(dev, b, s, hidden, heads, cd):
-    """fp32 to 1e-4 of the unfused path; bf16 within the reference's
-    loose bound (< 2% of elements off by more than 5%).  Covers a ragged
-    last tile (3 x 16 rows), sets that do not divide the tile (S=6), a
-    one-set tile (S=32) and S=1."""
+    """fp32 to 1e-4 of the unfused path; bf16 (the tensor-core kernel)
+    within the reference's loose bound (< 2% of elements off by more than
+    5%) and within 1% of the output's norm (BF16_FWD_REL).  Covers a ragged
+    last tile (3 x 16 rows), sets that do not divide the tile (S=6), two
+    sets a tile (S=32), S=1 and widths 24 and 48."""
     net = _net(cd, dev, hidden, heads)
     x = torch.randn(b, s, 4, generator=torch.Generator(dev).manual_seed(2),
                     device=dev)
@@ -129,6 +135,66 @@ def test_fused_net_matches_unfused(dev, b, s, hidden, heads, cd):
         err = (y.float() - y_p.float()).abs()
         bad = (err > 0.05 * y_p.float().abs().clamp_min(1.0)).float().mean()
         assert float(bad) < 0.02
+        assert _rel(y, y_p) <= BF16_FWD_REL
+
+
+# Relative norm error allowed between the bf16 forward and plain_forward:
+# the kernel and the plain path round the same values to bf16 after sums
+# taken in another order, so a few roundings flip by one bf16 step.  It
+# read 0.00116 at 16,384 rows of the flagship net on an H100 (chip_smoke).
+BF16_FWD_REL = 0.01
+
+
+def test_fused_bf16_fwd_is_deterministic_at_the_flagship_shape(dev):
+    """Two calls at a sampling chunk's 16,384 rows are bitwise equal."""
+    net = _net("bfloat16", dev)
+    x = torch.randn(1024, 16, 4, generator=torch.Generator(dev)
+                    .manual_seed(4), device=dev)
+    with torch.no_grad():
+        packed = ft.PackedWeights(ft.flatten_params(net), torch.bfloat16)
+        one = ft.fused_set_transformer(packed, x, num_heads=4)
+        two = ft.fused_set_transformer(packed, x, num_heads=4)
+        y_p = net.plain_forward(x)
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+    assert _rel(one, y_p) <= BF16_FWD_REL
+
+
+@pytest.mark.parametrize("b,s", [(5, 16), (7, 6)])
+def test_fused_bf16_fwd_takes_half_tiles_for_a_wide_net(dev, b, s):
+    """Hidden 256 with an MLP ratio of 8 does not fit a 64-row tile: the
+    kernel takes 32 rows (whole sets, a ragged last tile) and stays within
+    the bf16 bounds of the plain path."""
+    assert ft.fwd_shape(torch.bfloat16, s, 4, 256, 2048)[0] in (30, 32)
+    net = SetTransformer(4, 104, hidden_dim=256, num_heads=4, mlp_ratio=8,
+                         compute_dtype="bfloat16",
+                         generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        net.out.w.copy_(torch.randn(net.out.w.shape, generator=torch
+                                    .Generator().manual_seed(1)) * 0.1)
+    net = net.to(dev)
+    x = torch.randn(b, s, 4, generator=torch.Generator(dev).manual_seed(5),
+                    device=dev)
+    with torch.no_grad():
+        packed = ft.PackedWeights(ft.flatten_params(net), torch.bfloat16)
+        y = ft.fused_set_transformer(packed, x, num_heads=4)
+        y_p = net.plain_forward(x)
+    torch.cuda.synchronize()
+    err = (y.float() - y_p.float()).abs()
+    bad = (err > 0.05 * y_p.float().abs().clamp_min(1.0)).float().mean()
+    assert float(bad) < 0.02
+    assert _rel(y, y_p) <= BF16_FWD_REL
+
+
+def test_fused_bf16_fwd_raises_on_what_it_does_not_take(dev):
+    """A width above 256 in bf16 raises on the card, as a mask does,
+    rather than run the plain path there."""
+    net = _net("bfloat16", dev, hidden=264)
+    x = torch.randn(2, 16, 4, device=dev)
+    n = ft.LAUNCHES["bfloat16"]
+    with torch.no_grad(), pytest.raises(ValueError, match="unsupported"):
+        net(x)
+    assert ft.LAUNCHES["bfloat16"] == n
 
 
 def test_cuda_calls_always_take_the_kernel(dev):
@@ -178,11 +244,6 @@ def test_tiny_task_on_card_matches_cpu(dev):
 
 
 # -- backward kernels (#4 and the mixture forward's backward) -------------
-
-def _rel(a, b):
-    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(
-        1e-30))
-
 
 def _net_grads(net, x, wy, plain):
     """d sum(y * wy) / d (x, every parameter), through the kernels or

@@ -1,5 +1,5 @@
 """The host-side arithmetic of the bf16 fused SetTransformer backward
-(kernel #4, ``csrc/fused_transformer_bwd.cu``), on the CPU: the padded
+(kernel #4, ``csrc/fused_transformer_bf16.cu``), on the CPU: the padded
 weight layouts its tensor-core products read (``padded_layouts``), and its
 tile, shared memory and grid per compute dtype (``bwd_shape``,
 ``bwd_grid``).  Needs neither a card nor nvcc."""
@@ -70,7 +70,7 @@ def test_bwd_shape_of_the_flagship_per_dtype():
     # [64, 2 x 200], all bf16, and the fp32 softmax statistics
     assert tile == 64
     assert smem == 2 * 64 * (8 * 104 + 296 + 400) + 4 * 64 * 3 * 4 == 198_656
-    assert smem <= ft.MAX_SMEM and ft.bwd_blocks_per_sm(smem) == 1
+    assert smem <= ft.MAX_SMEM and ft.smem_blocks_per_sm(smem) == 1
     assert ft.bwd_grid(16_384, tile, smem, 132) == 132
     assert ft.bwd_grid(112, tile, smem, 132) == 2
     # fp32 keeps its 32-row tile and fp32 rows one float wider

@@ -306,6 +306,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "tools", "fused_ab.py")
 
 
 def _banned(module: str) -> bool:

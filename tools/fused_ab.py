@@ -1,0 +1,97 @@
+#!/usr/bin/env python3
+"""Compare the bf16 fused SetTransformer kernels of two checkouts on one
+card: #3 (the forward) and #4 (the backward) at a flagship train step's
+shape, 1024 sets of 16 (16,384 rows), on chip_smoke's seeded net.
+
+    python3 tools/fused_ab.py --tree DIR --out A.pt   # DIR: a checkout
+    python3 tools/fused_ab.py --compare A.pt B.pt
+
+The first form imports the port from DIR, runs both kernels once, saves
+their results and prints each kernel's device ms (``chip_smoke.cuda_ms``).
+The second says whether #4's gradients (dx and the 12 weight gradients)
+are bitwise equal and how far apart the two forwards' outputs are.  The
+net, the timing and the card line are this checkout's ``chip_smoke.py``.
+Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import sys
+
+
+def _chip_smoke():
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run(tree: str, out: str) -> None:
+    cs = _chip_smoke()
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+    if not torch.cuda.is_available():
+        sys.exit("fused_ab: no CUDA device")
+    dev = torch.device("cuda")
+    net = cs.flagship_net("bfloat16", dev)
+    g = torch.Generator(dev).manual_seed(2)
+    x = torch.randn(cs.B, cs.S, cs.D, generator=g, device=dev)
+    gy = torch.randn(cs.B, cs.S, cs.OUT, generator=g, device=dev).bfloat16()
+    with torch.no_grad():
+        packed = ft.PackedWeights(ft.flatten_params(net), torch.bfloat16)
+
+        def fwd():
+            return ft.fused_set_transformer(packed, x, num_heads=cs.HEADS)
+
+        def bwd():
+            return ft.fused_set_transformer_bwd(packed, x, gy,
+                                                num_heads=cs.HEADS)
+
+        y = fwd()
+        dx, dws = bwd()
+        torch.cuda.synchronize()
+        result = {"tree": tree, "card": cs.card_line(),
+                  "fwd_ms": cs.cuda_ms(fwd, 20)[0],
+                  "bwd_ms": cs.cuda_ms(bwd, 10)[0]}
+    torch.save({"y": y.cpu(), "dx": dx.cpu(),
+                "dws": [t.cpu() for t in dws], **result}, out)
+    print(json.dumps(result), flush=True)
+
+
+def compare(a: str, b: str) -> bool:
+    import torch
+    one, two = torch.load(a), torch.load(b)
+    same = torch.equal(one["dx"], two["dx"]) and all(
+        torch.equal(p, q) for p, q in zip(one["dws"], two["dws"]))
+    ya, yb = one["y"].float(), two["y"].float()
+    print(json.dumps({
+        "a": one["tree"], "b": two["tree"], "bwd_bitwise_equal": same,
+        "fwd_bitwise_equal": torch.equal(ya, yb),
+        "fwd_rel_diff": float((ya - yb).norm() / yb.norm()),
+        "fwd_max_abs_diff": float((ya - yb).abs().max())}), flush=True)
+    return same
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", help="checkout whose port to run")
+    ap.add_argument("--out", help="file for the results")
+    ap.add_argument("--compare", nargs=2, metavar="FILE")
+    args = ap.parse_args()
+    if args.compare:
+        return 0 if compare(*args.compare) else 1
+    if not (args.tree and args.out):
+        ap.error("give --tree and --out, or --compare")
+    run(args.tree, args.out)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
