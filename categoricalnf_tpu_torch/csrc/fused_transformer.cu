@@ -1,7 +1,18 @@
-// Fused SetTransformer forward and backward for Hopper (sm_90a), in fp32:
-// the eval_model twin's forward (kernel #3) and the fp32 backward (kernel
-// #4, described where it starts, further down).  The bf16 forward and
-// backward are the tensor-core kernels of fused_transformer_bf16.cu.
+// Fused SetTransformer forward and backward for Hopper (sm_90a), in fp32 on
+// the FMA units: the forward of a differentiable call (kernel #3 of the
+// fp32 train step) and the fp32 backward (kernel #4, described where it
+// starts, further down).  The forward of a call without grad (the
+// eval_model twin) is the 3xTF32 tensor-core kernel of
+// fused_transformer_tf32x3.cu; the bf16 forward and backward are the
+// tensor-core kernels of fused_transformer_bf16.cu.
+//
+// Why a differentiable call keeps this forward: its output and the
+// backward's recompute are one arithmetic, and the fp32 train step's
+// gradients of a data-initialised ActNorm bias and of the mixture offsets
+// are so ill-conditioned that any other rounding of the nets' forward (the
+// 3xTF32 kernel's, or an fp64 forward rounded once) moves them by 5e-4 to
+// 1.4e-3 relative on an H100, past the limits that chip_smoke.py holds
+// the train step to (PERF.md, tools/f32_forward_rounding.py).
 //
 // Replaces the TPU kernel categoricalnf_tpu/ops/pallas/fused_transformer.py
 // _fused_fwd (body _fwd_kernel -> _net_forward): the whole coupling net,
@@ -182,6 +193,8 @@ __device__ void attention_tile(const float* qkv, float* out, const Dims& dm) {
   }
 }
 
+// The forward of a differentiable call: the backward's phase 1 with one
+// residual stream and the output layer.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 fused_set_transformer_fwd(const T* __restrict__ x, Weights<T> wt,
@@ -771,13 +784,14 @@ int launch(const void* x, const void* const* w, const float* const* b,
 
 extern "C" {
 
-// w: the 6 fp32 matrices (embed, qkv, proj, fc1, fc2, out); b: their 6
+// The forward of a differentiable fp32 call, x [rows, in] to y [rows,
+// out].  w: the 6 fp32 matrices (embed, qkv, proj, fc1, fc2, out); b: their 6
 // fp32 biases, in the same order.  Returns cudaGetLastError().
-int fused_set_transformer_fwd_f32(const void* x, const void* const* w,
-                                  const float* const* b, void* y, long rows,
-                                  int set_size, int in_dim, int hidden,
-                                  int heads, int layers, int mlp, int out_dim,
-                                  void* stream) {
+int fused_set_transformer_train_fwd_f32(const void* x, const void* const* w,
+                                        const float* const* b, void* y,
+                                        long rows, int set_size, int in_dim,
+                                        int hidden, int heads, int layers,
+                                        int mlp, int out_dim, void* stream) {
   return launch<float>(x, w, b, y, rows, set_size, in_dim, hidden, heads,
                        layers, mlp, out_dim, stream);
 }

@@ -1,0 +1,471 @@
+// Fused SetTransformer forward (kernel #3) in fp32, on Hopper's tensor cores
+// (sm_90a) with a 3xTF32 split: the eval_model twin's coupling net.  The
+// fp32 backward (#4) stays the CUDA-core kernel of fused_transformer.cu;
+// the bf16 pair is fused_transformer_bf16.cu.
+//
+// Replaces the TPU kernel categoricalnf_tpu/ops/pallas/fused_transformer.py
+// _fused_fwd (body _fwd_kernel -> _net_forward) in fp32: embed -> L x [LN ->
+// QKV -> per-set, per-head attention -> proj + residual; LN -> fc1 ->
+// gelu(tanh) -> fc2 + residual] -> LN -> out, for a tile of whole sets.
+//
+// Bound on an H100.  At the flagship width (H=96, 4 heads, 2 blocks, S=16,
+// in 4, out 104) the net does about 164k multiply-adds a row, 21.5 GFLOP at
+// eval_bpd's 65,536 rows, against 16 B of x and 416 B of y a row and 0.6 MB
+// of weights: it is bound by operations.  On the FMA units (67 TFLOP/s)
+// that is 0.32 ms; as three TF32 products on the tensor cores (494.7
+// TFLOP/s dense) 0.13 ms.
+//
+// Accuracy.  Every density evaluation runs in fp32, and a single TF32
+// product (10 mantissa bits) would not: it reads about 3e-4 relative error
+// against fp32.  Each fp32 operand v is split into a TF32 high part hi =
+// rna(v) and a TF32 remainder lo = rna(v - hi) (cvt.rna.tf32.f32; v - hi is
+// exact), and a product is a_lo.b_hi + a_hi.b_lo + a_hi.b_hi on
+// mma.sync.m16n8k8.tf32 with fp32 accumulators: the small terms in one
+// chain of the tensor cores' accumulator, the large one a k-step at a time
+// added in fp32 (mma_3xtf32 says why).  The dropped a_lo.b_lo is below
+// fp32's rounding, so the result has fp32's accuracy.  The weights
+// are split once a repack (PackedWeights); the activations when their A
+// fragment is loaded.  No product anywhere takes a single TF32 pass.
+//
+// Design.  One block of 8 warps a tile of whole sets, 32 rows at the
+// flagship (two 16-row m-tiles), no persistent loop.  Shared memory holds
+// three fp32 buffers for the whole net: h (the residual stream), a (the LN
+// output, then the attention output) and big (x, then qkv, then the MLP
+// hidden layer): 63 KB at the flagship, three blocks an SM.  A tile's rows
+// are exactly its sets (no padded rows are stored); an m-tile that runs
+// past them reads its last row again and stores nothing there.  Leading
+// dimensions are 4 mod 8 floats, so the A-fragment loads (lane (g, t) reads
+// row g, column t) fall in 32 distinct banks; where a wide net does not fit
+// so, the tile drops to 16 rows, and then the rows to their true width
+// (bank conflicts, same results).  The contraction runs over widths padded
+// to 8; the pad columns read the next row's finite values (or zeros past
+// the last buffer) against the zero pad of the weight layout, so they add
+// nothing; shared memory is cleared once so that every value is finite.
+// Each dense product: one warp per (16-row m-tile, 16 output columns),
+// B fragments of the split weights loaded as one 16-byte read a lane a
+// k-step, one k-step ahead; bias, residual and tanh-gelu in the fp32
+// epilogue; the output layer's rows < valid straight to global memory.
+// LayerNorm (one warp a row) and attention (one thread per head and query
+// row, its own row in registers, the set's rows broadcast, set loops
+// unrolled only to 16 or 32) run on the CUDA cores in fp32, out of line.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "fused_transformer.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxSet = 32;      // largest set size attention handles
+// Rows a tile aims for (whole sets): 32, two m-tiles, three blocks an SM.
+// 64-row tiles (126 KB, one block of 8 warps an SM) took 1.66 ms against
+// 0.96 ms at the flagship on an H100.
+constexpr int kTileTarget = 32;
+constexpr int kMinTile = 16;     // the fallback where a net does not fit
+constexpr int kBlocks = 3;       // blocks an SM the launch bounds allow
+constexpr int kChunk = 8;        // own-row values held in registers
+constexpr int kSlack = 8;        // floats past the last buffer (pad reads)
+
+struct Dims {
+  long rows;
+  int set_size, in_dim, hidden, heads, layers, mlp, out_dim;
+  int tile;                       // rows of a tile: whole sets, all stored
+  int k_in, k_h, k_f;             // contraction widths padded to 8
+  int n_h, n_qkv, n_f, n_out;     // output widths padded to 8
+  int ld_x, ld_h, ld_qkv, ld_f, ld_big;  // shared-memory rows (floats)
+};
+
+// The 6 split layouts (embed, qkv, proj, fc1, fc2, out; layer-stacked):
+// W^T [pad8(n), 2 pad8(kd)], where the 16 floats of output row c and
+// k-step s are, for t < 4, (hi[8s + t], hi[8s + t + 4], lo[8s + t],
+// lo[8s + t + 4]): lane (g, t) reads its two B fragments as one float4.
+// The 6 fp32 biases.
+struct SplitWeights {
+  const float* wt[6];
+  const float* b[6];
+};
+
+__host__ __device__ inline int pad8(int n) { return (n + 7) / 8 * 8; }
+
+// The smallest width >= n that is 4 mod 8 floats: rows g = 0..7 of an A
+// fragment then start in banks 4g (times an odd number) mod 32, and the
+// four columns t of each fill the banks between.
+__host__ __device__ inline int conflict_free(int n) {
+  return n + ((4 - n) % 8 + 8) % 8;
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r & 0xffffe000u;
+}
+
+// d += a (16x8, row) . b (8x8, col), TF32 in, fp32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One k-step of a . b in 3xTF32: small += a_lo.b_hi + a_hi.b_lo on the
+// tensor cores, then big += a_hi.b_hi, that product taken on its own (a
+// zero accumulator) and added in fp32 with round-to-nearest.  The tensor
+// cores align and truncate the terms they sum, so a chain of the large
+// term through their accumulator drifts by several ulps (1.2e-6 relative
+// at the flagship on an H100, against 2.5e-7 for fp32 FMAs); the small
+// terms are 2^-11 as large, so their chain's truncation is far below
+// fp32's rounding.
+__device__ __forceinline__ void mma_3xtf32(float (&small)[4],
+                                           float (&big)[4],
+                                           const uint32_t (&hi)[4],
+                                           const uint32_t (&lo)[4],
+                                           const float4& b) {
+  mma_tf32(small, lo, __float_as_uint(b.x), __float_as_uint(b.y));
+  mma_tf32(small, hi, __float_as_uint(b.z), __float_as_uint(b.w));
+  float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_tf32(p, hi, __float_as_uint(b.x), __float_as_uint(b.y));
+#pragma unroll
+  for (int e = 0; e < 4; ++e) big[e] += p[e];
+}
+
+enum Epi {
+  kStore,     // out = acc + b
+  kResidual,  // out += acc + b
+  kGelu,      // out = gelu(acc + b)
+  kGlobal,    // gout[r, c] = acc + b for rows < valid
+};
+
+// out[r, c] <- epilogue(A[r, :kp] . W[:kp, c] + b[c]) for the tile's rows
+// and c < n.  A: fp32 [tile, lda] in shared memory; bt: a split layout
+// [np, 2 kp] (np = pad8(n)).  One warp per (m-tile, pair of 8-column
+// n-tiles), the warps of one pair reading the same B.  Inlined, so each
+// kernel has its own copy.
+template <int EPI>
+__device__ __forceinline__ void mma_dense(const float* A, int lda, int kp,
+                                          const float* __restrict__ bt,
+                                          int np, int n,
+                                          const float* __restrict__ bias,
+                                          float* out, int ld_out,
+                                          float* __restrict__ gout, int valid,
+                                          const Dims& dm) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int mtiles = (dm.tile + 15) >> 4, ntiles = np >> 3;
+  const int pairs = (ntiles + 1) >> 1, nk = kp >> 3;
+  for (int task = warp; task < mtiles * pairs; task += kWarps) {
+    const int mt = task % mtiles, j0 = (task / mtiles) * 2;
+    const bool two = j0 + 1 < ntiles;
+    // rows past the tile read its last row again; their results are
+    // dropped
+    const int r0 = min(mt * 16 + g, dm.tile - 1);
+    const int r1 = min(mt * 16 + g + 8, dm.tile - 1);
+    const float* a0 = A + r0 * lda + t;
+    const float* a1 = A + r1 * lda + t;
+    const float4* b0p =
+        reinterpret_cast<const float4*>(bt + (long)(j0 * 8 + g) * 2 * kp) + t;
+    const float4* b1p = two ? b0p + 4 * kp : b0p;  // 8 rows of 2 kp floats
+    float small[2][4], big[2][4];
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) small[q][e] = big[q][e] = 0.0f;
+    float4 b0 = __ldg(b0p), b1 = __ldg(b1p);
+    for (int s = 0; s < nk; ++s) {
+      float4 nb0 = b0, nb1 = b1;
+      if (s + 1 < nk) {
+        nb0 = __ldg(b0p + 4 * (s + 1));
+        nb1 = __ldg(b1p + 4 * (s + 1));
+      }
+      const int k0 = s * 8;
+      // A fragment: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+      const float av[4] = {a0[k0], a1[k0], a0[k0 + 4], a1[k0 + 4]};
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        hi[i] = tf32_rna(av[i]);
+        lo[i] = tf32_rna(av[i] - __uint_as_float(hi[i]));
+      }
+      mma_3xtf32(small[0], big[0], hi, lo, b0);
+      if (two) mma_3xtf32(small[1], big[1], hi, lo, b1);
+      b0 = nb0;
+      b1 = nb1;
+    }
+
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      if (q == 1 && !two) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // accumulator e: row g + 8 (e >> 1), column 2t + (e & 1)
+        const int r = mt * 16 + g + 8 * (e >> 1);
+        const int c = (j0 + q) * 8 + 2 * t + (e & 1);
+        if (r >= dm.tile || c >= n) continue;
+        const float v = (big[q][e] + small[q][e]) + bias[c];
+        if constexpr (EPI == kStore) {
+          out[r * ld_out + c] = v;
+        } else if constexpr (EPI == kResidual) {
+          out[r * ld_out + c] += v;
+        } else if constexpr (EPI == kGelu) {
+          out[r * ld_out + c] = gelu_tanh(v);
+        } else {
+          if (r < valid) gout[(long)r * n + c] = v;
+        }
+      }
+    }
+  }
+}
+
+// LayerNorm without affine, one warp a row: fp32 mean and biased variance.
+__device__ __noinline__ void layer_norm_tile(const float* in, float* out,
+                                             const Dims& dm) {
+  const int lane = threadIdx.x & 31, h = dm.hidden;
+  for (int r = threadIdx.x >> 5; r < dm.tile; r += kWarps) {
+    const float* row = in + r * dm.ld_h;
+    float s = 0.0f;
+    for (int c = lane; c < h; c += 32) s += row[c];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    const float mean = s / h;
+    float v = 0.0f;
+    for (int c = lane; c < h; c += 32) {
+      const float d = row[c] - mean;
+      v = fmaf(d, d, v);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    const float inv = rsqrtf(v / h + 1e-5f);
+    for (int c = lane; c < h; c += 32)
+      out[r * dm.ld_h + c] = (row[c] - mean) * inv;
+  }
+}
+
+// dot[j] += sum_{d < hd} mine[d] * rows[j * ld + d] for j < S, in order of
+// d (mine: this thread's row, kChunk values at a time in registers; rows:
+// the set's rows, read by all its threads).
+template <int MAXS>
+__device__ __forceinline__ void set_dots(const float* mine, const float* rows,
+                                         int ld, int hd, int S,
+                                         float (&dot)[MAXS]) {
+  for (int d0 = 0; d0 < hd; d0 += kChunk) {
+    float v[kChunk];
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e) v[e] = d0 + e < hd ? mine[d0 + e] : 0.0f;
+#pragma unroll
+    for (int j = 0; j < MAXS; ++j) {
+      if (j < S) {
+        const float* rj = rows + j * ld + d0;
+#pragma unroll
+        for (int e = 0; e < kChunk; ++e)
+          if (d0 + e < hd) dot[j] = fmaf(v[e], rj[e], dot[j]);
+      }
+    }
+  }
+}
+
+// Attention within each set, one thread per (head, query row): logits
+// q.k / sqrt(hd), softmax, then out = sum_j p_j v_j, all fp32.
+template <int MAXS>
+__device__ __noinline__ void attention_tile(const float* qkv, float* out,
+                                            const Dims& dm) {
+  const int H = dm.hidden, nh = dm.heads, hd = H / nh, S = dm.set_size;
+  const float inv_root = 1.0f / sqrtf((float)hd);
+  const int ld = dm.ld_qkv;
+  for (int item = threadIdx.x; item < dm.tile * nh; item += blockDim.x) {
+    const int hh = item / dm.tile;
+    const int r = item % dm.tile;
+    const float* set = qkv + (r / S) * S * ld;
+    float p[MAXS];
+#pragma unroll
+    for (int j = 0; j < MAXS; ++j) p[j] = 0.0f;
+    set_dots<MAXS>(qkv + r * ld + hh * hd, set + H + hh * hd, ld, hd, S, p);
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < MAXS; ++j) {
+      if (j < S) {
+        p[j] = p[j] * inv_root;
+        mx = fmaxf(mx, p[j]);
+      }
+    }
+    float sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < MAXS; ++j) {
+      if (j < S) {
+        p[j] = expf(p[j] - mx);
+        sum += p[j];
+      }
+    }
+    const float inv_sum = 1.0f / sum;
+#pragma unroll
+    for (int j = 0; j < MAXS; ++j) p[j] *= inv_sum;
+    const float* v = set + 2 * H + hh * hd;
+    float* o = out + r * dm.ld_h + hh * hd;
+    for (int d = 0; d < hd; ++d) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int j = 0; j < MAXS; ++j)
+        if (j < S) acc = fmaf(p[j], v[j * ld + d], acc);
+      o[d] = acc;
+    }
+  }
+}
+
+__device__ __forceinline__ void attention(const float* qkv, float* out,
+                                          const Dims& dm) {
+  if (dm.set_size <= 16)
+    attention_tile<16>(qkv, out, dm);
+  else
+    attention_tile<kMaxSet>(qkv, out, dm);
+}
+
+// Floats of one block's shared memory: h and a [tile, ld_h], big [tile,
+// ld_big] (x, qkv or the MLP hidden layer), and the slack that the last
+// row's padded contraction reads.
+__host__ __device__ inline size_t smem_floats(const Dims& dm) {
+  return (size_t)dm.tile * (2 * dm.ld_h + dm.ld_big) + kSlack;
+}
+
+// The launch bounds give registers for the three blocks an SM that shared
+// memory holds at the flagship (63 KB each).
+__global__ void __launch_bounds__(kThreads, kBlocks)
+fused_set_transformer_fwd_tf32x3(const float* __restrict__ x,
+                                 SplitWeights wt, float* __restrict__ y,
+                                 Dims dm) {
+  extern __shared__ __align__(16) float smem[];
+  const int H = dm.hidden, RH = dm.mlp, L = dm.layers, T = dm.tile;
+  float* h = smem;                // [T, ld_h] residual stream
+  float* a = h + T * dm.ld_h;     // [T, ld_h] LN / attention output
+  float* big = a + T * dm.ld_h;   // x, qkv, the MLP hidden layer
+  const long row0 = blockIdx.x * (long)T;
+  const long left = dm.rows - row0;
+  const int valid = left < T ? (int)left : T;
+
+  const int total = (int)smem_floats(dm);
+  for (int i = threadIdx.x; i < total; i += blockDim.x) smem[i] = 0.0f;
+  __syncthreads();
+  for (int i = threadIdx.x; i < valid * dm.in_dim; i += blockDim.x) {
+    const int r = i / dm.in_dim, c = i % dm.in_dim;
+    big[r * dm.ld_x + c] = x[row0 * dm.in_dim + i];
+  }
+  __syncthreads();
+  mma_dense<kStore>(big, dm.ld_x, dm.k_in, wt.wt[0], dm.n_h, H, wt.b[0], h,
+                    dm.ld_h, nullptr, valid, dm);
+  __syncthreads();
+  for (int l = 0; l < L; ++l) {
+    layer_norm_tile(h, a, dm);
+    __syncthreads();
+    mma_dense<kStore>(a, dm.ld_h, dm.k_h,
+                      wt.wt[1] + (long)l * dm.n_qkv * 2 * dm.k_h, dm.n_qkv,
+                      3 * H, wt.b[1] + l * 3 * H, big, dm.ld_qkv, nullptr,
+                      valid, dm);
+    __syncthreads();
+    attention(big, a, dm);
+    __syncthreads();
+    mma_dense<kResidual>(a, dm.ld_h, dm.k_h,
+                         wt.wt[2] + (long)l * dm.n_h * 2 * dm.k_h, dm.n_h, H,
+                         wt.b[2] + l * H, h, dm.ld_h, nullptr, valid, dm);
+    __syncthreads();
+    layer_norm_tile(h, a, dm);
+    __syncthreads();
+    mma_dense<kGelu>(a, dm.ld_h, dm.k_h,
+                     wt.wt[3] + (long)l * dm.n_f * 2 * dm.k_h, dm.n_f, RH,
+                     wt.b[3] + l * RH, big, dm.ld_f, nullptr, valid, dm);
+    __syncthreads();
+    mma_dense<kResidual>(big, dm.ld_f, dm.k_f,
+                         wt.wt[4] + (long)l * dm.n_h * 2 * dm.k_f, dm.n_h, H,
+                         wt.b[4] + l * H, h, dm.ld_h, nullptr, valid, dm);
+    __syncthreads();
+  }
+  // output layer: y = LN(h_L) @ Wo + bo, straight to global memory
+  layer_norm_tile(h, a, dm);
+  __syncthreads();
+  mma_dense<kGlobal>(a, dm.ld_h, dm.k_h, wt.wt[5], dm.n_out, dm.out_dim,
+                     wt.b[5], nullptr, 0, y + row0 * dm.out_dim, valid, dm);
+}
+
+// The tile and leading dimensions of a call, the first of these whose
+// shared memory fits: whole sets up to 32 rows with conflict-free rows;
+// whole sets up to 16 rows (one set where a set is larger) with
+// conflict-free rows; the same with rows at their true width.  Returns
+// false where none fits.  ops/cuda/fused_transformer.py fwd_shape mirrors
+// it.
+bool pick_layout(Dims& dm, int max_smem) {
+  const int targets[3] = {kTileTarget, kMinTile, kMinTile};
+  for (int i = 0; i < 3; ++i) {
+    const int tt = targets[i];
+    dm.tile = (tt >= dm.set_size ? tt / dm.set_size : 1) * dm.set_size;
+    const bool spread = i < 2;
+    auto ld = [spread](int n) { return spread ? conflict_free(n) : n; };
+    dm.ld_x = ld(dm.in_dim);
+    dm.ld_h = ld(dm.hidden);
+    dm.ld_qkv = ld(3 * dm.hidden);
+    dm.ld_f = ld(dm.mlp);
+    dm.ld_big = dm.ld_qkv > dm.ld_f ? dm.ld_qkv : dm.ld_f;
+    if (dm.ld_x > dm.ld_big) dm.ld_big = dm.ld_x;
+    if (sizeof(float) * smem_floats(dm) <= (size_t)max_smem) return true;
+  }
+  return false;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Forward in fp32: x [rows, in] to y [rows, out].  w: the 6 split layouts
+// (see SplitWeights; embed, qkv, proj, fc1, fc2, out); b: their 6 fp32
+// biases, in the same order.  Returns cudaGetLastError().
+int fused_set_transformer_fwd_f32(const void* x, const void* const* w,
+                                  const float* const* b, void* y, long rows,
+                                  int set_size, int in_dim, int hidden,
+                                  int heads, int layers, int mlp, int out_dim,
+                                  void* stream) {
+  if (set_size < 1 || set_size > kMaxSet || heads < 1 || hidden % heads ||
+      rows % set_size)
+    return (int)cudaErrorInvalidValue;
+  Dims dm;
+  dm.rows = rows;
+  dm.set_size = set_size;
+  dm.in_dim = in_dim;
+  dm.hidden = hidden;
+  dm.heads = heads;
+  dm.layers = layers;
+  dm.mlp = mlp;
+  dm.out_dim = out_dim;
+  dm.k_in = pad8(in_dim);
+  dm.k_h = pad8(hidden);
+  dm.k_f = pad8(mlp);
+  dm.n_h = pad8(hidden);
+  dm.n_qkv = pad8(3 * hidden);
+  dm.n_f = pad8(mlp);
+  dm.n_out = pad8(out_dim);
+  int dev = 0, max_smem = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&max_smem,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (!pick_layout(dm, max_smem)) return (int)cudaErrorInvalidValue;
+  if (rows == 0) return (int)cudaSuccess;
+  SplitWeights wt;
+  for (int j = 0; j < 6; ++j) {
+    wt.wt[j] = (const float*)w[j];
+    wt.b[j] = b[j];
+  }
+  const size_t smem = sizeof(float) * smem_floats(dm);
+  err = cudaFuncSetAttribute(fused_set_transformer_fwd_tf32x3,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = (unsigned)((rows + dm.tile - 1) / dm.tile);
+  fused_set_transformer_fwd_tf32x3<<<grid, kThreads, smem,
+                                     (cudaStream_t)stream>>>(
+      (const float*)x, wt, (float*)y, dm);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

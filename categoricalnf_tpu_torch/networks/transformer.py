@@ -81,7 +81,7 @@ class SetTransformer(nn.Module):
         if cond is not None or mask is not None:
             raise NotImplementedError(
                 "the fused SetTransformer kernel takes no condition or key "
-                "mask yet (ROADMAP.md, Queue B 3)")
+                "mask yet (ROADMAP.md, Queue B 7)")
         packed = self._packed_weights(torch_dtype(self.compute_dtype))
         if torch.is_grad_enabled():
             # kernel #3 forward, kernel #4 backward; the stacks of

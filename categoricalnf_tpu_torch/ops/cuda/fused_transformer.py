@@ -1,6 +1,10 @@
 """Wrappers of the fused SetTransformer kernels: the forward (#3) and its
-backward (#4), in fp32 the template kernels of ``csrc/fused_transformer.cu``,
-in bf16 the tensor-core kernels of ``csrc/fused_transformer_bf16.cu``.
+backward (#4).  In fp32 the forward of a call without grad (the eval_model
+twin) is the 3xTF32 tensor-core kernel of
+``csrc/fused_transformer_tf32x3.cu``; a differentiable call's forward and
+the backward are the FMA kernels of ``csrc/fused_transformer.cu``, one
+arithmetic.  In bf16 both are the tensor-core kernels of
+``csrc/fused_transformer_bf16.cu``.
 
 Counterparts of ``_fused_fwd`` and ``_fused_bwd`` in
 ``categoricalnf_tpu/ops/pallas/fused_transformer.py``.  The kernels' plain
@@ -9,10 +13,12 @@ version is the unfused path of ``networks.transformer.SetTransformer``
 these wrappers take CUDA tensors only and raise on what the kernels do not
 take.  ``PackedWeights`` checks and casts the weights once, so a launch does
 neither; in bf16 it casts them straight into the padded operand layouts
-that both tensor-core kernels read (``padded_layouts``).
+that both tensor-core kernels read (``padded_layouts``), in fp32 it splits
+them into the TF32 pairs the forward reads (``tf32x3_layouts``).
 ``FusedSetTransformer`` ties the two kernels together for autograd, as
 ``defvjp`` does in the reference.  ``LAUNCHES`` and ``BWD_LAUNCHES`` count
-launches by compute dtype.
+launches by compute dtype, ``TRAIN_FWD_LAUNCHES`` those of the fp32 FMA
+forward of a differentiable call.
 """
 
 from __future__ import annotations
@@ -26,11 +32,15 @@ from categoricalnf_tpu_torch.ops.cuda import build
 
 # Must agree with csrc/fused_transformer.cu (kMaxSet, kTileTarget,
 # kRowsPerThread), csrc/fused_transformer_bf16.cu (kTileTarget, 16-row
-# m-tiles, kLnVals) and the H100's 227 KB of shared memory per
+# m-tiles, kLnVals), csrc/fused_transformer_tf32x3.cu (kTileTarget,
+# kMinTile, kSlack, pick_layout) and the H100's 227 KB of shared memory per
 # block.
 MAX_SET = 32
-TILE_TARGET = 32
-BF16_TILE_TARGET = 64  # both bf16 kernels; fp32 takes TILE_TARGET
+TILE_TARGET = 32  # the fp32 backward and the FMA forward it recomputes
+BF16_TILE_TARGET = 64  # both bf16 kernels
+F32_TILE_TARGET = 32  # the fp32 forward; 16 where a net does not fit
+F32_MIN_TILE = 16
+F32_SLACK = 8  # floats past the fp32 forward's last buffer
 # bf16 forward blocks an SM its launch bounds give registers for (kFwdBlocks)
 FWD_BLOCKS = 2
 ROWS_PER_THREAD = 8
@@ -42,12 +52,15 @@ SMEM_PER_SM = 233_472
 NUM_W = 12
 LAUNCHES = {"bfloat16": 0, "float32": 0}
 BWD_LAUNCHES = {"bfloat16": 0, "float32": 0}
+TRAIN_FWD_LAUNCHES = {"float32": 0}
 
 # (source, entry point) of the forward and of the backward
 _ENTRY = {torch.bfloat16: ("fused_transformer_bf16",
                            "fused_set_transformer_fwd_bf16"),
-          torch.float32: ("fused_transformer",
+          torch.float32: ("fused_transformer_tf32x3",
                           "fused_set_transformer_fwd_f32")}
+# an fp32 call with grad: the forward whose arithmetic the backward recomputes
+_TRAIN_FWD_ENTRY = ("fused_transformer", "fused_set_transformer_train_fwd_f32")
 _BWD_ENTRY = {torch.bfloat16: ("fused_transformer_bf16",
                                "fused_set_transformer_bwd_bf16"),
               torch.float32: ("fused_transformer",
@@ -74,9 +87,33 @@ def flatten_params(net) -> tuple:
 def smem_bytes(set_size: int, in_dim: int, hidden: int, mlp: int) -> int:
     """Dynamic shared memory of one block of the fp32 forward, as the kernel
     computes it."""
-    _, tile_pad = _tile(set_size)
-    ld_big = max(3 * hidden, mlp, in_dim) + 1
-    return 4 * tile_pad * (2 * (hidden + 1) + ld_big)
+    return _f32_fwd_layout(set_size, in_dim, hidden, mlp)[1]
+
+
+def conflict_free(n: int) -> int:
+    """The smallest width >= n that is 4 mod 8 floats: the fp32 forward's
+    A-fragment loads from rows this far apart fall in distinct banks."""
+    return n + (4 - n) % 8
+
+
+def _f32_fwd_layout(set_size: int, in_dim: int, hidden: int,
+                    mlp: int) -> tuple[int, int]:
+    """(tile, shared-memory bytes) of the fp32 forward: the first that fits
+    of whole sets up to 32 rows with conflict-free rows, whole sets
+    up to 16 rows (one set where a set is larger) with conflict-free rows,
+    and the same with rows at their true width; the last when none fits.
+    Three buffers: h and the LN/attention output [tile, H], and the widest
+    of x, qkv and the MLP hidden layer, plus the slack that the padded
+    contraction of the last row reads (``pick_layout`` in the kernel)."""
+    for tt, ld in ((F32_TILE_TARGET, conflict_free),
+                   (F32_MIN_TILE, conflict_free),
+                   (F32_MIN_TILE, int)):
+        tile = _tile(set_size, tt, 1)[0]
+        ld_big = max(ld(in_dim), ld(3 * hidden), ld(mlp))
+        smem = 4 * (tile * (2 * ld(hidden) + ld_big) + F32_SLACK)
+        if smem <= MAX_SMEM:
+            break
+    return tile, smem
 
 
 def _tile(set_size: int, target: int = TILE_TARGET,
@@ -124,9 +161,9 @@ def fwd_shape(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
     16-row m-tiles, or up to 32 where 64 would not fit (nets much wider than
     the flagship); three bf16 buffers, h and the LN/attention output
     [tile, H] and the region for x, qkv or the MLP hidden layer, rows a
-    multiple of 16 plus 8 wide.  fp32: ``smem_bytes``' 32-row tile."""
+    multiple of 16 plus 8 wide.  fp32: ``_f32_fwd_layout``'s tile."""
     if dtype != torch.bfloat16:
-        return _tile(set_size)[0], smem_bytes(set_size, in_dim, hidden, mlp)
+        return _f32_fwd_layout(set_size, in_dim, hidden, mlp)
     ld_h = pad16(hidden) + 8
     ld_big = max(pad16(n) + 8 for n in (3 * hidden, mlp, in_dim))
     for target in (BF16_TILE_TARGET, BF16_TILE_TARGET // 2):
@@ -181,6 +218,45 @@ def padded_layouts(mats, dtype: torch.dtype | None = None) -> list:
     return views
 
 
+def rna_tf32(w: torch.Tensor) -> torch.Tensor:
+    """fp32 ``w`` rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` does: the low 13 bits zero."""
+    bits = w.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def pad8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def tf32x3_layouts(mats) -> list:
+    """The fp32 forward's operand layouts of the weights ``mats`` (each W
+    [..., kd, n], fp32, any device): W^T split into a TF32 high part hi =
+    rna(W^T) and a TF32 remainder lo = rna(W^T - hi), zero-padded to
+    [..., pad8(n), pad8(kd)], interleaved for the m16n8k8 B fragment as
+    [..., pad8(n), 2 pad8(kd)]: the 16 floats of output row c and k-step s
+    are, for t < 4, hi[8s + t], hi[8s + t + 4], lo[8s + t], lo[8s + t + 4],
+    so that lane t reads its high and low fragments as one 16-byte load.
+    Views of one buffer."""
+    shapes = [(*w.shape[:-2], pad8(w.shape[-1]), 2 * pad8(w.shape[-2]))
+              for w in mats]
+    sizes = [math.prod(shape) for shape in shapes]
+    buf = torch.empty(sum(sizes), dtype=torch.float32, device=mats[0].device)
+    views = [v.view(shape) for v, shape in zip(buf.split(sizes), shapes)]
+    for w, out in zip(mats, views):
+        *lead, kd, n = w.shape
+        wt = torch.zeros(*lead, pad8(n), pad8(kd), dtype=torch.float32,
+                         device=w.device)
+        wt[..., :n, :kd] = w.detach().transpose(-1, -2)
+        hi = rna_tf32(wt)
+        lo = rna_tf32(wt - hi)
+        # [..., n8, k-steps, half (k % 8 >= 4), t] -> [..., t, hi/lo, half]
+        split = torch.stack([p.unflatten(-1, (-1, 2, 4)).transpose(-1, -2)
+                             for p in (hi, lo)], dim=-2)
+        out.copy_(split.flatten(-4))
+    return views
+
+
 def supported(x, cond, mask, hidden_dim: int, num_heads: int,
               mlp_ratio: int = 2,
               compute_dtype: torch.dtype = torch.float32) -> bool:
@@ -218,13 +294,14 @@ def _fn(source: str, name: str, argtypes):
 def pack_matrices(ws, compute_dtype: torch.dtype) -> tuple[list, list]:
     """The matrices of the 12-tuple ``ws`` (fp32) as the kernels of
     ``compute_dtype`` read them: (the forward's, the backward's).  fp32: the
-    6 matrices, for both.  bf16: the 12 ``padded_layouts``, cast straight
-    from fp32 (one fill and 12 casting copies a repack); the forward reads
-    the 6 W^T layouts, the backward all 12."""
+    6 ``tf32x3_layouts`` for the forward, the 6 fp32 matrices for the
+    backward.  bf16: the 12 ``padded_layouts``, cast straight from fp32 (one
+    fill and 12 casting copies a repack); the forward reads the 6 W^T
+    layouts, the backward all 12."""
     mats = [ws[j].detach() for j in (0, 2, 4, 6, 8, 10)]
     if compute_dtype != torch.bfloat16:
         mats = [m.to(compute_dtype).contiguous() for m in mats]
-        return mats, mats
+        return tf32x3_layouts(mats), mats
     layouts = padded_layouts(mats, compute_dtype)
     return layouts[:6], layouts
 
@@ -293,20 +370,27 @@ def _check_x(packed: PackedWeights, x, num_heads: int, what: str):
                          f"heads={num_heads}")
 
 
-def _forward_launch(packed: PackedWeights, x, num_heads: int):
+def _forward_launch(packed: PackedWeights, x, num_heads: int,
+                    differentiable: bool = False):
+    """Kernel #3.  A differentiable fp32 call takes the FMA forward whose
+    arithmetic the fp32 backward recomputes (bf16 has one forward)."""
     _check_x(packed, x, num_heads, "forward")
     B, S, in_dim = x.shape
     x2 = x.detach().to(packed.dtype).contiguous()
     y = torch.empty(B, S, packed.out_dim, dtype=packed.dtype, device=x.device)
-    source, name = _ENTRY[packed.dtype]
+    train = differentiable and packed.dtype == torch.float32
+    source, name = _TRAIN_FWD_ENTRY if train else _ENTRY[packed.dtype]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _fn(source, name, _FWD_ARGS)(
-            x2.data_ptr(), packed.w_ptrs, packed.b_ptrs, y.data_ptr(), B * S,
-            S, in_dim, packed.hidden, num_heads, packed.layers, packed.mlp,
-            packed.out_dim, stream)
+            x2.data_ptr(), packed.bwd_w_ptrs if train else packed.w_ptrs,
+            packed.b_ptrs, y.data_ptr(), B * S, S, in_dim, packed.hidden,
+            num_heads, packed.layers, packed.mlp, packed.out_dim, stream)
     build.check(err, name)
-    LAUNCHES[_KEY[packed.dtype]] += 1
+    if train:
+        TRAIN_FWD_LAUNCHES["float32"] += 1
+    else:
+        LAUNCHES[_KEY[packed.dtype]] += 1
     return y
 
 
@@ -364,16 +448,17 @@ def fused_set_transformer_bwd(packed: PackedWeights, x, g, *,
 
 
 class FusedSetTransformer(torch.autograd.Function):
-    """``apply(x, packed, num_heads, *ws)``: the net's output from kernel #3,
-    and from kernel #4 in backward dx (x's dtype) and the fp32 gradients of
-    the 12-tuple ``ws`` (``flatten_params``, differentiable through its
-    stacks).  ``packed`` holds ``ws`` cast once; only x is saved."""
+    """``apply(x, packed, num_heads, *ws)``: the net's output from kernel #3
+    (in fp32 its FMA form, the arithmetic #4 recomputes), and from kernel #4
+    in backward dx (x's dtype) and the fp32 gradients of the 12-tuple ``ws``
+    (``flatten_params``, differentiable through its stacks).  ``packed``
+    holds ``ws`` cast once; only x is saved."""
 
     @staticmethod
     def forward(ctx, x, packed, num_heads, *ws):
         ctx.packed, ctx.num_heads = packed, num_heads
         ctx.save_for_backward(x)
-        return _forward_launch(packed, x, num_heads)
+        return _forward_launch(packed, x, num_heads, differentiable=True)
 
     @staticmethod
     def backward(ctx, g):

@@ -8,15 +8,18 @@ Run from the root of a checkout on a machine with one NVIDIA card:
 1. Prints the card's name and power limit and builds every CUDA kernel
    (one nvcc per source, started together), printing ptxas's registers
    and spills of each; counts the tensor-core (HMMA) instructions of each
-   kernel function in the SASS and checks that the bf16 forward and the
-   bf16 backward both have some.
+   kernel function in the SASS and checks that the bf16 forward, the bf16
+   backward and the fp32 (3xTF32) forward all have some.
 2. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the serving and training paths give it (a 1024-sample chunk; the
    fp32 net and a second mixture forward at eval_bpd's 1024 sets x 4
    chains; the backward kernels at a training step's 16,384 rows and
-   M = 65,536, the fp32 backward at 4,096 rows), twice, with a synchronize
+   M = 65,536, the fp32 backward and the FMA forward of a differentiable
+   fp32 call at 4,096 rows), twice, with a synchronize
    after each launch; times both with CUDA events around runs of
-   back-to-back launches.
+   back-to-back launches.  The fp32 forward is also held to fp32's
+   accuracy (F32_FWD_REL) beside a control that a single TF32 pass reads
+   above it.
 3. Serves the flagship set-shuffling flow (runs/set16/config.json as it
    is, seeded random weights, data init on one batch) over HTTP:
    /health, /sample, /sample_metrics; then the fp32 importance-sampled
@@ -60,7 +63,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# "tf32": the tensor cores' dense TF32 rate, which the fp32 forward's three
+# TF32 products a multiply-add run at; "float32": the FMA units.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 494.7e12}
 
 # Slice shapes: one sampling chunk of the flagship; eval_bpd runs its IS
 # chains as a batch of EVAL_CHAINS x B sets.
@@ -307,6 +312,7 @@ def check_fused(device, gen, report):
             if cd == "float32":
                 check(close(y, y_p, 1e-4),
                       f"fused fp32 off the unfused path: {max_err(y, y_p)}")
+                extra = check_f32_accuracy(net, x, y, y_p)
             else:
                 err = (y.float() - y_p.float()).abs()
                 bad = float((err > 0.05 * y_p.float().abs().clamp_min(1.0))
@@ -327,15 +333,78 @@ def check_fused(device, gen, report):
         n_w = sum(w.numel() for w in ws[0::2])
         n_b = sum(b.numel() for b in ws[1::2])
         macs = rows * net_macs_per_row(D, H, HEADS, 2, 2 * H, OUT, S)
+        if cd == "float32":
+            # or three TF32 products a multiply-add on the tensor cores
+            extra["tc_ops"] = 3 * 2 * macs
         report[name] = dict(
             max_abs_err=max_err(y, y_p), rows=rows, **t, **extra,
             bytes=rows * (D + OUT) * elt + n_w * elt + n_b * 4,
             ops=2 * macs, dtype=cd)
 
 
+# Relative norm error allowed between the fp32 forward (3xTF32) and
+# plain_forward in fp32 (TF32 off): fp32's accuracy.  A single TF32 pass
+# reads about 3e-4, which the script reads and holds above it in every run.
+F32_FWD_REL = 1e-5
+
+
+def check_f32_accuracy(net, x, y, y_p) -> dict:
+    """#3 fp32 against plain_forward at F32_FWD_REL, with TF32 off as
+    resolve_device sets it; the control, plain_forward with TF32 on, must
+    read above the limit."""
+    import torch
+    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    rel = rel_err(y, y_p)
+    check(rel <= F32_FWD_REL, f"fused fp32: relative error {rel} above "
+          f"{F32_FWD_REL}")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        y_tf32 = net.plain_forward(x)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    control = rel_err(y_tf32, y_p)
+    check(control > F32_FWD_REL, f"plain_forward in TF32 reads {control}, "
+          f"inside the limit {F32_FWD_REL}: the limit cannot tell it")
+    tile, smem = ft.fwd_shape(torch.float32, S, D, H, 2 * H)
+    return dict(rel_err=rel, tf32_control_rel_err=control, tile=tile,
+                smem=smem, blocks_per_sm=ft.smem_blocks_per_sm(smem))
+
+
 def rel_err(a, b) -> float:
     return float((a.float() - b.float()).norm()
                  / b.float().norm().clamp_min(1e-30))
+
+
+def check_train_fwd(device, gen, report):
+    """#3 in fp32 as a differentiable call runs it (the FMA forward that the
+    fp32 backward recomputes), at 4,096 rows, against plain_forward."""
+    import torch
+    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+
+    sets = B // 4
+    rows = sets * S
+    net = flagship_net("float32", device)
+    x = torch.randn(sets, S, D, generator=gen, device=device)
+    with torch.no_grad():
+        ws = ft.flatten_params(net)
+        packed = ft.PackedWeights(ws, torch.float32)
+
+        def run():
+            return ft.FusedSetTransformer.apply(x, packed, HEADS, *ws)
+
+        y = twice(run)
+        y_p = net.plain_forward(x)
+        check(y.shape == (sets, S, OUT) and close(y, y_p, 1e-4),
+              f"fp32 train forward off the unfused path: {max_err(y, y_p)}")
+        t = timed(run, lambda: net.plain_forward(x), 20, 5)
+    n_w = sum(w.numel() for w in ws[0::2])
+    n_b = sum(b.numel() for b in ws[1::2])
+    macs = rows * net_macs_per_row(D, H, HEADS, 2, 2 * H, OUT, S)
+    report["fused_set_transformer_train_f32"] = dict(
+        max_abs_err=max_err(y, y_p), rel_err=rel_err(y, y_p), rows=rows,
+        **t, bytes=rows * (D + OUT) * 4 + (n_w + n_b) * 4, ops=2 * macs,
+        dtype="float32")
 
 
 def check_mixture_bwd(device, gen, report):
@@ -578,7 +647,8 @@ def check_against_cpu(task, seed: int):
 def reset_launches():
     from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
     from categoricalnf_tpu_torch.ops.cuda import mixture as cm
-    for counts in (cm.LAUNCHES, ft.LAUNCHES, ft.BWD_LAUNCHES):
+    for counts in (cm.LAUNCHES, ft.LAUNCHES, ft.BWD_LAUNCHES,
+                   ft.TRAIN_FWD_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -591,7 +661,9 @@ def read_launches() -> dict:
             **{f"fused_set_transformer_{short[k]}": v
                for k, v in ft.LAUNCHES.items()},
             **{f"fused_set_transformer_bwd_{short[k]}": v
-               for k, v in ft.BWD_LAUNCHES.items()}}
+               for k, v in ft.BWD_LAUNCHES.items()},
+            "fused_set_transformer_train_f32":
+                ft.TRAIN_FWD_LAUNCHES["float32"]}
 
 
 TRAIN_STEPS, TRAIN_EVAL_EVERY, TRAIN_LOG_EVERY = 200, 100, 20
@@ -912,7 +984,8 @@ def tensor_core_instructions(source: str) -> dict:
 # read 0.00116 here on an H100 80GB HBM3 at 700 W
 BF16_FWD_REL = 0.01
 
-SOURCE_NAMES = ["mixture", "fused_transformer", "fused_transformer_bf16"]
+SOURCE_NAMES = ["mixture", "fused_transformer", "fused_transformer_bf16",
+                "fused_transformer_tf32x3"]
 SOURCES = {
     "mixture_inverse": ("categoricalnf_tpu_torch/csrc/mixture.cu",
                         "categoricalnf_tpu/ops/pallas/mixture.py:137"),
@@ -922,7 +995,7 @@ SOURCES = {
         "categoricalnf_tpu_torch/csrc/fused_transformer_bf16.cu",
         "categoricalnf_tpu/ops/pallas/fused_transformer.py:286"),
     "fused_set_transformer_f32": (
-        "categoricalnf_tpu_torch/csrc/fused_transformer.cu",
+        "categoricalnf_tpu_torch/csrc/fused_transformer_tf32x3.cu",
         "categoricalnf_tpu/ops/pallas/fused_transformer.py:286"),
     # no Pallas counterpart: the reference differentiates the plain math of
     # mixture_forward_pallas's reference with XLA
@@ -934,6 +1007,10 @@ SOURCES = {
     "fused_set_transformer_bwd_f32": (
         "categoricalnf_tpu_torch/csrc/fused_transformer.cu",
         "categoricalnf_tpu/ops/pallas/fused_transformer.py:303"),
+    # #3 in fp32 with grad: the FMA forward that the fp32 backward recomputes
+    "fused_set_transformer_train_f32": (
+        "categoricalnf_tpu_torch/csrc/fused_transformer.cu",
+        "categoricalnf_tpu/ops/pallas/fused_transformer.py:286"),
 }
 SERVING_KERNELS = ("mixture_inverse", "mixture_forward",
                    "fused_set_transformer_bf16", "fused_set_transformer_f32")
@@ -941,7 +1018,8 @@ SERVING_KERNELS = ("mixture_inverse", "mixture_forward",
 PATH_OF = {**{k: "serving" for k in SERVING_KERNELS},
            "mixture_forward_bwd": "training",
            "fused_set_transformer_bwd_bf16": "training",
-           "fused_set_transformer_bwd_f32": "train_step_fp32"}
+           "fused_set_transformer_bwd_f32": "train_step_fp32",
+           "fused_set_transformer_train_f32": "train_step_fp32"}
 
 
 def main() -> int:
@@ -980,6 +1058,14 @@ def main() -> int:
         print(f"{kernel}_bf16: {n} HMMA instructions in the SASS of "
               "fused_transformer_bf16.cu", flush=True)
         check(n > 0, f"{kernel} (bf16) has no tensor-core instruction")
+    hmma = tensor_core_instructions("fused_transformer_tf32x3")
+    for function, n in hmma.items():
+        print(f"  fused_transformer_tf32x3: {n} HMMA in {function}",
+              flush=True)
+    n = sum(v for k, v in hmma.items() if "fused_set_transformer_fwd" in k)
+    print(f"fused_set_transformer_fwd_f32: {n} HMMA instructions in the SASS "
+          "of fused_transformer_tf32x3.cu", flush=True)
+    check(n > 0, "the fp32 forward has no tensor-core instruction")
 
     device = resolve_device("cuda")
     gen = torch.Generator(device).manual_seed(args.seed)
@@ -988,9 +1074,15 @@ def main() -> int:
     check_fused(device, gen, report)
     check_mixture_bwd(device, gen, report)
     check_fused_bwd(device, gen, report)
+    check_train_fwd(device, gen, report)
     for r in report.values():
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["ops"] / PEAK_FLOPS[r["dtype"]] * 1e3
+        if "tc_ops" in r:  # the fp32 forward: the lesser of its two bounds
+            r["bound_fma_ms"] = max(t_bytes, t_ops)
+            t_ops = min(t_ops, r["tc_ops"] / PEAK_FLOPS["tf32"] * 1e3)
+            r["bound_tf32x3_ms"] = max(t_bytes, r["tc_ops"]
+                                       / PEAK_FLOPS["tf32"] * 1e3)
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     for name, r in report.items():
@@ -1006,6 +1098,9 @@ def main() -> int:
               + (f", tile {r['tile']} rows, {r['smem']} B of shared memory, "
                  f"{r['blocks_per_sm']} block(s) an SM" if "tile" in r
                  else "")
+              + (f", bounds {r['bound_fma_ms']!r} ms on the FMA units and "
+                 f"{r['bound_tf32x3_ms']!r} ms as 3xTF32, TF32 control "
+                 f"{r['tf32_control_rel_err']:.3g}" if "tc_ops" in r else "")
               + (f", grid {r['grid']}" if "grid" in r else ""), flush=True)
 
     timings: dict = {}
@@ -1016,8 +1111,10 @@ def main() -> int:
     print("training: " + json.dumps(train_timings), flush=True)
     launches["train_step_fp32"] = check_train_step_against_cpu(args.seed,
                                                                {})
-    check(launches["train_step_fp32"]["fused_set_transformer_bwd_f32"] > 0,
-          "the fp32 train step did not launch the fp32 backward kernel")
+    for name in ("fused_set_transformer_train_f32",
+                 "fused_set_transformer_bwd_f32"):
+        check(launches["train_step_fp32"][name] > 0,
+              f"the fp32 train step did not launch {name}")
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():

@@ -113,8 +113,9 @@ def _net(cd, dev, hidden=96, heads=4, in_dim=4, out_dim=104):
                                               (9, 1, 24, 3)])
 @pytest.mark.parametrize("cd", ["float32", "bfloat16"])
 def test_fused_net_matches_unfused(dev, b, s, hidden, heads, cd):
-    """fp32 to 1e-4 of the unfused path; bf16 (the tensor-core kernel)
-    within the reference's loose bound (< 2% of elements off by more than
+    """fp32 (the 3xTF32 kernel) to 1e-4 of the unfused path and within
+    F32_FWD_REL of its norm; bf16 (the tensor-core kernel) within the
+    reference's loose bound (< 2% of elements off by more than
     5%) and within 1% of the output's norm (BF16_FWD_REL).  Covers a ragged
     last tile (3 x 16 rows), sets that do not divide the tile (S=6), two
     sets a tile (S=32), S=1 and widths 24 and 48."""
@@ -131,11 +132,82 @@ def test_fused_net_matches_unfused(dev, b, s, hidden, heads, cd):
     assert y.shape == y_p.shape and y.dtype == y_p.dtype
     if cd == "float32":
         _close(y, y_p, 1e-4)
+        assert _rel(y, y_p) <= F32_FWD_REL
     else:
         err = (y.float() - y_p.float()).abs()
         bad = (err > 0.05 * y_p.float().abs().clamp_min(1.0)).float().mean()
         assert float(bad) < 0.02
         assert _rel(y, y_p) <= BF16_FWD_REL
+
+
+# Relative norm error allowed between the fp32 forward (3xTF32 on the
+# tensor cores) and plain_forward in fp32: fp32's accuracy.  A single TF32
+# pass reads about 3e-4.
+F32_FWD_REL = 1e-5
+
+
+def test_fused_f32_fwd_is_deterministic_at_the_flagship_shape(dev):
+    """Two calls at eval_bpd's 65,536 rows (1024 sets x 4 chains) are
+    bitwise equal and within F32_FWD_REL of the plain path."""
+    net = _net("float32", dev)
+    x = torch.randn(4096, 16, 4, generator=torch.Generator(dev)
+                    .manual_seed(4), device=dev)
+    with torch.no_grad():
+        packed = ft.PackedWeights(ft.flatten_params(net), torch.float32)
+        one = ft.fused_set_transformer(packed, x, num_heads=4)
+        two = ft.fused_set_transformer(packed, x, num_heads=4)
+        y_p = net.plain_forward(x)
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+    assert _rel(one, y_p) <= F32_FWD_REL
+
+
+@pytest.mark.parametrize("b,s", [(64, 16), (3, 16), (5, 6)])
+def test_fused_f32_differentiable_call_takes_the_fma_forward(dev, b, s):
+    """With grad, an fp32 net's forward is the FMA kernel whose arithmetic
+    the fp32 backward recomputes (to 1e-4 of the unfused path); without
+    grad it is the 3xTF32 kernel."""
+    net = _net("float32", dev)
+    x = torch.randn(b, s, 4, generator=torch.Generator(dev).manual_seed(6),
+                    device=dev)
+    n, n_train = ft.LAUNCHES["float32"], ft.TRAIN_FWD_LAUNCHES["float32"]
+    y = net(x.clone().requires_grad_(True))
+    with torch.no_grad():
+        y_nograd = net(x)
+        y_p = net.plain_forward(x)
+    torch.cuda.synchronize()
+    assert ft.TRAIN_FWD_LAUNCHES["float32"] == n_train + 1
+    assert ft.LAUNCHES["float32"] == n + 1
+    _close(y.detach(), y_p, 1e-4)
+    _close(y_nograd, y_p, 1e-4)
+    assert _rel(y_nograd, y_p) <= F32_FWD_REL
+
+
+@pytest.mark.parametrize("b,s,hidden,heads,ratio", [
+    (5, 16, 256, 4, 8),   # 32 rows do not fit: 16-row tiles
+    (3, 11, 256, 4, 8),   # 22 rows fit
+    (2, 32, 362, 2, 1)])  # rows at their true width
+def test_fused_f32_fwd_takes_the_fallback_layouts(dev, b, s, hidden, heads,
+                                                  ratio):
+    """Nets too wide for the flagship's layout take 16-row tiles, then
+    rows at their true width (bank conflicts, same arithmetic), and stay
+    within F32_FWD_REL of the plain path."""
+    net = SetTransformer(4, 104, hidden_dim=hidden, num_heads=heads,
+                         mlp_ratio=ratio, compute_dtype="float32",
+                         generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        net.out.w.copy_(torch.randn(net.out.w.shape, generator=torch
+                                    .Generator().manual_seed(1)) * 0.1)
+    net = net.to(dev)
+    x = torch.randn(b, s, 4, generator=torch.Generator(dev).manual_seed(5),
+                    device=dev)
+    with torch.no_grad():
+        packed = ft.PackedWeights(ft.flatten_params(net), torch.float32)
+        y = ft.fused_set_transformer(packed, x, num_heads=heads)
+        y_p = net.plain_forward(x)
+    torch.cuda.synchronize()
+    _close(y, y_p, 1e-4)
+    assert _rel(y, y_p) <= F32_FWD_REL
 
 
 # Relative norm error allowed between the bf16 forward and plain_forward:

@@ -116,12 +116,27 @@ def test_packed_bf16_layouts_equal_padded_layouts_of_the_cast_weights(
 
 
 def test_packed_fp32_matrices_are_the_weights():
+    """fp32: the backward reads the 6 matrices as they are, the 3xTF32
+    forward their ``tf32x3_layouts`` (hi + lo gives each back to fp32's
+    rounding)."""
     ws = _ws()
     with torch.no_grad():
         fwd, bwd = ft.pack_matrices(ws, F32)
-    assert fwd is bwd and len(fwd) == 6
-    for got, j in zip(fwd, (0, 2, 4, 6, 8, 10)):
+        want = ft.tf32x3_layouts([ws[j].detach()
+                                  for j in (0, 2, 4, 6, 8, 10)])
+    assert len(fwd) == len(bwd) == 6
+    for got, j in zip(bwd, (0, 2, 4, 6, 8, 10)):
         assert got.dtype == F32 and torch.equal(got, ws[j])
+    for got, w, j in zip(fwd, want, (0, 2, 4, 6, 8, 10)):
+        kd, n = ws[j].shape[-2:]
+        assert got.dtype == F32 and got.is_contiguous()
+        assert got.shape == (*ws[j].shape[:-2], ft.pad8(n), 2 * ft.pad8(kd))
+        assert torch.equal(got, w)
+        parts = got.unflatten(-1, (-1, 4, 2, 2))
+        back = (parts[..., 0, :] + parts[..., 1, :]).transpose(-1, -2) \
+            .flatten(-3)[..., :n, :kd]
+        torch.testing.assert_close(back, ws[j].detach().transpose(-1, -2),
+                                   rtol=2.0 ** -21, atol=0.0)
 
 
 class _Ops(TorchDispatchMode):

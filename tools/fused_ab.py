@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Compare the bf16 fused SetTransformer kernels of two checkouts on one
-card: #3 (the forward) and #4 (the backward) at a flagship train step's
-shape, 1024 sets of 16 (16,384 rows), on chip_smoke's seeded net.
+"""Compare the fused SetTransformer kernels of two checkouts on one card:
+in bf16 #3 (the forward) and #4 (the backward) at a flagship train step's
+shape, 1024 sets of 16 (16,384 rows); in fp32 #3 at eval_bpd's shape, 4096
+sets of 16 (65,536 rows); on chip_smoke's seeded nets.
 
     python3 tools/fused_ab.py --tree DIR --out A.pt   # DIR: a checkout
     python3 tools/fused_ab.py --compare A.pt B.pt
 
-The first form imports the port from DIR, runs both kernels once, saves
-their results and prints each kernel's device ms (``chip_smoke.cuda_ms``).
-The second says whether #4's gradients (dx and the 12 weight gradients)
-are bitwise equal and how far apart the two forwards' outputs are.  The
+The first form imports the port from DIR, runs the three kernels once,
+saves their results and prints each kernel's device ms
+(``chip_smoke.cuda_ms``) and the fp32 forward's relative norm error against
+the tree's own plain path (TF32 off).  The second says whether #4's
+gradients (dx and the 12 weight gradients) are bitwise equal and how far
+apart the two trees' forwards are, in each dtype.  The
 net, the timing and the card line are this checkout's ``chip_smoke.py``.
 Imports nothing of JAX.
 """
@@ -60,7 +63,21 @@ def run(tree: str, out: str) -> None:
         result = {"tree": tree, "card": cs.card_line(),
                   "fwd_ms": cs.cuda_ms(fwd, 20)[0],
                   "bwd_ms": cs.cuda_ms(bwd, 10)[0]}
-    torch.save({"y": y.cpu(), "dx": dx.cpu(),
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        net32 = cs.flagship_net("float32", dev)
+        x32 = torch.randn(cs.EVAL_CHAINS * cs.B, cs.S, cs.D, generator=g,
+                          device=dev)
+        packed32 = ft.PackedWeights(ft.flatten_params(net32), torch.float32)
+
+        def fwd32():
+            return ft.fused_set_transformer(packed32, x32,
+                                            num_heads=cs.HEADS)
+
+        y32 = fwd32()
+        result["fwd_f32_rel_err"] = cs.rel_err(y32, net32.plain_forward(x32))
+        result["fwd_f32_ms"] = cs.cuda_ms(fwd32, 20)[0]
+    torch.save({"y": y.cpu(), "dx": dx.cpu(), "y32": y32.cpu(),
                 "dws": [t.cpu() for t in dws], **result}, out)
     print(json.dumps(result), flush=True)
 
@@ -71,11 +88,17 @@ def compare(a: str, b: str) -> bool:
     same = torch.equal(one["dx"], two["dx"]) and all(
         torch.equal(p, q) for p, q in zip(one["dws"], two["dws"]))
     ya, yb = one["y"].float(), two["y"].float()
+    fa, fb = one["y32"], two["y32"]
     print(json.dumps({
         "a": one["tree"], "b": two["tree"], "bwd_bitwise_equal": same,
         "fwd_bitwise_equal": torch.equal(ya, yb),
         "fwd_rel_diff": float((ya - yb).norm() / yb.norm()),
-        "fwd_max_abs_diff": float((ya - yb).abs().max())}), flush=True)
+        "fwd_max_abs_diff": float((ya - yb).abs().max()),
+        "fwd_f32_bitwise_equal": torch.equal(fa, fb),
+        "fwd_f32_rel_diff": float((fa - fb).norm() / fb.norm()),
+        "fwd_f32_ms": [one["fwd_f32_ms"], two["fwd_f32_ms"]],
+        "fwd_f32_rel_err": [one["fwd_f32_rel_err"],
+                            two["fwd_f32_rel_err"]]}), flush=True)
     return same
 
 
