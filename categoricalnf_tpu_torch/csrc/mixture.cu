@@ -15,16 +15,30 @@
 // forward does one such pass and moves 4 + 12K + 8 bytes an element, so it
 // is bound by bytes; so is its backward (4 + 12K + 8 in, 4 + 12K out).
 //
-// Design.  One thread per element.  The K parameters are loaded once and
-// kept in registers for the whole root-find (the TPU kernel kept them in
-// VMEM for the same reason); the log-softmax of the mixture logits and the
-// clip of the log-scales happen here, not in extra passes over memory.  The
-// parameter rows may be strided (they are slices of the coupling net's
-// output), so each array comes with its row stride and no copy is needed.
-// Full fp32: no fast-math, expf/log1pf/logf only.  K is a loop bound up to
-// 16, unrolled against a compile-time maximum so the arrays stay in
-// registers.  A component whose log-weight is below -5e29 (the -1e30 the
-// TPU kernel pads with) is left out of the bracket.
+// Design of the inverse: one thread per element.  The K parameters are
+// loaded once and kept in registers for the whole root-find (the TPU kernel
+// kept them in VMEM for the same reason); the log-softmax of the mixture
+// logits and the clip of the log-scales happen here, not in extra passes
+// over memory.  The parameter rows may be strided (they are slices of the
+// coupling net's output), so each array comes with its row stride and no
+// copy is needed.  Full fp32: no fast-math, expf/log1pf/logf only.  K is a
+// loop bound up to 16, unrolled against a compile-time maximum so the
+// arrays stay in registers.  A component whose log-weight is below -5e29
+// (the -1e30 the TPU kernel pads with) is left out of the bracket.
+//
+// Design of the forward and its backward: a group of lanes an element, a
+// few components a lane (the TPU kernel, too, puts the components on an
+// axis of their own), so that the loads of the strided parameter rows and
+// the stores of the [M, K] gradients run over contiguous bytes and a launch
+// at M = 65,536 holds 2 to 4 times the warps of one thread an element.
+// Every sum over the components keeps the per-element loop's order, so
+// both give that loop's bits (see the note above mixture_forward_kernel).
+// Bound by bytes, they run above that bound.  Their SASS holds about 1,240
+// (forward) and 2,370 (backward) instructions an element at K = 8
+// (tools/mixture_ab.py counts them); the time the warp schedulers take to
+// issue those, plus that of a launch of a few elements, comes close to the
+// measured time (PERF.md), and the expf and log1pf behind most of them stay
+// while the bits must.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -157,25 +171,196 @@ __global__ void mixture_inverse_kernel(
   out[i] = x;
 }
 
-template <int KMAX>
+// The forward (#2) and its backward (#2') spread an element over a group of
+// G lanes, C components a lane (G * C >= K): lane l holds components
+// j = C*l + c, c < C, so a warp holds 32 / G elements, and a warp's loads
+// of the parameter rows and stores of the [M, K] gradients touch a few
+// contiguous runs.  Each lane runs the per-element loop's arithmetic
+// (load_params, mixture_logs) for its components, and every sum over the
+// components runs in that loop's order: lane 0 adds its terms to 0.0f,
+// passes the sum to lane 1, which adds its own, and so on (no tree).
+// Components j >= k add an exact +0.  So the two kernels give the bits of
+// the per-element loop.
+//
+// One difference is not in the order: the per-element loop's sums of
+// expf(...) fuse expf's last multiply (by a power of two) into the add,
+// while these add expf's rounded result.  The two differ only where that
+// product is subnormal, and there only below the sum's last bit once the
+// sum holds its largest term, exp(0) = 1, which every one of these sums
+// holds: the sums are equal.
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// v of lane l of this thread's group.
+template <int G>
+__device__ __forceinline__ float from_lane(float v, int l) {
+  if constexpr (G == 1) return v;
+  else return __shfl_sync(kFull, v, l, G);
+}
+
+// The maximum over the group's components that are on (fmaxf is
+// order-free, so a butterfly serves).
+template <int G, int C>
+__device__ __forceinline__ float group_max(const float (&v)[C],
+                                           const bool (&on)[C]) {
+  float m = -INFINITY;
+#pragma unroll
+  for (int c = 0; c < C; ++c) m = fmaxf(m, on[c] ? v[c] : -INFINITY);
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(kFull, m, o, G));
+  return m;
+}
+
+// 0.0f + v[0] + v[1] + ... over the group's components in their order
+// j = 0, 1, ...; every lane gets the sum.  v is +0 for components j >= k.
+template <int G, int C>
+__device__ __forceinline__ float group_sum(const float (&v)[C]) {
+  float run = 0.0f;
+#pragma unroll
+  for (int t = 0; t < G; ++t) {
+    float mine = run;
+#pragma unroll
+    for (int c = 0; c < C; ++c) mine = __fadd_rn(mine, v[c]);
+    run = from_lane<G>(mine, t);
+  }
+  return run;
+}
+
+// The fmaf chain g = fmaf(a[j], b[j], g) from g = 0.0f over the group's
+// components in their order; a and b are +0 for components j >= k.
+template <int G, int C>
+__device__ __forceinline__ float group_dot(const float (&a)[C],
+                                           const float (&b)[C]) {
+  float run = 0.0f;
+#pragma unroll
+  for (int t = 0; t < G; ++t) {
+    float mine = run;
+#pragma unroll
+    for (int c = 0; c < C; ++c) mine = __fmaf_rn(a[c], b[c], mine);
+    run = from_lane<G>(mine, t);
+  }
+  return run;
+}
+
+// The sum of exp(v - m) over the group's components that are on.
+template <int G, int C>
+__device__ __forceinline__ float group_sum_exp(const float (&v)[C],
+                                               const bool (&on)[C], float m) {
+  float e[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) e[c] = on[c] ? expf(v[c] - m) : 0.0f;
+  return group_sum<G, C>(e);
+}
+
+// logsumexp over the group's components that are on.
+template <int G, int C>
+__device__ __forceinline__ float group_logsumexp(const float (&v)[C],
+                                                 const bool (&on)[C]) {
+  const float m = group_max<G, C>(v, on);
+  return m + logf(group_sum_exp<G, C>(v, on, m));
+}
+
+// The three logsumexps of a, b and c; lanes 0, 1 and 2 of a group share
+// one logf of the three sums where the group has them.
+template <int G, int C>
+__device__ __forceinline__ void group_logsumexp3(
+    const float (&a)[C], const float (&b)[C], const float (&c)[C],
+    const bool (&on)[C], float& lse_a, float& lse_b, float& lse_c) {
+  const float ma = group_max<G, C>(a, on), mb = group_max<G, C>(b, on);
+  const float mc = group_max<G, C>(c, on);
+  const float sa = group_sum_exp<G, C>(a, on, ma);
+  const float sb = group_sum_exp<G, C>(b, on, mb);
+  const float sc = group_sum_exp<G, C>(c, on, mc);
+  if constexpr (G == 1) {
+    lse_a = ma + logf(sa);
+    lse_b = mb + logf(sb);
+    lse_c = mc + logf(sc);
+  } else {
+    const int l = (int)(threadIdx.x % G);
+    const float v = logf(l == 0 ? sa : l == 1 ? sb : sc);
+    lse_a = ma + from_lane<G>(v, 0);
+    lse_b = mb + from_lane<G>(v, 1);
+    if constexpr (G > 2) lse_c = mc + from_lane<G>(v, 2);
+    else lse_c = mc + logf(sc);
+  }
+}
+
+// A lane's components at x: the log-softmax of the logits, the clipped
+// log-scales, z and the three log-terms of F (a in mixture_logs), of 1 - F
+// (b) and of f (c), as load_params and mixture_logs compute them.  FULL:
+// k == G * C, so no component is tested against k.
+template <int C>
+struct Terms {
+  bool on[C];
+  float raw_ls[C], log_pi[C], neg_ls[C], inv_s[C], z[C], lsp[C], cdf[C],
+      sf[C], pdf[C];
+};
+
+template <int G, int C, bool FULL>
+__device__ __forceinline__ void load_terms(
+    Terms<C>& q, const float* __restrict__ pi, long pi_stride,
+    const float* __restrict__ mu, long mu_stride,
+    const float* __restrict__ ls, long ls_stride, long i, int l, bool live,
+    int k, float x) {
+  float logit[C], mean[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int j = C * l + c;
+    q.on[c] = FULL || (live && j < k);
+    logit[c] = -INFINITY;
+    mean[c] = 0.0f;
+    q.raw_ls[c] = 0.0f;
+    if (live && (FULL || j < k)) {
+      logit[c] = pi[i * pi_stride + j];
+      mean[c] = mu[i * mu_stride + j];
+      q.raw_ls[c] = ls[i * ls_stride + j];
+    }
+  }
+  const float lse = group_logsumexp<G, C>(logit, q.on);
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    q.log_pi[c] = logit[c] - lse;
+    q.neg_ls[c] = -fminf(fmaxf(q.raw_ls[c], kLogScaleMin), kLogScaleMax);
+    q.inv_s[c] = expf(q.neg_ls[c]);
+    q.z[c] = (x - mean[c]) * q.inv_s[c];
+    float lsn;
+    log_sigmoid_pair(q.z[c], q.lsp[c], lsn);
+    q.cdf[c] = q.log_pi[c] + q.lsp[c];
+    q.sf[c] = q.log_pi[c] + lsn;
+    q.pdf[c] = q.log_pi[c] + q.lsp[c] + lsn + q.neg_ls[c];
+  }
+}
+
+// This thread's element i and lane l; ``live`` is false past m.
+template <int G>
+__device__ __forceinline__ void element_and_lane(long m, long& i, int& l,
+                                                 bool& live) {
+  const long t = blockIdx.x * (long)blockDim.x + threadIdx.x;
+  i = t / G;
+  l = (int)(threadIdx.x % G);
+  live = i < m;
+}
+
+template <int G, int C, bool FULL>
 __global__ void mixture_forward_kernel(
     const float* __restrict__ x, const float* __restrict__ pi, long pi_stride,
     const float* __restrict__ mu, long mu_stride,
     const float* __restrict__ ls, long ls_stride, float* __restrict__ y,
     float* __restrict__ ldj, long m, int k) {
-  const long i = blockIdx.x * (long)blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  float log_pi[KMAX], mean[KMAX], neg_ls[KMAX], inv_s[KMAX];
-  load_params<KMAX>(pi, pi_stride, mu, mu_stride, ls, ls_stride, i, k,
-                    log_pi, mean, neg_ls);
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j)
-    if (j < k) inv_s[j] = expf(neg_ls[j]);
+  long i;
+  int l;
+  bool live;
+  element_and_lane<G>(m, i, l, live);
+  Terms<C> q;
+  load_terms<G, C, FULL>(q, pi, pi_stride, mu, mu_stride, ls, ls_stride, i,
+                         l, live, k, live ? x[i] : 0.0f);
   float log_cdf, log_sf, log_pdf;
-  mixture_logs<KMAX>(x[i], log_pi, mean, neg_ls, inv_s, k, log_cdf, log_sf,
-                     log_pdf);
-  y[i] = log_cdf - log_sf;
-  ldj[i] = log_pdf - log_cdf - log_sf;
+  group_logsumexp3<G, C>(q.cdf, q.sf, q.pdf, q.on, log_cdf, log_sf, log_pdf);
+  if (live && l == 0) {
+    y[i] = log_cdf - log_sf;
+    ldj[i] = log_pdf - log_cdf - log_sf;
+  }
 }
 
 // Backward of mixture_forward_kernel: given the cotangents gy, gldj of
@@ -183,8 +368,11 @@ __global__ void mixture_forward_kernel(
 // back to x, the raw logits (through the log-softmax), the means and the
 // raw log-scales (zero where the clip is active, as torch.clamp).  The
 // per-component terms are recomputed here, as the forward computes them,
-// rather than saved as [M, K] intermediates.
-template <int KMAX>
+// rather than saved as [M, K] intermediates.  Each product and sum is
+// rounded where the per-element loop's SASS rounds it (nvcc contracts that
+// loop's products into the sums that take them): ga = g_a * exp(a - A) is
+// never rounded, both sums that take it are fused multiply-adds.
+template <int G, int C, bool FULL>
 __global__ void mixture_forward_bwd_kernel(
     const float* __restrict__ x, const float* __restrict__ pi, long pi_stride,
     const float* __restrict__ mu, long mu_stride,
@@ -192,72 +380,91 @@ __global__ void mixture_forward_bwd_kernel(
     const float* __restrict__ gy, const float* __restrict__ gldj,
     float* __restrict__ gx, float* __restrict__ gpi, float* __restrict__ gmu,
     float* __restrict__ gls, long m, int k) {
-  const long i = blockIdx.x * (long)blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  float log_pi[KMAX], mean[KMAX], neg_ls[KMAX], inv_s[KMAX];
-  load_params<KMAX>(pi, pi_stride, mu, mu_stride, ls, ls_stride, i, k,
-                    log_pi, mean, neg_ls);
-  const float xi = x[i];
-  float z[KMAX], lsp[KMAX], a[KMAX], b[KMAX], c[KMAX];
-  float ma = -INFINITY, mb = -INFINITY, mc = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    if (j < k) {
-      inv_s[j] = expf(neg_ls[j]);
-      z[j] = (xi - mean[j]) * inv_s[j];
-      float lsn;
-      log_sigmoid_pair(z[j], lsp[j], lsn);
-      a[j] = log_pi[j] + lsp[j];
-      b[j] = log_pi[j] + lsn;
-      c[j] = log_pi[j] + lsp[j] + lsn + neg_ls[j];
-      ma = fmaxf(ma, a[j]);
-      mb = fmaxf(mb, b[j]);
-      mc = fmaxf(mc, c[j]);
-    }
-  }
-  float sa = 0.0f, sb = 0.0f, sc = 0.0f;
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    if (j < k) {
-      sa += expf(a[j] - ma);
-      sb += expf(b[j] - mb);
-      sc += expf(c[j] - mc);
-    }
-  }
-  const float lse_a = ma + logf(sa), lse_b = mb + logf(sb);
-  const float lse_c = mc + logf(sc);
-  const float g_y = gy[i], g_l = gldj[i];
+  long i;
+  int l;
+  bool live;
+  element_and_lane<G>(m, i, l, live);
+  Terms<C> q;
+  load_terms<G, C, FULL>(q, pi, pi_stride, mu, mu_stride, ls, ls_stride, i,
+                         l, live, k, live ? x[i] : 0.0f);
+  float lse_a, lse_b, lse_c;
+  group_logsumexp3<G, C>(q.cdf, q.sf, q.pdf, q.on, lse_a, lse_b, lse_c);
+  const float g_y = live ? gy[i] : 0.0f, g_l = live ? gldj[i] : 0.0f;
   const float g_a = g_y - g_l, g_b = -g_y - g_l, g_c = g_l;
-  float g_x = 0.0f, g_lp_sum = 0.0f;
+  float gz[C], inv_s[C], gc[C], d_log_pi[C];
 #pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    if (j < k) {
-      const float ga = g_a * expf(a[j] - lse_a);
-      const float gb = g_b * expf(b[j] - lse_b);
-      const float gc = g_c * expf(c[j] - lse_c);
-      // d lsp/dz = sigmoid(-z) = exp(lsn), d lsn/dz = -sigmoid(z), where
-      // lsn = lsp - z exactly as log_sigmoid_pair computes it
-      const float gz =
-          (ga + gc) * expf(lsp[j] - z[j]) - (gb + gc) * expf(lsp[j]);
-      g_x = fmaf(gz, inv_s[j], g_x);
-      gmu[i * k + j] = -gz * inv_s[j];
-      const float raw = ls[i * ls_stride + j];
-      const bool inside = raw >= kLogScaleMin && raw <= kLogScaleMax;
-      gls[i * k + j] = inside ? -gc - gz * z[j] : 0.0f;
-      a[j] = ga + gb + gc;  // d/d log_pi
-      g_lp_sum += a[j];
+  for (int c = 0; c < C; ++c) {
+    const float ea = expf(q.cdf[c] - lse_a);
+    const float gb = __fmul_rn(g_b, expf(q.sf[c] - lse_b));
+    gc[c] = __fmul_rn(g_c, expf(q.pdf[c] - lse_c));
+    // d lsp/dz = sigmoid(-z) = exp(lsn), d lsn/dz = -sigmoid(z), where
+    // lsn = lsp - z exactly as log_sigmoid_pair computes it
+    const float g = __fmaf_rn(
+        __fmaf_rn(g_a, ea, gc[c]), expf(q.lsp[c] - q.z[c]),
+        -__fmul_rn(__fadd_rn(gb, gc[c]), expf(q.lsp[c])));
+    d_log_pi[c] = q.on[c] ? __fadd_rn(__fmaf_rn(g_a, ea, gb), gc[c]) : 0.0f;
+    gz[c] = q.on[c] ? g : 0.0f;
+    inv_s[c] = q.on[c] ? q.inv_s[c] : 0.0f;
+  }
+  const float g_x = group_dot<G, C>(gz, inv_s);
+  const float g_lp_sum = group_sum<G, C>(d_log_pi);
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (live && (FULL || C * l + c < k)) {
+      const long o = i * k + C * l + c;
+      const bool inside = q.raw_ls[c] >= kLogScaleMin &&
+                          q.raw_ls[c] <= kLogScaleMax;
+      gmu[o] = __fmul_rn(-gz[c], inv_s[c]);
+      gls[o] = inside ? __fmaf_rn(-gz[c], q.z[c], -gc[c]) : 0.0f;
+      gpi[o] = __fmaf_rn(expf(q.log_pi[c]), -g_lp_sum, d_log_pi[c]);
     }
   }
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j)
-    if (j < k) gpi[i * k + j] = a[j] - expf(log_pi[j]) * g_lp_sum;
-  gx[i] = g_x;
+  if (live && l == 0) gx[i] = g_x;
 }
 
 constexpr int kThreads = 256;
 
 inline unsigned blocks_for(long m) {
   return (unsigned)((m + kThreads - 1) / kThreads);
+}
+
+// Lanes of an element for K <= 8, twice as many for K <= 16, so that a
+// lane holds C = 8 / lanes components.  The forward takes 4 components a
+// lane; its backward, with about twice the work a component, 2: on an H100
+// each was the fastest of 1, 2, 4 and 8 components a lane (PERF.md).
+constexpr int kFwdLanes = 2, kBwdLanes = 4;
+
+// A K that fills the groups (the flagship's K = 8) takes kernels built
+// without the test j < k.
+template <int G, int C>
+inline void forward_launch(const float* x, const float* pi, long pi_stride,
+                           const float* mu, long mu_stride, const float* ls,
+                           long ls_stride, float* y, float* ldj, long m,
+                           int k, cudaStream_t s) {
+  const unsigned blocks = blocks_for(m * G);
+  if (k == G * C)
+    mixture_forward_kernel<G, C, true><<<blocks, kThreads, 0, s>>>(
+        x, pi, pi_stride, mu, mu_stride, ls, ls_stride, y, ldj, m, k);
+  else
+    mixture_forward_kernel<G, C, false><<<blocks, kThreads, 0, s>>>(
+        x, pi, pi_stride, mu, mu_stride, ls, ls_stride, y, ldj, m, k);
+}
+
+template <int G, int C>
+inline void bwd_launch(const float* x, const float* pi, long pi_stride,
+                       const float* mu, long mu_stride, const float* ls,
+                       long ls_stride, const float* gy, const float* gldj,
+                       float* gx, float* gpi, float* gmu, float* gls, long m,
+                       int k, cudaStream_t s) {
+  const unsigned blocks = blocks_for(m * G);
+  if (k == G * C)
+    mixture_forward_bwd_kernel<G, C, true><<<blocks, kThreads, 0, s>>>(
+        x, pi, pi_stride, mu, mu_stride, ls, ls_stride, gy, gldj, gx, gpi,
+        gmu, gls, m, k);
+  else
+    mixture_forward_bwd_kernel<G, C, false><<<blocks, kThreads, 0, s>>>(
+        x, pi, pi_stride, mu, mu_stride, ls, ls_stride, gy, gldj, gx, gpi,
+        gmu, gls, m, k);
 }
 
 }  // namespace
@@ -288,11 +495,11 @@ int mixture_forward_f32(const float* x, const float* pi, long pi_stride,
   if (m == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   if (k <= 8)
-    mixture_forward_kernel<8><<<blocks_for(m), kThreads, 0, s>>>(
-        x, pi, pi_stride, mu, mu_stride, ls, ls_stride, y, ldj, m, k);
+    forward_launch<kFwdLanes, 8 / kFwdLanes>(x, pi, pi_stride, mu, mu_stride,
+                                             ls, ls_stride, y, ldj, m, k, s);
   else
-    mixture_forward_kernel<16><<<blocks_for(m), kThreads, 0, s>>>(
-        x, pi, pi_stride, mu, mu_stride, ls, ls_stride, y, ldj, m, k);
+    forward_launch<2 * kFwdLanes, 8 / kFwdLanes>(
+        x, pi, pi_stride, mu, mu_stride, ls, ls_stride, y, ldj, m, k, s);
   return (int)cudaGetLastError();
 }
 
@@ -305,13 +512,13 @@ int mixture_forward_bwd_f32(const float* x, const float* pi, long pi_stride,
   if (m == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   if (k <= 8)
-    mixture_forward_bwd_kernel<8><<<blocks_for(m), kThreads, 0, s>>>(
-        x, pi, pi_stride, mu, mu_stride, ls, ls_stride, gy, gldj, gx, gpi,
-        gmu, gls, m, k);
+    bwd_launch<kBwdLanes, 8 / kBwdLanes>(x, pi, pi_stride, mu, mu_stride, ls,
+                                         ls_stride, gy, gldj, gx, gpi, gmu,
+                                         gls, m, k, s);
   else
-    mixture_forward_bwd_kernel<16><<<blocks_for(m), kThreads, 0, s>>>(
-        x, pi, pi_stride, mu, mu_stride, ls, ls_stride, gy, gldj, gx, gpi,
-        gmu, gls, m, k);
+    bwd_launch<2 * kBwdLanes, 8 / kBwdLanes>(x, pi, pi_stride, mu, mu_stride,
+                                             ls, ls_stride, gy, gldj, gx, gpi,
+                                             gmu, gls, m, k, s);
   return (int)cudaGetLastError();
 }
 

@@ -15,11 +15,12 @@ Run from the root of a checkout on a machine with one NVIDIA card:
    fp32 net and a second mixture forward at eval_bpd's 1024 sets x 4
    chains; the backward kernels at a training step's 16,384 rows and
    M = 65,536, the fp32 backward and the FMA forward of a differentiable
-   fp32 call at 4,096 rows), twice, with a synchronize
+   fp32 call at 4,096 rows; the mixture forward and its backward also at
+   K = 3 and K = 16 with M = 91), twice, with a synchronize
    after each launch; times both with CUDA events around runs of
    back-to-back launches.  The fp32 forward is also held to fp32's
    accuracy (F32_FWD_REL) beside a control that a single TF32 pass reads
-   above it.
+   above it.  The mixture lines carry the kernels' registers and spills.
 3. Serves the flagship set-shuffling flow (runs/set16/config.json as it
    is, seeded random weights, data init on one batch) over HTTP:
    /health, /sample, /sample_metrics; then the fp32 importance-sampled
@@ -52,6 +53,7 @@ import dataclasses
 import http.client
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -243,15 +245,20 @@ def check_mixture(device, gen, report):
     check(close(x2, torch.full_like(x2, -2.456364393234253), 1e-4),
           f"two-cycle case did not converge: {max_err(x2, -2.456364393234253 + 0 * x2)}")
 
-    # odd sizes: K=3, M=91
-    x3, pi3, mu3, ls3 = mixture_inputs(gen, (7, 13), 3, device)
-    y3, _ = nm.mixture_logit_cdf_and_ldj(x3, pi3, mu3, ls3)
-    xi3 = twice(lambda: cm.mixture_inverse_cuda(y3, pi3, mu3, ls3))
-    check(close(xi3, x3, 1e-3), f"K=3, M=91 round trip: {max_err(xi3, x3)}")
-    yk3, ldjk3 = twice(lambda: cm.mixture_forward_cuda(x3, pi3, mu3, ls3))
-    _, ldj3 = nm.mixture_logit_cdf_and_ldj(x3, pi3, mu3, ls3)
-    check(close(yk3, y3, 1e-4) and close(ldjk3, ldj3, 1e-4),
-          "K=3, M=91 forward off")
+    # odd sizes: K=3, M=91; and K=16 (the groups of K > 8) at M=91, drawn
+    # from a generator of its own so that the later checks' inputs stay
+    for k, g in ((3, gen), (16, torch.Generator(device).manual_seed(16))):
+        x3, pi3, mu3, ls3 = mixture_inputs(g, (7, 13), k, device)
+        y3, ldj3 = nm.mixture_logit_cdf_and_ldj(x3, pi3, mu3, ls3)
+        if k == 3:
+            xi3 = twice(lambda: cm.mixture_inverse_cuda(y3, pi3, mu3, ls3))
+            check(close(xi3, x3, 1e-3),
+                  f"K=3, M=91 round trip: {max_err(xi3, x3)}")
+        yk3, ldjk3 = twice(lambda: cm.mixture_forward_cuda(x3, pi3, mu3,
+                                                           ls3))
+        check(close(yk3, y3, 1e-4) and close(ldjk3, ldj3, 1e-4),
+              f"K={k}, M=91 forward off: y {max_err(yk3, y3)}, "
+              f"ldj {max_err(ldjk3, ldj3)}")
 
     report["mixture_inverse"] = dict(
         max_abs_err=inv_err, m=m,
@@ -408,27 +415,38 @@ def check_train_fwd(device, gen, report):
 
 
 def check_mixture_bwd(device, gen, report):
-    """#2's backward at the training step's M = 1024 x 16 x 4 against
-    ``torch.func.vjp`` of the numerics (its plain version), log-scales on
-    both sides of the clip."""
+    """#2's backward at the training step's M = 1024 x 16 x 4, and at K = 16
+    and K = 3 with M = 91, against ``torch.func.vjp`` of the numerics (its
+    plain version), log-scales on both sides of the clip."""
     import torch
     from categoricalnf_tpu_torch.ops import numerics as nm
     from categoricalnf_tpu_torch.ops.cuda import mixture as cm
 
-    x, pi, mu, ls = mixture_inputs(gen, (B, S, D), K, device)
-    ls = ls * 6.0
-    gy = torch.randn(B, S, D, generator=gen, device=device)
-    gl = torch.randn(B, S, D, generator=gen, device=device)
-    got = twice(lambda: cm.mixture_forward_bwd_cuda(x, pi, mu, ls, gy, gl))
-    _, vjp = torch.func.vjp(nm.mixture_logit_cdf_and_ldj, x, pi, mu, ls)
-    want = vjp((gy, gl))
-    for name, a, w in zip(("gx", "gpi", "gmu", "gls"), got, want):
-        check(close(a, w, 1e-4), f"mixture_forward_bwd {name} off the "
-              f"plain version: {max_err(a, w)}")
+    def held(g, shape, k):
+        x, pi, mu, ls = mixture_inputs(g, shape, k, device)
+        ls = ls * 6.0
+        gy = torch.randn(shape, generator=g, device=device)
+        gl = torch.randn(shape, generator=g, device=device)
+        got = twice(lambda: cm.mixture_forward_bwd_cuda(x, pi, mu, ls, gy,
+                                                        gl))
+        _, vjp = torch.func.vjp(nm.mixture_logit_cdf_and_ldj, x, pi, mu, ls)
+        want = vjp((gy, gl))
+        for name, a, w in zip(("gx", "gpi", "gmu", "gls"), got, want):
+            check(close(a, w, 1e-4), f"mixture_forward_bwd {name} off the "
+                  f"plain version at K={k}, M={x.numel()}: {max_err(a, w)}")
+        return (x, pi, mu, ls, gy, gl), got, want, vjp
+
+    # the odd sizes from a generator of their own, so that the later
+    # checks' inputs stay
+    odd = torch.Generator(device).manual_seed(17)
+    for k in (16, 3):
+        held(odd, (7, 13), k)
+    args, got, want, vjp = held(gen, (B, S, D), K)
+    x, _, _, _, gy, gl = args
     m = x.numel()
     report["mixture_forward_bwd"] = dict(
         max_abs_err=max(max_err(a, w) for a, w in zip(got, want)), m=m,
-        **timed(lambda: cm.mixture_forward_bwd_cuda(x, pi, mu, ls, gy, gl),
+        **timed(lambda: cm.mixture_forward_bwd_cuda(*args),
                 lambda: vjp((gy, gl)), 50, 20),
         bytes=m * ((4 + 12 * K + 8) + (4 + 12 * K)),
         ops=m * K * (MIX_SETUP_OPS + MIX_EVAL_OPS + MIX_BWD_OPS),
@@ -979,6 +997,60 @@ def tensor_core_instructions(source: str) -> dict:
     return counts
 
 
+def kernel_resources(log: str) -> dict:
+    """Registers and spilled bytes (stores and loads) of each entry function
+    of an nvcc build log (``-Xptxas -v``), by mangled name."""
+    out: dict = {}
+    function = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            function = line.split("'")[1]
+            out[function] = {}
+        elif function and "spill stores" in line:
+            _, stores, loads = re.findall(r"(\d+) bytes", line)
+            out[function]["spill_bytes"] = int(stores) + int(loads)
+        elif function and "registers" in line:
+            out[function]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    return out
+
+
+def warps_by_registers(registers: int, threads: int) -> int:
+    """Warps an SM can hold with ``registers`` a thread in blocks of
+    ``threads`` (65,536 registers an SM, allocated 256 a warp at a time; at
+    most 2,048 threads and 32 blocks an SM): the occupancy the registers
+    allow, not a measured one."""
+    per_warp = -(-registers * 32 // 256) * 256
+    blocks = min(65536 // (per_warp * threads // 32), 2048 // threads, 32)
+    return blocks * threads // 32
+
+
+# Lanes an element of the mixture forward and its backward at K <= 8, and
+# threads a block, as csrc/mixture.cu launches them (kFwdLanes, kBwdLanes,
+# kThreads); with K = 8 a lane holds 8 / lanes components
+MIX_FWD_LANES, MIX_BWD_LANES, MIX_THREADS = 2, 4, 256
+
+
+def mixture_resources(log: str) -> dict:
+    """ptxas's registers and spills of the forward and backward kernels as
+    the flagship's K = 8 launches them, and the warps an SM they allow."""
+    res = kernel_resources(log)
+    out = {}
+    for name, kernel, g in (
+            ("mixture_forward", "mixture_forward_kernel", MIX_FWD_LANES),
+            ("mixture_forward_bwd", "mixture_forward_bwd_kernel",
+             MIX_BWD_LANES)):
+        c = K // g
+        tag = f"{kernel}ILi{g}ELi{c}ELb1E"
+        hits = [v for f, v in res.items() if tag in f]
+        check(len(hits) == 1, f"no ptxas line for {tag} in mixture.cu's log")
+        out[name] = dict(hits[0], lanes=g, components_per_lane=c,
+                         warps_per_sm_by_registers=warps_by_registers(
+                             hits[0]["registers"], MIX_THREADS))
+    out["mixture_forward_eval"] = out["mixture_forward"]
+    return out
+
+
 # Relative norm error allowed between the bf16 forward and plain_forward
 # (the kernel and the plain path round after sums in another order); it
 # read 0.00116 here on an H100 80GB HBM3 at 700 W
@@ -1075,6 +1147,8 @@ def main() -> int:
     check_mixture_bwd(device, gen, report)
     check_fused_bwd(device, gen, report)
     check_train_fwd(device, gen, report)
+    for name, r in mixture_resources(logs["mixture"]).items():
+        report[name].update(r)
     for r in report.values():
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["ops"] / PEAK_FLOPS[r["dtype"]] * 1e3
@@ -1101,7 +1175,11 @@ def main() -> int:
               + (f", bounds {r['bound_fma_ms']!r} ms on the FMA units and "
                  f"{r['bound_tf32x3_ms']!r} ms as 3xTF32, TF32 control "
                  f"{r['tf32_control_rel_err']:.3g}" if "tc_ops" in r else "")
-              + (f", grid {r['grid']}" if "grid" in r else ""), flush=True)
+              + (f", grid {r['grid']}" if "grid" in r else "")
+              + (f", {r['lanes']} lanes an element, {r['registers']} "
+                 f"registers, {r['spill_bytes']} B spilled, "
+                 f"{r['warps_per_sm_by_registers']} warps an SM by registers"
+                 if "lanes" in r else ""), flush=True)
 
     timings: dict = {}
     launches = {"serving": serve_flagship(args.seed, timings)}
