@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from categoricalnf_tpu_torch.flows.base import Transform, sum_ldj
+from categoricalnf_tpu_torch.ops.numerics import at_least_f32
 
 
 class ActNorm(Transform):
@@ -44,19 +45,19 @@ class ActNorm(Transform):
         self.bias.copy_(-mean)
         # invert the tanh cap so the effective scale hits the target
         self.log_scale.copy_(cap * torch.atanh(target / cap))
-        z, _ = self.forward(z, z.new_zeros(z.shape[0], dtype=torch.float32),
+        z, _ = self.forward(z, at_least_f32(z.new_zeros(z.shape[0])),
                             mask=mask)
         return z
 
 
 def _masked_moments(z: torch.Tensor, mask: Optional[torch.Tensor]):
     """Per-channel mean and biased variance over batch and positions."""
-    flat = z.float().reshape(-1, z.shape[-1])
+    flat = at_least_f32(z).reshape(-1, z.shape[-1])
     if mask is None:
         mean = flat.mean(dim=0)
         var = ((flat - mean) ** 2).mean(dim=0)
     else:
-        m = mask.float().reshape(-1, 1)
+        m = at_least_f32(mask).reshape(-1, 1)
         denom = m.sum().clamp_min(1.0)
         mean = (flat * m).sum(dim=0) / denom
         var = ((flat - mean) ** 2 * m).sum(dim=0) / denom

@@ -13,12 +13,14 @@ from typing import Optional
 import torch
 from torch import nn
 
+from categoricalnf_tpu_torch.ops.numerics import at_least_f32
+
 
 def sum_ldj(per_elem: torch.Tensor, mask: Optional[torch.Tensor]):
     """Reduce a per-element ldj tensor [B, T, D] (or [B, T]) to [B]."""
-    per_elem = per_elem.float()
+    per_elem = at_least_f32(per_elem)
     if mask is not None:
-        m = mask.float()
+        m = at_least_f32(mask)
         while m.dim() < per_elem.dim():
             m = m[..., None]
         per_elem = per_elem * m
@@ -49,6 +51,6 @@ class Transform(nn.Module):
     def data_init(self, z, *, cond=None, mask=None):
         """Data-dependent init: update parameters in place (so that modules
         sharing them see the update) and return the forwarded z."""
-        z, _ = self.forward(z, z.new_zeros(z.shape[0], dtype=torch.float32),
+        z, _ = self.forward(z, at_least_f32(z.new_zeros(z.shape[0])),
                             cond=cond, mask=mask)
         return z

@@ -16,6 +16,7 @@ from torch import nn
 
 from categoricalnf_tpu_torch.flows.base import Transform, sum_ldj
 from categoricalnf_tpu_torch.ops import dispatch
+from categoricalnf_tpu_torch.ops.numerics import at_least_f32
 
 
 def make_channel_mask(event_dim: int, parity: int, device=None):
@@ -41,7 +42,7 @@ class MixtureCDFCoupling(Transform):
         m = make_channel_mask(z.shape[-1], self.parity, z.device)
         raw = self.net(z * m, cond=cond, mask=mask)
         K = self.num_mixtures
-        raw = raw.reshape(*z.shape, 2 + 3 * K).float()
+        raw = at_least_f32(raw.reshape(*z.shape, 2 + 3 * K))
         t = raw[..., 0]
         a = self.scale_cap * torch.tanh(raw[..., 1] / self.scale_cap)
         pi_logits = raw[..., 2:2 + K]
@@ -51,7 +52,7 @@ class MixtureCDFCoupling(Transform):
 
     def forward(self, z, ldj, *, cond=None, mask=None):
         m, t, a, pi, mu, ls = self._params_for(z, cond, mask)
-        z32 = z.float()
+        z32 = at_least_f32(z)
         y, elem_ldj = dispatch.mixture_forward(z32, pi, mu, ls)
         y = y * torch.exp(a) + t
         out = m * z32 + (1.0 - m) * y
@@ -60,7 +61,7 @@ class MixtureCDFCoupling(Transform):
     def inverse(self, z, ldj, *, cond=None, mask=None):
         # the net's input z * m is untouched by the transform: one pass
         m, t, a, pi, mu, ls = self._params_for(z, cond, mask)
-        z32 = z.float()
+        z32 = at_least_f32(z)
         u = (z32 - t) * torch.exp(-a)
         x = dispatch.mixture_inverse(u, pi, mu, ls)
         out = m * z32 + (1.0 - m) * x

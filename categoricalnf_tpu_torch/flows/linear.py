@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from categoricalnf_tpu_torch.flows.base import Transform, sum_ldj
+from categoricalnf_tpu_torch.ops.numerics import at_least_f32
 
 
 def _random_orthogonal(d: int, generator) -> torch.Tensor:
@@ -38,16 +39,16 @@ class InvertibleLinear(Transform):
 
     def _weight(self):
         d = self.log_s.shape[0]
-        eye = torch.eye(d, dtype=torch.float32, device=self.log_s.device)
+        eye = torch.eye(d, dtype=self.log_s.dtype, device=self.log_s.device)
         low = torch.tril(self.lower, diagonal=-1) + eye
         up = torch.triu(self.upper, diagonal=1) + torch.diag(
             self.sign_s * torch.exp(self._ls()))
         return self.perm @ low @ up
 
     def forward(self, z, ldj, *, cond=None, mask=None):
-        out = z.float() @ self._weight()
+        out = at_least_f32(z) @ self._weight()
         return out, ldj + sum_ldj(self._ls().expand(out.shape), mask)
 
     def inverse(self, z, ldj, *, cond=None, mask=None):
-        out = z.float() @ torch.linalg.inv(self._weight())
+        out = at_least_f32(z) @ torch.linalg.inv(self._weight())
         return out, ldj - sum_ldj(self._ls().expand(out.shape), mask)

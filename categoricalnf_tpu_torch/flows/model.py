@@ -13,6 +13,7 @@ from torch import nn
 
 from categoricalnf_tpu_torch.flows.base import Transform
 from categoricalnf_tpu_torch.flows.distributions import LogisticPrior
+from categoricalnf_tpu_torch.ops.numerics import at_least_f32
 
 
 class FlowModel(nn.Module):
@@ -22,7 +23,7 @@ class FlowModel(nn.Module):
         self.prior = LogisticPrior() if prior is None else prior
 
     def _zero_ldj(self, z):
-        return z.new_zeros(z.shape[0], dtype=torch.float32)
+        return at_least_f32(z.new_zeros(z.shape[0]))
 
     def forward(self, z, ldj=None, *, cond=None, mask=None):
         """Data -> prior direction; returns (z_K, ldj)."""

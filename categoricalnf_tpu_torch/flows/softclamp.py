@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from categoricalnf_tpu_torch.flows.base import Transform, sum_ldj
+from categoricalnf_tpu_torch.ops.numerics import at_least_f32
 
 _LOG2 = 0.6931471805599453
 
@@ -25,11 +26,11 @@ class SoftClamp(Transform):
         self.cap = cap
 
     def forward(self, z, ldj, *, cond=None, mask=None):
-        u = z.float() / self.cap
+        u = at_least_f32(z) / self.cap
         return self.cap * torch.tanh(u), ldj + sum_ldj(-2.0 * _log_cosh(u),
                                                        mask)
 
     def inverse(self, z, ldj, *, cond=None, mask=None):
-        v = (z.float() / self.cap).clamp(-1.0 + 1e-6, 1.0 - 1e-6)
+        v = (at_least_f32(z) / self.cap).clamp(-1.0 + 1e-6, 1.0 - 1e-6)
         x = self.cap * torch.atanh(v)
         return x, ldj - sum_ldj(-2.0 * _log_cosh(x / self.cap), mask)

@@ -18,6 +18,8 @@ import math
 import torch
 from torch import nn
 
+from categoricalnf_tpu_torch.ops.numerics import at_least_f32
+
 LN2 = 0.6931471805599453
 
 
@@ -25,7 +27,7 @@ def _num_vars(x, mask):
     if mask is None:
         return torch.full((x.shape[0],), float(x.shape[1]),
                           dtype=torch.float32, device=x.device)
-    return mask.float().sum(dim=1)
+    return at_least_f32(mask).sum(dim=1)
 
 
 def _tile(t, n):

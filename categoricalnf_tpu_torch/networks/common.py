@@ -12,7 +12,12 @@ import math
 import torch
 from torch import nn
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+from categoricalnf_tpu_torch.ops.numerics import at_least_f32
+
+# float64 runs the plain path only (the fp32 train step's reference); the
+# kernels and the user-facing options take fp32 and bf16
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float64": torch.float64}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -45,14 +50,14 @@ def dense(w, b, x, compute_dtype: torch.dtype) -> torch.Tensor:
     bias, then one rounding of the result.  The products of bf16 operands
     are exact in fp32, so the fp32 matmul (TF32 off) is bit-faithful to the
     reference's bf16 x bf16 -> fp32 contraction up to summation order."""
-    y = x.to(compute_dtype).float() @ w.to(compute_dtype).float()
+    y = at_least_f32(x.to(compute_dtype)) @ at_least_f32(w.to(compute_dtype))
     return (y + b).to(compute_dtype)
 
 
 def layer_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LN without affine: fp32 statistics (biased variance), output in the
     input's dtype."""
-    x32 = x.float()
+    x32 = at_least_f32(x)
     mu = x32.mean(dim=-1, keepdim=True)
     var = ((x32 - mu) ** 2).mean(dim=-1, keepdim=True)
     return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype)

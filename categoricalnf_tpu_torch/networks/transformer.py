@@ -22,6 +22,7 @@ from torch import nn
 from categoricalnf_tpu_torch.networks.common import (Dense, concat_cond,
                                                      layer_norm, torch_dtype)
 from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+from categoricalnf_tpu_torch.ops.numerics import at_least_f32
 
 
 class _Block(nn.Module):
@@ -57,11 +58,12 @@ class SetTransformer(nn.Module):
         qkv = blk.qkv(layer_norm(h), cd).reshape(B, T, 3, nh, hd)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         # bf16 operands, fp32 sums: the products are exact in fp32
-        logits = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(hd)
+        logits = (at_least_f32(q) @ at_least_f32(k).transpose(-1, -2)
+                  / math.sqrt(hd))
         if mask is not None:
             logits = logits.masked_fill(~mask.bool()[:, None, None, :], -1e9)
         attn = torch.softmax(logits, dim=-1)
-        out = attn.to(cd).float() @ v.float()
+        out = at_least_f32(attn.to(cd)) @ at_least_f32(v)
         return blk.proj(out.transpose(1, 2).reshape(B, T, H), cd)
 
     def _packed_weights(self, cd):

@@ -20,13 +20,20 @@ LOG_SCALE_MAX = 7.0
 NOISE_EPS = 1e-6
 
 
+def at_least_f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if it is float64, else ``t.float()``: the plain path computes
+    in fp32, or in float64 throughout where its inputs are float64 (the
+    step that the fp32 train step's gradients are held against)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def _like(v, ref: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=torch.float32, device=ref.device)
+    return torch.as_tensor(v, dtype=ref.dtype, device=ref.device)
 
 
 def logistic_log_pdf(x, mean, log_scale) -> torch.Tensor:
     """log pdf of Logistic(mean, exp(log_scale)) at x, in fp32."""
-    x = x.float()
+    x = at_least_f32(x)
     mean, log_scale = _like(mean, x), _like(log_scale, x)
     z = (x - mean) * torch.exp(-log_scale)
     return -z - 2.0 * F.softplus(-z) - log_scale
@@ -46,7 +53,7 @@ def logistic_sample(shape, mean=0.0, log_scale=0.0, *, generator=None,
     the draw so that a caller can feed both frameworks the same numbers."""
     if noise is None:
         noise = uniform_noise(shape, generator=generator, device=device)
-    u = noise.float().clamp(NOISE_EPS, 1.0 - NOISE_EPS)
+    u = at_least_f32(noise).clamp(NOISE_EPS, 1.0 - NOISE_EPS)
     logit_u = torch.log(u) - torch.log1p(-u)
     return _like(mean, u) + torch.exp(_like(log_scale, u)) * logit_u
 
@@ -59,16 +66,16 @@ def _log_sigmoid_pair(z: torch.Tensor):
 
 
 def _prep(pi_logits, means, log_scales):
-    log_pi = torch.log_softmax(pi_logits.float(), dim=-1)
-    log_scales = log_scales.float().clamp(LOG_SCALE_MIN, LOG_SCALE_MAX)
-    return log_pi, means.float(), log_scales
+    log_pi = torch.log_softmax(at_least_f32(pi_logits), dim=-1)
+    log_scales = at_least_f32(log_scales).clamp(LOG_SCALE_MIN, LOG_SCALE_MAX)
+    return log_pi, at_least_f32(means), log_scales
 
 
 def mixture_logit_cdf_and_ldj(x, pi_logits, means, log_scales):
     """y = log F(x) - log(1 - F(x)) and ldj = log f - log F - log(1 - F)
     for a K-logistic mixture; parameters are ``[..., K]``, x is ``[...]``."""
     log_pi, means, log_scales = _prep(pi_logits, means, log_scales)
-    z = (x.float()[..., None] - means) * torch.exp(-log_scales)
+    z = (at_least_f32(x)[..., None] - means) * torch.exp(-log_scales)
     lsp, lsn = _log_sigmoid_pair(z)
     log_cdf = torch.logsumexp(log_pi + lsp, dim=-1)
     log_sf = torch.logsumexp(log_pi + lsn, dim=-1)
@@ -81,7 +88,7 @@ def mixture_inverse_logit_cdf(y, pi_logits, means, log_scales, *,
                               num_newton: int = 3) -> torch.Tensor:
     """Invert x -> logit F(x): bisection in the exact bracket
     [min_k, max_k](mu_k + s_k y), then Newton steps clipped to it."""
-    y = y.float()
+    y = at_least_f32(y)
     log_pi, means, log_scales = _prep(pi_logits, means, log_scales)
     cand = means + torch.exp(log_scales) * y[..., None]
     lo0 = cand.min(dim=-1).values

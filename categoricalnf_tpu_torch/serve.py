@@ -120,6 +120,7 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
     ap.add_argument("--compute_dtype", default=None,
+                    choices=["bfloat16", "float32"],
                     help="override the run's compute dtype (e.g. float32)")
     args = ap.parse_args(argv)
     overrides = ({"compute_dtype": args.compute_dtype}

@@ -60,7 +60,9 @@ def default_parser(description: str) -> argparse.ArgumentParser:
     m.add_argument("--num_layers", type=int, default=8)
     m.add_argument("--hidden_dim", type=int, default=96)
     m.add_argument("--num_mixtures", type=int, default=8)
-    m.add_argument("--compute_dtype", type=str, default="bfloat16")
+    # float64 runs only the plain path, as a reference: not a user option
+    m.add_argument("--compute_dtype", type=str, default="bfloat16",
+                   choices=["bfloat16", "float32"])
     m.add_argument("--decoder", type=str, default="bayes",
                    choices=["bayes", "linear", "mlp"])
     m.add_argument("--vardeq_blocks", type=int, default=2)

@@ -15,9 +15,9 @@ Run from the root of a checkout on a machine with one NVIDIA card:
    fp32 net and a second mixture forward at eval_bpd's 1024 sets x 4
    chains; the backward kernels at a training step's 16,384 rows and
    M = 65,536, the fp32 backward and the FMA forward of a differentiable
-   fp32 call at 4,096 rows; the mixture forward and its backward also at
-   K = 3 and K = 16 with M = 91), twice, with a synchronize
-   after each launch; times both with CUDA events around runs of
+   fp32 call at 4,096 and 16,384 rows; the mixture forward and its
+   backward also at K = 3 and K = 16 with M = 91), twice, with a
+   synchronize after each launch; times both with CUDA events around runs of
    back-to-back launches.  The fp32 forward is also held to fp32's
    accuracy (F32_FWD_REL) beside a control that a single TF32 pass reads
    above it.  The mixture lines carry the kernels' registers and spills.
@@ -34,10 +34,15 @@ Run from the root of a checkout on a machine with one NVIDIA card:
    set_shuffling_train_samples_per_s over steps 101-200; then traces 10
    more train steps with torch.profiler (the device's busy time a step by
    kernel, its idle share); serves the run.
-5. One fp32 train step of the flagship (64 sets) on the card against a CPU
-   copy: every parameter's gradient within 1e-3 relative; against the
-   plain path on the card within KERNELS_VS_PLAIN_CARD, a limit below what
-   the same gradients rounded once to bf16 read.
+5. One fp32 train step of the flagship (64 sets), at --seed and at
+   --seed + 1: the kernels on the card, the plain path on the card and a
+   CPU fp32 copy, each held per tensor against the same step in float64 on
+   the CPU (rules (a)-(c) of ``train_step_failures``), beside a control
+   (the kernels' gradients rounded once to bf16) that must read above the
+   limit where it is at its floor.  Only the default --seed 0 (the steps
+   of seeds 0 and 1) is known to pass: at seed 2 the control reads inside
+   its limit on some tensor, the port's kernels as they are included, so
+   --seed 1 or above may refuse a sound program (ROADMAP.md, Queue C).
 6. Prints one JSON line of kernel numbers, then, as the last line,
    {"ok": true, "device": {...}}.
 
@@ -385,33 +390,39 @@ def rel_err(a, b) -> float:
 
 def check_train_fwd(device, gen, report):
     """#3 in fp32 as a differentiable call runs it (the FMA forward that the
-    fp32 backward recomputes), at 4,096 rows, against plain_forward."""
+    fp32 backward recomputes), at 4,096 rows and, from a generator of its
+    own (so that the other checks' inputs stay as they were), at a flagship
+    batch's 16,384 rows, against plain_forward."""
     import torch
     from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
 
-    sets = B // 4
-    rows = sets * S
     net = flagship_net("float32", device)
-    x = torch.randn(sets, S, D, generator=gen, device=device)
     with torch.no_grad():
         ws = ft.flatten_params(net)
         packed = ft.PackedWeights(ws, torch.float32)
+    big = torch.Generator(device).manual_seed(gen.initial_seed() + 18)
+    for sets, name, g in ((B // 4, "fused_set_transformer_train_f32", gen),
+                          (B, "fused_set_transformer_train_f32_16384", big)):
+        rows = sets * S
+        x = torch.randn(sets, S, D, generator=g, device=device)
+        with torch.no_grad():
 
-        def run():
-            return ft.FusedSetTransformer.apply(x, packed, HEADS, *ws)
+            def run():
+                return ft.FusedSetTransformer.apply(x, packed, HEADS, *ws)
 
-        y = twice(run)
-        y_p = net.plain_forward(x)
-        check(y.shape == (sets, S, OUT) and close(y, y_p, 1e-4),
-              f"fp32 train forward off the unfused path: {max_err(y, y_p)}")
-        t = timed(run, lambda: net.plain_forward(x), 20, 5)
-    n_w = sum(w.numel() for w in ws[0::2])
-    n_b = sum(b.numel() for b in ws[1::2])
-    macs = rows * net_macs_per_row(D, H, HEADS, 2, 2 * H, OUT, S)
-    report["fused_set_transformer_train_f32"] = dict(
-        max_abs_err=max_err(y, y_p), rel_err=rel_err(y, y_p), rows=rows,
-        **t, bytes=rows * (D + OUT) * 4 + (n_w + n_b) * 4, ops=2 * macs,
-        dtype="float32")
+            y = twice(run)
+            y_p = net.plain_forward(x)
+            check(y.shape == (sets, S, OUT) and close(y, y_p, 1e-4),
+                  f"fp32 train forward off the unfused path: "
+                  f"{max_err(y, y_p)}")
+            t = timed(run, lambda: net.plain_forward(x), 20, 5)
+        n_w = sum(w.numel() for w in ws[0::2])
+        n_b = sum(b.numel() for b in ws[1::2])
+        macs = rows * net_macs_per_row(D, H, HEADS, 2, 2 * H, OUT, S)
+        report[name] = dict(
+            max_abs_err=max_err(y, y_p), rel_err=rel_err(y, y_p), rows=rows,
+            **t, bytes=rows * (D + OUT) * 4 + (n_w + n_b) * 4, ops=2 * macs,
+            dtype="float32")
 
 
 def check_mixture_bwd(device, gen, report):
@@ -455,21 +466,30 @@ def check_mixture_bwd(device, gen, report):
 
 def check_fused_bwd(device, gen, report):
     """#4 in bf16 at the training step's 16,384 rows and in fp32 at 4,096
-    rows against autograd through plain_forward (its plain version): the
-    whole backward of the net, through ``FusedSetTransformer`` and the
-    stacks of ``flatten_params``, against the parameters' gradients."""
+    rows and, from a generator of its own (so that the other checks' inputs
+    stay as they were), at a flagship batch's 16,384 rows, against autograd
+    through plain_forward (its plain version): the whole backward of the
+    net, through ``FusedSetTransformer`` and the stacks of
+    ``flatten_params``, against the parameters' gradients."""
     import torch
     from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
 
-    for cd, sets, name in (("bfloat16", B, "fused_set_transformer_bwd_bf16"),
-                           ("float32", B // 4,
-                            "fused_set_transformer_bwd_f32")):
+    big = torch.Generator(device).manual_seed(gen.initial_seed() + 19)
+    for cd, sets, name, draw in (
+            ("bfloat16", B, "fused_set_transformer_bwd_bf16", gen),
+            ("float32", B // 4, "fused_set_transformer_bwd_f32", gen),
+            ("float32", B, "fused_set_transformer_bwd_f32_16384", big)):
         rows = sets * S
         tdt = getattr(torch, cd)
         net = flagship_net(cd, device)
         params = list(net.parameters())
-        x = torch.randn(sets, S, D, generator=gen, device=device)
-        g = torch.randn(sets, S, OUT, generator=gen, device=device).to(tdt)
+        x = torch.randn(sets, S, D, generator=draw, device=device)
+        g = torch.randn(sets, S, OUT, generator=draw, device=device).to(tdt)
+        packed = net._packed_weights(tdt)
+
+        def kernel():
+            return ft.fused_set_transformer_bwd(packed, x, g,
+                                                num_heads=HEADS)
 
         def grads(plain):
             xr = x.clone().requires_grad_(True)
@@ -485,14 +505,11 @@ def check_fused_bwd(device, gen, report):
                       f"plain path: {max_err(a, w)}")
         if cd == "bfloat16":
             check(max(errs) <= 0.03, f"{name}: relative error {max(errs)}")
-        packed = net._packed_weights(tdt)
         # the kernel alone, and the plain path's backward alone
         xr = x.clone().requires_grad_(True)
         y_p = net.plain_forward(xr)
-        t = timed(lambda: ft.fused_set_transformer_bwd(packed, x, g,
-                                                       num_heads=HEADS),
-                  lambda: torch.autograd.grad(y_p, [xr] + params, g,
-                                              retain_graph=True), 10, 5)
+        t = timed(kernel, lambda: torch.autograd.grad(
+            y_p, [xr] + params, g, retain_graph=True), 10, 5)
         elt = 2 if cd == "bfloat16" else 4
         ws = ft.flatten_params(net)
         n_w = sum(w.numel() for w in ws[0::2])
@@ -502,13 +519,18 @@ def check_fused_bwd(device, gen, report):
         grid = ft.bwd_grid(rows, tile, smem, torch.cuda
                            .get_device_properties(device)
                            .multi_processor_count)
+        # the weight-gradient scratch: each block's slice is written once a
+        # tile and read back for every tile after its first, and each slice
+        # is read once by reduce_wgrad, so as many bytes are read as written
+        slice_bytes = (n_w + n_b) * 4
         report[name] = dict(
             max_abs_err=max(max_err(a, w) for a, w in zip(got, want)),
             rel_err=max(errs), rows=rows, **t,
             bytes=(rows * (2 * D + OUT) * elt + n_w * elt + n_b * 4
                    + (n_w + n_b) * 4),
             ops=3 * 2 * macs, dtype=cd,
-            scratch_mb=grid * (n_w + n_b) * 4 / 2**20,
+            scratch_mb=grid * slice_bytes / 2**20,
+            scratch_written_mb=-(-rows // tile) * slice_bytes / 2**20,
             tile=tile, smem=smem, grid=grid,
             blocks_per_sm=ft.smem_blocks_per_sm(smem))
 
@@ -893,23 +915,80 @@ def plain_path_on_card():
         SetTransformer.forward, dispatch.mixture_forward = fwd, mix
 
 
-# Relative gradient error per tensor allowed between the kernels and the
-# plain path, both on the card, in the fp32 train step: between its sound
-# reading (1.9e-4 at worst on an H100 80GB HBM3 at 700 W) and the least
-# that the kernels' gradients rounded once to bf16 read (4.0e-4 there, 1.7e-3
-# the median tensor), which the script reads and holds above it in every
-# run.
+# The fp32 train step's gradients are held per tensor against the same step
+# in float64 on the CPU (the port's plain path with every tensor float64:
+# ``fp64_reference``), by relative norm error.  (a) The kernels and the plain
+# path on the card: within max(FP64_REL, 2 e_cpu), e_cpu the CPU fp32 step's
+# own error, so that where fp32 arithmetic itself cannot resolve a gradient
+# (a data-initialised ActNorm bias, the mixture offsets: up to 2e-3 for the
+# CPU fp32 step on an H100's host) the card may be as far as twice it.
+# (b) The kernels: within max(KERNELS_VS_PLAIN_CARD, 2 e_plain) of the fp64
+# step.  (c) The control, the kernels' gradients rounded once to bf16, reads
+# above (b)'s limit on every tensor where that limit is its floor.
+FP64_REL = 1e-3
+# (b)'s floor: between the kernels' reading against the plain path on the
+# card (1.9e-4 at worst on an H100 80GB HBM3 at 700 W) and the least that
+# their gradients rounded once to bf16 read (4.0e-4 there).
 KERNELS_VS_PLAIN_CARD = 3e-4
 
 
-def check_train_step_against_cpu(seed: int, report: dict) -> dict:
-    """One train step's gradients on the card (kernels) against a CPU copy
-    (plain path): the flagship at full width, fp32 compute, 64 sets, shared
-    noise.  Every parameter with a CPU gradient gets a non-zero one on the
-    card, within 1e-3 relative per tensor; so does the plain path on the
-    card.  The kernels against the plain path on the card are held at
-    KERNELS_VS_PLAIN_CARD, which must lie below what each of the kernels'
-    gradients rounded to bf16 reads.  Returns the launches of the kernels' step."""
+def train_step_failures(readings: dict) -> list:
+    """Rules (a)-(c) on the readings ``{tensor: (e_cpu, e_plain, e_kern,
+    control)}``, each a relative norm error against the fp64 step: the CPU
+    fp32 step, the plain path on the card, the kernels, and the kernels'
+    gradients rounded to bf16.  Returns a message for each rule that a
+    tensor fails."""
+    failed = []
+    for name, (e_cpu, e_plain, e_kern, control) in readings.items():
+        lim_a = max(FP64_REL, 2 * e_cpu)
+        lim_b = max(KERNELS_VS_PLAIN_CARD, 2 * e_plain)
+        for what, err in (("kernels", e_kern), ("plain path", e_plain)):
+            if not err <= lim_a:
+                failed.append(f"(a) {name}: {what} {err} from the fp64 step, "
+                              f"over {lim_a}")
+        if not e_kern <= lim_b:
+            failed.append(f"(b) {name}: kernels {e_kern} from the fp64 step, "
+                          f"over {lim_b}")
+        if lim_b == KERNELS_VS_PLAIN_CARD and not control > lim_b:
+            failed.append(f"(c) {name}: the bf16-rounded control reads "
+                          f"{control}, inside {lim_b}: the limit cannot "
+                          "tell it")
+    return failed
+
+
+def fp64_reference(task_args: dict, state: dict):
+    """The port's plain path on the CPU in float64 throughout: the set task
+    of ``task_args`` in compute dtype float64, its model cast to float64
+    and loaded with ``state`` (an fp32 model's)."""
+    from categoricalnf_tpu_torch.inference import build_task
+    ref = build_task("set_shuffling", {**task_args,
+                                       "compute_dtype": "float64"},
+                     device="cpu")
+    ref.model.double()
+    ref.model.load_state_dict(state)
+    return ref
+
+
+def step_grads(task, x, noise, beta: float = 0.7) -> dict:
+    """The gradients of one train step's loss on batch ``x`` with the
+    encoder's uniforms ``noise`` (moved to the task's device), by
+    parameter name."""
+    task.model.zero_grad(set_to_none=True)
+    task.loss({"x": x}, beta, noise=noise.to(task.device)).backward()
+    return {k: p.grad for k, p in task.model.named_parameters()}
+
+
+def train_step_readings(seed: int):
+    """One fp32 train step of the flagship at full width (64 sets, shared
+    noise, beta 0.7) three ways, the kernels on the card, the plain path on
+    the card and the plain path on the CPU, against the same step in
+    float64 (``fp64_reference``).  Returns (readings, unchecked, launches):
+    per tensor with a gradient in the fp64 step, (e_cpu, e_plain, e_kern,
+    control) as ``train_step_failures`` takes them; the readings the check
+    held before (the kernels and the plain path on the card against the CPU
+    fp32 step, the kernels against the plain path on the card), by reading
+    and tensor; and the launches of the kernels' step.  Checks that every
+    such tensor gets a non-zero gradient from the kernels."""
     import numpy as np
     import torch
     from categoricalnf_tpu_torch.inference import build_task
@@ -928,51 +1007,79 @@ def check_train_step_against_cpu(seed: int, report: dict) -> dict:
             if name.endswith("net.out.w"):  # zero output layers: identity
                 p.copy_(torch.randn(p.shape, generator=g) * 0.05)
     gpu.model.load_state_dict(cpu.model.state_dict())
+    ref = fp64_reference(args, cpu.model.state_dict())
     noise = uniform_noise((64, S, D), generator=torch.Generator()
                           .manual_seed(seed + 5))
-    cpu.loss({"x": x}, 0.7, noise=noise).backward()
-
-    def card_grads():
-        gpu.model.zero_grad(set_to_none=True)
-        gpu.loss({"x": x}, 0.7, noise=noise.to(gpu.device)).backward()
-        torch.cuda.synchronize()
-        return {k: p.grad for k, p in gpu.model.named_parameters()}
+    exact = step_grads(ref, x, noise.double())
+    cpu32 = step_grads(cpu, x, noise)
 
     reset_launches()
-    kern = card_grads()
+    kern = step_grads(gpu, x, noise)
+    torch.cuda.synchronize()
     launches = read_launches()
     with plain_path_on_card():
-        plain = card_grads()
-    limits = {"kernels_vs_cpu": 1e-3, "plain_card_vs_cpu": 1e-3,
-              "kernels_vs_plain_card": KERNELS_VS_PLAIN_CARD}
-    worst = {k: (0.0, "") for k in limits}
-    control = []
-    for name, p in cpu.model.named_parameters():
-        if p.grad is None or not p.grad.abs().max() > 0:
+        plain = step_grads(gpu, x, noise)
+    readings, old = {}, {"kernels_vs_cpu": {}, "plain_card_vs_cpu": {},
+                         "kernels_vs_plain_card": {}}
+    for name, want in exact.items():
+        if want is None or not want.abs().max() > 0:
             continue
         gk, gp = kern[name], plain[name]
         check(gk is not None and bool(gk.abs().max() > 0),
-              f"{name} has a CPU gradient and none on the card")
-        for key, err in (("kernels_vs_cpu", rel_err(gk.cpu(), p.grad)),
-                         ("plain_card_vs_cpu", rel_err(gp.cpu(), p.grad)),
-                         ("kernels_vs_plain_card", rel_err(gk, gp))):
-            check(err <= limits[key], f"{name}: {key} gradient off by {err}")
-            worst[key] = max(worst[key], (err, name))
-        control.append(rel_err(gk.bfloat16(), gp))
-    n = len(control)
+              f"{name} has a gradient in the fp64 step and none from the "
+              "kernels")
+        gk, gp, gc = gk.cpu(), gp.cpu(), cpu32[name]
+        readings[name] = (rel_err(gc.double(), want),
+                          rel_err(gp.double(), want),
+                          rel_err(gk.double(), want),
+                          rel_err(gk.bfloat16().double(), want))
+        old["kernels_vs_cpu"][name] = rel_err(gk, gc)
+        old["plain_card_vs_cpu"][name] = rel_err(gp, gc)
+        old["kernels_vs_plain_card"][name] = rel_err(gk, gp)
     nets = sum(1 for k in kern if k.endswith("net.out.w"))
-    check(n > 20 * nets, f"only {n} parameters got a gradient")
-    check(min(control) > KERNELS_VS_PLAIN_CARD,
-          f"a gradient rounded to bf16 reads {min(control)}, inside the "
-          f"limit {KERNELS_VS_PLAIN_CARD}: the limit cannot tell it")
-    report.update(n_gradients=n, **{k: v[0] for k, v in worst.items()},
-                  **{f"{k}_worst": v[1] for k, v in worst.items()},
-                  bf16_rounded_vs_plain_card_min=min(control),
-                  bf16_rounded_vs_plain_card_median=statistics.median(
-                      control),
-                  bf16_rounded_vs_plain_card_max=max(control))
-    print("train step card vs CPU (fp32, 64 sets): " + json.dumps(report),
-          flush=True)
+    check(len(readings) > 20 * nets,
+          f"only {len(readings)} parameters got a gradient")
+    return readings, old, launches
+
+
+def check_train_step_against_cpu(seed: int, report: dict) -> dict:
+    """The fp32 train step's gradients (``train_step_readings``) held per
+    tensor against the fp64 step by rules (a)-(c) of
+    ``train_step_failures``; prints the readings into ``report``, the
+    tensors whose limits are above their floors, and, unchecked, the
+    readings the check held before.  Returns the launches of the kernels'
+    step."""
+    readings, old, launches = train_step_readings(seed)
+
+    def worst(i):
+        name = max(readings, key=lambda k: readings[k][i])
+        return readings[name][i], name
+
+    # tensors whose limit is above its floor, by rule
+    raised_a = sorted(k for k, r in readings.items() if 2 * r[0] > FP64_REL)
+    raised_b = sorted(k for k, r in readings.items()
+                      if 2 * r[1] > KERNELS_VS_PLAIN_CARD)
+    control = [r[3] for r in readings.values()]
+    report.update(seed=seed, n_gradients=len(readings))
+    for i, key in enumerate(("cpu_f32_vs_fp64", "plain_card_vs_fp64",
+                             "kernels_vs_fp64")):
+        report[key], report[f"{key}_worst"] = worst(i)
+        report[f"{key}_median"] = statistics.median(
+            r[i] for r in readings.values())
+    report.update(
+        limit_a_raised=raised_a, limit_b_raised=raised_b,
+        bf16_rounded_vs_fp64_min=min(control),
+        bf16_rounded_vs_fp64_median=statistics.median(control),
+        unchecked={k: max(v.values()) for k, v in old.items()},
+        unchecked_worst={k: max(v, key=v.get) for k, v in old.items()})
+    print(f"train step (fp32, 64 sets, seed {seed}) against the fp64 "
+          "step: " + json.dumps(report), flush=True)
+    print(f"  {len(raised_a)} tensor(s) take a limit (a) above {FP64_REL}: "
+          f"{raised_a}; {len(raised_b)} a limit (b) above "
+          f"{KERNELS_VS_PLAIN_CARD}: {raised_b}", flush=True)
+    failed = train_step_failures(readings)
+    check(not failed, "fp32 train step against the fp64 step: "
+          + "; ".join(failed))
     return launches
 
 
@@ -1096,7 +1203,11 @@ PATH_OF = {**{k: "serving" for k in SERVING_KERNELS},
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the weights and inputs; the fp32 train "
+                    "step's check runs at this seed and the next, and only "
+                    "the default 0 is known to pass it (ROADMAP.md, "
+                    "Queue C)")
     args = ap.parse_args()
 
     import torch
@@ -1175,6 +1286,8 @@ def main() -> int:
               + (f", bounds {r['bound_fma_ms']!r} ms on the FMA units and "
                  f"{r['bound_tf32x3_ms']!r} ms as 3xTF32, TF32 control "
                  f"{r['tf32_control_rel_err']:.3g}" if "tc_ops" in r else "")
+              + (f", scratch written {r['scratch_written_mb']:.1f} MB and "
+                 "read as much" if "scratch_written_mb" in r else "")
               + (f", grid {r['grid']}" if "grid" in r else "")
               + (f", {r['lanes']} lanes an element, {r['registers']} "
                  f"registers, {r['spill_bytes']} B spilled, "
@@ -1189,6 +1302,7 @@ def main() -> int:
     print("training: " + json.dumps(train_timings), flush=True)
     launches["train_step_fp32"] = check_train_step_against_cpu(args.seed,
                                                                {})
+    check_train_step_against_cpu(args.seed + 1, {})
     for name in ("fused_set_transformer_train_f32",
                  "fused_set_transformer_bwd_f32"):
         check(launches["train_step_fp32"][name] > 0,

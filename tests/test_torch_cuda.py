@@ -6,6 +6,9 @@ so on a machine without it the file runs on its own:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -374,13 +377,88 @@ def test_fused_bwd_matches_autograd_of_plain(dev, b, s, hidden, heads, cd):
     assert all(float(a.abs().max()) > 0 for a in got)
 
 
-def test_fused_bwd_is_deterministic(dev):
-    net = _net("bfloat16", dev)
+@pytest.mark.parametrize("cd", ["bfloat16", "float32"])
+def test_fused_bwd_is_deterministic(dev, cd):
+    net = _net(cd, dev)
     x = torch.randn(256, 16, 4, device=dev)
-    gy = torch.randn(256, 16, 104, device=dev).bfloat16()
-    packed = net._packed_weights(torch.bfloat16)
+    gy = torch.randn(256, 16, 104, device=dev).to(getattr(torch, cd))
+    packed = net._packed_weights(getattr(torch, cd))
     one = ft.fused_set_transformer_bwd(packed, x, gy, num_heads=4)
     two = ft.fused_set_transformer_bwd(packed, x, gy, num_heads=4)
+    torch.cuda.synchronize()
+    assert torch.equal(one[0], two[0])
+    assert all(torch.equal(a, b) for a, b in zip(one[1], two[1]))
+
+
+def _tf32x3_bwd():
+    """``tools/f32_bwd_tf32x3.py``: the 3xTF32 fp32 backward that waits
+    beside the port on the fp32 train step's gradient check."""
+    spec = importlib.util.spec_from_file_location(
+        "f32_bwd_tf32x3", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "tools", "f32_bwd_tf32x3.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _stacked(net, grads):
+    """Per-parameter gradients (``net.parameters()`` order) as the 12-tuple
+    of ``flatten_params``."""
+    g = dict(zip((n for n, _ in net.named_parameters()), grads))
+
+    def stack(key, part):
+        return torch.stack([g[f"blocks.{i}.{key}.{part}"]
+                            for i in range(len(net.blocks))])
+    return (g["embed.w"], g["embed.b"][None], stack("qkv", "w"),
+            stack("qkv", "b"), stack("proj", "w"), stack("proj", "b"),
+            stack("fc1", "w"), stack("fc1", "b"), stack("fc2", "w"),
+            stack("fc2", "b"), g["out.w"], g["out.b"][None])
+
+
+@pytest.mark.parametrize("b,s,hidden,heads,ratio", [
+    (64, 16, 96, 4, 2), (4, 32, 96, 4, 2), (7, 16, 96, 4, 2),
+    (11, 6, 24, 4, 2), (3, 32, 48, 2, 2), (9, 1, 24, 3, 2),
+    (300, 16, 96, 4, 2),  # 4,800 rows: blocks walk several tiles
+    (5, 16, 160, 4, 4),   # a wide net
+    (2, 32, 128, 4, 1)])  # one set of 32 a tile, rows at their true width
+def test_tf32x3_bwd_matches_autograd_of_plain(dev, b, s, hidden, heads,
+                                              ratio):
+    """The 3xTF32 fp32 backward against autograd through plain_forward at
+    2e-4, the reference's own gradient tolerance, at the edges of its
+    16-row tiles: S=32 (one set a tile), S=6 (12-row tiles, the last
+    holding one set), S=1, widths 24 and 48, a wide net, and rows at their
+    true width where conflict-free rows do not fit."""
+    net = SetTransformer(4, 104, hidden_dim=hidden, num_heads=heads,
+                         mlp_ratio=ratio, compute_dtype="float32",
+                         generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        net.out.w.copy_(torch.randn(net.out.w.shape, generator=torch
+                                    .Generator().manual_seed(1)) * 0.1)
+    net = net.to(dev)
+    g = torch.Generator(dev).manual_seed(7)
+    x = torch.randn(b, s, 4, generator=g, device=dev)
+    wy = torch.randn(b, s, 104, generator=g, device=dev)
+    dx, dws = _tf32x3_bwd().fused_set_transformer_bwd(
+        net._packed_weights(torch.float32), x, wy, num_heads=heads)
+    want = _net_grads(net, x, wy, plain=True)
+    torch.cuda.synchronize()
+    for a, w in zip((dx,) + dws, (want[0],) + _stacked(net, want[1:])):
+        assert a.shape == w.shape and a.dtype == w.dtype
+        _close(a, w, 2e-4)
+        assert float(a.abs().max()) > 0
+
+
+@pytest.mark.parametrize("sets", [256, 1024])
+def test_tf32x3_bwd_is_deterministic(dev, sets):
+    """Two calls are bitwise equal, also at 16,384 rows, where each block
+    walks several tiles."""
+    tool = _tf32x3_bwd()
+    net = _net("float32", dev)
+    x = torch.randn(sets, 16, 4, device=dev)
+    gy = torch.randn(sets, 16, 104, device=dev)
+    packed = net._packed_weights(torch.float32)
+    one = tool.fused_set_transformer_bwd(packed, x, gy, num_heads=4)
+    two = tool.fused_set_transformer_bwd(packed, x, gy, num_heads=4)
     torch.cuda.synchronize()
     assert torch.equal(one[0], two[0])
     assert all(torch.equal(a, b) for a, b in zip(one[1], two[1]))

@@ -306,7 +306,8 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
-    for tool in ("fused_ab.py", "mixture_ab.py", "f32_forward_rounding.py"):
+    for tool in ("fused_ab.py", "mixture_ab.py", "f32_forward_rounding.py",
+                 "f32_bwd_tf32x3.py"):
         yield os.path.join(REPO, "tools", tool)
 
 

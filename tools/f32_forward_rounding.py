@@ -1,22 +1,26 @@
 #!/usr/bin/env python3
-"""How the fp32 coupling-net forwards round, and what that does to the fp32
-train step's gradient checks.  Run from the root of a checkout on a machine
-with one NVIDIA card:
+"""How the fp32 coupling nets round, and what that does to the fp32 train
+step's gradient check.  Run from the root of a checkout on a machine with
+one NVIDIA card:
 
-    python3 tools/f32_forward_rounding.py --forward fma|tf32x3|plain|fp64
+    python3 tools/f32_forward_rounding.py [--seeds 0 1 2]
 
-Prints one JSON line.  ``forward_vs_fp64``: on chip_smoke's seeded
-flagship net at eval_bpd's 65,536 rows, the relative norm error and the
-signed bias (the mean of the error times the sign of the exact value, over
-the mean magnitude) against the same net in fp64, of the 3xTF32 kernel
-(calls without grad), the FMA kernel (differentiable calls) and
-``plain_forward``.  ``train_step``: chip_smoke's fp32 train step against its
-CPU copy and against the plain path on the card, with every coupling net's
-output taken from ``--forward`` (the FMA kernel as the port runs it, the
-3xTF32 kernel, the same net in fp32 or in fp64 rounded once) and its
-backward the fp32 FMA kernel as always: the worst relative gradient error
-of each comparison and every check that fails at chip_smoke's limits.
-Imports nothing of JAX.
+Prints JSON lines.  ``forward_vs_fp64``: on chip_smoke's seeded flagship
+net at eval_bpd's 65,536 rows, the relative norm error and the signed bias
+(the mean of the error times the sign of the exact value, over the mean
+magnitude) against the same net in fp64, of the 3xTF32 kernel (calls
+without grad), the FMA kernel (differentiable calls) and ``plain_forward``.
+Then, for each seed, chip_smoke's fp32 train step held against the same
+step in float64 (``train_step_readings``, rules (a)-(c) of
+``train_step_failures``) with the coupling nets' output values taken from
+one source and their gradient from another (``fwd/bwd``): ``fma`` the FMA
+kernels (the port's pair), ``tf32x3`` the port's 3xTF32 forward kernel
+and the 3xTF32 backward of ``tools/f32_bwd_tf32x3.py``, ``plain`` plain_forward and its autograd in fp32, ``fp64`` the
+same in float64, rounded once.  Each line gives the readings on the
+tensors that sit nearest their limits, the tensor nearest rule (b)'s limit
+(its error over the limit), and every rule that fails.  The mixture
+kernels and the rest of the step are the port's in every pair.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import importlib.util
 import json
 import math
 import os
+import statistics
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -41,11 +46,11 @@ def _chip_smoke():
 
 def net_forward(ws, x, num_heads, dtype):
     """The coupling net of the 12-tuple ``ws`` in ``dtype``, as
-    ``plain_forward`` computes it."""
+    ``plain_forward`` computes it (differentiable)."""
     import torch
     import torch.nn.functional as F
     (ew, eb, qw, qb, pw, pb, f1w, f1b, f2w, f2b, ow, ob) = (
-        w.detach().to(dtype) for w in ws)
+        w.to(dtype) for w in ws)
 
     def ln(h):
         mu = h.mean(-1, keepdim=True)
@@ -90,29 +95,102 @@ def forward_errors(cs, device) -> dict:
     return out
 
 
-def use_forward(forward: str) -> None:
-    """Make every differentiable fp32 net call output ``forward``'s result;
-    the backward stays the FMA kernel."""
+# the tensors nearest their limits at seeds 0-2 on an H100 80GB HBM3
+SENSITIVE = ("flow.layers.0.bias", "flow.layers.2.mean_offsets",
+             "flow.layers.4.bias", "flow.layers.1.upper")
+PAIRS = (("fma", "fma"), ("tf32x3", "tf32x3"), ("tf32x3", "plain"),
+         ("plain", "tf32x3"), ("fp64", "fp64"))
+
+
+def _tf32x3_pair():
+    """The 3xTF32 forward kernel tied to the 3xTF32 backward kernel."""
     import torch
     from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
-    if forward == "fma":
-        return
-    kernel_forward = ft.FusedSetTransformer.forward
+    spec = importlib.util.spec_from_file_location(
+        "f32_bwd_tf32x3", os.path.join(REPO, "tools", "f32_bwd_tf32x3.py"))
+    bwd = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bwd)
 
-    def patched(ctx, x, packed, num_heads, *ws):
-        y = kernel_forward(ctx, x, packed, num_heads, *ws)
-        if forward == "tf32x3":
-            return ft.fused_set_transformer(packed, x, num_heads=num_heads)
-        dtype = torch.float32 if forward == "plain" else torch.float64
-        return net_forward(ws, x, num_heads, dtype).to(y.dtype)
+    class Tf32x3(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, packed, num_heads, *ws):
+            ctx.packed, ctx.num_heads = packed, num_heads
+            ctx.save_for_backward(x)
+            return ft.fused_set_transformer(packed, x.detach(),
+                                            num_heads=num_heads)
 
-    ft.FusedSetTransformer.forward = staticmethod(patched)
+        @staticmethod
+        def backward(ctx, g):
+            (x,) = ctx.saved_tensors
+            dx, dws = bwd.fused_set_transformer_bwd(
+                ctx.packed, x, g, num_heads=ctx.num_heads)
+            return (dx, None, None, *dws)
+
+    return Tf32x3
+
+
+def use_pair(fwd: str, bwd: str, kernel_forward):
+    """A SetTransformer.forward whose output, on the card, takes its values
+    from ``fwd`` and its gradient from ``bwd``; CPU tensors take
+    ``kernel_forward`` (the port's forward, which sends them to the plain
+    path)."""
+    import torch
+    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+    tf32x3 = _tf32x3_pair()
+
+    def net(self, x, kind):
+        if kind == "plain":
+            return self.plain_forward(x)
+        if kind == "fp64":
+            ws = ft.flatten_params(self)
+            return net_forward(ws, x, self.num_heads,
+                               torch.float64).to(x.dtype)
+        packed = self._packed_weights(torch.float32)
+        fn = ft.FusedSetTransformer if kind == "fma" else tf32x3
+        return fn.apply(x, packed, self.num_heads, *ft.flatten_params(self))
+
+    def forward(self, x, cond=None, mask=None):
+        if not x.is_cuda:
+            return kernel_forward(self, x, cond, mask)
+        y = net(self, x, bwd)
+        if fwd == bwd:
+            return y
+        with torch.no_grad():
+            y_fwd = net(self, x.detach(), fwd)
+        return y + (y_fwd - y).detach()
+
+    return forward
+
+
+def train_step_pairs(cs, seed: int) -> list:
+    from categoricalnf_tpu_torch.networks import SetTransformer
+    out = []
+    for fwd, bwd in PAIRS:
+        kernel_forward = SetTransformer.forward
+        SetTransformer.forward = use_pair(fwd, bwd, kernel_forward)
+        try:
+            readings, _, _ = cs.train_step_readings(seed)
+        finally:
+            SetTransformer.forward = kernel_forward
+        ratio = {k: r[2] / max(cs.KERNELS_VS_PLAIN_CARD, 2 * r[1])
+                 for k, r in readings.items()}
+        worst = max(ratio, key=ratio.get)
+        out.append({
+            "seed": seed, "pair": f"{fwd}/{bwd}",
+            **{key: {t: readings[t][i] for t in SENSITIVE}
+               for i, key in enumerate(("cpu_f32_vs_fp64",
+                                        "plain_card_vs_fp64",
+                                        "kernels_vs_fp64"))},
+            "kernels_vs_fp64_median": statistics.median(
+                r[2] for r in readings.values()),
+            "nearest_limit_b": [worst, ratio[worst], readings[worst][2]],
+            "failed": cs.train_step_failures(readings)})
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--forward", default="fma",
-                    choices=["fma", "tf32x3", "plain", "fp64"])
+    ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -121,18 +199,12 @@ def main() -> int:
     from categoricalnf_tpu_torch.utils.device import resolve_device
     cs = _chip_smoke()
     device = resolve_device("cuda")
-    result = {"card": cs.card_line(), "forward": args.forward,
-              "forward_vs_fp64": forward_errors(cs, device)}
-    use_forward(args.forward)
-    failed = []
-    cs.check = lambda cond, msg: None if cond else failed.append(msg)
-    report: dict = {}
-    cs.check_train_step_against_cpu(0, report)
-    result["train_step"] = {
-        **{k: v for k, v in report.items() if k.startswith(("kernels",
-                                                            "plain"))},
-        "failed_checks": failed}
-    print(json.dumps(result), flush=True)
+    print(json.dumps({"card": cs.card_line(),
+                      "forward_vs_fp64": forward_errors(cs, device)}),
+          flush=True)
+    for seed in args.seeds:
+        for line in train_step_pairs(cs, seed):
+            print(json.dumps(line), flush=True)
     return 0
 
 

@@ -2,19 +2,25 @@
 """Compare the fused SetTransformer kernels of two checkouts on one card:
 in bf16 #3 (the forward) and #4 (the backward) at a flagship train step's
 shape, 1024 sets of 16 (16,384 rows); in fp32 #3 at eval_bpd's shape, 4096
-sets of 16 (65,536 rows); on chip_smoke's seeded nets.
+sets of 16 (65,536 rows), and the fp32 train step's pair, #3 as a
+differentiable call runs it and #4, with the 3xTF32 #4 of
+``tools/f32_bwd_tf32x3.py`` where the checkout has it, at 64, 256 and 1024
+sets of 16 (1,024, 4,096 and 16,384 rows: a flagship fp32 step,
+chip_smoke's checks, a flagship batch); on chip_smoke's seeded nets.
 
     python3 tools/fused_ab.py --tree DIR --out A.pt   # DIR: a checkout
     python3 tools/fused_ab.py --compare A.pt B.pt
 
-The first form imports the port from DIR, runs the three kernels once,
-saves their results and prints each kernel's device ms
-(``chip_smoke.cuda_ms``) and the fp32 forward's relative norm error against
-the tree's own plain path (TF32 off).  The second says whether #4's
-gradients (dx and the 12 weight gradients) are bitwise equal and how far
-apart the two trees' forwards are, in each dtype.  The
-net, the timing and the card line are this checkout's ``chip_smoke.py``.
-Imports nothing of JAX.
+The first form imports the port from DIR, runs the kernels once, saves
+their results and prints each kernel's device ms (``chip_smoke.cuda_ms``)
+and the fp32 forward's relative norm error against the tree's own plain
+path (TF32 off).  The second says whether the bf16 #4's gradients (dx and
+the 12 weight gradients) are bitwise equal and how far apart the two
+trees' forwards are, in each dtype, and how far apart their fp32 train
+step's outputs and gradients are (the largest relative norm difference
+over dx and the 12 weight gradients; the 3xTF32 #4's against the other
+tree's FMA #4).  The net, the timing and the card
+line are this checkout's ``chip_smoke.py``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -30,6 +36,17 @@ def _chip_smoke():
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                         "chip_smoke.py")
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _tf32x3_bwd(tree: str):
+    """The checkout's ``tools/f32_bwd_tf32x3.py``, or None."""
+    path = os.path.join(tree, "tools", "f32_bwd_tf32x3.py")
+    if not os.path.exists(path):
+        return None
+    spec = importlib.util.spec_from_file_location("f32_bwd_tf32x3", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -77,9 +94,53 @@ def run(tree: str, out: str) -> None:
         y32 = fwd32()
         result["fwd_f32_rel_err"] = cs.rel_err(y32, net32.plain_forward(x32))
         result["fwd_f32_ms"] = cs.cuda_ms(fwd32, 20)[0]
+
+        # the fp32 train step's pair, from a generator of its own
+        ws32 = ft.flatten_params(net32)
+        g3 = torch.Generator(dev).manual_seed(3)
+        tf32x3 = _tf32x3_bwd(tree)
+        if tf32x3 is not None:
+            result["bwd_f32_tf32x3_ptxas"] = {
+                k: v for k, v in cs.kernel_resources(tf32x3.build_log())
+                .items() if "bwd" in k}
+        train = {}
+        for sets in (cs.B // 16, cs.B // 4, cs.B):
+            rows = sets * cs.S
+            xt = torch.randn(sets, cs.S, cs.D, generator=g3, device=dev)
+            gt = torch.randn(sets, cs.S, cs.OUT, generator=g3, device=dev)
+
+            def fwd_grad():
+                return ft.FusedSetTransformer.apply(xt, packed32, cs.HEADS,
+                                                    *ws32)
+
+            def bwd32():
+                return ft.fused_set_transformer_bwd(packed32, xt, gt,
+                                                    num_heads=cs.HEADS)
+
+            yt = fwd_grad()
+            dxt, dwst = bwd32()
+            train[rows] = [yt.cpu(), dxt.cpu()] + [t.cpu() for t in dwst]
+            result[f"fwd_f32_grad_ms_{rows}"] = cs.cuda_ms(fwd_grad, 20)[0]
+            result[f"bwd_f32_ms_{rows}"] = cs.cuda_ms(bwd32, 10)[0]
+            if tf32x3 is not None:
+
+                def bwd_tf32x3():
+                    return tf32x3.fused_set_transformer_bwd(
+                        packed32, xt, gt, num_heads=cs.HEADS)
+
+                dxt, dwst = bwd_tf32x3()
+                train[f"tf32x3_{rows}"] = [dxt.cpu()] + [t.cpu()
+                                                         for t in dwst]
+                result[f"bwd_f32_tf32x3_ms_{rows}"] = cs.cuda_ms(
+                    bwd_tf32x3, 10)[0]
     torch.save({"y": y.cpu(), "dx": dx.cpu(), "y32": y32.cpu(),
-                "dws": [t.cpu() for t in dws], **result}, out)
+                "dws": [t.cpu() for t in dws], "train": train, **result},
+               out)
     print(json.dumps(result), flush=True)
+
+
+def rel(a, b) -> float:
+    return float((a - b).norm() / b.norm())
 
 
 def compare(a: str, b: str) -> bool:
@@ -98,7 +159,24 @@ def compare(a: str, b: str) -> bool:
         "fwd_f32_rel_diff": float((fa - fb).norm() / fb.norm()),
         "fwd_f32_ms": [one["fwd_f32_ms"], two["fwd_f32_ms"]],
         "fwd_f32_rel_err": [one["fwd_f32_rel_err"],
-                            two["fwd_f32_rel_err"]]}), flush=True)
+                            two["fwd_f32_rel_err"]],
+        **{f"train_f32_{rows}": {
+            "fwd_grad_rel_diff": rel(one["train"][rows][0],
+                                     two["train"][rows][0]),
+            "bwd_rel_diff_max": max(
+                rel(p, q) for p, q in zip(one["train"][rows][1:],
+                                          two["train"][rows][1:])),
+            "fwd_grad_ms": [one[f"fwd_f32_grad_ms_{rows}"],
+                            two[f"fwd_f32_grad_ms_{rows}"]],
+            "bwd_ms": [one[f"bwd_f32_ms_{rows}"], two[f"bwd_f32_ms_{rows}"]],
+            # each tree's 3xTF32 #4 against the other tree's FMA #4
+            "tf32x3_bwd": [
+                {"ms": a[f"bwd_f32_tf32x3_ms_{rows}"],
+                 "rel_diff_max": max(rel(p, q) for p, q in zip(
+                     a["train"][f"tf32x3_{rows}"], b["train"][rows][1:]))}
+                if f"tf32x3_{rows}" in a["train"] else None
+                for a, b in ((one, two), (two, one))]}
+           for rows in one["train"] if isinstance(rows, int)}}), flush=True)
     return same
 
 
