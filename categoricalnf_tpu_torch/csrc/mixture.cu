@@ -9,36 +9,31 @@
 //
 // Bound on an H100.  The inverse reads y and 3 x K fp32 parameters once
 // and writes x: 4 + 12K + 4 bytes an element (104 at K=8), 6.8 MB at
-// M = 65,536.  It then runs 24 rtsafe iterations, each about 5
-// transcendentals and 30 float operations for each of the K components,
-// so it is bound by operations (the SFU's transcendental rate first).  The
-// forward does one such pass and moves 4 + 12K + 8 bytes an element, so it
-// is bound by bytes; so is its backward (4 + 12K + 8 in, 4 + 12K out).
+// M = 65,536.  It then runs 24 rtsafe iterations over the K components,
+// so it is bound by operations.  The forward does one such pass and moves
+// 4 + 12K + 8 bytes an element, so it is bound by bytes; so is its
+// backward (4 + 12K + 8 in, 4 + 12K out).
 //
-// Design of the inverse: one thread per element.  The K parameters are
-// loaded once and kept in registers for the whole root-find (the TPU kernel
-// kept them in VMEM for the same reason); the log-softmax of the mixture
-// logits and the clip of the log-scales happen here, not in extra passes
-// over memory.  The parameter rows may be strided (they are slices of the
-// coupling net's output), so each array comes with its row stride and no
-// copy is needed.  Full fp32: no fast-math, expf/log1pf/logf only.  K is a
-// loop bound up to 16, unrolled against a compile-time maximum so the
-// arrays stay in registers.  A component whose log-weight is below -5e29
-// (the -1e30 the TPU kernel pads with) is left out of the bracket.
+// All three kernels put an element on a group of lanes, a few components a
+// lane (the TPU kernels, too, put the components on an axis of their own),
+// so that the loads of the strided parameter rows and the stores of the
+// [M, K] gradients run over contiguous bytes.  The parameter rows may be
+// strided (they are slices of the coupling net's output), so each array
+// comes with its row stride and no copy is needed.  The log-softmax of the
+// mixture logits and the clip of the log-scales happen here, not in extra
+// passes over memory.  Full fp32: no fast-math.
 //
-// Design of the forward and its backward: a group of lanes an element, a
-// few components a lane (the TPU kernel, too, puts the components on an
-// axis of their own), so that the loads of the strided parameter rows and
-// the stores of the [M, K] gradients run over contiguous bytes and a launch
-// at M = 65,536 holds 2 to 4 times the warps of one thread an element.
-// Every sum over the components keeps the per-element loop's order, so
-// both give that loop's bits (see the note above mixture_forward_kernel).
-// Bound by bytes, they run above that bound.  Their SASS holds about 1,240
-// (forward) and 2,370 (backward) instructions an element at K = 8
-// (tools/mixture_ab.py counts them); the time the warp schedulers take to
-// issue those, plus that of a launch of a few elements, comes close to the
-// measured time (PERF.md), and the expf and log1pf behind most of them stay
-// while the bits must.
+// The forward and its backward keep the per-element loop's order in every
+// sum over the components, so both give that loop's bits (see the note
+// above mixture_forward_kernel).  Bound by bytes, they run above that
+// bound: their SASS holds about 1,240 (forward) and 2,370 (backward)
+// instructions an element at K = 8 (tools/mixture_ab.py counts them), and
+// the time the warp schedulers take to issue those, plus that of a launch
+// of a few elements, comes close to the measured time (PERF.md).
+//
+// The inverse runs as the time to issue its instructions too, so its
+// design cuts the instructions of an iteration: see the note above
+// mixture_inverse_kernel.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -57,126 +52,12 @@ __device__ __forceinline__ void log_sigmoid_pair(float z, float& lsp,
   lsn = lsp - z;
 }
 
-// Loads one element's K components: log-softmax of the logits, means,
-// and the negated clipped log-scales.
-template <int KMAX>
-__device__ __forceinline__ void load_params(
-    const float* __restrict__ pi, long pi_stride,
-    const float* __restrict__ mu, long mu_stride,
-    const float* __restrict__ ls, long ls_stride, long i, int k,
-    float (&log_pi)[KMAX], float (&mean)[KMAX], float (&neg_ls)[KMAX]) {
-  float mx = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    if (j < k) {
-      log_pi[j] = pi[i * pi_stride + j];
-      mean[j] = mu[i * mu_stride + j];
-      neg_ls[j] = -fminf(fmaxf(ls[i * ls_stride + j], kLogScaleMin),
-                         kLogScaleMax);
-      mx = fmaxf(mx, log_pi[j]);
-    }
-  }
-  float s = 0.0f;
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j)
-    if (j < k) s += expf(log_pi[j] - mx);
-  const float lse = mx + logf(s);
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j)
-    if (j < k) log_pi[j] -= lse;
-}
-
-// log F, log(1-F) and log f at x: three logsumexps over the components.
-template <int KMAX>
-__device__ __forceinline__ void mixture_logs(
-    float x, const float (&log_pi)[KMAX], const float (&mean)[KMAX],
-    const float (&neg_ls)[KMAX], const float (&inv_s)[KMAX], int k,
-    float& log_cdf, float& log_sf, float& log_pdf) {
-  float a[KMAX], b[KMAX], c[KMAX];
-  float ma = -INFINITY, mb = -INFINITY, mc = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    if (j < k) {
-      float lsp, lsn;
-      log_sigmoid_pair((x - mean[j]) * inv_s[j], lsp, lsn);
-      a[j] = log_pi[j] + lsp;
-      b[j] = log_pi[j] + lsn;
-      c[j] = log_pi[j] + lsp + lsn + neg_ls[j];
-      ma = fmaxf(ma, a[j]);
-      mb = fmaxf(mb, b[j]);
-      mc = fmaxf(mc, c[j]);
-    }
-  }
-  float sa = 0.0f, sb = 0.0f, sc = 0.0f;
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    if (j < k) {
-      sa += expf(a[j] - ma);
-      sb += expf(b[j] - mb);
-      sc += expf(c[j] - mc);
-    }
-  }
-  log_cdf = ma + logf(sa);
-  log_sf = mb + logf(sb);
-  log_pdf = mc + logf(sc);
-}
-
-// Safeguarded Newton (rtsafe), as _inverse_kernel: a Newton step inside
-// the bracket, else the midpoint; the midpoint also when the step fails
-// to halve the previous one (kills the Newton two-cycle across the root).
-template <int KMAX>
-__global__ void mixture_inverse_kernel(
-    const float* __restrict__ y, const float* __restrict__ pi, long pi_stride,
-    const float* __restrict__ mu, long mu_stride,
-    const float* __restrict__ ls, long ls_stride, float* __restrict__ out,
-    long m, int k) {
-  const long i = blockIdx.x * (long)blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  float log_pi[KMAX], mean[KMAX], neg_ls[KMAX], inv_s[KMAX];
-  load_params<KMAX>(pi, pi_stride, mu, mu_stride, ls, ls_stride, i, k,
-                    log_pi, mean, neg_ls);
-  const float yi = y[i];
-  float lo = INFINITY, hi = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    if (j < k) {
-      inv_s[j] = expf(neg_ls[j]);
-      if (log_pi[j] > kNegBig * 0.5f) {
-        const float cand = mean[j] + expf(-neg_ls[j]) * yi;
-        lo = fminf(lo, cand);
-        hi = fmaxf(hi, cand);
-      }
-    }
-  }
-  float x = 0.5f * (lo + hi);
-  float dx_old = hi - lo;
-  for (int it = 0; it < kNumIters; ++it) {
-    float log_cdf, log_sf, log_pdf;
-    mixture_logs<KMAX>(x, log_pi, mean, neg_ls, inv_s, k, log_cdf, log_sf,
-                       log_pdf);
-    const float g = log_cdf - log_sf - yi;
-    if (g < 0.0f) lo = x; else hi = x;
-    const float step = g * expf(log_cdf + log_sf - log_pdf);
-    float nxt = x - step;
-    const bool bad = nxt <= lo || nxt >= hi || 2.0f * fabsf(step) > dx_old ||
-                     !isfinite(nxt);
-    if (bad) {
-      nxt = 0.5f * (lo + hi);
-      dx_old = 0.5f * (hi - lo);
-    } else {
-      dx_old = fabsf(step);
-    }
-    x = nxt;
-  }
-  out[i] = x;
-}
-
 // The forward (#2) and its backward (#2') spread an element over a group of
 // G lanes, C components a lane (G * C >= K): lane l holds components
 // j = C*l + c, c < C, so a warp holds 32 / G elements, and a warp's loads
 // of the parameter rows and stores of the [M, K] gradients touch a few
-// contiguous runs.  Each lane runs the per-element loop's arithmetic
-// (load_params, mixture_logs) for its components, and every sum over the
+// contiguous runs.  Each lane runs the per-element loop's arithmetic (the
+// original one-thread kernels') for its components, and every sum over the
 // components runs in that loop's order: lane 0 adds its terms to 0.0f,
 // passes the sum to lane 1, which adds its own, and so on (no tree).
 // Components j >= k add an exact +0.  So the two kernels give the bits of
@@ -287,9 +168,9 @@ __device__ __forceinline__ void group_logsumexp3(
 }
 
 // A lane's components at x: the log-softmax of the logits, the clipped
-// log-scales, z and the three log-terms of F (a in mixture_logs), of 1 - F
-// (b) and of f (c), as load_params and mixture_logs compute them.  FULL:
-// k == G * C, so no component is tested against k.
+// log-scales, z and the three log-terms of F (cdf), of 1 - F (sf) and of f
+// (pdf), as the per-element loop computes them.  FULL: k == G * C, so no
+// component is tested against k.
 template <int C>
 struct Terms {
   bool on[C];
@@ -422,6 +303,248 @@ __global__ void mixture_forward_bwd_kernel(
   if (live && l == 0) gx[i] = g_x;
 }
 
+// The inverse (#1): x with logit F(x) = y, by rtsafe as _inverse_kernel:
+// the bracket [min_k, max_k](mu_k + s_k y), then kNumIters iterations of a
+// Newton step inside the bracket, else the midpoint; the midpoint also when
+// the step fails to halve the previous one (kills the Newton two-cycle
+// across the root).  An element takes a group of lanes as the forward's
+// (kInvLanes for K <= 8, twice as many for K <= 16, C = 8 / kInvLanes
+// components a lane), and every lane of the group runs the element's rtsafe
+// update on the same values, so that the group stays in step.
+//
+// An iterate is evaluated in one of two domains.
+// - Linear, for every element with |y| <= kLinearMaxY: with e = exp(-|z|)
+//   and r = 1 / (1 + e), sigmoid(|z|) = r and sigmoid(-|z|) = e r.  With
+//   pi_k = exp(log pi_k) taken once, F = sum pi_k sigmoid(z_k), S = 1 - F =
+//   sum pi_k sigmoid(-z_k) and f = sum pi_k / s_k sigmoid(z_k)
+//   sigmoid(-z_k) cost one exp2f and one correctly rounded reciprocal a
+//   component, and the element one division and one logf for g = log(F /
+//   S) - y and one division for the Newton step g F S / f.  S is computed
+//   as its own sum, never as 1 - F, so neither tail cancels.  Where an
+//   iterate lies far right (left) of every component, S (F) may fall below
+//   kLinearMin (2^-100) or underflow.  There the sign of g is still
+//   certain, because log S < -69.3 < -kLinearMaxY <= -y (likewise for F),
+//   and the iteration bisects on it.
+// - Log, for the others, whose root may itself lie where the linear sums
+//   underflow: log F, log(1 - F) and log f as three logsumexps over the
+//   components, as the forward computes them, the sums relayed in the
+//   per-element loop's order (a warp with any such element runs both
+//   loops).  It costs an expf and a log1pf a component for the
+//   log-sigmoids, three expf a component and three logf for the sums, every
+//   iteration: the original one-thread kernel's arithmetic, which runs the
+//   log domain for every element.
+
+// |g| at or below kConverged (1 + |y|) counts as converged (rtsafe_update):
+// 16 ulps of 1 + |y|, about g's rounding error in either domain.
+constexpr float kConverged = 0x1p-20f;
+constexpr float kLinearMaxY = 64.0f;
+constexpr float kLinearMin = 0x1p-100f;
+constexpr float kLog2e = 1.44269504088896341f;
+
+// A lane's components: log-softmax of the logits, means, negated clipped
+// log-scales and 1 / s; ``on``: the component exists (j < k).
+template <int C>
+struct InvParams {
+  bool on[C];
+  float log_pi[C], mean[C], neg_ls[C], inv_s[C];
+};
+
+template <int G, int C, bool FULL>
+__device__ __forceinline__ void load_inverse_params(
+    InvParams<C>& p, const float* __restrict__ pi, long pi_stride,
+    const float* __restrict__ mu, long mu_stride,
+    const float* __restrict__ ls, long ls_stride, long i, int l, int k) {
+  float logit[C], raw_ls[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int j = C * l + c;
+    p.on[c] = FULL || j < k;
+    logit[c] = -INFINITY;
+    p.mean[c] = 0.0f;
+    raw_ls[c] = 0.0f;
+    if (FULL || j < k) {
+      logit[c] = pi[i * pi_stride + j];
+      p.mean[c] = mu[i * mu_stride + j];
+      raw_ls[c] = ls[i * ls_stride + j];
+    }
+  }
+  const float lse = group_logsumexp<G, C>(logit, p.on);
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    p.log_pi[c] = logit[c] - lse;
+    p.neg_ls[c] = -fminf(fmaxf(raw_ls[c], kLogScaleMin), kLogScaleMax);
+    p.inv_s[c] = expf(p.neg_ls[c]);
+  }
+}
+
+// The exact bracket [min, max](mu_k + s_k y) over the components whose
+// log-weight is above -5e29 (the -1e30 the TPU kernel pads with is left
+// out); fminf and fmaxf are order-free, so a butterfly serves.
+template <int G, int C>
+__device__ __forceinline__ void inverse_bracket(const InvParams<C>& p,
+                                                float y, float& lo,
+                                                float& hi) {
+  lo = INFINITY;
+  hi = -INFINITY;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (p.on[c] && p.log_pi[c] > kNegBig * 0.5f) {
+      const float cand = p.mean[c] + expf(-p.neg_ls[c]) * y;
+      lo = fminf(lo, cand);
+      hi = fmaxf(hi, cand);
+    }
+  }
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) {
+    lo = fminf(lo, __shfl_xor_sync(kFull, lo, o, G));
+    hi = fmaxf(hi, __shfl_xor_sync(kFull, hi, o, G));
+  }
+}
+
+// One rtsafe update from g = logit F(x) - y and the Newton step.  Once
+// |g| <= g_floor, g is at the level of its own rounding error and x is a
+// root as far as fp32 can tell: the update then takes the Newton step
+// where it stays inside the bracket, else keeps x, and never bisects.
+// Without that, a Newton sequence that converged from one side (the far
+// end of the bracket unmoved since the first iteration) meets g = 0, a
+// step below half an ulp, or a step of rounding noise that fails to halve
+// the last one; each is "bad", and the midpoint of the wide bracket then
+// throws x away, to end ~1e-5 off after the remaining bisections.
+__device__ __forceinline__ void rtsafe_update(float g, float step,
+                                              float g_floor, float& x,
+                                              float& lo, float& hi,
+                                              float& dx_old) {
+  if (g < 0.0f) lo = x; else hi = x;
+  float nxt = x - step;
+  if (fabsf(g) <= g_floor) {
+    if (nxt > lo && nxt < hi) {
+      x = nxt;
+      dx_old = fabsf(step);
+    }
+    return;
+  }
+  const bool bad = nxt <= lo || nxt >= hi || 2.0f * fabsf(step) > dx_old ||
+                   !isfinite(nxt);
+  if (bad) {
+    nxt = 0.5f * (lo + hi);
+    dx_old = 0.5f * (hi - lo);
+  } else {
+    dx_old = fabsf(step);
+  }
+  x = nxt;
+}
+
+// rtsafe in the log domain.
+template <int G, int C>
+__device__ __forceinline__ float rtsafe_log(const InvParams<C>& p, float y,
+                                            float lo, float hi) {
+  const float g_floor = kConverged * (1.0f + fabsf(y));
+  float x = 0.5f * (lo + hi);
+  float dx_old = hi - lo;
+#pragma unroll 1
+  for (int it = 0; it < kNumIters; ++it) {
+    float a[C], b[C], c[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      float lsp, lsn;
+      log_sigmoid_pair((x - p.mean[j]) * p.inv_s[j], lsp, lsn);
+      a[j] = p.log_pi[j] + lsp;
+      b[j] = p.log_pi[j] + lsn;
+      c[j] = p.log_pi[j] + lsp + lsn + p.neg_ls[j];
+    }
+    float log_cdf, log_sf, log_pdf;
+    group_logsumexp3<G, C>(a, b, c, p.on, log_cdf, log_sf, log_pdf);
+    const float g = log_cdf - log_sf - y;
+    rtsafe_update(g, g * expf(log_cdf + log_sf - log_pdf), g_floor, x, lo,
+                  hi, dx_old);
+  }
+  return x;
+}
+
+// A lane's components for the linear domain: means, log2(e) / s, the
+// weights pi and pi / s (0 for components j >= k).
+template <int C>
+struct LinParams {
+  float mean[C], t_scale[C], w[C], w_pdf[C];
+};
+
+// rtsafe in the linear domain.
+template <int G, int C>
+__device__ __forceinline__ float rtsafe_linear(const LinParams<C>& q,
+                                               float y, float lo, float hi) {
+  const float g_floor = kConverged * (1.0f + fabsf(y));
+  float x = 0.5f * (lo + hi);
+  float dx_old = hi - lo;
+#pragma unroll 1
+  for (int it = 0; it < kNumIters; ++it) {
+    float sig[C], sig_neg[C], sig_pair[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float t = (x - q.mean[c]) * q.t_scale[c];  // z log2(e)
+      const float e = exp2f(-fabsf(t));                 // exp(-|z|)
+      const float r = __frcp_rn(1.0f + e);              // sigmoid(|z|)
+      const float s = e * r;                            // sigmoid(-|z|)
+      sig[c] = t >= 0.0f ? r : s;
+      sig_neg[c] = t >= 0.0f ? s : r;
+      sig_pair[c] = r * s;
+    }
+    const float F = group_dot<G, C>(q.w, sig);
+    const float S = group_dot<G, C>(q.w, sig_neg);
+    const float f = group_dot<G, C>(q.w_pdf, sig_pair);
+    float g, step;
+    if (fminf(F, S) >= kLinearMin) {
+      g = logf(F / S) - y;
+      step = g * (F * S) / f;
+    } else {  // the sign of g is certain; bisect
+      g = S < F ? 1.0f : -1.0f;
+      step = NAN;
+    }
+    rtsafe_update(g, step, g_floor, x, lo, hi, dx_old);
+  }
+  return x;
+}
+
+// No thread returns early: the group's shuffles and the warp's votes need
+// every lane.  A lane past m works on element m - 1 and stores nothing (an
+// empty bracket's NaN would send every iteration's reciprocal and
+// divisions down their slow paths); a warp with no element of its own
+// skips both loops.
+template <int G, int C, bool FULL>
+__global__ void mixture_inverse_kernel(
+    const float* __restrict__ y, const float* __restrict__ pi, long pi_stride,
+    const float* __restrict__ mu, long mu_stride,
+    const float* __restrict__ ls, long ls_stride, float* __restrict__ out,
+    long m, int k) {
+  long i;
+  int l;
+  bool live;
+  element_and_lane<G>(m, i, l, live);
+  const long e = live ? i : m - 1;
+  InvParams<C> p;
+  load_inverse_params<G, C, FULL>(p, pi, pi_stride, mu, mu_stride, ls,
+                                  ls_stride, e, l, k);
+  const float yi = y[e];
+  float lo, hi;
+  inverse_bracket<G, C>(p, yi, lo, hi);
+  LinParams<C> q;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    q.mean[c] = p.mean[c];
+    q.t_scale[c] = p.inv_s[c] * kLog2e;
+    q.w[c] = p.on[c] ? expf(p.log_pi[c]) : 0.0f;
+    q.w_pdf[c] = q.w[c] * p.inv_s[c];
+  }
+  const bool log_domain = fabsf(yi) > kLinearMaxY;
+  float x = 0.0f;
+  if (__any_sync(kFull, live && log_domain))
+    x = rtsafe_log<G, C>(p, yi, lo, hi);
+  if (__any_sync(kFull, live && !log_domain)) {
+    const float x_lin = rtsafe_linear<G, C>(q, yi, lo, hi);
+    if (!log_domain) x = x_lin;
+  }
+  if (live && l == 0) out[i] = x;
+}
+
 constexpr int kThreads = 256;
 
 inline unsigned blocks_for(long m) {
@@ -433,6 +556,11 @@ inline unsigned blocks_for(long m) {
 // lane; its backward, with about twice the work a component, 2: on an H100
 // each was the fastest of 1, 2, 4 and 8 components a lane (PERF.md).
 constexpr int kFwdLanes = 2, kBwdLanes = 4;
+
+// The inverse's lanes an element for K <= 8, twice as many for K <= 16:
+// one lane was the fastest of 1, 2, 4 and 8 at M = 65,536 on an H100,
+// more lanes only at small M (PERF.md).
+constexpr int kInvLanes = 1;
 
 // A K that fills the groups (the flagship's K = 8) takes kernels built
 // without the test j < k.
@@ -467,6 +595,20 @@ inline void bwd_launch(const float* x, const float* pi, long pi_stride,
         gmu, gls, m, k);
 }
 
+template <int G, int C>
+inline void inverse_launch(const float* y, const float* pi, long pi_stride,
+                           const float* mu, long mu_stride, const float* ls,
+                           long ls_stride, float* out, long m, int k,
+                           cudaStream_t s) {
+  const unsigned blocks = blocks_for(m * G);
+  if (k == G * C)
+    mixture_inverse_kernel<G, C, true><<<blocks, kThreads, 0, s>>>(
+        y, pi, pi_stride, mu, mu_stride, ls, ls_stride, out, m, k);
+  else
+    mixture_inverse_kernel<G, C, false><<<blocks, kThreads, 0, s>>>(
+        y, pi, pi_stride, mu, mu_stride, ls, ls_stride, out, m, k);
+}
+
 }  // namespace
 
 extern "C" {
@@ -480,11 +622,11 @@ int mixture_inverse_f32(const float* y, const float* pi, long pi_stride,
   if (m == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   if (k <= 8)
-    mixture_inverse_kernel<8><<<blocks_for(m), kThreads, 0, s>>>(
-        y, pi, pi_stride, mu, mu_stride, ls, ls_stride, out, m, k);
+    inverse_launch<kInvLanes, 8 / kInvLanes>(y, pi, pi_stride, mu, mu_stride,
+                                             ls, ls_stride, out, m, k, s);
   else
-    mixture_inverse_kernel<16><<<blocks_for(m), kThreads, 0, s>>>(
-        y, pi, pi_stride, mu, mu_stride, ls, ls_stride, out, m, k);
+    inverse_launch<2 * kInvLanes, 8 / kInvLanes>(
+        y, pi, pi_stride, mu, mu_stride, ls, ls_stride, out, m, k, s);
   return (int)cudaGetLastError();
 }
 

@@ -20,7 +20,15 @@ Run from the root of a checkout on a machine with one NVIDIA card:
    synchronize after each launch; times both with CUDA events around runs of
    back-to-back launches.  The fp32 forward is also held to fp32's
    accuracy (F32_FWD_REL) beside a control that a single TF32 pass reads
-   above it.  The mixture lines carry the kernels' registers and spills.
+   above it.  The mixture inverse is held by its residual in y
+   (``inverse_failures``: per element within max(2 e_p, tau) of the plain
+   version's residual e_p and an fp32 floor tau) at the sampling path's
+   sizes, at --seed and --seed + 1: a 1024-set chunk (M = 65,536) at K = 8
+   and K = 3, a /sample of 4 sets (M = 256), K = 16 at M = 91, and the
+   tails (y = +-60 and +-90, log-scales at the clip), beside the plain
+   version cut short, which the rule must refuse; it is timed at M = 65,536
+   and M = 256.  The mixture lines carry the kernels' registers and
+   spills.
 3. Serves the flagship set-shuffling flow (runs/set16/config.json as it
    is, seeded random weights, data init on one batch) over HTTP:
    /health, /sample, /sample_metrics; then the fp32 importance-sampled
@@ -88,6 +96,11 @@ MIX_EVAL_OPS = 24
 # and the backward's pull-back of the three logsumexps to the component's
 # logit, mean and log-scale (exps of the three weights, the sigmoid pair)
 MIX_BWD_OPS = 30
+# The inverse's linear domain: the weights pi and pi / s and log2(e) / s
+# once, then per iteration z log2(e), exp2, 1 + e, its reciprocal, the
+# sigmoid pair's two products and three fused multiply-adds (two each)
+MIX_INV_SETUP_OPS = 3
+MIX_INV_ITER_OPS = 13
 
 
 class CheckFailed(RuntimeError):
@@ -229,11 +242,13 @@ def check_mixture(device, gen, report):
         bytes=me * (4 + 12 * K + 8),
         ops=me * K * (MIX_SETUP_OPS + MIX_EVAL_OPS), dtype="float32")
 
-    # #1 inverse: against the plain 42 + 3 version, and back to x
+    # #1 inverse at the flagship's chunk (M = 65,536): back to x, and held
+    # by its residual in y against the plain 42 + 3 version (where y is flat
+    # in x, x itself may not lie within 1e-4 of the plain version's)
     xi = twice(lambda: cm.mixture_inverse_cuda(y_p, pi, mu, ls))
     xi_p = nm.mixture_inverse_logit_cdf(y_p, pi, mu, ls)
-    check(close(xi, xi_p, 1e-4),
-          f"mixture_inverse off the plain version: {max_err(xi, xi_p)}")
+    failed = inverse_failures(xi, xi_p, y_p, pi, mu, ls, "mixture_inverse")
+    check(not failed, "; ".join(failed))
     check(close(xi, x, 1e-3), f"mixture_inverse round trip: "
           f"{max_err(xi, x)}")
     inv_err = max_err(xi, xi_p)
@@ -270,8 +285,43 @@ def check_mixture(device, gen, report):
         **timed(lambda: cm.mixture_inverse_cuda(y_p, pi, mu, ls),
                 lambda: nm.mixture_inverse_logit_cdf(y_p, pi, mu, ls), 50, 5),
         bytes=m * (4 + 12 * K + 4),
-        ops=m * K * (MIX_SETUP_OPS + MIX_EVAL_OPS * cm.NUM_ITERS),
+        ops=m * K * (MIX_SETUP_OPS + MIX_INV_SETUP_OPS
+                     + MIX_INV_ITER_OPS * cm.NUM_ITERS),
         dtype="float32")
+
+
+def check_inverse(device, seeds, report):
+    """#1 at the sampling path's sizes (``inverse_cases``) at each seed, by
+    the residual rule (``inverse_failures``), beside the plain version cut
+    short (12 bisections, no Newton step), which the rule must refuse; each
+    kernel call runs twice with identical results.  Prints the worst ratio
+    of residual to limit of each case, and times #1 at a /sample of 4 sets
+    (M = 256)."""
+    from categoricalnf_tpu_torch.ops import numerics as nm
+    from categoricalnf_tpu_torch.ops.cuda import mixture as cm
+    worst = {}
+    for seed in seeds:
+        for name, (y, pi, mu, ls) in inverse_cases(seed, device).items():
+            what = f"mixture_inverse at {name}, seed {seed}"
+            x = twice(lambda: cm.mixture_inverse_cuda(y, pi, mu, ls))
+            x_p = nm.mixture_inverse_logit_cdf(y, pi, mu, ls)
+            failed = inverse_failures(x, x_p, y, pi, mu, ls, what)
+            check(not failed, "; ".join(failed))
+            cut = nm.mixture_inverse_logit_cdf(y, pi, mu, ls, num_bisect=12,
+                                               num_newton=0)
+            check(inverse_failures(cut, x_p, y, pi, mu, ls, what),
+                  f"{what}: the plain version cut short passes the residual "
+                  "rule, which so cannot tell")
+            worst[f"{seed}/{name}"] = inverse_reading(x, x_p, y, pi, mu,
+                                                      ls)[1]
+    print("mixture_inverse: worst residual / max(2 e_p, tau) by case: "
+          + json.dumps(worst), flush=True)
+    y, pi, mu, ls = inverse_cases(seeds[0], device)["sample4"]
+    report["mixture_inverse"].update(
+        ms_m256=cuda_ms(lambda: cm.mixture_inverse_cuda(y, pi, mu, ls),
+                        50)[0],
+        residual_ratio=max(worst.values()),
+        design="linear domain, log domain for |y| > 64")
 
 
 def net_macs_per_row(in_dim, hidden, heads, layers, mlp, out_dim, s):
@@ -956,6 +1006,97 @@ def train_step_failures(readings: dict) -> list:
     return failed
 
 
+# The inverse (#1) is held by its residual in y, e = |logit F(x) - y|, in
+# float64 (the numerics on float64 inputs): where y is flat in x, two x
+# that fp32 cannot tell apart in y may lie far apart.  Per element, the
+# kernel's e_k stays within max(2 e_p, tau): e_p the plain fp32 version's
+# residual, and tau an fp32 floor that no draw can lower: the error with
+# which fp32 evaluates y at the root x* (8 ulps of |log F| + |log(1 - F)|,
+# which at the root are softplus(-y) + softplus(y)) plus the move in y of
+# half an fp32 ulp of x*, exp(ldj(x*)) ulp(x*) / 2.  x* is the plain
+# inverse run in float64.
+INV_EVAL_ULPS = 8
+
+
+def inverse_residual(x, y, pi, mu, ls):
+    """|logit F(x) - y| per element, in float64."""
+    from categoricalnf_tpu_torch.ops import numerics as nm
+    d = [t.detach().double() for t in (x, y, pi, mu, ls)]
+    return (nm.mixture_logit_cdf_and_ldj(d[0], *d[2:])[0] - d[1]).abs()
+
+
+def inverse_floor(y, pi, mu, ls):
+    """tau per element (float64), from the root x* found in float64."""
+    import torch
+    import torch.nn.functional as tf
+    from categoricalnf_tpu_torch.ops import numerics as nm
+    yd, pd, md, ld = (t.detach().double() for t in (y, pi, mu, ls))
+    x_star = nm.mixture_inverse_logit_cdf(yd, pd, md, ld)
+    _, ldj = nm.mixture_logit_cdf_and_ldj(x_star, pd, md, ld)
+    a = x_star.float().abs()
+    ulp = (torch.nextafter(a, torch.full_like(a, float("inf"))) - a).double()
+    return (INV_EVAL_ULPS * 2.0 ** -24 * (tf.softplus(yd) + tf.softplus(-yd))
+            + ldj.exp() * ulp / 2)
+
+
+def inverse_reading(x, x_plain, y, pi, mu, ls) -> tuple[int, float]:
+    """(elements whose residual is over max(2 e_p, tau), the largest ratio
+    of residual to that limit); a residual that is not finite is over."""
+    import torch
+    e_k = inverse_residual(x, y, pi, mu, ls)
+    limit = torch.maximum(2 * inverse_residual(x_plain, y, pi, mu, ls),
+                          inverse_floor(y, pi, mu, ls))
+    ratio = (e_k / limit).nan_to_num(float("inf"))
+    return int((ratio > 1).sum()), float(ratio.max())
+
+
+def inverse_failures(x, x_plain, y, pi, mu, ls, what: str) -> list:
+    """The residual rule on the inverse's ``x``, the plain fp32 version's
+    ``x_plain`` beside it: a message if any element is over the limit."""
+    over, worst = inverse_reading(x, x_plain, y, pi, mu, ls)
+    if not over:
+        return []
+    return [f"{what}: {over} of {x.numel()} elements over max(2 e_p, tau), "
+            f"the worst at {worst!r} times it"]
+
+
+def coupling_slices(pi, ls):
+    """pi and ls as the coupling passes them: slices [2:2+K] and [2+2K:] of
+    one [..., 2 + 3K] tensor (the means, offset, are a tensor of their
+    own)."""
+    import torch
+    k = pi.shape[-1]
+    raw = torch.zeros(*pi.shape[:-1], 2 + 3 * k, device=pi.device)
+    raw[..., 2:2 + k] = pi
+    raw[..., 2 + 2 * k:] = ls
+    return raw[..., 2:2 + k], raw[..., 2 + 2 * k:]
+
+
+def inverse_cases(seed: int, device) -> dict:
+    """The inverse's cases at the sampling path's sizes, ``name: (y, pi,
+    mu, ls)`` from a generator seeded ``seed``: the flagship's chunk of
+    1024 sets (M = 65,536, K = 8, pi and ls strided as the coupling passes
+    them) and the same at K = 3; a /sample of 4 sets (M = 256); K = 16 at
+    M = 91; y the plain forward of x there.  And the tails: y = +-60 (the
+    linear domain's sums near 2^-87) and +-90 (past kLinearMaxY: the log
+    domain) with every log-scale at the clip, M = 4,096."""
+    import torch
+    from categoricalnf_tpu_torch.ops import numerics as nm
+    gen = torch.Generator(device).manual_seed(seed)
+    cases = {}
+    for name, shape, k in (("flagship", (B, S, D), K), ("k3", (B, S, D), 3),
+                           ("sample4", (4, S, D), K), ("k16", (7, 13), 16)):
+        x, pi, mu, ls = mixture_inputs(gen, shape, k, device)
+        y, _ = nm.mixture_logit_cdf_and_ldj(x, pi, mu, ls)
+        if name in ("flagship", "sample4"):
+            pi, ls = coupling_slices(pi, ls)
+        cases[name] = (y, pi, mu, ls)
+    _, pi, mu, ls = mixture_inputs(gen, (4096,), K, device)
+    y = torch.tensor([60.0, -60.0, 90.0, -90.0], device=device).repeat(1024)
+    cases["tails"] = (y, pi, mu, nm.LOG_SCALE_MIN - 0.5 - ls.abs())
+    return cases
+
+
 def fp64_reference(task_args: dict, state: dict):
     """The port's plain path on the CPU in float64 throughout: the set task
     of ``task_args`` in compute dtype float64, its model cast to float64
@@ -1132,21 +1273,23 @@ def warps_by_registers(registers: int, threads: int) -> int:
     return blocks * threads // 32
 
 
-# Lanes an element of the mixture forward and its backward at K <= 8, and
-# threads a block, as csrc/mixture.cu launches them (kFwdLanes, kBwdLanes,
-# kThreads); with K = 8 a lane holds 8 / lanes components
-MIX_FWD_LANES, MIX_BWD_LANES, MIX_THREADS = 2, 4, 256
+# Lanes an element of the mixture forward, its backward and the inverse at
+# K <= 8, and threads a block, as csrc/mixture.cu launches them (kFwdLanes,
+# kBwdLanes, kInvLanes, kThreads); with K = 8 a lane holds 8 / lanes
+# components
+MIX_FWD_LANES, MIX_BWD_LANES, MIX_INV_LANES, MIX_THREADS = 2, 4, 1, 256
 
 
 def mixture_resources(log: str) -> dict:
-    """ptxas's registers and spills of the forward and backward kernels as
-    the flagship's K = 8 launches them, and the warps an SM they allow."""
+    """ptxas's registers and spills of the three mixture kernels as the
+    flagship's K = 8 launches them, and the warps an SM they allow."""
     res = kernel_resources(log)
     out = {}
     for name, kernel, g in (
             ("mixture_forward", "mixture_forward_kernel", MIX_FWD_LANES),
             ("mixture_forward_bwd", "mixture_forward_bwd_kernel",
-             MIX_BWD_LANES)):
+             MIX_BWD_LANES),
+            ("mixture_inverse", "mixture_inverse_kernel", MIX_INV_LANES)):
         c = K // g
         tag = f"{kernel}ILi{g}ELi{c}ELb1E"
         hits = [v for f, v in res.items() if tag in f]
@@ -1191,6 +1334,11 @@ SOURCES = {
         "categoricalnf_tpu_torch/csrc/fused_transformer.cu",
         "categoricalnf_tpu/ops/pallas/fused_transformer.py:286"),
 }
+# what a mixture kernel's line adds: its lanes, registers and spills; the
+# inverse's also its ms at a /sample of 4 sets, its domain and residual
+MIX_KEYS = ("ms_m256", "design", "lanes", "components_per_lane",
+            "registers", "spill_bytes", "warps_per_sm_by_registers",
+            "residual_ratio")
 SERVING_KERNELS = ("mixture_inverse", "mixture_forward",
                    "fused_set_transformer_bf16", "fused_set_transformer_f32")
 # the path whose launches each kernel's line reports
@@ -1254,6 +1402,7 @@ def main() -> int:
     gen = torch.Generator(device).manual_seed(args.seed)
     report: dict = {}
     check_mixture(device, gen, report)
+    check_inverse(device, (args.seed, args.seed + 1), report)
     check_fused(device, gen, report)
     check_mixture_bwd(device, gen, report)
     check_fused_bwd(device, gen, report)
@@ -1292,7 +1441,10 @@ def main() -> int:
               + (f", {r['lanes']} lanes an element, {r['registers']} "
                  f"registers, {r['spill_bytes']} B spilled, "
                  f"{r['warps_per_sm_by_registers']} warps an SM by registers"
-                 if "lanes" in r else ""), flush=True)
+                 if "lanes" in r else "")
+              + (f", {r['design']}, {r['ms_m256']!r} ms at M=256, "
+                 f"worst residual {r['residual_ratio']:.3g} of its limit"
+                 if "design" in r else ""), flush=True)
 
     timings: dict = {}
     launches = {"serving": serve_flagship(args.seed, timings)}
@@ -1318,7 +1470,8 @@ def main() -> int:
             "launches_by_path": {p: n[name] for p, n in launches.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None})
+            "bound_by": r["bound_by"], "library_ms": None,
+            **{key: r[key] for key in MIX_KEYS if key in r}})
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

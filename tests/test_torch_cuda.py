@@ -20,6 +20,19 @@ from categoricalnf_tpu_torch.ops.cuda import mixture as cm
 
 pytestmark = pytest.mark.cuda
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+cs = _chip_smoke()
+
 
 @pytest.fixture
 def dev():
@@ -70,7 +83,7 @@ def test_mixture_kernels_match_plain(dev, shape, k):
     rtsafe inverse to 1e-4 of the 42 + 3 bisection/Newton version and back
     to x to 1e-3.  (Not at the others: at M = 65,536 some elements sit
     where y is so flat in x that one ulp of y moves x by more than 1e-4;
-    the inverse's own tests hold it.)"""
+    test_mixture_inverse_residual holds the inverse there.)"""
     x, pi, mu, ls = _mix(shape, k, dev)
     n_fwd, n_inv = cm.LAUNCHES["mixture_forward"], cm.LAUNCHES[
         "mixture_inverse"]
@@ -101,6 +114,41 @@ def test_mixture_kernels_take_strided_slices(dev):
     _close(y, y_p, 1e-4)
     _close(ldj, ldj_p, 1e-4)
     _close(cm.mixture_inverse_cuda(y_p, pi, mu, ls), x, 1e-3)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("name", ["flagship", "k3", "sample4", "k16",
+                                  "tails"])
+def test_mixture_inverse_residual(dev, name, seed):
+    """The inverse by its residual in y (chip_smoke.inverse_failures) at
+    chip_smoke.inverse_cases: M = 65,536 with K = 8 (pi and ls strided
+    slices, as the coupling passes them) and K = 3, a /sample of 4 sets
+    (M = 256, strided), K = 16 at M = 91, and the tails, y = +-60 and +-90
+    with the log-scales at the clip (the linear domain near underflow, and
+    the log domain past |y| = 64); the plain version cut short (12
+    bisections, no Newton step) is refused at each."""
+    y, pi, mu, ls = cs.inverse_cases(seed, dev)[name]
+    n = cm.LAUNCHES["mixture_inverse"]
+    x = cm.mixture_inverse_cuda(y, pi, mu, ls)
+    torch.cuda.synchronize()
+    assert cm.LAUNCHES["mixture_inverse"] == n + 1
+    x_p = nm.mixture_inverse_logit_cdf(y, pi, mu, ls)
+    assert cs.inverse_failures(x, x_p, y, pi, mu, ls, name) == []
+    cut = nm.mixture_inverse_logit_cdf(y, pi, mu, ls, num_bisect=12,
+                                       num_newton=0)
+    assert cs.inverse_failures(cut, x_p, y, pi, mu, ls, name)
+
+
+def test_mixture_inverse_residual_on_strided_slices(dev):
+    """The residual rule at K = 3, M = 65,536 with pi and ls sliced as the
+    coupling slices them (_strided), and the same x as from contiguous
+    copies."""
+    y, pi, mu, ls = cs.inverse_cases(0, dev)["k3"]
+    pi_s, ls_s = _strided(pi, ls)
+    x = cm.mixture_inverse_cuda(y, pi_s, mu, ls_s)
+    assert torch.equal(x, cm.mixture_inverse_cuda(y, pi, mu, ls))
+    x_p = nm.mixture_inverse_logit_cdf(y, pi, mu, ls)
+    assert cs.inverse_failures(x, x_p, y, pi, mu, ls, "k3 strided") == []
 
 
 def test_mixture_inverse_two_cycle(dev):

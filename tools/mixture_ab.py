@@ -7,6 +7,7 @@ inputs (``chip_smoke.mixture_inputs``), at
   log-scales strided slices of a [..., 2 + 3K] tensor as the coupling
   passes them;
 - eval_bpd's shape, 4096 x 16 x 4 (the forward only runs there);
+- a /sample of 4 sets, 4 x 16 x 4 (M = 256, the inverse only);
 - K = 16 at 64 x 16 x 4, and K = 16 and K = 3 at M = 91 (7 x 13).
 
     python3 tools/mixture_ab.py --tree DIR --out A.pt   # DIR: a checkout
@@ -14,17 +15,23 @@ inputs (``chip_smoke.mixture_inputs``), at
 
 The first form imports the port from DIR, runs the kernels, saves their
 outputs and prints each kernel's device ms (``chip_smoke.cuda_ms``).  It
-also counts the SASS instructions of each instance of the forward and
-backward kernels in DIR's built library (``cuobjdump -sass``), and for the
-instances the flagship's K = 8 launches it gives the instructions an element
-and the time the SMs' warp schedulers need to issue them at the flagship's
-M = 65,536 at the card's top clock (a static count: every instruction of
-the kernel once a lane, branches not followed).  The
-backward runs with the log-scales times 6, so that many lie outside the
-clip, as chip_smoke's check does.  The second form says, output by output,
-whether the two trees' results are bitwise equal and, where they are not,
-the largest gap in ulps.  The inputs, the timing and the card line are this
-checkout's ``chip_smoke.py``.  Imports nothing of JAX.
+also counts the SASS instructions of each instance of the three kernels in
+DIR's built library (``cuobjdump -sass``), and for the instances the
+flagship's K = 8 launches it gives the instructions an element and the time
+the busiest of the SMs' warp schedulers needs to issue them at M = 65,536
+and M = 256 at the card's top clock.  The count is static: every instruction
+once a lane, branches not followed, except the inverse's rtsafe loop (the
+code between a backward branch and its target), whose body counts 24 times
+(``NUM_ITERS``); where the kernel has two such loops, the linear domain's
+and the log domain's for |y| > 64, only the shorter runs (no element of
+the timed cases has |y| > 64).  The backward runs with the log-scales times 6,
+so that many lie outside the clip, as chip_smoke's check does.  The inverse
+is also held by ``chip_smoke.inverse_reading`` on
+``chip_smoke.inverse_cases`` at each of ``--seeds``: elements over the
+residual limit, the largest ratio to it.  The second form says, output by
+output, whether the two trees' results are bitwise equal and, where they are
+not, the largest gap in ulps.  The inputs, the timing and the card line are
+this checkout's ``chip_smoke.py``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import sys
 CASES = {
     "flagship": ((1024, 16, 4), 8, True, ("inv", "fwd", "bwd")),
     "eval": ((4096, 16, 4), 8, False, ("fwd",)),
+    "sample4": ((4, 16, 4), 8, True, ("inv",)),
     "k16": ((64, 16, 4), 16, True, ("inv", "fwd", "bwd")),
     "k16_m91": ((7, 13), 16, False, ("inv", "fwd", "bwd")),
     "k3_m91": ((7, 13), 3, False, ("inv", "fwd", "bwd")),
@@ -58,18 +66,6 @@ def _chip_smoke():
     return module
 
 
-def _as_slices(pi, ls):
-    """pi and ls as the coupling passes them: slices [2:2+K] and [2+2K:] of
-    one [..., 2 + 3K] tensor (the means, offset, are a tensor of their
-    own)."""
-    import torch
-    k = pi.shape[-1]
-    raw = torch.zeros(*pi.shape[:-1], 2 + 3 * k, device=pi.device)
-    raw[..., 2:2 + k] = pi
-    raw[..., 2 + 2 * k:] = ls
-    return raw[..., 2:2 + k], raw[..., 2 + 2 * k:]
-
-
 def case_calls(cs, cm, name: str, dev):
     """The kernels' calls of case ``name`` on the seeded inputs, by kernel
     ("inv", "fwd", "bwd"); each returns a tuple of outputs."""
@@ -82,8 +78,8 @@ def case_calls(cs, cm, name: str, dev):
     gl = torch.randn(shape, generator=gen, device=dev)
     ls6 = ls * 6.0
     if strided:
-        pi, ls = _as_slices(pi, ls)
-        _, ls6 = _as_slices(pi, ls6)
+        pi, ls = cs.coupling_slices(pi, ls)
+        _, ls6 = cs.coupling_slices(pi, ls6)
     calls = {
         "inv": lambda: (cm.mixture_inverse_cuda(y_in, pi, mu, ls),),
         "fwd": lambda: cm.mixture_forward_cuda(x, pi, mu, ls),
@@ -91,45 +87,104 @@ def case_calls(cs, cm, name: str, dev):
     return {kern: calls[kern] for kern in kernels}
 
 
+_KERNEL = re.compile(
+    r"(mixture_(?:inverse|forward(?:_bwd)?)_kernel)I((?:L[ib]\d+E)+)E")
+_INSTRUCTION = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                          r"([A-Z][A-Z0-9_.]*)([^;]*)")
+_LABEL = re.compile(r"\s*(\.L_x_\d+):")
+
+
+def _instance(mangled: str):
+    """``name<template args>`` of a mixture kernel's mangled name, else
+    None."""
+    hit = _KERNEL.search(mangled)
+    if not hit:
+        return None
+    args = re.findall(r"L[ib](\d+)E", hit.group(2))
+    return f"{hit.group(1)}<{','.join(args)}>"
+
+
 def _sass_instructions(library: str) -> dict:
-    """Per kernel instance of the forward and backward in ``library``
+    """Per kernel instance of the three kernels in ``library``
     (``name<template args>``): its SASS instructions but NOPs, and of those
-    the MUFU (transcendental), SHFL and branch instructions."""
+    the MUFU (transcendental), SHFL and branch instructions; and its loops
+    (``outside``: instructions before the kernel's closing self-branch that
+    lie in no loop; ``loops``: each outermost loop's instructions, from
+    the target of a backward branch to that branch); ptxas's registers and
+    spills join them in ``run``."""
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     out = subprocess.run(
         [os.path.join(cuda_home, "bin", "cuobjdump"), "-sass", library],
         capture_output=True, text=True, timeout=300, check=True).stdout
-    counts: dict = {}
+    listings: dict = {}
     cur = None
     for line in out.splitlines():
         if "Function :" in line:
-            hit = re.search(
-                r"(mixture_forward(?:_bwd)?_kernel)I((?:L[ib]\d+E)+)E", line)
+            name = _instance(line)
             cur = None
-            if hit:
-                args = re.findall(r"L[ib](\d+)E", hit.group(2))
-                cur = counts[f"{hit.group(1)}<{','.join(args)}>"] = dict(
-                    instructions=0, mufu=0, shfl=0, branches=0)
+            if name:
+                cur = listings[name] = dict(ops=[], labels={}, pending=[])
             continue
-        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
-                       r"([A-Z][A-Z0-9_.]*)", line)
-        if cur is None or not ins or ins.group(1) == "NOP":
+        if cur is None:
             continue
-        op = ins.group(1)
-        cur["instructions"] += 1
-        cur["mufu"] += op.startswith("MUFU")
-        cur["shfl"] += op.startswith("SHFL")
-        cur["branches"] += op.startswith(("BRA", "BRX", "CALL", "RET"))
-    return counts
+        label = _LABEL.match(line)
+        if label:
+            cur["pending"].append(label.group(1))
+            continue
+        ins = _INSTRUCTION.match(line)
+        if not ins:
+            continue
+        addr = int(ins.group(1), 16)
+        for name in cur["pending"]:
+            cur["labels"][name] = addr
+        cur["pending"] = []
+        if ins.group(2) != "NOP":
+            cur["ops"].append((addr, ins.group(2), ins.group(3)))
+    return {name: _count(lst) for name, lst in listings.items()}
 
 
-def _issue_us(counts: dict, m: int = 65_536) -> dict:
-    """For the forward and backward instances the flagship's K = 8 launches
-    (one thread an element with KMAX = 8; or G lanes of C components, G * C
-    = 8, built for a full group): instructions an element (G lanes' worth)
-    and m elements' warp instructions over the card's warp schedulers (4 an
-    SM) at its top SM clock, in microseconds."""
+def _count(listing: dict) -> dict:
+    ops = listing["ops"]
+    c = dict(instructions=len(ops),
+             mufu=sum(op.startswith("MUFU") for _, op, _ in ops),
+             shfl=sum(op.startswith("SHFL") for _, op, _ in ops),
+             branches=sum(op.startswith(("BRA", "BRX", "CALL", "RET"))
+                          for _, op, _ in ops))
+    backward, end = [], None
+    for addr, op, rest in ops:
+        if not op.startswith("BRA"):
+            continue
+        hit = re.search(r"0x([0-9a-f]+)|`\((\.L_x_\d+)\)", rest)
+        if not hit:
+            continue
+        target = (int(hit.group(1), 16) if hit.group(1)
+                  else listing["labels"].get(hit.group(2)))
+        if target is None:
+            continue
+        if target == addr:
+            end = addr if end is None else min(end, addr)
+        elif target < addr:
+            backward.append((target, addr))
+    main = [a for a, _, _ in ops if end is None or a < end]
+    outer = [(t, a) for t, a in backward
+             if not any(t2 <= t and a <= a2 and (t2, a2) != (t, a)
+                        for t2, a2 in backward)]
+    bodies = sorted(sum(t <= x <= a for x in main) for t, a in outer)
+    c["loops"] = bodies
+    c["outside"] = len(main) - sum(bodies)
+    return c
+
+
+def _issue_us(counts: dict, ms=(65_536, 256)) -> dict:
+    """For the instances the flagship's K = 8 launches (one thread an
+    element with KMAX = 8; or G lanes of C components, G * C = 8, built for
+    a full group): the instructions an element (G lanes' worth; for the
+    inverse, the shorter loop's body ``NUM_ITERS`` times, the rest once) and
+    the time the busiest warp scheduler (4 an SM; blocks of 256 threads
+    spread evenly over the SMs) needs to issue its warps' instructions at
+    the card's top SM clock, in microseconds, at each M of ``ms``."""
     import torch
+    from categoricalnf_tpu_torch.ops.cuda.mixture import NUM_ITERS
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -139,20 +194,49 @@ def _issue_us(counts: dict, m: int = 65_536) -> dict:
     for name, c in counts.items():
         args = [int(a) for a in name[name.index("<") + 1:-1].split(",")]
         lanes = 1 if len(args) == 1 else args[0]
-        if args not in ([8], [lanes, 8 // lanes, 1]):
+        if args != [8] and not (len(args) >= 3 and args[0] * args[1] == 8
+                                and args[2] == 1):
             continue
-        per_element = c["instructions"] * lanes
+        per_lane = c["instructions"]
+        if name.startswith("mixture_inverse") and c["loops"]:
+            per_lane = c["outside"] + NUM_ITERS * c["loops"][0]
+        issue = {}
+        for m in ms:
+            blocks = -(-m * lanes // 256)
+            warps_per_sm = -(-blocks // sms) * 8
+            issue[str(m)] = warps_per_sm / 4 * per_lane / mhz
         out[name.split("<")[0]] = dict(
-            instance=name, instructions_per_element=per_element,
-            mufu_per_element=c["mufu"] * lanes,
-            issue_us=m * per_element / 32 / (sms * 4 * mhz * 1e6) * 1e6)
+            instance=name, instructions_per_element=per_lane * lanes,
+            mufu_per_element=c["mufu"] * lanes, lanes=lanes,
+            issue_us=issue,
+            issue_us_all_schedulers=ms[0] * per_lane * lanes / 32
+            / (sms * 4 * mhz))
     return out
 
 
-def run(tree: str, out: str) -> None:
+def readings(cs, cm, nm, seeds, dev) -> dict:
+    """``chip_smoke.inverse_reading`` of the inverse and, as a control, of
+    the plain version cut short (12 bisections, no Newton step), on
+    ``chip_smoke.inverse_cases`` at each seed: [over, worst ratio]."""
+    out = {}
+    for seed in seeds:
+        for name, (y, pi, mu, ls) in cs.inverse_cases(seed, dev).items():
+            x = cm.mixture_inverse_cuda(y, pi, mu, ls)
+            x_p = nm.mixture_inverse_logit_cdf(y, pi, mu, ls)
+            cut = nm.mixture_inverse_logit_cdf(y, pi, mu, ls, num_bisect=12,
+                                               num_newton=0)
+            out[f"{seed}/{name}"] = dict(
+                kernel=cs.inverse_reading(x, x_p, y, pi, mu, ls),
+                control=cs.inverse_reading(cut, x_p, y, pi, mu, ls),
+                max_abs_vs_plain=float((x - x_p).abs().max()))
+    return out
+
+
+def run(tree: str, out: str, seeds) -> None:
     cs = _chip_smoke()
     sys.path.insert(0, os.path.abspath(tree))
     import torch
+    from categoricalnf_tpu_torch.ops import numerics as nm
     from categoricalnf_tpu_torch.ops.cuda import build
     from categoricalnf_tpu_torch.ops.cuda import mixture as cm
     if not torch.cuda.is_available():
@@ -167,9 +251,15 @@ def run(tree: str, out: str) -> None:
                 for o, t in zip(OUTPUTS[kern], outs):
                     saved[f"{name}/{kern}/{o}"] = t.cpu()
                 ms[f"{name}/{kern}"] = cs.cuda_ms(call, 50)[0]
+        residual = readings(cs, cm, nm, seeds, dev)
     sass = _sass_instructions(build.library_path("mixture"))
+    with open(build.library_path("mixture") + ".log") as f:
+        for mangled, res in cs.kernel_resources(f.read()).items():
+            if _instance(mangled) in sass:
+                sass[_instance(mangled)].update(res)
     result = {"tree": tree, "card": cs.card_line(), "ms": ms,
-              "sass": sass, "k8_issue": _issue_us(sass)}
+              "sass": sass, "k8_issue": _issue_us(sass),
+              "residual": residual}
     torch.save({"outputs": saved, **result}, out)
     print(json.dumps(result), flush=True)
 
@@ -210,12 +300,14 @@ def main() -> int:
     ap.add_argument("--tree", help="checkout whose port to run")
     ap.add_argument("--out", help="file for the results")
     ap.add_argument("--compare", nargs=2, metavar="FILE")
+    ap.add_argument("--seeds", type=int, nargs="*", default=[0, 1, 2],
+                    help="seeds of the inverse's residual readings")
     args = ap.parse_args()
     if args.compare:
         return 0 if compare(*args.compare) else 1
     if not (args.tree and args.out):
         ap.error("give --tree and --out, or --compare")
-    run(args.tree, args.out)
+    run(args.tree, args.out, args.seeds)
     return 0
 
 
