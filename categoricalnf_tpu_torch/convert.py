@@ -5,13 +5,19 @@
 (``jax.tree.map(np.asarray, params)`` on the JAX side) and returns a
 ``state_dict`` for ``task.model``.  The port names its parameters as the
 reference's tree does, so a nested key path becomes a dotted name; dense
-weights stay ``[in, out]``.  Imports no JAX.
+weights stay ``[in, out]``.  A ``ScannedBlocks`` entry of the reference's
+flow is a tuple of per-layer trees whose leaves carry a leading depth axis;
+the port holds one block of modules for each depth
+(``flow.layers.<i>.blocks.<d>.<layer>.<name>``), so the leaves are split
+along that axis.  Imports no JAX.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from categoricalnf_tpu_torch.utils.tree import tree_map
 
 
 def flatten_tree(tree, prefix: str = "") -> dict:
@@ -29,10 +35,29 @@ def flatten_tree(tree, prefix: str = "") -> dict:
     return out
 
 
+def _leaves(tree) -> list:
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def _split_depth(entry) -> dict:
+    """A scanned entry (a tuple of per-layer trees stacked along depth) as
+    the port's ``{"blocks": [[layer tree, ...] for each depth]}``."""
+    leaves = _leaves(entry)
+    if not leaves:
+        raise ValueError("a scanned stack without parameters has no depth")
+    depth = np.shape(leaves[0])[0]
+    return {"blocks": [tree_map(lambda a: np.asarray(a)[d], list(entry))
+                       for d in range(depth)]}
+
+
 def from_jax_params(task, params) -> dict:
     """A ``state_dict`` for ``task.model`` from the reference's params."""
+    flow = [_split_depth(e) if isinstance(e, (list, tuple)) else e
+            for e in params["flow"]]
     flat = {**flatten_tree(params["encoding"], "encoding."),
-            **flatten_tree(list(params["flow"]), "flow.layers.")}
+            **flatten_tree(flow, "flow.layers.")}
     want = task.model.state_dict()
     missing = sorted(set(want) - set(flat))
     extra = sorted(set(flat) - set(want))

@@ -45,6 +45,10 @@ constexpr float kLogScaleMax = 7.0f;
 constexpr float kNegBig = -1e30f;
 constexpr int kNumIters = 24;  // rtsafe iterations, as _inverse_kernel
 
+// z must arrive rounded (callers form it with __fmul_rn): were its product
+// left for nvcc to contract into z - sp, lsp would hold the exact product
+// and lsn = lsp - z its rounding error, up to half an ulp of z, where it
+// should be 0 (0.5 at |z| = 1e7, a narrow component far from x).
 __device__ __forceinline__ void log_sigmoid_pair(float z, float& lsp,
                                                  float& lsn) {
   const float sp = log1pf(expf(-fabsf(z)));  // softplus(-|z|)
@@ -204,7 +208,7 @@ __device__ __forceinline__ void load_terms(
     q.log_pi[c] = logit[c] - lse;
     q.neg_ls[c] = -fminf(fmaxf(q.raw_ls[c], kLogScaleMin), kLogScaleMax);
     q.inv_s[c] = expf(q.neg_ls[c]);
-    q.z[c] = (x - mean[c]) * q.inv_s[c];
+    q.z[c] = __fmul_rn(x - mean[c], q.inv_s[c]);
     float lsn;
     log_sigmoid_pair(q.z[c], q.lsp[c], lsn);
     q.cdf[c] = q.log_pi[c] + q.lsp[c];
@@ -447,7 +451,7 @@ __device__ __forceinline__ float rtsafe_log(const InvParams<C>& p, float y,
 #pragma unroll
     for (int j = 0; j < C; ++j) {
       float lsp, lsn;
-      log_sigmoid_pair((x - p.mean[j]) * p.inv_s[j], lsp, lsn);
+      log_sigmoid_pair(__fmul_rn(x - p.mean[j], p.inv_s[j]), lsp, lsn);
       a[j] = p.log_pi[j] + lsp;
       b[j] = p.log_pi[j] + lsn;
       c[j] = p.log_pi[j] + lsp + lsn + p.neg_ls[j];

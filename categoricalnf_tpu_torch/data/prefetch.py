@@ -18,22 +18,26 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from categoricalnf_tpu_torch.utils.tree import tree_map
+
 DEPTH = 4
 
 
 def pin(batch: dict) -> dict:
-    """numpy arrays -> tensors in pinned host memory (run in the thread)."""
-    return {k: torch.as_tensor(np.asarray(v)).pin_memory()
-            for k, v in batch.items()}
+    """numpy arrays (nested dicts of them, such as a dict ``cond``) ->
+    tensors in pinned host memory (run in the thread)."""
+    return tree_map(lambda v: torch.as_tensor(np.asarray(v)).pin_memory(),
+                    batch)
 
 
 def to_device(batch: dict, device) -> dict:
-    """Tensors or arrays -> ``device``.  From pinned memory the copy is
-    queued without blocking on the current stream, so it overlaps the work
-    already queued; the caching host allocator keeps the pinned buffer until
-    the copy is done."""
-    return {k: torch.as_tensor(v).to(device, non_blocking=True)
-            for k, v in batch.items()}
+    """Tensors or arrays, nested as ``pin`` takes them -> ``device``.  From
+    pinned memory the copy is queued without blocking on the current
+    stream, so it overlaps the work already queued; the caching host
+    allocator keeps the pinned buffer until the copy is done."""
+    return tree_map(lambda v: torch.as_tensor(v).to(device,
+                                                    non_blocking=True),
+                    batch)
 
 
 class Prefetcher:

@@ -54,3 +54,7 @@ class MixtureEncoding(Encoding):
 
     def decode(self, z, *, mask=None):
         return self._log_joint_all(z).argmax(dim=-1)
+
+    def posterior(self, z):
+        """The Bayes posterior p(x|z) over all categories: [B, T, C]."""
+        return torch.softmax(self._log_joint_all(z), dim=-1)

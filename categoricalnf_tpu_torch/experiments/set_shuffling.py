@@ -7,9 +7,10 @@ Example, on a machine with a CUDA card (``--device cpu`` runs on the CPU):
         --num_steps 5000 --out_dir runs_torch/set16
 
 The run directory is then served by ``python -m categoricalnf_tpu_torch.serve
---run runs_torch/set16``.  ``--fused`` and ``--remat`` are accepted and have
-no effect: on the card the coupling nets always run the fused kernels, and
-remat acts only on a scanned stack, which is not ported.
+--run runs_torch/set16``.  ``--fused`` is accepted and has no effect: on the
+card the coupling nets always run the fused kernels.  ``--remat``
+recomputes each block's activations in the backward pass; it acts on a
+scanned stack only, which a set stack is above 8 layers.
 """
 
 from __future__ import annotations

@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from categoricalnf_tpu_torch.ops.numerics import at_least_f32
+from categoricalnf_tpu_torch.utils.tree import tree_map
 
 LN2 = 0.6931471805599453
 
@@ -31,8 +32,9 @@ def _num_vars(x, mask):
 
 
 def _tile(t, n):
-    """[B, ...] -> [n * B, ...] (chain-major)."""
-    return None if t is None else t.repeat(n, *([1] * (t.dim() - 1)))
+    """[B, ...] -> [n * B, ...] (chain-major), for a tensor or a dict of
+    them."""
+    return tree_map(lambda v: v.repeat(n, *([1] * (v.dim() - 1))), t)
 
 
 class CategoricalFlow(nn.Module):

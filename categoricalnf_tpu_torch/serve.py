@@ -1,14 +1,16 @@
 """Serve a finished run over HTTP: samples, sample-quality metrics, info.
 
-Counterpart of ``experiments/serve.py`` for the port, set tasks only.
-Device work is serialized behind a lock; the HTTP layer is the stdlib
-server.
+Counterpart of ``experiments/serve.py`` for the port: the set-shuffling
+and graph-coloring tasks.  Device work is serialized behind a lock; the
+HTTP layer is the stdlib server.
 
 Endpoints:
   GET  /health         -> {"status": "ok", "task": ..., "step": N}
   GET  /info           -> the run's config.json contents
   POST /sample         -> {"num_samples": int, "temperature": float}
-                          -> {"samples": [[token, ...], ...]}
+                          -> {"samples": [...]}: sets as token lists;
+                          colorings as {"edges", "colors", "valid"} of
+                          fresh random graphs
   POST /sample_metrics -> same body; the task's sample_metrics dict
 
 Usage (on a machine with a CUDA card):
@@ -23,9 +25,12 @@ import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+import numpy as np
 import torch
 
 from categoricalnf_tpu_torch.inference import load_run
+from categoricalnf_tpu_torch.tasks.graph_coloring import (GraphColoringTask,
+                                                          coloring_validity)
 from categoricalnf_tpu_torch.tasks.set_modeling import (SetShufflingTask,
                                                         _sample_set)
 from categoricalnf_tpu_torch.utils.config import load_config
@@ -38,6 +43,23 @@ def _sample_payload(task, generator, n: int, temperature: float):
     if isinstance(task, SetShufflingTask):
         x = _sample_set(task.model, n, task.set_size, temperature, generator)
         return [[int(v) for v in row] for row in x]
+    if isinstance(task, GraphColoringTask):
+        # the graphs, like the noise, come from the request's generator
+        seed = int(torch.randint(0, 2**31 - 1, (), generator=generator,
+                                 device=generator.device))
+        batch = task._gen(np.random.default_rng(seed), n)
+        x, _ = task.sample_graphs(batch, temperature, generator)
+        adj, mask = batch["cond"]["adj"], batch["mask"]
+        valid = coloring_validity(adj, x, mask)
+        out = []
+        for b in range(n):
+            k = int(mask[b].sum())
+            out.append({
+                "edges": [[i, j] for i in range(k) for j in range(i + 1, k)
+                          if adj[b, i, j] > 0],
+                "colors": [int(c) for c in x[b, :k]],
+                "valid": bool(valid[b])})
+        return out
     raise ValueError(f"no sample payload for task {type(task).__name__}")
 
 

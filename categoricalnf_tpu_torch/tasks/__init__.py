@@ -1,4 +1,5 @@
+from categoricalnf_tpu_torch.tasks.graph_coloring import GraphColoringTask
 from categoricalnf_tpu_torch.tasks.set_modeling import (SetShufflingTask,
                                                         build_set_flow)
 
-__all__ = ["SetShufflingTask", "build_set_flow"]
+__all__ = ["GraphColoringTask", "SetShufflingTask", "build_set_flow"]

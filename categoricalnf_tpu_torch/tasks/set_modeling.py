@@ -30,32 +30,39 @@ def build_set_flow(dim: int, num_layers: int = 8, hidden_dim: int = 96,
                    scan_blocks: Optional[bool] = None, remat: bool = False,
                    unroll: int = 1, *,
                    generator=None) -> flows.FlowModel:
-    """Unrolled coupling stack: num_layers x [ActNorm, InvertibleLinear,
+    """Coupling stack: num_layers x [ActNorm, InvertibleLinear,
     MixtureCDFCoupling(SetTransformer), SoftClamp], parities alternating.
 
-    ``remat`` and ``unroll`` only act on a scanned stack, which is not
-    ported; ``scan_blocks=None`` resolves as the reference does (scanned
-    above 8 layers).  The reference's ``fused`` has no counterpart: on the
-    card every coupling net runs the fused kernel.
+    ``scan_blocks=None`` resolves as the reference does: unrolled up to 8
+    layers (the flagship), scanned above.  A scanned stack (an even
+    ``num_layers`` of at least 4) is one ``ScannedBlocks`` of
+    ``num_layers // 2`` two-parity blocks, which takes ``remat`` and
+    ``unroll``; an unrolled one ignores both, as the reference's does.  The
+    reference's ``fused`` has no counterpart: on the card every coupling
+    net runs the fused kernel.
     """
     if scan_blocks is None:
         scan_blocks = num_layers > 8
-    if scan_blocks and num_layers % 2 == 0 and num_layers >= 4:
-        raise NotImplementedError(
-            "scanned coupling stacks are not ported yet (ROADMAP.md, "
-            "Queue A: ScannedBlocks)")
     out_dim = dim * (2 + 3 * num_mixtures)
-    layers = []
-    for i in range(num_layers):
+
+    def sub(parity):
         net = SetTransformer(dim, out_dim, hidden_dim=hidden_dim,
                              num_heads=num_heads, num_layers=2,
                              compute_dtype=compute_dtype, generator=generator)
-        layers += [flows.ActNorm(dim),
-                   flows.InvertibleLinear(dim, generator=generator),
-                   flows.MixtureCDFCoupling(net, dim, parity=i % 2,
-                                            num_mixtures=num_mixtures,
-                                            generator=generator),
-                   flows.SoftClamp()]
+        return [flows.ActNorm(dim),
+                flows.InvertibleLinear(dim, generator=generator),
+                flows.MixtureCDFCoupling(net, dim, parity=parity,
+                                         num_mixtures=num_mixtures,
+                                         generator=generator),
+                flows.SoftClamp()]
+
+    if scan_blocks and num_layers % 2 == 0 and num_layers >= 4:
+        return flows.FlowModel([flows.ScannedBlocks(
+            [sub(0) + sub(1) for _ in range(num_layers // 2)], remat=remat,
+            unroll=unroll)])
+    layers = []
+    for i in range(num_layers):
+        layers += sub(i % 2)
     return flows.FlowModel(layers)
 
 
@@ -72,10 +79,10 @@ class SetShufflingTask(TaskTemplate):
     num_mixtures: int = 8
     eval_batches_count: int = 4
     compute_dtype: str = "float32"
-    # decoder, remat, scan_blocks and unroll are kept so that a saved
-    # config asking for what is not ported raises instead of restoring
-    # another model; a saved ``fused`` is dropped by ``build_task``, since
-    # the device alone picks the kernel
+    # a saved ``decoder`` other than "bayes" raises instead of restoring
+    # another model; remat, scan_blocks and unroll act as the reference's
+    # (build_set_flow); a saved ``fused`` is dropped by ``build_task``,
+    # since the device alone picks the kernel
     decoder: str = "bayes"
     remat: bool = False
     scan_blocks: Optional[bool] = None

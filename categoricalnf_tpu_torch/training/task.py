@@ -1,8 +1,8 @@
 """Task protocol (counterpart of ``categoricalnf_tpu/training/task.py``).
 
 A task owns its data generator and its ``CategoricalFlow`` model.  Batches
-are dicts with ``x`` [B, T] and optionally ``mask`` and ``cond``, as numpy
-arrays or tensors.  Density evaluations run in the fp32 twin
+are dicts with ``x`` [B, T] and optionally ``mask`` and ``cond`` (an array
+or a dict of them), as numpy arrays or tensors.  Density evaluations run in the fp32 twin
 (``eval_model``), which shares every parameter with ``model``.
 """
 
@@ -13,6 +13,8 @@ import copy
 import numpy as np
 import torch
 from torch import nn
+
+from categoricalnf_tpu_torch.utils.tree import tree_map
 
 
 def force_f32(module: nn.Module) -> nn.Module:
@@ -49,8 +51,10 @@ class TaskTemplate:
         return m
 
     def _tensor(self, a, dtype=None):
-        return None if a is None else torch.as_tensor(a, dtype=dtype,
-                                                      device=self.device)
+        """An array, or a dict of them (a graph's ``cond``), as tensors on
+        the task's device."""
+        return tree_map(lambda v: torch.as_tensor(v, dtype=dtype,
+                                                  device=self.device), a)
 
     # -- hooks ------------------------------------------------------------
 

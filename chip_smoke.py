@@ -51,7 +51,23 @@ Run from the root of a checkout on a machine with one NVIDIA card:
    of seeds 0 and 1) is known to pass: at seed 2 the control reads inside
    its limit on some tensor, the port's kernels as they are included, so
    --seed 1 or above may refuse a sound program (ROADMAP.md, Queue C).
-6. Prints one JSON line of kernel numbers, then, as the last line,
+6. The graph-coloring family (runs/coloring/config.json as it is: bf16,
+   batch 256, graphs of 10-20 nodes padded to 20, a ScannedBlocks stack of
+   3 two-parity blocks of RGCN couplings).  First, with the kernel checks
+   of 2., #2 and #2' at its M = 256 x 20 x 2 = 10,240 and #1 there and at a
+   /sample of 4 graphs (M = 160), at --seed and --seed + 1, held and timed
+   as above.  Then 200 steps through the port's Trainer (evals at 100 and
+   200 with its 8 chains, the final sample metrics at 1024 graphs): the
+   checks of 4. but the optimum, every eval bpd above 0, #2 and #2'
+   launched, #1 in the final sampling; prints
+   graph_coloring_train_samples_per_s, the peak memory and the validity
+   columns, and traces 10 more steps.  Serves the run: /health, /sample of
+   4 graphs (edges inside their graph, colors in range, "valid" as
+   recomputed), /sample_metrics at 1024, a bad request; #1 and #2
+   launched.  Last, the served model with random coupling output layers
+   against its CPU copy, as in 3.
+7. Prints one JSON line of kernel numbers (with the coloring's shapes and
+   its paths' launches), then, as the last line,
    {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA card, outside a checkout
@@ -87,6 +103,10 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 494.7e12}
 B, S, D, K, H, HEADS = 1024, 16, 4, 8, 96, 4
 OUT = D * (2 + 3 * K)
 EVAL_CHAINS = 4
+# The graph-coloring path's [graphs, nodes, D] (runs/coloring/config.json:
+# batch 256, graphs padded to 20 nodes, encoding dim 2), whose mixtures
+# have K = 8 as the flagship's
+COLORING_SHAPE = (256, 20, 2)
 
 # Float operations per mixture component, as the kernels do them (a
 # transcendental counts as one): the parameter set-up (log-softmax, clip,
@@ -203,44 +223,62 @@ def timed(kernel, plain, n_kernel: int, n_plain: int) -> dict:
     return dict(ms=ms, host_ms=host_ms, plain_ms=plain_ms)
 
 
+def mixture_forward_report(x, pi, mu, ls, n_plain: int, what: str) -> dict:
+    """#2 on these inputs, twice, against its plain version within 1e-4;
+    its report entry: error, times (``n_plain`` plain calls a run), bytes
+    and operations."""
+    from categoricalnf_tpu_torch.ops import numerics as nm
+    from categoricalnf_tpu_torch.ops.cuda import mixture as cm
+    y, ldj = twice(lambda: cm.mixture_forward_cuda(x, pi, mu, ls))
+    y_p, ldj_p = nm.mixture_logit_cdf_and_ldj(x, pi, mu, ls)
+    check(close(y, y_p, 1e-4) and close(ldj, ldj_p, 1e-4),
+          f"{what} off: y {max_err(y, y_p)}, ldj {max_err(ldj, ldj_p)}")
+    m, k = x.numel(), pi.shape[-1]
+    return dict(
+        max_abs_err=max(max_err(y, y_p), max_err(ldj, ldj_p)), m=m,
+        **timed(lambda: cm.mixture_forward_cuda(x, pi, mu, ls),
+                lambda: nm.mixture_logit_cdf_and_ldj(x, pi, mu, ls), 50,
+                n_plain),
+        bytes=m * (4 + 12 * k + 8),
+        ops=m * k * (MIX_SETUP_OPS + MIX_EVAL_OPS), dtype="float32")
+
+
+def mixture_inverse_report(y, pi, mu, ls, n_plain: int) -> dict:
+    """#1's report entry on these inputs: its largest distance in x from
+    the plain version (which the residual rule, not this, holds), times,
+    bytes and operations."""
+    from categoricalnf_tpu_torch.ops import numerics as nm
+    from categoricalnf_tpu_torch.ops.cuda import mixture as cm
+    x = cm.mixture_inverse_cuda(y, pi, mu, ls)
+    x_p = nm.mixture_inverse_logit_cdf(y, pi, mu, ls)
+    m, k = y.numel(), pi.shape[-1]
+    return dict(
+        max_abs_err=max_err(x, x_p), m=m,
+        **timed(lambda: cm.mixture_inverse_cuda(y, pi, mu, ls),
+                lambda: nm.mixture_inverse_logit_cdf(y, pi, mu, ls), 50,
+                n_plain),
+        bytes=m * (4 + 12 * k + 4),
+        ops=m * k * (MIX_SETUP_OPS + MIX_INV_SETUP_OPS
+                     + MIX_INV_ITER_OPS * cm.NUM_ITERS),
+        dtype="float32")
+
+
 def check_mixture(device, gen, report):
     import torch
     from categoricalnf_tpu_torch.ops import numerics as nm
     from categoricalnf_tpu_torch.ops.cuda import mixture as cm
 
     x, pi, mu, ls = mixture_inputs(gen, (B, S, D), K, device)
-    m = x.numel()
 
     # #2 forward
-    y, ldj = twice(lambda: cm.mixture_forward_cuda(x, pi, mu, ls))
-    y_p, ldj_p = nm.mixture_logit_cdf_and_ldj(x, pi, mu, ls)
-    check(close(y, y_p, 1e-4) and close(ldj, ldj_p, 1e-4),
-          f"mixture_forward off: y {max_err(y, y_p)}, "
-          f"ldj {max_err(ldj, ldj_p)}")
-    fwd_err = max(max_err(y, y_p), max_err(ldj, ldj_p))
-    report["mixture_forward"] = dict(
-        max_abs_err=fwd_err, m=m,
-        **timed(lambda: cm.mixture_forward_cuda(x, pi, mu, ls),
-                lambda: nm.mixture_logit_cdf_and_ldj(x, pi, mu, ls), 50, 20),
-        bytes=m * (4 + 12 * K + 8),
-        ops=m * K * (MIX_SETUP_OPS + MIX_EVAL_OPS), dtype="float32")
+    report["mixture_forward"] = mixture_forward_report(x, pi, mu, ls, 20,
+                                                       "mixture_forward")
+    y_p, _ = nm.mixture_logit_cdf_and_ldj(x, pi, mu, ls)
 
     # #2 at the shape eval_bpd gives it: its 1024 sets x 4 chains
-    xe, pie, mue, lse = mixture_inputs(gen, (EVAL_CHAINS * B, S, D), K,
-                                       device)
-    ye, ldje = twice(lambda: cm.mixture_forward_cuda(xe, pie, mue, lse))
-    ye_p, ldje_p = nm.mixture_logit_cdf_and_ldj(xe, pie, mue, lse)
-    check(close(ye, ye_p, 1e-4) and close(ldje, ldje_p, 1e-4),
-          f"mixture_forward (eval shape) off: y {max_err(ye, ye_p)}, "
-          f"ldj {max_err(ldje, ldje_p)}")
-    me = xe.numel()
-    report["mixture_forward_eval"] = dict(
-        max_abs_err=max(max_err(ye, ye_p), max_err(ldje, ldje_p)), m=me,
-        **timed(lambda: cm.mixture_forward_cuda(xe, pie, mue, lse),
-                lambda: nm.mixture_logit_cdf_and_ldj(xe, pie, mue, lse),
-                50, 10),
-        bytes=me * (4 + 12 * K + 8),
-        ops=me * K * (MIX_SETUP_OPS + MIX_EVAL_OPS), dtype="float32")
+    report["mixture_forward_eval"] = mixture_forward_report(
+        *mixture_inputs(gen, (EVAL_CHAINS * B, S, D), K, device), 10,
+        "mixture_forward (eval shape)")
 
     # #1 inverse at the flagship's chunk (M = 65,536): back to x, and held
     # by its residual in y against the plain 42 + 3 version (where y is flat
@@ -251,7 +289,6 @@ def check_mixture(device, gen, report):
     check(not failed, "; ".join(failed))
     check(close(xi, x, 1e-3), f"mixture_inverse round trip: "
           f"{max_err(xi, x)}")
-    inv_err = max_err(xi, xi_p)
 
     # the Newton two-cycle case of the reference's tests
     pi2 = torch.tensor([0.6, 1.614, 0.921, 1.032, 0.278, -1.363, 2.304,
@@ -280,28 +317,20 @@ def check_mixture(device, gen, report):
               f"K={k}, M=91 forward off: y {max_err(yk3, y3)}, "
               f"ldj {max_err(ldjk3, ldj3)}")
 
-    report["mixture_inverse"] = dict(
-        max_abs_err=inv_err, m=m,
-        **timed(lambda: cm.mixture_inverse_cuda(y_p, pi, mu, ls),
-                lambda: nm.mixture_inverse_logit_cdf(y_p, pi, mu, ls), 50, 5),
-        bytes=m * (4 + 12 * K + 4),
-        ops=m * K * (MIX_SETUP_OPS + MIX_INV_SETUP_OPS
-                     + MIX_INV_ITER_OPS * cm.NUM_ITERS),
-        dtype="float32")
+    report["mixture_inverse"] = mixture_inverse_report(y_p, pi, mu, ls, 5)
 
 
-def check_inverse(device, seeds, report):
-    """#1 at the sampling path's sizes (``inverse_cases``) at each seed, by
-    the residual rule (``inverse_failures``), beside the plain version cut
-    short (12 bisections, no Newton step), which the rule must refuse; each
-    kernel call runs twice with identical results.  Prints the worst ratio
-    of residual to limit of each case, and times #1 at a /sample of 4 sets
-    (M = 256)."""
+def inverse_held(cases, seeds, device) -> dict:
+    """#1 on each case of ``cases(seed, device)`` at each seed, by the
+    residual rule (``inverse_failures``), beside the plain version cut short
+    (12 bisections, no Newton step), which the rule must refuse; each kernel
+    call runs twice with identical results.  Returns the worst ratio of
+    residual to limit by seed and case."""
     from categoricalnf_tpu_torch.ops import numerics as nm
     from categoricalnf_tpu_torch.ops.cuda import mixture as cm
     worst = {}
     for seed in seeds:
-        for name, (y, pi, mu, ls) in inverse_cases(seed, device).items():
+        for name, (y, pi, mu, ls) in cases(seed, device).items():
             what = f"mixture_inverse at {name}, seed {seed}"
             x = twice(lambda: cm.mixture_inverse_cuda(y, pi, mu, ls))
             x_p = nm.mixture_inverse_logit_cdf(y, pi, mu, ls)
@@ -314,6 +343,15 @@ def check_inverse(device, seeds, report):
                   "rule, which so cannot tell")
             worst[f"{seed}/{name}"] = inverse_reading(x, x_p, y, pi, mu,
                                                       ls)[1]
+    return worst
+
+
+def check_inverse(device, seeds, report):
+    """#1 at the sampling path's sizes (``inverse_cases``) at each seed
+    (``inverse_held``).  Prints the worst ratio of residual to limit of each
+    case, and times #1 at a /sample of 4 sets (M = 256)."""
+    from categoricalnf_tpu_torch.ops.cuda import mixture as cm
+    worst = inverse_held(inverse_cases, seeds, device)
     print("mixture_inverse: worst residual / max(2 e_p, tau) by case: "
           + json.dumps(worst), flush=True)
     y, pi, mu, ls = inverse_cases(seeds[0], device)["sample4"]
@@ -322,6 +360,30 @@ def check_inverse(device, seeds, report):
                         50)[0],
         residual_ratio=max(worst.values()),
         design="linear domain, log domain for |y| > 64")
+
+
+def check_coloring_kernels(device, seeds, report):
+    """#2, #2' and #1 at the shapes the graph-coloring path gives them
+    (``COLORING_SHAPE``: a train step's batch and a sampling chunk, M =
+    10,240; #1 also at a /sample of 4 graphs, M = 160), from generators of
+    their own: #2 and #2' against their plain versions as ``check_mixture``
+    and ``check_mixture_bwd`` hold them, #1 by the residual rule at each
+    seed (``coloring_inverse_cases``); each timed.  Prints #1's worst
+    ratio of residual to limit."""
+    import torch
+    g = torch.Generator(device).manual_seed(seeds[0] + 20)
+    report["mixture_forward_coloring"] = mixture_forward_report(
+        *mixture_inputs(g, COLORING_SHAPE, K, device), 20,
+        "mixture_forward (coloring shape)")
+    report["mixture_forward_bwd_coloring"] = mixture_bwd_report(
+        mixture_bwd_case(device, g, COLORING_SHAPE, K))
+    worst = inverse_held(coloring_inverse_cases, seeds, device)
+    print("mixture_inverse at the coloring's shapes: worst residual / "
+          "max(2 e_p, tau) by case: " + json.dumps(worst), flush=True)
+    cases = coloring_inverse_cases(seeds[0], device)
+    for name, case in (("mixture_inverse_coloring", "chunk"),
+                       ("mixture_inverse_coloring_m160", "sample4")):
+        report[name] = mixture_inverse_report(*cases[case], 5)
 
 
 def net_macs_per_row(in_dim, hidden, heads, layers, mlp, out_dim, s):
@@ -475,43 +537,55 @@ def check_train_fwd(device, gen, report):
             dtype="float32")
 
 
+def mixture_bwd_case(device, g, shape, k):
+    """#2' on inputs drawn from ``g`` (log-scales on both sides of the
+    clip) against ``torch.func.vjp`` of the numerics, its plain version.
+    Returns (inputs, the kernel's cotangents, the plain ones, the vjp)."""
+    import torch
+    from categoricalnf_tpu_torch.ops import numerics as nm
+    from categoricalnf_tpu_torch.ops.cuda import mixture as cm
+    x, pi, mu, ls = mixture_inputs(g, shape, k, device)
+    ls = ls * 6.0
+    gy = torch.randn(shape, generator=g, device=device)
+    gl = torch.randn(shape, generator=g, device=device)
+    got = twice(lambda: cm.mixture_forward_bwd_cuda(x, pi, mu, ls, gy, gl))
+    _, vjp = torch.func.vjp(nm.mixture_logit_cdf_and_ldj, x, pi, mu, ls)
+    want = vjp((gy, gl))
+    for name, a, w in zip(("gx", "gpi", "gmu", "gls"), got, want):
+        check(close(a, w, 1e-4), f"mixture_forward_bwd {name} off the "
+              f"plain version at K={k}, M={x.numel()}: {max_err(a, w)}")
+    return (x, pi, mu, ls, gy, gl), got, want, vjp
+
+
+def mixture_bwd_report(case) -> dict:
+    """#2''s report entry from ``mixture_bwd_case``'s result: error, times
+    (kernel and plain), bytes and operations."""
+    from categoricalnf_tpu_torch.ops.cuda import mixture as cm
+    args, got, want, vjp = case
+    x, k = args[0], args[1].shape[-1]
+    m = x.numel()
+    return dict(
+        max_abs_err=max(max_err(a, w) for a, w in zip(got, want)), m=m,
+        **timed(lambda: cm.mixture_forward_bwd_cuda(*args),
+                lambda: vjp(tuple(args[4:])), 50, 20),
+        bytes=m * ((4 + 12 * k + 8) + (4 + 12 * k)),
+        ops=m * k * (MIX_SETUP_OPS + MIX_EVAL_OPS + MIX_BWD_OPS),
+        dtype="float32")
+
+
 def check_mixture_bwd(device, gen, report):
     """#2's backward at the training step's M = 1024 x 16 x 4, and at K = 16
     and K = 3 with M = 91, against ``torch.func.vjp`` of the numerics (its
     plain version), log-scales on both sides of the clip."""
     import torch
-    from categoricalnf_tpu_torch.ops import numerics as nm
-    from categoricalnf_tpu_torch.ops.cuda import mixture as cm
-
-    def held(g, shape, k):
-        x, pi, mu, ls = mixture_inputs(g, shape, k, device)
-        ls = ls * 6.0
-        gy = torch.randn(shape, generator=g, device=device)
-        gl = torch.randn(shape, generator=g, device=device)
-        got = twice(lambda: cm.mixture_forward_bwd_cuda(x, pi, mu, ls, gy,
-                                                        gl))
-        _, vjp = torch.func.vjp(nm.mixture_logit_cdf_and_ldj, x, pi, mu, ls)
-        want = vjp((gy, gl))
-        for name, a, w in zip(("gx", "gpi", "gmu", "gls"), got, want):
-            check(close(a, w, 1e-4), f"mixture_forward_bwd {name} off the "
-                  f"plain version at K={k}, M={x.numel()}: {max_err(a, w)}")
-        return (x, pi, mu, ls, gy, gl), got, want, vjp
 
     # the odd sizes from a generator of their own, so that the later
     # checks' inputs stay
     odd = torch.Generator(device).manual_seed(17)
     for k in (16, 3):
-        held(odd, (7, 13), k)
-    args, got, want, vjp = held(gen, (B, S, D), K)
-    x, _, _, _, gy, gl = args
-    m = x.numel()
-    report["mixture_forward_bwd"] = dict(
-        max_abs_err=max(max_err(a, w) for a, w in zip(got, want)), m=m,
-        **timed(lambda: cm.mixture_forward_bwd_cuda(*args),
-                lambda: vjp((gy, gl)), 50, 20),
-        bytes=m * ((4 + 12 * K + 8) + (4 + 12 * K)),
-        ops=m * K * (MIX_SETUP_OPS + MIX_EVAL_OPS + MIX_BWD_OPS),
-        dtype="float32")
+        mixture_bwd_case(device, odd, (7, 13), k)
+    report["mixture_forward_bwd"] = mixture_bwd_report(
+        mixture_bwd_case(device, gen, (B, S, D), K))
 
 
 def check_fused_bwd(device, gen, report):
@@ -598,6 +672,22 @@ def http_json(port, method, path, body=None):
         conn.close()
 
 
+def randomize_coupling_nets(model, seed: int, scale: float = 0.05):
+    """Seeded N(0, scale^2) weights for the output layer of every coupling
+    net of ``model``, those inside a ``ScannedBlocks`` too, in module
+    order: zero-initialised output layers make every coupling the identity,
+    random ones make the kernels' results matter."""
+    import torch
+    from categoricalnf_tpu_torch.flows import MixtureCDFCoupling
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, MixtureCDFCoupling):
+                w = m.net.out.w
+                w.copy_(torch.randn(w.shape, generator=g).to(w.device)
+                        * scale)
+
+
 def serve_flagship(seed: int, timings: dict, device: str = "cuda"):
     """Drive the serving path; returns the launch counts of this phase."""
     from http.server import ThreadingHTTPServer
@@ -614,15 +704,7 @@ def serve_flagship(seed: int, timings: dict, device: str = "cuda"):
     # #3 whatever the reference's ``fused`` flag says
     args = {**cfg["args"], "seed": seed}
     task = inference.build_task(cfg["task"], args, device=device)
-    with torch.no_grad():
-        # zero-initialised output layers make every coupling the identity;
-        # random ones make the kernels' results matter
-        g = torch.Generator().manual_seed(seed + 1)
-        for layer in task.model.flow.layers:
-            net = getattr(layer, "net", None)
-            if net is not None:
-                net.out.w.copy_(torch.randn(net.out.w.shape, generator=g)
-                                .to(net.out.w.device) * 0.05)
+    randomize_coupling_nets(task.model, seed + 1)
     batch = next(task.train_batches(np.random.default_rng(seed)))
     task.data_init(batch, generator=torch.Generator(device).manual_seed(seed))
 
@@ -691,47 +773,56 @@ def serve_flagship(seed: int, timings: dict, device: str = "cuda"):
 
 def check_against_cpu(task, seed: int):
     """The served model (kernels on the card) against a CPU copy of it
-    (plain path) on a small input with shared noise, in the fp32 twin."""
+    (plain path) on a batch of 64 from the task's generator with shared
+    noise, in the fp32 twin: the IS bits/var of 4 chains within 1e-3, and
+    a sample (with the batch's condition and mask): z within 1e-3 on 99% of
+    the elements and the decoded categories equal on 99% of the live
+    positions."""
     import numpy as np
     import torch
     from categoricalnf_tpu_torch.inference import build_task
     from categoricalnf_tpu_torch.ops.numerics import uniform_noise
 
-    args = {"set_size": task.set_size, "encoding_dim": task.encoding_dim,
-            "num_layers": task.num_layers, "hidden_dim": task.hidden_dim,
-            "num_mixtures": task.num_mixtures,
-            "compute_dtype": task.compute_dtype}
-    cpu = build_task("set_shuffling", args, device="cpu")
+    args = {f.name: getattr(task, f.name) for f in dataclasses.fields(task)
+            if f.name not in ("name", "device")}
+    cpu = build_task(task.name, args, device="cpu")
     cpu.model.load_state_dict({k: v.cpu() for k, v in
                                task.model.state_dict().items()})
+    batch = cpu._gen(np.random.default_rng(seed + 7), 64)
+    if not isinstance(batch, dict):
+        batch = {"x": batch}
+    shape = np.shape(batch["x"]) + (cpu.model.encoding.dim,)
     g = torch.Generator().manual_seed(seed + 7)
-    x = torch.as_tensor(cpu._gen(np.random.default_rng(seed + 7), 64))
-    noise = uniform_noise((4, 64, S, D), generator=g)
+    noise = uniform_noise((4,) + shape, generator=g)
     with torch.no_grad():
-        bpd_cpu = cpu.eval_model.eval_bpd(x, 4, noise=noise)
-        bpd_gpu = task.eval_model.eval_bpd(
-            x.to(task.device), 4, noise=noise.to(task.device)).cpu()
+        bpd_cpu = cpu.eval_step(batch, 4, noise=noise)
+        bpd_gpu = task.eval_step(batch, 4,
+                                 noise=noise.to(task.device)).cpu()
         check(torch.allclose(bpd_gpu, bpd_cpu, rtol=1e-3, atol=1e-3),
               f"eval_bpd card vs CPU: {max_err(bpd_gpu, bpd_cpu)}")
         # The card inverts each coupling by rtsafe (24 steps), the CPU by
         # 42 bisections + 3 Newton steps; they agree to ~1e-5 a layer, and
-        # 8 random layers can stretch that where a mixture is steep.  So
-        # hold the bulk of z and the decoded sets, not the worst element.
-        u = uniform_noise((64, S, D), generator=g)
-        z_cpu = cpu.eval_model.flow.sample((64, S, D), noise=u)
-        z_gpu = task.eval_model.flow.sample(
-            (64, S, D), noise=u.to(task.device))
-        z_near = float(((z_gpu.cpu() - z_cpu).abs()
+        # many random layers can stretch that where a mixture is steep.  So
+        # hold the bulk of z and the decoded categories, not the worst one.
+        u = uniform_noise(shape, generator=g)
+        z_cpu, z_gpu = (
+            t.eval_model.flow.sample(shape, cond=t._tensor(batch.get("cond")),
+                                     mask=t._tensor(batch.get("mask")),
+                                     noise=u.to(t.device)).cpu()
+            for t in (cpu, task))
+        z_near = float(((z_gpu - z_cpu).abs()
                         <= 1e-3 + 1e-3 * z_cpu.abs()).float().mean())
-        same = float((cpu.model.encoding.decode(z_cpu) == task.model.encoding
-                      .decode(z_gpu).cpu()).float().mean())
+        equal = cpu.model.encoding.decode(z_cpu) == task.model.encoding \
+            .decode(z_gpu.to(task.device)).cpu()
+        live = torch.as_tensor(batch.get("mask", np.ones(shape[:2]))) > 0
+        same = float(equal[live].float().mean())
         check(z_near >= 0.99 and same >= 0.99,
               f"sampled z card vs CPU: {z_near:.4f} of z within 1e-3, "
-              f"{same:.4f} of tokens equal")
-    print(f"card vs CPU (fp32, 64 sets): bpd max err "
+              f"{same:.4f} of categories equal")
+    print(f"{task.name}: card vs CPU (fp32, 64 batch elements): bpd max err "
           f"{max_err(bpd_gpu, bpd_cpu):.3g}; z within 1e-3: {z_near:.4f}, "
-          f"max err {max_err(z_gpu.cpu(), z_cpu):.3g}; tokens equal: {same:.4f}",
-          flush=True)
+          f"max err {max_err(z_gpu, z_cpu):.3g}; categories equal: "
+          f"{same:.4f}", flush=True)
 
 
 def reset_launches():
@@ -820,93 +911,124 @@ def profile_steps(task, optimizer, seed: int) -> dict:
                                         for k, ms in top]}
 
 
-def train_flagship(seed: int, timings: dict, card: str,
-                   device: str = "cuda") -> dict:
-    """Train the flagship (runs/set16/config.json: bf16, 8 layers, hidden
-    96, batch 1024) for 200 steps through the port's Trainer, then serve the
-    run.  Returns the launch counts of the training run."""
-    import numpy as np
-    import torch
-    from categoricalnf_tpu_torch import inference
-    from categoricalnf_tpu_torch.networks import SetTransformer
-    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
-    from categoricalnf_tpu_torch.training.engine import TrainConfig, Trainer
+def train_config(a: dict, seed: int, eval_samples: int):
+    """The Trainer's config of a chip_smoke training phase from a run's
+    saved args ``a``: TRAIN_STEPS steps, evals every TRAIN_EVAL_EVERY with
+    ``eval_samples`` chains (the final eval and the test too), the run's
+    rate, clip and beta warm-up."""
+    from categoricalnf_tpu_torch.training.engine import TrainConfig
     from categoricalnf_tpu_torch.training.schedules import ScheduleSpec
     from categoricalnf_tpu_torch.training.state import OptimizerConfig
-    from categoricalnf_tpu_torch.utils.config import load_config, save_config
-
-    cfg = load_config(os.path.join(REPO, "runs", "set16"))
-    a = cfg["args"]
-    args = {**a, "seed": seed, "eval_batches_count": 1}
-    task = inference.build_task(cfg["task"], args, device=device)
-    tcfg = TrainConfig(
-        num_steps=TRAIN_STEPS, eval_every=TRAIN_EVAL_EVERY, eval_samples=4,
-        final_eval_samples=4, log_every=TRAIN_LOG_EVERY, seed=seed,
+    return TrainConfig(
+        num_steps=TRAIN_STEPS, eval_every=TRAIN_EVAL_EVERY,
+        eval_samples=eval_samples, final_eval_samples=eval_samples,
+        log_every=TRAIN_LOG_EVERY, seed=seed,
         optimizer=OptimizerConfig(learning_rate=a["lr"],
                                   grad_clip_norm=a["grad_clip"]),
         beta_schedule=ScheduleSpec(kind="sigmoid", start=0.5,
                                    end=a["beta_end"],
                                    center=a["beta_warmup"], rate=0.002))
+
+
+def train_checked(task, task_name: str, args: dict, tcfg, out_dir: str,
+                  timings: dict, kernels) -> dict:
+    """Train ``task`` through the port's Trainer into ``out_dir`` (its
+    config.json written from ``task_name`` and ``args``) and check the run:
+    it starts from the untrained model (the seed's parameters,
+    data-initialised on the first training batch), every logged loss is
+    finite, no eval raises the integrity alarm, every eval bpd is above 0,
+    the best is at least 0.2 bits/var below the untrained one, and each of
+    ``kernels`` was launched.  Records in ``timings`` the wall time, the
+    peak device memory, the bpds and samples/s over steps 101-200 (the
+    Trainer's windows, which count training steps only).  Returns the
+    final metrics with the launches of the run under "launches"."""
+    import numpy as np
+    import torch
+    from categoricalnf_tpu_torch.training.engine import Trainer
+    from categoricalnf_tpu_torch.utils.config import save_config
+
+    tcfg = dataclasses.replace(tcfg, out_dir=out_dir)
+    save_config(out_dir, {"task": task_name, "args": args})
+    trainer = Trainer(task, tcfg)
+    trainer.init_model(next(task.train_batches(
+        np.random.default_rng(tcfg.seed))))
+    bpd0 = trainer.evaluate(tcfg.eval_samples, 0)["bpd"]
+    start = {k: v.clone() for k, v in task.model.state_dict().items()}
+    started_from = []
+    init_model = trainer.init_model
+
+    def spy(batch):
+        init_model(batch)
+        started_from.append({k: v.clone() for k, v in
+                             task.model.state_dict().items()})
+
+    trainer.init_model = spy
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    final = trainer.train(resume=False)
+    torch.cuda.synchronize()
+    timings[f"train_{TRAIN_STEPS}_steps_s"] = time.perf_counter() - t0
+    launches = read_launches()
+    check(len(started_from) == 1 and all(
+        torch.equal(started_from[0][k], v) for k, v in start.items()),
+        "the trainer started from another model than the untrained one")
+    timings["train_peak_mem_gib"] = (torch.cuda.max_memory_allocated()
+                                     / 2**30)
+    rows = [json.loads(line) for line in
+            open(os.path.join(out_dir, "metrics.jsonl"))]
+    train = [r for r in rows if r["prefix"] == "train"]
+    vals = [r for r in rows if r["prefix"] == "val"]
+    check(len(train) == TRAIN_STEPS // TRAIN_LOG_EVERY
+          and all(np.isfinite(r["loss"]) for r in train),
+          f"training loss not finite at every logged step: {train}")
+    check(all(r["integrity_alarm"] == 0 for r in vals),
+          f"integrity alarm: {vals}")
+    check(all(r["bpd"] > 0 for r in vals), f"eval bpd not above 0: {vals}")
+    best = final["best_bpd"]
+    timings.update(untrained_bpd=bpd0, best_bpd=best,
+                   val_bpd=[r["bpd"] for r in vals],
+                   test_bpd=final["test_bpd"])
+    check(best < bpd0 - 0.2, f"training did not lower the bpd by 0.2: "
+          f"{bpd0} -> {best}")
+    late = [r for r in train if r["step"] > TRAIN_EVAL_EVERY]
+    secs = sum(TRAIN_LOG_EVERY / r["steps_per_s"] for r in late)
+    timings["train_ms_per_step"] = secs * 1e3 / (len(late) * TRAIN_LOG_EVERY)
+    timings["train_samples_per_s"] = (len(late) * TRAIN_LOG_EVERY
+                                      * task.batch_size / secs)
+    for name in kernels:
+        check(launches[name] > 0, f"kernel {name} was not launched "
+              "while training")
+    return {**final, "launches": launches}
+
+
+def train_flagship(seed: int, timings: dict, card: str,
+                   device: str = "cuda") -> dict:
+    """Train the flagship (runs/set16/config.json: bf16, 8 layers, hidden
+    96, batch 1024) for 200 steps through the port's Trainer, then serve the
+    run.  Returns the launch counts of the training run."""
+    import torch
+    from categoricalnf_tpu_torch import inference
+    from categoricalnf_tpu_torch.networks import SetTransformer
+    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+    from categoricalnf_tpu_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(REPO, "runs", "set16"))
+    a = cfg["args"]
+    args = {**a, "seed": seed, "eval_batches_count": 1}
+    task = inference.build_task(cfg["task"], args, device=device)
+    tcfg = train_config(a, seed, 4)
     with tempfile.TemporaryDirectory() as out_dir:
-        tcfg = dataclasses.replace(tcfg, out_dir=out_dir)
-        save_config(out_dir, {"task": cfg["task"], "args": args})
-        trainer = Trainer(task, tcfg)
-        # the untrained bpd of the model that train() starts from: the
-        # seed's parameters, data-initialised on the first training batch
-        trainer.init_model(next(task.train_batches(
-            np.random.default_rng(seed))))
-        bpd0 = trainer.evaluate(4, 0)["bpd"]
-        start = {k: v.clone() for k, v in task.model.state_dict().items()}
-        started_from = []
-        init_model = trainer.init_model
-
-        def spy(batch):
-            init_model(batch)
-            started_from.append({k: v.clone() for k, v in
-                                 task.model.state_dict().items()})
-
-        trainer.init_model = spy
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        t0 = time.perf_counter()
-        final = trainer.train(resume=False)
-        torch.cuda.synchronize()
-        timings["train_200_steps_s"] = time.perf_counter() - t0
-        launches = read_launches()
-        check(len(started_from) == 1 and all(
-            torch.equal(started_from[0][k], v) for k, v in start.items()),
-            "the trainer started from another model than the untrained one")
-        timings["train_peak_mem_gib"] = (torch.cuda.max_memory_allocated()
-                                         / 2**30)
-        rows = [json.loads(line) for line in
-                open(os.path.join(out_dir, "metrics.jsonl"))]
-        train = [r for r in rows if r["prefix"] == "train"]
-        vals = [r for r in rows if r["prefix"] == "val"]
-        check(len(train) == TRAIN_STEPS // TRAIN_LOG_EVERY
-              and all(np.isfinite(r["loss"]) for r in train),
-              f"training loss not finite at every logged step: {train}")
-        check(all(r["integrity_alarm"] == 0 for r in vals),
-              f"integrity alarm: {vals}")
+        final = train_checked(task, cfg["task"], args, tcfg, out_dir,
+                              timings, ("mixture_forward",
+                                        "mixture_forward_bwd",
+                                        "fused_set_transformer_bf16",
+                                        "fused_set_transformer_bwd_bf16"))
         optimum = task.analytic_optimum_bpd()
-        best = final["best_bpd"]
-        timings.update(untrained_bpd=bpd0, best_bpd=best,
-                       val_bpd=[r["bpd"] for r in vals],
-                       permutation_validity=final["permutation_validity"],
-                       test_bpd=final["test_bpd"])
-        check(best < bpd0 - 0.2, f"training did not lower the bpd by 0.2: "
-              f"{bpd0} -> {best}")
-        check(best > optimum, f"best bpd {best} below the optimum {optimum}")
-        # steps 101..200: the windows' rates count training steps only
-        late = [r for r in train if r["step"] > TRAIN_EVAL_EVERY]
-        secs = sum(TRAIN_LOG_EVERY / r["steps_per_s"] for r in late)
-        sps = len(late) * TRAIN_LOG_EVERY * task.batch_size / secs
-        timings["train_samples_per_s"] = sps
-        for name in ("mixture_forward", "mixture_forward_bwd",
-                     "fused_set_transformer_bf16",
-                     "fused_set_transformer_bwd_bf16"):
-            check(launches[name] > 0, f"kernel {name} was not launched "
-                  "while training")
+        check(final["best_bpd"] > optimum,
+              f"best bpd {final['best_bpd']} below the optimum {optimum}")
+        timings["permutation_validity"] = final["permutation_validity"]
 
         timings["step_profile"] = profile_steps(task, tcfg.optimizer, seed)
         # the host cost of recasting the weights after an optimizer step
@@ -941,7 +1063,106 @@ def train_flagship(seed: int, timings: dict, card: str,
         timings["trained_sample_metrics_1024_s"] = dt
         timings["trained_permutation_validity"] = met["permutation_validity"]
     print(json.dumps({"metric": "set_shuffling_train_samples_per_s",
-                      "value": sps, "unit": "samples/s", "steps": "101-200",
+                      "value": timings["train_samples_per_s"],
+                      "unit": "samples/s", "steps": "101-200",
+                      "batch_size": task.batch_size, "device": card}),
+          flush=True)
+    return final["launches"]
+
+
+COLORING_VALIDITY = ("coloring_validity", "coloring_validity_ci95",
+                     "coloring_validity_corrected",
+                     "coloring_validity_corrected_ci95")
+
+
+def coloring_phase(seed: int, timings: dict, card: str,
+                   device: str = "cuda") -> dict:
+    """Train runs/coloring/config.json as it is (bf16, 6 layers scanned as
+    3 two-parity blocks, RGCN hidden 96, batch 256, graphs of 10-20 nodes;
+    only the seed set) for 200 steps through the port's Trainer (evals at
+    100 and 200 with its 8 chains, the final sample metrics at the task's
+    1024 graphs), trace 10 more steps, then serve the run over HTTP and
+    hold the served model, its coupling nets' output layers randomized,
+    against its CPU copy.  Returns the launch counts of the training run
+    and of the serving."""
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    from categoricalnf_tpu_torch import inference
+    from categoricalnf_tpu_torch.serve import RunServer, make_handler
+    from categoricalnf_tpu_torch.tasks.graph_coloring import \
+        coloring_validity
+    from categoricalnf_tpu_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(REPO, "runs", "coloring"))
+    a = cfg["args"]
+    args = {**a, "seed": seed}
+    task = inference.build_task(cfg["task"], args, device=device)
+    tcfg = train_config(a, seed, a["eval_samples"])
+    launches = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        final = train_checked(task, cfg["task"], args, tcfg, out_dir,
+                              timings, ("mixture_forward",
+                                        "mixture_forward_bwd",
+                                        "mixture_inverse"))
+        launches["coloring_training"] = final["launches"]
+        timings.update({k: final[k] for k in COLORING_VALIDITY})
+        timings["step_profile"] = profile_steps(task, tcfg.optimizer, seed)
+
+        reset_launches()
+        server = RunServer(out_dir, device=device)
+        check(server.handle.step in (TRAIN_EVAL_EVERY, TRAIN_STEPS),
+              f"served step {server.handle.step}")
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(server))
+        th = threading.Thread(target=httpd.serve_forever, daemon=True)
+        th.start()
+        try:
+            port = httpd.server_port
+            st, health, _ = http_json(port, "GET", "/health")
+            check(st == 200 and health["task"] == "graph_coloring",
+                  f"/health {health}")
+            st, out, dt = http_json(port, "POST", "/sample",
+                                    {"num_samples": 4})
+            check(st == 200 and len(out["samples"]) == 4,
+                  f"/sample answered {st}: {out}")
+            timings["sample_4_s"] = dt
+            for s in out["samples"]:
+                n = len(s["colors"])
+                adj = np.zeros((1, n, n), np.float32)
+                for i, j in s["edges"]:
+                    check(0 <= i < j < n, f"edge {i}-{j} outside its graph "
+                          f"of {n} nodes")
+                    adj[0, i, j] = adj[0, j, i] = 1.0
+                check(a["min_nodes"] <= n <= a["max_nodes"]
+                      and all(0 <= c < a["num_colors"] for c in s["colors"]),
+                      f"colors {s['colors']}")
+                check(s["valid"] == bool(coloring_validity(
+                    adj, np.asarray([s["colors"]]), np.ones((1, n)))[0]),
+                      f"'valid' disagrees with the payload: {s}")
+            st, met, dt = http_json(port, "POST", "/sample_metrics",
+                                    {"num_samples": 1024})
+            check(st == 200 and met["metric_num_samples"] == 1024.0,
+                  f"/sample_metrics answered {st}: {met}")
+            check(met["coloring_validity_corrected"]
+                  >= met["coloring_validity"], f"{met}")
+            timings["sample_metrics_1024_s"] = dt
+            timings["served"] = {k: met[k] for k in COLORING_VALIDITY}
+            st, out, _ = http_json(port, "POST", "/sample",
+                                   {"num_samples": 0})
+            check(st == 400 and "error" in out, "bad request not refused")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            th.join(timeout=60)
+        launches["coloring_serving"] = read_launches()
+        for name in ("mixture_inverse", "mixture_forward"):
+            check(launches["coloring_serving"][name] > 0,
+                  f"kernel {name} was not launched while serving coloring")
+        randomize_coupling_nets(server.handle.task.model, seed + 1)
+        check_against_cpu(server.handle.task, seed)
+    print(json.dumps({"metric": "graph_coloring_train_samples_per_s",
+                      "value": timings["train_samples_per_s"],
+                      "unit": "samples/s", "steps": "101-200",
                       "batch_size": task.batch_size, "device": card}),
           flush=True)
     return launches
@@ -1072,6 +1293,17 @@ def coupling_slices(pi, ls):
     return raw[..., 2:2 + k], raw[..., 2 + 2 * k:]
 
 
+def inverse_case(gen, shape, k, device, strided: bool):
+    """(y, pi, mu, ls) of #1 with y the plain forward of a drawn x; pi and
+    ls ``strided`` as the coupling passes them."""
+    from categoricalnf_tpu_torch.ops import numerics as nm
+    x, pi, mu, ls = mixture_inputs(gen, shape, k, device)
+    y, _ = nm.mixture_logit_cdf_and_ldj(x, pi, mu, ls)
+    if strided:
+        pi, ls = coupling_slices(pi, ls)
+    return y, pi, mu, ls
+
+
 def inverse_cases(seed: int, device) -> dict:
     """The inverse's cases at the sampling path's sizes, ``name: (y, pi,
     mu, ls)`` from a generator seeded ``seed``: the flagship's chunk of
@@ -1079,22 +1311,37 @@ def inverse_cases(seed: int, device) -> dict:
     them) and the same at K = 3; a /sample of 4 sets (M = 256); K = 16 at
     M = 91; y the plain forward of x there.  And the tails: y = +-60 (the
     linear domain's sums near 2^-87) and +-90 (past kLinearMaxY: the log
-    domain) with every log-scale at the clip, M = 4,096."""
+    domain) with every log-scale at the clip, M = 4,096; and wide brackets:
+    y = +-30 and +-90 with the log-scales spread over the clip's range
+    (times 6, as the backward's check draws them), M = 4,096, where a
+    narrow component far from the root meets |z| near 1e7."""
     import torch
     from categoricalnf_tpu_torch.ops import numerics as nm
     gen = torch.Generator(device).manual_seed(seed)
-    cases = {}
-    for name, shape, k in (("flagship", (B, S, D), K), ("k3", (B, S, D), 3),
-                           ("sample4", (4, S, D), K), ("k16", (7, 13), 16)):
-        x, pi, mu, ls = mixture_inputs(gen, shape, k, device)
-        y, _ = nm.mixture_logit_cdf_and_ldj(x, pi, mu, ls)
-        if name in ("flagship", "sample4"):
-            pi, ls = coupling_slices(pi, ls)
-        cases[name] = (y, pi, mu, ls)
+    cases = {name: inverse_case(gen, shape, k, device,
+                                name in ("flagship", "sample4"))
+             for name, shape, k in (("flagship", (B, S, D), K),
+                                    ("k3", (B, S, D), 3),
+                                    ("sample4", (4, S, D), K),
+                                    ("k16", (7, 13), 16))}
     _, pi, mu, ls = mixture_inputs(gen, (4096,), K, device)
     y = torch.tensor([60.0, -60.0, 90.0, -90.0], device=device).repeat(1024)
     cases["tails"] = (y, pi, mu, nm.LOG_SCALE_MIN - 0.5 - ls.abs())
+    _, pi, mu, ls = mixture_inputs(gen, (4096,), K, device)
+    y = torch.tensor([30.0, -30.0, 90.0, -90.0], device=device).repeat(1024)
+    cases["wide"] = (y, pi, mu, ls * 6.0)
     return cases
+
+
+def coloring_inverse_cases(seed: int, device) -> dict:
+    """#1's cases on the graph-coloring path, drawn as ``inverse_cases``
+    draws them: a sampling chunk of 256 graphs (M = 10,240) and a /sample
+    of 4 (M = 160)."""
+    import torch
+    gen = torch.Generator(device).manual_seed(seed)
+    return {"chunk": inverse_case(gen, COLORING_SHAPE, K, device, True),
+            "sample4": inverse_case(gen, (4,) + COLORING_SHAPE[1:], K,
+                                    device, True)}
 
 
 def fp64_reference(task_args: dict, state: dict):
@@ -1339,6 +1586,15 @@ SOURCES = {
 MIX_KEYS = ("ms_m256", "design", "lanes", "components_per_lane",
             "registers", "spill_bytes", "warps_per_sm_by_registers",
             "residual_ratio")
+# the entries of the coloring path's shapes (``check_coloring_kernels``)
+# that a kernel's line carries, and their keys
+COLORING_REPORTS = {
+    "mixture_forward": ["mixture_forward_coloring"],
+    "mixture_forward_bwd": ["mixture_forward_bwd_coloring"],
+    "mixture_inverse": ["mixture_inverse_coloring",
+                        "mixture_inverse_coloring_m160"]}
+COLORING_KEYS = ("m", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "max_abs_err")
 SERVING_KERNELS = ("mixture_inverse", "mixture_forward",
                    "fused_set_transformer_bf16", "fused_set_transformer_f32")
 # the path whose launches each kernel's line reports
@@ -1407,6 +1663,7 @@ def main() -> int:
     check_mixture_bwd(device, gen, report)
     check_fused_bwd(device, gen, report)
     check_train_fwd(device, gen, report)
+    check_coloring_kernels(device, (args.seed, args.seed + 1), report)
     for name, r in mixture_resources(logs["mixture"]).items():
         report[name].update(r)
     for r in report.values():
@@ -1459,6 +1716,9 @@ def main() -> int:
                  "fused_set_transformer_bwd_f32"):
         check(launches["train_step_fp32"][name] > 0,
               f"the fp32 train step did not launch {name}")
+    coloring_timings: dict = {}
+    launches.update(coloring_phase(args.seed, coloring_timings, card))
+    print("coloring: " + json.dumps(coloring_timings), flush=True)
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():
@@ -1471,7 +1731,11 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
-            **{key: r[key] for key in MIX_KEYS if key in r}})
+            **{key: r[key] for key in MIX_KEYS if key in r},
+            **({"at_coloring_shapes": [
+                {key: report[c][key] for key in COLORING_KEYS}
+                for c in COLORING_REPORTS[name]]}
+               if name in COLORING_REPORTS else {})})
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

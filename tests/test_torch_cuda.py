@@ -118,15 +118,16 @@ def test_mixture_kernels_take_strided_slices(dev):
 
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("name", ["flagship", "k3", "sample4", "k16",
-                                  "tails"])
+                                  "tails", "wide"])
 def test_mixture_inverse_residual(dev, name, seed):
     """The inverse by its residual in y (chip_smoke.inverse_failures) at
     chip_smoke.inverse_cases: M = 65,536 with K = 8 (pi and ls strided
     slices, as the coupling passes them) and K = 3, a /sample of 4 sets
-    (M = 256, strided), K = 16 at M = 91, and the tails, y = +-60 and +-90
+    (M = 256, strided), K = 16 at M = 91, the tails, y = +-60 and +-90
     with the log-scales at the clip (the linear domain near underflow, and
-    the log domain past |y| = 64); the plain version cut short (12
-    bisections, no Newton step) is refused at each."""
+    the log domain past |y| = 64), and wide brackets (log-scales spread
+    over the clip's range, y = +-30 and +-90); the plain version cut short
+    (12 bisections, no Newton step) is refused at each."""
     y, pi, mu, ls = cs.inverse_cases(seed, dev)[name]
     n = cm.LAUNCHES["mixture_inverse"]
     x = cm.mixture_inverse_cuda(y, pi, mu, ls)
@@ -137,6 +138,24 @@ def test_mixture_inverse_residual(dev, name, seed):
     cut = nm.mixture_inverse_logit_cdf(y, pi, mu, ls, num_bisect=12,
                                        num_newton=0)
     assert cs.inverse_failures(cut, x_p, y, pi, mu, ls, name)
+
+
+def test_mixture_forward_and_backward_at_wide_brackets(dev):
+    """#2 and #2' at the roots of the wide case (x up to 1e5 from narrow
+    components: |z| near 1e7), against their plain versions within 1e-4:
+    z is rounded before the log-sigmoids, as the plain version rounds it,
+    so log(1 - F) does not take z's rounding error."""
+    y, pi, mu, ls = cs.inverse_cases(0, dev)["wide"]
+    x = nm.mixture_inverse_logit_cdf(y, pi, mu, ls)
+    got = cm.mixture_forward_cuda(x, pi, mu, ls)
+    want = nm.mixture_logit_cdf_and_ldj(x, pi, mu, ls)
+    for a, w in zip(got, want):
+        _close(a, w, 1e-4)
+    gy, gl = torch.randn_like(x), torch.randn_like(x)
+    _, vjp = torch.func.vjp(nm.mixture_logit_cdf_and_ldj, x, pi, mu, ls)
+    for a, w in zip(cm.mixture_forward_bwd_cuda(x, pi, mu, ls, gy, gl),
+                    vjp((gy, gl))):
+        _close(a, w, 1e-4)
 
 
 def test_mixture_inverse_residual_on_strided_slices(dev):
@@ -669,3 +688,125 @@ def test_train_step_on_card_gives_every_parameter_a_gradient(dev, cd):
     for name, p in cpu.model.named_parameters():
         if p.grad is not None and p.grad.abs().max() > 0:
             assert not torch.equal(gp[name].detach(), before[name]), name
+
+
+# -- the graph-coloring path ----------------------------------------------
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("name", ["chunk", "sample4"])
+def test_mixture_inverse_residual_at_coloring_shapes(dev, name, seed):
+    """#1 by its residual in y at the coloring path's sampling chunk
+    (M = 10,240) and /sample of 4 graphs (M = 160), pi and ls strided as
+    the coupling passes them (chip_smoke.coloring_inverse_cases)."""
+    y, pi, mu, ls = cs.coloring_inverse_cases(seed, dev)[name]
+    x = cm.mixture_inverse_cuda(y, pi, mu, ls)
+    x_p = nm.mixture_inverse_logit_cdf(y, pi, mu, ls)
+    assert cs.inverse_failures(x, x_p, y, pi, mu, ls, name) == []
+
+
+def test_mixture_kernels_at_the_coloring_train_shape(dev):
+    """#2 and #2' at a coloring train step's M = 256 x 20 x 2 = 10,240
+    against their plain versions, within 1e-4."""
+    x, pi, mu, ls = _mix(cs.COLORING_SHAPE, 8, dev, seed=3)
+    y, ldj = cm.mixture_forward_cuda(x, pi, mu, ls)
+    y_p, ldj_p = nm.mixture_logit_cdf_and_ldj(x, pi, mu, ls)
+    _close(y, y_p, 1e-4)
+    _close(ldj, ldj_p, 1e-4)
+    g = torch.Generator(dev).manual_seed(4)
+    cs.mixture_bwd_case(dev, g, cs.COLORING_SHAPE, 8)
+
+
+def _coloring_pair(dev, cd):
+    from categoricalnf_tpu_torch.inference import build_task
+    args = dict(min_nodes=4, max_nodes=8, batch_size=16, encoding_dim=2,
+                num_layers=4, hidden_dim=32, num_mixtures=8,
+                compute_dtype=cd)
+    cpu = build_task("graph_coloring", args, device="cpu")
+    batch = cpu._gen(np.random.default_rng(0), 16)
+    cpu.data_init(batch, generator=torch.Generator().manual_seed(0))
+    cs.randomize_coupling_nets(cpu.model, 1)
+    gpu = build_task("graph_coloring", args, device=dev)
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    return cpu, gpu, batch
+
+
+def test_tiny_coloring_task_on_card_matches_cpu(dev):
+    """The fp32 coloring slice (a scanned stack of RGCN couplings; the
+    mixture kernels) against the CPU (plain path): IS bits/var within
+    1e-4 and a sample within 1e-3, the padded nodes' outputs finite."""
+    cpu, gpu, batch = _coloring_pair(dev, "float32")
+    noise = nm.uniform_noise((4, 16, 8, 2),
+                             generator=torch.Generator().manual_seed(5))
+    n = cm.LAUNCHES["mixture_forward"]
+    bpd_cpu = cpu.eval_step(batch, 4, noise=noise)
+    bpd_gpu = gpu.eval_step(batch, 4, noise=noise.to(dev)).cpu()
+    _close(bpd_gpu, bpd_cpu, 1e-4)
+    assert cm.LAUNCHES["mixture_forward"] == n + 4
+    u = nm.uniform_noise((16, 8, 2), generator=torch.Generator()
+                         .manual_seed(6))
+    with torch.no_grad():
+        z = [t.model.flow.sample((16, 8, 2), cond=t._tensor(batch["cond"]),
+                                 mask=t._tensor(batch["mask"]),
+                                 noise=u.to(t.device)).cpu()
+             for t in (gpu, cpu)]
+    assert torch.isfinite(z[0]).all()
+    _close(z[0], z[1], 1e-3)
+
+
+def test_coloring_remat_gradients_on_card(dev):
+    """A bf16 coloring train step on the card through the kernels: with
+    remat (the blocks recomputed in the backward pass, which replays the
+    mixture forward kernel) the loss equals the one without and every
+    gradient is within 1e-5 of it (the embedding lookup's backward sums
+    with atomics, in no fixed order), and every parameter gets a finite
+    gradient."""
+    grads = []
+    for remat in (False, True):
+        _, gpu, batch = _coloring_pair(dev, "bfloat16")
+        (scan,) = gpu.model.flow.layers
+        scan.remat = remat
+        noise = nm.uniform_noise((16, 8, 2), generator=torch.Generator()
+                                 .manual_seed(7))
+        n = cm.LAUNCHES["mixture_forward"]
+        loss = gpu.loss(batch, 0.8, noise=noise.to(dev))
+        loss.backward()
+        torch.cuda.synchronize()
+        assert cm.LAUNCHES["mixture_forward"] == n + (8 if remat else 4)
+        grads.append((loss.detach(), {k: p.grad for k, p in
+                                      gpu.model.named_parameters()}))
+    (l0, g0), (l1, g1) = grads
+    assert torch.equal(l0, l1)
+    for k, g in g0.items():
+        assert g is not None and bool(torch.isfinite(g).all()), k
+        _close(g1[k], g, 1e-5)
+
+
+def test_scanned_set_stack_remat_on_card(dev):
+    """A 4-layer scanned set task in bf16 on the card: with remat the
+    backward pass recomputes each block, which replays the fused
+    SetTransformer forward (#3) and the mixture forward (#2); the loss
+    equals the one without and every gradient is within 1e-5 of it (the
+    embedding lookup's backward sums with atomics)."""
+    from categoricalnf_tpu_torch.inference import build_task
+    args = dict(set_size=8, num_layers=4, hidden_dim=32, num_mixtures=4,
+                encoding_dim=4, compute_dtype="bfloat16", scan_blocks=True)
+    x = np.argsort(np.random.default_rng(0).random((32, 8)), axis=1)
+    noise = nm.uniform_noise((32, 8, 4), generator=torch.Generator()
+                             .manual_seed(1))
+    grads = []
+    for remat in (False, True):
+        task = build_task("set_shuffling", {**args, "remat": remat},
+                          device=dev)
+        cs.randomize_coupling_nets(task.model, 2)
+        n = ft.LAUNCHES["bfloat16"]
+        loss = task.loss({"x": x}, 0.8, noise=noise.to(dev))
+        loss.backward()
+        torch.cuda.synchronize()
+        assert ft.LAUNCHES["bfloat16"] == n + (8 if remat else 4)
+        grads.append((loss.detach(), {k: p.grad for k, p in
+                                      task.model.named_parameters()}))
+    (l0, g0), (l1, g1) = grads
+    assert torch.equal(l0, l1)
+    for k, g in g0.items():
+        assert g is not None and bool(torch.isfinite(g).all()), k
+        _close(g1[k], g, 1e-5)

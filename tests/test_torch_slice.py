@@ -352,8 +352,7 @@ def test_entry_points_need_a_card_unless_told(tmp_path):
         load_run(run_dir)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SetShufflingTask(**TINY)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_task("graph_coloring", {})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_task("graph_coloring", {}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ScannedBlocks"):
-        SetShufflingTask(**{**TINY, "num_layers": 4, "scan_blocks": True},
-                         device="cpu")
+        build_task("set_summation", {}, device="cpu")
