@@ -9,7 +9,10 @@ weights stay ``[in, out]``.  A ``ScannedBlocks`` entry of the reference's
 flow is a tuple of per-layer trees whose leaves carry a leading depth axis;
 the port holds one block of modules for each depth
 (``flow.layers.<i>.blocks.<d>.<layer>.<name>``), so the leaves are split
-along that axis.  Imports no JAX.
+along that axis.  An encoding's own flow (the dequantization and
+linear-flows encodings: ``{"embed", "flow", ...}``) is a tuple of per-layer
+trees as well, held as ``encoding.flow.layers.<i>``; a learned decoder's
+tree is ``encoding.decoder``.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -56,7 +59,10 @@ def from_jax_params(task, params) -> dict:
     """A ``state_dict`` for ``task.model`` from the reference's params."""
     flow = [_split_depth(e) if isinstance(e, (list, tuple)) else e
             for e in params["flow"]]
-    flat = {**flatten_tree(params["encoding"], "encoding."),
+    enc = dict(params["encoding"])
+    enc_flow = enc.pop("flow", ())
+    flat = {**flatten_tree(enc, "encoding."),
+            **flatten_tree(list(enc_flow), "encoding.flow.layers."),
             **flatten_tree(flow, "flow.layers.")}
     want = task.model.state_dict()
     missing = sorted(set(want) - set(flat))

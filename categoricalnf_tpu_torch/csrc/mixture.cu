@@ -9,8 +9,9 @@
 //
 // Bound on an H100.  The inverse reads y and 3 x K fp32 parameters once
 // and writes x: 4 + 12K + 4 bytes an element (104 at K=8), 6.8 MB at
-// M = 65,536.  It then runs 24 rtsafe iterations over the K components,
-// so it is bound by operations.  The forward does one such pass and moves
+// M = 65,536.  It then runs rtsafe iterations over the K components until
+// each element is done (up to kMaxIters; about 8 a warp at the flagship's
+// inputs), so it is bound by operations.  The forward does one such pass and moves
 // 4 + 12K + 8 bytes an element, so it is bound by bytes; so is its
 // backward (4 + 12K + 8 in, 4 + 12K out).
 //
@@ -43,7 +44,9 @@ namespace {
 constexpr float kLogScaleMin = -5.0f;
 constexpr float kLogScaleMax = 7.0f;
 constexpr float kNegBig = -1e30f;
-constexpr int kNumIters = 24;  // rtsafe iterations, as _inverse_kernel
+// rtsafe iterations of the inverse at most; an element stops at its own
+// (rtsafe_done), the TPU's _inverse_kernel runs 24 for every element
+constexpr int kMaxIters = 48;
 
 // z must arrive rounded (callers form it with __fmul_rn): were its product
 // left for nvcc to contract into z - sp, lsp would hold the exact product
@@ -308,10 +311,14 @@ __global__ void mixture_forward_bwd_kernel(
 }
 
 // The inverse (#1): x with logit F(x) = y, by rtsafe as _inverse_kernel:
-// the bracket [min_k, max_k](mu_k + s_k y), then kNumIters iterations of a
-// Newton step inside the bracket, else the midpoint; the midpoint also when
-// the step fails to halve the previous one (kills the Newton two-cycle
-// across the root).  An element takes a group of lanes as the forward's
+// the bracket [min_k, max_k](mu_k + s_k y) (with a slack for its
+// rounding), then iterations of a Newton step inside the bracket, else the
+// midpoint; the midpoint also when the step fails to halve the previous
+// one (kills the Newton two-cycle across the root).  It returns the
+// iterate with the least |g| (keep_best), where the TPU kernel returns the
+// last; and an element stops once it is done (rtsafe_done), a warp once
+// all its elements are, or after kMaxIters, where the TPU kernel runs 24
+// iterations for every element.  An element takes a group of lanes as the forward's
 // (kInvLanes for K <= 8, twice as many for K <= 16, C = 8 / kInvLanes
 // components a lane), and every lane of the group runs the element's rtsafe
 // update on the same values, so that the group stays in step.
@@ -343,6 +350,7 @@ __global__ void mixture_forward_bwd_kernel(
 constexpr float kConverged = 0x1p-20f;
 constexpr float kLinearMaxY = 64.0f;
 constexpr float kLinearMin = 0x1p-100f;
+constexpr float kBracketSlack = 0x1p-21f;
 constexpr float kLog2e = 1.44269504088896341f;
 
 // A lane's components: log-softmax of the logits, means, negated clipped
@@ -383,7 +391,11 @@ __device__ __forceinline__ void load_inverse_params(
 
 // The exact bracket [min, max](mu_k + s_k y) over the components whose
 // log-weight is above -5e29 (the -1e30 the TPU kernel pads with is left
-// out); fminf and fmaxf are order-free, so a butterfly serves.
+// out), each end moved out by 2^-21 (|mu_k| + |s_k y|), four times what
+// the rounding of s_k and of mu_k + s_k y can take from it: where one
+// component holds all the weight, the root is its mu_k + s_k y, and the
+// rounded end could otherwise shut it out.  fminf and fmaxf are
+// order-free, so a butterfly serves.
 template <int G, int C>
 __device__ __forceinline__ void inverse_bracket(const InvParams<C>& p,
                                                 float y, float& lo,
@@ -393,9 +405,11 @@ __device__ __forceinline__ void inverse_bracket(const InvParams<C>& p,
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     if (p.on[c] && p.log_pi[c] > kNegBig * 0.5f) {
-      const float cand = p.mean[c] + expf(-p.neg_ls[c]) * y;
-      lo = fminf(lo, cand);
-      hi = fmaxf(hi, cand);
+      const float sy = __fmul_rn(expf(-p.neg_ls[c]), y);
+      const float cand = __fadd_rn(p.mean[c], sy);
+      const float margin = kBracketSlack * (fabsf(p.mean[c]) + fabsf(sy));
+      lo = fminf(lo, cand - margin);
+      hi = fmaxf(hi, cand + margin);
     }
   }
 #pragma unroll
@@ -438,15 +452,45 @@ __device__ __forceinline__ void rtsafe_update(float g, float step,
   x = nxt;
 }
 
+// The iterate with the least |g| so far: what rtsafe returns, so that a
+// bisection late in the loop, or a Newton step that overshoots by an ulp,
+// cannot leave x worse than an iterate it has already evaluated.  A g that
+// is only a sign (the linear sums underflowed) is no candidate.  Returns
+// whether x is the new best.
+__device__ __forceinline__ bool keep_best(float g, float x, float& x_best,
+                                          float& g_best) {
+  if (fabsf(g) < g_best) {
+    g_best = fabsf(g);
+    x_best = x;
+    return true;
+  }
+  return false;
+}
+
+// An element is done, and keeps its state from then on, once the bracket
+// holds no float between its ends (both were evaluated, so the best of
+// them is kept), or once its best |g| is at the convergence floor and the
+// last iteration did not better it.  From the same inputs an element so
+// ends with the same x whichever elements share its warp.
+__device__ __forceinline__ bool rtsafe_done(bool improved, float g_best,
+                                            float g_floor, float lo,
+                                            float hi) {
+  return nextafterf(lo, INFINITY) >= hi || (g_best <= g_floor && !improved);
+}
+
 // rtsafe in the log domain.
 template <int G, int C>
 __device__ __forceinline__ float rtsafe_log(const InvParams<C>& p, float y,
-                                            float lo, float hi) {
+                                            float lo, float hi, bool active,
+                                            int& iters) {
   const float g_floor = kConverged * (1.0f + fabsf(y));
   float x = 0.5f * (lo + hi);
   float dx_old = hi - lo;
+  float x_best = x, g_best = INFINITY;
+  bool done = !active;
 #pragma unroll 1
-  for (int it = 0; it < kNumIters; ++it) {
+  for (int it = 0; it < kMaxIters; ++it) {
+    if (__all_sync(kFull, done)) break;
     float a[C], b[C], c[C];
 #pragma unroll
     for (int j = 0; j < C; ++j) {
@@ -458,11 +502,15 @@ __device__ __forceinline__ float rtsafe_log(const InvParams<C>& p, float y,
     }
     float log_cdf, log_sf, log_pdf;
     group_logsumexp3<G, C>(a, b, c, p.on, log_cdf, log_sf, log_pdf);
+    if (done) continue;
     const float g = log_cdf - log_sf - y;
+    const bool improved = keep_best(g, x, x_best, g_best);
     rtsafe_update(g, g * expf(log_cdf + log_sf - log_pdf), g_floor, x, lo,
                   hi, dx_old);
+    ++iters;
+    done = rtsafe_done(improved, g_best, g_floor, lo, hi);
   }
-  return x;
+  return g_best < INFINITY ? x_best : x;
 }
 
 // A lane's components for the linear domain: means, log2(e) / s, the
@@ -475,12 +523,16 @@ struct LinParams {
 // rtsafe in the linear domain.
 template <int G, int C>
 __device__ __forceinline__ float rtsafe_linear(const LinParams<C>& q,
-                                               float y, float lo, float hi) {
+                                               float y, float lo, float hi,
+                                               bool active, int& iters) {
   const float g_floor = kConverged * (1.0f + fabsf(y));
   float x = 0.5f * (lo + hi);
   float dx_old = hi - lo;
+  float x_best = x, g_best = INFINITY;
+  bool done = !active;
 #pragma unroll 1
-  for (int it = 0; it < kNumIters; ++it) {
+  for (int it = 0; it < kMaxIters; ++it) {
+    if (__all_sync(kFull, done)) break;
     float sig[C], sig_neg[C], sig_pair[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
@@ -495,17 +547,22 @@ __device__ __forceinline__ float rtsafe_linear(const LinParams<C>& q,
     const float F = group_dot<G, C>(q.w, sig);
     const float S = group_dot<G, C>(q.w, sig_neg);
     const float f = group_dot<G, C>(q.w_pdf, sig_pair);
+    if (done) continue;
     float g, step;
+    bool improved = false;
     if (fminf(F, S) >= kLinearMin) {
       g = logf(F / S) - y;
       step = g * (F * S) / f;
+      improved = keep_best(g, x, x_best, g_best);
     } else {  // the sign of g is certain; bisect
       g = S < F ? 1.0f : -1.0f;
       step = NAN;
     }
     rtsafe_update(g, step, g_floor, x, lo, hi, dx_old);
+    ++iters;
+    done = rtsafe_done(improved, g_best, g_floor, lo, hi);
   }
-  return x;
+  return g_best < INFINITY ? x_best : x;
 }
 
 // No thread returns early: the group's shuffles and the warp's votes need
@@ -518,7 +575,7 @@ __global__ void mixture_inverse_kernel(
     const float* __restrict__ y, const float* __restrict__ pi, long pi_stride,
     const float* __restrict__ mu, long mu_stride,
     const float* __restrict__ ls, long ls_stride, float* __restrict__ out,
-    long m, int k) {
+    int* __restrict__ iters_out, long m, int k) {
   long i;
   int l;
   bool live;
@@ -540,13 +597,18 @@ __global__ void mixture_inverse_kernel(
   }
   const bool log_domain = fabsf(yi) > kLinearMaxY;
   float x = 0.0f;
+  int iters = 0;
   if (__any_sync(kFull, live && log_domain))
-    x = rtsafe_log<G, C>(p, yi, lo, hi);
+    x = rtsafe_log<G, C>(p, yi, lo, hi, live && log_domain, iters);
   if (__any_sync(kFull, live && !log_domain)) {
-    const float x_lin = rtsafe_linear<G, C>(q, yi, lo, hi);
+    const float x_lin = rtsafe_linear<G, C>(q, yi, lo, hi,
+                                            live && !log_domain, iters);
     if (!log_domain) x = x_lin;
   }
-  if (live && l == 0) out[i] = x;
+  if (live && l == 0) {
+    out[i] = x;
+    if (iters_out != nullptr) iters_out[i] = iters;
+  }
 }
 
 constexpr int kThreads = 256;
@@ -602,15 +664,15 @@ inline void bwd_launch(const float* x, const float* pi, long pi_stride,
 template <int G, int C>
 inline void inverse_launch(const float* y, const float* pi, long pi_stride,
                            const float* mu, long mu_stride, const float* ls,
-                           long ls_stride, float* out, long m, int k,
-                           cudaStream_t s) {
+                           long ls_stride, float* out, int* iters, long m,
+                           int k, cudaStream_t s) {
   const unsigned blocks = blocks_for(m * G);
   if (k == G * C)
     mixture_inverse_kernel<G, C, true><<<blocks, kThreads, 0, s>>>(
-        y, pi, pi_stride, mu, mu_stride, ls, ls_stride, out, m, k);
+        y, pi, pi_stride, mu, mu_stride, ls, ls_stride, out, iters, m, k);
   else
     mixture_inverse_kernel<G, C, false><<<blocks, kThreads, 0, s>>>(
-        y, pi, pi_stride, mu, mu_stride, ls, ls_stride, out, m, k);
+        y, pi, pi_stride, mu, mu_stride, ls, ls_stride, out, iters, m, k);
 }
 
 }  // namespace
@@ -621,16 +683,17 @@ extern "C" {
 // Python wrapper checks k (1..16), shapes, strides and dtypes first.
 int mixture_inverse_f32(const float* y, const float* pi, long pi_stride,
                         const float* mu, long mu_stride, const float* ls,
-                        long ls_stride, float* out, long m, int k,
+                        long ls_stride, float* out, int* iters, long m, int k,
                         void* stream) {
   if (m == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   if (k <= 8)
     inverse_launch<kInvLanes, 8 / kInvLanes>(y, pi, pi_stride, mu, mu_stride,
-                                             ls, ls_stride, out, m, k, s);
+                                             ls, ls_stride, out, iters, m, k,
+                                             s);
   else
     inverse_launch<2 * kInvLanes, 8 / kInvLanes>(
-        y, pi, pi_stride, mu, mu_stride, ls, ls_stride, out, m, k, s);
+        y, pi, pi_stride, mu, mu_stride, ls, ls_stride, out, iters, m, k, s);
   return (int)cudaGetLastError();
 }
 

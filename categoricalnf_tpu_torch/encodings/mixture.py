@@ -2,7 +2,9 @@
 
 Counterpart of ``categoricalnf_tpu/encodings/mixture.py``: each category c
 owns a factorized logistic q(z|c); the decoder is the Bayes posterior
-p(c|z) = p~(c) q(z|c) / sum_c' p~(c') q(z|c') with a learned prior p~.
+p(c|z) = p~(c) q(z|c) / sum_c' p~(c') q(z|c') with a learned prior p~, or,
+with ``decoder`` "linear" or "mlp", a learned decoder
+(``encodings/decoders.py``) held as the ``decoder`` submodule.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ import torch
 from torch import nn
 
 from categoricalnf_tpu_torch.encodings.base import Encoding
+from categoricalnf_tpu_torch.encodings.decoders import create_decoder
 from categoricalnf_tpu_torch.flows.base import sum_ldj
 from categoricalnf_tpu_torch.ops import numerics as nm
 
@@ -19,7 +22,7 @@ class MixtureEncoding(Encoding):
     def __init__(self, num_categories: int, dim: int = 2, *,
                  init_scale: float = 1.0, init_log_sigma: float = -2.0,
                  min_log_sigma: float = -4.6, max_log_sigma: float = 2.3,
-                 generator=None):
+                 decoder: str = "bayes", generator=None):
         super().__init__(num_categories, dim)
         # The lower clip keeps q(z|x) wider than fp32 resolution.
         self.min_log_sigma = min_log_sigma
@@ -29,6 +32,8 @@ class MixtureEncoding(Encoding):
         self.log_scales = nn.Parameter(
             torch.full((num_categories, dim), init_log_sigma))
         self.prior_logits = nn.Parameter(torch.zeros(num_categories))
+        self.decoder = (None if decoder == "bayes" else create_decoder(
+            decoder, num_categories, dim, generator=generator))
 
     def _ls(self, raw):
         return raw.clamp(self.min_log_sigma, self.max_log_sigma)
@@ -47,12 +52,16 @@ class MixtureEncoding(Encoding):
         return comp + torch.log_softmax(self.prior_logits, dim=-1)
 
     def log_decoder(self, x, z, *, mask=None):
+        if self.decoder is not None:
+            return self.decoder.log_prob(x, z, mask=mask)
         log_joint = self._log_joint_all(z)
         log_norm = torch.logsumexp(log_joint, dim=-1)
         log_post = log_joint.gather(-1, x[..., None].long())[..., 0]
         return sum_ldj(log_post - log_norm, mask)
 
     def decode(self, z, *, mask=None):
+        if self.decoder is not None:
+            return self.decoder.decode(z)
         return self._log_joint_all(z).argmax(dim=-1)
 
     def posterior(self, z):

@@ -8,7 +8,8 @@ Example, on a machine with a CUDA card (``--device cpu`` runs on the CPU):
 
 The run directory is then served by ``python -m categoricalnf_tpu_torch.serve
 --run runs_torch/set16``.  ``--fused`` is accepted and has no effect: on the
-card the coupling nets always run the fused kernels.  ``--remat``
+card the coupling nets run the fused kernels wherever these take the
+shapes.  ``--remat``
 recomputes each block's activations in the backward pass; it acts on a
 scanned stack only, which a set stack is above 8 layers.
 """
@@ -30,7 +31,10 @@ def main(argv=None) -> dict:
         encoding_name=args.encoding, encoding_dim=args.encoding_dim,
         num_layers=args.num_layers, hidden_dim=args.hidden_dim,
         num_mixtures=args.num_mixtures, compute_dtype=args.compute_dtype,
-        decoder=args.decoder, remat=args.remat, device=args.device)
+        decoder=args.decoder, vardeq_blocks=args.vardeq_blocks,
+        vardeq_hidden=args.vardeq_hidden,
+        vardeq_mixtures=args.vardeq_mixtures, remat=args.remat,
+        device=args.device)
     final = run_training(task, args)
     print(f"optimum {task.analytic_optimum_bpd():.4f} bits/var | "
           f"best {final['best_bpd']:.4f}")

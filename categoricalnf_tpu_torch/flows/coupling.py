@@ -1,11 +1,13 @@
 """Mixture-CDF coupling layer (counterpart of
-``categoricalnf_tpu/flows/coupling.py``, channel mask).
+``categoricalnf_tpu/flows/coupling.py``; a channel or a checker mask).
 
     y = logit(MixLogisticCDF(x)) * exp(a) + t
 
 on the transformed channels, with per-element ldj
 ``log f - log F - log(1 - F) + a``.  The coupling net emits ``2 + 3K`` raw
 numbers per element, laid out ``[t, a, pi x K, mu x K, log-scale x K]``.
+The channel mask splits the channels, the checker mask alternates the
+positions.
 Both directions go through ``ops.dispatch`` (kernels on CUDA tensors).
 """
 
@@ -25,12 +27,21 @@ def make_channel_mask(event_dim: int, parity: int, device=None):
     return m if parity == 0 else 1.0 - m
 
 
+def make_checker_mask(num_pos: int, parity: int, device=None):
+    """[T] alternating position mask: 1 = conditioning, 0 = transformed."""
+    m = (torch.arange(num_pos, device=device) % 2 == 0).float()
+    return m if parity == 0 else 1.0 - m
+
+
 class MixtureCDFCoupling(Transform):
     def __init__(self, net: nn.Module, event_dim: int, *, parity: int = 0,
                  num_mixtures: int = 8, scale_cap: float = 3.0,
-                 generator=None):
+                 mask_kind: str = "channel", generator=None):
         super().__init__()
+        if mask_kind not in ("channel", "checker"):
+            raise ValueError(f"unknown mask kind {mask_kind!r}")
         self.net = net
+        self.mask_kind = mask_kind
         self.parity = parity
         self.num_mixtures = num_mixtures
         self.scale_cap = scale_cap
@@ -38,8 +49,14 @@ class MixtureCDFCoupling(Transform):
         self.mean_offsets = nn.Parameter(
             torch.randn(event_dim, num_mixtures, generator=generator) * 0.5)
 
+    def _mask(self, z):
+        if self.mask_kind == "channel":
+            return make_channel_mask(z.shape[-1], self.parity, z.device)
+        return make_checker_mask(z.shape[-2], self.parity,
+                                 z.device)[:, None]
+
     def _params_for(self, z, cond, mask):
-        m = make_channel_mask(z.shape[-1], self.parity, z.device)
+        m = self._mask(z)
         raw = self.net(z * m, cond=cond, mask=mask)
         K = self.num_mixtures
         raw = at_least_f32(raw.reshape(*z.shape, 2 + 3 * K))

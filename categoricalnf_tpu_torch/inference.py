@@ -23,6 +23,9 @@ def _task_class(task_name: str):
     if task_name == "set_shuffling":
         from categoricalnf_tpu_torch.tasks import SetShufflingTask
         return SetShufflingTask
+    if task_name == "set_summation":
+        from categoricalnf_tpu_torch.tasks import SetSummationTask
+        return SetSummationTask
     if task_name == "graph_coloring":
         from categoricalnf_tpu_torch.tasks import GraphColoringTask
         return GraphColoringTask

@@ -1,7 +1,8 @@
 from categoricalnf_tpu_torch.networks.common import (Dense, concat_cond,
                                                      dense, layer_norm)
 from categoricalnf_tpu_torch.networks.graph import RGCN
+from categoricalnf_tpu_torch.networks.mlp import MLP
 from categoricalnf_tpu_torch.networks.transformer import SetTransformer
 
-__all__ = ["Dense", "concat_cond", "dense", "layer_norm", "RGCN",
+__all__ = ["Dense", "concat_cond", "dense", "layer_norm", "MLP", "RGCN",
            "SetTransformer"]

@@ -6,11 +6,14 @@ Their plain versions are ``ops.numerics.mixture_inverse_logit_cdf`` and
 tensors there.  These wrappers take CUDA tensors only and raise on anything
 the kernels do not take.  ``LAUNCHES`` counts the kernel launches.
 
-The forward is differentiable: ``MixtureForward`` pulls gradients back
-through the hand-written backward kernel (``mixture_forward_bwd_f32``),
-whose plain version is autograd through the numerics.  The inverse has no
-backward (sampling runs under ``no_grad``, and the reference never
-differentiates it), so its wrapper raises on inputs that need a gradient.
+Both are differentiable.  ``MixtureForward`` pulls gradients back through
+the hand-written backward kernel (``mixture_forward_bwd_f32``), whose plain
+version is autograd through the numerics.  ``MixtureInverse``'s backward,
+#1', is the implicit rule at the root x* (``numerics.mixture_inverse_vjp``
+is its plain version): #2 gives ldj(x*), g_y = g_x exp(-ldj), and #2' with
+the cotangents (-g_y, 0) gives the parameters' gradients -g_y dy/dtheta.
+The reference differentiates its inverse's loop with XLA instead; where
+the loop's last Newton step converged inside its bracket the two agree.
 """
 
 from __future__ import annotations
@@ -22,12 +25,13 @@ import torch
 from categoricalnf_tpu_torch.ops.cuda import build
 
 MAX_K = 16
-# rtsafe iterations of the inverse: kNumIters in csrc/mixture.cu, here for
-# operation counts only
-NUM_ITERS = 24
+# the inverse's cap on rtsafe iterations: kMaxIters in csrc/mixture.cu (an
+# element stops earlier once it is done; ``mixture_inverse_iterations``
+# reads how many it ran)
+MAX_ITERS = 48
 
 LAUNCHES = {"mixture_inverse": 0, "mixture_forward": 0,
-            "mixture_forward_bwd": 0}
+            "mixture_forward_bwd": 0, "mixture_inverse_bwd": 0}
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
 
@@ -36,7 +40,7 @@ def _lib():
     lib = build.load("mixture")
     if not getattr(lib, "_cnf_typed", False):
         lib.mixture_inverse_f32.argtypes = [_P, _P, _L, _P, _L, _P, _L, _P,
-                                            _L, _I, _P]
+                                            _P, _L, _I, _P]
         lib.mixture_inverse_f32.restype = _I
         lib.mixture_forward_f32.argtypes = [_P, _P, _L, _P, _L, _P, _L, _P,
                                             _P, _L, _I, _P]
@@ -82,12 +86,10 @@ def _check(x: torch.Tensor, pi, mu, ls, what: str) -> int:
     return k
 
 
-def mixture_inverse_cuda(y, pi_logits, means, log_scales) -> torch.Tensor:
-    """x with logit F(x) = y, by rtsafe in the kernel; shapes as numerics."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (y, pi_logits, means, log_scales)):
-        raise RuntimeError("mixture_inverse_cuda has no backward: call it "
-                           "under torch.no_grad() or on detached tensors")
+def _inverse_launch(y, pi_logits, means, log_scales,
+                    iters=None) -> torch.Tensor:
+    """#1; with ``iters`` (int32, y's shape) it also writes there the
+    rtsafe iterations each element ran."""
     k = _check(y, pi_logits, means, log_scales, "mixture_inverse")
     m = y.numel()
     y1 = y.contiguous()
@@ -97,11 +99,18 @@ def mixture_inverse_cuda(y, pi_logits, means, log_scales) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().mixture_inverse_f32(
             y1.data_ptr(), pi.data_ptr(), pi.stride(0), mu.data_ptr(),
-            mu.stride(0), ls.data_ptr(), ls.stride(0), out.data_ptr(), m, k,
-            stream)
+            mu.stride(0), ls.data_ptr(), ls.stride(0), out.data_ptr(),
+            None if iters is None else iters.data_ptr(), m, k, stream)
     build.check(err, "mixture_inverse_f32")
     LAUNCHES["mixture_inverse"] += 1
     return out
+
+
+def mixture_inverse_iterations(y, pi_logits, means, log_scales):
+    """(x, the rtsafe iterations each element of #1 ran, int32): what the
+    work of a call depends on, for its operation count."""
+    iters = torch.empty(y.shape, dtype=torch.int32, device=y.device)
+    return _inverse_launch(y, pi_logits, means, log_scales, iters), iters
 
 
 def _params(m, k, pi_logits, means, log_scales):
@@ -159,6 +168,41 @@ def mixture_forward_bwd_cuda(x, pi_logits, means, log_scales, gy, gldj):
     shape = tuple(pi_logits.shape)
     return (gx.view(x.shape), gpi.view(shape), gmu.view(shape),
             gls.view(shape))
+
+
+def mixture_inverse_bwd_cuda(x, pi_logits, means, log_scales, gx):
+    """#1': (gy, gpi, gmu, gls), the cotangent ``gx`` of the inverse's root
+    ``x`` pulled back to its four inputs by the implicit rule, from one
+    launch of #2 (ldj at x) and one of #2' (the cotangents (-gy, 0)).  The
+    gls of a clipped log-scale is 0, as in #2'."""
+    _, ldj = _forward_launch(x, pi_logits, means, log_scales)
+    gy = gx * torch.exp(-ldj)
+    _, gpi, gmu, gls = mixture_forward_bwd_cuda(
+        x, pi_logits, means, log_scales, -gy, torch.zeros_like(gy))
+    LAUNCHES["mixture_inverse_bwd"] += 1
+    return gy, gpi, gmu, gls
+
+
+class MixtureInverse(torch.autograd.Function):
+    """The root x of #1; its backward is #1' (``mixture_inverse_bwd_cuda``).
+    Saves the root and the parameters."""
+
+    @staticmethod
+    def forward(ctx, y, pi_logits, means, log_scales):
+        x = _inverse_launch(y, pi_logits, means, log_scales)
+        ctx.save_for_backward(x, pi_logits, means, log_scales)
+        return x
+
+    @staticmethod
+    def backward(ctx, gx):
+        return mixture_inverse_bwd_cuda(*ctx.saved_tensors,
+                                        gx.contiguous())
+
+
+def mixture_inverse_cuda(y, pi_logits, means, log_scales) -> torch.Tensor:
+    """x with logit F(x) = y, by rtsafe in the kernel; shapes as numerics.
+    Differentiable in all four inputs (``MixtureInverse``)."""
+    return MixtureInverse.apply(y, pi_logits, means, log_scales)
 
 
 class MixtureForward(torch.autograd.Function):

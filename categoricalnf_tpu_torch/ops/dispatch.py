@@ -2,8 +2,10 @@
 
 A CUDA tensor always goes to the hand-written kernel (``ops/cuda/mixture``),
 a CPU tensor to the plain fp32 version in ``ops.numerics``.  On the card the
-forward is ``MixtureForward``, whose backward is a kernel too; the inverse
-raises when a gradient is asked of it.  There is no size
+forward is ``MixtureForward``, whose backward is a kernel too, and the
+inverse is ``MixtureInverse``, whose backward (#1') is two launches of the
+forward's kernels at the root.  A CPU tensor's inverse is differentiated
+through its loop, as XLA does in the reference.  There is no size
 threshold: the TPU's was measured on a TPU, and one for the H100 has not
 been measured yet.
 """

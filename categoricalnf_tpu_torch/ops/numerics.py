@@ -115,3 +115,36 @@ def mixture_inverse_logit_cdf(y, pi_logits, means, log_scales, *,
         step = (log_cdf - log_sf - y) * torch.exp(log_cdf + log_sf - log_pdf)
         x = torch.minimum(torch.maximum(x - step, lo), hi)
     return x
+
+
+def mixture_inverse_vjp(x, pi_logits, means, log_scales, gx):
+    """The implicit rule at the root ``x`` of logit F(x; theta) = y, for
+    the cotangent ``gx``: (gy, gpi, gmu, gls) with gy = gx exp(-ldj(x)) and
+    the parameters' gradients -gy dy/dtheta (0 for a clipped log-scale).
+    The plain version of the CUDA inverse's backward (#1'); the inverse
+    on a CPU tensor is differentiated through its loop instead."""
+    with torch.enable_grad():
+        params = [t.detach().requires_grad_(True)
+                  for t in (pi_logits, means, log_scales)]
+        y, ldj = mixture_logit_cdf_and_ldj(x.detach(), *params)
+        gy = at_least_f32(gx) * torch.exp(-ldj.detach())
+        grads = torch.autograd.grad(y, params, grad_outputs=-gy)
+    return (gy, *grads)
+
+
+class ImplicitInverse(torch.autograd.Function):
+    """The plain inverse with #1''s rule for its backward
+    (``mixture_inverse_vjp``): the gradient the card's ``MixtureInverse``
+    takes.  The port's CPU path differentiates the loop instead; tests and
+    chip_smoke put this in ``dispatch.mixture_inverse`` to hold a CPU step
+    against the card's, or against the reference's given the same rule."""
+
+    @staticmethod
+    def forward(ctx, y, pi_logits, means, log_scales):
+        x = mixture_inverse_logit_cdf(y, pi_logits, means, log_scales)
+        ctx.save_for_backward(x, pi_logits, means, log_scales)
+        return x
+
+    @staticmethod
+    def backward(ctx, gx):
+        return mixture_inverse_vjp(*ctx.saved_tensors, gx)

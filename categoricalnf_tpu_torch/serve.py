@@ -1,7 +1,7 @@
 """Serve a finished run over HTTP: samples, sample-quality metrics, info.
 
-Counterpart of ``experiments/serve.py`` for the port: the set-shuffling
-and graph-coloring tasks.  Device work is serialized behind a lock; the
+Counterpart of ``experiments/serve.py`` for the port: the set-shuffling,
+set-summation and graph-coloring tasks.  Device work is serialized behind a lock; the
 HTTP layer is the stdlib server.
 
 Endpoints:
@@ -32,6 +32,7 @@ from categoricalnf_tpu_torch.inference import load_run
 from categoricalnf_tpu_torch.tasks.graph_coloring import (GraphColoringTask,
                                                           coloring_validity)
 from categoricalnf_tpu_torch.tasks.set_modeling import (SetShufflingTask,
+                                                        SetSummationTask,
                                                         _sample_set)
 from categoricalnf_tpu_torch.utils.config import load_config
 
@@ -40,7 +41,7 @@ MAX_SAMPLES = 65536
 
 def _sample_payload(task, generator, n: int, temperature: float):
     """Task-native JSON-serializable samples."""
-    if isinstance(task, SetShufflingTask):
+    if isinstance(task, (SetShufflingTask, SetSummationTask)):
         x = _sample_set(task.model, n, task.set_size, temperature, generator)
         return [[int(v) for v in row] for row in x]
     if isinstance(task, GraphColoringTask):

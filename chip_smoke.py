@@ -65,10 +65,33 @@ Run from the root of a checkout on a machine with one NVIDIA card:
    4 graphs (edges inside their graph, colors in range, "valid" as
    recomputed), /sample_metrics at 1024, a bad request; #1 and #2
    launched.  Last, the served model with random coupling output layers
-   against its CPU copy, as in 3.
-7. Prints one JSON line of kernel numbers (with the coloring's shapes and
-   its paths' launches), then, as the last line,
-   {"ok": true, "device": {...}}.
+   against its CPU copy, as in 3., and #1 held by the residual rule on
+   every inverse call of that model's sample of a batch of graphs, at
+   --seed and --seed + 1.
+7. The dequantized set flows.  First, with the kernel checks of 2., at
+   --seed and --seed + 1: #1 at the encoders' shapes (M = 16,384 and
+   65,536, K = 4) by the residual rule, and its backward #1' (#2 and #2'
+   at the root) there, each gradient against the exact derivative
+   (central differences in float64) and the plain implicit rule, beside
+   autograd through the plain fp32 inverse as a control; #2 at the
+   linear-flows decoder's M = 1,048,576; #3 and #4 in bf16 at the vardeq
+   main flow's in 1, out 26; each timed.  Then runs/sum_vardeq
+   (SetSummationTask, vardeq) and runs/shuffle_linear (linear flows), each
+   as it is, 200 steps with the checks of 4. and #1' launched; prints
+   set_summation_train_samples_per_s and shuffle_linear_train_samples_per_s;
+   serves each run (/sample, /sample_metrics with sum_validity or
+   permutation_validity), holds #1 on every inverse call of a sample of
+   the served model with random coupling output layers and that model
+   against its CPU copy.  Last, runs/shuffle_decoder_mlp with seeded random
+   weights (not trained: its steps_per_call of 8 is not ported) served and
+   held against its CPU copy.  Then one fp32 train step of runs/sum_vardeq
+   (64 sets, #1' in the encoder) held per tensor against the same step in
+   float64 on the CPU, whose inverse takes the implicit rule too, by rule
+   (a) of 5., beside the CPU step through the inverse's loop (the
+   reference's gradient) as a control that must read over the limit.
+8. Prints one JSON line of kernel numbers (with the coloring's and the
+   dequantized flows' shapes, and every path's launches), then, as the
+   last line, {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA card, outside a checkout
 of the repo, or when any check fails.  Imports nothing of JAX.
@@ -246,20 +269,22 @@ def mixture_forward_report(x, pi, mu, ls, n_plain: int, what: str) -> dict:
 def mixture_inverse_report(y, pi, mu, ls, n_plain: int) -> dict:
     """#1's report entry on these inputs: its largest distance in x from
     the plain version (which the residual rule, not this, holds), times,
-    bytes and operations."""
+    bytes, and the operations of the rtsafe iterations these inputs took
+    (each element stops at its own; ``iterations_mean`` an element)."""
     from categoricalnf_tpu_torch.ops import numerics as nm
     from categoricalnf_tpu_torch.ops.cuda import mixture as cm
-    x = cm.mixture_inverse_cuda(y, pi, mu, ls)
+    x, iters = cm.mixture_inverse_iterations(y, pi, mu, ls)
     x_p = nm.mixture_inverse_logit_cdf(y, pi, mu, ls)
     m, k = y.numel(), pi.shape[-1]
+    n_iters = int(iters.sum())
     return dict(
-        max_abs_err=max_err(x, x_p), m=m,
+        max_abs_err=max_err(x, x_p), m=m, iterations_mean=n_iters / m,
         **timed(lambda: cm.mixture_inverse_cuda(y, pi, mu, ls),
                 lambda: nm.mixture_inverse_logit_cdf(y, pi, mu, ls), 50,
                 n_plain),
         bytes=m * (4 + 12 * k + 4),
-        ops=m * k * (MIX_SETUP_OPS + MIX_INV_SETUP_OPS
-                     + MIX_INV_ITER_OPS * cm.NUM_ITERS),
+        ops=k * (m * (MIX_SETUP_OPS + MIX_INV_SETUP_OPS)
+                 + n_iters * MIX_INV_ITER_OPS),
         dtype="float32")
 
 
@@ -359,7 +384,8 @@ def check_inverse(device, seeds, report):
         ms_m256=cuda_ms(lambda: cm.mixture_inverse_cuda(y, pi, mu, ls),
                         50)[0],
         residual_ratio=max(worst.values()),
-        design="linear domain, log domain for |y| > 64")
+        design="linear domain, log domain for |y| > 64; each element "
+        "stops once done, up to 48 iterations; the best iterate")
 
 
 def check_coloring_kernels(device, seeds, report):
@@ -386,6 +412,166 @@ def check_coloring_kernels(device, seeds, report):
         report[name] = mixture_inverse_report(*cases[case], 5)
 
 
+# The shapes of the dequantized set flows (runs/sum_vardeq,
+# runs/shuffle_linear): the encoders' inverses under grad, the vardeq
+# encoder's [1024 sets, 16, dim 1] (M = 16,384) and the linear-flows
+# encoder's [16,384 rows, 1, dim 4] (M = 65,536), with vardeq_mixtures
+# K = 4; the linear-flows decoder's one forward of 16 categories x 16,384
+# rows (M = 1,048,576); the vardeq main flow's coupling net, in 1, out 26
+ENCODER_SHAPES = {"vardeq": (B, S, 1), "linear_flows": (B * S, 1, D)}
+ENCODER_K = 4
+DECODER_SHAPE = (S * B * S, 1, D)
+VARDEQ_OUT = 2 + 3 * K
+# #1' held per gradient (relative norm error) against the exact derivative
+# (central differences in float64), and against the plain implicit rule at
+# the kernel's root; autograd through the plain fp32 inverse, whose
+# clipped Newton steps send the gradient through the bracket's ends, is
+# the control that must read above INV_BWD_REL
+INV_BWD_REL = 1e-3
+INV_BWD_PLAIN_REL = 1e-4
+
+
+def encoder_inverse_cases(seed: int, device) -> dict:
+    """#1's cases at the encoders' shapes (``ENCODER_SHAPES``), drawn as
+    ``inverse_cases`` draws them, pi and ls strided as the coupling passes
+    them."""
+    import torch
+    gen = torch.Generator(device).manual_seed(seed)
+    return {name: inverse_case(gen, shape, ENCODER_K, device, True)
+            for name, shape in ENCODER_SHAPES.items()}
+
+
+def inverse_exact_vjp(y, pi, mu, ls, gx, h: float = 1e-6) -> list:
+    """The inverse's gradients (y, pi, mu, ls) for the cotangent ``gx`` by
+    central differences of the plain inverse in float64 (100 bisections, 6
+    Newton steps), one parameter column at a time for all elements at once
+    (the elements are independent)."""
+    import torch
+    from categoricalnf_tpu_torch.ops import numerics as nm
+    d = [t.detach().double() for t in (y, pi, mu, ls)]
+    g = gx.double()
+
+    def diff(i, col=None):
+        step = torch.zeros_like(d[i])
+        if col is None:
+            step += h
+        else:
+            step[..., col] = h
+        roots = [nm.mixture_inverse_logit_cdf(
+            *[a + sign * step if j == i else a for j, a in enumerate(d)],
+            num_bisect=100, num_newton=6) for sign in (1, -1)]
+        return g * (roots[0] - roots[1]) / (2 * h)
+
+    return [diff(0)] + [torch.stack([diff(i, c) for c in range(
+        pi.shape[-1])], dim=-1) for i in (1, 2, 3)]
+
+
+def inverse_bwd_readings(y, pi, mu, ls, gx, what: str) -> dict:
+    """#1' (autograd through ``mixture_inverse_cuda``, the parameters as
+    slices of one leaf as the coupling passes them), held per gradient
+    against the exact derivative within INV_BWD_REL and the plain implicit
+    rule at the kernel's root within INV_BWD_PLAIN_REL; the control,
+    autograd through the plain fp32 inverse, must read above INV_BWD_REL
+    against the exact derivative.  Returns the readings."""
+    import torch
+    from categoricalnf_tpu_torch.ops import numerics as nm
+    from categoricalnf_tpu_torch.ops.cuda import mixture as cm
+    k = pi.shape[-1]
+    raw = torch.zeros(*pi.shape[:-1], 2 + 3 * k, device=y.device)
+    raw[..., 2:2 + k], raw[..., 2 + 2 * k:] = pi, ls
+    leaves = [y.clone().requires_grad_(True), raw.requires_grad_(True),
+              mu.clone().requires_grad_(True)]
+    x = cm.mixture_inverse_cuda(leaves[0], raw[..., 2:2 + k], leaves[2],
+                                raw[..., 2 + 2 * k:])
+    gy, graw, gmu = torch.autograd.grad(x, leaves, gx)
+    got = [gy, graw[..., 2:2 + k], gmu, graw[..., 2 + 2 * k:]]
+    check(not graw[..., :2].any() and not graw[..., 2 + k:2 + 2 * k].any(),
+          f"{what}: #1' wrote outside its parameters' slices")
+    plain = nm.mixture_inverse_vjp(x.detach(), pi, mu, ls, gx)
+    exact = inverse_exact_vjp(y, pi, mu, ls, gx)
+    args = [t.clone().requires_grad_(True) for t in (y, pi, mu, ls)]
+    control = torch.autograd.grad(nm.mixture_inverse_logit_cdf(*args), args,
+                                  gx)
+    names = ("gy", "gpi", "gmu", "gls")
+    out = {"vs_exact": {n: rel_err(a.double(), e) for n, a, e in
+                        zip(names, got, exact)},
+           "vs_plain_rule": {n: rel_err(a, p) for n, a, p in
+                             zip(names, got, plain)},
+           "plain_autograd_vs_exact": {n: rel_err(c.double(), e) for n, c, e
+                                       in zip(names, control, exact)}}
+    check(max(out["vs_exact"].values()) <= INV_BWD_REL,
+          f"{what}: #1' off the exact derivative: {out['vs_exact']}")
+    check(max(out["vs_plain_rule"].values()) <= INV_BWD_PLAIN_REL,
+          f"{what}: #1' off the plain implicit rule: {out['vs_plain_rule']}")
+    check(min(out["plain_autograd_vs_exact"].values()) > INV_BWD_REL,
+          f"{what}: the control reads within the limit, which so cannot "
+          f"tell: {out['plain_autograd_vs_exact']}")
+    return out
+
+
+def check_set_modeling_kernels(device, seeds, report):
+    """The kernels at the dequantized set flows' shapes, from generators of
+    their own: #1 at the encoders' shapes by the residual rule
+    (``inverse_held``) and #1' there by ``inverse_bwd_readings``, at each
+    seed; #2 at the linear-flows decoder's M = 1,048,576, K = 4; #3 and #4
+    in bf16 at the vardeq main flow's in 1, out 26.  Each timed; prints
+    the readings against their limits."""
+    import torch
+    from categoricalnf_tpu_torch.ops import numerics as nm
+    from categoricalnf_tpu_torch.ops.cuda import mixture as cm
+    worst = inverse_held(encoder_inverse_cases, seeds, device)
+    print("mixture_inverse at the encoders' shapes: worst residual / "
+          "max(2 e_p, tau) by case: " + json.dumps(worst), flush=True)
+    readings = {}
+    for seed in seeds:
+        g = torch.Generator(device).manual_seed(seed + 40)
+        for name, (y, pi, mu, ls) in encoder_inverse_cases(seed,
+                                                           device).items():
+            gx = torch.randn(y.shape, generator=g, device=device)
+            readings[f"{seed}/{name}"] = inverse_bwd_readings(
+                y, pi, mu, ls, gx, f"#1' at {name}, seed {seed}")
+    print(f"mixture_inverse_bwd (#1'): relative error of each gradient "
+          f"(limits: {INV_BWD_REL} against the exact derivative, "
+          f"{INV_BWD_PLAIN_REL} against the plain rule; the control above "
+          f"{INV_BWD_REL}): " + json.dumps(readings), flush=True)
+    cases = encoder_inverse_cases(seeds[0], device)
+    g = torch.Generator(device).manual_seed(seeds[0] + 41)
+    for name, suffix in (("linear_flows", ""), ("vardeq", "_vardeq")):
+        y, pi, mu, ls = cases[name]
+        report[f"mixture_inverse_encoder_{name}"] = mixture_inverse_report(
+            y, pi, mu, ls, 5)
+        x = cm.mixture_inverse_cuda(y, pi, mu, ls)
+        gx = torch.randn(y.shape, generator=g, device=device)
+        got = cm.mixture_inverse_bwd_cuda(x, pi, mu, ls, gx)
+        plain = nm.mixture_inverse_vjp(x, pi, mu, ls, gx)
+        m, k = y.numel(), ENCODER_K
+        report[f"mixture_inverse_bwd{suffix}"] = dict(
+            max_abs_err=max(max_err(a, p) for a, p in zip(got, plain)),
+            m=m, worst_rel_err_vs_exact=max(
+                max(r["vs_exact"].values()) for key, r in readings.items()
+                if key.endswith(name)),
+            **timed(lambda: cm.mixture_inverse_bwd_cuda(x, pi, mu, ls, gx),
+                    lambda: nm.mixture_inverse_vjp(x, pi, mu, ls, gx), 50,
+                    20),
+            # read x, gx and the parameters; write gy and their gradients
+            bytes=m * (12 + 24 * k),
+            ops=m * k * (MIX_SETUP_OPS + MIX_EVAL_OPS + MIX_BWD_OPS),
+            dtype="float32")
+    report["mixture_forward_decoder"] = mixture_forward_report(
+        *mixture_inputs(torch.Generator(device).manual_seed(seeds[0] + 42),
+                        DECODER_SHAPE, ENCODER_K, device), 5,
+        "mixture_forward (the linear-flows decoder's shape)")
+    g = torch.Generator(device).manual_seed(seeds[0] + 43)
+    x = torch.randn(B, S, 1, generator=g, device=device)
+    report["fused_set_transformer_bf16_vardeq"] = fused_fwd_report(
+        flagship_net("bfloat16", device, 1, VARDEQ_OUT), x)
+    gy = torch.randn(B, S, VARDEQ_OUT, generator=g,
+                     device=device).to(torch.bfloat16)
+    report["fused_set_transformer_bwd_bf16_vardeq"] = fused_bwd_report(
+        flagship_net("bfloat16", device, 1, VARDEQ_OUT), x, gy,
+        "fused_set_transformer_bwd_bf16 (in 1, out 26)")
+
+
 def net_macs_per_row(in_dim, hidden, heads, layers, mlp, out_dim, s):
     hd = hidden // heads
     attn = heads * s * hd * 2  # QK^T and A.V for one query row
@@ -393,14 +579,14 @@ def net_macs_per_row(in_dim, hidden, heads, layers, mlp, out_dim, s):
     return in_dim * hidden + layers * block + hidden * out_dim
 
 
-def flagship_net(cd: str, device):
+def flagship_net(cd: str, device, in_dim: int = D, out: int = OUT):
     """A coupling net of the flagship (SetTransformer, hidden 96, 4 heads,
-    2 blocks, in 4, out 104) in compute dtype ``cd`` on ``device``, from
-    seeds 0 and 1, its output layer randomized: a zero one would make the
-    output its bias."""
+    2 blocks, in 4, out 104; the dequantized flows' main net has in 1, out
+    26) in compute dtype ``cd`` on ``device``, from seeds 0 and 1, its
+    output layer randomized: a zero one would make the output its bias."""
     import torch
     from categoricalnf_tpu_torch.networks import SetTransformer
-    net = SetTransformer(D, OUT, hidden_dim=H, num_heads=HEADS,
+    net = SetTransformer(in_dim, out, hidden_dim=H, num_heads=HEADS,
                          compute_dtype=cd,
                          generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
@@ -415,55 +601,65 @@ def check_fused(device, gen, report):
     65,536 rows of eval_bpd (1024 sets x 4 chains), the only caller of the
     fp32 variant."""
     import torch
-    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
 
     for cd, sets, name in (("float32", EVAL_CHAINS * B,
                             "fused_set_transformer_f32"),
                            ("bfloat16", B, "fused_set_transformer_bf16")):
-        rows = sets * S
         x = torch.randn(sets, S, D, generator=gen, device=device)
-        net = flagship_net(cd, device)
-        tdt = getattr(torch, cd)
-        with torch.no_grad():
-            ws = ft.flatten_params(net)
-            packed = ft.PackedWeights(ws, tdt)
-            y = twice(lambda: ft.fused_set_transformer(packed, x,
-                                                       num_heads=HEADS))
-            y_p = net.plain_forward(x)
-            check(y.shape == (sets, S, OUT) and y.dtype == tdt,
-                  f"{cd}: output {tuple(y.shape)} {y.dtype}")
-            extra = {}
-            if cd == "float32":
-                check(close(y, y_p, 1e-4),
-                      f"fused fp32 off the unfused path: {max_err(y, y_p)}")
-                extra = check_f32_accuracy(net, x, y, y_p)
-            else:
-                err = (y.float() - y_p.float()).abs()
-                bad = float((err > 0.05 * y_p.float().abs().clamp_min(1.0))
-                            .float().mean())
-                check(bad < 0.02, f"fused bf16: {bad:.4f} of elements off "
-                      "by more than 5%")
-                rel = rel_err(y, y_p)
-                check(rel <= BF16_FWD_REL, f"fused bf16: relative error "
-                      f"{rel} above {BF16_FWD_REL}")
-                # the tile, as the kernel picks it, and the blocks an SM
-                tile, smem = ft.fwd_shape(tdt, S, D, H, 2 * H)
-                extra = dict(rel_err=rel, tile=tile, smem=smem,
-                             blocks_per_sm=ft.fwd_blocks_per_sm(smem))
-            t = timed(lambda: ft.fused_set_transformer(packed, x,
-                                                       num_heads=HEADS),
-                      lambda: net.plain_forward(x), 20, 5)
-        elt = 2 if cd == "bfloat16" else 4
-        n_w = sum(w.numel() for w in ws[0::2])
-        n_b = sum(b.numel() for b in ws[1::2])
-        macs = rows * net_macs_per_row(D, H, HEADS, 2, 2 * H, OUT, S)
+        report[name] = fused_fwd_report(flagship_net(cd, device), x)
+
+
+def fused_fwd_report(net, x) -> dict:
+    """#3 on ``x`` through ``net``'s packed weights, twice, against
+    ``plain_forward``: fp32 within 1e-4 and fp32's accuracy
+    (``check_f32_accuracy``), bf16 within BF16_FWD_REL of its norm and 5%
+    on 98% of the elements; its report entry (error, times, bytes,
+    operations, the bf16 tile)."""
+    import torch
+    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+    sets, s, in_dim = x.shape
+    out, cd = net.out.w.shape[1], net.compute_dtype
+    rows = sets * s
+    tdt = getattr(torch, cd)
+    with torch.no_grad():
+        ws = ft.flatten_params(net)
+        packed = ft.PackedWeights(ws, tdt)
+        y = twice(lambda: ft.fused_set_transformer(packed, x,
+                                                   num_heads=HEADS))
+        y_p = net.plain_forward(x)
+        check(y.shape == (sets, s, out) and y.dtype == tdt,
+              f"{cd}: output {tuple(y.shape)} {y.dtype}")
+        extra = {}
         if cd == "float32":
-            # or three TF32 products a multiply-add on the tensor cores
-            extra["tc_ops"] = 3 * 2 * macs
-        report[name] = dict(
-            max_abs_err=max_err(y, y_p), rows=rows, **t, **extra,
-            bytes=rows * (D + OUT) * elt + n_w * elt + n_b * 4,
-            ops=2 * macs, dtype=cd)
+            check(close(y, y_p, 1e-4),
+                  f"fused fp32 off the unfused path: {max_err(y, y_p)}")
+            extra = check_f32_accuracy(net, x, y, y_p)
+        else:
+            err = (y.float() - y_p.float()).abs()
+            bad = float((err > 0.05 * y_p.float().abs().clamp_min(1.0))
+                        .float().mean())
+            check(bad < 0.02, f"fused bf16 at in {in_dim}, out {out}: "
+                  f"{bad:.4f} of elements off by more than 5%")
+            rel = rel_err(y, y_p)
+            check(rel <= BF16_FWD_REL, f"fused bf16 at in {in_dim}, out "
+                  f"{out}: relative error {rel} above {BF16_FWD_REL}")
+            # the tile, as the kernel picks it, and the blocks an SM
+            tile, smem = ft.fwd_shape(tdt, s, in_dim, H, 2 * H)
+            extra = dict(rel_err=rel, tile=tile, smem=smem,
+                         blocks_per_sm=ft.fwd_blocks_per_sm(smem))
+        t = timed(lambda: ft.fused_set_transformer(packed, x,
+                                                   num_heads=HEADS),
+                  lambda: net.plain_forward(x), 20, 5)
+    elt = 2 if cd == "bfloat16" else 4
+    n_w = sum(w.numel() for w in ws[0::2])
+    n_b = sum(b.numel() for b in ws[1::2])
+    macs = rows * net_macs_per_row(in_dim, H, HEADS, 2, 2 * H, out, s)
+    if cd == "float32":
+        # or three TF32 products a multiply-add on the tensor cores
+        extra["tc_ops"] = 3 * 2 * macs
+    return dict(max_abs_err=max_err(y, y_p), rows=rows, **t, **extra,
+                bytes=rows * (in_dim + out) * elt + n_w * elt + n_b * 4,
+                ops=2 * macs, dtype=cd)
 
 
 # Relative norm error allowed between the fp32 forward (3xTF32) and
@@ -596,67 +792,78 @@ def check_fused_bwd(device, gen, report):
     net, through ``FusedSetTransformer`` and the stacks of
     ``flatten_params``, against the parameters' gradients."""
     import torch
-    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
 
     big = torch.Generator(device).manual_seed(gen.initial_seed() + 19)
     for cd, sets, name, draw in (
             ("bfloat16", B, "fused_set_transformer_bwd_bf16", gen),
             ("float32", B // 4, "fused_set_transformer_bwd_f32", gen),
             ("float32", B, "fused_set_transformer_bwd_f32_16384", big)):
-        rows = sets * S
         tdt = getattr(torch, cd)
         net = flagship_net(cd, device)
-        params = list(net.parameters())
         x = torch.randn(sets, S, D, generator=draw, device=device)
         g = torch.randn(sets, S, OUT, generator=draw, device=device).to(tdt)
-        packed = net._packed_weights(tdt)
+        report[name] = fused_bwd_report(net, x, g, name)
 
-        def kernel():
-            return ft.fused_set_transformer_bwd(packed, x, g,
-                                                num_heads=HEADS)
 
-        def grads(plain):
-            xr = x.clone().requires_grad_(True)
-            y = net.plain_forward(xr) if plain else net(xr)
-            return torch.autograd.grad(y, [xr] + params, g)
+def fused_bwd_report(net, x, g, name: str) -> dict:
+    """#4 for the cotangent ``g`` of ``net`` at ``x``, through
+    ``FusedSetTransformer`` and the stacks of ``flatten_params``, twice,
+    against autograd through ``plain_forward`` (fp32 within 2e-4, bf16
+    within 0.03 of each gradient's norm); its report entry."""
+    import torch
+    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+    sets, s, in_dim = x.shape
+    out, cd = net.out.w.shape[1], net.compute_dtype
+    rows = sets * s
+    tdt = getattr(torch, cd)
+    params = list(net.parameters())
+    packed = net._packed_weights(tdt)
 
-        got = twice(lambda: grads(False))
-        want = grads(True)
-        errs = [rel_err(a, w) for a, w in zip(got, want)]
-        for a, w in zip(got, want):
-            if cd == "float32":
-                check(close(a, w, 2e-4), f"{name} off autograd of the "
-                      f"plain path: {max_err(a, w)}")
-        if cd == "bfloat16":
-            check(max(errs) <= 0.03, f"{name}: relative error {max(errs)}")
-        # the kernel alone, and the plain path's backward alone
+    def kernel():
+        return ft.fused_set_transformer_bwd(packed, x, g, num_heads=HEADS)
+
+    def grads(plain):
         xr = x.clone().requires_grad_(True)
-        y_p = net.plain_forward(xr)
-        t = timed(kernel, lambda: torch.autograd.grad(
-            y_p, [xr] + params, g, retain_graph=True), 10, 5)
-        elt = 2 if cd == "bfloat16" else 4
-        ws = ft.flatten_params(net)
-        n_w = sum(w.numel() for w in ws[0::2])
-        n_b = sum(b.numel() for b in ws[1::2])
-        macs = rows * net_macs_per_row(D, H, HEADS, 2, 2 * H, OUT, S)
-        tile, smem = ft.bwd_shape(tdt, S, D, H, 2 * H, OUT, HEADS, 2)
-        grid = ft.bwd_grid(rows, tile, smem, torch.cuda
-                           .get_device_properties(device)
-                           .multi_processor_count)
-        # the weight-gradient scratch: each block's slice is written once a
-        # tile and read back for every tile after its first, and each slice
-        # is read once by reduce_wgrad, so as many bytes are read as written
-        slice_bytes = (n_w + n_b) * 4
-        report[name] = dict(
-            max_abs_err=max(max_err(a, w) for a, w in zip(got, want)),
-            rel_err=max(errs), rows=rows, **t,
-            bytes=(rows * (2 * D + OUT) * elt + n_w * elt + n_b * 4
-                   + (n_w + n_b) * 4),
-            ops=3 * 2 * macs, dtype=cd,
-            scratch_mb=grid * slice_bytes / 2**20,
-            scratch_written_mb=-(-rows // tile) * slice_bytes / 2**20,
-            tile=tile, smem=smem, grid=grid,
-            blocks_per_sm=ft.smem_blocks_per_sm(smem))
+        y = net.plain_forward(xr) if plain else net(xr)
+        return torch.autograd.grad(y, [xr] + params, g)
+
+    got = twice(lambda: grads(False))
+    want = grads(True)
+    errs = [rel_err(a, w) for a, w in zip(got, want)]
+    for a, w in zip(got, want):
+        if cd == "float32":
+            check(close(a, w, 2e-4), f"{name} off autograd of the "
+                  f"plain path: {max_err(a, w)}")
+    if cd == "bfloat16":
+        check(max(errs) <= 0.03, f"{name}: relative error {max(errs)}")
+    # the kernel alone, and the plain path's backward alone
+    xr = x.clone().requires_grad_(True)
+    y_p = net.plain_forward(xr)
+    t = timed(kernel, lambda: torch.autograd.grad(
+        y_p, [xr] + params, g, retain_graph=True), 10, 5)
+    elt = 2 if cd == "bfloat16" else 4
+    ws = ft.flatten_params(net)
+    n_w = sum(w.numel() for w in ws[0::2])
+    n_b = sum(b.numel() for b in ws[1::2])
+    macs = rows * net_macs_per_row(in_dim, H, HEADS, 2, 2 * H, out, s)
+    tile, smem = ft.bwd_shape(tdt, s, in_dim, H, 2 * H, out, HEADS, 2)
+    grid = ft.bwd_grid(rows, tile, smem, torch.cuda
+                       .get_device_properties(x.device)
+                       .multi_processor_count)
+    # the weight-gradient scratch: each block's slice is written once a
+    # tile and read back for every tile after its first, and each slice
+    # is read once by reduce_wgrad, so as many bytes are read as written
+    slice_bytes = (n_w + n_b) * 4
+    return dict(
+        max_abs_err=max(max_err(a, w) for a, w in zip(got, want)),
+        rel_err=max(errs), rows=rows, **t,
+        bytes=(rows * (2 * in_dim + out) * elt + n_w * elt + n_b * 4
+               + (n_w + n_b) * 4),
+        ops=3 * 2 * macs, dtype=cd,
+        scratch_mb=grid * slice_bytes / 2**20,
+        scratch_written_mb=-(-rows // tile) * slice_bytes / 2**20,
+        tile=tile, smem=smem, grid=grid,
+        blocks_per_sm=ft.smem_blocks_per_sm(smem))
 
 
 def http_json(port, method, path, body=None):
@@ -674,16 +881,18 @@ def http_json(port, method, path, body=None):
 
 def randomize_coupling_nets(model, seed: int, scale: float = 0.05):
     """Seeded N(0, scale^2) weights for the output layer of every coupling
-    net of ``model``, those inside a ``ScannedBlocks`` too, in module
-    order: zero-initialised output layers make every coupling the identity,
-    random ones make the kernels' results matter."""
+    net of ``model`` (an encoder's MLP nets too, and those inside a
+    ``ScannedBlocks``), in module order: zero-initialised output layers
+    make every coupling the identity, random ones make the kernels'
+    results matter."""
     import torch
     from categoricalnf_tpu_torch.flows import MixtureCDFCoupling
+    from categoricalnf_tpu_torch.networks import MLP
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, MixtureCDFCoupling):
-                w = m.net.out.w
+                w = (m.net[-1] if isinstance(m.net, MLP) else m.net.out).w
                 w.copy_(torch.randn(w.shape, generator=g).to(w.device)
                         * scale)
 
@@ -896,7 +1105,8 @@ def profile_steps(task, optimizer, seed: int) -> dict:
     for name, ms in kernels.items():
         group = next((g for g in ("fused_set_transformer_bwd",
                                   "fused_set_transformer_fwd", "reduce_wgrad",
-                                  "mixture_forward_bwd", "mixture_forward")
+                                  "mixture_forward_bwd", "mixture_forward",
+                                  "mixture_inverse")
                       if g in name), "plain torch")
         groups[group] = groups.get(group, 0.0) + ms / PROFILE_STEPS
     busy = sum(kernels.values()) / PROFILE_STEPS
@@ -1083,11 +1293,13 @@ def coloring_phase(seed: int, timings: dict, card: str,
     100 and 200 with its 8 chains, the final sample metrics at the task's
     1024 graphs), trace 10 more steps, then serve the run over HTTP and
     hold the served model, its coupling nets' output layers randomized,
-    against its CPU copy.  Returns the launch counts of the training run
-    and of the serving."""
+    against its CPU copy, and #1 on every inverse call of its sample of a
+    batch of graphs at the seed and the next by the residual rule.  Returns
+    the launch counts of the training run and of the serving."""
     from http.server import ThreadingHTTPServer
 
     import numpy as np
+    import torch
     from categoricalnf_tpu_torch import inference
     from categoricalnf_tpu_torch.serve import RunServer, make_handler
     from categoricalnf_tpu_torch.tasks.graph_coloring import \
@@ -1158,13 +1370,183 @@ def coloring_phase(seed: int, timings: dict, card: str,
         for name in ("mixture_inverse", "mixture_forward"):
             check(launches["coloring_serving"][name] > 0,
                   f"kernel {name} was not launched while serving coloring")
-        randomize_coupling_nets(server.handle.task.model, seed + 1)
-        check_against_cpu(server.handle.task, seed)
+        served = server.handle.task
+        randomize_coupling_nets(served.model, seed + 1)
+        check_against_cpu(served, seed)
+        # #1 on every inverse call of that model's sample of a batch of
+        # graphs, at the seed and the next
+        ratios = held_samples(lambda s: served.sample_graphs(
+            served._gen(np.random.default_rng(s), served.batch_size), 1.0,
+            torch.Generator(device).manual_seed(s)), seed, "coloring sample")
+        timings["held_inverse_calls"] = len(ratios)
+        timings["held_inverse_worst_ratio"] = max(ratios)
     print(json.dumps({"metric": "graph_coloring_train_samples_per_s",
                       "value": timings["train_samples_per_s"],
                       "unit": "samples/s", "steps": "101-200",
                       "batch_size": task.batch_size, "device": card}),
           flush=True)
+    return launches
+
+
+# the kernels every dequantized set flow's training launches (#1 and #1' in
+# its encoder)
+SET_MODELING_KERNELS = ("mixture_forward", "mixture_forward_bwd",
+                        "mixture_inverse", "mixture_inverse_bwd",
+                        "fused_set_transformer_bf16",
+                        "fused_set_transformer_bwd_bf16")
+SAMPLING_KERNELS = ("mixture_inverse", "mixture_forward",
+                    "fused_set_transformer_bf16")
+
+
+def held_samples(sample, seed: int, what: str) -> list:
+    """``sample(s)`` (a sample of a served model drawn at seed ``s``) at
+    ``seed`` and ``seed + 1``, with #1 held by the residual rule on every
+    inverse call (``inverse_calls_held``); returns each call's worst
+    ratio of residual to limit."""
+    import torch
+    ratios = []
+    for s in (seed, seed + 1):
+        with inverse_calls_held(f"{what}, seed {s}") as r, torch.no_grad():
+            sample(s)
+        ratios += r
+    return ratios
+
+
+def serve_set_run(run_dir: str, task_name: str, num_categories: int,
+                  validity: str, timings: dict, device: str) -> tuple:
+    """Serve the run in ``run_dir`` over HTTP: /health, /sample of 4 sets
+    (ints in 0..num_categories - 1), /sample_metrics of 1024 (``validity``
+    in [0, 1]) unless ``validity`` is None, a bad request.  Returns the
+    server and the launches of the serving, each sampling kernel
+    launched."""
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    from categoricalnf_tpu_torch.serve import RunServer, make_handler
+    reset_launches()
+    server = RunServer(run_dir, device=device)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(server))
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        port = httpd.server_port
+        st, health, _ = http_json(port, "GET", "/health")
+        check(st == 200 and health["task"] == task_name, f"/health {health}")
+        st, out, dt = http_json(port, "POST", "/sample", {"num_samples": 4})
+        check(st == 200, f"/sample answered {st}: {out}")
+        x = np.asarray(out["samples"])
+        check(x.shape == (4, S) and x.dtype.kind == "i" and x.min() >= 0
+              and x.max() < num_categories, f"samples {x}")
+        timings["sample_4_s"] = dt
+        if validity is not None:
+            st, met, dt = http_json(port, "POST", "/sample_metrics",
+                                    {"num_samples": 1024})
+            check(st == 200 and met["metric_num_samples"] == 1024.0
+                  and 0.0 <= met[validity] <= 1.0,
+                  f"/sample_metrics answered {st}: {met}")
+            timings["sample_metrics_1024_s"] = dt
+            timings[f"served_{validity}"] = met[validity]
+        st, out, _ = http_json(port, "POST", "/sample", {"num_samples": 0})
+        check(st == 400 and "error" in out, "bad request not refused")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=60)
+    launches = read_launches()
+    for name in SAMPLING_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched while "
+              f"serving {task_name}")
+    return server, launches
+
+
+def train_set_run(run: str, path: str, validity: str, seed: int,
+                  timings: dict, card: str, device: str) -> dict:
+    """Train runs/<run>/config.json as it is (only the seed set; one eval
+    batch of 1024 with EVAL_CHAINS chains) for TRAIN_STEPS steps through the
+    port's Trainer with ``train_checked``'s checks, the best bpd above the
+    analytic optimum and every kernel of SET_MODELING_KERNELS launched;
+    trace 10 more steps; serve the run; hold #1 on every inverse call of
+    a sample of the served model with random coupling output layers, and
+    that model against its CPU copy.  Prints ``<path>_train_samples_per_s``
+    and returns the launches of the training and of the serving."""
+    import torch
+    from categoricalnf_tpu_torch import inference
+    from categoricalnf_tpu_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(REPO, "runs", run))
+    a = cfg["args"]
+    args = {**a, "seed": seed, "eval_batches_count": 1}
+    task = inference.build_task(cfg["task"], args, device=device)
+    tcfg = train_config(a, seed, EVAL_CHAINS)
+    launches = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        final = train_checked(task, cfg["task"], args, tcfg, out_dir,
+                              timings, SET_MODELING_KERNELS)
+        launches[f"{path}_training"] = final["launches"]
+        optimum = task.analytic_optimum_bpd()
+        timings["optimum_bpd"] = optimum
+        check(final["best_bpd"] > optimum,
+              f"{run}: best bpd {final['best_bpd']} below the optimum "
+              f"{optimum}")
+        timings[validity] = final[validity]
+        timings["step_profile"] = profile_steps(task, tcfg.optimizer, seed)
+        categories = getattr(task, "num_categories", task.set_size)
+        server, launches[f"{path}_serving"] = serve_set_run(
+            out_dir, cfg["task"], categories, validity, timings, device)
+        check(server.handle.step in (TRAIN_EVAL_EVERY, TRAIN_STEPS),
+              f"served step {server.handle.step}")
+        served = server.handle.task
+        randomize_coupling_nets(served.model, seed + 1)
+        timings["held_inverse_worst_ratio"] = max(held_samples(
+            lambda s: served.model.sample(B, served.set_size, generator=torch
+                                          .Generator(device).manual_seed(s)),
+            seed, f"{run} sample"))
+        check_against_cpu(served, seed)
+    print(json.dumps({"metric": f"{path}_train_samples_per_s",
+                      "value": timings["train_samples_per_s"],
+                      "unit": "samples/s", "steps": "101-200",
+                      "batch_size": task.batch_size, "device": card}),
+          flush=True)
+    return launches
+
+
+def set_modeling_phase(seed: int, timings: dict, card: str,
+                       device: str = "cuda") -> dict:
+    """The dequantized set flows: train and serve runs/sum_vardeq
+    (SetSummationTask, the vardeq encoding) and runs/shuffle_linear (the
+    linear-flows encoding) with ``train_set_run``; then build
+    runs/shuffle_decoder_mlp with seeded random weights (its
+    steps_per_call of 8 is not ported, so it is not trained), serve a
+    /sample of it and hold it against its CPU copy.  Returns the launches
+    of each path."""
+    import numpy as np
+    import torch
+    from categoricalnf_tpu_torch import inference
+    from categoricalnf_tpu_torch.training.checkpoint import CheckpointManager
+    from categoricalnf_tpu_torch.utils.config import load_config, save_config
+
+    launches = {}
+    for run, path, validity in (
+            ("sum_vardeq", "set_summation", "sum_validity"),
+            ("shuffle_linear", "shuffle_linear", "permutation_validity")):
+        timings[run] = {}
+        launches.update(train_set_run(run, path, validity, seed,
+                                      timings[run], card, device))
+    cfg = load_config(os.path.join(REPO, "runs", "shuffle_decoder_mlp"))
+    args = {**cfg["args"], "seed": seed}
+    task = inference.build_task(cfg["task"], args, device=device)
+    randomize_coupling_nets(task.model, seed + 1)
+    task.data_init(next(task.train_batches(np.random.default_rng(seed))),
+                   generator=torch.Generator(device).manual_seed(seed))
+    t = timings["shuffle_decoder_mlp"] = {}
+    with tempfile.TemporaryDirectory() as run_dir:
+        save_config(run_dir, {"task": cfg["task"], "args": args})
+        CheckpointManager(run_dir).save(0, task.model)
+        server, launches["decoder_mlp_serving"] = serve_set_run(
+            run_dir, cfg["task"], S, None, t, device)
+        check(server.handle.task.model.encoding.decoder is not None,
+              "the served model has no learned decoder")
+        check_against_cpu(server.handle.task, seed)
     return launches
 
 
@@ -1281,6 +1663,36 @@ def inverse_failures(x, x_plain, y, pi, mu, ls, what: str) -> list:
             f"the worst at {worst!r} times it"]
 
 
+@contextlib.contextmanager
+def inverse_calls_held(what: str):
+    """Holds #1 by the residual rule on every call of the couplings'
+    inverse (``dispatch.mixture_inverse`` on a CUDA tensor) inside the
+    block, beside the plain version on the same inputs; yields the list of
+    each call's worst ratio of residual to limit, and fails if a call is
+    over or none was made."""
+    from categoricalnf_tpu_torch.ops import dispatch
+    from categoricalnf_tpu_torch.ops import numerics as nm
+    inverse = dispatch.mixture_inverse
+    ratios, failures = [], []
+
+    def held(y, pi, mu, ls):
+        x = inverse(y, pi, mu, ls)
+        if y.is_cuda:
+            x_p = nm.mixture_inverse_logit_cdf(y, pi, mu, ls)
+            call = f"{what}, inverse call {len(ratios)}"
+            failures.extend(inverse_failures(x, x_p, y, pi, mu, ls, call))
+            ratios.append(inverse_reading(x, x_p, y, pi, mu, ls)[1])
+        return x
+
+    dispatch.mixture_inverse = held
+    try:
+        yield ratios
+    finally:
+        dispatch.mixture_inverse = inverse
+    check(ratios, f"{what}: no inverse call on the card")
+    check(not failures, "; ".join(failures))
+
+
 def coupling_slices(pi, ls):
     """pi and ls as the coupling passes them: slices [2:2+K] and [2+2K:] of
     one [..., 2 + 3K] tensor (the means, offset, are a tensor of their
@@ -1314,7 +1726,12 @@ def inverse_cases(seed: int, device) -> dict:
     domain) with every log-scale at the clip, M = 4,096; and wide brackets:
     y = +-30 and +-90 with the log-scales spread over the clip's range
     (times 6, as the backward's check draws them), M = 4,096, where a
-    narrow component far from the root meets |z| near 1e7."""
+    narrow component far from the root meets |z| near 1e7; and peaked
+    mixtures: logits times 50 (one component holds nearly all the weight),
+    means times 30, log-scales times 60 (most past the clip), y ~ N(0,
+    10^2), M = 4,096, as a coupling net with random output weights gives
+    them: wide brackets around a narrow root, which the inverse before the
+    best iterate and the bracket's slack missed."""
     import torch
     from categoricalnf_tpu_torch.ops import numerics as nm
     gen = torch.Generator(device).manual_seed(seed)
@@ -1330,6 +1747,9 @@ def inverse_cases(seed: int, device) -> dict:
     _, pi, mu, ls = mixture_inputs(gen, (4096,), K, device)
     y = torch.tensor([30.0, -30.0, 90.0, -90.0], device=device).repeat(1024)
     cases["wide"] = (y, pi, mu, ls * 6.0)
+    _, pi, mu, ls = mixture_inputs(gen, (4096,), K, device)
+    y = torch.randn(4096, generator=gen, device=device) * 10.0
+    cases["peaked"] = (y, pi * 50.0, mu * 30.0, ls * 60.0)
     return cases
 
 
@@ -1471,6 +1891,116 @@ def check_train_step_against_cpu(seed: int, report: dict) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def implicit_inverse_on_cpu():
+    """Differentiates the inverse of a CPU tensor by the implicit rule
+    (``numerics.ImplicitInverse``), the card's #1', instead of through the
+    loop; a CUDA tensor still goes to ``MixtureInverse``."""
+    from categoricalnf_tpu_torch.ops import dispatch
+    from categoricalnf_tpu_torch.ops import numerics as nm
+    card = dispatch.mixture_inverse
+
+    def inverse(y, *params):
+        return card(y, *params) if y.is_cuda else \
+            nm.ImplicitInverse.apply(y, *params)
+
+    dispatch.mixture_inverse = inverse
+    try:
+        yield
+    finally:
+        dispatch.mixture_inverse = card
+
+
+def check_vardeq_step_against_cpu(seed: int, report: dict) -> dict:
+    """One fp32 train step of runs/sum_vardeq at full width (64 sets,
+    shared noise, beta 0.7, random output layers in every coupling net and
+    conditional affine) on the card, the kernels with #1' for the
+    encoder's inverse, held per tensor against the same step on the CPU in
+    float64 (the encoder's dense layers stay fp32, as the task builds
+    them) with the same implicit rule (``implicit_inverse_on_cpu``): each
+    gradient within max(FP64_REL, 2 e_cpu), e_cpu the CPU fp32 step's own
+    error, as rule (a) of the flagship's step.  The control, the CPU fp32
+    step through the inverse's loop (the reference's rule), must read over
+    its limit on some tensor of the encoder.  Returns the launches of the
+    card's step."""
+    import numpy as np
+    import torch
+    from categoricalnf_tpu_torch.flows.cond_affine import ConditionalAffine
+    from categoricalnf_tpu_torch.inference import build_task
+    from categoricalnf_tpu_torch.ops.numerics import uniform_noise
+    from categoricalnf_tpu_torch.utils.config import load_config
+
+    a = load_config(os.path.join(REPO, "runs", "sum_vardeq"))["args"]
+    args = {**a, "seed": seed, "compute_dtype": "float32"}
+    cpu = build_task("set_summation", args, device="cpu")
+    gpu = build_task("set_summation", args, device="cuda")
+    ref = build_task("set_summation", {**args, "compute_dtype": "float64"},
+                     device="cpu")
+    x = cpu._gen(np.random.default_rng(seed + 3), 64)
+    cpu.data_init({"x": x}, generator=torch.Generator().manual_seed(seed))
+    randomize_coupling_nets(cpu.model, seed + 4)
+    g = torch.Generator().manual_seed(seed + 6)
+    with torch.no_grad():
+        for m in cpu.model.modules():
+            if isinstance(m, ConditionalAffine):
+                m.fc2.w.copy_(torch.randn(m.fc2.w.shape, generator=g) * 0.05)
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    ref.model.double()
+    ref.model.load_state_dict(cpu.model.state_dict())
+    noise = uniform_noise((64, S, 1), generator=torch.Generator()
+                          .manual_seed(seed + 5))
+    loop = step_grads(cpu, x, noise)
+    with implicit_inverse_on_cpu():
+        exact = step_grads(ref, x, noise.double())
+        cpu32 = step_grads(cpu, x, noise)
+    reset_launches()
+    kern = step_grads(gpu, x, noise)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    for name in ("mixture_inverse", "mixture_inverse_bwd",
+                 "fused_set_transformer_train_f32",
+                 "fused_set_transformer_bwd_f32"):
+        check(launches[name] > 0, f"the vardeq step did not launch {name}")
+    readings, failed, control_over = {}, [], []
+    for name, want in exact.items():
+        if want is None or not want.abs().max() > 0:
+            continue
+        gk = kern[name]
+        check(gk is not None and bool(gk.abs().max() > 0),
+              f"{name} has a gradient in the fp64 step and none on the card")
+        e_cpu = rel_err(cpu32[name].double(), want)
+        e_kern = rel_err(gk.cpu().double(), want)
+        e_loop = rel_err(loop[name].double(), want)
+        readings[name] = (e_cpu, e_kern, e_loop)
+        limit = max(FP64_REL, 2 * e_cpu)
+        if not e_kern <= limit:
+            failed.append(f"{name}: card {e_kern} from the fp64 step, over "
+                          f"{limit}")
+        if name.startswith("encoding.") and e_loop > limit:
+            control_over.append(name)
+    check(sum(k.startswith("encoding.") for k in readings) > 10,
+          f"only {len(readings)} parameters got a gradient")
+
+    def worst(i, only=""):
+        name = max((k for k in readings if k.startswith(only)),
+                   key=lambda k: readings[k][i])
+        return readings[name][i], name
+
+    report.update(seed=seed, n_gradients=len(readings))
+    for i, key in enumerate(("cpu_f32_vs_fp64", "card_vs_fp64",
+                             "loop_control_vs_fp64")):
+        report[key], report[f"{key}_worst"] = worst(i)
+        report[f"{key}_encoder"], _ = worst(i, "encoding.")
+    report["control_over_limit"] = len(control_over)
+    print(f"vardeq train step (fp32, 64 sets, seed {seed}) against the fp64 "
+          "step, implicit rule on both: " + json.dumps(report), flush=True)
+    check(not failed, "vardeq train step against the fp64 step: "
+          + "; ".join(failed))
+    check(control_over, "the loop-gradient control reads within the limit "
+          "on every encoder tensor: the check cannot tell the two rules")
+    return launches
+
+
 def tensor_core_instructions(source: str) -> dict:
     """HMMA instructions in the SASS of ``csrc/<source>.cu``'s library, by
     the function (``cuobjdump -sass``'s ``Function :`` sections) that holds
@@ -1580,12 +2110,17 @@ SOURCES = {
     "fused_set_transformer_train_f32": (
         "categoricalnf_tpu_torch/csrc/fused_transformer.cu",
         "categoricalnf_tpu/ops/pallas/fused_transformer.py:286"),
+    # #1' has no Pallas counterpart either: it takes the place of XLA's
+    # derivative of the reference's inverse loop; on the card it is one
+    # launch each of #2 and #2' at the root, counted under theirs too
+    "mixture_inverse_bwd": ("categoricalnf_tpu_torch/csrc/mixture.cu",
+                            "categoricalnf_tpu/ops/numerics.py:158"),
 }
 # what a mixture kernel's line adds: its lanes, registers and spills; the
 # inverse's also its ms at a /sample of 4 sets, its domain and residual
 MIX_KEYS = ("ms_m256", "design", "lanes", "components_per_lane",
             "registers", "spill_bytes", "warps_per_sm_by_registers",
-            "residual_ratio")
+            "residual_ratio", "iterations_mean")
 # the entries of the coloring path's shapes (``check_coloring_kernels``)
 # that a kernel's line carries, and their keys
 COLORING_REPORTS = {
@@ -1595,6 +2130,18 @@ COLORING_REPORTS = {
                         "mixture_inverse_coloring_m160"]}
 COLORING_KEYS = ("m", "ms", "plain_ms", "bound_ms", "bound_by",
                  "max_abs_err")
+# the entries of the dequantized set flows' shapes
+# (``check_set_modeling_kernels``) that a kernel's line carries
+SET_MODELING_REPORTS = {
+    "mixture_forward": ["mixture_forward_decoder"],
+    "mixture_inverse": ["mixture_inverse_encoder_vardeq",
+                        "mixture_inverse_encoder_linear_flows"],
+    "mixture_inverse_bwd": ["mixture_inverse_bwd_vardeq"],
+    "fused_set_transformer_bf16": ["fused_set_transformer_bf16_vardeq"],
+    "fused_set_transformer_bwd_bf16": [
+        "fused_set_transformer_bwd_bf16_vardeq"]}
+SET_MODELING_KEYS = ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
+                     "max_abs_err")
 SERVING_KERNELS = ("mixture_inverse", "mixture_forward",
                    "fused_set_transformer_bf16", "fused_set_transformer_f32")
 # the path whose launches each kernel's line reports
@@ -1602,7 +2149,8 @@ PATH_OF = {**{k: "serving" for k in SERVING_KERNELS},
            "mixture_forward_bwd": "training",
            "fused_set_transformer_bwd_bf16": "training",
            "fused_set_transformer_bwd_f32": "train_step_fp32",
-           "fused_set_transformer_train_f32": "train_step_fp32"}
+           "fused_set_transformer_train_f32": "train_step_fp32",
+           "mixture_inverse_bwd": "set_summation_training"}
 
 
 def main() -> int:
@@ -1664,6 +2212,7 @@ def main() -> int:
     check_fused_bwd(device, gen, report)
     check_train_fwd(device, gen, report)
     check_coloring_kernels(device, (args.seed, args.seed + 1), report)
+    check_set_modeling_kernels(device, (args.seed, args.seed + 1), report)
     for name, r in mixture_resources(logs["mixture"]).items():
         report[name].update(r)
     for r in report.values():
@@ -1701,7 +2250,9 @@ def main() -> int:
                  if "lanes" in r else "")
               + (f", {r['design']}, {r['ms_m256']!r} ms at M=256, "
                  f"worst residual {r['residual_ratio']:.3g} of its limit"
-                 if "design" in r else ""), flush=True)
+                 if "design" in r else "")
+              + (f", {r['iterations_mean']:.3g} iterations an element"
+                 if "iterations_mean" in r else ""), flush=True)
 
     timings: dict = {}
     launches = {"serving": serve_flagship(args.seed, timings)}
@@ -1719,6 +2270,11 @@ def main() -> int:
     coloring_timings: dict = {}
     launches.update(coloring_phase(args.seed, coloring_timings, card))
     print("coloring: " + json.dumps(coloring_timings), flush=True)
+    set_timings: dict = {}
+    launches.update(set_modeling_phase(args.seed, set_timings, card))
+    print("set modeling: " + json.dumps(set_timings), flush=True)
+    launches["vardeq_train_step_fp32"] = check_vardeq_step_against_cpu(
+        args.seed, {})
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():
@@ -1735,7 +2291,12 @@ def main() -> int:
             **({"at_coloring_shapes": [
                 {key: report[c][key] for key in COLORING_KEYS}
                 for c in COLORING_REPORTS[name]]}
-               if name in COLORING_REPORTS else {})})
+               if name in COLORING_REPORTS else {}),
+            **({"at_set_modeling_shapes": [
+                {"case": c, "size": report[c].get("m", report[c].get("rows")),
+                 **{key: report[c][key] for key in SET_MODELING_KEYS}}
+                for c in SET_MODELING_REPORTS[name]]}
+               if name in SET_MODELING_REPORTS else {})})
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

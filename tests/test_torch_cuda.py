@@ -627,13 +627,26 @@ def test_mixture_bwd_takes_strided_slices_and_is_deterministic(dev, b):
 
 
 def test_wrappers_without_backward_raise_on_grad(dev):
-    """The inverse has no backward and the plain forward wrapper of #3
-    keeps no graph: with grad on they raise rather than drop it."""
+    """The inverse now has a backward, #1': with grad on, its gradients are
+    the plain implicit rule's at the kernel's root (within 1e-4 of each
+    gradient's norm), from one launch of #1' (#2 and #2' at the root), and
+    under no_grad it gives the same root.  The plain forward wrapper of #3
+    keeps no graph: with grad on it raises rather than drop it."""
     x, pi, mu, ls = _mix((4, 4), 8, dev)
-    with pytest.raises(RuntimeError, match="no backward"):
-        cm.mixture_inverse_cuda(x, pi.requires_grad_(True), mu, ls)
+    y, _ = nm.mixture_logit_cdf_and_ldj(x, pi, mu, ls)
+    args = [t.clone().requires_grad_(True) for t in (y, pi, mu, ls)]
+    before = dict(cm.LAUNCHES)
+    root = cm.mixture_inverse_cuda(*args)
+    gx = torch.randn_like(root)
+    got = torch.autograd.grad(root, args, gx)
+    assert cm.LAUNCHES["mixture_inverse_bwd"] == \
+        before["mixture_inverse_bwd"] + 1
+    want = nm.mixture_inverse_vjp(root.detach(), pi, mu, ls, gx)
+    for a, w in zip(got, want):
+        assert _rel(a, w) <= 1e-4
     with torch.no_grad():
-        assert cm.mixture_inverse_cuda(x, pi, mu, ls).shape == x.shape
+        assert torch.equal(cm.mixture_inverse_cuda(y, pi, mu, ls),
+                           root.detach())
     net = _net("float32", dev)
     xr = torch.randn(2, 16, 4, device=dev, requires_grad=True)
     with pytest.raises(RuntimeError, match="autograd graph"):
@@ -810,3 +823,68 @@ def test_scanned_set_stack_remat_on_card(dev):
     for k, g in g0.items():
         assert g is not None and bool(torch.isfinite(g).all()), k
         _close(g1[k], g, 1e-5)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_mixture_inverse_bwd_against_the_exact_derivative(dev, seed):
+    """#1' at the encoders' shapes (M = 16,384 and 65,536, K = 4, the
+    parameters as strided slices of one leaf) by chip_smoke's rule: each
+    gradient within INV_BWD_REL of the exact derivative (central
+    differences of the plain inverse in float64) and within
+    INV_BWD_PLAIN_REL of the plain implicit rule at the kernel's root;
+    autograd through the plain fp32 inverse, the control, reads above
+    INV_BWD_REL; and #1 passes the residual rule there."""
+    for name, (y, pi, mu, ls) in cs.encoder_inverse_cases(seed,
+                                                          dev).items():
+        g = torch.Generator(dev).manual_seed(seed + 40)
+        gx = torch.randn(y.shape, generator=g, device=dev)
+        cs.inverse_bwd_readings(y, pi, mu, ls, gx, f"{name}, seed {seed}")
+        x = cm.mixture_inverse_cuda(y, pi, mu, ls)
+        x_p = nm.mixture_inverse_logit_cdf(y, pi, mu, ls)
+        assert not cs.inverse_failures(x, x_p, y, pi, mu, ls, name)
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["set40", "mask"])
+def test_refused_calls_raise_on_the_card(dev, cd, case):
+    """A set of 40 and a call with a key mask, which the kernels do not
+    take, raise on the card rather than run the plain path there, with or
+    without grad; no kernel launches."""
+    net = _net(cd, dev)
+    set_size = 40 if case == "set40" else 16
+    x = torch.randn(4, set_size, 4, device=dev, requires_grad=True)
+    mask = None
+    if case == "mask":
+        mask = (torch.arange(set_size, device=dev)[None]
+                < torch.tensor([[16], [9], [3], [12]], device=dev)).float()
+    err = NotImplementedError if case == "mask" else ValueError
+    before = (dict(ft.LAUNCHES), dict(ft.BWD_LAUNCHES))
+    for grad in (False, True):
+        with torch.set_grad_enabled(grad), pytest.raises(err):
+            net(x, mask=mask)
+    assert (dict(ft.LAUNCHES), dict(ft.BWD_LAUNCHES)) == before
+
+
+def test_fused_bf16_at_the_vardeq_main_flow_shape(dev):
+    """#3 and #4 in bf16 at the vardeq main flow's coupling net (in 1, out
+    26, 16,384 rows), held by chip_smoke's rules: the forward within
+    BF16_FWD_REL of plain_forward, the backward within 0.03 of each
+    gradient of autograd through it."""
+    g = torch.Generator(dev).manual_seed(3)
+    x = torch.randn(1024, 16, 1, generator=g, device=dev)
+    net = cs.flagship_net("bfloat16", dev, 1, cs.VARDEQ_OUT)
+    assert cs.fused_fwd_report(net, x)["rel_err"] <= cs.BF16_FWD_REL
+    gy = torch.randn(1024, 16, cs.VARDEQ_OUT, generator=g,
+                     device=dev).to(torch.bfloat16)
+    assert cs.fused_bwd_report(net, x, gy, "in 1, out 26")["rel_err"] \
+        <= 0.03
+
+
+def test_vardeq_train_step_against_fp64(dev):
+    """One fp32 train step of runs/sum_vardeq at full width on the card,
+    #1' in the encoder, held per tensor by chip_smoke's rule against the
+    same step in float64 on the CPU with the same implicit rule; the
+    control, the CPU step through the inverse's loop, reads over the limit
+    on some encoder tensor."""
+    launches = cs.check_vardeq_step_against_cpu(0, {})
+    assert launches["mixture_inverse_bwd"] > 0

@@ -31,13 +31,15 @@ from categoricalnf_tpu.ops import numerics as jnm
 from categoricalnf_tpu.ops.pallas.mixture import mixture_inverse_pallas
 from categoricalnf_tpu_torch.ops import numerics as nm
 from categoricalnf_tpu_torch.ops.cuda import build
-from categoricalnf_tpu_torch.ops.cuda.mixture import NUM_ITERS
+from categoricalnf_tpu_torch.ops.cuda.mixture import MAX_ITERS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F32 = np.float32
 # The geometry and constants csrc/mixture.cu builds the inverse with
 INV_LANES, THREADS = 1, 256
 CONVERGED, LINEAR_MAX_Y, LINEAR_MIN = 2.0 ** -20, 64.0, 2.0 ** -100
+BRACKET_SLACK = 2.0 ** -21
+TPU_ITERS = 24  # the TPU kernel's rtsafe iterations, for every element
 SIZES = [1, 91, 256, 65_536]
 KS = [1, 3, 8, 16]
 
@@ -72,7 +74,9 @@ def test_geometry_mirrors_the_source():
     assert float.fromhex(re.search(r"kLinearMin = (0x[0-9a-fp.+-]+)f;", src)
                          .group(1)) == LINEAR_MIN
     assert int(re.search(r"kThreads = (\d+);", src).group(1)) == THREADS
-    assert int(re.search(r"kNumIters = (\d+);", src).group(1)) == NUM_ITERS
+    assert int(re.search(r"kMaxIters = (\d+);", src).group(1)) == MAX_ITERS
+    assert float.fromhex(re.search(r"kBracketSlack = (0x[0-9a-fp.+-]+)f;",
+                                   src).group(1)) == BRACKET_SLACK
     entry = src[src.index("int mixture_inverse_f32("):]
     entry = re.sub(r"\s+", " ",
                    entry[:entry.index("return (int)cudaGetLastError")])
@@ -184,7 +188,12 @@ def rtsafe_update(g, step, g_floor, x, lo, hi, dx_old, converged=True):
 def model(y, pi, mu, ls, converged=True):
     """The inverse kernel's arithmetic on [...] y and [..., K] parameters,
     element by element in fp32 (the sums in the per-element loop's order,
-    which the relays keep): x."""
+    which the relays keep): x, the iterate with the least |g|, each element
+    stopping once it is done (``rtsafe_done``: no float left between the
+    bracket's ends, or the best |g| at the floor and not bettered) or after
+    MAX_ITERS.  Without ``converged``, the TPU kernel's rtsafe: no
+    convergence floor, no slack in the bracket, TPU_ITERS iterations, the
+    last iterate returned."""
     k = pi.shape[-1]
     y = np.asarray(y, F32).reshape(-1)
     logit = np.asarray(pi, F32).reshape(-1, k)
@@ -193,18 +202,42 @@ def model(y, pi, mu, ls, converged=True):
     neg_ls = -np.clip(np.asarray(ls, F32).reshape(-1, k), nm.LOG_SCALE_MIN,
                       nm.LOG_SCALE_MAX)
     inv_s = np.exp(neg_ls)
-    cand = fma(np.exp(-neg_ls), y[:, None], mean)
-    lo0, hi0 = cand.min(axis=1), cand.max(axis=1)
+    if converged:
+        sy = (np.exp(-neg_ls) * y[:, None]).astype(F32)
+        cand = (mean + sy).astype(F32)
+        margin = (F32(BRACKET_SLACK) * (np.abs(mean) + np.abs(sy))).astype(
+            F32)
+        lo0 = (cand - margin).astype(F32).min(axis=1)
+        hi0 = (cand + margin).astype(F32).max(axis=1)
+    else:
+        cand = fma(np.exp(-neg_ls), y[:, None], mean)
+        lo0, hi0 = cand.min(axis=1), cand.max(axis=1)
     g_floor = (F32(CONVERGED) * (1 + np.abs(y))).astype(F32)
 
     def loop(evaluate):
         x, lo, hi = (F32(0.5) * (lo0 + hi0)).astype(F32), lo0, hi0
         dx_old = (hi0 - lo0).astype(F32)
-        for _ in range(NUM_ITERS):
-            g, step = evaluate(x)
-            x, lo, hi, dx_old = rtsafe_update(g, step, g_floor, x, lo, hi,
-                                              dx_old, converged)
-        return x
+        if not converged:
+            for _ in range(TPU_ITERS):
+                g, step, _ = evaluate(x)
+                x, lo, hi, dx_old = rtsafe_update(g, step, g_floor, x, lo,
+                                                  hi, dx_old, False)
+            return x
+        x_best, g_best = x, np.full(x.shape, np.inf, F32)
+        done = np.zeros(x.shape, bool)
+        for _ in range(MAX_ITERS):
+            if done.all():
+                break
+            g, step, known = evaluate(x)
+            better = known & (np.abs(g) < g_best) & ~done
+            x_best = np.where(better, x, x_best)
+            g_best = np.where(better, np.abs(g), g_best)
+            new = rtsafe_update(g, step, g_floor, x, lo, hi, dx_old)
+            x, lo, hi, dx_old = (np.where(done, a, b) for a, b in
+                                 zip((x, lo, hi, dx_old), new))
+            done |= ((np.nextafter(lo, F32(np.inf)) >= hi)
+                     | ((g_best <= g_floor) & ~better))
+        return np.where(np.isfinite(g_best), x_best, x)
 
     def log_domain(x):
         with np.errstate(invalid="ignore", over="ignore", divide="ignore"):
@@ -216,7 +249,7 @@ def model(y, pi, mu, ls, converged=True):
             lc, ls_, lp = (_logsumexp(v) for v in (
                 a, b, (log_pi + lsp + lsn + neg_ls).astype(F32)))
             g = (lc - ls_ - y).astype(F32)
-            return g, (g * np.exp(lc + ls_ - lp)).astype(F32)
+            return g, (g * np.exp(lc + ls_ - lp)).astype(F32), True
 
     t_scale = (inv_s * F32(1.4426950408889634)).astype(F32)
     w = np.exp(log_pi)
@@ -239,7 +272,7 @@ def model(y, pi, mu, ls, converged=True):
             g = (np.log((F / S).astype(F32)) - y).astype(F32)
             step = (g * (F * S) / f).astype(F32)
         return (np.where(ok, g, np.where(S < F, F32(1), F32(-1))),
-                np.where(ok, step, F32(np.nan)))
+                np.where(ok, step, F32(np.nan)), ok)
 
     return np.where(np.abs(y) > LINEAR_MAX_Y, loop(log_domain),
                     loop(linear))
@@ -284,14 +317,15 @@ def cases():
     return out
 
 
-CASES = ["flagship", "k3", "sample4", "k16", "tails"]
+CASES = ["flagship", "k3", "sample4", "k16", "tails", "peaked"]
 
 
 @pytest.mark.parametrize("name", CASES)
 def test_model_passes_the_residual_rule(cases, name):
     """The model at chip_smoke's cases (M = 65,536 with K = 8 and 3, a
-    /sample of 4 sets, K = 16, the tails at y = +-60 and +-90) within
-    max(2 e_p, tau) on every element."""
+    /sample of 4 sets, K = 16, the tails at y = +-60 and +-90, the peaked
+    mixtures of a random coupling net) within max(2 e_p, tau) on every
+    element."""
     y, pi, mu, ls, x_p = cases[name]
     x = torch.from_numpy(model(*(t.numpy() for t in (y, pi, mu, ls))))
     assert cs.inverse_failures(x.reshape(y.shape), x_p, y, pi, mu, ls,
@@ -310,12 +344,24 @@ def test_residual_rule_passes_plain_and_refuses_the_control(cases, name):
 
 
 def test_residual_rule_refuses_rtsafe_without_its_floor(cases):
-    """Without the convergence floor (the TPU kernel's update) some elements
-    that converged from one side are thrown back by a bisection of the wide
-    bracket, and the rule refuses them at M = 65,536; x stays within 1e-4
-    of the plain version, so that test could not tell."""
+    """Without the convergence floor and the best iterate (the TPU kernel's
+    rtsafe, which returns its last iterate) some elements that converged
+    from one side are thrown back by a bisection of the wide bracket, and
+    the rule refuses them at M = 65,536; x stays within 1e-4 of the plain
+    version, so that test could not tell."""
     y, pi, mu, ls, x_p = cases["flagship"]
     x = torch.from_numpy(model(*(t.numpy() for t in (y, pi, mu, ls)),
                                converged=False)).reshape(y.shape)
     assert cs.inverse_failures(x, x_p, y, pi, mu, ls, "no floor")
     assert float((x - x_p).abs().max()) < 1e-4
+
+
+def test_residual_rule_refuses_the_tpu_rtsafe_on_peaked_mixtures(cases):
+    """The peaked mixtures of a coupling net with random output weights
+    (wide brackets around a narrow root): the TPU kernel's rtsafe (24
+    iterations, the last one returned, no slack in the bracket) leaves
+    elements far over the rule, which the model of this kernel passes."""
+    y, pi, mu, ls, x_p = cases["peaked"]
+    x = torch.from_numpy(model(*(t.numpy() for t in (y, pi, mu, ls)),
+                               converged=False)).reshape(y.shape)
+    assert cs.inverse_failures(x, x_p, y, pi, mu, ls, "TPU rtsafe")

@@ -354,5 +354,7 @@ def test_entry_points_need_a_card_unless_told(tmp_path):
         SetShufflingTask(**TINY)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_task("graph_coloring", {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_task("set_summation", {})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_task("set_summation", {}, device="cpu")
+        build_task("lm_synthetic_markov", {}, device="cpu")

@@ -21,8 +21,9 @@ flagship's K = 8 launches it gives the instructions an element and the time
 the busiest of the SMs' warp schedulers needs to issue them at M = 65,536
 and M = 256 at the card's top clock.  The count is static: every instruction
 once a lane, branches not followed, except the inverse's rtsafe loop (the
-code between a backward branch and its target), whose body counts 24 times
-(``NUM_ITERS``); where the kernel has two such loops, the linear domain's
+code between a backward branch and its target), whose body counts its cap
+of 48 times (``MAX_ITERS``; an element stops earlier once it is done, so
+this is an upper count); where the kernel has two such loops, the linear domain's
 and the log domain's for |y| > 64, only the shorter runs (no element of
 the timed cases has |y| > 64).  The backward runs with the log-scales times 6,
 so that many lie outside the clip, as chip_smoke's check does.  The inverse
@@ -179,12 +180,16 @@ def _issue_us(counts: dict, ms=(65_536, 256)) -> dict:
     """For the instances the flagship's K = 8 launches (one thread an
     element with KMAX = 8; or G lanes of C components, G * C = 8, built for
     a full group): the instructions an element (G lanes' worth; for the
-    inverse, the shorter loop's body ``NUM_ITERS`` times, the rest once) and
+    inverse, the shorter loop's body ``MAX_ITERS`` times, or the fixed
+    count of a tree from before the early stop, the rest once) and
     the time the busiest warp scheduler (4 an SM; blocks of 256 threads
     spread evenly over the SMs) needs to issue its warps' instructions at
     the card's top SM clock, in microseconds, at each M of ``ms``."""
     import torch
-    from categoricalnf_tpu_torch.ops.cuda.mixture import NUM_ITERS
+    from categoricalnf_tpu_torch.ops.cuda import mixture as cm
+    # the tree's loop count: its cap, or its fixed count in a tree from
+    # before the inverse stopped each element once done
+    loop_count = getattr(cm, "MAX_ITERS", None) or cm.NUM_ITERS
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -199,7 +204,7 @@ def _issue_us(counts: dict, ms=(65_536, 256)) -> dict:
             continue
         per_lane = c["instructions"]
         if name.startswith("mixture_inverse") and c["loops"]:
-            per_lane = c["outside"] + NUM_ITERS * c["loops"][0]
+            per_lane = c["outside"] + loop_count * c["loops"][0]
         issue = {}
         for m in ms:
             blocks = -(-m * lanes // 256)
