@@ -12,7 +12,12 @@ the port holds one block of modules for each depth
 along that axis.  An encoding's own flow (the dequantization and
 linear-flows encodings: ``{"embed", "flow", ...}``) is a tuple of per-layer
 trees as well, held as ``encoding.flow.layers.<i>``; a learned decoder's
-tree is ``encoding.decoder``.  Imports no JAX.
+tree is ``encoding.decoder``.  A parametric prior's tree (the HMM prior's
+``start_logits``, ``trans_logits``, ``means``, ``log_scales``) is the last
+entry of the reference's flow tuple and the port's ``flow.prior``.  The
+LSTM's cells and head keep the reference's names (``net.cells.<i>.wx.w``,
+``net.out.b``), and the autoregressive layers' ``mean_offsets`` and
+``feat`` theirs.  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -57,13 +62,18 @@ def _split_depth(entry) -> dict:
 
 def from_jax_params(task, params) -> dict:
     """A ``state_dict`` for ``task.model`` from the reference's params."""
+    flow = list(params["flow"])
+    prior = {}
+    if isinstance(task.model.flow.prior, torch.nn.Module):
+        prior = flow.pop()
     flow = [_split_depth(e) if isinstance(e, (list, tuple)) else e
-            for e in params["flow"]]
+            for e in flow]
     enc = dict(params["encoding"])
     enc_flow = enc.pop("flow", ())
     flat = {**flatten_tree(enc, "encoding."),
             **flatten_tree(list(enc_flow), "encoding.flow.layers."),
-            **flatten_tree(flow, "flow.layers.")}
+            **flatten_tree(flow, "flow.layers."),
+            **flatten_tree(prior, "flow.prior.")}
     want = task.model.state_dict()
     missing = sorted(set(want) - set(flat))
     extra = sorted(set(flat) - set(want))

@@ -131,6 +131,40 @@ __device__ __forceinline__ float group_dot(const float (&a)[C],
   return run;
 }
 
+// s + e = a + b exactly (Knuth's TwoSum), every operation rounded once.
+__device__ __forceinline__ float two_sum(float a, float b, float& e) {
+  const float s = __fadd_rn(a, b);
+  const float bb = __fsub_rn(s, a);
+  e = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb));
+  return s;
+}
+
+// group_dot compensated (Ogita, Rump and Oishi's Dot2): each product's and
+// each sum's rounding error, taken exactly by an fmaf and TwoSum, is
+// summed beside the sum and added once at the end, so the result is as
+// accurate as a sum in twice the precision rounded to fp32.  The sum and
+// its error term relay from lane to lane as group_dot's sum does.
+template <int G, int C>
+__device__ __forceinline__ float group_dot2(const float (&a)[C],
+                                            const float (&b)[C]) {
+  float run = 0.0f, run_err = 0.0f;
+#pragma unroll
+  for (int t = 0; t < G; ++t) {
+    float mine = run, mine_err = run_err;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float p = __fmul_rn(a[c], b[c]);
+      float e;
+      mine = two_sum(mine, p, e);
+      mine_err = __fadd_rn(mine_err, __fadd_rn(__fmaf_rn(a[c], b[c], -p),
+                                               e));
+    }
+    run = from_lane<G>(mine, t);
+    run_err = from_lane<G>(mine_err, t);
+  }
+  return __fadd_rn(run, run_err);
+}
+
 // The sum of exp(v - m) over the group's components that are on.
 template <int G, int C>
 __device__ __forceinline__ float group_sum_exp(const float (&v)[C],
@@ -320,8 +354,9 @@ __global__ void mixture_forward_bwd_kernel(
 // all its elements are, or after kMaxIters, where the TPU kernel runs 24
 // iterations for every element.  An element takes a group of lanes as the forward's
 // (kInvLanes for K <= 8, twice as many for K <= 16, C = 8 / kInvLanes
-// components a lane), and every lane of the group runs the element's rtsafe
-// update on the same values, so that the group stays in step.
+// components a lane; kWideInvLanes for K <= 32), and every lane of the
+// group runs the element's rtsafe update on the same values, so that the
+// group stays in step.
 //
 // An iterate is evaluated in one of two domains.
 // - Linear, for every element with |y| <= kLinearMaxY: with e = exp(-|z|)
@@ -347,6 +382,14 @@ __global__ void mixture_forward_bwd_kernel(
 
 // |g| at or below kConverged (1 + |y|) counts as converged (rtsafe_update):
 // 16 ulps of 1 + |y|, about g's rounding error in either domain.
+//
+// The wide groups (16 < K <= 32) sum F and S compensated (group_dot2).  A
+// plain fmaf chain of 32 terms rounds 32 times: on the language models'
+// samples its error in g reached 5e-7 to 1e-6, the convergence floor's
+// size, so that the best iterate by the computed |g| was at times not the
+// best by the true one (a residual 1.28 times the check's limit, PERF.md).
+// Compensated, F and S carry about one rounding each; K <= 16 keeps the
+// plain chains and its bits.
 constexpr float kConverged = 0x1p-20f;
 constexpr float kLinearMaxY = 64.0f;
 constexpr float kLinearMin = 0x1p-100f;
@@ -544,8 +587,14 @@ __device__ __forceinline__ float rtsafe_linear(const LinParams<C>& q,
       sig_neg[c] = t >= 0.0f ? s : r;
       sig_pair[c] = r * s;
     }
-    const float F = group_dot<G, C>(q.w, sig);
-    const float S = group_dot<G, C>(q.w, sig_neg);
+    float F, S;
+    if constexpr (G * C > 16) {  // the wide groups, compensated (above)
+      F = group_dot2<G, C>(q.w, sig);
+      S = group_dot2<G, C>(q.w, sig_neg);
+    } else {
+      F = group_dot<G, C>(q.w, sig);
+      S = group_dot<G, C>(q.w, sig_neg);
+    }
     const float f = group_dot<G, C>(q.w_pdf, sig_pair);
     if (done) continue;
     float g, step;
@@ -628,6 +677,15 @@ constexpr int kFwdLanes = 2, kBwdLanes = 4;
 // more lanes only at small M (PERF.md).
 constexpr int kInvLanes = 1;
 
+// Lanes an element for 16 < K <= 32, each lane holding 32 / lanes
+// components (the language models' K = 32).  The split does not change a
+// bit: every sum over the components runs in their order j = 0, 1, ...
+// whatever the lanes, so only the time of each choice was compared on an
+// H100, at the LM path's M = 131,072 (a train step) and 512 and 16
+// (sampling): 8 lanes were the fastest or within 6% of it for each kernel
+// (PERF.md).
+constexpr int kWideFwdLanes = 8, kWideBwdLanes = 8, kWideInvLanes = 8;
+
 // A K that fills the groups (the flagship's K = 8) takes kernels built
 // without the test j < k.
 template <int G, int C>
@@ -680,14 +738,17 @@ inline void inverse_launch(const float* y, const float* pi, long pi_stride,
 extern "C" {
 
 // Each entry point returns cudaGetLastError() after its launch; the
-// Python wrapper checks k (1..16), shapes, strides and dtypes first.
+// Python wrapper checks k (1..32), shapes, strides and dtypes first.
 int mixture_inverse_f32(const float* y, const float* pi, long pi_stride,
                         const float* mu, long mu_stride, const float* ls,
                         long ls_stride, float* out, int* iters, long m, int k,
                         void* stream) {
   if (m == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  if (k <= 8)
+  if (k > 16)
+    inverse_launch<kWideInvLanes, 32 / kWideInvLanes>(
+        y, pi, pi_stride, mu, mu_stride, ls, ls_stride, out, iters, m, k, s);
+  else if (k <= 8)
     inverse_launch<kInvLanes, 8 / kInvLanes>(y, pi, pi_stride, mu, mu_stride,
                                              ls, ls_stride, out, iters, m, k,
                                              s);
@@ -703,7 +764,10 @@ int mixture_forward_f32(const float* x, const float* pi, long pi_stride,
                         void* stream) {
   if (m == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  if (k <= 8)
+  if (k > 16)
+    forward_launch<kWideFwdLanes, 32 / kWideFwdLanes>(
+        x, pi, pi_stride, mu, mu_stride, ls, ls_stride, y, ldj, m, k, s);
+  else if (k <= 8)
     forward_launch<kFwdLanes, 8 / kFwdLanes>(x, pi, pi_stride, mu, mu_stride,
                                              ls, ls_stride, y, ldj, m, k, s);
   else
@@ -720,7 +784,11 @@ int mixture_forward_bwd_f32(const float* x, const float* pi, long pi_stride,
                             long m, int k, void* stream) {
   if (m == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  if (k <= 8)
+  if (k > 16)
+    bwd_launch<kWideBwdLanes, 32 / kWideBwdLanes>(
+        x, pi, pi_stride, mu, mu_stride, ls, ls_stride, gy, gldj, gx, gpi,
+        gmu, gls, m, k, s);
+  else if (k <= 8)
     bwd_launch<kBwdLanes, 8 / kBwdLanes>(x, pi, pi_stride, mu, mu_stride, ls,
                                          ls_stride, gy, gldj, gx, gpi, gmu,
                                          gls, m, k, s);

@@ -4,7 +4,12 @@ from categoricalnf_tpu_torch.flows.cond_affine import ConditionalAffine
 from categoricalnf_tpu_torch.flows.coupling import (MixtureCDFCoupling,
                                                     make_channel_mask,
                                                     make_checker_mask)
-from categoricalnf_tpu_torch.flows.distributions import LogisticPrior
+from categoricalnf_tpu_torch.flows.autoregressive import \
+    AutoregressiveMixtureCDF
+from categoricalnf_tpu_torch.flows.distributions import (GaussianPrior,
+                                                         HMMPrior,
+                                                         LogisticPrior,
+                                                         create_prior)
 from categoricalnf_tpu_torch.flows.linear import InvertibleLinear
 from categoricalnf_tpu_torch.flows.model import FlowModel
 from categoricalnf_tpu_torch.flows.scanned import ScannedBlocks
@@ -12,8 +17,9 @@ from categoricalnf_tpu_torch.flows.sigmoid import Logit, Sigmoid
 from categoricalnf_tpu_torch.flows.softclamp import SoftClamp
 
 __all__ = [
-    "Transform", "apply_mask", "sum_ldj", "ActNorm", "ConditionalAffine",
-    "MixtureCDFCoupling", "make_channel_mask", "make_checker_mask",
-    "LogisticPrior", "InvertibleLinear", "FlowModel", "Logit",
-    "ScannedBlocks", "Sigmoid", "SoftClamp",
+    "Transform", "apply_mask", "sum_ldj", "ActNorm",
+    "AutoregressiveMixtureCDF", "ConditionalAffine", "MixtureCDFCoupling",
+    "make_channel_mask", "make_checker_mask", "GaussianPrior", "HMMPrior",
+    "LogisticPrior", "create_prior", "InvertibleLinear", "FlowModel",
+    "Logit", "ScannedBlocks", "Sigmoid", "SoftClamp",
 ]

@@ -1,7 +1,9 @@
 """Flow composition: an ordered stack of Transforms plus a prior.
 
-Counterpart of ``categoricalnf_tpu/flows/model.py`` with a non-parametric
-prior only (the logistic prior of the set tasks).
+Counterpart of ``categoricalnf_tpu/flows/model.py``.  A parametric prior
+(``HMMPrior``) is an ``nn.Module`` and so a submodule, ``flow.prior``, whose
+parameters the optimizer trains with the layers' (the reference carries
+them as the last entry of the flow's parameter tuple).
 """
 
 from __future__ import annotations

@@ -29,6 +29,9 @@ def _task_class(task_name: str):
     if task_name == "graph_coloring":
         from categoricalnf_tpu_torch.tasks import GraphColoringTask
         return GraphColoringTask
+    if task_name.startswith("lm_"):
+        from categoricalnf_tpu_torch.tasks import LanguageModelingTask
+        return LanguageModelingTask
     raise NotImplementedError(
         f"task {task_name!r} is not ported yet (ROADMAP.md, Queue A)")
 

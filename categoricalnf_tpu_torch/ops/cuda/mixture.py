@@ -24,7 +24,7 @@ import torch
 
 from categoricalnf_tpu_torch.ops.cuda import build
 
-MAX_K = 16
+MAX_K = 32
 # the inverse's cap on rtsafe iterations: kMaxIters in csrc/mixture.cu (an
 # element stops earlier once it is done; ``mixture_inverse_iterations``
 # reads how many it ran)

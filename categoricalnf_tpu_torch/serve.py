@@ -1,8 +1,8 @@
 """Serve a finished run over HTTP: samples, sample-quality metrics, info.
 
 Counterpart of ``experiments/serve.py`` for the port: the set-shuffling,
-set-summation and graph-coloring tasks.  Device work is serialized behind a lock; the
-HTTP layer is the stdlib server.
+set-summation, graph-coloring and language-modeling tasks.  Device work is
+serialized behind a lock; the HTTP layer is the stdlib server.
 
 Endpoints:
   GET  /health         -> {"status": "ok", "task": ..., "step": N}
@@ -10,7 +10,8 @@ Endpoints:
   POST /sample         -> {"num_samples": int, "temperature": float}
                           -> {"samples": [...]}: sets as token lists;
                           colorings as {"edges", "colors", "valid"} of
-                          fresh random graphs
+                          fresh random graphs; text as strings of
+                          seq_len characters
   POST /sample_metrics -> same body; the task's sample_metrics dict
 
 Usage (on a machine with a CUDA card):
@@ -31,6 +32,7 @@ import torch
 from categoricalnf_tpu_torch.inference import load_run
 from categoricalnf_tpu_torch.tasks.graph_coloring import (GraphColoringTask,
                                                           coloring_validity)
+from categoricalnf_tpu_torch.tasks.language import LanguageModelingTask
 from categoricalnf_tpu_torch.tasks.set_modeling import (SetShufflingTask,
                                                         SetSummationTask,
                                                         _sample_set)
@@ -61,6 +63,8 @@ def _sample_payload(task, generator, n: int, temperature: float):
                 "colors": [int(c) for c in x[b, :k]],
                 "valid": bool(valid[b])})
         return out
+    if isinstance(task, LanguageModelingTask):
+        return task.sample_text(n, temperature, generator)
     raise ValueError(f"no sample payload for task {type(task).__name__}")
 
 

@@ -7,11 +7,19 @@ alarmed eval never becomes best) beside periodic "last" ones, resume from
 the newer of the two with the best re-evaluated, SIGTERM handling, and the
 final phase (sample metrics of the best parameters, then ``test``).
 
+``steps_per_call = K > 1`` takes the training batches in groups of K, as
+the reference's ``[K, B, ...]`` stacks (the first group's first batch
+data-initialises the model), runs each group's K steps in one call of an
+eager loop, and fires the logging, eval and checkpoint cadences where a
+call crosses them; a remainder that does not fill a group (at the end, or
+after a resume off a multiple of K) runs as single steps on batches of a
+stream of its own, seeded ``seed + 17``.  The steps and their noise are
+those of K = 1 on the same batches.
+
 Differences from the reference: the step runs eagerly (no jit, mesh or
 profiler); the per-step noise comes from a ``torch.Generator`` seeded from
 ``(seed, step)``, so a resume reproduces the stream; ``steps_per_s`` counts
 training steps only (the clock restarts after an eval or a save).
-``steps_per_call > 1`` is not ported (ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
@@ -35,8 +43,12 @@ from categoricalnf_tpu_torch.training.state import (OptimizerConfig,
 from categoricalnf_tpu_torch.training.task import TaskTemplate
 
 # streams of the step generators beside the training steps' own: data
-# init, evaluations (offset by the step), final samples, the test split
-_DATA_INIT, _EVAL, _FINAL_SAMPLES, _TEST = 999, 2**30, 777, 2**31
+# init, evaluations (offset by the step), final samples and the samples
+# written to the run directory, the test split
+_DATA_INIT, _EVAL, _FINAL_SAMPLES, _ARTIFACTS, _TEST = (999, 2**30, 777, 778,
+                                                       2**31)
+# the seed offset of the remainder's batch stream when steps_per_call > 1
+_REMAINDER_STREAM = 17
 
 
 def step_generator(device, *key: int) -> torch.Generator:
@@ -62,11 +74,17 @@ class TrainConfig:
     steps_per_call: int = 1
 
 
+def grouped(batches, k: int):
+    """Lists of ``k`` consecutive batches of ``batches``."""
+    while True:
+        yield [next(batches) for _ in range(k)]
+
+
 class Trainer:
     def __init__(self, task: TaskTemplate, config: TrainConfig):
-        if config.steps_per_call != 1:
-            raise NotImplementedError(
-                "steps_per_call > 1 is not ported yet (ROADMAP.md, Queue A)")
+        if config.steps_per_call < 1:
+            raise ValueError(f"steps_per_call must be at least 1, got "
+                             f"{config.steps_per_call}")
         self.task = task
         self.config = config
         self.beta_fn = config.beta_schedule.build()
@@ -128,9 +146,11 @@ class Trainer:
 
     def train(self, resume: bool = True) -> dict:
         cfg, task = self.config, self.task
+        batches = task.train_batches(np.random.default_rng(cfg.seed))
+        if cfg.steps_per_call > 1:
+            batches = grouped(batches, cfg.steps_per_call)
         data_iter = Prefetcher(
-            task.train_batches(np.random.default_rng(cfg.seed)),
-            transform=pin if task.device.type == "cuda" else None)
+            batches, transform=pin if task.device.type == "cuda" else None)
         ckpt = ckpt_last = None
         if cfg.out_dir:
             ckpt = CheckpointManager(cfg.out_dir)
@@ -143,7 +163,8 @@ class Trainer:
             if cands:
                 restore_src = max(cands, key=lambda c: c.latest_step())
         if restore_src is None:
-            self.init_model(next(data_iter))
+            calib = next(data_iter)
+            self.init_model(calib[0] if cfg.steps_per_call > 1 else calib)
         else:
             task.init_params(cfg.seed)
         self.state = state = TrainState.create(task.model, cfg.optimizer)
@@ -183,24 +204,44 @@ class Trainer:
             data_iter.close()
             self.logger.close()
 
+    def _step(self, state, batch):
+        """One train step on ``batch`` (on the task's device): the loss at
+        beta of the step, its backward, the clipped update.  Returns (loss,
+        gradient norm, beta)."""
+        cfg, task = self.config, self.task
+        beta = self.beta_fn(state.step)
+        gen = step_generator(task.device, cfg.seed, state.step)
+        loss = task.loss(batch, beta, generator=gen)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        return loss, state.apply_gradients(), beta
+
     def _train_loop(self, data_iter, state, ckpt, ckpt_last,
                     best_bpd) -> dict:
         cfg, task = self.config, self.task
         model = task.model
+        per_call = cfg.steps_per_call
+        # the remainder's batches: a fresh stream, the grouped one is the
+        # prefetcher's
+        single = (task.train_batches(np.random.default_rng(
+            cfg.seed + _REMAINDER_STREAM)) if per_call > 1 else data_iter)
         best_state = None
         t_last, steps_since = time.perf_counter(), 0
         while state.step < cfg.num_steps and not self._stop_requested:
-            batch = to_device(next(data_iter), task.device)
-            beta = self.beta_fn(state.step)
-            gen = step_generator(task.device, cfg.seed, state.step)
-            loss = task.loss(batch, beta, generator=gen)
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            gnorm = state.apply_gradients()
+            prev = state.step
+            if per_call > 1 and prev + per_call <= cfg.num_steps:
+                group = to_device(next(data_iter), task.device)
+            else:
+                group = [to_device(next(single), task.device)]
+            for batch in group:
+                loss, gnorm, beta = self._step(state, batch)
             step = state.step
-            steps_since += 1
+            steps_since += step - prev
 
-            if step % cfg.log_every == 0:
+            def crossed(every):  # a cadence boundary inside (prev, step]
+                return step // every > prev // every
+
+            if crossed(cfg.log_every):
                 # reading the loss waits for the step: the rate is wall time
                 m = {"loss": float(loss.detach()),
                      "grad_norm": float(gnorm) if gnorm is not None else 0.0,
@@ -210,7 +251,7 @@ class Trainer:
                 self.logger.log(step, m, "train")
                 t_last, steps_since = time.perf_counter(), 0
 
-            if step % cfg.eval_every == 0 or step == cfg.num_steps:
+            if crossed(cfg.eval_every) or step == cfg.num_steps:
                 is_final = step == cfg.num_steps
                 ev = self.evaluate(cfg.final_eval_samples if is_final
                                    else cfg.eval_samples, _EVAL + step - 1)
@@ -243,6 +284,9 @@ class Trainer:
             final["preempted"] = 1.0
         final.update(task.sample_metrics(generator=step_generator(
             task.device, cfg.seed, _FINAL_SAMPLES)))
+        if cfg.out_dir:
+            task.sample_artifacts(cfg.out_dir, generator=step_generator(
+                task.device, cfg.seed, _ARTIFACTS))
         test_metrics = self.test()
         final.update(test_metrics)
         self.logger.log(state.step, test_metrics, "test")

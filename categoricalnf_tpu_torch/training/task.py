@@ -96,6 +96,10 @@ class TaskTemplate:
     def sample_metrics(self, generator=None, **kw) -> dict:
         return {}
 
+    def sample_artifacts(self, out_dir: str, generator=None) -> None:
+        """Write samples of the model into ``out_dir`` (the LM's text);
+        optional."""
+
     def analytic_optimum_bpd(self):
         return None
 

@@ -50,7 +50,8 @@ def default_parser(description: str) -> argparse.ArgumentParser:
     g.add_argument("--beta_end", type=float, default=1.0)
     g.add_argument("--beta_warmup", type=int, default=2000)
     g.add_argument("--steps_per_call", type=int, default=1,
-                   help="optimizer steps per call; only 1 is ported")
+                   help="optimizer steps a call of the train loop; the "
+                   "cadences fire where a call crosses them")
     g.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda; raises without one)")
     m = p.add_argument_group("model")

@@ -16,11 +16,11 @@ Run from the root of a checkout on a machine with one NVIDIA card:
    chains; the backward kernels at a training step's 16,384 rows and
    M = 65,536, the fp32 backward and the FMA forward of a differentiable
    fp32 call at 4,096 and 16,384 rows; the mixture forward and its
-   backward also at K = 3 and K = 16 with M = 91), twice, with a
-   synchronize after each launch; times both with CUDA events around runs of
-   back-to-back launches.  The fp32 forward is also held to fp32's
-   accuracy (F32_FWD_REL) beside a control that a single TF32 pass reads
-   above it.  The mixture inverse is held by its residual in y
+   backward also at K = 3 and K = 16 with M = 91; K = 32 in 8.), twice,
+   with a synchronize after each launch; times both with CUDA events
+   around runs of back-to-back launches.  The fp32 forward is also held to
+   fp32's accuracy (F32_FWD_REL) beside a control that a single TF32 pass
+   reads above it.  The mixture inverse is held by its residual in y
    (``inverse_failures``: per element within max(2 e_p, tau) of the plain
    version's residual e_p and an fp32 floor tau) at the sampling path's
    sizes, at --seed and --seed + 1: a 1024-set chunk (M = 65,536) at K = 8
@@ -82,16 +82,35 @@ Run from the root of a checkout on a machine with one NVIDIA card:
    serves each run (/sample, /sample_metrics with sum_validity or
    permutation_validity), holds #1 on every inverse call of a sample of
    the served model with random coupling output layers and that model
-   against its CPU copy.  Last, runs/shuffle_decoder_mlp with seeded random
-   weights (not trained: its steps_per_call of 8 is not ported) served and
-   held against its CPU copy.  Then one fp32 train step of runs/sum_vardeq
-   (64 sets, #1' in the encoder) held per tensor against the same step in
-   float64 on the CPU, whose inverse takes the implicit rule too, by rule
-   (a) of 5., beside the CPU step through the inverse's loop (the
-   reference's gradient) as a control that must read over the limit.
-8. Prints one JSON line of kernel numbers (with the coloring's and the
-   dequantized flows' shapes, and every path's launches), then, as the
-   last line, {"ok": true, "device": {...}}.
+   against its CPU copy.  Then runs/shuffle_decoder_mlp (a learned MLP
+   decoder) as it is, at its steps_per_call of 8, trained and served the
+   same way.  Then one fp32 train step of runs/sum_vardeq (64 sets, #1' in
+   the encoder) held per tensor against the same step in float64 on the
+   CPU, whose inverse takes the implicit rule too, by rule (a) of 5.,
+   beside the CPU step through the inverse's loop (the reference's
+   gradient) as a control that must read over the limit.
+8. Language modeling.  First, with the kernel checks of 2., #1, #2 and
+   #2' at K = 32 at the LM path's M = 131,072 (a train step's density
+   pass), 512 (a sample batch of 128) and 16 (a /sample of 4): #1 by the
+   residual rule at --seed and --seed + 1 (with peaked mixtures and tails
+   at K = 32), #2 and #2' against their plain versions; each timed, with
+   the wide groups' registers and spills.  Then runs/lm_v6/config.json as
+   it is (full width and depth: 4 blocks of two autoregressive layers,
+   2-layer LSTMs of hidden 512 in bf16, K = 32, the HMM prior of 32
+   states, batch 128 of 256 characters) for LM_STEPS steps, its IS
+   bits/char on its 8 eval batches of 8 chains before and after, the final
+   sample metrics and the test: the losses finite and falling, every bpd
+   finite and above the analytic optimum, no alarm, #1, #2 and #2'
+   launched; prints language_modeling_train_samples_per_s with the peak
+   memory and the card's idle share from 2 steps traced with the host's
+   activity (on crops of 32 characters: the same operations for each
+   position); times the LSTMs and the HMM prior alone; holds #1 on every
+   inverse call of sample_metrics at 128 samples at --seed and --seed + 1;
+   serves the run (/health, /sample of 4 strings, a bad request) and holds
+   the served model, its heads random, against its CPU copy.
+9. Prints one JSON line of kernel numbers (with the coloring's, the
+   dequantized flows' and the LM's shapes, and every path's launches),
+   then, as the last line, {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA card, outside a checkout
 of the repo, or when any check fails.  Imports nothing of JAX.
@@ -881,17 +900,18 @@ def http_json(port, method, path, body=None):
 
 def randomize_coupling_nets(model, seed: int, scale: float = 0.05):
     """Seeded N(0, scale^2) weights for the output layer of every coupling
-    net of ``model`` (an encoder's MLP nets too, and those inside a
-    ``ScannedBlocks``), in module order: zero-initialised output layers
-    make every coupling the identity, random ones make the kernels'
-    results matter."""
+    net of ``model`` (an encoder's MLP nets too, those inside a
+    ``ScannedBlocks`` and the autoregressive layers' LSTMs), in module
+    order: zero-initialised output layers make every coupling the
+    identity, random ones make the kernels' results matter."""
     import torch
-    from categoricalnf_tpu_torch.flows import MixtureCDFCoupling
+    from categoricalnf_tpu_torch.flows import (AutoregressiveMixtureCDF,
+                                               MixtureCDFCoupling)
     from categoricalnf_tpu_torch.networks import MLP
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, MixtureCDFCoupling):
+            if isinstance(m, (MixtureCDFCoupling, AutoregressiveMixtureCDF)):
                 w = (m.net[-1] if isinstance(m.net, MLP) else m.net.out).w
                 w.copy_(torch.randn(w.shape, generator=g).to(w.device)
                         * scale)
@@ -1061,16 +1081,21 @@ TRAIN_STEPS, TRAIN_EVAL_EVERY, TRAIN_LOG_EVERY = 200, 100, 20
 PROFILE_WARMUP, PROFILE_STEPS = 5, 10
 
 
-def profile_steps(task, optimizer, seed: int) -> dict:
-    """Traces the card's kernels (torch.profiler, CUDA activity only) over
-    PROFILE_STEPS train steps of the trained model after PROFILE_WARMUP
-    untraced ones: the Trainer's step (batch to the card, loss, backward,
-    clip and update, a fresh optimizer), run after the measured training
-    so that the profiler cannot slow the steps the metric reads.  Gives
-    the wall ms a step (a synchronize at both ends), the device's busy ms a
-    step (the kernels' and copies' durations summed: one stream, so they do
-    not overlap), its idle share, and the busy time by kernel group and by
-    the largest kernels."""
+def profile_steps(task, optimizer, seed: int, *, warmup: int = PROFILE_WARMUP,
+                  steps: int = PROFILE_STEPS, host: bool = False,
+                  crop=None) -> dict:
+    """Traces the card's kernels (torch.profiler, CUDA activity; with
+    ``host`` the CPU's too) over ``steps`` train steps of the trained model
+    after ``warmup`` untraced ones, on batches cut to their first ``crop``
+    positions where it is given: the Trainer's step (batch to the card,
+    loss, backward, clip and update, a fresh optimizer), run after the
+    measured training so that the profiler cannot slow the steps the
+    metric reads.  Gives the wall ms a step (a synchronize at both ends),
+    the device's busy ms a step (the kernels' and copies' durations summed:
+    one stream, so they do not overlap), its idle share, and the busy time
+    by kernel group and by the largest kernels; with ``host``, the kernel
+    launches a step and the host's largest operators by their own time (the
+    profiler's overhead on the host is in the wall time then)."""
     import numpy as np
     import torch
     from categoricalnf_tpu_torch.data.prefetch import to_device
@@ -1078,27 +1103,39 @@ def profile_steps(task, optimizer, seed: int) -> dict:
 
     state = TrainState.create(task.model, optimizer)
     batches = task.train_batches(np.random.default_rng(seed + 11))
-    prof = torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CUDA])
-    for i in range(PROFILE_WARMUP + PROFILE_STEPS):
-        if i == PROFILE_WARMUP:
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    if host:
+        activities.append(torch.profiler.ProfilerActivity.CPU)
+    prof = torch.profiler.profile(activities=activities)
+    for i in range(warmup + steps):
+        if i == warmup:
             torch.cuda.synchronize()
             prof.__enter__()
             t0 = time.perf_counter()
-        loss = task.loss(to_device(next(batches), task.device), 1.0)
+        batch = next(batches)
+        if crop:
+            batch = {k: v[:, :crop] for k, v in batch.items()}
+        loss = task.loss(to_device(batch, task.device), 1.0)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.apply_gradients()
     torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+    wall = (time.perf_counter() - t0) * 1e3 / steps
     prof.__exit__(None, None, None)
     kernels: dict = {}
+    host_ops: dict = {}
+    launches = 0
     for evt in prof.key_averages():
         if str(evt.device_type).endswith("CUDA"):
             us = getattr(evt, "self_device_time_total", None)
             if us is None:
                 us = evt.self_cuda_time_total
             kernels[evt.key] = kernels.get(evt.key, 0.0) + us / 1e3
+        elif host:
+            host_ops[evt.key] = (evt.count, evt.self_cpu_time_total / 1e3)
+            if evt.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                           "cudaLaunchKernelExC"):
+                launches += evt.count
     if not kernels:
         return {"measured": False, "error": "no device time in the trace"}
     groups: dict = {}
@@ -1108,24 +1145,33 @@ def profile_steps(task, optimizer, seed: int) -> dict:
                                   "mixture_forward_bwd", "mixture_forward",
                                   "mixture_inverse")
                       if g in name), "plain torch")
-        groups[group] = groups.get(group, 0.0) + ms / PROFILE_STEPS
-    busy = sum(kernels.values()) / PROFILE_STEPS
+        groups[group] = groups.get(group, 0.0) + ms / steps
+    busy = sum(kernels.values()) / steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
-    return {"measured": True, "steps": PROFILE_STEPS,
-            "wall_ms_per_step": wall, "device_busy_ms_per_step": busy,
-            "device_idle_share": 1.0 - busy / wall,
-            "groups_ms_per_step": dict(sorted(groups.items())),
-            "groups_share_of_busy": {g: ms / busy
-                                     for g, ms in sorted(groups.items())},
-            "top_kernels_ms_per_step": [[k[:80], ms / PROFILE_STEPS]
-                                        for k, ms in top]}
+    out = {"measured": True, "steps": steps,
+           "wall_ms_per_step": wall, "device_busy_ms_per_step": busy,
+           "device_idle_share": 1.0 - busy / wall,
+           "groups_ms_per_step": dict(sorted(groups.items())),
+           "groups_share_of_busy": {g: ms / busy
+                                    for g, ms in sorted(groups.items())},
+           "top_kernels_ms_per_step": [[k[:80], ms / steps]
+                                       for k, ms in top]}
+    if host:
+        top_host = sorted(host_ops.items(), key=lambda kv: -kv[1][1])[:12]
+        out.update(
+            kernel_launches_per_step=launches / steps,
+            host_self_ms_per_step=sum(ms for _, ms in host_ops.values())
+            / steps,
+            top_host_ops_per_step=[[k[:60], n / steps, ms / steps]
+                                   for k, (n, ms) in top_host])
+    return out
 
 
 def train_config(a: dict, seed: int, eval_samples: int):
     """The Trainer's config of a chip_smoke training phase from a run's
     saved args ``a``: TRAIN_STEPS steps, evals every TRAIN_EVAL_EVERY with
     ``eval_samples`` chains (the final eval and the test too), the run's
-    rate, clip and beta warm-up."""
+    steps a call, rate, clip and beta warm-up."""
     from categoricalnf_tpu_torch.training.engine import TrainConfig
     from categoricalnf_tpu_torch.training.schedules import ScheduleSpec
     from categoricalnf_tpu_torch.training.state import OptimizerConfig
@@ -1133,11 +1179,33 @@ def train_config(a: dict, seed: int, eval_samples: int):
         num_steps=TRAIN_STEPS, eval_every=TRAIN_EVAL_EVERY,
         eval_samples=eval_samples, final_eval_samples=eval_samples,
         log_every=TRAIN_LOG_EVERY, seed=seed,
+        steps_per_call=a.get("steps_per_call") or 1,
         optimizer=OptimizerConfig(learning_rate=a["lr"],
                                   grad_clip_norm=a["grad_clip"]),
         beta_schedule=ScheduleSpec(kind="sigmoid", start=0.5,
                                    end=a["beta_end"],
                                    center=a["beta_warmup"], rate=0.002))
+
+
+def rate_windows(rows, after: int) -> tuple:
+    """(steps, seconds, "first-last" step) of the Trainer's rate windows
+    that start at or after step ``after``, from a run's metrics rows: a
+    window runs from the last log or eval to its log (a call of several
+    steps logs once), and its seconds are its steps over its
+    ``steps_per_s``."""
+    steps = secs = 0.0
+    start, first = 0, None
+    for r in rows:
+        if r["prefix"] not in ("train", "val"):
+            continue
+        if r["prefix"] == "train" and start >= after:
+            steps += r["step"] - start
+            secs += (r["step"] - start) / r["steps_per_s"]
+            first = start + 1 if first is None else first
+            last = r["step"]
+        start = r["step"]
+    check(steps > 0, f"no rate window after step {after}")
+    return steps, secs, f"{first}-{last}"
 
 
 def train_checked(task, task_name: str, args: dict, tcfg, out_dir: str,
@@ -1202,11 +1270,9 @@ def train_checked(task, task_name: str, args: dict, tcfg, out_dir: str,
                    test_bpd=final["test_bpd"])
     check(best < bpd0 - 0.2, f"training did not lower the bpd by 0.2: "
           f"{bpd0} -> {best}")
-    late = [r for r in train if r["step"] > TRAIN_EVAL_EVERY]
-    secs = sum(TRAIN_LOG_EVERY / r["steps_per_s"] for r in late)
-    timings["train_ms_per_step"] = secs * 1e3 / (len(late) * TRAIN_LOG_EVERY)
-    timings["train_samples_per_s"] = (len(late) * TRAIN_LOG_EVERY
-                                      * task.batch_size / secs)
+    steps, secs, timings["rate_steps"] = rate_windows(rows, TRAIN_EVAL_EVERY)
+    timings["train_ms_per_step"] = secs * 1e3 / steps
+    timings["train_samples_per_s"] = steps * task.batch_size / secs
     for name in kernels:
         check(launches[name] > 0, f"kernel {name} was not launched "
               "while training")
@@ -1274,7 +1340,7 @@ def train_flagship(seed: int, timings: dict, card: str,
         timings["trained_permutation_validity"] = met["permutation_validity"]
     print(json.dumps({"metric": "set_shuffling_train_samples_per_s",
                       "value": timings["train_samples_per_s"],
-                      "unit": "samples/s", "steps": "101-200",
+                      "unit": "samples/s", "steps": timings["rate_steps"],
                       "batch_size": task.batch_size, "device": card}),
           flush=True)
     return final["launches"]
@@ -1382,7 +1448,7 @@ def coloring_phase(seed: int, timings: dict, card: str,
         timings["held_inverse_worst_ratio"] = max(ratios)
     print(json.dumps({"metric": "graph_coloring_train_samples_per_s",
                       "value": timings["train_samples_per_s"],
-                      "unit": "samples/s", "steps": "101-200",
+                      "unit": "samples/s", "steps": timings["rate_steps"],
                       "batch_size": task.batch_size, "device": card}),
           flush=True)
     return launches
@@ -1460,15 +1526,17 @@ def serve_set_run(run_dir: str, task_name: str, num_categories: int,
 
 
 def train_set_run(run: str, path: str, validity: str, seed: int,
-                  timings: dict, card: str, device: str) -> dict:
+                  timings: dict, card: str, device: str,
+                  kernels=SET_MODELING_KERNELS) -> dict:
     """Train runs/<run>/config.json as it is (only the seed set; one eval
-    batch of 1024 with EVAL_CHAINS chains) for TRAIN_STEPS steps through the
-    port's Trainer with ``train_checked``'s checks, the best bpd above the
-    analytic optimum and every kernel of SET_MODELING_KERNELS launched;
-    trace 10 more steps; serve the run; hold #1 on every inverse call of
-    a sample of the served model with random coupling output layers, and
-    that model against its CPU copy.  Prints ``<path>_train_samples_per_s``
-    and returns the launches of the training and of the serving."""
+    batch of 1024 with EVAL_CHAINS chains; its steps_per_call) for
+    TRAIN_STEPS steps through the port's Trainer with ``train_checked``'s
+    checks, the best bpd above the analytic optimum and every kernel of
+    ``kernels`` launched; trace 10 more steps; serve the run; hold #1 on
+    every inverse call of a sample of the served model with random coupling
+    output layers, and that model against its CPU copy.  Prints
+    ``<path>_train_samples_per_s`` and returns the launches of the training
+    and of the serving."""
     import torch
     from categoricalnf_tpu_torch import inference
     from categoricalnf_tpu_torch.utils.config import load_config
@@ -1481,8 +1549,9 @@ def train_set_run(run: str, path: str, validity: str, seed: int,
     launches = {}
     with tempfile.TemporaryDirectory() as out_dir:
         final = train_checked(task, cfg["task"], args, tcfg, out_dir,
-                              timings, SET_MODELING_KERNELS)
+                              timings, kernels)
         launches[f"{path}_training"] = final["launches"]
+        timings["steps_per_call"] = tcfg.steps_per_call
         optimum = task.analytic_optimum_bpd()
         timings["optimum_bpd"] = optimum
         check(final["best_bpd"] > optimum,
@@ -1496,6 +1565,8 @@ def train_set_run(run: str, path: str, validity: str, seed: int,
         check(server.handle.step in (TRAIN_EVAL_EVERY, TRAIN_STEPS),
               f"served step {server.handle.step}")
         served = server.handle.task
+        timings["learned_decoder"] = getattr(served.model.encoding,
+                                             "decoder", None) is not None
         randomize_coupling_nets(served.model, seed + 1)
         timings["held_inverse_worst_ratio"] = max(held_samples(
             lambda s: served.model.sample(B, served.set_size, generator=torch
@@ -1504,7 +1575,7 @@ def train_set_run(run: str, path: str, validity: str, seed: int,
         check_against_cpu(served, seed)
     print(json.dumps({"metric": f"{path}_train_samples_per_s",
                       "value": timings["train_samples_per_s"],
-                      "unit": "samples/s", "steps": "101-200",
+                      "unit": "samples/s", "steps": timings["rate_steps"],
                       "batch_size": task.batch_size, "device": card}),
           flush=True)
     return launches
@@ -1514,39 +1585,375 @@ def set_modeling_phase(seed: int, timings: dict, card: str,
                        device: str = "cuda") -> dict:
     """The dequantized set flows: train and serve runs/sum_vardeq
     (SetSummationTask, the vardeq encoding) and runs/shuffle_linear (the
-    linear-flows encoding) with ``train_set_run``; then build
-    runs/shuffle_decoder_mlp with seeded random weights (its
-    steps_per_call of 8 is not ported, so it is not trained), serve a
-    /sample of it and hold it against its CPU copy.  Returns the launches
-    of each path."""
+    linear-flows encoding) with ``train_set_run``; then
+    runs/shuffle_decoder_mlp (the mixture encoding with a learned MLP
+    decoder) as it is, with its steps_per_call of 8, trained and served the
+    same way.  Returns the launches of each path."""
+    launches = {}
+    for run, path, validity, kernels in (
+            ("sum_vardeq", "set_summation", "sum_validity",
+             SET_MODELING_KERNELS),
+            ("shuffle_linear", "shuffle_linear", "permutation_validity",
+             SET_MODELING_KERNELS),
+            ("shuffle_decoder_mlp", "decoder_mlp", "permutation_validity",
+             SAMPLING_KERNELS + ("mixture_forward_bwd",
+                                 "fused_set_transformer_bwd_bf16"))):
+        timings[run] = {}
+        launches.update(train_set_run(run, path, validity, seed,
+                                      timings[run], card, device, kernels))
+    t = timings["shuffle_decoder_mlp"]
+    check(t["steps_per_call"] == 8 and t["learned_decoder"],
+          "runs/shuffle_decoder_mlp did not train its learned decoder at 8 "
+          "steps a call")
+    return launches
+
+
+# The language-modeling path (runs/lm_v6/config.json): batches of 128
+# sequences of 256 characters, encoding dim 4, K = 32 components.  #2 and
+# #2' run on a train step's density pass (M = 128 x 256 x 4 = 131,072); #1
+# and #2 on every sampled position, M = 128 x 4 = 512 for a batch of 128
+# samples and 16 for a /sample of 4.
+LM_K = 32
+LM_SHAPES = {"density": (128, 256, 4), "m512": (128, 4), "m16": (4, 4)}
+# the LM phase's train steps, chosen from the step time measured on the
+# card so that the phase fits the script's time (PERF.md, section 4), and
+# its log cadence
+LM_STEPS, LM_LOG_EVERY = 40, 5
+# the characters of the crops the LM phase traces a step on (profile_steps)
+LM_PROFILE_CROP = 32
+# what runs/lm_v6/config.json builds, which the phase checks it trains
+LM_MODEL = {"num_mixtures": LM_K, "hidden_dim": 512, "lstm_layers": 2,
+            "num_layers": 4, "prior": "hmm", "prior_states": 32,
+            "seq_len": 256, "batch_size": 128, "encoding_dim": 4,
+            "compute_dtype": "bfloat16"}
+
+
+def lm_inverse_cases(seed: int, device) -> dict:
+    """#1's cases at K = 32, drawn as ``inverse_cases`` draws them: the LM
+    path's shapes (``LM_SHAPES``, pi and ls strided as the autoregressive
+    layer passes them), y the plain forward of x there; and M = 4,096 of
+    peaked mixtures and of tails at the clip, as in ``inverse_cases``."""
+    import torch
+    from categoricalnf_tpu_torch.ops import numerics as nm
+    gen = torch.Generator(device).manual_seed(seed)
+    cases = {name: inverse_case(gen, shape, LM_K, device, True)
+             for name, shape in LM_SHAPES.items()}
+    _, pi, mu, ls = mixture_inputs(gen, (4096,), LM_K, device)
+    y = torch.randn(4096, generator=gen, device=device) * 10.0
+    cases["peaked"] = (y, pi * 50.0, mu * 30.0, ls * 60.0)
+    _, pi, mu, ls = mixture_inputs(gen, (4096,), LM_K, device)
+    y = torch.tensor([60.0, -60.0, 90.0, -90.0], device=device).repeat(1024)
+    cases["tails"] = (y, pi, mu, nm.LOG_SCALE_MIN - 0.5 - ls.abs())
+    return cases
+
+
+def check_lm_kernels(device, seeds, report):
+    """#1, #2 and #2' at K = 32 (the wide groups of csrc/mixture.cu) at the
+    LM path's M = 131,072, 512 and 16: #1 by the residual rule at each seed
+    (``lm_inverse_cases``), #2 (pi and ls strided) and #2' against their
+    plain versions within 1e-4; each timed."""
+    import torch
+    worst = inverse_held(lm_inverse_cases, seeds, device)
+    print("mixture_inverse at K = 32 (the LM path): worst residual / "
+          "max(2 e_p, tau) by case: " + json.dumps(worst), flush=True)
+    cases = lm_inverse_cases(seeds[0], device)
+    g = torch.Generator(device).manual_seed(seeds[0] + 50)
+    for name, shape in LM_SHAPES.items():
+        report[f"mixture_inverse_lm_{name}"] = dict(
+            mixture_inverse_report(*cases[name], 5),
+            residual_ratio=max(v for k, v in worst.items()
+                               if k.endswith(f"/{name}")))
+        x, pi, mu, ls = mixture_inputs(g, shape, LM_K, device)
+        pi, ls = coupling_slices(pi, ls)
+        report[f"mixture_forward_lm_{name}"] = mixture_forward_report(
+            x, pi, mu, ls, 10, f"mixture_forward at K = 32, {name}")
+        report[f"mixture_forward_bwd_lm_{name}"] = mixture_bwd_report(
+            mixture_bwd_case(device, g, shape, LM_K))
+
+
+def wide_lanes() -> dict:
+    """Lanes an element of the three kernels at 16 < K <= 32, as
+    csrc/mixture.cu builds them (kWideFwdLanes, kWideBwdLanes,
+    kWideInvLanes)."""
+    with open(os.path.join(REPO, SOURCES["mixture_forward"][0])) as f:
+        hit = re.search(r"constexpr int kWideFwdLanes = (\d+), "
+                        r"kWideBwdLanes = (\d+), kWideInvLanes = (\d+);",
+                        f.read())
+    check(hit is not None, "no wide lanes in csrc/mixture.cu")
+    return dict(zip(("mixture_forward", "mixture_forward_bwd",
+                     "mixture_inverse"), map(int, hit.groups())))
+
+
+def lm_mixture_resources(log: str) -> dict:
+    """``mixture_resources`` of the three kernels' K = 32 instances (full
+    wide groups), by report name of the LM shapes."""
+    res = kernel_resources(log)
+    out = {}
+    for name, g in wide_lanes().items():
+        entry = mixture_entry(res, f"{name}_kernel", g, LM_K // g)
+        out.update({f"{name}_lm_{shape}": entry for shape in LM_SHAPES})
+    return out
+
+
+def lm_step_breakdown(task, seed: int) -> dict:
+    """Where an LM train step's time goes, each part run on the card at the
+    step's shapes and timed on the host clock between synchronizes, the
+    least of 2 runs, in one window: the loss of a training batch and its
+    backward (the step but the update); the causal LSTMs of the 8
+    autoregressive layers alone (forward with the channel coupling's extra
+    features, then backward); the HMM prior's log-density alone (forward
+    and backward)."""
+    import numpy as np
+    import torch
+    from categoricalnf_tpu_torch.data.prefetch import to_device
+    from categoricalnf_tpu_torch.flows import AutoregressiveMixtureCDF
+    g = torch.Generator(task.device).manual_seed(seed + 60)
+    shape = (task.batch_size, task.seq_len, task.model.encoding.dim)
+    layers = [m for m in task.model.modules()
+              if isinstance(m, AutoregressiveMixtureCDF)]
+    z = torch.randn(shape, generator=g, device=task.device)
+    batch = to_device(next(task.train_batches(
+        np.random.default_rng(seed + 61))), task.device)
+
+    def step():
+        task.loss(batch, 1.0, generator=g).backward()
+
+    def lstms():
+        for layer in layers:
+            extra = None if layer.parity is None else z
+            layer.net(z, extra=extra).float().sum().backward()
+
+    def hmm():
+        task.model.flow.prior.log_prob(z).sum().backward()
+
+    out = {"ar_layers": len(layers)}
+    for name, fn in (("loss_and_backward_ms", step),
+                     ("lstm_fwd_bwd_ms", lstms), ("hmm_fwd_bwd_ms", hmm)):
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        out[name] = min(runs)
+    out["lstm_share"] = out["lstm_fwd_bwd_ms"] / out["loss_and_backward_ms"]
+    out["hmm_share"] = out["hmm_fwd_bwd_ms"] / out["loss_and_backward_ms"]
+    task.model.zero_grad(set_to_none=True)
+    return out
+
+
+def check_lm_against_cpu(task, seed: int, n: int = 8, length: int = 32):
+    """The served LM (kernels on the card) against a CPU copy of it (plain
+    path), in the fp32 twin, on ``n`` validation crops of ``length``
+    characters with shared noise: the IS bits/char of 4 chains within
+    1e-3, and a sample (the HMM prior's chain and emission uniforms
+    shared): z within 1e-3 on 99% of the elements and the decoded
+    characters equal on 99%."""
+    import numpy as np
+    import torch
+    from categoricalnf_tpu_torch.inference import build_task
+    from categoricalnf_tpu_torch.ops.numerics import uniform_noise
+
+    args = {f.name: getattr(task, f.name) for f in dataclasses.fields(task)
+            if f.name not in ("name", "device")}
+    cpu = build_task(task.name, args, device="cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               task.model.state_dict().items()})
+    stream = cpu.corpus.splits["valid"]
+    x = np.asarray(stream[:n * length]).reshape(n, length)
+    shape = (n, length, cpu.model.encoding.dim)
+    g = torch.Generator().manual_seed(seed + 7)
+    noise = uniform_noise((4,) + shape, generator=g)
+    u = uniform_noise(cpu.model.flow.prior.noise_shape(shape), generator=g)
+    with torch.no_grad():
+        bpd_cpu = cpu.eval_step({"x": x}, 4, noise=noise)
+        bpd_gpu = task.eval_step({"x": x}, 4,
+                                 noise=noise.to(task.device)).cpu()
+        z_cpu, z_gpu = (t.eval_model.flow.sample(shape, noise=u.to(t.device))
+                        .cpu() for t in (cpu, task))
+    check(torch.allclose(bpd_gpu, bpd_cpu, rtol=1e-3, atol=1e-3),
+          f"LM eval_bpd card vs CPU: {max_err(bpd_gpu, bpd_cpu)}")
+    z_near = float(((z_gpu - z_cpu).abs()
+                    <= 1e-3 + 1e-3 * z_cpu.abs()).float().mean())
+    same = float((cpu.model.encoding.decode(z_cpu) == task.model.encoding
+                  .decode(z_gpu.to(task.device)).cpu()).float().mean())
+    check(z_near >= 0.99 and same >= 0.99,
+          f"LM sampled z card vs CPU: {z_near:.4f} of z within 1e-3, "
+          f"{same:.4f} of characters equal")
+    print(f"{task.name}: card vs CPU (fp32, {n} crops of {length}): bpd max "
+          f"err {max_err(bpd_gpu, bpd_cpu):.3g}; z within 1e-3: "
+          f"{z_near:.4f}, max err {max_err(z_gpu, z_cpu):.3g}; characters "
+          f"equal: {same:.4f}", flush=True)
+
+
+LM_KERNELS = ("mixture_forward", "mixture_forward_bwd", "mixture_inverse")
+
+
+def lm_phase(seed: int, timings: dict, card: str,
+             device: str = "cuda") -> dict:
+    """Train runs/lm_v6/config.json as it is (only the seed set: the
+    synthetic Markov corpus, 4 blocks of two autoregressive layers with
+    2-layer LSTMs of hidden 512 in bf16, K = 32, the HMM prior of 32
+    states, batch 128 of 256 characters) for LM_STEPS steps through the
+    port's Trainer, with its 8 eval batches of 8 chains before training
+    and at the end, the final sample metrics and the test: every logged
+    loss finite and the last below the first, every bpd finite and above
+    the analytic optimum, no alarm, #2, #2' and #1 launched.  Then traces 2
+    steps on crops of LM_PROFILE_CROP characters with the host's activity,
+    times the LSTMs and the HMM prior alone at the full shapes, and runs
+    sample_metrics at 128 samples with #1 held by the residual rule on
+    every inverse call at the seed and the next.  Serves
+    the run: /health, /sample of 4 (strings of the vocabulary), a bad
+    request; last, the served model with random heads against its CPU
+    copy.  Returns the launch counts of the training and of the
+    serving."""
+    from http.server import ThreadingHTTPServer
+
     import numpy as np
     import torch
     from categoricalnf_tpu_torch import inference
-    from categoricalnf_tpu_torch.training.checkpoint import CheckpointManager
+    from categoricalnf_tpu_torch.serve import RunServer, make_handler
+    from categoricalnf_tpu_torch.training.engine import TrainConfig, Trainer
+    from categoricalnf_tpu_torch.training.schedules import ScheduleSpec
+    from categoricalnf_tpu_torch.training.state import OptimizerConfig
     from categoricalnf_tpu_torch.utils.config import load_config, save_config
 
-    launches = {}
-    for run, path, validity in (
-            ("sum_vardeq", "set_summation", "sum_validity"),
-            ("shuffle_linear", "shuffle_linear", "permutation_validity")):
-        timings[run] = {}
-        launches.update(train_set_run(run, path, validity, seed,
-                                      timings[run], card, device))
-    cfg = load_config(os.path.join(REPO, "runs", "shuffle_decoder_mlp"))
-    args = {**cfg["args"], "seed": seed}
+    cfg = load_config(os.path.join(REPO, "runs", "lm_v6"))
+    a = cfg["args"]
+    args = {**a, "seed": seed}
+    t0 = time.perf_counter()
     task = inference.build_task(cfg["task"], args, device=device)
-    randomize_coupling_nets(task.model, seed + 1)
-    task.data_init(next(task.train_batches(np.random.default_rng(seed))),
-                   generator=torch.Generator(device).manual_seed(seed))
-    t = timings["shuffle_decoder_mlp"] = {}
-    with tempfile.TemporaryDirectory() as run_dir:
-        save_config(run_dir, {"task": cfg["task"], "args": args})
-        CheckpointManager(run_dir).save(0, task.model)
-        server, launches["decoder_mlp_serving"] = serve_set_run(
-            run_dir, cfg["task"], S, None, t, device)
-        check(server.handle.task.model.encoding.decoder is not None,
-              "the served model has no learned decoder")
-        check_against_cpu(server.handle.task, seed)
+    timings["build_task_s"] = time.perf_counter() - t0
+    check({k: getattr(task, k) for k in LM_MODEL} == LM_MODEL,
+          f"runs/lm_v6 is not the model this phase is written for: "
+          f"{LM_MODEL}")
+    tcfg = TrainConfig(
+        num_steps=LM_STEPS, eval_every=LM_STEPS,
+        eval_samples=a["eval_samples"], final_eval_samples=a["eval_samples"],
+        log_every=LM_LOG_EVERY, seed=seed,
+        steps_per_call=a.get("steps_per_call") or 1,
+        optimizer=OptimizerConfig(learning_rate=a["lr"],
+                                  grad_clip_norm=a["grad_clip"]),
+        beta_schedule=ScheduleSpec(kind="sigmoid", start=0.5,
+                                   end=a["beta_end"],
+                                   center=a["beta_warmup"], rate=0.002))
+    optimum = task.analytic_optimum_bpd()
+    launches = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        tcfg = dataclasses.replace(tcfg, out_dir=out_dir)
+        save_config(out_dir, {"task": cfg["task"], "args": args})
+        trainer = Trainer(task, tcfg)
+        trainer.init_model(next(task.train_batches(
+            np.random.default_rng(seed))))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bpd0 = trainer.evaluate(tcfg.eval_samples, 0)["bpd"]
+        torch.cuda.synchronize()
+        timings["eval_s"] = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        final = trainer.train(resume=False)
+        torch.cuda.synchronize()
+        timings[f"train_{LM_STEPS}_steps_s"] = time.perf_counter() - t0
+        launches["lm_training"] = read_launches()
+        timings["train_peak_mem_gib"] = (torch.cuda.max_memory_allocated()
+                                         / 2**30)
+        rows = [json.loads(line) for line in
+                open(os.path.join(out_dir, "metrics.jsonl"))]
+        losses = [r["loss"] for r in rows if r["prefix"] == "train"]
+        vals = [r["bpd"] for r in rows if r["prefix"] == "val"]
+        check(len(losses) == LM_STEPS // LM_LOG_EVERY
+              and all(np.isfinite(losses)), f"LM losses {losses}")
+        check(losses[-1] < losses[0], f"LM loss did not fall: {losses}")
+        bpds = [bpd0, *vals, final["best_bpd"], final["test_bpd"]]
+        check(all(np.isfinite(b) and b > optimum for b in bpds),
+              f"LM bpds {bpds} not finite above the optimum {optimum}")
+        check(all(r["integrity_alarm"] == 0 for r in rows
+                  if r["prefix"] == "val"), "LM integrity alarm")
+        for name in LM_KERNELS:
+            check(launches["lm_training"][name] > 0,
+                  f"kernel {name} was not launched while training the LM")
+        check(os.path.exists(os.path.join(out_dir, "samples.txt")),
+              "the LM run wrote no samples.txt")
+        steps, secs, timings["rate_steps"] = rate_windows(rows,
+                                                          2 * LM_LOG_EVERY)
+        timings.update(
+            optimum_bpd=optimum, untrained_bpd=bpd0, val_bpd=vals,
+            best_bpd=final["best_bpd"], test_bpd=final["test_bpd"],
+            losses=losses, train_ms_per_step=secs * 1e3 / steps,
+            train_samples_per_s=steps * task.batch_size / secs,
+            final_sample_metrics={k: final[k] for k in
+                                  ("unigram_tv", "bigram_kl_bits")})
+        # the host's activity makes a trace of a whole LM step too large to
+        # read back in the script's time: the trace takes crops of
+        # LM_PROFILE_CROP characters, whose steps run the same operations
+        # for each position
+        timings["step_profile"] = profile_steps(
+            task, tcfg.optimizer, seed, warmup=1, steps=2, host=True,
+            crop=LM_PROFILE_CROP)
+        timings["step_breakdown"] = lm_step_breakdown(task, seed)
+
+        # #1 on every inverse call of sample_metrics at 128 samples
+        sampled = {}
+
+        def metrics(s):
+            sampled[s] = task.sample_metrics(
+                generator=torch.Generator(device).manual_seed(s),
+                num_samples=128)
+
+        t0 = time.perf_counter()
+        ratios = held_samples(metrics, seed, "LM sample")
+        timings["held_sample_metrics_128_s"] = time.perf_counter() - t0
+        timings["held_inverse_calls"] = len(ratios)
+        timings["held_inverse_worst_ratio"] = max(ratios)
+        timings["sample_metrics_128"] = sampled[seed]
+
+        reset_launches()
+        server = RunServer(out_dir, device=device)
+        check(server.handle.step == LM_STEPS,
+              f"served step {server.handle.step}")
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(server))
+        th = threading.Thread(target=httpd.serve_forever, daemon=True)
+        th.start()
+        try:
+            port = httpd.server_port
+            st, health, _ = http_json(port, "GET", "/health")
+            check(st == 200 and health["task"] == cfg["task"],
+                  f"/health {health}")
+            st, out, dt = http_json(port, "POST", "/sample",
+                                    {"num_samples": 4})
+            check(st == 200 and len(out["samples"]) == 4
+                  and all(len(t) == task.seq_len
+                          and set(t) <= set(task.corpus.vocab)
+                          for t in out["samples"]),
+                  f"/sample answered {st}: {out}")
+            timings["sample_4_s"] = dt
+            timings["sample_4_text"] = out["samples"][0][:64]
+            st, out, _ = http_json(port, "POST", "/sample",
+                                   {"num_samples": 0})
+            check(st == 400 and "error" in out, "bad request not refused")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            th.join(timeout=60)
+        launches["lm_serving"] = read_launches()
+        for name in ("mixture_inverse", "mixture_forward"):
+            check(launches["lm_serving"][name] > 0,
+                  f"kernel {name} was not launched while serving the LM")
+        served = server.handle.task
+        randomize_coupling_nets(served.model, seed + 1)
+        check_lm_against_cpu(served, seed)
+    print(json.dumps({"metric": "language_modeling_train_samples_per_s",
+                      "value": timings["train_samples_per_s"],
+                      "unit": "samples/s",
+                      "steps": timings["rate_steps"],
+                      "batch_size": task.batch_size,
+                      "peak_mem_gib": timings["train_peak_mem_gib"],
+                      "device_idle_share": timings["step_profile"].get(
+                          "device_idle_share"),
+                      "device": card}), flush=True)
     return launches
 
 
@@ -1663,25 +2070,32 @@ def inverse_failures(x, x_plain, y, pi, mu, ls, what: str) -> list:
             f"the worst at {worst!r} times it"]
 
 
+# elements of the held inverse calls checked at once (``inverse_calls_held``)
+HELD_CHUNK = 1 << 18
+
+
 @contextlib.contextmanager
 def inverse_calls_held(what: str):
-    """Holds #1 by the residual rule on every call of the couplings'
-    inverse (``dispatch.mixture_inverse`` on a CUDA tensor) inside the
-    block, beside the plain version on the same inputs; yields the list of
-    each call's worst ratio of residual to limit, and fails if a call is
-    over or none was made."""
+    """Holds #1 by the residual rule on every call of the couplings' and
+    the autoregressive layers' inverse (``dispatch.mixture_inverse`` on a
+    CUDA tensor) inside the block, beside the plain version on the same
+    inputs: each call's inputs and result are kept, and when the block ends
+    the plain version and the rule run on them, calls concatenated into
+    batches of up to HELD_CHUNK elements (the rule is elementwise).  Yields
+    the list of each call's worst ratio of residual to limit, filled then;
+    fails if an element of any call is over or no call was made."""
+    import torch
     from categoricalnf_tpu_torch.ops import dispatch
     from categoricalnf_tpu_torch.ops import numerics as nm
     inverse = dispatch.mixture_inverse
-    ratios, failures = [], []
+    calls, ratios = [], []
 
     def held(y, pi, mu, ls):
         x = inverse(y, pi, mu, ls)
         if y.is_cuda:
-            x_p = nm.mixture_inverse_logit_cdf(y, pi, mu, ls)
-            call = f"{what}, inverse call {len(ratios)}"
-            failures.extend(inverse_failures(x, x_p, y, pi, mu, ls, call))
-            ratios.append(inverse_reading(x, x_p, y, pi, mu, ls)[1])
+            k = pi.shape[-1]
+            calls.append((y.reshape(-1), pi.reshape(-1, k), mu.reshape(-1, k),
+                          ls.reshape(-1, k), x.reshape(-1)))
         return x
 
     dispatch.mixture_inverse = held
@@ -1689,7 +2103,32 @@ def inverse_calls_held(what: str):
         yield ratios
     finally:
         dispatch.mixture_inverse = inverse
-    check(ratios, f"{what}: no inverse call on the card")
+    check(calls, f"{what}: no inverse call on the card")
+    failures = []
+    start = 0
+    while start < len(calls):
+        stop, size = start, 0
+        while stop < len(calls) and (stop == start or size
+                                     + calls[stop][0].numel() <= HELD_CHUNK):
+            size += calls[stop][0].numel()
+            stop += 1
+        y, pi, mu, ls, x = (torch.cat(t) for t in zip(*calls[start:stop]))
+        x_p = nm.mixture_inverse_logit_cdf(y, pi, mu, ls)
+        e_k = inverse_residual(x, y, pi, mu, ls)
+        limit = torch.maximum(2 * inverse_residual(x_p, y, pi, mu, ls),
+                              inverse_floor(y, pi, mu, ls))
+        ratio = (e_k / limit).nan_to_num(float("inf"))
+        for n, r in enumerate(ratio.split([c[0].numel()
+                                           for c in calls[start:stop]]),
+                              start):
+            ratios.append(float(r.max()))
+            over = int((r > 1).sum())
+            if over:
+                failures.append(
+                    f"{what}, inverse call {n}: {over} of {r.numel()} "
+                    f"elements over max(2 e_p, tau), the worst at "
+                    f"{ratios[-1]!r} times it")
+        start = stop
     check(not failures, "; ".join(failures))
 
 
@@ -2057,23 +2496,26 @@ def warps_by_registers(registers: int, threads: int) -> int:
 MIX_FWD_LANES, MIX_BWD_LANES, MIX_INV_LANES, MIX_THREADS = 2, 4, 1, 256
 
 
+def mixture_entry(res: dict, kernel: str, g: int, c: int) -> dict:
+    """ptxas's registers and spills of ``kernel``'s instance of ``g`` lanes
+    of ``c`` components, built for full groups, from ``kernel_resources``,
+    and the warps an SM they allow."""
+    tag = f"{kernel}ILi{g}ELi{c}ELb1E"
+    hits = [v for f, v in res.items() if tag in f]
+    check(len(hits) == 1, f"no ptxas line for {tag} in mixture.cu's log")
+    return dict(hits[0], lanes=g, components_per_lane=c,
+                warps_per_sm_by_registers=warps_by_registers(
+                    hits[0]["registers"], MIX_THREADS))
+
+
 def mixture_resources(log: str) -> dict:
     """ptxas's registers and spills of the three mixture kernels as the
     flagship's K = 8 launches them, and the warps an SM they allow."""
     res = kernel_resources(log)
-    out = {}
-    for name, kernel, g in (
-            ("mixture_forward", "mixture_forward_kernel", MIX_FWD_LANES),
-            ("mixture_forward_bwd", "mixture_forward_bwd_kernel",
-             MIX_BWD_LANES),
-            ("mixture_inverse", "mixture_inverse_kernel", MIX_INV_LANES)):
-        c = K // g
-        tag = f"{kernel}ILi{g}ELi{c}ELb1E"
-        hits = [v for f, v in res.items() if tag in f]
-        check(len(hits) == 1, f"no ptxas line for {tag} in mixture.cu's log")
-        out[name] = dict(hits[0], lanes=g, components_per_lane=c,
-                         warps_per_sm_by_registers=warps_by_registers(
-                             hits[0]["registers"], MIX_THREADS))
+    out = {name: mixture_entry(res, f"{name}_kernel", g, K // g)
+           for name, g in (("mixture_forward", MIX_FWD_LANES),
+                           ("mixture_forward_bwd", MIX_BWD_LANES),
+                           ("mixture_inverse", MIX_INV_LANES))}
     out["mixture_forward_eval"] = out["mixture_forward"]
     return out
 
@@ -2142,6 +2584,16 @@ SET_MODELING_REPORTS = {
         "fused_set_transformer_bwd_bf16_vardeq"]}
 SET_MODELING_KEYS = ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
                      "max_abs_err")
+# the entries of the LM path's shapes at K = 32 (``check_lm_kernels``)
+# that a kernel's line carries, and their keys
+LM_REPORTS = {name: [f"{name}_lm_{shape}" for shape in
+                     ("density", "m512", "m16")]
+              for name in ("mixture_forward", "mixture_forward_bwd",
+                           "mixture_inverse")}
+LM_REPORT_KEYS = ("m", "ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
+                  "max_abs_err", "lanes", "components_per_lane",
+                  "registers", "spill_bytes", "warps_per_sm_by_registers",
+                  "residual_ratio", "iterations_mean")
 SERVING_KERNELS = ("mixture_inverse", "mixture_forward",
                    "fused_set_transformer_bf16", "fused_set_transformer_f32")
 # the path whose launches each kernel's line reports
@@ -2213,7 +2665,9 @@ def main() -> int:
     check_train_fwd(device, gen, report)
     check_coloring_kernels(device, (args.seed, args.seed + 1), report)
     check_set_modeling_kernels(device, (args.seed, args.seed + 1), report)
-    for name, r in mixture_resources(logs["mixture"]).items():
+    check_lm_kernels(device, (args.seed, args.seed + 1), report)
+    for name, r in {**mixture_resources(logs["mixture"]),
+                    **lm_mixture_resources(logs["mixture"])}.items():
         report[name].update(r)
     for r in report.values():
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -2275,6 +2729,9 @@ def main() -> int:
     print("set modeling: " + json.dumps(set_timings), flush=True)
     launches["vardeq_train_step_fp32"] = check_vardeq_step_against_cpu(
         args.seed, {})
+    lm_timings: dict = {}
+    launches.update(lm_phase(args.seed, lm_timings, card))
+    print("language modeling: " + json.dumps(lm_timings), flush=True)
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():
@@ -2296,7 +2753,12 @@ def main() -> int:
                 {"case": c, "size": report[c].get("m", report[c].get("rows")),
                  **{key: report[c][key] for key in SET_MODELING_KEYS}}
                 for c in SET_MODELING_REPORTS[name]]}
-               if name in SET_MODELING_REPORTS else {})})
+               if name in SET_MODELING_REPORTS else {}),
+            **({"at_lm_shapes": [
+                {"case": c, **{key: report[c][key] for key in LM_REPORT_KEYS
+                               if key in report[c]}}
+                for c in LM_REPORTS[name]]}
+               if name in LM_REPORTS else {})})
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -181,8 +181,8 @@ def test_mixture_inverse_two_cycle(dev):
 
 
 def test_mixture_wrappers_reject_bad_input(dev):
-    x, pi, mu, ls = _mix((4, 4), 17, dev)
-    with pytest.raises(ValueError, match="K=17"):
+    x, pi, mu, ls = _mix((4, 4), 33, dev)
+    with pytest.raises(ValueError, match="K=33"):
         cm.mixture_forward_cuda(x, pi, mu, ls)
     x, pi, mu, ls = _mix((4, 4), 8, dev)
     with pytest.raises(TypeError):
@@ -888,3 +888,83 @@ def test_vardeq_train_step_against_fp64(dev):
     on some encoder tensor."""
     launches = cs.check_vardeq_step_against_cpu(0, {})
     assert launches["mixture_inverse_bwd"] > 0
+
+
+# -- the language models: K up to 32, the LSTM flow on the card -----------
+
+@pytest.mark.parametrize("k", [17, 24, 32])
+@pytest.mark.parametrize("shape", [(128, 256, 4), (128, 4), (4, 4), (7, 13)])
+def test_mixture_kernels_at_wide_k_match_plain(dev, shape, k):
+    """#2 and #2' on the wide groups (16 < K <= 32), the logits and
+    log-scales strided as the autoregressive layer passes them, against
+    their plain versions within 1e-4; #1 back to x within 1e-3 where y is
+    steep enough (M <= 512)."""
+    x, pi, mu, ls = _mix(shape, k, dev, seed=k)
+    pi, ls = _strided(pi, ls * 6.0)
+    y, ldj = cm.mixture_forward_cuda(x, pi, mu, ls)
+    y_p, ldj_p = nm.mixture_logit_cdf_and_ldj(x, pi, mu, ls)
+    _close(y, y_p, 1e-4)
+    _close(ldj, ldj_p, 1e-4)
+    g = torch.Generator(dev).manual_seed(k + 1)
+    gy, gl = (torch.randn(shape, generator=g, device=dev) for _ in range(2))
+    got = cm.mixture_forward_bwd_cuda(x, pi, mu, ls, gy, gl)
+    _, vjp = torch.func.vjp(nm.mixture_logit_cdf_and_ldj, x, pi, mu, ls)
+    for a, w in zip(got, vjp((gy, gl))):
+        _close(a, w, 1e-4)
+    if x.numel() <= 512:
+        xi = cm.mixture_inverse_cuda(y_p, pi, mu, ls)
+        assert cs.inverse_failures(xi, nm.mixture_inverse_logit_cdf(
+            y_p, pi, mu, ls), y_p, pi, mu, ls, f"K={k}") == []
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("name", ["density", "m512", "m16", "peaked",
+                                  "tails"])
+def test_mixture_inverse_residual_at_lm_shapes(dev, name, seed):
+    """#1 at K = 32 by its residual in y on chip_smoke.lm_inverse_cases;
+    the plain version cut short is refused."""
+    y, pi, mu, ls = cs.lm_inverse_cases(seed, dev)[name]
+    x = cm.mixture_inverse_cuda(y, pi, mu, ls)
+    x_p = nm.mixture_inverse_logit_cdf(y, pi, mu, ls)
+    assert cs.inverse_failures(x, x_p, y, pi, mu, ls, name) == []
+    cut = nm.mixture_inverse_logit_cdf(y, pi, mu, ls, num_bisect=12,
+                                       num_newton=0)
+    assert cs.inverse_failures(cut, x_p, y, pi, mu, ls, name)
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_tiny_lm_task_on_card_matches_cpu(dev, cd):
+    """A tiny LM (K = 32, the HMM prior, random heads): the IS bits/char
+    (fp32 twin) and a sample with shared noise on the card against the
+    CPU; a bf16 train step on the card gives every parameter, the prior's
+    too, a finite gradient and launches #2 and #2'."""
+    from categoricalnf_tpu_torch.inference import build_task
+    args = dict(corpus="synthetic", seq_len=12, batch_size=8,
+                encoding_dim=4, num_layers=2, hidden_dim=16, lstm_layers=2,
+                num_mixtures=32, prior="hmm", prior_states=4,
+                compute_dtype=cd)
+    cpu = build_task("lm_synthetic_markov", args, device="cpu")
+    cs.randomize_coupling_nets(cpu.model, 3, 0.1)
+    gpu = build_task("lm_synthetic_markov", args, device=dev)
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    x = next(cpu.train_batches(np.random.default_rng(0)))["x"]
+    noise = nm.uniform_noise((4, 8, 12, 4),
+                             generator=torch.Generator().manual_seed(0))
+    bpd_cpu = cpu.eval_step({"x": x}, 4, noise=noise)
+    bpd_gpu = gpu.eval_step({"x": x}, 4, noise=noise.to(dev)).cpu()
+    _close(bpd_gpu, bpd_cpu, 1e-4)
+    u = nm.uniform_noise((8, 12, 5), generator=torch.Generator()
+                         .manual_seed(1))
+    with torch.no_grad():
+        _close(gpu.eval_model.flow.sample((8, 12, 4), noise=u.to(dev)).cpu(),
+               cpu.eval_model.flow.sample((8, 12, 4), noise=u), 1e-3)
+    n_fwd, n_bwd = (cm.LAUNCHES[k] for k in ("mixture_forward",
+                                             "mixture_forward_bwd"))
+    loss = gpu.loss({"x": x}, 0.7, generator=torch.Generator(dev)
+                    .manual_seed(2))
+    loss.backward()
+    assert cm.LAUNCHES["mixture_forward"] == n_fwd + 4
+    assert cm.LAUNCHES["mixture_forward_bwd"] == n_bwd + 4
+    for name, p in gpu.model.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+    assert gpu.model.flow.prior.trans_logits.grad.abs().sum() > 0

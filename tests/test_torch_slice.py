@@ -356,5 +356,7 @@ def test_entry_points_need_a_card_unless_told(tmp_path):
         build_task("graph_coloring", {})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_task("set_summation", {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_task("lm_synthetic_markov", {})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_task("lm_synthetic_markov", {}, device="cpu")
+        build_task("molecules_zinc250k", {}, device="cpu")

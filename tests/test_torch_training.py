@@ -359,8 +359,12 @@ def test_sigterm_finishes_the_step_and_runs_the_final_phase(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported():
+    from categoricalnf_tpu_torch.tasks import LanguageModelingTask
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(_task(), _cfg(None, steps_per_call=4))
+        LanguageModelingTask(corpus_name="synthetic", net="transformer",
+                             device="cpu")
+    with pytest.raises(ValueError, match="steps_per_call"):
+        Trainer(_task(), _cfg(None, steps_per_call=0))
 
 
 def test_checkpoint_retention_and_contents(tmp_path):

@@ -8,10 +8,19 @@ inputs (``chip_smoke.mixture_inputs``), at
   passes them;
 - eval_bpd's shape, 4096 x 16 x 4 (the forward only runs there);
 - a /sample of 4 sets, 4 x 16 x 4 (M = 256, the inverse only);
-- K = 16 at 64 x 16 x 4, and K = 16 and K = 3 at M = 91 (7 x 13).
+- K = 16 at 64 x 16 x 4, and K = 16 and K = 3 at M = 91 (7 x 13);
+- K = 32 at the language models' shapes: a train step's density pass,
+  128 x 256 x 4 (M = 131,072), and the sampling path's M = 512 and 16,
+  the logits and log-scales strided; a tree whose kernels take K <= 16
+  only (``MAX_K``) skips these.
 
     python3 tools/mixture_ab.py --tree DIR --out A.pt   # DIR: a checkout
     python3 tools/mixture_ab.py --compare A.pt B.pt
+
+``--cases`` runs some of the cases only, ``--seeds`` with no value skips
+the residual readings: to time another split of lanes at K = 32, run
+``--cases lm_density lm_m512 lm_m16 --seeds`` on a copy of the tree with
+``kWideFwdLanes``/``kWideBwdLanes``/``kWideInvLanes`` edited.
 
 The first form imports the port from DIR, runs the kernels, saves their
 outputs and prints each kernel's device ms (``chip_smoke.cuda_ms``).  It
@@ -53,6 +62,9 @@ CASES = {
     "k16": ((64, 16, 4), 16, True, ("inv", "fwd", "bwd")),
     "k16_m91": ((7, 13), 16, False, ("inv", "fwd", "bwd")),
     "k3_m91": ((7, 13), 3, False, ("inv", "fwd", "bwd")),
+    "lm_density": ((128, 256, 4), 32, True, ("inv", "fwd", "bwd")),
+    "lm_m512": ((128, 4), 32, True, ("inv", "fwd", "bwd")),
+    "lm_m16": ((4, 4), 32, True, ("inv", "fwd", "bwd")),
 }
 OUTPUTS = {"inv": ("x",), "fwd": ("y", "ldj"),
            "bwd": ("gx", "gpi", "gmu", "gls")}
@@ -237,7 +249,7 @@ def readings(cs, cm, nm, seeds, dev) -> dict:
     return out
 
 
-def run(tree: str, out: str, seeds) -> None:
+def run(tree: str, out: str, seeds, cases) -> None:
     cs = _chip_smoke()
     sys.path.insert(0, os.path.abspath(tree))
     import torch
@@ -249,7 +261,9 @@ def run(tree: str, out: str, seeds) -> None:
     dev = torch.device("cuda")
     saved, ms = {}, {}
     with torch.no_grad():
-        for name in CASES:
+        for name in cases:
+            if CASES[name][1] > cm.MAX_K:
+                continue
             for kern, call in case_calls(cs, cm, name, dev).items():
                 outs = call()
                 torch.cuda.synchronize()
@@ -286,6 +300,8 @@ def compare(a: str, b: str) -> bool:
     outputs = {}
     same = True
     for key, ta in one["outputs"].items():
+        if key not in two["outputs"]:  # a case the other tree skipped
+            continue
         tb = two["outputs"][key]
         equal = torch.equal(ta.view(torch.int32), tb.view(torch.int32))
         outputs[key] = True if equal else {"ulps": _ulps(ta, tb),
@@ -295,7 +311,8 @@ def compare(a: str, b: str) -> bool:
     print(json.dumps({
         "a": one["tree"], "b": two["tree"], "all_bitwise_equal": same,
         "bitwise_equal": outputs,
-        "ms": {k: [one["ms"][k], two["ms"][k]] for k in one["ms"]}}),
+        "ms": {k: [one["ms"][k], two["ms"][k]] for k in one["ms"]
+               if k in two["ms"]}}),
         flush=True)
     return same
 
@@ -307,12 +324,14 @@ def main() -> int:
     ap.add_argument("--compare", nargs=2, metavar="FILE")
     ap.add_argument("--seeds", type=int, nargs="*", default=[0, 1, 2],
                     help="seeds of the inverse's residual readings")
+    ap.add_argument("--cases", nargs="*", default=list(CASES),
+                    choices=list(CASES), help="the cases to run")
     args = ap.parse_args()
     if args.compare:
         return 0 if compare(*args.compare) else 1
     if not (args.tree and args.out):
         ap.error("give --tree and --out, or --compare")
-    run(args.tree, args.out, args.seeds)
+    run(args.tree, args.out, args.seeds, args.cases)
     return 0
 
 
