@@ -17,7 +17,10 @@ tree is ``encoding.decoder``.  A parametric prior's tree (the HMM prior's
 entry of the reference's flow tuple and the port's ``flow.prior``.  The
 LSTM's cells and head keep the reference's names (``net.cells.<i>.wx.w``,
 ``net.out.b``), and the autoregressive layers' ``mean_offsets`` and
-``feat`` theirs.  Imports no JAX.
+``feat`` theirs.  GraphCNF's tree (``enc_node``, ``enc_exist``,
+``enc_bond``, ``flow_node``, ``flow_exist``, ``flow_bond``) keeps its names,
+each flow split as above; the EdgeGNN blocks keep the reference's names
+(``net.blocks.<i>.v2e.w``).  Imports no JAX.
 """
 
 from __future__ import annotations
@@ -60,20 +63,38 @@ def _split_depth(entry) -> dict:
                        for d in range(depth)]}
 
 
-def from_jax_params(task, params) -> dict:
-    """A ``state_dict`` for ``task.model`` from the reference's params."""
-    flow = list(params["flow"])
-    prior = {}
-    if isinstance(task.model.flow.prior, torch.nn.Module):
-        prior = flow.pop()
+def _flow_tree(flow, prefix: str, parametric_prior: bool) -> dict:
+    """A reference flow's tuple of per-layer trees (scanned entries split
+    along depth; a parametric prior's tree last) as flat names under
+    ``prefix``."""
+    flow = list(flow)
+    prior = flow.pop() if parametric_prior else {}
     flow = [_split_depth(e) if isinstance(e, (list, tuple)) else e
             for e in flow]
-    enc = dict(params["encoding"])
-    enc_flow = enc.pop("flow", ())
-    flat = {**flatten_tree(enc, "encoding."),
-            **flatten_tree(list(enc_flow), "encoding.flow.layers."),
-            **flatten_tree(flow, "flow.layers."),
-            **flatten_tree(prior, "flow.prior.")}
+    return {**flatten_tree(flow, f"{prefix}.layers."),
+            **flatten_tree(prior, f"{prefix}.prior.")}
+
+
+# GraphCNF's tree: three encodings and three flows, named as the port's
+_GRAPHCNF_ENCODINGS = ("enc_node", "enc_exist", "enc_bond")
+_GRAPHCNF_FLOWS = ("flow_node", "flow_exist", "flow_bond")
+
+
+def from_jax_params(task, params) -> dict:
+    """A ``state_dict`` for ``task.model`` from the reference's params."""
+    if "flow_node" in params:
+        flat = {}
+        for name in _GRAPHCNF_ENCODINGS:
+            flat.update(flatten_tree(params[name], f"{name}."))
+        for name in _GRAPHCNF_FLOWS:
+            flat.update(_flow_tree(params[name], name, False))
+    else:
+        enc = dict(params["encoding"])
+        enc_flow = enc.pop("flow", ())
+        flat = {**flatten_tree(enc, "encoding."),
+                **flatten_tree(list(enc_flow), "encoding.flow.layers."),
+                **_flow_tree(params["flow"], "flow", isinstance(
+                    task.model.flow.prior, torch.nn.Module))}
     want = task.model.state_dict()
     missing = sorted(set(want) - set(flat))
     extra = sorted(set(flat) - set(want))

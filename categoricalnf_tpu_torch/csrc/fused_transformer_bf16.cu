@@ -73,6 +73,15 @@
 // block, every producer writes zeros past the true width, and the weight
 // layouts' pads are zero), so the padding adds nothing.  Rows past the
 // last valid set carry zero cotangents, so they add nothing to dW.
+//
+// Key mask.  Both entry points take an optional key mask, one byte a row
+// of x (0 = the key is masked), as the reference's masked attention: the
+// scaled logit of a masked key becomes -1e9 before the row's max, so its
+// probability is exactly 0 where any key of the set is valid, and a set
+// whose keys are all masked attends uniformly over them.  The backward's
+// recompute rebuilds the same probabilities and gives a masked logit no
+// gradient (the reference's where() passes none to it).  A null mask
+// leaves every instruction of the arithmetic as it was.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -122,6 +131,20 @@ __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float rnd(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
+
+// The key mask of one tile: m[r] for the tile's rows r < valid (0 = the
+// key is masked), or no mask.  Rows past valid are whole sets whose
+// outputs are dropped, so their keys are read as valid.
+struct KeyMask {
+  const unsigned char* m;
+  int valid;
+};
+
+__device__ __forceinline__ bool key_masked(const KeyMask& km, int r) {
+  return km.m != nullptr && r < km.valid && km.m[r] == 0;
+}
+
+constexpr float kMaskedLogit = -1e9f;  // the reference's masked logit
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -479,12 +502,14 @@ __device__ __forceinline__ void set_dots(const bf16* mine, const bf16* rows,
 }
 
 // The softmax row of query r in head hh: p[j] (fp32, unrounded) for j < S,
-// with its max and sum.
+// with its max and sum; a masked key's scaled logit is kMaskedLogit.
 template <int MAXS>
 __device__ __forceinline__ void attn_row(const bf16* qkv, int r, int hh,
-                                         const Dims& dm, float (&p)[MAXS],
-                                         float& mx, float& sum) {
+                                         const Dims& dm, const KeyMask& km,
+                                         float (&p)[MAXS], float& mx,
+                                         float& sum) {
   const int H = dm.hidden, hd = H / dm.heads, S = dm.set_size;
+  const int set0 = (r / S) * S;
   const float inv_root = 1.0f / sqrtf((float)hd);
 #pragma unroll
   for (int j = 0; j < MAXS; ++j) p[j] = 0.0f;
@@ -495,7 +520,7 @@ __device__ __forceinline__ void attn_row(const bf16* qkv, int r, int hh,
 #pragma unroll
   for (int j = 0; j < MAXS; ++j) {
     if (j < S) {
-      p[j] = p[j] * inv_root;
+      p[j] = key_masked(km, set0 + j) ? kMaskedLogit : p[j] * inv_root;
       mx = fmaxf(mx, p[j]);
     }
   }
@@ -531,13 +556,13 @@ __device__ __forceinline__ void set_combine(const float (&w)[MAXS],
 // output rounded.
 template <int MAXS, int BLOCKS>
 __device__ __noinline__ void attention_tile(const bf16* qkv, bf16* out,
-                                            const Dims& dm) {
+                                            const Dims& dm, KeyMask km) {
   const int H = dm.hidden, nh = dm.heads, hd = H / nh, S = dm.set_size;
   for (int item = threadIdx.x; item < dm.tile * nh; item += blockDim.x) {
     const int hh = item / dm.tile;
     const int r = item % dm.tile;
     float p[MAXS], mx, sum;
-    attn_row<MAXS>(qkv, r, hh, dm, p, mx, sum);
+    attn_row<MAXS>(qkv, r, hh, dm, km, p, mx, sum);
 #pragma unroll
     for (int j = 0; j < MAXS; ++j)
       if (j < S) p[j] = rnd(p[j]);
@@ -555,7 +580,7 @@ __device__ __noinline__ void attention_tile(const bf16* qkv, bf16* out,
 template <int MAXS>
 __device__ __noinline__ void attention_bwd_q(const bf16* qkv, const bf16* go,
                                              bf16* gqkv, float* stats,
-                                             const Dims& dm) {
+                                             const Dims& dm, KeyMask km) {
   const int H = dm.hidden, nh = dm.heads, hd = H / nh, S = dm.set_size;
   const float inv_root = 1.0f / sqrtf((float)hd);
   const bf16 zero = __float2bfloat16_rn(0.0f);
@@ -574,7 +599,7 @@ __device__ __noinline__ void attention_bwd_q(const bf16* qkv, const bf16* go,
     }
     const bf16* set = qkv + (r / S) * S * dm.ld_big;
     float p[MAXS], mx, sum, gp[MAXS];
-    attn_row<MAXS>(qkv, r, hh, dm, p, mx, sum);
+    attn_row<MAXS>(qkv, r, hh, dm, km, p, mx, sum);
 #pragma unroll
     for (int j = 0; j < MAXS; ++j) gp[j] = 0.0f;
     set_dots<MAXS>(go + r * dm.ld_h + hh * hd, set + 2 * H + hh * hd,
@@ -587,10 +612,14 @@ __device__ __noinline__ void attention_bwd_q(const bf16* qkv, const bf16* go,
         D = fmaf(p[j], gp[j], D);
       }
     }
-    // the softmax's backward, then the 1/sqrt(hd) scale of the logits
+    // the softmax's backward, then the 1/sqrt(hd) scale of the logits; a
+    // masked logit takes none
+    const int set0 = (r / S) * S;
 #pragma unroll
     for (int j = 0; j < MAXS; ++j)
-      if (j < S) gp[j] = p[j] * (gp[j] - D) * inv_root;
+      if (j < S)
+        gp[j] = key_masked(km, set0 + j) ? 0.0f
+                                         : p[j] * (gp[j] - D) * inv_root;
     set_combine<MAXS>(gp, set + H + hh * hd, dm.ld_big, hd, S, gq);
     float* st = stats + (hh * dm.tile_pad + r) * 3;
     st[0] = mx;
@@ -605,13 +634,14 @@ __device__ __noinline__ void attention_bwd_q(const bf16* qkv, const bf16* go,
 template <int MAXS>
 __device__ __noinline__ void attention_bwd_kv(const bf16* qkv, const bf16* go,
                                               bf16* gqkv, const float* stats,
-                                              const Dims& dm) {
+                                              const Dims& dm, KeyMask km) {
   const int H = dm.hidden, nh = dm.heads, hd = H / nh, S = dm.set_size;
   const float inv_root = 1.0f / sqrtf((float)hd);
   for (int item = threadIdx.x; item < dm.tile * nh; item += blockDim.x) {
     const int hh = item / dm.tile;
     const int j = item % dm.tile;
     const int set0 = (j / S) * S;
+    const bool masked = key_masked(km, j);
     float gl[MAXS], pq[MAXS];
 #pragma unroll
     for (int ii = 0; ii < MAXS; ++ii) gl[ii] = pq[ii] = 0.0f;
@@ -624,8 +654,12 @@ __device__ __noinline__ void attention_bwd_kv(const bf16* qkv, const bf16* go,
     for (int ii = 0; ii < MAXS; ++ii) {
       if (ii < S) {
         const float* st = stats + (hh * dm.tile_pad + set0 + ii) * 3;
-        const float p = expf(gl[ii] * inv_root - st[0]) * (1.0f / st[1]);
-        gl[ii] = p * (rnd(pq[ii]) - st[2]) * inv_root;
+        // the unmasked expression as it was, so that its contraction and
+        // so its bits stay
+        const float p =
+            masked ? expf(kMaskedLogit - st[0]) * (1.0f / st[1])
+                   : expf(gl[ii] * inv_root - st[0]) * (1.0f / st[1]);
+        gl[ii] = masked ? 0.0f : p * (rnd(pq[ii]) - st[2]) * inv_root;
         pq[ii] = rnd(p);
       }
     }
@@ -640,24 +674,25 @@ __device__ __noinline__ void attention_bwd_kv(const bf16* qkv, const bf16* go,
 // The three attention passes at the smallest unroll that holds a set.
 template <int BLOCKS = 1>
 __device__ __forceinline__ void attention(const bf16* qkv, bf16* out,
-                                          const Dims& dm) {
+                                          const Dims& dm, const KeyMask& km) {
   if (dm.set_size <= 16)
-    attention_tile<16, BLOCKS>(qkv, out, dm);
+    attention_tile<16, BLOCKS>(qkv, out, dm, km);
   else
-    attention_tile<kMaxSet, BLOCKS>(qkv, out, dm);
+    attention_tile<kMaxSet, BLOCKS>(qkv, out, dm, km);
 }
 
 __device__ __forceinline__ void attention_bwd(const bf16* qkv,
                                               const bf16* go, bf16* gqkv,
-                                              float* stats, const Dims& dm) {
+                                              float* stats, const Dims& dm,
+                                              const KeyMask& km) {
   if (dm.set_size <= 16) {
-    attention_bwd_q<16>(qkv, go, gqkv, stats, dm);
+    attention_bwd_q<16>(qkv, go, gqkv, stats, dm, km);
     __syncthreads();
-    attention_bwd_kv<16>(qkv, go, gqkv, stats, dm);
+    attention_bwd_kv<16>(qkv, go, gqkv, stats, dm, km);
   } else {
-    attention_bwd_q<kMaxSet>(qkv, go, gqkv, stats, dm);
+    attention_bwd_q<kMaxSet>(qkv, go, gqkv, stats, dm, km);
     __syncthreads();
-    attention_bwd_kv<kMaxSet>(qkv, go, gqkv, stats, dm);
+    attention_bwd_kv<kMaxSet>(qkv, go, gqkv, stats, dm, km);
   }
 }
 
@@ -699,6 +734,7 @@ __host__ __device__ inline size_t smem_bytes(const Dims& dm) {
 
 __global__ void __launch_bounds__(kThreads, 1)
 fused_set_transformer_bwd(const bf16* __restrict__ x,
+                          const unsigned char* __restrict__ key_mask,
                           const bf16* __restrict__ g, PadWeights wt,
                           bf16* __restrict__ dx, float* __restrict__ part,
                           Dims dm) {
@@ -730,6 +766,7 @@ fused_set_transformer_bwd(const bf16* __restrict__ x,
     const long row0 = t * dm.tile;
     const long left = dm.rows - row0;
     const int valid = left < dm.tile ? (int)left : dm.tile;
+    const KeyMask km = {key_mask ? key_mask + row0 : nullptr, valid};
 
     // 1. forward, keeping h at each block boundary
     load_rows(x, row0, valid, IN, r2, dm.ld_x, dm);
@@ -747,7 +784,7 @@ fused_set_transformer_bwd(const bf16* __restrict__ x,
                         3 * H, wt.b[1] + l * 3 * H, qkv, dm.ld_big, nullptr,
                         nullptr, valid, dm);
       __syncthreads();
-      attention(qkv, o, dm);
+      attention(qkv, o, dm, km);
       __syncthreads();
       mma_dense<kResidual>(o, dm.ld_h, PH, wt.wt[2] + (long)l * PH * PH, PH,
                            H, wt.b[2] + l * H, h, dm.ld_h, nullptr, nullptr,
@@ -787,7 +824,7 @@ fused_set_transformer_bwd(const bf16* __restrict__ x,
                         3 * H, wt.b[1] + l * 3 * H, qkv, dm.ld_big, nullptr,
                         nullptr, valid, dm);
       __syncthreads();
-      attention(qkv, o, dm);
+      attention(qkv, o, dm, km);
       __syncthreads();
       mma_dense<kResidual>(o, dm.ld_h, PH, wt.wt[2] + (long)l * PH * PH, PH,
                            H, wt.b[2] + l * H, hm, dm.ld_h, nullptr, nullptr,
@@ -824,7 +861,7 @@ fused_set_transformer_bwd(const bf16* __restrict__ x,
                            dm);
       layer_norm_tile(h, a, dm);  // a1 again, for the qkv weights
       __syncthreads();
-      attention_bwd(qkv, gs, r2, stats, dm);
+      attention_bwd(qkv, gs, r2, stats, dm, km);
       __syncthreads();
       mma_wgrad(a, dm.ld_h, H, r2, dm.ld_big, 3 * H,
                 pw + og.off[2] + (long)l * H * 3 * H,
@@ -866,8 +903,9 @@ __host__ __device__ inline size_t fwd_smem_bytes(const Dims& dm) {
 // past valid hold finite values that no valid row reads: every dense
 // product, LN and the epilogues act row by row, and attention within sets.
 __global__ void __launch_bounds__(kThreads, kFwdBlocks)
-fused_set_transformer_fwd(const bf16* __restrict__ x, PadWeights wt,
-                          bf16* __restrict__ y, Dims dm) {
+fused_set_transformer_fwd(const bf16* __restrict__ x,
+                          const unsigned char* __restrict__ key_mask,
+                          PadWeights wt, bf16* __restrict__ y, Dims dm) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int H = dm.hidden, RH = dm.mlp, L = dm.layers, TP = dm.tile_pad;
   const int PH = dm.p_h, PB = dm.p_big, PF = dm.p_f;
@@ -877,6 +915,7 @@ fused_set_transformer_fwd(const bf16* __restrict__ x, PadWeights wt,
   const long row0 = blockIdx.x * (long)dm.tile;
   const long left = dm.rows - row0;
   const int valid = left < dm.tile ? (int)left : dm.tile;
+  const KeyMask km = {key_mask ? key_mask + row0 : nullptr, valid};
 
   clear16(smem_raw, (int)fwd_smem_bytes(dm));
   __syncthreads();
@@ -892,7 +931,7 @@ fused_set_transformer_fwd(const bf16* __restrict__ x, PadWeights wt,
                       3 * H, wt.b[1] + l * 3 * H, big, dm.ld_big, nullptr,
                       nullptr, valid, dm);
     __syncthreads();
-    attention<kFwdBlocks>(big, a, dm);
+    attention<kFwdBlocks>(big, a, dm, km);
     __syncthreads();
     mma_dense<kResidual>(a, dm.ld_h, PH, wt.wt[2] + (long)l * PH * PH, PH, H,
                          wt.b[2] + l * H, h, dm.ld_h, nullptr, nullptr, valid,
@@ -967,11 +1006,13 @@ cudaError_t max_smem_optin(int* max_smem) {
 
 extern "C" {
 
-// Forward in bf16: x [rows, in] (bf16) to y [rows, out] (bf16).  w holds
+// Forward in bf16: x [rows, in] (bf16) to y [rows, out] (bf16).  key_mask
+// is null or one byte a row of x (0 = a masked key of its set).  w holds
 // the 6 forward layouts W^T [pad(n), pad(kd)] of the backward's w (embed,
 // qkv, proj, fc1, fc2, out; layer-stacked; zero-padded to multiples of 16),
 // b the 6 fp32 biases.
-int fused_set_transformer_fwd_bf16(const void* x, const void* const* w,
+int fused_set_transformer_fwd_bf16(const void* x, const void* key_mask,
+                                   const void* const* w,
                                    const float* const* b, void* y, long rows,
                                    int set_size, int in_dim, int hidden,
                                    int heads, int layers, int mlp,
@@ -1005,11 +1046,12 @@ int fused_set_transformer_fwd_bf16(const void* x, const void* const* w,
   }
   const unsigned grid = (unsigned)((rows + dm.tile - 1) / dm.tile);
   fused_set_transformer_fwd<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, wt, (bf16*)y, dm);
+      (const bf16*)x, (const unsigned char*)key_mask, wt, (bf16*)y, dm);
   return (int)cudaGetLastError();
 }
 
-// Backward in bf16: x [rows, in] and g [rows, out] in bf16; writes dx
+// Backward in bf16: x [rows, in] and g [rows, out] in bf16, key_mask as
+// the forward's; writes dx
 // [rows, in] (bf16) and the 12 fp32 weight gradients, flat in
 // flatten_params order (the matrices' rounded to bf16), to dw.  w holds 12
 // bf16 matrices: the 6 forward layouts W^T [pad(n), pad(kd)], then the 6
@@ -1017,7 +1059,8 @@ int fused_set_transformer_fwd_bf16(const void* x, const void* const* w,
 // out; layer-stacked; zero-padded to multiples of 16); b the 6 fp32
 // biases.  part is fp32 scratch of grid x (the size of dw); grid (<= the
 // number of tiles) is the number of persistent blocks.
-int fused_set_transformer_bwd_bf16(const void* x, const void* g,
+int fused_set_transformer_bwd_bf16(const void* x, const void* key_mask,
+                                   const void* g,
                                    const void* const* w,
                                    const float* const* b, void* dx,
                                    float* part, float* dw, long rows,
@@ -1055,7 +1098,8 @@ int fused_set_transformer_bwd_bf16(const void* x, const void* g,
   }
   cudaStream_t s = (cudaStream_t)stream;
   fused_set_transformer_bwd<<<grid, kThreads, smem, s>>>(
-      (const bf16*)x, (const bf16*)g, wt, (bf16*)dx, part, dm);
+      (const bf16*)x, (const unsigned char*)key_mask, (const bf16*)g, wt,
+      (bf16*)dx, part, dm);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const Offsets og = grad_offsets(dm);

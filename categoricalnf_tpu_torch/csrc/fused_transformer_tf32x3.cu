@@ -48,6 +48,13 @@
 // LayerNorm (one warp a row) and attention (one thread per head and query
 // row, its own row in registers, the set's rows broadcast, set loops
 // unrolled only to 16 or 32) run on the CUDA cores in fp32, out of line.
+//
+// Key mask.  The entry point takes an optional key mask, one byte a row of
+// x (0 = the key is masked), as the reference's masked attention: the
+// scaled logit of a masked key becomes -1e9 before the row's max, so its
+// probability is exactly 0 where any key of the set is valid, and a set
+// whose keys are all masked attends uniformly over them.  A null mask
+// leaves the arithmetic as it was.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -268,18 +275,25 @@ __device__ __forceinline__ void set_dots(const float* mine, const float* rows,
   }
 }
 
+constexpr float kMaskedLogit = -1e9f;  // the reference's masked logit
+
 // Attention within each set, one thread per (head, query row): logits
-// q.k / sqrt(hd), softmax, then out = sum_j p_j v_j, all fp32.
+// q.k / sqrt(hd), the logit of a key with km[j] == 0 (j < valid) set to
+// kMaskedLogit, softmax, then out = sum_j p_j v_j, all fp32.  Rows past
+// valid are whole sets whose outputs are dropped; their keys read as valid.
 template <int MAXS>
 __device__ __noinline__ void attention_tile(const float* qkv, float* out,
-                                            const Dims& dm) {
+                                            const Dims& dm,
+                                            const unsigned char* km,
+                                            int valid) {
   const int H = dm.hidden, nh = dm.heads, hd = H / nh, S = dm.set_size;
   const float inv_root = 1.0f / sqrtf((float)hd);
   const int ld = dm.ld_qkv;
   for (int item = threadIdx.x; item < dm.tile * nh; item += blockDim.x) {
     const int hh = item / dm.tile;
     const int r = item % dm.tile;
-    const float* set = qkv + (r / S) * S * ld;
+    const int set0 = (r / S) * S;
+    const float* set = qkv + set0 * ld;
     float p[MAXS];
 #pragma unroll
     for (int j = 0; j < MAXS; ++j) p[j] = 0.0f;
@@ -288,7 +302,9 @@ __device__ __noinline__ void attention_tile(const float* qkv, float* out,
 #pragma unroll
     for (int j = 0; j < MAXS; ++j) {
       if (j < S) {
-        p[j] = p[j] * inv_root;
+        const bool masked =
+            km != nullptr && set0 + j < valid && km[set0 + j] == 0;
+        p[j] = masked ? kMaskedLogit : p[j] * inv_root;
         mx = fmaxf(mx, p[j]);
       }
     }
@@ -316,11 +332,13 @@ __device__ __noinline__ void attention_tile(const float* qkv, float* out,
 }
 
 __device__ __forceinline__ void attention(const float* qkv, float* out,
-                                          const Dims& dm) {
+                                          const Dims& dm,
+                                          const unsigned char* km,
+                                          int valid) {
   if (dm.set_size <= 16)
-    attention_tile<16>(qkv, out, dm);
+    attention_tile<16>(qkv, out, dm, km, valid);
   else
-    attention_tile<kMaxSet>(qkv, out, dm);
+    attention_tile<kMaxSet>(qkv, out, dm, km, valid);
 }
 
 // Floats of one block's shared memory: h and a [tile, ld_h], big [tile,
@@ -334,6 +352,7 @@ __host__ __device__ inline size_t smem_floats(const Dims& dm) {
 // memory holds at the flagship (63 KB each).
 __global__ void __launch_bounds__(kThreads, kBlocks)
 fused_set_transformer_fwd_tf32x3(const float* __restrict__ x,
+                                 const unsigned char* __restrict__ key_mask,
                                  SplitWeights wt, float* __restrict__ y,
                                  Dims dm) {
   extern __shared__ __align__(16) float smem[];
@@ -344,6 +363,7 @@ fused_set_transformer_fwd_tf32x3(const float* __restrict__ x,
   const long row0 = blockIdx.x * (long)T;
   const long left = dm.rows - row0;
   const int valid = left < T ? (int)left : T;
+  const unsigned char* km = key_mask ? key_mask + row0 : nullptr;
 
   const int total = (int)smem_floats(dm);
   for (int i = threadIdx.x; i < total; i += blockDim.x) smem[i] = 0.0f;
@@ -364,7 +384,7 @@ fused_set_transformer_fwd_tf32x3(const float* __restrict__ x,
                       3 * H, wt.b[1] + l * 3 * H, big, dm.ld_qkv, nullptr,
                       valid, dm);
     __syncthreads();
-    attention(big, a, dm);
+    attention(big, a, dm, km, valid);
     __syncthreads();
     mma_dense<kResidual>(a, dm.ld_h, dm.k_h,
                          wt.wt[2] + (long)l * dm.n_h * 2 * dm.k_h, dm.n_h, H,
@@ -416,10 +436,12 @@ bool pick_layout(Dims& dm, int max_smem) {
 
 extern "C" {
 
-// Forward in fp32: x [rows, in] to y [rows, out].  w: the 6 split layouts
+// Forward in fp32: x [rows, in] to y [rows, out].  key_mask: null or one
+// byte a row of x (0 = a masked key of its set).  w: the 6 split layouts
 // (see SplitWeights; embed, qkv, proj, fc1, fc2, out); b: their 6 fp32
 // biases, in the same order.  Returns cudaGetLastError().
-int fused_set_transformer_fwd_f32(const void* x, const void* const* w,
+int fused_set_transformer_fwd_f32(const void* x, const void* key_mask,
+                                  const void* const* w,
                                   const float* const* b, void* y, long rows,
                                   int set_size, int in_dim, int hidden,
                                   int heads, int layers, int mlp, int out_dim,
@@ -464,7 +486,7 @@ int fused_set_transformer_fwd_f32(const void* x, const void* const* w,
   const unsigned grid = (unsigned)((rows + dm.tile - 1) / dm.tile);
   fused_set_transformer_fwd_tf32x3<<<grid, kThreads, smem,
                                      (cudaStream_t)stream>>>(
-      (const float*)x, wt, (float*)y, dm);
+      (const float*)x, (const unsigned char*)key_mask, wt, (float*)y, dm);
   return (int)cudaGetLastError();
 }
 

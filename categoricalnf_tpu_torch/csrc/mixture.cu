@@ -381,16 +381,22 @@ __global__ void mixture_forward_bwd_kernel(
 //   log domain for every element.
 
 // |g| at or below kConverged (1 + |y|) counts as converged (rtsafe_update):
-// 16 ulps of 1 + |y|, about g's rounding error in either domain.
+// 4 ulps of 1 + |y|, at or below the residual check's floor tau = 2^-21
+// (softplus(y) + softplus(-y)) for every y.  At 16 ulps an element could
+// stop on an iterate whose residual was twice tau where |y| is large (a
+// masked bond position of GraphCNF's sample, y = 4.4e7, read 1.8 times the
+// check's limit; PERF.md).  An element that cannot reach the floor
+// runs on until its bracket holds no float (rtsafe_done).
 //
-// The wide groups (16 < K <= 32) sum F and S compensated (group_dot2).  A
-// plain fmaf chain of 32 terms rounds 32 times: on the language models'
-// samples its error in g reached 5e-7 to 1e-6, the convergence floor's
-// size, so that the best iterate by the computed |g| was at times not the
-// best by the true one (a residual 1.28 times the check's limit, PERF.md).
-// Compensated, F and S carry about one rounding each; K <= 16 keeps the
-// plain chains and its bits.
-constexpr float kConverged = 0x1p-20f;
+// The groups of more than 8 components (K = 16 and 32) sum F and S
+// compensated (group_dot2).  A plain fmaf chain rounds once a term: its
+// error in g reached 5e-7 to 1e-6, the size of the check's floor, at K =
+// 32 on the language models' samples and at K = 16 on the molecules', so
+// that the best iterate by the computed |g| was at times not the best by
+// the true one (a residual 1.28 and 1.07 times the check's limit,
+// PERF.md).  Compensated, F and S carry about one rounding each.  K <= 8
+// keeps the plain chains: they pass there, in 14% less time (PERF.md).
+constexpr float kConverged = 0x1p-22f;
 constexpr float kLinearMaxY = 64.0f;
 constexpr float kLinearMin = 0x1p-100f;
 constexpr float kBracketSlack = 0x1p-21f;
@@ -587,8 +593,10 @@ __device__ __forceinline__ float rtsafe_linear(const LinParams<C>& q,
       sig_neg[c] = t >= 0.0f ? s : r;
       sig_pair[c] = r * s;
     }
+    // F and S compensated above 8 components (above); f, which only
+    // scales the step, plain
     float F, S;
-    if constexpr (G * C > 16) {  // the wide groups, compensated (above)
+    if constexpr (G * C > 8) {
       F = group_dot2<G, C>(q.w, sig);
       S = group_dot2<G, C>(q.w, sig_neg);
     } else {

@@ -2,7 +2,9 @@
 temperatures (counterpart of ``experiments/sample_eval.py``).
 
 Loads the run's newest checkpoint through ``inference.load_run`` and
-reports the task's sample metrics at each temperature, one JSON line each,
+reports the task's sample metrics at each temperature, one JSON line each
+(a token is a scalar, or "t_node:t_exist:t_bond" for tasks with per-stage
+temperatures, GraphCNF's),
 then writes the table to ``<run>/temperature_sweep.json`` and to a copy
 named by the step and the sample count, so that a later sweep of the same
 run keeps the earlier one.  Runs on the card unless ``--device cpu``:
@@ -21,6 +23,12 @@ import sys
 
 from categoricalnf_tpu_torch.inference import load_run
 from categoricalnf_tpu_torch.training.engine import step_generator
+
+
+def parse_temp(tok: str):
+    """A scalar temperature, or a per-stage tuple from "a:b:c"."""
+    parts = [float(x) for x in tok.split(":")]
+    return parts[0] if len(parts) == 1 else tuple(parts)
 
 
 def main(argv=None) -> list:
@@ -42,13 +50,19 @@ def main(argv=None) -> list:
     extra = {"num_samples": args.num_samples}
     if args.best_of_k > 1 and "best_of_k" in sig:
         extra["best_of_k"] = args.best_of_k
-    temps = [float(t) for t in args.temperatures.split(",")]
+    temps = [parse_temp(t) for t in args.temperatures.split(",")]
+    if any(isinstance(t, tuple) for t in temps) and not getattr(
+            task, "supports_stage_temperatures", False):
+        print(f"{task.name}: no per-stage temperature support; dropping "
+              "triple tokens", file=sys.stderr)
+        temps = [t for t in temps if not isinstance(t, tuple)] or [1.0]
     rows = []
     for i, t in enumerate(temps):
         metrics = task.sample_metrics(
             generator=step_generator(task.device, args.seed, i),
             temperature=t, **extra)
-        row = {"temperature": t, "step": handle.step,
+        row = {"temperature": list(t) if isinstance(t, tuple) else t,
+               "step": handle.step,
                "num_samples": args.num_samples,
                **{k: float(v) for k, v in metrics.items()}}
         rows.append(row)

@@ -15,11 +15,12 @@ from categoricalnf_tpu_torch.flows.model import FlowModel
 from categoricalnf_tpu_torch.flows.scanned import ScannedBlocks
 from categoricalnf_tpu_torch.flows.sigmoid import Logit, Sigmoid
 from categoricalnf_tpu_torch.flows.softclamp import SoftClamp
+from categoricalnf_tpu_torch.flows.stack import coupling_stack
 
 __all__ = [
     "Transform", "apply_mask", "sum_ldj", "ActNorm",
     "AutoregressiveMixtureCDF", "ConditionalAffine", "MixtureCDFCoupling",
     "make_channel_mask", "make_checker_mask", "GaussianPrior", "HMMPrior",
     "LogisticPrior", "create_prior", "InvertibleLinear", "FlowModel",
-    "Logit", "ScannedBlocks", "Sigmoid", "SoftClamp",
+    "Logit", "ScannedBlocks", "Sigmoid", "SoftClamp", "coupling_stack",
 ]

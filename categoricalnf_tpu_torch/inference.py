@@ -32,6 +32,9 @@ def _task_class(task_name: str):
     if task_name.startswith("lm_"):
         from categoricalnf_tpu_torch.tasks import LanguageModelingTask
         return LanguageModelingTask
+    if task_name.startswith("molecules_"):
+        from categoricalnf_tpu_torch.tasks import MoleculeTask
+        return MoleculeTask
     raise NotImplementedError(
         f"task {task_name!r} is not ported yet (ROADMAP.md, Queue A)")
 

@@ -3,12 +3,13 @@
 Counterpart of ``categoricalnf_tpu/networks/transformer.py``.  No
 positional embeddings; keys of invalid elements are masked with -1e9.
 A CUDA tensor always runs the whole net in one CUDA kernel
-(``ops/cuda/fused_transformer.py``), which raises on what it does not take
-(a key mask, a condition, sets above 32); with grad on, its backward is the
-backward kernel.  A CPU tensor takes the unfused path, ``plain_forward``,
-which is also the kernels' plain version (autograd through it for the
-backward).  The
-reference's ``fused`` switch has no counterpart: the device chooses.
+(``ops/cuda/fused_transformer.py``), key mask included, which raises on
+what it does not take (a condition, sets above 32); with grad on, its
+backward is the backward kernel, and a call whose backward tile would not
+fit raises before the forward launches.  A CPU tensor takes the unfused
+path, ``plain_forward``, which is also the kernels' plain version
+(autograd through it for the backward).  The reference's ``fused`` switch
+has no counterpart: the device chooses.
 """
 
 from __future__ import annotations
@@ -77,20 +78,43 @@ class SetTransformer(nn.Module):
                             ft.PackedWeights(ft.flatten_params(self), cd))
         return self._packed[2]
 
+    def check_backward_fits(self, x) -> None:
+        """Raise unless the backward kernel takes this net at x's set size
+        where the forward does: a differentiable call is refused before its
+        forward launches.  (A call the forward refuses raises there.)"""
+        cd = torch_dtype(self.compute_dtype)
+        H, mlp = self.hidden_dim, self.mlp_ratio * self.hidden_dim
+        if not ft.supported(x, None, None, H, self.num_heads,
+                            self.mlp_ratio, cd):
+            return
+        if not ft.bwd_fits(cd, x.shape[1], x.shape[2], H, mlp,
+                           self.out.w.shape[1], self.num_heads,
+                           self.num_layers):
+            item = ("Queue B 12: #4 bf16 at width 256" if cd == torch.bfloat16
+                    else "Queue B 3 and 8: the fp32 train step's pair")
+            raise NotImplementedError(
+                f"the fused SetTransformer backward has no tile for width "
+                f"{H} at sets of {x.shape[1]} in {self.compute_dtype}: its "
+                f"shared memory is over {ft.MAX_SMEM} bytes (ROADMAP.md, "
+                f"{item})")
+
     def forward(self, x, cond=None, mask=None):
         if not x.is_cuda:
             return self.plain_forward(x, cond, mask)
-        if cond is not None or mask is not None:
+        if cond is not None:
             raise NotImplementedError(
-                "the fused SetTransformer kernel takes no condition or key "
-                "mask yet (ROADMAP.md, Queue B 7)")
-        packed = self._packed_weights(torch_dtype(self.compute_dtype))
+                "the fused SetTransformer kernel takes no condition: no "
+                "SetTransformer of the reference is given one")
+        cd = torch_dtype(self.compute_dtype)
         if torch.is_grad_enabled():
+            self.check_backward_fits(x)
             # kernel #3 forward, kernel #4 backward; the stacks of
             # flatten_params carry the weight gradients to the parameters
-            return ft.FusedSetTransformer.apply(x, packed, self.num_heads,
-                                                *ft.flatten_params(self))
-        return ft.fused_set_transformer(packed, x, num_heads=self.num_heads)
+            return ft.FusedSetTransformer.apply(
+                x, self._packed_weights(cd), self.num_heads, mask,
+                *ft.flatten_params(self))
+        return ft.fused_set_transformer(self._packed_weights(cd), x,
+                                        num_heads=self.num_heads, mask=mask)
 
     def plain_forward(self, x, cond=None, mask=None):
         """The unfused net on any device: the kernel's plain version."""

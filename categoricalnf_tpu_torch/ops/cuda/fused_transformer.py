@@ -18,7 +18,14 @@ them into the TF32 pairs the forward reads (``tf32x3_layouts``).
 ``FusedSetTransformer`` ties the two kernels together for autograd, as
 ``defvjp`` does in the reference.  ``LAUNCHES`` and ``BWD_LAUNCHES`` count
 launches by compute dtype, ``TRAIN_FWD_LAUNCHES`` those of the fp32 FMA
-forward of a differentiable call.
+forward of a differentiable call; ``MASKED_LAUNCHES`` and
+``MASKED_BWD_LAUNCHES`` count, among them, those that took a key mask.
+
+A key mask ``[B, S]`` (nonzero = a valid key) reaches the bf16 pair and the
+fp32 forward as one byte a key, cast once here: the logits of masked keys
+are -1e9 before the softmax, as in the reference's masked attention.  The
+fp32 FMA pair of a differentiable fp32 call takes no mask and raises on one
+(ROADMAP.md, Queue B 3 and 8).
 """
 
 from __future__ import annotations
@@ -53,6 +60,8 @@ NUM_W = 12
 LAUNCHES = {"bfloat16": 0, "float32": 0}
 BWD_LAUNCHES = {"bfloat16": 0, "float32": 0}
 TRAIN_FWD_LAUNCHES = {"float32": 0}
+MASKED_LAUNCHES = {"bfloat16": 0, "float32": 0}
+MASKED_BWD_LAUNCHES = {"bfloat16": 0}
 
 # (source, entry point) of the forward and of the backward
 _ENTRY = {torch.bfloat16: ("fused_transformer_bf16",
@@ -261,9 +270,14 @@ def supported(x, cond, mask, hidden_dim: int, num_heads: int,
               mlp_ratio: int = 2,
               compute_dtype: torch.dtype = torch.float32) -> bool:
     """Whether the forward kernel of ``compute_dtype`` covers this call: no
-    cond or mask, x [B, S, IN] with S <= 32, heads dividing the width, in
-    bf16 a width of at most 256, and a tile that fits."""
-    if cond is not None or mask is not None or x.dim() != 3:
+    cond, x [B, S, IN] with S <= 32, a key mask (if any) of shape [B, S],
+    heads dividing the width, in bf16 a width of at most 256, and a tile
+    that fits.  The forward's limits only: the bf16 backward's tile is
+    larger and does not fit at width 256 (``bwd_fits``), and the fp32 FMA
+    pair of a differentiable fp32 call takes no mask."""
+    if cond is not None or x.dim() != 3:
+        return False
+    if mask is not None and tuple(mask.shape) != tuple(x.shape[:2]):
         return False
     if hidden_dim % num_heads != 0 or not 1 <= x.shape[1] <= MAX_SET:
         return False
@@ -274,10 +288,21 @@ def supported(x, cond, mask, hidden_dim: int, num_heads: int,
     return smem <= MAX_SMEM
 
 
+def bwd_fits(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
+             mlp: int, out_dim: int, heads: int, layers: int) -> bool:
+    """Whether a tile of the backward kernel fits in shared memory."""
+    return bwd_shape(dtype, set_size, in_dim, hidden, mlp, out_dim, heads,
+                     layers)[1] <= MAX_SMEM
+
+
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+# the fp32 FMA pair (no key mask)
 _FWD_ARGS = [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P]
 _BWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I,
              _P]
+# the entries that take a key mask, the pointer after x's
+_MASKED_FWD_ARGS = _FWD_ARGS[:1] + [_P] + _FWD_ARGS[1:]
+_MASKED_BWD_ARGS = _BWD_ARGS[:1] + [_P] + _BWD_ARGS[1:]
 _fns: dict = {}
 
 
@@ -355,7 +380,8 @@ def _ptrs(tensors):
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
-def _check_x(packed: PackedWeights, x, num_heads: int, what: str):
+def _check_x(packed: PackedWeights, x, num_heads: int, what: str,
+             mask=None):
     if not x.is_cuda or x.dim() != 3:
         raise ValueError(f"fused SetTransformer {what}: x must be a "
                          "[B, S, IN] CUDA tensor")
@@ -368,52 +394,87 @@ def _check_x(packed: PackedWeights, x, num_heads: int, what: str):
         raise ValueError(f"fused SetTransformer {what}: unsupported call x "
                          f"{tuple(x.shape)}, H={packed.hidden}, "
                          f"heads={num_heads}")
+    if mask is not None and (tuple(mask.shape) != tuple(x.shape[:2])
+                             or mask.device != x.device):
+        raise ValueError(f"fused SetTransformer {what}: key mask "
+                         f"{tuple(mask.shape)} on {mask.device}, want "
+                         f"{tuple(x.shape[:2])} on {x.device}")
+
+
+def key_mask_bytes(mask):
+    """A key mask [B, S] (float or bool, nonzero = valid) as the kernels
+    read it: one byte a key, contiguous; None stays None."""
+    if mask is None:
+        return None
+    return (mask.detach() != 0).to(torch.uint8).contiguous()
+
+
+def _mask_ptr(km) -> int | None:
+    return None if km is None else km.data_ptr()
 
 
 def _forward_launch(packed: PackedWeights, x, num_heads: int,
-                    differentiable: bool = False):
+                    differentiable: bool = False, mask=None):
     """Kernel #3.  A differentiable fp32 call takes the FMA forward whose
-    arithmetic the fp32 backward recomputes (bf16 has one forward)."""
-    _check_x(packed, x, num_heads, "forward")
+    arithmetic the fp32 backward recomputes (bf16 has one forward); that
+    forward takes no key mask."""
+    _check_x(packed, x, num_heads, "forward", mask)
+    train = differentiable and packed.dtype == torch.float32
+    if train and mask is not None:
+        raise NotImplementedError(
+            "the fp32 train step's fused pair takes no key mask yet "
+            "(ROADMAP.md, Queue B 3 and 8); the bf16 kernels and the fp32 "
+            "forward without grad take one")
     B, S, in_dim = x.shape
     x2 = x.detach().to(packed.dtype).contiguous()
+    km = key_mask_bytes(mask)
     y = torch.empty(B, S, packed.out_dim, dtype=packed.dtype, device=x.device)
-    train = differentiable and packed.dtype == torch.float32
     source, name = _TRAIN_FWD_ENTRY if train else _ENTRY[packed.dtype]
+    # the FMA forward takes no key mask and reads the backward's layouts
+    lead, argtypes, w_ptrs = (
+        ((x2.data_ptr(),), _FWD_ARGS, packed.bwd_w_ptrs) if train else
+        ((x2.data_ptr(), _mask_ptr(km)), _MASKED_FWD_ARGS, packed.w_ptrs))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fn(source, name, _FWD_ARGS)(
-            x2.data_ptr(), packed.bwd_w_ptrs if train else packed.w_ptrs,
-            packed.b_ptrs, y.data_ptr(), B * S, S, in_dim, packed.hidden,
-            num_heads, packed.layers, packed.mlp, packed.out_dim, stream)
+        err = _fn(source, name, argtypes)(
+            *lead, w_ptrs, packed.b_ptrs, y.data_ptr(), B * S, S, in_dim,
+            packed.hidden, num_heads, packed.layers, packed.mlp,
+            packed.out_dim, stream)
     build.check(err, name)
     if train:
         TRAIN_FWD_LAUNCHES["float32"] += 1
     else:
         LAUNCHES[_KEY[packed.dtype]] += 1
+        if km is not None:
+            MASKED_LAUNCHES[_KEY[packed.dtype]] += 1
     return y
 
 
-def fused_set_transformer(packed: PackedWeights, x, *,
-                          num_heads: int) -> torch.Tensor:
-    """The whole SetTransformer on x [B, S, IN] (CUDA) from ``packed``;
-    returns [B, S, OUT] in the packed compute dtype.  Not differentiable:
-    with grad on and an ``x`` that needs one it raises, since the result
-    would carry no graph (``FusedSetTransformer`` is the differentiable
-    form)."""
+def fused_set_transformer(packed: PackedWeights, x, *, num_heads: int,
+                          mask=None) -> torch.Tensor:
+    """The whole SetTransformer on x [B, S, IN] (CUDA) from ``packed``, with
+    an optional key mask [B, S] (nonzero = valid); returns [B, S, OUT] in
+    the packed compute dtype.  Not differentiable: with grad on and an
+    ``x`` that needs one it raises, since the result would carry no graph
+    (``FusedSetTransformer`` is the differentiable form)."""
     if torch.is_grad_enabled() and x.requires_grad:
         raise RuntimeError("fused_set_transformer drops the autograd graph: "
                            "use FusedSetTransformer.apply for training")
-    return _forward_launch(packed, x, num_heads)
+    return _forward_launch(packed, x, num_heads, mask=mask)
 
 
 def fused_set_transformer_bwd(packed: PackedWeights, x, g, *,
-                              num_heads: int):
+                              num_heads: int, mask=None):
     """Kernel #4: the cotangent ``g`` [B, S, OUT] of the net's output pulled
-    back to x and the 12 weights.  Returns (dx in x's dtype, 12 fp32 weight
-    gradients shaped as ``flatten_params``).  The matrices' gradients are
-    rounded to the compute dtype, as the transpose of their cast."""
-    _check_x(packed, x, num_heads, "backward")
+    back to x and the 12 weights, under the forward's key mask (bf16 only).
+    Returns (dx in x's dtype, 12 fp32 weight gradients shaped as
+    ``flatten_params``).  The matrices' gradients are rounded to the
+    compute dtype, as the transpose of their cast."""
+    _check_x(packed, x, num_heads, "backward", mask)
+    if mask is not None and packed.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            "the fp32 backward takes no key mask yet (ROADMAP.md, Queue B 3 "
+            "and 8)")
     B, S, in_dim = x.shape
     if tuple(g.shape) != (B, S, packed.out_dim) or g.device != x.device:
         raise ValueError(f"fused SetTransformer backward: g "
@@ -433,36 +494,50 @@ def fused_set_transformer_bwd(packed: PackedWeights, x, g, *,
     dx = torch.empty_like(x2)
     part = torch.empty(grid, total, dtype=torch.float32, device=x.device)
     dw = torch.empty(total, dtype=torch.float32, device=x.device)
+    km = key_mask_bytes(mask)
     source, name = _BWD_ENTRY[packed.dtype]
+    # the bf16 entry takes the key mask after x; the fp32 one takes none
+    lead = ((x2.data_ptr(), _mask_ptr(km), g2.data_ptr())
+            if packed.dtype == torch.bfloat16
+            else (x2.data_ptr(), g2.data_ptr()))
+    argtypes = (_MASKED_BWD_ARGS if packed.dtype == torch.bfloat16
+                else _BWD_ARGS)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fn(source, name, _BWD_ARGS)(
-            x2.data_ptr(), g2.data_ptr(), packed.bwd_w_ptrs, packed.b_ptrs,
-            dx.data_ptr(), part.data_ptr(), dw.data_ptr(), B * S, S, in_dim,
-            H, num_heads, L, RH, OUT, grid, stream)
+        err = _fn(source, name, argtypes)(
+            *lead, packed.bwd_w_ptrs, packed.b_ptrs, dx.data_ptr(),
+            part.data_ptr(), dw.data_ptr(), B * S, S, in_dim, H, num_heads,
+            L, RH, OUT, grid, stream)
     build.check(err, name)
     BWD_LAUNCHES[_KEY[packed.dtype]] += 1
+    if km is not None:
+        MASKED_BWD_LAUNCHES[_KEY[packed.dtype]] += 1
     dws = tuple(t.view(shape) for t, shape in
                 zip(dw.split(sizes), packed.shapes))
     return dx.to(x.dtype), dws
 
 
 class FusedSetTransformer(torch.autograd.Function):
-    """``apply(x, packed, num_heads, *ws)``: the net's output from kernel #3
-    (in fp32 its FMA form, the arithmetic #4 recomputes), and from kernel #4
-    in backward dx (x's dtype) and the fp32 gradients of the 12-tuple ``ws``
-    (``flatten_params``, differentiable through its stacks).  ``packed``
-    holds ``ws`` cast once; only x is saved."""
+    """``apply(x, packed, num_heads, mask, *ws)``: the net's output from
+    kernel #3 (in fp32 its FMA form, the arithmetic #4 recomputes), and from
+    kernel #4 in backward dx (x's dtype) and the fp32 gradients of the
+    12-tuple ``ws`` (``flatten_params``, differentiable through its stacks).
+    ``mask`` is the key mask [B, S] or None, an input with no gradient.
+    ``packed`` holds ``ws`` cast once; x and the mask are saved."""
 
     @staticmethod
-    def forward(ctx, x, packed, num_heads, *ws):
+    def forward(ctx, x, packed, num_heads, mask, *ws):
         ctx.packed, ctx.num_heads = packed, num_heads
-        ctx.save_for_backward(x)
-        return _forward_launch(packed, x, num_heads, differentiable=True)
+        ctx.has_mask = mask is not None
+        ctx.save_for_backward(x, *(() if mask is None else (mask,)))
+        return _forward_launch(packed, x, num_heads, differentiable=True,
+                               mask=mask)
 
     @staticmethod
     def backward(ctx, g):
-        (x,) = ctx.saved_tensors
+        x, *rest = ctx.saved_tensors
+        mask = rest[0] if ctx.has_mask else None
         dx, dws = fused_set_transformer_bwd(ctx.packed, x, g,
-                                            num_heads=ctx.num_heads)
-        return (dx, None, None, *dws)
+                                            num_heads=ctx.num_heads,
+                                            mask=mask)
+        return (dx, None, None, None, *dws)

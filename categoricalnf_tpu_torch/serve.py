@@ -1,8 +1,9 @@
 """Serve a finished run over HTTP: samples, sample-quality metrics, info.
 
 Counterpart of ``experiments/serve.py`` for the port: the set-shuffling,
-set-summation, graph-coloring and language-modeling tasks.  Device work is
-serialized behind a lock; the HTTP layer is the stdlib server.
+set-summation, graph-coloring, language-modeling and molecule tasks.
+Device work is serialized behind a lock; the HTTP layer is the stdlib
+server.
 
 Endpoints:
   GET  /health         -> {"status": "ok", "task": ..., "step": N}
@@ -11,7 +12,8 @@ Endpoints:
                           -> {"samples": [...]}: sets as token lists;
                           colorings as {"edges", "colors", "valid"} of
                           fresh random graphs; text as strings of
-                          seq_len characters
+                          seq_len characters; molecules as {"atoms",
+                          "bonds", "smiles", "valid"}
   POST /sample_metrics -> same body; the task's sample_metrics dict
 
 Usage (on a machine with a CUDA card):
@@ -33,6 +35,7 @@ from categoricalnf_tpu_torch.inference import load_run
 from categoricalnf_tpu_torch.tasks.graph_coloring import (GraphColoringTask,
                                                           coloring_validity)
 from categoricalnf_tpu_torch.tasks.language import LanguageModelingTask
+from categoricalnf_tpu_torch.tasks.molecules import MoleculeTask
 from categoricalnf_tpu_torch.tasks.set_modeling import (SetShufflingTask,
                                                         SetSummationTask,
                                                         _sample_set)
@@ -65,6 +68,10 @@ def _sample_payload(task, generator, n: int, temperature: float):
         return out
     if isinstance(task, LanguageModelingTask):
         return task.sample_text(n, temperature, generator)
+    if isinstance(task, MoleculeTask):
+        # node counts from the prior, seeded from the request's generator
+        return task.molecules_json(*task.sample_many(n, temperature,
+                                                     generator=generator))
     raise ValueError(f"no sample payload for task {type(task).__name__}")
 
 

@@ -117,32 +117,17 @@ def repair_coloring(adj: np.ndarray, probs: np.ndarray, colors: np.ndarray,
 
 def build_coloring_flow(dim: int, num_layers: int = 6, hidden_dim: int = 96,
                         num_mixtures: int = 8,
-                        compute_dtype: str = "float32",
-                        scan_blocks: bool = True, *,
+                        compute_dtype: str = "float32", *,
                         generator=None) -> flows.FlowModel:
     """num_layers x [ActNorm, InvertibleLinear, MixtureCDFCoupling(RGCN,
     2 layers), SoftClamp], parities alternating; scanned (``ScannedBlocks``
     of two-parity blocks) at an even depth of at least 4, as the
     reference's."""
     out_dim = dim * (2 + 3 * num_mixtures)
-
-    def sub(parity):
-        net = RGCN(dim, out_dim, hidden_dim=hidden_dim, num_layers=2,
-                   compute_dtype=compute_dtype, generator=generator)
-        return [flows.ActNorm(dim),
-                flows.InvertibleLinear(dim, generator=generator),
-                flows.MixtureCDFCoupling(net, dim, parity=parity,
-                                         num_mixtures=num_mixtures,
-                                         generator=generator),
-                flows.SoftClamp()]
-
-    if scan_blocks and num_layers % 2 == 0 and num_layers >= 4:
-        return flows.FlowModel([flows.ScannedBlocks(
-            [sub(0) + sub(1) for _ in range(num_layers // 2)])])
-    layers = []
-    for i in range(num_layers):
-        layers += sub(i % 2)
-    return flows.FlowModel(layers)
+    return flows.coupling_stack(
+        lambda: RGCN(dim, out_dim, hidden_dim=hidden_dim, num_layers=2,
+                     compute_dtype=compute_dtype, generator=generator),
+        dim, num_layers, num_mixtures, generator=generator)
 
 
 @dataclasses.dataclass

@@ -49,26 +49,13 @@ def build_set_flow(dim: int, num_layers: int = 8, hidden_dim: int = 96,
     if scan_blocks is None:
         scan_blocks = num_layers > 8
     out_dim = dim * (2 + 3 * num_mixtures)
-
-    def sub(parity):
-        net = SetTransformer(dim, out_dim, hidden_dim=hidden_dim,
-                             num_heads=num_heads, num_layers=2,
-                             compute_dtype=compute_dtype, generator=generator)
-        return [flows.ActNorm(dim),
-                flows.InvertibleLinear(dim, generator=generator),
-                flows.MixtureCDFCoupling(net, dim, parity=parity,
-                                         num_mixtures=num_mixtures,
-                                         generator=generator),
-                flows.SoftClamp()]
-
-    if scan_blocks and num_layers % 2 == 0 and num_layers >= 4:
-        return flows.FlowModel([flows.ScannedBlocks(
-            [sub(0) + sub(1) for _ in range(num_layers // 2)], remat=remat,
-            unroll=unroll)])
-    layers = []
-    for i in range(num_layers):
-        layers += sub(i % 2)
-    return flows.FlowModel(layers)
+    return flows.coupling_stack(
+        lambda: SetTransformer(dim, out_dim, hidden_dim=hidden_dim,
+                               num_heads=num_heads, num_layers=2,
+                               compute_dtype=compute_dtype,
+                               generator=generator),
+        dim, num_layers, num_mixtures, scan=scan_blocks, remat=remat,
+        unroll=unroll, generator=generator)
 
 
 def _encoding_kwargs(task) -> dict:

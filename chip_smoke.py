@@ -108,9 +108,33 @@ Run from the root of a checkout on a machine with one NVIDIA card:
    inverse call of sample_metrics at 128 samples at --seed and --seed + 1;
    serves the run (/health, /sample of 4 strings, a bad request) and holds
    the served model, its heads random, against its CPU copy.
-9. Prints one JSON line of kernel numbers (with the coloring's, the
-   dequantized flows' and the LM's shapes, and every path's launches),
-   then, as the last line, {"ok": true, "device": {...}}.
+9. Molecules (GraphCNF).  First, with the kernel checks of 2., the key
+   mask in #3 bf16, #4 bf16 and #3 fp32 at the node flow's shapes (128
+   graphs of 24 nodes, in 6, out 156, hidden 192; fp32 at 4 chains, and
+   at moses's hidden 256, K = 16), at --seed and --seed + 1, masks of a
+   synthetic batch with a set of one valid key and one of none: each
+   within its tolerance of plain, the same call without the mask above 10
+   x that tolerance, a mask of ones bitwise the call without one; each
+   timed.  Then runs/molecules_v4/config.json as it is but for its dataset
+   (the in-memory synthetic molecules; hidden 192, 4 node and 6 edge
+   layers, K = 8, bf16, batch 128) for MOL_STEPS (120) steps with the
+   checks of 4.,
+   every molecule kernel launched with the mask, the final sample metrics
+   at 1,024 and sampled_molecules.json; prints
+   molecule_generation_train_samples_per_s, the peak memory, the validity
+   columns and a 10-step trace.  Serves the run (/health, /sample of 4
+   with atoms, bonds, SMILES and "valid" checked, /sample_metrics, a bad
+   request), holds the served model with random coupling output layers
+   against its CPU copy (bpd within 1e-3; a sample stage by stage, each on
+   the CPU's earlier stages) and #1 on every inverse call of its sample at
+   --seed and --seed + 1.  Then runs/moses/config.json at
+   full width (hidden 256, K = 16, 12 bond layers, node_cond_atoms,
+   bond_cond_degree; synthetic molecules) with random weights: served,
+   held against its CPU copy, #1 held on its sample.
+10. Prints one JSON line of kernel numbers (with the coloring's, the
+   dequantized flows', the LM's and the molecules' shapes, and every
+   path's launches), then, as the last line, {"ok": true, "device":
+   {...}}.
 
 Exits non-zero, printing no result, without a CUDA card, outside a checkout
 of the repo, or when any check fails.  Imports nothing of JAX.
@@ -735,7 +759,7 @@ def check_train_fwd(device, gen, report):
         with torch.no_grad():
 
             def run():
-                return ft.FusedSetTransformer.apply(x, packed, HEADS, *ws)
+                return ft.FusedSetTransformer.apply(x, packed, HEADS, None, *ws)
 
             y = twice(run)
             y_p = net.plain_forward(x)
@@ -1058,7 +1082,8 @@ def reset_launches():
     from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
     from categoricalnf_tpu_torch.ops.cuda import mixture as cm
     for counts in (cm.LAUNCHES, ft.LAUNCHES, ft.BWD_LAUNCHES,
-                   ft.TRAIN_FWD_LAUNCHES):
+                   ft.TRAIN_FWD_LAUNCHES, ft.MASKED_LAUNCHES,
+                   ft.MASKED_BWD_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -1073,7 +1098,11 @@ def read_launches() -> dict:
             **{f"fused_set_transformer_bwd_{short[k]}": v
                for k, v in ft.BWD_LAUNCHES.items()},
             "fused_set_transformer_train_f32":
-                ft.TRAIN_FWD_LAUNCHES["float32"]}
+                ft.TRAIN_FWD_LAUNCHES["float32"],
+            **{f"fused_set_transformer_{short[k]}_masked": v
+               for k, v in ft.MASKED_LAUNCHES.items()},
+            **{f"fused_set_transformer_bwd_{short[k]}_masked": v
+               for k, v in ft.MASKED_BWD_LAUNCHES.items()}}
 
 
 TRAIN_STEPS, TRAIN_EVAL_EVERY, TRAIN_LOG_EVERY = 200, 100, 20
@@ -1217,8 +1246,9 @@ def train_checked(task, task_name: str, args: dict, tcfg, out_dir: str,
     finite, no eval raises the integrity alarm, every eval bpd is above 0,
     the best is at least 0.2 bits/var below the untrained one, and each of
     ``kernels`` was launched.  Records in ``timings`` the wall time, the
-    peak device memory, the bpds and samples/s over steps 101-200 (the
-    Trainer's windows, which count training steps only).  Returns the
+    peak device memory, the bpds and samples/s over the steps after the
+    first eval of ``tcfg`` (101-200 at TRAIN_STEPS; the Trainer's windows,
+    which count training steps only).  Returns the
     final metrics with the launches of the run under "launches"."""
     import numpy as np
     import torch
@@ -1247,7 +1277,7 @@ def train_checked(task, task_name: str, args: dict, tcfg, out_dir: str,
     t0 = time.perf_counter()
     final = trainer.train(resume=False)
     torch.cuda.synchronize()
-    timings[f"train_{TRAIN_STEPS}_steps_s"] = time.perf_counter() - t0
+    timings[f"train_{tcfg.num_steps}_steps_s"] = time.perf_counter() - t0
     launches = read_launches()
     check(len(started_from) == 1 and all(
         torch.equal(started_from[0][k], v) for k, v in start.items()),
@@ -1258,7 +1288,7 @@ def train_checked(task, task_name: str, args: dict, tcfg, out_dir: str,
             open(os.path.join(out_dir, "metrics.jsonl"))]
     train = [r for r in rows if r["prefix"] == "train"]
     vals = [r for r in rows if r["prefix"] == "val"]
-    check(len(train) == TRAIN_STEPS // TRAIN_LOG_EVERY
+    check(len(train) == tcfg.num_steps // tcfg.log_every
           and all(np.isfinite(r["loss"]) for r in train),
           f"training loss not finite at every logged step: {train}")
     check(all(r["integrity_alarm"] == 0 for r in vals),
@@ -1270,7 +1300,7 @@ def train_checked(task, task_name: str, args: dict, tcfg, out_dir: str,
                    test_bpd=final["test_bpd"])
     check(best < bpd0 - 0.2, f"training did not lower the bpd by 0.2: "
           f"{bpd0} -> {best}")
-    steps, secs, timings["rate_steps"] = rate_windows(rows, TRAIN_EVAL_EVERY)
+    steps, secs, timings["rate_steps"] = rate_windows(rows, tcfg.eval_every)
     timings["train_ms_per_step"] = secs * 1e3 / steps
     timings["train_samples_per_s"] = steps * task.batch_size / secs
     for name in kernels:
@@ -1957,6 +1987,493 @@ def lm_phase(seed: int, timings: dict, card: str,
     return launches
 
 
+# GraphCNF's node flow (runs/molecules_v4: graphs padded to 24 nodes, node
+# latents of dim 6, K = 8, batch 128, hidden 192; runs/moses: hidden 256,
+# K = 16): the SetTransformer's sets are the graphs' nodes, under the key
+# mask of their node mask
+MOL_NODES, MOL_NODE_DIM, MOL_BATCH, MOL_HIDDEN = 24, 6, 128, 192
+MOSES_BATCH, MOSES_HIDDEN, MOSES_K = 192, 256, 16
+# molecules_v4's training steps, evals at half and at the end: a step takes
+# 0.3-0.6 s on the card's host (PERF.md), so the phase stays near 150 s
+MOL_STEPS = 120
+MOL_OUT = MOL_NODE_DIM * (2 + 3 * K)
+# #4 bf16's tolerance (``fused_bwd_report``): the largest relative error of
+# a gradient's norm
+BF16_BWD_REL = 0.03
+# a masked kernel's control: the same call without the mask must read this
+# many times the tolerance away from the masked plain version
+MASK_CONTROL = 10.0
+
+
+def molecule_net(cd: str, device, seed: int, hidden: int = MOL_HIDDEN,
+                 out: int = MOL_OUT):
+    """A node-flow coupling net of GraphCNF (SetTransformer, 4 heads, 2
+    blocks, in 6) in compute dtype ``cd``, from ``seed``, its output layer
+    N(0, 0.1^2)."""
+    import torch
+    from categoricalnf_tpu_torch.networks import SetTransformer
+    net = SetTransformer(MOL_NODE_DIM, out, hidden_dim=hidden,
+                         num_heads=HEADS, compute_dtype=cd,
+                         generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        net.out.w.copy_(torch.randn(net.out.w.shape,
+                                    generator=torch.Generator()
+                                    .manual_seed(seed + 1)) * 0.1)
+    return net.to(device)
+
+
+def molecule_key_mask(seed: int, device, batch: int = MOL_BATCH):
+    """The node mask [batch, 24] of a synthetic molecule batch (8-24 atoms,
+    the dataset's generator at ``seed``), with set 0 cut to one valid key
+    and set 1 to none."""
+    import torch
+    from categoricalnf_tpu_torch.tasks.molecules import load_molecule_dataset
+    m = load_molecule_dataset("synthetic", None, MOL_NODES, batch,
+                              seed)["node_mask"].copy()
+    m[0] = 0.0
+    m[0, 0] = 1.0
+    m[1] = 0.0
+    return torch.as_tensor(m, device=device)
+
+
+def masked_fwd_readings(net, x, mask, tol: float) -> dict:
+    """#3 with the key mask against ``plain_forward`` with it: the kernel's
+    relative error of the norm within ``tol``; the control, the kernel
+    without the mask, above MASK_CONTROL x tol; a mask of ones bitwise the
+    call without one."""
+    import torch
+    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+    packed = net._packed_weights(getattr(torch, net.compute_dtype))
+    with torch.no_grad():
+        y = twice(lambda: ft.fused_set_transformer(packed, x, num_heads=HEADS,
+                                                   mask=mask))
+        y_p = net.plain_forward(x, mask=mask)
+        y_u = ft.fused_set_transformer(packed, x, num_heads=HEADS)
+        y_1 = ft.fused_set_transformer(packed, x, num_heads=HEADS,
+                                       mask=torch.ones_like(mask))
+    rel, control = rel_err(y, y_p), rel_err(y_u, y_p)
+    what = f"masked #3 {net.compute_dtype} at {tuple(x.shape)}"
+    check(bool(torch.isfinite(y.float()).all()), f"{what}: not finite")
+    check(rel <= tol, f"{what}: relative error {rel} above {tol}")
+    check(control > MASK_CONTROL * tol, f"{what}: the call without the mask "
+          f"reads {control}, inside {MASK_CONTROL} x {tol}")
+    check(torch.equal(y_1, y_u), f"{what}: a mask of ones is not bitwise "
+          "the call without a mask")
+    return dict(rel_err=rel, control_rel_err=control,
+                max_abs_err=max_err(y, y_p))
+
+
+def masked_bwd_readings(net, x, mask, g) -> dict:
+    """#4 bf16 with the key mask (through ``FusedSetTransformer`` and the
+    stacks of ``flatten_params``) against autograd through
+    ``plain_forward`` with it: each gradient within BF16_BWD_REL of its
+    norm; the control, the kernels without the mask, above MASK_CONTROL x
+    that on some gradient; a mask of ones bitwise the call without one."""
+    import torch
+    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+    params = list(net.parameters())
+
+    def grads(plain, m):
+        xr = x.clone().requires_grad_(True)
+        y = net.plain_forward(xr, mask=m) if plain else net(xr, mask=m)
+        return torch.autograd.grad(y, [xr] + params, g)
+
+    got = twice(lambda: grads(False, mask))
+    want = grads(True, mask)
+    errs = [rel_err(a, w) for a, w in zip(got, want)]
+    control = max(rel_err(a, w) for a, w in zip(grads(False, None), want))
+    what = f"masked #4 bf16 at {tuple(x.shape)}"
+    check(max(errs) <= BF16_BWD_REL, f"{what}: relative error {max(errs)} "
+          f"above {BF16_BWD_REL}")
+    check(control > MASK_CONTROL * BF16_BWD_REL, f"{what}: the kernels "
+          f"without the mask read {control}, inside {MASK_CONTROL} x "
+          f"{BF16_BWD_REL}")
+    packed = net._packed_weights(torch.bfloat16)
+    with torch.no_grad():
+        one = ft.fused_set_transformer_bwd(packed, x, g, num_heads=HEADS,
+                                           mask=torch.ones_like(mask))
+        none = ft.fused_set_transformer_bwd(packed, x, g, num_heads=HEADS)
+    check(all(torch.equal(a, b) for a, b in
+              zip((one[0], *one[1]), (none[0], *none[1]))),
+          f"{what}: a mask of ones is not bitwise the call without a mask")
+    return dict(rel_err=max(errs), control_rel_err=control,
+                max_abs_err=max(max_err(a, w) for a, w in zip(got, want)))
+
+
+def check_molecule_kernels(device, seeds, report):
+    """#3 bf16, #4 bf16 and #3 fp32 with the key mask at the node flow's
+    shapes (runs/molecules_v4: 128 graphs of 24 nodes, in 6, out 156,
+    hidden 192; the fp32 forward at the eval twin's 4 chains x 128 graphs),
+    at each seed, masks from a synthetic batch with one set of a single
+    valid key and one of none (``molecule_key_mask``): #3 bf16 within
+    BF16_FWD_REL, #4 bf16 within BF16_BWD_REL, #3 fp32 within 1e-4 and
+    F32_FWD_REL of plain, each beside its control (``masked_fwd_readings``,
+    ``masked_bwd_readings``); #3 fp32 also at moses's hidden 256, K = 16,
+    and #3 bf16 there on its served batch of 192 graphs (out 300: a tile
+    and shared-memory layout of its own).  Then each timed at the first
+    seed."""
+    import torch
+    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+    readings: dict = {}
+    for seed in seeds:
+        g = torch.Generator(device).manual_seed(seed + 50)
+        mask = molecule_key_mask(seed, device)
+        x = torch.randn(MOL_BATCH, MOL_NODES, MOL_NODE_DIM, generator=g,
+                        device=device)
+        gy = torch.randn(MOL_BATCH, MOL_NODES, MOL_OUT, generator=g,
+                         device=device).to(torch.bfloat16)
+        bf = molecule_net("bfloat16", device, seed)
+        readings[f"{seed}/fwd_bf16"] = masked_fwd_readings(bf, x, mask,
+                                                           BF16_FWD_REL)
+        readings[f"{seed}/bwd_bf16"] = masked_bwd_readings(bf, x, mask, gy)
+        x4 = torch.randn(EVAL_CHAINS * MOL_BATCH, MOL_NODES, MOL_NODE_DIM,
+                         generator=g, device=device)
+        mask4 = mask.repeat(EVAL_CHAINS, 1)
+        for hidden, k in ((MOL_HIDDEN, K), (MOSES_HIDDEN, MOSES_K)):
+            f32 = molecule_net("float32", device, seed, hidden,
+                               MOL_NODE_DIM * (2 + 3 * k))
+            r = masked_fwd_readings(f32, x4, mask4, F32_FWD_REL)
+            with torch.no_grad():
+                y = f32(x4, mask=mask4)
+                check(close(y, f32.plain_forward(x4, mask=mask4), 1e-4),
+                      f"masked #3 fp32 at hidden {hidden}: off plain by "
+                      f"more than 1e-4")
+            readings[f"{seed}/fwd_f32_h{hidden}"] = r
+        mask = molecule_key_mask(seed, device, MOSES_BATCH)
+        x = torch.randn(MOSES_BATCH, MOL_NODES, MOL_NODE_DIM, generator=g,
+                        device=device)
+        bf = molecule_net("bfloat16", device, seed, MOSES_HIDDEN,
+                          MOL_NODE_DIM * (2 + 3 * MOSES_K))
+        readings[f"{seed}/fwd_bf16_h{MOSES_HIDDEN}"] = masked_fwd_readings(
+            bf, x, mask, BF16_FWD_REL)
+    print("masked fused kernels at the node flow's shapes (limits: bf16 "
+          f"#3 {BF16_FWD_REL}, #4 {BF16_BWD_REL}, fp32 #3 {F32_FWD_REL}; "
+          f"controls above {MASK_CONTROL} x): " + json.dumps(readings),
+          flush=True)
+
+    seed = seeds[0]
+    g = torch.Generator(device).manual_seed(seed + 51)
+    mask = molecule_key_mask(seed, device)
+    x = torch.randn(MOL_BATCH, MOL_NODES, MOL_NODE_DIM, generator=g,
+                    device=device)
+    gy = torch.randn(MOL_BATCH, MOL_NODES, MOL_OUT, generator=g,
+                     device=device).to(torch.bfloat16)
+    x4 = torch.randn(EVAL_CHAINS * MOL_BATCH, MOL_NODES, MOL_NODE_DIM,
+                     generator=g, device=device)
+    mask4 = mask.repeat(EVAL_CHAINS, 1)
+    macs_row = net_macs_per_row(MOL_NODE_DIM, MOL_HIDDEN, HEADS, 2,
+                                2 * MOL_HIDDEN, MOL_OUT, MOL_NODES)
+    for cd, xs, ms, name in (
+            ("bfloat16", x, mask, "fused_set_transformer_bf16_molecules"),
+            ("float32", x4, mask4, "fused_set_transformer_f32_molecules")):
+        net = molecule_net(cd, device, seed)
+        tdt = getattr(torch, cd)
+        packed = net._packed_weights(tdt)
+        with torch.no_grad():
+            t = timed(lambda: ft.fused_set_transformer(
+                packed, xs, num_heads=HEADS, mask=ms),
+                lambda: net.plain_forward(xs, mask=ms), 20, 5)
+        rows = xs.shape[0] * MOL_NODES
+        elt = 2 if cd == "bfloat16" else 4
+        ws = ft.flatten_params(net)
+        n_w = sum(w.numel() for w in ws[0::2])
+        n_b = sum(b.numel() for b in ws[1::2])
+        r = readings[f"{seed}/fwd_{'bf16' if elt == 2 else 'f32_h192'}"]
+        report[name] = dict(
+            r, rows=rows, **t, dtype=cd,
+            # x and y, the weights, and one byte a key of the mask
+            bytes=rows * ((MOL_NODE_DIM + MOL_OUT) * elt + 1) + n_w * elt
+            + n_b * 4, ops=2 * rows * macs_row,
+            **({"tc_ops": 3 * 2 * rows * macs_row} if elt == 4 else {}))
+    net = molecule_net("bfloat16", device, seed)
+    packed = net._packed_weights(torch.bfloat16)
+    params = list(net.parameters())
+    xr = x.clone().requires_grad_(True)
+    y_p = net.plain_forward(xr, mask=mask)
+    t = timed(lambda: ft.fused_set_transformer_bwd(packed, x, gy,
+                                                   num_heads=HEADS,
+                                                   mask=mask),
+              lambda: torch.autograd.grad(y_p, [xr] + params, gy,
+                                          retain_graph=True), 10, 5)
+    ws = ft.flatten_params(net)
+    n_w = sum(w.numel() for w in ws[0::2])
+    n_b = sum(b.numel() for b in ws[1::2])
+    rows = MOL_BATCH * MOL_NODES
+    report["fused_set_transformer_bwd_bf16_molecules"] = dict(
+        readings[f"{seed}/bwd_bf16"], rows=rows, **t, dtype="bfloat16",
+        # x, g, dx and the mask; the weights and their fp32 gradients
+        bytes=rows * ((2 * MOL_NODE_DIM + MOL_OUT) * 2 + 1) + n_w * 2
+        + n_b * 4 + (n_w + n_b) * 4, ops=3 * 2 * rows * macs_row)
+
+
+def molecule_graph_noise(task, n: int, chains: int, seed: int):
+    """Uniforms of the three stages' encoders for ``chains`` chains of
+    ``n`` graphs, and of their priors for a sample of ``n``."""
+    import torch
+    from categoricalnf_tpu_torch.ops.numerics import uniform_noise
+    m = task.model
+    g = torch.Generator().manual_seed(seed)
+    shapes = [(n, m.max_nodes, m.node_dim), (n, m.num_edges, m.exist_dim),
+              (n, m.num_edges, m.bond_dim)]
+    enc = tuple(uniform_noise((chains,) + s, generator=g) for s in shapes)
+    prior = tuple(uniform_noise(s, generator=g) for s in shapes)
+    return enc, prior
+
+
+def decode_fixed(enc, z, tol: float = 1e-3):
+    """Where the Bayes decode of the mixture encoding ``enc`` at ``z``
+    [..., D] stays whatever each latent moves by up to tol (1 + |z|): the
+    gap between the two best log joints is above what such a move can
+    change it by (a logistic's log density has a slope of at most 1/s) and
+    above fp32's rounding of them."""
+    import torch
+    joint = enc._log_joint_all(z)
+    top, idx = joint.topk(2, dim=-1)
+    inv_s = torch.exp(-enc._ls(enc.log_scales))                 # [C, D]
+    move = tol * (1 + z.abs())
+    bound = (move * (inv_s[idx[..., 0]] + inv_s[idx[..., 1]])).sum(-1)
+    rounding = 1e-5 * (1 + top.abs().sum(-1))
+    return top[..., 0] - top[..., 1] > bound + rounding
+
+
+def check_molecules_against_cpu(task, seed: int, n: int = 16) -> dict:
+    """The served GraphCNF (kernels on the card) against a CPU copy of it
+    (plain path), in the fp32 twin, on ``n`` graphs of the task's data with
+    shared noise: the IS bits/var of 4 chains within 1e-3; then a sample
+    from shared prior uniforms held stage by stage, each stage of the card
+    run on the CPU's earlier stages (``GraphCNF.sample_stages`` with
+    ``given``): its latents within 1e-3 (absolute and relative) on 99% of
+    its live positions (nodes, node pairs, existing bonds), and its
+    categories equal on 99% of those whose decode that tolerance cannot
+    flip (``decode_fixed``: a deep flow with random weights sends some
+    latents so far out that 1e-3 of them moves every category's log joint
+    across the others).  The
+    whole sample's agreement is recorded, not held: one decision that
+    flips between the two changes the conditions of every later stage of
+    its graph."""
+    import numpy as np
+    import torch
+    from categoricalnf_tpu_torch.inference import build_task
+
+    args = {f.name: getattr(task, f.name) for f in dataclasses.fields(task)
+            if f.name not in ("name", "device")}
+    cpu = build_task(task.name, args, device="cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               task.model.state_dict().items()})
+    batch = cpu._slice(np.random.default_rng(seed + 7).integers(
+        0, len(cpu.data["atoms"]), n))
+    enc, prior = molecule_graph_noise(cpu, n, 4, seed + 7)
+    mask = torch.as_tensor(batch["node_mask"])
+    dev = task.device
+    with torch.no_grad():
+        bpd_cpu = cpu.eval_step(batch, 4, noise=enc)
+        bpd_gpu = task.eval_step(batch, 4, noise=tuple(
+            u.to(dev) for u in enc)).cpu()
+        gap = max_err(bpd_gpu, bpd_cpu)
+        check(gap <= 1e-3, f"{task.name}: eval_bpd card vs CPU {gap}")
+        want = cpu.eval_model.sample_stages(mask, noise=prior)
+        got = {k: v.cpu() for k, v in task.eval_model.sample_stages(
+            mask.to(dev), noise=tuple(u.to(dev) for u in prior),
+            given={k: v.to(dev) for k, v in want.items()}).items()}
+        a_c, e_c = cpu.eval_model.sample(mask, noise=prior)
+        a_g, e_g = (t.cpu() for t in task.eval_model.sample(
+            mask.to(dev), noise=tuple(u.to(dev) for u in prior)))
+    e_mask = cpu.model.edge_mask(mask) > 0
+    live = {"v": mask > 0, "e1": e_mask, "e2": e_mask & (want["exist"] > 0)}
+    r = {"bpd_max_err": gap}
+    for stage, z, cat, enc in (
+            ("v", "z_v", "atoms", cpu.model.enc_node),
+            ("e1", "z_e1", "exist", cpu.model.enc_exist),
+            ("e2", "z_e2", "bond", cpu.model.enc_bond)):
+        near = ((got[z] - want[z]).abs() <= 1e-3 + 1e-3 * want[z].abs())
+        r[f"{z}_within_1e3"] = float(near[live[stage]].float().mean())
+        with torch.no_grad():
+            sure = live[stage] & decode_fixed(enc, want[z])
+        r[f"{cat}_determined"] = float(sure.sum() / live[stage].sum())
+        # None where no decode is determined: nothing to hold there
+        r[f"{cat}_equal"] = (float((got[cat] == want[cat])[sure]
+                                   .float().mean()) if sure.any() else None)
+        check(r[f"{z}_within_1e3"] >= 0.99
+              and (r[f"{cat}_equal"] is None or r[f"{cat}_equal"] >= 0.99),
+              f"{task.name}: stage {z} card vs CPU: {r}")
+    r["sample_atoms_equal"] = float((a_g == a_c)[mask > 0].float().mean())
+    r["sample_edges_equal"] = float((e_g == e_c)[e_mask].float().mean())
+    print(f"{task.name}: card vs CPU (fp32, {n} graphs): " + json.dumps(r),
+          flush=True)
+    return r
+
+
+MOLECULE_KERNELS = ("mixture_forward", "mixture_forward_bwd",
+                    "mixture_inverse", "fused_set_transformer_bf16",
+                    "fused_set_transformer_bwd_bf16",
+                    "fused_set_transformer_f32")
+# the launches of the masked kernels, counted apart (``read_launches``)
+MASKED_KERNELS = ("fused_set_transformer_bf16_masked",
+                  "fused_set_transformer_bwd_bf16_masked",
+                  "fused_set_transformer_f32_masked")
+MOLECULE_QUALITY = ("validity", "validity_ci95", "uniqueness", "novelty",
+                    "validity_strict", "validity_corrected",
+                    "uniqueness_corrected", "novelty_corrected")
+
+
+def serve_molecules(run_dir: str, timings: dict, device: str,
+                    metric_samples: int) -> tuple:
+    """Serve the molecule run in ``run_dir`` over HTTP: /health, /sample of
+    4 (atoms of the vocabulary, bonds of orders 1-3 inside each molecule,
+    "valid" as recomputed), /sample_metrics of ``metric_samples``, a bad
+    request.  Returns the server and the launches of the serving."""
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    from categoricalnf_tpu_torch.serve import RunServer, make_handler
+    from categoricalnf_tpu_torch.tasks import chem
+    reset_launches()
+    server = RunServer(run_dir, device=device)
+    task = server.handle.task
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(server))
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        port = httpd.server_port
+        st, health, _ = http_json(port, "GET", "/health")
+        check(st == 200 and health["task"] == task.name, f"/health {health}")
+        st, out, dt = http_json(port, "POST", "/sample", {"num_samples": 4})
+        check(st == 200 and len(out["samples"]) == 4,
+              f"/sample answered {st}: {out}")
+        timings["sample_4_s"] = dt
+        for mol in out["samples"]:
+            k = len(mol["atoms"])
+            check(set(mol) == {"atoms", "bonds", "smiles", "valid"}
+                  and 1 <= k <= task.max_nodes
+                  and set(mol["atoms"]) <= set(chem.ATOM_TYPES)
+                  and all(0 <= i < j < k and 1 <= o <= 3
+                          for i, j, o in mol["bonds"]), f"molecule {mol}")
+            ids = np.asarray([[chem.ATOM_TYPES.index(s)
+                               for s in mol["atoms"]]])
+            adj = np.zeros((k, k), np.int64)
+            for i, j, o in mol["bonds"]:
+                adj[i, j] = adj[j, i] = o
+            check(mol["valid"] == bool(chem.molecule_validity(
+                ids, chem.dense_to_edges(adj)[None], np.ones((1, k)),
+                check_connected=False)[0]), f"'valid' disagrees: {mol}")
+        timings["sample_4_smiles"] = [m["smiles"] for m in out["samples"]]
+        st, met, dt = http_json(port, "POST", "/sample_metrics",
+                                {"num_samples": metric_samples})
+        check(st == 200 and met["metric_num_samples"] == metric_samples
+              and 0.0 <= met["validity"] <= 1.0,
+              f"/sample_metrics answered {st}: {met}")
+        timings[f"sample_metrics_{metric_samples}_s"] = dt
+        timings["served"] = {k: met[k] for k in MOLECULE_QUALITY}
+        st, out, _ = http_json(port, "POST", "/sample", {"num_samples": 0})
+        check(st == 400 and "error" in out, "bad request not refused")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=60)
+    launches = read_launches()
+    for name in ("mixture_inverse", "mixture_forward",
+                 "fused_set_transformer_bf16",
+                 "fused_set_transformer_bf16_masked"):
+        check(launches[name] > 0, f"kernel {name} was not launched while "
+              f"serving {task.name}")
+    return server, launches
+
+
+def molecule_phase(seed: int, timings: dict, card: str,
+                   device: str = "cuda") -> dict:
+    """GraphCNF.  Train runs/molecules_v4/config.json as it is but for its
+    dataset, the in-memory synthetic molecules (hidden 192, 4 node and 6
+    edge layers, K = 8, bf16, batch 128, graphs padded to 24 nodes) for
+    MOL_STEPS steps through the port's Trainer (its 8 eval batches of 4
+    chains before, at half and at the end; the final sample metrics at
+    1,024 molecules and sampled_molecules.json), with ``train_checked``'s
+    checks
+    and every molecule kernel launched, the masked ones included; trace 10
+    more steps.  Serve the run (``serve_molecules``), then hold the served
+    model, its coupling nets' output layers random, against its CPU copy
+    and #1 on every inverse call of its sample of a batch at the seed and
+    the next.  Then runs/moses/config.json at full width (hidden 256, K =
+    16, 6 node, 8 edge and 12 bond layers, node_cond_atoms and
+    bond_cond_degree; synthetic molecules) with seeded random weights, data
+    initialised on one batch: served, held against its CPU copy and #1 held
+    on its sample.  Returns the launches of the training and of the
+    serving."""
+    import numpy as np
+    import torch
+    from categoricalnf_tpu_torch import inference
+    from categoricalnf_tpu_torch.training.checkpoint import CheckpointManager
+    from categoricalnf_tpu_torch.utils.config import load_config, save_config
+
+    cfg = load_config(os.path.join(REPO, "runs", "molecules_v4"))
+    a = cfg["args"]
+    # the one cut: the named dataset's .npz is not in the repo
+    args = {**a, "dataset": "synthetic", "seed": seed}
+    t0 = time.perf_counter()
+    task = inference.build_task(cfg["task"], args, device=device)
+    timings["build_task_s"] = time.perf_counter() - t0
+    tcfg = dataclasses.replace(train_config(a, seed, a["eval_samples"]),
+                               num_steps=MOL_STEPS, eval_every=MOL_STEPS // 2)
+    launches = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        final = train_checked(task, cfg["task"], args, tcfg, out_dir,
+                              timings, MOLECULE_KERNELS + MASKED_KERNELS)
+        launches["molecule_training"] = final["launches"]
+        check(os.path.exists(os.path.join(out_dir, "sampled_molecules.json")),
+              "the molecule run wrote no sampled_molecules.json")
+        timings["final_sample_metrics"] = {k: final[k]
+                                           for k in MOLECULE_QUALITY}
+        timings["step_profile"] = profile_steps(task, tcfg.optimizer, seed)
+
+        served_timings: dict = {}
+        server, launches["molecule_serving"] = serve_molecules(
+            out_dir, served_timings, device, 1024)
+        timings["serving"] = served_timings
+        served = server.handle.task
+        randomize_coupling_nets(served.model, seed + 1)
+        timings["against_cpu"] = check_molecules_against_cpu(served, seed)
+        ratios = held_samples(lambda s: served.sample_many(
+            served.batch_size, generator=torch.Generator(device)
+            .manual_seed(s)), seed, "molecule sample")
+        timings["held_inverse_calls"] = len(ratios)
+        timings["held_inverse_worst_ratio"] = max(ratios)
+
+    # runs/moses at full width, random weights, served
+    cfg = load_config(os.path.join(REPO, "runs", "moses"))
+    m_args = {**cfg["args"], "dataset": "synthetic", "seed": seed}
+    moses = inference.build_task(cfg["task"], m_args, device=device)
+    check((moses.hidden_dim, moses.num_mixtures, moses.num_layers_bond,
+           moses.node_cond_atoms, moses.bond_cond_degree)
+          == (256, 16, 12, True, True),
+          "runs/moses is not the model this phase is written for")
+    moses.data_init(next(moses.train_batches(np.random.default_rng(seed))),
+                    generator=torch.Generator(device).manual_seed(seed))
+    randomize_coupling_nets(moses.model, seed + 2)
+    moses_timings: dict = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        save_config(out_dir, {"task": cfg["task"], "args": m_args})
+        CheckpointManager(out_dir).save(0, moses.model)
+        server, launches["moses_serving"] = serve_molecules(
+            out_dir, moses_timings, device, moses.batch_size)
+        served = server.handle.task
+        moses_timings["against_cpu"] = check_molecules_against_cpu(served,
+                                                                   seed)
+        ratios = held_samples(lambda s: served.sample_many(
+            served.batch_size, generator=torch.Generator(device)
+            .manual_seed(s)), seed, "moses sample")
+        moses_timings["held_inverse_calls"] = len(ratios)
+        moses_timings["held_inverse_worst_ratio"] = max(ratios)
+    timings["moses"] = moses_timings
+    print(json.dumps({"metric": "molecule_generation_train_samples_per_s",
+                      "value": timings["train_samples_per_s"],
+                      "unit": "samples/s", "steps": timings["rate_steps"],
+                      "batch_size": task.batch_size,
+                      "peak_mem_gib": timings["train_peak_mem_gib"],
+                      "device_idle_share": timings["step_profile"].get(
+                          "device_idle_share"),
+                      "device": card}), flush=True)
+    return launches
+
+
 @contextlib.contextmanager
 def plain_path_on_card():
     """Sends the card's nets and mixture forwards through their plain
@@ -2170,7 +2687,11 @@ def inverse_cases(seed: int, device) -> dict:
     means times 30, log-scales times 60 (most past the clip), y ~ N(0,
     10^2), M = 4,096, as a coupling net with random output weights gives
     them: wide brackets around a narrow root, which the inverse before the
-    best iterate and the bracket's slack missed."""
+    best iterate and the bracket's slack missed; and far roots: |y| from
+    1e5 to 5e7, logits, means and log-scales times 1e6, M = 4,096, as
+    GraphCNF's bond stage gives them at its masked positions (the layers'
+    affine grows what the density never weighs), where the inverse with
+    the convergence floor at 2^-20 (1 + |y|) stopped at twice tau."""
     import torch
     from categoricalnf_tpu_torch.ops import numerics as nm
     gen = torch.Generator(device).manual_seed(seed)
@@ -2189,6 +2710,11 @@ def inverse_cases(seed: int, device) -> dict:
     _, pi, mu, ls = mixture_inputs(gen, (4096,), K, device)
     y = torch.randn(4096, generator=gen, device=device) * 10.0
     cases["peaked"] = (y, pi * 50.0, mu * 30.0, ls * 60.0)
+    _, pi, mu, ls = mixture_inputs(gen, (4096,), K, device)
+    mag = 10.0 ** (5.0 + 2.7 * torch.rand(4096, generator=gen,
+                                          device=device))
+    y = mag * torch.tensor([1.0, -1.0], device=device).repeat(2048)
+    cases["far"] = (y, pi * 1e6, mu * 1e6, ls * 1e6)
     return cases
 
 
@@ -2594,6 +3120,14 @@ LM_REPORT_KEYS = ("m", "ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
                   "max_abs_err", "lanes", "components_per_lane",
                   "registers", "spill_bytes", "warps_per_sm_by_registers",
                   "residual_ratio", "iterations_mean")
+# the masked kernels' entries at the node flow's shapes
+# (``check_molecule_kernels``) that a kernel's line carries, and their keys
+MOLECULE_REPORTS = {
+    name: [f"{name}_molecules"] for name in (
+        "fused_set_transformer_bf16", "fused_set_transformer_bwd_bf16",
+        "fused_set_transformer_f32")}
+MOLECULE_REPORT_KEYS = ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
+                        "max_abs_err", "rel_err", "control_rel_err")
 SERVING_KERNELS = ("mixture_inverse", "mixture_forward",
                    "fused_set_transformer_bf16", "fused_set_transformer_f32")
 # the path whose launches each kernel's line reports
@@ -2666,6 +3200,7 @@ def main() -> int:
     check_coloring_kernels(device, (args.seed, args.seed + 1), report)
     check_set_modeling_kernels(device, (args.seed, args.seed + 1), report)
     check_lm_kernels(device, (args.seed, args.seed + 1), report)
+    check_molecule_kernels(device, (args.seed, args.seed + 1), report)
     for name, r in {**mixture_resources(logs["mixture"]),
                     **lm_mixture_resources(logs["mixture"])}.items():
         report[name].update(r)
@@ -2693,8 +3228,12 @@ def main() -> int:
                  f"{r['blocks_per_sm']} block(s) an SM" if "tile" in r
                  else "")
               + (f", bounds {r['bound_fma_ms']!r} ms on the FMA units and "
-                 f"{r['bound_tf32x3_ms']!r} ms as 3xTF32, TF32 control "
-                 f"{r['tf32_control_rel_err']:.3g}" if "tc_ops" in r else "")
+                 f"{r['bound_tf32x3_ms']!r} ms as 3xTF32" if "tc_ops" in r
+                 else "")
+              + (f", TF32 control {r['tf32_control_rel_err']:.3g}"
+                 if "tf32_control_rel_err" in r else "")
+              + (f", without the mask {r['control_rel_err']:.3g}"
+                 if "control_rel_err" in r else "")
               + (f", scratch written {r['scratch_written_mb']:.1f} MB and "
                  "read as much" if "scratch_written_mb" in r else "")
               + (f", grid {r['grid']}" if "grid" in r else "")
@@ -2732,6 +3271,9 @@ def main() -> int:
     lm_timings: dict = {}
     launches.update(lm_phase(args.seed, lm_timings, card))
     print("language modeling: " + json.dumps(lm_timings), flush=True)
+    mol_timings: dict = {}
+    launches.update(molecule_phase(args.seed, mol_timings, card))
+    print("molecules: " + json.dumps(mol_timings), flush=True)
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():
@@ -2758,7 +3300,15 @@ def main() -> int:
                 {"case": c, **{key: report[c][key] for key in LM_REPORT_KEYS
                                if key in report[c]}}
                 for c in LM_REPORTS[name]]}
-               if name in LM_REPORTS else {})})
+               if name in LM_REPORTS else {}),
+            **({"at_molecule_shapes": [
+                {"case": c, "rows": report[c]["rows"],
+                 **{key: report[c][key] for key in MOLECULE_REPORT_KEYS},
+                 "masked_launches_by_path": {
+                     p: n[f"{name}_masked"] for p, n in launches.items()
+                     if p.startswith(("molecule", "moses"))}}
+                for c in MOLECULE_REPORTS[name]]}
+               if name in MOLECULE_REPORTS else {})})
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -118,7 +118,7 @@ def test_mixture_kernels_take_strided_slices(dev):
 
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("name", ["flagship", "k3", "sample4", "k16",
-                                  "tails", "wide"])
+                                  "tails", "wide", "far"])
 def test_mixture_inverse_residual(dev, name, seed):
     """The inverse by its residual in y (chip_smoke.inverse_failures) at
     chip_smoke.inverse_cases: M = 65,536 with K = 8 (pi and ls strided
@@ -126,7 +126,8 @@ def test_mixture_inverse_residual(dev, name, seed):
     (M = 256, strided), K = 16 at M = 91, the tails, y = +-60 and +-90
     with the log-scales at the clip (the linear domain near underflow, and
     the log domain past |y| = 64), and wide brackets (log-scales spread
-    over the clip's range, y = +-30 and +-90); the plain version cut short
+    over the clip's range, y = +-30 and +-90), and far roots (|y| up to
+    5e7, as GraphCNF's masked bond positions); the plain version cut short
     (12 bisections, no Newton step) is refused at each."""
     y, pi, mu, ls = cs.inverse_cases(seed, dev)[name]
     n = cm.LAUNCHES["mixture_inverse"]
@@ -352,8 +353,8 @@ def test_fused_bf16_fwd_takes_half_tiles_for_a_wide_net(dev, b, s):
 
 
 def test_fused_bf16_fwd_raises_on_what_it_does_not_take(dev):
-    """A width above 256 in bf16 raises on the card, as a mask does,
-    rather than run the plain path there."""
+    """A width above 256 in bf16 raises on the card, as a set above 32
+    does, rather than run the plain path there."""
     net = _net("bfloat16", dev, hidden=264)
     x = torch.randn(2, 16, 4, device=dev)
     n = ft.LAUNCHES["bfloat16"]
@@ -377,9 +378,11 @@ def test_cuda_calls_always_take_the_kernel(dev):
         y2 = net(x)
         assert net._packed_weights(torch.float32) is not packed
         _close(y2, y1 + 1.0, 1e-5)
-        with pytest.raises(NotImplementedError, match="mask"):
-            net(x, mask=torch.ones(4, 16, device=dev))
-    assert ft.LAUNCHES["float32"] == n + 2
+        # a key mask launches the kernel too; one of ones is no mask
+        assert torch.equal(net(x, mask=torch.ones(4, 16, device=dev)), y2)
+        with pytest.raises(NotImplementedError, match="condition"):
+            net(x, cond=torch.ones(4, 16, 1, device=dev))
+    assert ft.LAUNCHES["float32"] == n + 3
 
 
 def test_tiny_task_on_card_matches_cpu(dev):
@@ -847,22 +850,27 @@ def test_mixture_inverse_bwd_against_the_exact_derivative(dev, seed):
 @pytest.mark.parametrize("cd", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", ["set40", "mask"])
 def test_refused_calls_raise_on_the_card(dev, cd, case):
-    """A set of 40 and a call with a key mask, which the kernels do not
-    take, raise on the card rather than run the plain path there, with or
-    without grad; no kernel launches."""
+    """A set of 40, and a key mask of another shape than the sets', which
+    the kernels do not take, raise on the card rather than run the plain
+    path there, with or without grad; so does a key mask in the fp32 train
+    step's pair (a differentiable fp32 call).  No kernel launches."""
     net = _net(cd, dev)
     set_size = 40 if case == "set40" else 16
     x = torch.randn(4, set_size, 4, device=dev, requires_grad=True)
     mask = None
     if case == "mask":
-        mask = (torch.arange(set_size, device=dev)[None]
-                < torch.tensor([[16], [9], [3], [12]], device=dev)).float()
-    err = NotImplementedError if case == "mask" else ValueError
-    before = (dict(ft.LAUNCHES), dict(ft.BWD_LAUNCHES))
+        mask = (torch.arange(set_size - 1, device=dev)[None]
+                < torch.tensor([[15], [9], [3], [12]], device=dev)).float()
+    before = (dict(ft.LAUNCHES), dict(ft.BWD_LAUNCHES),
+              dict(ft.TRAIN_FWD_LAUNCHES))
     for grad in (False, True):
-        with torch.set_grad_enabled(grad), pytest.raises(err):
+        with torch.set_grad_enabled(grad), pytest.raises(ValueError):
             net(x, mask=mask)
-    assert (dict(ft.LAUNCHES), dict(ft.BWD_LAUNCHES)) == before
+    if case == "mask" and cd == "float32":
+        with pytest.raises(NotImplementedError, match="Queue B 3 and 8"):
+            net(x, mask=torch.ones(4, set_size, device=dev))
+    assert (dict(ft.LAUNCHES), dict(ft.BWD_LAUNCHES),
+            dict(ft.TRAIN_FWD_LAUNCHES)) == before
 
 
 def test_fused_bf16_at_the_vardeq_main_flow_shape(dev):
@@ -968,3 +976,86 @@ def test_tiny_lm_task_on_card_matches_cpu(dev, cd):
     for name, p in gpu.model.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
     assert gpu.model.flow.prior.trans_logits.grad.abs().sum() > 0
+
+
+# -- the key mask (GraphCNF's node flow) -----------------------------------
+
+
+def _key_mask(b, s, dev, seed=0):
+    """[b, s] masks of random sizes, set 0 with one valid key, set 1 with
+    none."""
+    r = np.random.default_rng(seed)
+    m = (np.arange(s)[None] < r.integers(1, s + 1, (b, 1))).astype(
+        np.float32)
+    m[0] = 0.0
+    m[0, 0] = 1.0
+    m[1] = 0.0
+    return torch.as_tensor(m, device=dev)
+
+
+@pytest.mark.parametrize("s", [6, 24, 32])
+@pytest.mark.parametrize("kernel", ["fwd_bf16", "bwd_bf16", "fwd_f32"])
+def test_masked_kernels_match_plain(dev, kernel, s):
+    """#3 bf16, #4 bf16 and #3 fp32 with a key mask (a set of one valid key
+    and one of none among them) against plain_forward with it, by
+    chip_smoke's rules: BF16_FWD_REL, 0.03 of each gradient's norm,
+    F32_FWD_REL and 1e-4; each launch counted as masked; a mask of ones
+    bitwise the call without a mask."""
+    cd = "float32" if kernel == "fwd_f32" else "bfloat16"
+    net = _net(cd, dev, hidden=48, in_dim=6, out_dim=6 * 26)
+    g = torch.Generator(dev).manual_seed(s)
+    x = torch.randn(40, s, 6, generator=g, device=dev)
+    mask = _key_mask(40, s, dev, s)
+    if kernel == "bwd_bf16":
+        gy = torch.randn(40, s, 6 * 26, generator=g, device=dev).to(
+            torch.bfloat16)
+        n = ft.MASKED_BWD_LAUNCHES["bfloat16"]
+        r = cs.masked_bwd_readings(net, x, mask, gy)
+        assert ft.MASKED_BWD_LAUNCHES["bfloat16"] > n
+        assert r["rel_err"] <= cs.BF16_BWD_REL
+        return
+    tol = cs.F32_FWD_REL if cd == "float32" else cs.BF16_FWD_REL
+    n = ft.MASKED_LAUNCHES[cd]
+    r = cs.masked_fwd_readings(net, x, mask, tol)
+    assert ft.MASKED_LAUNCHES[cd] > n and r["rel_err"] <= tol
+    if cd == "float32":
+        with torch.no_grad():
+            _close(net(x, mask=mask), net.plain_forward(x, mask=mask), 1e-4)
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_all_masked_set_attends_uniformly(dev, cd):
+    """A set with no valid key: every query attends uniformly over the
+    set, as the reference's -1e9 logits give, so the set's output is the
+    plain version's; the other sets are untouched by it."""
+    net = _net(cd, dev, hidden=48, in_dim=6, out_dim=12)
+    x = torch.randn(3, 24, 6, generator=torch.Generator(dev).manual_seed(4),
+                    device=dev)
+    mask = torch.ones(3, 24, device=dev)
+    mask[1] = 0.0
+    with torch.no_grad():
+        y = net(x, mask=mask)
+        y_p = net.plain_forward(x, mask=mask)
+        y_u = net(x)
+    assert torch.isfinite(y.float()).all()
+    if cd == "float32":
+        _close(y, y_p, 1e-4)
+    else:
+        assert _rel(y, y_p) <= cs.BF16_FWD_REL
+    assert torch.equal(y[[0, 2]], y_u[[0, 2]])
+
+
+def test_hidden_256_bf16_training_raises_before_launch(dev):
+    """A differentiable bf16 call at width 256 raises before any launch and
+    before its weights are packed; without grad the forward runs."""
+    net = _net("bfloat16", dev, hidden=256, in_dim=6, out_dim=6 * 50)
+    x = torch.randn(4, 24, 6, device=dev, requires_grad=True)
+    mask = _key_mask(4, 24, dev)
+    before = (dict(ft.LAUNCHES), dict(ft.BWD_LAUNCHES))
+    with pytest.raises(NotImplementedError, match="Queue B 12"):
+        net(x, mask=mask)
+    assert (dict(ft.LAUNCHES), dict(ft.BWD_LAUNCHES)) == before
+    assert net._packed is None
+    with torch.no_grad():
+        y = net(x, mask=mask)
+    assert y.shape == (4, 24, 300) and torch.isfinite(y.float()).all()

@@ -379,13 +379,14 @@ def test_plain_inverse_autograd_matches_reference(seed):
 def test_kernels_refuse_what_they_do_not_take(case):
     """``ft.supported``, which the card's wrappers ask before a launch and
     raise on when it refuses (shapes only, so it runs here on CPU
-    tensors), refuses a key mask, a condition, a set above 32 and a bf16
-    width above 256, and takes the same call without them."""
+    tensors), refuses a key mask of another shape than the sets' (the
+    kernels take one of their shape), a condition, a set above 32 and a
+    bf16 width above 256, and takes the same call without them."""
     hidden = 288 if case == "wide_bf16" else 32
     set_size = 40 if case == "set40" else 16
     x = torch.randn(3, set_size, 1)
     cond = torch.randn(3, set_size, 1) if case == "cond" else None
-    mask = torch.ones(3, set_size) if case == "mask" else None
+    mask = torch.ones(3, set_size - 1) if case == "mask" else None
     assert not ft.supported(x, cond, mask, hidden, 4, 2, torch.bfloat16)
     if case in ("mask", "cond"):
         assert ft.supported(x, None, None, hidden, 4, 2, torch.bfloat16)

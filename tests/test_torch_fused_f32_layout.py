@@ -144,8 +144,11 @@ def test_supported_takes_every_call_the_old_kernel_took():
 
 
 def test_supported_keeps_its_other_rules():
+    """A key mask of the sets' shape is taken since the fp32 forward takes
+    one; a mask of another shape, or a condition, is not."""
     x = torch.zeros(2, 16, 4)
-    assert not ft.supported(x, None, torch.ones(2, 16), 96, 4)
+    assert ft.supported(x, None, torch.ones(2, 16), 96, 4)
+    assert not ft.supported(x, None, torch.ones(1, 16), 96, 4)
     assert not ft.supported(x, torch.ones(2, 16, 1), None, 96, 4)
     assert not ft.supported(x, None, None, 96, 5)
     assert not ft.supported(torch.zeros(2, 33, 4), None, None, 96, 4)

@@ -76,8 +76,12 @@ def test_supported_rejects_hidden_over_256_in_bf16(hidden, heads, ok):
 
 
 def test_supported_keeps_its_other_rules_in_bf16():
+    """A key mask of the sets' shape is taken since the kernels take one;
+    a mask of another shape is not."""
     x = torch.zeros(2, 16, 4)
-    assert not ft.supported(x, None, torch.ones(2, 16), 96, 4,
+    assert ft.supported(x, None, torch.ones(2, 16), 96, 4,
+                        compute_dtype=BF16)
+    assert not ft.supported(x, None, torch.ones(2, 15), 96, 4,
                             compute_dtype=BF16)
     assert not ft.supported(x, None, None, 96, 5, compute_dtype=BF16)
     assert not ft.supported(torch.zeros(2, 33, 4), None, None, 96, 4,

@@ -111,7 +111,9 @@ def test_flatten_params_layout_matches_reference():
 def test_supported_rule():
     x = torch.zeros(B, 16, IN)
     assert ft.supported(x, None, None, 96, 4)
-    assert not ft.supported(x, None, torch.ones(B, 16), 96, 4)
+    # a key mask of the sets' shape is taken, one of another shape not
+    assert ft.supported(x, None, torch.ones(B, 16), 96, 4)
+    assert not ft.supported(x, None, torch.ones(B, 15), 96, 4)
     assert not ft.supported(x, torch.ones(B, 16, 2), None, 96, 4)
     assert not ft.supported(x, None, None, 96, 5)
     assert not ft.supported(torch.zeros(B, 33, IN), None, None, 96, 4)

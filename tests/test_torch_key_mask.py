@@ -1,0 +1,201 @@
+"""The key mask of the fused SetTransformer kernels (#3 bf16, #4 bf16, #3
+fp32), on the CPU: the kernels' plain version with a mask against the
+reference's masked ``apply``, the wrappers' mask handling and argument
+order against the entry points' signatures (read from the ``.cu`` sources),
+the tile shapes at GraphCNF's node sets, and the refusal of a bf16
+width-256 training call before any launch.  The kernels themselves run in
+``tests/test_torch_cuda.py`` on the card.
+
+Tolerances: fp32 within ``TOL`` = 1e-4, as the graph-coloring slice's
+test; bf16 within 2 bf16 ulps at the output's scale, as the RGCN's test.
+"""
+
+import os
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from categoricalnf_tpu.networks.transformer import \
+    SetTransformer as JaxSetTransformer
+from categoricalnf_tpu_torch.convert import flatten_tree
+from categoricalnf_tpu_torch.networks import SetTransformer
+from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+
+TOL = 1e-4
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BF16 = torch.bfloat16
+
+
+def _masks(b, s, seed):
+    """[b, s] node masks of random sizes, set 0 with one valid key and set
+    1 with none."""
+    r = np.random.default_rng(seed)
+    m = (np.arange(s)[None] < r.integers(1, s + 1, (b, 1))).astype(
+        np.float32)
+    m[0] = 0.0
+    m[0, 0] = 1.0
+    m[1] = 0.0
+    return m
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [6, 24])
+def test_masked_plain_forward_matches_reference(s, cd):
+    """plain_forward with a key mask on the reference's weights (output
+    layer random) against the reference's masked apply, the set with no
+    valid key included (it attends uniformly, in both)."""
+    r = np.random.default_rng(s)
+    j = JaxSetTransformer(hidden_dim=16, num_heads=4, num_layers=2,
+                          compute_dtype=cd)
+    params = jax.tree.map(np.asarray, j.init(jax.random.PRNGKey(s), 3, 10))
+    params["out"]["w"] = (r.standard_normal(params["out"]["w"].shape)
+                          * 0.3).astype(np.float32)
+    net = SetTransformer(3, 10, hidden_dim=16, num_heads=4, compute_dtype=cd)
+    net.load_state_dict(flatten_tree(params))
+    x = r.standard_normal((4, s, 3)).astype(np.float32)
+    mask = _masks(4, s, s)
+    want = np.asarray(j.apply(params, jnp.asarray(x),
+                              mask=jnp.asarray(mask))).astype(np.float32)
+    with torch.no_grad():
+        got = net(torch.tensor(x), mask=torch.tensor(mask)).float().numpy()
+        unmasked = net(torch.tensor(x)).float().numpy()
+    tol = TOL if cd == "float32" else 2.0 ** -6 * np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+    # the mask matters: the unmasked net reads far from it
+    assert np.abs(unmasked - want).max() > 10 * tol
+
+
+def test_masked_keys_do_not_reach_valid_rows():
+    """Valid rows do not depend on the masked keys' inputs (their
+    probability is exactly 0); a mask of ones is the call without a mask,
+    bitwise."""
+    net = SetTransformer(3, 10, hidden_dim=16, num_heads=4,
+                         compute_dtype="float32",
+                         generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        net.out.w.normal_(generator=torch.Generator().manual_seed(1))
+        x = torch.randn(4, 6, 3, generator=torch.Generator().manual_seed(2))
+        mask = torch.tensor(_masks(4, 6, 3))
+        y = net(x, mask=mask)
+        x2 = x + 5.0 * (1.0 - mask)[..., None]
+        y2 = net(x2, mask=mask)
+        valid = mask > 0
+        assert torch.equal(y[valid], y2[valid])
+        assert not torch.equal(y[~valid], y2[~valid])
+        assert torch.equal(net(x, mask=torch.ones(4, 6)), net(x))
+
+
+def test_key_mask_bytes():
+    m = torch.tensor([[1.0, 0.0, 0.5], [0.0, 0.0, 2.0]])
+    km = ft.key_mask_bytes(m)
+    assert km.dtype == torch.uint8 and km.is_contiguous()
+    assert km.tolist() == [[1, 0, 1], [0, 0, 1]]
+    assert ft.key_mask_bytes(m.bool().t().contiguous().t()).tolist() == \
+        km.tolist()
+    assert ft.key_mask_bytes(None) is None
+
+
+@pytest.mark.parametrize("mask_shape,ok", [((2, 24), True), ((2, 23), False),
+                                           ((1, 24), False),
+                                           ((2, 24, 1), False)])
+def test_supported_takes_a_key_mask_of_the_sets_shape(mask_shape, ok):
+    x = torch.zeros(2, 24, 6)
+    for cd in (BF16, torch.float32):
+        assert ft.supported(x, None, torch.ones(mask_shape), 192, 4,
+                            compute_dtype=cd) == ok
+    assert not ft.supported(x, torch.ones(2, 24, 1), None, 192, 4)
+
+
+_CTYPES = {"const void*": ft._P, "void*": ft._P, "const void* const*": ft._P,
+           "const float* const*": ft._P, "float*": ft._P, "long": ft._L,
+           "int": ft._I}
+
+
+def _signature(source: str, entry: str) -> list:
+    """(type, name) of each parameter of ``entry`` in ``source``."""
+    with open(os.path.join(REPO, source)) as f:
+        text = f.read()
+    m = re.search(rf"\bint {entry}\((.*?)\)\s*\{{", text, re.S)
+    assert m, entry
+    out = []
+    for p in " ".join(m.group(1).split()).split(","):
+        typ, name = p.strip().rsplit(" ", 1)
+        while name.startswith("*"):
+            typ, name = typ + "*", name[1:]
+        out.append((typ.replace(" *", "*"), name))
+    return out
+
+
+@pytest.mark.parametrize("source,entry,args,mask_at", [
+    ("categoricalnf_tpu_torch/csrc/fused_transformer_bf16.cu",
+     "fused_set_transformer_fwd_bf16", "_MASKED_FWD_ARGS", 1),
+    ("categoricalnf_tpu_torch/csrc/fused_transformer_bf16.cu",
+     "fused_set_transformer_bwd_bf16", "_MASKED_BWD_ARGS", 1),
+    ("categoricalnf_tpu_torch/csrc/fused_transformer_tf32x3.cu",
+     "fused_set_transformer_fwd_f32", "_MASKED_FWD_ARGS", 1),
+    ("categoricalnf_tpu_torch/csrc/fused_transformer.cu",
+     "fused_set_transformer_train_fwd_f32", "_FWD_ARGS", None),
+    ("categoricalnf_tpu_torch/csrc/fused_transformer.cu",
+     "fused_set_transformer_bwd_f32", "_BWD_ARGS", None),
+    ("tools/f32_bwd_tf32x3.cu", "fused_set_transformer_bwd_f32_tf32x3",
+     "_BWD_ARGS", None)])
+def test_wrapper_argument_order_matches_the_entry_points(source, entry, args,
+                                                         mask_at):
+    """Each entry point's C signature against the ctypes list its wrapper
+    calls it with: the same count and types, the key mask (where taken)
+    the pointer after x's, and no mask in the fp32 FMA pair."""
+    sig = _signature(source, entry)
+    assert [_CTYPES[t] for t, _ in sig] == getattr(ft, args)
+    names = [n for _, n in sig]
+    assert names[0] == "x" and names[-1] == "stream"
+    if mask_at is None:
+        assert "key_mask" not in names
+    else:
+        assert names.index("key_mask") == mask_at
+
+
+# (hidden, out) of the node flow's nets at its sets of 24 nodes, in 6 -> the
+# tile and shared memory of #3 bf16, #4 bf16 and #3 fp32, as the kernels
+# pick them (a shared-memory limit of 232,448 B)
+NODE_FLOW_TILES = {
+    96: ((48, 48_384), (48, 148_992), (24, 47_264)),
+    128: ((48, 63_744), (48, 195_072), (24, 62_624)),
+    192: ((48, 94_464), (24, 191_488), (24, 93_344)),
+    256: ((48, 125_184), (24, 252_928), (24, 124_064))}
+
+
+@pytest.mark.parametrize("hidden", sorted(NODE_FLOW_TILES))
+def test_node_flow_tiles(hidden):
+    fwd, bwd, f32 = NODE_FLOW_TILES[hidden]
+    out = 6 * (2 + 3 * 8)
+    assert ft.fwd_shape(BF16, 24, 6, hidden, 2 * hidden) == fwd
+    assert ft.bwd_shape(BF16, 24, 6, hidden, 2 * hidden, out, 4, 2) == bwd
+    assert ft.fwd_shape(torch.float32, 24, 6, hidden, 2 * hidden) == f32
+    assert ft.bwd_fits(BF16, 24, 6, hidden, 2 * hidden, out, 4, 2) == (
+        hidden < 256)
+    assert ft.supported(torch.zeros(2, 24, 6), None, torch.ones(2, 24),
+                        hidden, 4, compute_dtype=BF16)
+
+
+@pytest.mark.parametrize("hidden,k", [(256, 8), (256, 16), (192, 8)])
+def test_width_256_bf16_training_is_refused_before_launch(hidden, k):
+    """A differentiable bf16 call at width 256 raises before its forward
+    launches (the backward's tile is over the shared memory), naming the
+    ROADMAP item; width 192 passes the check.  The check reads only
+    shapes, so it runs here on CPU tensors."""
+    net = SetTransformer(6, 6 * (2 + 3 * k), hidden_dim=hidden,
+                         num_heads=4, compute_dtype="bfloat16")
+    x = torch.zeros(2, 24, 6)
+    if hidden < 256:
+        net.check_backward_fits(x)
+        return
+    with pytest.raises(NotImplementedError, match="Queue B 12"):
+        net.check_backward_fits(x)
+    assert net._packed is None
+    # no refusal in fp32 without grad or at the forward's shapes
+    assert ft.supported(x, None, torch.ones(2, 24), hidden, 4,
+                        compute_dtype=BF16)

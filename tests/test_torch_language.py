@@ -519,16 +519,16 @@ def _dot2(a, b, lanes):
 
 
 def test_wide_inverse_sums_are_compensated():
-    """The wide groups' inverse sums F and S with group_dot2, the narrow
-    ones with the plain fmaf chain (their bits stay).  Modelled in numpy
-    on the weights and sigmoids of 32 components, the compensated sum is
+    """The inverse sums F and S with group_dot2 above 8 components (K =
+    16 and 32), with the plain fmaf chain at K <= 8.  Modelled in numpy on
+    the weights and sigmoids of 32 components, the compensated sum is
     within one fp32 rounding of the exact one, where the chain is off by
     several on some elements."""
     src = _mixture_source()
-    assert ("if constexpr (G * C > 16) { // the wide groups, compensated "
-            "(above) F = group_dot2<G, C>(q.w, sig); S = group_dot2<G, C>"
-            "(q.w, sig_neg); } else { F = group_dot<G, C>(q.w, sig); S = "
-            "group_dot<G, C>(q.w, sig_neg); }") in src
+    assert ("float F, S; if constexpr (G * C > 8) { F = group_dot2<G, C>"
+            "(q.w, sig); S = group_dot2<G, C>(q.w, sig_neg); } else { F = "
+            "group_dot<G, C>(q.w, sig); S = group_dot<G, C>(q.w, sig_neg); "
+            "}") in src
     r = np.random.default_rng(0)
     w = np.exp(r.standard_normal((20000, 32))).astype(np.float32)
     w = (w / w.sum(1, keepdims=True)).astype(np.float32)

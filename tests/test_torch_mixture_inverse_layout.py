@@ -4,9 +4,12 @@
 An element takes a group of lanes (``INV_LANES`` for K <= 8, twice as many
 for K <= 16: the source's kInvLanes), lane l holding components C*l ..
 C*l + C - 1 with C = 8 / INV_LANES.  Every lane runs the element's rtsafe
-on the same values.  In the linear domain the
-three sums F, 1 - F and f are fmaf chains over the components, relayed
-lane to lane in the per-element loop's order; elements with |y| >
+on the same values.  In the linear domain F and
+1 - F are fmaf chains at K <= 8 and compensated sums (Dot2) above, and f
+an fmaf chain over the components, relayed lane to lane in the
+per-element loop's order; the
+convergence floor is 2^-22 (1 + |y|), at or below the residual rule's
+tau; elements with |y| >
 kLinearMaxY run the log domain's three logsumexps, whose sums are relayed
 the same way.  These tests check that the grid covers every (element,
 component) once, that the relayed sums are the per-element loop's bit for
@@ -21,6 +24,7 @@ floor.  Needs neither a card nor nvcc.
 import importlib.util
 import os
 import re
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -37,7 +41,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F32 = np.float32
 # The geometry and constants csrc/mixture.cu builds the inverse with
 INV_LANES, THREADS = 1, 256
-CONVERGED, LINEAR_MAX_Y, LINEAR_MIN = 2.0 ** -20, 64.0, 2.0 ** -100
+CONVERGED, LINEAR_MAX_Y, LINEAR_MIN = 2.0 ** -22, 64.0, 2.0 ** -100
 BRACKET_SLACK = 2.0 ** -21
 TPU_ITERS = 24  # the TPU kernel's rtsafe iterations, for every element
 SIZES = [1, 91, 256, 65_536]
@@ -112,6 +116,21 @@ def test_grid_covers_every_component_once(m):
 
 def fma(a, b, c):
     return (np.asarray(a, np.float64) * b + c).astype(F32)
+
+
+def dot2(w, v):
+    """The compensated sum of w[:, j] v[:, j] over j in order (the source's
+    group_dot2): each product's and sum's rounding taken exactly (fmaf,
+    TwoSum), summed beside, added once."""
+    run, err = np.zeros(w.shape[0], F32), np.zeros(w.shape[0], F32)
+    for j in range(w.shape[1]):
+        p = (w[:, j] * v[:, j]).astype(F32)
+        s = (run + p).astype(F32)
+        bb = (s - run).astype(F32)
+        e = ((run - (s - bb)).astype(F32) + (p - bb).astype(F32)).astype(F32)
+        err = (err + (fma(w[:, j], v[:, j], -p) + e).astype(F32)).astype(F32)
+        run = s
+    return (run + err).astype(F32)
 
 
 def relay(a, b, g, c, op):
@@ -264,9 +283,12 @@ def model(y, pi, mu, ls, converged=True):
             sig, sig_neg = np.where(t >= 0, r, s), np.where(t >= 0, s, r)
             pair = (r * s).astype(F32)
             F = S = f = np.zeros(x.shape, F32)
+            if k > 8:
+                F, S = dot2(w, sig), dot2(w, sig_neg)
             for j in range(k):
-                F = fma(w[:, j], sig[:, j], F)
-                S = fma(w[:, j], sig_neg[:, j], S)
+                if k <= 8:
+                    F = fma(w[:, j], sig[:, j], F)
+                    S = fma(w[:, j], sig_neg[:, j], S)
                 f = fma(w_pdf[:, j], pair[:, j], f)
             ok = np.minimum(F, S) >= F32(LINEAR_MIN)
             g = (np.log((F / S).astype(F32)) - y).astype(F32)
@@ -317,15 +339,15 @@ def cases():
     return out
 
 
-CASES = ["flagship", "k3", "sample4", "k16", "tails", "peaked"]
+CASES = ["flagship", "k3", "sample4", "k16", "tails", "peaked", "far"]
 
 
 @pytest.mark.parametrize("name", CASES)
 def test_model_passes_the_residual_rule(cases, name):
     """The model at chip_smoke's cases (M = 65,536 with K = 8 and 3, a
     /sample of 4 sets, K = 16, the tails at y = +-60 and +-90, the peaked
-    mixtures of a random coupling net) within max(2 e_p, tau) on every
-    element."""
+    mixtures of a random coupling net, the far roots of GraphCNF's masked
+    bond positions) within max(2 e_p, tau) on every element."""
     y, pi, mu, ls, x_p = cases[name]
     x = torch.from_numpy(model(*(t.numpy() for t in (y, pi, mu, ls))))
     assert cs.inverse_failures(x.reshape(y.shape), x_p, y, pi, mu, ls,
@@ -354,6 +376,18 @@ def test_residual_rule_refuses_rtsafe_without_its_floor(cases):
                                converged=False)).reshape(y.shape)
     assert cs.inverse_failures(x, x_p, y, pi, mu, ls, "no floor")
     assert float((x - x_p).abs().max()) < 1e-4
+
+
+def test_residual_rule_refuses_the_old_floor_on_far_roots(cases,
+                                                         monkeypatch):
+    """At far roots (|y| up to 5e7) the floor 2^-20 (1 + |y|), twice the
+    rule's tau there, let elements stop over the rule; at 2^-22 they pass
+    (``test_model_passes_the_residual_rule``)."""
+    y, pi, mu, ls, x_p = cases["far"]
+    monkeypatch.setattr(sys.modules[__name__], "CONVERGED", 2.0 ** -20)
+    x = torch.from_numpy(model(*(t.numpy() for t in (y, pi, mu, ls))))
+    assert cs.inverse_failures(x.reshape(y.shape), x_p, y, pi, mu, ls,
+                               "floor 2^-20")
 
 
 def test_residual_rule_refuses_the_tpu_rtsafe_on_peaked_mixtures(cases):

@@ -322,6 +322,11 @@ def test_port_imports_no_jax():
     orbax or anything of the JAX package."""
     sources = list(_port_sources())
     assert len(sources) > 20
+    # the molecule slice's modules among them
+    names = {os.path.relpath(p, REPO) for p in sources}
+    assert {f"categoricalnf_tpu_torch/{m}.py" for m in (
+        "tasks/chem", "data/smiles", "networks/graph", "models/graphcnf",
+        "tasks/molecules", "experiments/molecule_generation")} <= names
     bad = []
     for path in sources:
         with open(path) as f:
@@ -358,5 +363,12 @@ def test_entry_points_need_a_card_unless_told(tmp_path):
         build_task("set_summation", {})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_task("lm_synthetic_markov", {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_task("molecules_synthetic", {})
+    # a named molecule dataset whose .npz is missing raises, on any device
+    with pytest.raises(FileNotFoundError, match="zinc250k"):
+        build_task("molecules_zinc250k", {"dataset": "zinc250k",
+                                          "data_dir": str(tmp_path)},
+                   device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_task("molecules_zinc250k", {}, device="cpu")
+        build_task("no_such_task", {}, device="cpu")

@@ -85,7 +85,7 @@ def forward_errors(cs, device) -> dict:
                 ("tf32x3", ft.fused_set_transformer(packed, x,
                                                     num_heads=cs.HEADS)),
                 ("fma", ft.FusedSetTransformer.apply(x, packed, cs.HEADS,
-                                                     *ws)),
+                                                     None, *ws)),
                 ("plain", net.plain_forward(x))):
             err = y.double() - exact
             out[name] = {

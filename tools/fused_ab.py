@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import sys
@@ -104,6 +105,10 @@ def run(tree: str, out: str) -> None:
                 k: v for k, v in cs.kernel_resources(tf32x3.build_log())
                 .items() if "bwd" in k}
         train = {}
+        # a checkout whose FusedSetTransformer takes a key mask (no mask
+        # here) or one from before it
+        mask_slot = ((None,) if "mask" in inspect.signature(
+            ft.FusedSetTransformer.forward).parameters else ())
         for sets in (cs.B // 16, cs.B // 4, cs.B):
             rows = sets * cs.S
             xt = torch.randn(sets, cs.S, cs.D, generator=g3, device=dev)
@@ -111,7 +116,7 @@ def run(tree: str, out: str) -> None:
 
             def fwd_grad():
                 return ft.FusedSetTransformer.apply(xt, packed32, cs.HEADS,
-                                                    *ws32)
+                                                    *mask_slot, *ws32)
 
             def bwd32():
                 return ft.fused_set_transformer_bwd(packed32, xt, gt,
