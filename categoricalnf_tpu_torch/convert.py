@@ -16,8 +16,9 @@ tree is ``encoding.decoder``.  A parametric prior's tree (the HMM prior's
 ``start_logits``, ``trans_logits``, ``means``, ``log_scales``) is the last
 entry of the reference's flow tuple and the port's ``flow.prior``.  The
 LSTM's cells and head keep the reference's names (``net.cells.<i>.wx.w``,
-``net.out.b``), and the autoregressive layers' ``mean_offsets`` and
-``feat`` theirs.  GraphCNF's tree (``enc_node``, ``enc_exist``,
+``net.out.b``), the causal transformer's too (``net.embed.w``, ``net.pos``,
+``net.blocks.<i>.qkv.w``, ``proj``, ``fc1``, ``fc2``, ``net.out.b``), and
+the autoregressive layers' ``mean_offsets`` and ``feat`` theirs.  GraphCNF's tree (``enc_node``, ``enc_exist``,
 ``enc_bond``, ``flow_node``, ``flow_exist``, ``flow_bond``) keeps its names,
 each flow split as above; the EdgeGNN blocks keep the reference's names
 (``net.blocks.<i>.v2e.w``).  Imports no JAX.

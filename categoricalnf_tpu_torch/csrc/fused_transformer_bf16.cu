@@ -63,7 +63,10 @@
 //    memory was already rounded to bf16, so it is stored as bf16 (only the
 //    softmax statistics stay fp32): 194 KB for a 64-row tile at the
 //    flagship width, one block of 8 warps an SM (32-row tiles where a
-//    wider or deeper net would not fit).  Leading dimensions are a
+//    wider or deeper net would not fit, and where even those do not, the
+//    residual copies at the block boundaries in a global workspace, the
+//    GLOBAL_H layout: 219,136 B at hidden 256, sets of 24, 2 transformer
+//    blocks, against 252,928 with them).  Leading dimensions are a
 //    multiple of 16 plus 8 elements, so ldmatrix's eight 16-byte rows fall
 //    in distinct banks.
 // 4. Scratch traffic.  A 64-row tile (4 sets of 16) halves the number of
@@ -723,29 +726,43 @@ __device__ void load_rows(const bf16* __restrict__ src, long row0, int valid,
 }
 
 // Shared-memory bytes of one block: the residual stream at each of the
-// layers + 1 block boundaries, five [tile, ld_h] buffers (gh, a, o, hm,
-// gs), qkv, a region for the MLP pair / the qkv gradient / g / x (all
+// layers + 1 block boundaries (GLOBAL_H: only the current one, the others
+// in the block's global workspace), five [tile, ld_h] buffers (gh, a, o,
+// hm, gs), qkv, a region for the MLP pair / the qkv gradient / g / x (all
 // bf16), and the fp32 softmax statistics.
-__host__ __device__ inline size_t smem_bytes(const Dims& dm) {
+__host__ __device__ inline size_t smem_bytes(const Dims& dm, bool global_h) {
+  const int copies = global_h ? 1 : dm.layers + 1;
   return 2 * (size_t)dm.tile_pad *
-             ((dm.layers + 6) * dm.ld_h + dm.ld_big + dm.ld_r2) +
+             ((copies + 5) * dm.ld_h + dm.ld_big + dm.ld_r2) +
          4 * (size_t)dm.tile_pad * 3 * dm.heads;
 }
 
+// GLOBAL_H is the layout of a net whose copies of h do not fit in shared
+// memory with the rest (the molecule nets of hidden 256 at sets of 24):
+// shared memory holds one residual stream, phase 1 writes h at the block
+// boundaries 0 .. L - 1 to the CUDA block's slice of hws ([L, tile_pad,
+// ld_h] bf16, 4.5 MB at grid 132, hidden 256 and L = 2, so it stays in the
+// 50 MB L2) before each transformer block changes it, and phase 3 copies
+// each back before that block's recompute.  The copies are whole
+// [tile_pad, ld_h] images, so every instruction of the arithmetic reads the
+// values the shared layout reads: the same bits, for one copy of h out and
+// one back through L2 a boundary and tile.
+// Without GLOBAL_H (every net that fits) the code is the shared layout's.
+template <bool GLOBAL_H>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_set_transformer_bwd(const bf16* __restrict__ x,
                           const unsigned char* __restrict__ key_mask,
                           const bf16* __restrict__ g, PadWeights wt,
                           bf16* __restrict__ dx, float* __restrict__ part,
-                          Dims dm) {
+                          bf16* __restrict__ hws, Dims dm) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
   const int H = dm.hidden, RH = dm.mlp, L = dm.layers, OUT = dm.out_dim;
   const int TP = dm.tile_pad, IN = dm.in_dim;
   const int PH = dm.p_h, PB = dm.p_big, PF = dm.p_f;
   const int hsz = TP * dm.ld_h;
-  bf16* hs = smem;                   // [L + 1] residual streams
-  bf16* gh = hs + (L + 1) * hsz;     // d loss / d h
+  bf16* hs = smem;  // [L + 1] residual streams (GLOBAL_H: the current one)
+  bf16* gh = hs + (GLOBAL_H ? 1 : L + 1) * hsz;  // d loss / d h
   bf16* a = gh + hsz;                // LN outputs
   bf16* o = a + hsz;                 // attention output (rounded)
   bf16* hm = o + hsz;                // h after the attention residual
@@ -758,8 +775,10 @@ fused_set_transformer_bwd(const bf16* __restrict__ x,
   const Offsets og = grad_offsets(dm);
   float* pw = part + blockIdx.x * og.off[12];
   const long ntiles = (dm.rows + dm.tile - 1) / dm.tile;
+  // GLOBAL_H: this block's copies of h at the block boundaries 0 .. L - 1
+  bf16* hg = GLOBAL_H ? hws + (long)blockIdx.x * L * hsz : nullptr;
 
-  clear16(smem_raw, (int)smem_bytes(dm));
+  clear16(smem_raw, (int)smem_bytes(dm, GLOBAL_H));
   __syncthreads();
   for (long t = blockIdx.x; t < ntiles; t += gridDim.x) {
     const bool first = t == blockIdx.x;
@@ -775,8 +794,13 @@ fused_set_transformer_bwd(const bf16* __restrict__ x,
                       dm.ld_h, nullptr, nullptr, valid, dm);
     __syncthreads();
     for (int l = 0; l < L; ++l) {
-      bf16* h = hs + (l + 1) * hsz;
-      copy16(hs + l * hsz, h, 2 * hsz);
+      bf16* h = hs;
+      if constexpr (GLOBAL_H) {
+        copy16(h, hg + (long)l * hsz, 2 * hsz);  // h_l, kept for phase 3
+      } else {
+        h = hs + (l + 1) * hsz;
+        copy16(hs + l * hsz, h, 2 * hsz);
+      }
       __syncthreads();
       layer_norm_tile(h, a, dm);
       __syncthreads();
@@ -803,7 +827,8 @@ fused_set_transformer_bwd(const bf16* __restrict__ x,
     }
 
     // 2. output layer: y = dense(R(LN(h_L)))
-    layer_norm_tile(hs + L * hsz, a, dm);
+    // h_L: the last copy, or the one residual stream (GLOBAL_H)
+    layer_norm_tile(hs + (GLOBAL_H ? 0 : L) * hsz, a, dm);
     load_rows(g, row0, valid, OUT, r2, dm.ld_g, dm);
     __syncthreads();
     mma_wgrad(a, dm.ld_h, H, r2, dm.ld_g, OUT, pw + og.off[10],
@@ -811,12 +836,18 @@ fused_set_transformer_bwd(const bf16* __restrict__ x,
     mma_dense<kBwdStore>(r2, dm.ld_g, dm.p_out, wt.w[5], PH, H, nullptr, gs,
                          dm.ld_h, nullptr, nullptr, valid, dm);
     __syncthreads();
-    layer_norm_bwd_tile<false>(hs + L * hsz, gs, gh, dm);
+    layer_norm_bwd_tile<false>(hs + (GLOBAL_H ? 0 : L) * hsz, gs, gh, dm);
     __syncthreads();
 
     // 3. the blocks in reverse, each recomputed from its input h
     for (int l = L - 1; l >= 0; --l) {
-      const bf16* h = hs + l * hsz;
+      const bf16* h = hs;
+      if constexpr (GLOBAL_H) {
+        copy16(hg + (long)l * hsz, hs, 2 * hsz);  // h_l back from phase 1
+        __syncthreads();
+      } else {
+        h = hs + l * hsz;
+      }
       layer_norm_tile(h, a, dm);
       copy16(h, hm, 2 * hsz);
       __syncthreads();
@@ -1058,15 +1089,20 @@ int fused_set_transformer_fwd_bf16(const void* x, const void* key_mask,
 // input-gradient layouts W [pad(kd), pad(n)] (embed, qkv, proj, fc1, fc2,
 // out; layer-stacked; zero-padded to multiples of 16); b the 6 fp32
 // biases.  part is fp32 scratch of grid x (the size of dw); grid (<= the
-// number of tiles) is the number of persistent blocks.
+// number of tiles) is the number of persistent blocks.  The layout: the
+// residual copies in shared memory at 64-row tiles, else at 32-row ones,
+// else (or with global_h = 1, which checks that only the storage moves)
+// in hws, bf16 scratch of grid x layers x tile_pad x ld_h (null where the
+// shared layout is taken), at 64 rows, else 32.
 int fused_set_transformer_bwd_bf16(const void* x, const void* key_mask,
                                    const void* g,
                                    const void* const* w,
                                    const float* const* b, void* dx,
-                                   float* part, float* dw, long rows,
-                                   int set_size, int in_dim, int hidden,
-                                   int heads, int layers, int mlp,
-                                   int out_dim, int grid, void* stream) {
+                                   float* part, float* dw, void* hws,
+                                   long rows, int set_size, int in_dim,
+                                   int hidden, int heads, int layers, int mlp,
+                                   int out_dim, int grid, int global_h,
+                                   void* stream) {
   if (set_size < 1 || set_size > kMaxSet || heads < 1 || hidden % heads ||
       hidden > 32 * kLnVals || grid < 1 || rows % set_size)
     return (int)cudaErrorInvalidValue;
@@ -1076,19 +1112,28 @@ int fused_set_transformer_bwd_bf16(const void* x, const void* key_mask,
   cudaError_t err = max_smem_optin(&max_smem);
   if (err != cudaSuccess) return (int)err;
   // 64-row tiles, or 32-row ones where a net too wide or deep for 64 rows
-  // (not the flagship) would not fit in shared memory
+  // (not the flagship) would not fit in shared memory; the shared layout
+  // first, then the global one
   size_t smem = 0;
-  for (int target = kTileTarget; target >= kTileTarget / 2; target /= 2) {
-    set_tile(dm, target);
-    smem = smem_bytes(dm);
-    if (smem <= (size_t)max_smem) break;
+  bool fits = false, use_global = false;
+  for (int pass = global_h ? 1 : 0; pass < 2 && !fits; ++pass) {
+    use_global = pass == 1;
+    for (int target = kTileTarget; target >= kTileTarget / 2; target /= 2) {
+      set_tile(dm, target);
+      smem = smem_bytes(dm, use_global);
+      fits = smem <= (size_t)max_smem;
+      if (fits) break;
+    }
   }
+  if (!fits || (use_global && hws == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaSuccess;
   const long ntiles = (rows + dm.tile - 1) / dm.tile;
   if (grid > ntiles) return (int)cudaErrorInvalidValue;
+  const auto kernel = use_global ? fused_set_transformer_bwd<true>
+                                 : fused_set_transformer_bwd<false>;
   err = cudaFuncSetAttribute(
-      fused_set_transformer_bwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   PadWeights wt;
   for (int j = 0; j < 6; ++j) {
@@ -1097,9 +1142,9 @@ int fused_set_transformer_bwd_bf16(const void* x, const void* key_mask,
     wt.b[j] = b[j];
   }
   cudaStream_t s = (cudaStream_t)stream;
-  fused_set_transformer_bwd<<<grid, kThreads, smem, s>>>(
+  kernel<<<grid, kThreads, smem, s>>>(
       (const bf16*)x, (const unsigned char*)key_mask, (const bf16*)g, wt,
-      (bf16*)dx, part, dm);
+      (bf16*)dx, part, (bf16*)hws, dm);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const Offsets og = grad_offsets(dm);

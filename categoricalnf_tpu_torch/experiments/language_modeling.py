@@ -30,8 +30,8 @@ def main(argv=None) -> dict:
                    help="depth of the causal backbone")
     p.add_argument("--net", type=str, default="lstm",
                    choices=["lstm", "transformer"],
-                   help="causal coupling backbone; transformer is not "
-                   "ported yet")
+                   help="causal coupling backbone: LSTMs, or causal "
+                   "transformers with KV-cache sampling")
     p.add_argument("--input_feats", type=int, default=0,
                    help="V-component soft-classifier features of z_{t-1} "
                    "fed to the causal nets (0 = off)")

@@ -5,8 +5,9 @@ positional embeddings; keys of invalid elements are masked with -1e9.
 A CUDA tensor always runs the whole net in one CUDA kernel
 (``ops/cuda/fused_transformer.py``), key mask included, which raises on
 what it does not take (a condition, sets above 32); with grad on, its
-backward is the backward kernel, and a call whose backward tile would not
-fit raises before the forward launches.  A CPU tensor takes the unfused
+backward is the backward kernel (in bf16 at width 256 with the residual
+copies in global memory), and a call whose backward tile would not fit
+raises before the forward launches.  A CPU tensor takes the unfused
 path, ``plain_forward``, which is also the kernels' plain version
 (autograd through it for the backward).  The reference's ``fused`` switch
 has no counterpart: the device chooses.
@@ -81,7 +82,10 @@ class SetTransformer(nn.Module):
     def check_backward_fits(self, x) -> None:
         """Raise unless the backward kernel takes this net at x's set size
         where the forward does: a differentiable call is refused before its
-        forward launches.  (A call the forward refuses raises there.)"""
+        forward launches.  (A call the forward refuses raises there.)  In
+        bf16 every net of the reference's configs fits, the hidden-256 ones
+        with the residual copies in global memory; what is left is the fp32
+        FMA pair's tile and a bf16 tile too large even so."""
         cd = torch_dtype(self.compute_dtype)
         H, mlp = self.hidden_dim, self.mlp_ratio * self.hidden_dim
         if not ft.supported(x, None, None, H, self.num_heads,
@@ -90,7 +94,8 @@ class SetTransformer(nn.Module):
         if not ft.bwd_fits(cd, x.shape[1], x.shape[2], H, mlp,
                            self.out.w.shape[1], self.num_heads,
                            self.num_layers):
-            item = ("Queue B 12: #4 bf16 at width 256" if cd == torch.bfloat16
+            item = ("Queue C: a call the kernels refuse"
+                    if cd == torch.bfloat16
                     else "Queue B 3 and 8: the fp32 train step's pair")
             raise NotImplementedError(
                 f"the fused SetTransformer backward has no tile for width "

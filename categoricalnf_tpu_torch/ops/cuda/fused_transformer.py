@@ -19,7 +19,9 @@ them into the TF32 pairs the forward reads (``tf32x3_layouts``).
 ``defvjp`` does in the reference.  ``LAUNCHES`` and ``BWD_LAUNCHES`` count
 launches by compute dtype, ``TRAIN_FWD_LAUNCHES`` those of the fp32 FMA
 forward of a differentiable call; ``MASKED_LAUNCHES`` and
-``MASKED_BWD_LAUNCHES`` count, among them, those that took a key mask.
+``MASKED_BWD_LAUNCHES`` count, among them, those that took a key mask, and
+``GLOBAL_H_BWD_LAUNCHES`` the bf16 backward's with its residual copies in
+global memory (nets whose tile does not fit otherwise: hidden 256).
 
 A key mask ``[B, S]`` (nonzero = a valid key) reaches the bf16 pair and the
 fp32 forward as one byte a key, cast once here: the logits of masked keys
@@ -62,6 +64,8 @@ BWD_LAUNCHES = {"bfloat16": 0, "float32": 0}
 TRAIN_FWD_LAUNCHES = {"float32": 0}
 MASKED_LAUNCHES = {"bfloat16": 0, "float32": 0}
 MASKED_BWD_LAUNCHES = {"bfloat16": 0}
+# the bf16 backward's launches with the residual copies in global memory
+GLOBAL_H_BWD_LAUNCHES = {"bfloat16": 0}
 
 # (source, entry point) of the forward and of the backward
 _ENTRY = {torch.bfloat16: ("fused_transformer_bf16",
@@ -135,32 +139,54 @@ def pad16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def bwd_shape(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
-              mlp: int, out_dim: int, heads: int,
-              layers: int) -> tuple[int, int]:
-    """(rows of a tile, dynamic shared memory of one block) of the backward,
-    as the kernel picks them.  bf16: whole sets up to 64 rows, padded to
-    16-row m-tiles, rows of bf16 a multiple of 16 plus 8 wide; 32-row tiles
-    where 64 do not fit (nets wider or deeper than the flagship).  fp32:
-    up to 32 rows padded to 8, rows one float wider than the data.  Both
-    hold the residual stream at each of the layers + 1 block boundaries,
-    five [tile, H] buffers, qkv, a region for the MLP pair / the qkv
-    gradient / g / x, and the fp32 softmax statistics."""
+def bwd_layout(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
+               mlp: int, out_dim: int, heads: int, layers: int,
+               global_h: bool = False) -> tuple[int, int, bool]:
+    """(rows of a tile, dynamic shared memory of one block, whether the
+    residual copies live in global memory) of the backward, as the kernel
+    picks them.  bf16: whole sets up to 64 rows, padded to 16-row m-tiles,
+    rows of bf16 a multiple of 16 plus 8 wide; 32-row tiles where 64 do
+    not fit (nets wider or deeper than the flagship); where neither fits,
+    or with ``global_h``, the same tiles with the residual stream's copies
+    at the block boundaries in a global workspace (``h_workspace_elems``)
+    and one in shared memory.  fp32: up to 32 rows padded to 8, rows one
+    float wider than the data, the copies in shared memory.  Both hold the
+    residual stream at each of the layers + 1 block boundaries, five
+    [tile, H] buffers, qkv, a region for the MLP pair / the qkv gradient /
+    g / x, and the fp32 softmax statistics."""
     if dtype != torch.bfloat16:
         tile, tile_pad = _tile(set_size)
         ld_h, ld_big, ld_f = hidden + 1, 3 * hidden + 1, mlp + 1
         ld_r2 = max(2 * ld_f, ld_big, out_dim + 1, in_dim)
         return tile, 4 * tile_pad * ((layers + 6) * ld_h + ld_big + ld_r2
-                                     + 3 * heads)
+                                     + 3 * heads), False
     ld_h, ld_big, ld_f = (pad16(n) + 8 for n in (hidden, 3 * hidden, mlp))
     ld_r2 = max(2 * ld_f, ld_big, pad16(out_dim) + 8, pad16(in_dim) + 8)
-    for target in (BF16_TILE_TARGET, BF16_TILE_TARGET // 2):
-        tile, tile_pad = _tile(set_size, target, 16)
-        smem = (2 * tile_pad * ((layers + 6) * ld_h + ld_big + ld_r2)
-                + 4 * tile_pad * 3 * heads)
-        if smem <= MAX_SMEM:
-            break
-    return tile, smem
+    for in_global in ((True,) if global_h else (False, True)):
+        copies = 1 if in_global else layers + 1
+        for target in (BF16_TILE_TARGET, BF16_TILE_TARGET // 2):
+            tile, tile_pad = _tile(set_size, target, 16)
+            smem = (2 * tile_pad * ((copies + 5) * ld_h + ld_big + ld_r2)
+                    + 4 * tile_pad * 3 * heads)
+            if smem <= MAX_SMEM:
+                return tile, smem, in_global
+    return tile, smem, in_global
+
+
+def bwd_shape(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
+              mlp: int, out_dim: int, heads: int,
+              layers: int) -> tuple[int, int]:
+    """(rows of a tile, dynamic shared memory of one block) of the
+    backward: ``bwd_layout``'s."""
+    return bwd_layout(dtype, set_size, in_dim, hidden, mlp, out_dim, heads,
+                      layers)[:2]
+
+
+def h_workspace_elems(tile: int, hidden: int, layers: int, grid: int) -> int:
+    """bf16 elements of the bf16 backward's global workspace of residual
+    copies: for each of ``grid`` blocks, h at the block boundaries 0 ..
+    layers - 1, each a [pad16(tile), pad16(hidden) + 8] image."""
+    return grid * layers * pad16(tile) * (pad16(hidden) + 8)
 
 
 def fwd_shape(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
@@ -272,9 +298,9 @@ def supported(x, cond, mask, hidden_dim: int, num_heads: int,
     """Whether the forward kernel of ``compute_dtype`` covers this call: no
     cond, x [B, S, IN] with S <= 32, a key mask (if any) of shape [B, S],
     heads dividing the width, in bf16 a width of at most 256, and a tile
-    that fits.  The forward's limits only: the bf16 backward's tile is
-    larger and does not fit at width 256 (``bwd_fits``), and the fp32 FMA
-    pair of a differentiable fp32 call takes no mask."""
+    that fits.  The forward's limits only: the backward's tile is larger
+    (``bwd_fits``), and the fp32 FMA pair of a differentiable fp32 call
+    takes no mask."""
     if cond is not None or x.dim() != 3:
         return False
     if mask is not None and tuple(mask.shape) != tuple(x.shape[:2]):
@@ -300,9 +326,12 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _FWD_ARGS = [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P]
 _BWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I,
              _P]
-# the entries that take a key mask, the pointer after x's
+# the entries that take a key mask, the pointer after x's; the bf16
+# backward also takes the residual copies' workspace after dw and its
+# layout after grid
 _MASKED_FWD_ARGS = _FWD_ARGS[:1] + [_P] + _FWD_ARGS[1:]
-_MASKED_BWD_ARGS = _BWD_ARGS[:1] + [_P] + _BWD_ARGS[1:]
+_MASKED_BWD_ARGS = (_BWD_ARGS[:1] + [_P] + _BWD_ARGS[1:7] + [_P]
+                    + _BWD_ARGS[7:-1] + [_I, _P])
 _fns: dict = {}
 
 
@@ -464,14 +493,18 @@ def fused_set_transformer(packed: PackedWeights, x, *, num_heads: int,
 
 
 def fused_set_transformer_bwd(packed: PackedWeights, x, g, *,
-                              num_heads: int, mask=None):
+                              num_heads: int, mask=None,
+                              _global_h: bool = False):
     """Kernel #4: the cotangent ``g`` [B, S, OUT] of the net's output pulled
     back to x and the 12 weights, under the forward's key mask (bf16 only).
     Returns (dx in x's dtype, 12 fp32 weight gradients shaped as
     ``flatten_params``).  The matrices' gradients are rounded to the
-    compute dtype, as the transpose of their cast."""
+    compute dtype, as the transpose of their cast.  ``_global_h`` (bf16)
+    takes the global layout of the residual copies where the shared one
+    fits too: a check that the two give the same bits, not an option."""
     _check_x(packed, x, num_heads, "backward", mask)
-    if mask is not None and packed.dtype != torch.bfloat16:
+    bf16 = packed.dtype == torch.bfloat16
+    if mask is not None and not bf16:
         raise NotImplementedError(
             "the fp32 backward takes no key mask yet (ROADMAP.md, Queue B 3 "
             "and 8)")
@@ -481,7 +514,8 @@ def fused_set_transformer_bwd(packed: PackedWeights, x, g, *,
                          f"{tuple(g.shape)} on {g.device}, want "
                          f"{(B, S, packed.out_dim)} on {x.device}")
     H, L, RH, OUT = packed.hidden, packed.layers, packed.mlp, packed.out_dim
-    tile, smem = bwd_shape(packed.dtype, S, in_dim, H, RH, OUT, num_heads, L)
+    tile, smem, in_global = bwd_layout(packed.dtype, S, in_dim, H, RH, OUT,
+                                       num_heads, L, _global_h and bf16)
     if smem > MAX_SMEM:
         raise ValueError(f"fused SetTransformer backward: a tile needs "
                          f"{smem} bytes of shared memory, over {MAX_SMEM}")
@@ -494,24 +528,30 @@ def fused_set_transformer_bwd(packed: PackedWeights, x, g, *,
     dx = torch.empty_like(x2)
     part = torch.empty(grid, total, dtype=torch.float32, device=x.device)
     dw = torch.empty(total, dtype=torch.float32, device=x.device)
+    hws = (torch.empty(h_workspace_elems(tile, H, L, grid),
+                       dtype=torch.bfloat16, device=x.device)
+           if in_global else None)
     km = key_mask_bytes(mask)
     source, name = _BWD_ENTRY[packed.dtype]
-    # the bf16 entry takes the key mask after x; the fp32 one takes none
-    lead = ((x2.data_ptr(), _mask_ptr(km), g2.data_ptr())
-            if packed.dtype == torch.bfloat16
+    # the bf16 entry takes the key mask after x, the workspace after dw and
+    # its layout after grid; the fp32 one takes none of them
+    lead = ((x2.data_ptr(), _mask_ptr(km), g2.data_ptr()) if bf16
             else (x2.data_ptr(), g2.data_ptr()))
-    argtypes = (_MASKED_BWD_ARGS if packed.dtype == torch.bfloat16
-                else _BWD_ARGS)
+    mid = (None if hws is None else hws.data_ptr(),) if bf16 else ()
+    tail = (int(in_global),) if bf16 else ()
+    argtypes = _MASKED_BWD_ARGS if bf16 else _BWD_ARGS
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _fn(source, name, argtypes)(
             *lead, packed.bwd_w_ptrs, packed.b_ptrs, dx.data_ptr(),
-            part.data_ptr(), dw.data_ptr(), B * S, S, in_dim, H, num_heads,
-            L, RH, OUT, grid, stream)
+            part.data_ptr(), dw.data_ptr(), *mid, B * S, S, in_dim, H,
+            num_heads, L, RH, OUT, grid, *tail, stream)
     build.check(err, name)
     BWD_LAUNCHES[_KEY[packed.dtype]] += 1
     if km is not None:
         MASKED_BWD_LAUNCHES[_KEY[packed.dtype]] += 1
+    if in_global:
+        GLOBAL_H_BWD_LAUNCHES["bfloat16"] += 1
     dws = tuple(t.view(shape) for t, shape in
                 zip(dw.split(sizes), packed.shapes))
     return dx.to(x.dtype), dws

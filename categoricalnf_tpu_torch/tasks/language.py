@@ -10,10 +10,11 @@ come from the port's copy of the reference's C++ generators
 library cannot be built, as in the reference.
 
 The model is a time-autoregressive mixture-CDF flow whose causal nets are
-LSTMs (``flows.AutoregressiveMixtureCDF``, ``networks.CausalLSTM``), with a
+LSTMs or causal transformers (``flows.AutoregressiveMixtureCDF``,
+``networks.CausalLSTM``, ``networks.CausalTransformer``: ``net``), with a
 logistic, normal or learned HMM prior on top.  Likelihoods are the
-importance-sampled bits/char; sampling rolls the LSTMs one character at a
-time.
+importance-sampled bits/char; sampling rolls the nets one character at a
+time (the transformer through its KV cache).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from categoricalnf_tpu_torch import flows
 from categoricalnf_tpu_torch.data import corpus as native
 from categoricalnf_tpu_torch.encodings import create_encoding
 from categoricalnf_tpu_torch.models.categorical_flow import CategoricalFlow
-from categoricalnf_tpu_torch.networks import CausalLSTM
+from categoricalnf_tpu_torch.networks import CausalLSTM, CausalTransformer
 from categoricalnf_tpu_torch.training.task import TaskTemplate
 from categoricalnf_tpu_torch.utils.device import resolve_device
 
@@ -137,41 +138,45 @@ def load_corpus(name: str, data_dir: Optional[str] = None) -> CharCorpus:
     raise ValueError(f"unknown corpus {name!r}")
 
 
-def _refuse_net(net: str) -> None:
-    if net == "transformer":
-        raise NotImplementedError(
-            "the causal transformer backbone (--net transformer) is not "
-            "ported yet (ROADMAP.md, Queue A, A9)")
-    if net != "lstm":
-        raise ValueError(f"unknown LM net {net!r}")
-
-
 def build_lm_flow(dim: int, num_layers: int = 2, hidden_dim: int = 512,
                   lstm_layers: int = 2, num_mixtures: int = 16,
                   compute_dtype: str = "bfloat16", scan_blocks: bool = True,
                   channel_coupling: bool = True, net: str = "lstm",
-                  input_feats: int = 0, prior: str = "logistic",
-                  prior_states: int = 32, *,
+                  seq_len: int = 512, input_feats: int = 0,
+                  prior: str = "logistic", prior_states: int = 32, *,
                   generator=None) -> flows.FlowModel:
     """The LM flow: autoregressive in time and, with ``channel_coupling``,
     a coupling in channels; a block is [ActNorm, InvertibleLinear, AR
     layer of parity 0, SoftClamp] and the same with parity 1 (one AR layer
     of parity None without ``channel_coupling``).  ``num_layers`` blocks,
-    as one ``ScannedBlocks`` when ``scan_blocks`` and more than one.  The
-    reference's ``seq_len`` sizes the transformer backbone, which is not
-    ported, so it is not taken here."""
-    _refuse_net(net)
+    as one ``ScannedBlocks`` when ``scan_blocks`` and more than one.
+    ``net`` picks the causal backbone: ``lstm`` (``lstm_layers`` LSTM
+    layers) or ``transformer`` (``lstm_layers`` blocks of 4 heads, its KV
+    cache ``seq_len`` long)."""
     out_dim = dim * (2 + 3 * num_mixtures)
 
+    def make_net(parity):
+        extra = dim if parity is not None else 0
+        if net == "lstm":
+            return CausalLSTM(dim + input_feats, out_dim,
+                              hidden_dim=hidden_dim, num_layers=lstm_layers,
+                              extra_dim=extra, compute_dtype=compute_dtype,
+                              generator=generator)
+        if net == "transformer":
+            return CausalTransformer(dim + input_feats, out_dim,
+                                     hidden_dim=hidden_dim,
+                                     num_layers=lstm_layers, max_len=seq_len,
+                                     extra_dim=extra,
+                                     compute_dtype=compute_dtype,
+                                     generator=generator)
+        raise ValueError(f"unknown LM net {net!r}")
+
     def ar(parity):
-        lstm = CausalLSTM(dim + input_feats, out_dim, hidden_dim=hidden_dim,
-                          num_layers=lstm_layers,
-                          extra_dim=dim if parity is not None else 0,
-                          compute_dtype=compute_dtype, generator=generator)
+        causal = make_net(parity)
         return [flows.ActNorm(dim),
                 flows.InvertibleLinear(dim, generator=generator),
                 flows.AutoregressiveMixtureCDF(
-                    lstm, dim, num_mixtures=num_mixtures, parity=parity,
+                    causal, dim, num_mixtures=num_mixtures, parity=parity,
                     input_feats=input_feats, generator=generator),
                 flows.SoftClamp()]
 
@@ -215,7 +220,6 @@ class LanguageModelingTask(TaskTemplate):
     name: str = "language_modeling"
 
     def __post_init__(self):
-        _refuse_net(self.net)
         self.device = resolve_device(self.device)
         self.corpus = load_corpus(self.corpus_name, self.data_dir)
         self.name = f"lm_{self.corpus.name}"
@@ -227,6 +231,7 @@ class LanguageModelingTask(TaskTemplate):
         flow = build_lm_flow(enc.dim, self.num_layers, self.hidden_dim,
                              self.lstm_layers, self.num_mixtures,
                              self.compute_dtype, net=self.net,
+                             seq_len=self.seq_len,
                              input_feats=self.input_feats, prior=self.prior,
                              prior_states=self.prior_states,
                              generator=generator)

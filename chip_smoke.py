@@ -107,18 +107,25 @@ Run from the root of a checkout on a machine with one NVIDIA card:
    position); times the LSTMs and the HMM prior alone; holds #1 on every
    inverse call of sample_metrics at 128 samples at --seed and --seed + 1;
    serves the run (/health, /sample of 4 strings, a bad request) and holds
-   the served model, its heads random, against its CPU copy.
+   the served model, its heads random, against its CPU copy.  Then the
+   same config with net transformer (2-block causal transformers of
+   hidden 512, 4 heads, a KV cache of 256) for LM_TRANSFORMER_STEPS
+   steps with the same checks, 10 steps traced, and the KV-cache rollout
+   of a trained net held against its batched pass in bf16 and fp32
+   (``check_kv_rollout``); sampled, held and served as the LSTMs.
 9. Molecules (GraphCNF).  First, with the kernel checks of 2., the key
    mask in #3 bf16, #4 bf16 and #3 fp32 at the node flow's shapes (128
    graphs of 24 nodes, in 6, out 156, hidden 192; fp32 at 4 chains, and
-   at moses's hidden 256, K = 16), at --seed and --seed + 1, masks of a
-   synthetic batch with a set of one valid key and one of none: each
-   within its tolerance of plain, the same call without the mask above 10
-   x that tolerance, a mask of ones bitwise the call without one; each
-   timed.  Then runs/molecules_v4/config.json as it is but for its dataset
-   (the in-memory synthetic molecules; hidden 192, 4 node and 6 edge
-   layers, K = 8, bf16, batch 128) for MOL_STEPS (120) steps with the
-   checks of 4.,
+   at moses's hidden 256, K = 16; #3 and #4 bf16 at moses's 192 graphs,
+   out 300, #4 with its residual copies in global memory), at --seed and
+   --seed + 1, masks of a synthetic batch with a set of one valid key and
+   one of none: each within its tolerance of plain, the same call without
+   the mask above 10 x that tolerance, a mask of ones bitwise the call
+   without one; #4 at hidden 192 with the copies in global memory bitwise
+   the shared layout's; each timed.  Then runs/molecules_v4/config.json as
+   it is but for its dataset (the in-memory synthetic molecules; hidden
+   192, 4 node and 6 edge layers, K = 8, bf16, batch 128) for MOL_STEPS
+   (60) steps with the checks of 4.,
    every molecule kernel launched with the mask, the final sample metrics
    at 1,024 and sampled_molecules.json; prints
    molecule_generation_train_samples_per_s, the peak memory, the validity
@@ -129,8 +136,9 @@ Run from the root of a checkout on a machine with one NVIDIA card:
    the CPU's earlier stages) and #1 on every inverse call of its sample at
    --seed and --seed + 1.  Then runs/moses/config.json at
    full width (hidden 256, K = 16, 12 bond layers, node_cond_atoms,
-   bond_cond_degree; synthetic molecules) with random weights: served,
-   held against its CPU copy, #1 held on its sample.
+   bond_cond_degree, batch 192; synthetic molecules) the same way for
+   MOSES_STEPS (60) steps, #4 bf16 launched with the copies in global
+   memory.
 10. Prints one JSON line of kernel numbers (with the coloring's, the
    dequantized flows', the LM's and the molecules' shapes, and every
    path's launches), then, as the last line, {"ok": true, "device":
@@ -1083,7 +1091,7 @@ def reset_launches():
     from categoricalnf_tpu_torch.ops.cuda import mixture as cm
     for counts in (cm.LAUNCHES, ft.LAUNCHES, ft.BWD_LAUNCHES,
                    ft.TRAIN_FWD_LAUNCHES, ft.MASKED_LAUNCHES,
-                   ft.MASKED_BWD_LAUNCHES):
+                   ft.MASKED_BWD_LAUNCHES, ft.GLOBAL_H_BWD_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -1102,7 +1110,9 @@ def read_launches() -> dict:
             **{f"fused_set_transformer_{short[k]}_masked": v
                for k, v in ft.MASKED_LAUNCHES.items()},
             **{f"fused_set_transformer_bwd_{short[k]}_masked": v
-               for k, v in ft.MASKED_BWD_LAUNCHES.items()}}
+               for k, v in ft.MASKED_BWD_LAUNCHES.items()},
+            "fused_set_transformer_bwd_bf16_global_h":
+                ft.GLOBAL_H_BWD_LAUNCHES["bfloat16"]}
 
 
 TRAIN_STEPS, TRAIN_EVAL_EVERY, TRAIN_LOG_EVERY = 200, 100, 20
@@ -1646,9 +1656,10 @@ def set_modeling_phase(seed: int, timings: dict, card: str,
 LM_K = 32
 LM_SHAPES = {"density": (128, 256, 4), "m512": (128, 4), "m16": (4, 4)}
 # the LM phase's train steps, chosen from the step time measured on the
-# card so that the phase fits the script's time (PERF.md, section 4), and
-# its log cadence
-LM_STEPS, LM_LOG_EVERY = 40, 5
+# card so that the phase fits the script's time (PERF.md, section 4: 40
+# until the transformer's phase and runs/moses's training came), and its
+# log cadence
+LM_STEPS, LM_LOG_EVERY = 20, 5
 # the characters of the crops the LM phase traces a step on (profile_steps)
 LM_PROFILE_CROP = 32
 # what runs/lm_v6/config.json builds, which the phase checks it trains
@@ -1818,21 +1829,83 @@ def check_lm_against_cpu(task, seed: int, n: int = 8, length: int = 32):
 
 
 LM_KERNELS = ("mixture_forward", "mixture_forward_bwd", "mixture_inverse")
+# the transformer backbone's train steps on runs/lm_v6 (net transformer), and
+# the sequences of its KV-cache rollout check
+LM_TRANSFORMER_STEPS, KV_ROLLOUT_BATCH = 20, 16
+# the rollout against the batched pass: fp32 within 2e-4 (the reference's
+# own test of its cache, tests/test_language.py); bf16 by the relative error
+# of the norm within BF16_FWD_REL, the limit of #3 bf16 against its plain
+# version, for the same reason: the two round to bf16 after sums taken in
+# another order
+KV_ROLLOUT_F32_TOL = 2e-4
 
 
-def lm_phase(seed: int, timings: dict, card: str,
-             device: str = "cuda") -> dict:
+def check_kv_rollout(task, seed: int) -> dict:
+    """The trained transformer of the first autoregressive layer, rolled
+    through its KV cache one position at a time (``step``) over
+    KV_ROLLOUT_BATCH random sequences of seq_len positions with the
+    coupling's extra features, against its batched ``forward`` on the
+    card, in bf16 (the trained net) and in fp32 (a copy of it):
+    KV_ROLLOUT_F32_TOL and BF16_FWD_REL."""
+    import copy
+
+    import torch
+    from categoricalnf_tpu_torch.flows import AutoregressiveMixtureCDF
+    from categoricalnf_tpu_torch.networks import CausalTransformer
+    layer = next(m for m in task.model.modules()
+                 if isinstance(m, AutoregressiveMixtureCDF))
+    check(isinstance(layer.net, CausalTransformer),
+          "the LM's autoregressive layer has no causal transformer")
+    g = torch.Generator(task.device).manual_seed(seed + 62)
+    shape = (KV_ROLLOUT_BATCH, task.seq_len, task.model.encoding.dim)
+    z = torch.randn(shape, generator=g, device=task.device)
+    m = layer._chan_mask(z)
+    extra = z * m
+    out = {}
+    for cd in ("bfloat16", "float32"):
+        net = layer.net
+        if cd != net.compute_dtype:
+            net = copy.deepcopy(net)
+            net.compute_dtype = cd
+        with torch.no_grad():
+            full = net(z, shift=True, extra=extra).float()
+            carry = net.init_carry(z.shape[0], z.device)
+            prev = torch.zeros_like(z[:, 0])
+            steps = []
+            for t in range(z.shape[1]):
+                carry, o = net.step(carry, prev, extra_t=extra[:, t])
+                steps.append(o.float())
+                prev = z[:, t]
+            rolled = torch.stack(steps, dim=1)
+        torch.cuda.synchronize()
+        r = {"max_abs_err": max_err(rolled, full), "rel_err":
+             rel_err(rolled, full), "out_max_abs": float(full.abs().max())}
+        ok = (close(rolled, full, KV_ROLLOUT_F32_TOL) if cd == "float32"
+              else r["rel_err"] <= BF16_FWD_REL)
+        check(bool(torch.isfinite(rolled).all()) and ok,
+              f"KV-cache rollout against the batched pass ({cd}): {r}")
+        out[cd] = r
+    return out
+
+
+def lm_phase(seed: int, timings: dict, card: str, device: str = "cuda",
+             net: str = "lstm", num_steps: int = LM_STEPS) -> dict:
     """Train runs/lm_v6/config.json as it is (only the seed set: the
     synthetic Markov corpus, 4 blocks of two autoregressive layers with
     2-layer LSTMs of hidden 512 in bf16, K = 32, the HMM prior of 32
-    states, batch 128 of 256 characters) for LM_STEPS steps through the
+    states, batch 128 of 256 characters), or with ``net`` transformer its
+    2-block causal transformers (4 heads, KV cache of 256), for
+    ``num_steps`` steps through the
     port's Trainer, with its 8 eval batches of 8 chains before training
     and at the end, the final sample metrics and the test: every logged
     loss finite and the last below the first, every bpd finite and above
-    the analytic optimum, no alarm, #2, #2' and #1 launched.  Then traces 2
-    steps on crops of LM_PROFILE_CROP characters with the host's activity,
-    times the LSTMs and the HMM prior alone at the full shapes, and runs
-    sample_metrics at 128 samples with #1 held by the residual rule on
+    the analytic optimum, no alarm, #2, #2' and #1 launched.  Then, for the
+    LSTMs, traces 2
+    steps on crops of LM_PROFILE_CROP characters with the host's activity
+    and times the LSTMs and the HMM prior alone at the full shapes; for
+    the transformers, traces 10 whole steps (the card's kernels) and holds
+    the KV-cache rollout against the batched pass (``check_kv_rollout``).
+    Runs sample_metrics at 128 samples with #1 held by the residual rule on
     every inverse call at the seed and the next.  Serves
     the run: /health, /sample of 4 (strings of the vocabulary), a bad
     request; last, the served model with random heads against its CPU
@@ -1851,15 +1924,17 @@ def lm_phase(seed: int, timings: dict, card: str,
 
     cfg = load_config(os.path.join(REPO, "runs", "lm_v6"))
     a = cfg["args"]
-    args = {**a, "seed": seed}
+    args = {**a, "seed": seed, "net": net}
+    key = "lm" if net == "lstm" else f"lm_{net}"
     t0 = time.perf_counter()
     task = inference.build_task(cfg["task"], args, device=device)
     timings["build_task_s"] = time.perf_counter() - t0
-    check({k: getattr(task, k) for k in LM_MODEL} == LM_MODEL,
+    check({k: getattr(task, k) for k in LM_MODEL} == LM_MODEL
+          and task.net == net,
           f"runs/lm_v6 is not the model this phase is written for: "
-          f"{LM_MODEL}")
+          f"{LM_MODEL}, net {net}")
     tcfg = TrainConfig(
-        num_steps=LM_STEPS, eval_every=LM_STEPS,
+        num_steps=num_steps, eval_every=num_steps,
         eval_samples=a["eval_samples"], final_eval_samples=a["eval_samples"],
         log_every=LM_LOG_EVERY, seed=seed,
         steps_per_call=a.get("steps_per_call") or 1,
@@ -1886,15 +1961,15 @@ def lm_phase(seed: int, timings: dict, card: str,
         t0 = time.perf_counter()
         final = trainer.train(resume=False)
         torch.cuda.synchronize()
-        timings[f"train_{LM_STEPS}_steps_s"] = time.perf_counter() - t0
-        launches["lm_training"] = read_launches()
+        timings[f"train_{num_steps}_steps_s"] = time.perf_counter() - t0
+        launches[f"{key}_training"] = read_launches()
         timings["train_peak_mem_gib"] = (torch.cuda.max_memory_allocated()
                                          / 2**30)
         rows = [json.loads(line) for line in
                 open(os.path.join(out_dir, "metrics.jsonl"))]
         losses = [r["loss"] for r in rows if r["prefix"] == "train"]
         vals = [r["bpd"] for r in rows if r["prefix"] == "val"]
-        check(len(losses) == LM_STEPS // LM_LOG_EVERY
+        check(len(losses) == num_steps // LM_LOG_EVERY
               and all(np.isfinite(losses)), f"LM losses {losses}")
         check(losses[-1] < losses[0], f"LM loss did not fall: {losses}")
         bpds = [bpd0, *vals, final["best_bpd"], final["test_bpd"]]
@@ -1903,7 +1978,7 @@ def lm_phase(seed: int, timings: dict, card: str,
         check(all(r["integrity_alarm"] == 0 for r in rows
                   if r["prefix"] == "val"), "LM integrity alarm")
         for name in LM_KERNELS:
-            check(launches["lm_training"][name] > 0,
+            check(launches[f"{key}_training"][name] > 0,
                   f"kernel {name} was not launched while training the LM")
         check(os.path.exists(os.path.join(out_dir, "samples.txt")),
               "the LM run wrote no samples.txt")
@@ -1916,14 +1991,19 @@ def lm_phase(seed: int, timings: dict, card: str,
             train_samples_per_s=steps * task.batch_size / secs,
             final_sample_metrics={k: final[k] for k in
                                   ("unigram_tv", "bigram_kl_bits")})
-        # the host's activity makes a trace of a whole LM step too large to
-        # read back in the script's time: the trace takes crops of
-        # LM_PROFILE_CROP characters, whose steps run the same operations
-        # for each position
-        timings["step_profile"] = profile_steps(
-            task, tcfg.optimizer, seed, warmup=1, steps=2, host=True,
-            crop=LM_PROFILE_CROP)
-        timings["step_breakdown"] = lm_step_breakdown(task, seed)
+        if net == "lstm":
+            # the host's activity makes a trace of a whole LSTM step too
+            # large to read back in the script's time: the trace takes crops
+            # of LM_PROFILE_CROP characters, whose steps run the same
+            # operations for each position
+            timings["step_profile"] = profile_steps(
+                task, tcfg.optimizer, seed, warmup=1, steps=2, host=True,
+                crop=LM_PROFILE_CROP)
+            timings["step_breakdown"] = lm_step_breakdown(task, seed)
+        else:
+            timings["step_profile"] = profile_steps(task, tcfg.optimizer,
+                                                    seed)
+            timings["kv_rollout"] = check_kv_rollout(task, seed)
 
         # #1 on every inverse call of sample_metrics at 128 samples
         sampled = {}
@@ -1942,7 +2022,7 @@ def lm_phase(seed: int, timings: dict, card: str,
 
         reset_launches()
         server = RunServer(out_dir, device=device)
-        check(server.handle.step == LM_STEPS,
+        check(server.handle.step == num_steps,
               f"served step {server.handle.step}")
         httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(server))
         th = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -1968,17 +2048,19 @@ def lm_phase(seed: int, timings: dict, card: str,
             httpd.shutdown()
             httpd.server_close()
             th.join(timeout=60)
-        launches["lm_serving"] = read_launches()
+        launches[f"{key}_serving"] = read_launches()
         for name in ("mixture_inverse", "mixture_forward"):
-            check(launches["lm_serving"][name] > 0,
+            check(launches[f"{key}_serving"][name] > 0,
                   f"kernel {name} was not launched while serving the LM")
         served = server.handle.task
         randomize_coupling_nets(served.model, seed + 1)
         check_lm_against_cpu(served, seed)
     print(json.dumps({"metric": "language_modeling_train_samples_per_s",
+                      "net": net,
                       "value": timings["train_samples_per_s"],
                       "unit": "samples/s",
                       "steps": timings["rate_steps"],
+                      "ms_per_step": timings["train_ms_per_step"],
                       "batch_size": task.batch_size,
                       "peak_mem_gib": timings["train_peak_mem_gib"],
                       "device_idle_share": timings["step_profile"].get(
@@ -1993,10 +2075,13 @@ def lm_phase(seed: int, timings: dict, card: str,
 # mask of their node mask
 MOL_NODES, MOL_NODE_DIM, MOL_BATCH, MOL_HIDDEN = 24, 6, 128, 192
 MOSES_BATCH, MOSES_HIDDEN, MOSES_K = 192, 256, 16
-# molecules_v4's training steps, evals at half and at the end: a step takes
-# 0.3-0.6 s on the card's host (PERF.md), so the phase stays near 150 s
-MOL_STEPS = 120
+# molecules_v4's and runs/moses's training steps, evals at half and at the
+# end: a v4 step takes 0.3-0.6 s on the card's host (PERF.md), and v4 was
+# cut from 120 steps to 60 when moses began to train, to keep the script
+# inside its time
+MOL_STEPS, MOSES_STEPS = 60, 60
 MOL_OUT = MOL_NODE_DIM * (2 + 3 * K)
+MOSES_OUT = MOL_NODE_DIM * (2 + 3 * MOSES_K)
 # #4 bf16's tolerance (``fused_bwd_report``): the largest relative error of
 # a gradient's norm
 BF16_BWD_REL = 0.03
@@ -2142,14 +2227,20 @@ def check_molecule_kernels(device, seeds, report):
         mask = molecule_key_mask(seed, device, MOSES_BATCH)
         x = torch.randn(MOSES_BATCH, MOL_NODES, MOL_NODE_DIM, generator=g,
                         device=device)
-        bf = molecule_net("bfloat16", device, seed, MOSES_HIDDEN,
-                          MOL_NODE_DIM * (2 + 3 * MOSES_K))
+        bf = molecule_net("bfloat16", device, seed, MOSES_HIDDEN, MOSES_OUT)
         readings[f"{seed}/fwd_bf16_h{MOSES_HIDDEN}"] = masked_fwd_readings(
             bf, x, mask, BF16_FWD_REL)
+        gy = torch.randn(MOSES_BATCH, MOL_NODES, MOSES_OUT, generator=g,
+                         device=device).to(torch.bfloat16)
+        readings[f"{seed}/bwd_bf16_h{MOSES_HIDDEN}"] = masked_bwd_readings(
+            bf, x, mask, gy)
     print("masked fused kernels at the node flow's shapes (limits: bf16 "
           f"#3 {BF16_FWD_REL}, #4 {BF16_BWD_REL}, fp32 #3 {F32_FWD_REL}; "
           f"controls above {MASK_CONTROL} x): " + json.dumps(readings),
           flush=True)
+    layout = global_h_bitwise(device, seeds[0])
+    print("#4 bf16 at hidden 192 with the residual copies in global memory "
+          "against shared memory: " + json.dumps(layout), flush=True)
 
     seed = seeds[0]
     g = torch.Generator(device).manual_seed(seed + 51)
@@ -2204,6 +2295,101 @@ def check_molecule_kernels(device, seeds, report):
         # x, g, dx and the mask; the weights and their fp32 gradients
         bytes=rows * ((2 * MOL_NODE_DIM + MOL_OUT) * 2 + 1) + n_w * 2
         + n_b * 4 + (n_w + n_b) * 4, ops=3 * 2 * rows * macs_row)
+    report.update(moses_fused_reports(device, seed, readings))
+    report["fused_set_transformer_bwd_bf16_global_h"][
+        "layout_bitwise_at_192"] = layout["bitwise"]
+
+
+def global_h_bitwise(device, seed: int) -> dict:
+    """#4 bf16 at molecules_v4's node-flow shape (hidden 192, a tile that
+    fits with the residual copies in shared memory), masked, with the
+    copies in the global workspace instead (the wrapper's private
+    ``_global_h``): dx and the 12 weight gradients bitwise the shared
+    layout's at the same tile and grid, so only the storage moved."""
+    import torch
+    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+    g = torch.Generator(device).manual_seed(seed + 52)
+    x = torch.randn(MOL_BATCH, MOL_NODES, MOL_NODE_DIM, generator=g,
+                    device=device)
+    gy = torch.randn(MOL_BATCH, MOL_NODES, MOL_OUT, generator=g,
+                     device=device).to(torch.bfloat16)
+    mask = molecule_key_mask(seed, device)
+    packed = molecule_net("bfloat16", device, seed)._packed_weights(
+        torch.bfloat16)
+    shape = (torch.bfloat16, MOL_NODES, MOL_NODE_DIM, MOL_HIDDEN,
+             2 * MOL_HIDDEN, MOL_OUT, HEADS, 2)
+    shared, forced = ft.bwd_layout(*shape), ft.bwd_layout(*shape, True)
+    check(not shared[2] and forced[2] and forced[0] == shared[0],
+          f"#4 bf16 layouts at hidden 192: {shared}, {forced}")
+    with torch.no_grad():
+        a = ft.fused_set_transformer_bwd(packed, x, gy, num_heads=HEADS,
+                                         mask=mask)
+        c = ft.fused_set_transformer_bwd(packed, x, gy, num_heads=HEADS,
+                                         mask=mask, _global_h=True)
+    same = [torch.equal(u, v) for u, v in zip((a[0], *a[1]), (c[0], *c[1]))]
+    check(all(same), f"#4 bf16 at hidden 192: the global layout's gradients "
+          f"differ from the shared layout's ({same})")
+    return {"tile": shared[0], "smem_shared": shared[1],
+            "smem_global": forced[1], "bitwise": all(same)}
+
+
+def moses_fused_reports(device, seed: int, readings: dict) -> dict:
+    """Masked #3 bf16 and #4 bf16 at runs/moses's node flow (hidden 256,
+    out 300, 192 graphs of 24 nodes; #4 in its global layout), timed, with
+    their readings at ``seed``, bounds' bytes and operations, and #4's
+    tile, grid, weight-gradient scratch and residual workspace."""
+    import torch
+    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+    g = torch.Generator(device).manual_seed(seed + 53)
+    mask = molecule_key_mask(seed, device, MOSES_BATCH)
+    x = torch.randn(MOSES_BATCH, MOL_NODES, MOL_NODE_DIM, generator=g,
+                    device=device)
+    gy = torch.randn(MOSES_BATCH, MOL_NODES, MOSES_OUT, generator=g,
+                     device=device).to(torch.bfloat16)
+    net = molecule_net("bfloat16", device, seed, MOSES_HIDDEN, MOSES_OUT)
+    packed = net._packed_weights(torch.bfloat16)
+    rows = MOSES_BATCH * MOL_NODES
+    macs_row = net_macs_per_row(MOL_NODE_DIM, MOSES_HIDDEN, HEADS, 2,
+                                2 * MOSES_HIDDEN, MOSES_OUT, MOL_NODES)
+    ws = ft.flatten_params(net)
+    n_w = sum(w.numel() for w in ws[0::2])
+    n_b = sum(b.numel() for b in ws[1::2])
+    with torch.no_grad():
+        t = timed(lambda: ft.fused_set_transformer(
+            packed, x, num_heads=HEADS, mask=mask),
+            lambda: net.plain_forward(x, mask=mask), 20, 5)
+    out = {"fused_set_transformer_bf16_moses": dict(
+        readings[f"{seed}/fwd_bf16_h{MOSES_HIDDEN}"], rows=rows, **t,
+        dtype="bfloat16",
+        bytes=rows * ((MOL_NODE_DIM + MOSES_OUT) * 2 + 1) + n_w * 2
+        + n_b * 4, ops=2 * rows * macs_row)}
+    params = list(net.parameters())
+    xr = x.clone().requires_grad_(True)
+    y_p = net.plain_forward(xr, mask=mask)
+    t = timed(lambda: ft.fused_set_transformer_bwd(packed, x, gy,
+                                                   num_heads=HEADS,
+                                                   mask=mask),
+              lambda: torch.autograd.grad(y_p, [xr] + params, gy,
+                                          retain_graph=True), 10, 5)
+    tile, smem, in_global = ft.bwd_layout(
+        torch.bfloat16, MOL_NODES, MOL_NODE_DIM, MOSES_HIDDEN,
+        2 * MOSES_HIDDEN, MOSES_OUT, HEADS, 2)
+    check(in_global, "#4 bf16 at hidden 256 did not take the global layout")
+    grid = ft.bwd_grid(rows, tile, smem, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+    slice_bytes = (n_w + n_b) * 4
+    out["fused_set_transformer_bwd_bf16_global_h"] = dict(
+        readings[f"{seed}/bwd_bf16_h{MOSES_HIDDEN}"], rows=rows, **t,
+        dtype="bfloat16",
+        bytes=rows * ((2 * MOL_NODE_DIM + MOSES_OUT) * 2 + 1) + n_w * 2
+        + n_b * 4 + (n_w + n_b) * 4, ops=3 * 2 * rows * macs_row,
+        tile=tile, smem=smem, grid=grid,
+        blocks_per_sm=ft.smem_blocks_per_sm(smem),
+        scratch_mb=grid * slice_bytes / 2**20,
+        scratch_written_mb=-(-rows // tile) * slice_bytes / 2**20,
+        workspace_mb=ft.h_workspace_elems(tile, MOSES_HIDDEN, 2, grid) * 2
+        / 2**20)
+    return out
 
 
 def molecule_graph_noise(task, n: int, chains: int, seed: int):
@@ -2392,17 +2578,16 @@ def molecule_phase(seed: int, timings: dict, card: str,
     more steps.  Serve the run (``serve_molecules``), then hold the served
     model, its coupling nets' output layers random, against its CPU copy
     and #1 on every inverse call of its sample of a batch at the seed and
-    the next.  Then runs/moses/config.json at full width (hidden 256, K =
-    16, 6 node, 8 edge and 12 bond layers, node_cond_atoms and
-    bond_cond_degree; synthetic molecules) with seeded random weights, data
-    initialised on one batch: served, held against its CPU copy and #1 held
-    on its sample.  Returns the launches of the training and of the
-    serving."""
+    the next.  Then the same for runs/moses/config.json at full width
+    (hidden 256, K = 16, 6 node, 8 edge and 12 bond layers,
+    node_cond_atoms and bond_cond_degree, batch 192, 4 steps a call;
+    synthetic molecules), MOSES_STEPS steps, its #4 bf16 launched with the
+    residual copies in global memory.  Returns the launches of the
+    trainings and of the serving."""
     import numpy as np
     import torch
     from categoricalnf_tpu_torch import inference
-    from categoricalnf_tpu_torch.training.checkpoint import CheckpointManager
-    from categoricalnf_tpu_torch.utils.config import load_config, save_config
+    from categoricalnf_tpu_torch.utils.config import load_config
 
     cfg = load_config(os.path.join(REPO, "runs", "molecules_v4"))
     a = cfg["args"]
@@ -2437,24 +2622,36 @@ def molecule_phase(seed: int, timings: dict, card: str,
         timings["held_inverse_calls"] = len(ratios)
         timings["held_inverse_worst_ratio"] = max(ratios)
 
-    # runs/moses at full width, random weights, served
+    # runs/moses at full width (its #4 bf16 in the global layout), trained,
+    # served, held
     cfg = load_config(os.path.join(REPO, "runs", "moses"))
-    m_args = {**cfg["args"], "dataset": "synthetic", "seed": seed}
+    a = cfg["args"]
+    m_args = {**a, "dataset": "synthetic", "seed": seed}
     moses = inference.build_task(cfg["task"], m_args, device=device)
     check((moses.hidden_dim, moses.num_mixtures, moses.num_layers_bond,
-           moses.node_cond_atoms, moses.bond_cond_degree)
-          == (256, 16, 12, True, True),
+           moses.node_cond_atoms, moses.bond_cond_degree, moses.batch_size)
+          == (256, 16, 12, True, True, MOSES_BATCH),
           "runs/moses is not the model this phase is written for")
-    moses.data_init(next(moses.train_batches(np.random.default_rng(seed))),
-                    generator=torch.Generator(device).manual_seed(seed))
-    randomize_coupling_nets(moses.model, seed + 2)
-    moses_timings: dict = {}
+    tcfg = dataclasses.replace(train_config(a, seed, a["eval_samples"]),
+                               num_steps=MOSES_STEPS,
+                               eval_every=MOSES_STEPS // 2)
+    moses_timings: dict = {"cut": {"dataset": "synthetic"}}
     with tempfile.TemporaryDirectory() as out_dir:
-        save_config(out_dir, {"task": cfg["task"], "args": m_args})
-        CheckpointManager(out_dir).save(0, moses.model)
+        final = train_checked(moses, cfg["task"], m_args, tcfg, out_dir,
+                              moses_timings,
+                              MOLECULE_KERNELS + MASKED_KERNELS
+                              + ("fused_set_transformer_bwd_bf16_global_h",))
+        launches["moses_training"] = final["launches"]
+        moses_timings["final_sample_metrics"] = {k: final[k]
+                                                 for k in MOLECULE_QUALITY}
+        moses_timings["step_profile"] = profile_steps(moses, tcfg.optimizer,
+                                                      seed)
+        served_timings: dict = {}
         server, launches["moses_serving"] = serve_molecules(
-            out_dir, moses_timings, device, moses.batch_size)
+            out_dir, served_timings, device, 1024)
+        moses_timings["serving"] = served_timings
         served = server.handle.task
+        randomize_coupling_nets(served.model, seed + 2)
         moses_timings["against_cpu"] = check_molecules_against_cpu(served,
                                                                    seed)
         ratios = held_samples(lambda s: served.sample_many(
@@ -2463,14 +2660,17 @@ def molecule_phase(seed: int, timings: dict, card: str,
         moses_timings["held_inverse_calls"] = len(ratios)
         moses_timings["held_inverse_worst_ratio"] = max(ratios)
     timings["moses"] = moses_timings
-    print(json.dumps({"metric": "molecule_generation_train_samples_per_s",
-                      "value": timings["train_samples_per_s"],
-                      "unit": "samples/s", "steps": timings["rate_steps"],
-                      "batch_size": task.batch_size,
-                      "peak_mem_gib": timings["train_peak_mem_gib"],
-                      "device_idle_share": timings["step_profile"].get(
-                          "device_idle_share"),
-                      "device": card}), flush=True)
+    for run, t, b in (("molecules_v4", timings, task.batch_size),
+                      ("moses", moses_timings, moses.batch_size)):
+        print(json.dumps({"metric": "molecule_generation_train_samples_per_s",
+                          "run": run, "value": t["train_samples_per_s"],
+                          "unit": "samples/s", "steps": t["rate_steps"],
+                          "batch_size": b,
+                          "ms_per_step": t["train_ms_per_step"],
+                          "peak_mem_gib": t["train_peak_mem_gib"],
+                          "device_idle_share": t["step_profile"].get(
+                              "device_idle_share"),
+                          "device": card}), flush=True)
     return launches
 
 
@@ -3034,6 +3234,24 @@ def mixture_entry(res: dict, kernel: str, g: int, c: int) -> dict:
                     hits[0]["registers"], MIX_THREADS))
 
 
+def fused_bwd_resources(log: str) -> dict:
+    """ptxas's registers and spills of #4 bf16's two instances (the residual
+    copies in shared memory, and in global memory) by the report entries
+    that launch them."""
+    res = kernel_resources(log)
+    out = {}
+    for tag, names in (("fused_set_transformer_bwdILb0E",
+                        ("fused_set_transformer_bwd_bf16",
+                         "fused_set_transformer_bwd_bf16_molecules")),
+                       ("fused_set_transformer_bwdILb1E",
+                        ("fused_set_transformer_bwd_bf16_global_h",))):
+        hits = [v for f, v in res.items() if tag in f]
+        check(len(hits) == 1, f"no ptxas line for {tag} in "
+              "fused_transformer_bf16.cu's log")
+        out.update({name: hits[0] for name in names})
+    return out
+
+
 def mixture_resources(log: str) -> dict:
     """ptxas's registers and spills of the three mixture kernels as the
     flagship's K = 8 launches them, and the warps an SM they allow."""
@@ -3069,6 +3287,11 @@ SOURCES = {
     "mixture_forward_bwd": ("categoricalnf_tpu_torch/csrc/mixture.cu",
                             "categoricalnf_tpu/ops/pallas/mixture.py:196"),
     "fused_set_transformer_bwd_bf16": (
+        "categoricalnf_tpu_torch/csrc/fused_transformer_bf16.cu",
+        "categoricalnf_tpu/ops/pallas/fused_transformer.py:303"),
+    # #4 bf16 with the residual copies in global memory: the instance that
+    # the nets of hidden 256 launch (runs/moses, molecules_v5-v7)
+    "fused_set_transformer_bwd_bf16_global_h": (
         "categoricalnf_tpu_torch/csrc/fused_transformer_bf16.cu",
         "categoricalnf_tpu/ops/pallas/fused_transformer.py:303"),
     "fused_set_transformer_bwd_f32": (
@@ -3126,6 +3349,14 @@ MOLECULE_REPORTS = {
     name: [f"{name}_molecules"] for name in (
         "fused_set_transformer_bf16", "fused_set_transformer_bwd_bf16",
         "fused_set_transformer_f32")}
+MOLECULE_REPORTS["fused_set_transformer_bf16"].append(
+    "fused_set_transformer_bf16_moses")
+# what a fused kernel's line adds: ptxas's registers and spills, its tile
+# and shared memory, the backward's grid, scratch and residual workspace,
+# the readings of its masked check
+FUSED_KEYS = ("registers", "spill_bytes", "tile", "smem", "grid",
+              "scratch_mb", "workspace_mb", "rel_err", "control_rel_err",
+              "layout_bitwise_at_192")
 MOLECULE_REPORT_KEYS = ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
                         "max_abs_err", "rel_err", "control_rel_err")
 SERVING_KERNELS = ("mixture_inverse", "mixture_forward",
@@ -3134,6 +3365,7 @@ SERVING_KERNELS = ("mixture_inverse", "mixture_forward",
 PATH_OF = {**{k: "serving" for k in SERVING_KERNELS},
            "mixture_forward_bwd": "training",
            "fused_set_transformer_bwd_bf16": "training",
+           "fused_set_transformer_bwd_bf16_global_h": "moses_training",
            "fused_set_transformer_bwd_f32": "train_step_fp32",
            "fused_set_transformer_train_f32": "train_step_fp32",
            "mixture_inverse_bwd": "set_summation_training"}
@@ -3202,7 +3434,9 @@ def main() -> int:
     check_lm_kernels(device, (args.seed, args.seed + 1), report)
     check_molecule_kernels(device, (args.seed, args.seed + 1), report)
     for name, r in {**mixture_resources(logs["mixture"]),
-                    **lm_mixture_resources(logs["mixture"])}.items():
+                    **lm_mixture_resources(logs["mixture"]),
+                    **fused_bwd_resources(logs["fused_transformer_bf16"])
+                    }.items():
         report[name].update(r)
     for r in report.values():
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -3237,6 +3471,10 @@ def main() -> int:
               + (f", scratch written {r['scratch_written_mb']:.1f} MB and "
                  "read as much" if "scratch_written_mb" in r else "")
               + (f", grid {r['grid']}" if "grid" in r else "")
+              + (f", residual workspace {r['workspace_mb']:.2f} MB"
+                 if "workspace_mb" in r else "")
+              + (f", {r['registers']} registers, {r['spill_bytes']} B "
+                 "spilled" if "registers" in r and "lanes" not in r else "")
               + (f", {r['lanes']} lanes an element, {r['registers']} "
                  f"registers, {r['spill_bytes']} B spilled, "
                  f"{r['warps_per_sm_by_registers']} warps an SM by registers"
@@ -3271,6 +3509,11 @@ def main() -> int:
     lm_timings: dict = {}
     launches.update(lm_phase(args.seed, lm_timings, card))
     print("language modeling: " + json.dumps(lm_timings), flush=True)
+    lm_timings = {}
+    launches.update(lm_phase(args.seed, lm_timings, card, net="transformer",
+                             num_steps=LM_TRANSFORMER_STEPS))
+    print("language modeling, transformer: " + json.dumps(lm_timings),
+          flush=True)
     mol_timings: dict = {}
     launches.update(molecule_phase(args.seed, mol_timings, card))
     print("molecules: " + json.dumps(mol_timings), flush=True)
@@ -3286,7 +3529,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
-            **{key: r[key] for key in MIX_KEYS if key in r},
+            **{key: r[key] for key in MIX_KEYS + FUSED_KEYS if key in r},
             **({"at_coloring_shapes": [
                 {key: report[c][key] for key in COLORING_KEYS}
                 for c in COLORING_REPORTS[name]]}

@@ -18,6 +18,10 @@ from categoricalnf_tpu_torch.ops import numerics as nm
 from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
 from categoricalnf_tpu_torch.ops.cuda import mixture as cm
 
+# one intra-op thread: pytest-xdist runs six workers at once, and each at
+# torch's default pool oversubscribes the cores on these small tensors
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.cuda
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -1045,17 +1049,49 @@ def test_all_masked_set_attends_uniformly(dev, cd):
     assert torch.equal(y[[0, 2]], y_u[[0, 2]])
 
 
-def test_hidden_256_bf16_training_raises_before_launch(dev):
-    """A differentiable bf16 call at width 256 raises before any launch and
-    before its weights are packed; without grad the forward runs."""
-    net = _net("bfloat16", dev, hidden=256, in_dim=6, out_dim=6 * 50)
-    x = torch.randn(4, 24, 6, device=dev, requires_grad=True)
-    mask = _key_mask(4, 24, dev)
-    before = (dict(ft.LAUNCHES), dict(ft.BWD_LAUNCHES))
-    with pytest.raises(NotImplementedError, match="Queue B 12"):
-        net(x, mask=mask)
-    assert (dict(ft.LAUNCHES), dict(ft.BWD_LAUNCHES)) == before
-    assert net._packed is None
+def test_hidden_256_bf16_training_matches_plain(dev):
+    """Masked #4 bf16 at runs/moses's node-flow shape (hidden 256, out 300,
+    192 graphs of 24 nodes), whose residual copies live in the global
+    workspace, against autograd through plain_forward by chip_smoke's
+    rules (``masked_bwd_readings``: 0.03 of each gradient's norm, the
+    control without the mask above 10 x that, a mask of ones bitwise no
+    mask); the launch counted as masked."""
+    _, _, in_global = ft.bwd_layout(torch.bfloat16, 24, 6, 256, 512, 300, 4,
+                                    2)
+    assert in_global
+    net = cs.molecule_net("bfloat16", dev, 0, 256, 300)
+    g = torch.Generator(dev).manual_seed(7)
+    x = torch.randn(cs.MOSES_BATCH, 24, 6, generator=g, device=dev)
+    gy = torch.randn(cs.MOSES_BATCH, 24, 300, generator=g, device=dev).to(
+        torch.bfloat16)
+    mask = cs.molecule_key_mask(0, dev, cs.MOSES_BATCH)
+    n = ft.MASKED_BWD_LAUNCHES["bfloat16"]
+    r = cs.masked_bwd_readings(net, x, mask, gy)
+    assert ft.MASKED_BWD_LAUNCHES["bfloat16"] > n
+    assert r["rel_err"] <= cs.BF16_BWD_REL
+
+
+@pytest.mark.parametrize("hidden,b", [(96, 40), (192, 128)])
+def test_global_h_layout_is_bitwise_the_shared_one(dev, hidden, b):
+    """Where both layouts fit, the global workspace of residual copies
+    gives dx and every weight gradient bitwise equal to the shared layout's
+    (same tile and grid): only where the bytes live differs."""
+    net = cs.molecule_net("bfloat16", dev, 1, hidden, 6 * 26)
+    g = torch.Generator(dev).manual_seed(hidden)
+    x = torch.randn(b, 24, 6, generator=g, device=dev)
+    gy = torch.randn(b, 24, 6 * 26, generator=g, device=dev).to(
+        torch.bfloat16)
+    mask = _key_mask(b, 24, dev, hidden)
+    packed = net._packed_weights(torch.bfloat16)
+    shared = ft.bwd_layout(torch.bfloat16, 24, 6, hidden, 2 * hidden, 6 * 26,
+                           4, 2)
+    forced = ft.bwd_layout(torch.bfloat16, 24, 6, hidden, 2 * hidden, 6 * 26,
+                           4, 2, global_h=True)
+    assert not shared[2] and forced[2] and forced[0] == shared[0]
     with torch.no_grad():
-        y = net(x, mask=mask)
-    assert y.shape == (4, 24, 300) and torch.isfinite(y.float()).all()
+        a = ft.fused_set_transformer_bwd(packed, x, gy, num_heads=4,
+                                         mask=mask)
+        c = ft.fused_set_transformer_bwd(packed, x, gy, num_heads=4,
+                                         mask=mask, _global_h=True)
+    for u, v in zip((a[0], *a[1]), (c[0], *c[1])):
+        assert torch.equal(u, v)

@@ -35,6 +35,10 @@ from categoricalnf_tpu_torch.networks import MLP
 from categoricalnf_tpu_torch.ops import numerics as nm
 from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
 
+# one intra-op thread: pytest-xdist runs six workers at once, and each at
+# torch's default pool oversubscribes the cores on these small tensors
+torch.set_num_threads(1)
+
 B, T, E, C = 8, 6, 16, 5  # sets, positions, embedding width, categories
 TOL = 1e-4
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -15,6 +15,10 @@ import torch
 from categoricalnf_tpu_torch.inference import build_task
 from categoricalnf_tpu_torch.ops.numerics import at_least_f32, uniform_noise
 
+# one intra-op thread: pytest-xdist runs six workers at once, and each at
+# torch's default pool oversubscribes the cores on these small tensors
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARGS = dict(set_size=8, num_layers=2, hidden_dim=32, batch_size=16,
             encoding_dim=4, num_mixtures=8, seed=3, compute_dtype="float32")

@@ -10,6 +10,10 @@ import torch
 
 from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
 
+# one intra-op thread: pytest-xdist runs six workers at once, and each at
+# torch's default pool oversubscribes the cores on these small tensors
+torch.set_num_threads(1)
+
 # (kd, n) of the weights at the flagship width (in 4, hidden 96, out 104)
 # and at the card tests' hidden 24
 SHAPES = [(4, 96), (96, 288), (96, 96), (96, 192), (192, 96), (96, 104),

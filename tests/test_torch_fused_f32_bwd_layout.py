@@ -23,6 +23,10 @@ from categoricalnf_tpu_torch.convert import flatten_tree
 from categoricalnf_tpu_torch.networks import SetTransformer
 from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
 
+# one intra-op thread: pytest-xdist runs six workers at once, and each at
+# torch's default pool oversubscribes the cores on these small tensors
+torch.set_num_threads(1)
+
 
 def _tool():
     spec = importlib.util.spec_from_file_location(

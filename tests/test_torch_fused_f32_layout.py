@@ -18,6 +18,10 @@ from categoricalnf_tpu_torch.convert import flatten_tree
 from categoricalnf_tpu_torch.networks import SetTransformer
 from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
 
+# one intra-op thread: pytest-xdist runs six workers at once, and each at
+# torch's default pool oversubscribes the cores on these small tensors
+torch.set_num_threads(1)
+
 F32 = torch.float32
 # Relative norm error allowed between the fp32 forward and fp32 arithmetic:
 # fp32 itself reads about 2e-7, a single TF32 pass about 3e-4.

@@ -13,6 +13,10 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from categoricalnf_tpu_torch.networks import SetTransformer
 from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
 
+# one intra-op thread: pytest-xdist runs six workers at once, and each at
+# torch's default pool oversubscribes the cores on these small tensors
+torch.set_num_threads(1)
+
 BF16, F32 = torch.bfloat16, torch.float32
 # in 4, hidden 96, MLP 192 (ratio 2)
 FLAGSHIP = dict(in_dim=4, hidden=96, mlp=192)

@@ -28,6 +28,10 @@ from categoricalnf_tpu_torch.convert import flatten_tree, from_jax_params
 from categoricalnf_tpu_torch.networks import RGCN
 from categoricalnf_tpu_torch.tasks import graph_coloring as tgc
 
+# one intra-op thread: pytest-xdist runs six workers at once, and each at
+# torch's default pool oversubscribes the cores on these small tensors
+torch.set_num_threads(1)
+
 TINY = dict(min_nodes=4, max_nodes=8, batch_size=8, encoding_dim=4,
             num_layers=4, hidden_dim=16, num_mixtures=4,
             eval_batches_count=1, compute_dtype="float32")

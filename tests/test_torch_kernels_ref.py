@@ -15,6 +15,10 @@ from categoricalnf_tpu_torch.convert import flatten_tree
 from categoricalnf_tpu_torch.networks import SetTransformer, dense
 from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
 
+# one intra-op thread: pytest-xdist runs six workers at once, and each at
+# torch's default pool oversubscribes the cores on these small tensors
+torch.set_num_threads(1)
+
 B, S, IN, H, HEADS = 8, 4, 4, 24, 4
 OUT = IN * (2 + 3 * 3)
 

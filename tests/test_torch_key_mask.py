@@ -2,8 +2,8 @@
 fp32), on the CPU: the kernels' plain version with a mask against the
 reference's masked ``apply``, the wrappers' mask handling and argument
 order against the entry points' signatures (read from the ``.cu`` sources),
-the tile shapes at GraphCNF's node sets, and the refusal of a bf16
-width-256 training call before any launch.  The kernels themselves run in
+the tile shapes at GraphCNF's node sets, and the backward's check at
+width 256.  The kernels themselves run in
 ``tests/test_torch_cuda.py`` on the card.
 
 Tolerances: fp32 within ``TOL`` = 1e-4, as the graph-coloring slice's
@@ -24,6 +24,10 @@ from categoricalnf_tpu.networks.transformer import \
 from categoricalnf_tpu_torch.convert import flatten_tree
 from categoricalnf_tpu_torch.networks import SetTransformer
 from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+
+# one intra-op thread: pytest-xdist runs six workers at once, and each at
+# torch's default pool oversubscribes the cores on these small tensors
+torch.set_num_threads(1)
 
 TOL = 1e-4
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -160,12 +164,13 @@ def test_wrapper_argument_order_matches_the_entry_points(source, entry, args,
 
 # (hidden, out) of the node flow's nets at its sets of 24 nodes, in 6 -> the
 # tile and shared memory of #3 bf16, #4 bf16 and #3 fp32, as the kernels
-# pick them (a shared-memory limit of 232,448 B)
+# pick them (a shared-memory limit of 232,448 B); #4 bf16 at 256 with its
+# residual copies in global memory (252,928 B with them in shared memory)
 NODE_FLOW_TILES = {
     96: ((48, 48_384), (48, 148_992), (24, 47_264)),
     128: ((48, 63_744), (48, 195_072), (24, 62_624)),
     192: ((48, 94_464), (24, 191_488), (24, 93_344)),
-    256: ((48, 125_184), (24, 252_928), (24, 124_064))}
+    256: ((48, 125_184), (24, 219_136), (24, 124_064))}
 
 
 @pytest.mark.parametrize("hidden", sorted(NODE_FLOW_TILES))
@@ -174,28 +179,45 @@ def test_node_flow_tiles(hidden):
     out = 6 * (2 + 3 * 8)
     assert ft.fwd_shape(BF16, 24, 6, hidden, 2 * hidden) == fwd
     assert ft.bwd_shape(BF16, 24, 6, hidden, 2 * hidden, out, 4, 2) == bwd
+    assert ft.bwd_layout(BF16, 24, 6, hidden, 2 * hidden, out, 4, 2) == (
+        *bwd, hidden == 256)
     assert ft.fwd_shape(torch.float32, 24, 6, hidden, 2 * hidden) == f32
-    assert ft.bwd_fits(BF16, 24, 6, hidden, 2 * hidden, out, 4, 2) == (
-        hidden < 256)
+    assert ft.bwd_fits(BF16, 24, 6, hidden, 2 * hidden, out, 4, 2)
     assert ft.supported(torch.zeros(2, 24, 6), None, torch.ones(2, 24),
                         hidden, 4, compute_dtype=BF16)
 
 
 @pytest.mark.parametrize("hidden,k", [(256, 8), (256, 16), (192, 8)])
 def test_width_256_bf16_training_is_refused_before_launch(hidden, k):
-    """A differentiable bf16 call at width 256 raises before its forward
-    launches (the backward's tile is over the shared memory), naming the
-    ROADMAP item; width 192 passes the check.  The check reads only
-    shapes, so it runs here on CPU tensors."""
-    net = SetTransformer(6, 6 * (2 + 3 * k), hidden_dim=hidden,
-                         num_heads=4, compute_dtype="bfloat16")
+    """The nets of the configs (MLP ratio 2) pass the backward's check at
+    width 256, whose tile then keeps the residual copies in global memory
+    (a [24 -> 32, 264] bf16 image for each of the 2 block boundaries a
+    block), and at 192 with them in shared memory; a differentiable bf16
+    call is refused before its forward launches only where the tile is
+    over the shared memory even so (an MLP ratio of 4 at width 256),
+    naming the ROADMAP item.  The check reads only shapes, so it runs here
+    on CPU tensors."""
+    out = 6 * (2 + 3 * k)
+    net = SetTransformer(6, out, hidden_dim=hidden, num_heads=4,
+                         compute_dtype="bfloat16")
     x = torch.zeros(2, 24, 6)
+    net.check_backward_fits(x)
+    tile, smem, in_global = ft.bwd_layout(BF16, 24, 6, hidden, 2 * hidden,
+                                          out, 4, 2)
+    assert tile == 24 and smem <= ft.MAX_SMEM
+    assert in_global == (hidden == 256)
+    if in_global:
+        assert smem == 2 * 32 * (6 * 264 + 776 + 1040) + 4 * 32 * 3 * 4
+        assert ft.h_workspace_elems(tile, hidden, 2, 132) == (
+            132 * 2 * 32 * 264)
+    wide = SetTransformer(6, out, hidden_dim=hidden, num_heads=4,
+                          mlp_ratio=4, compute_dtype="bfloat16")
     if hidden < 256:
-        net.check_backward_fits(x)
+        wide.check_backward_fits(x)
         return
-    with pytest.raises(NotImplementedError, match="Queue B 12"):
-        net.check_backward_fits(x)
-    assert net._packed is None
-    # no refusal in fp32 without grad or at the forward's shapes
-    assert ft.supported(x, None, torch.ones(2, 24), hidden, 4,
+    with pytest.raises(NotImplementedError, match="Queue C"):
+        wide.check_backward_fits(x)
+    assert wide._packed is None
+    # the forward takes it
+    assert ft.supported(x, None, torch.ones(2, 24), hidden, 4, 4,
                         compute_dtype=BF16)

@@ -39,6 +39,10 @@ from categoricalnf_tpu_torch.ops import numerics as tnm
 from categoricalnf_tpu_torch.ops.cuda import build
 from categoricalnf_tpu_torch.tasks import language as tlang
 
+# one intra-op thread: pytest-xdist runs six workers at once, and each at
+# torch's default pool oversubscribes the cores on these small tensors
+torch.set_num_threads(1)
+
 TOL = 1e-4
 B, T, D, K = 4, 8, 4, 4
 TINY = dict(corpus_name="synthetic", seq_len=T, batch_size=B,
@@ -433,14 +437,6 @@ def test_tiny_task_samples_and_metrics(tiny_pair, tmp_path):
     assert set("".join(texts)) <= set(ttask.corpus.vocab)
     ttask.sample_artifacts(str(tmp_path), generator=g)
     assert (tmp_path / "samples.txt").read_text().count("\n---\n") == 8
-
-
-def test_refuses_the_transformer_backbone():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlang.LanguageModelingTask(**{**TINY, "net": "transformer"},
-                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        tlang.build_lm_flow(D, net="transformer")
 
 
 # -- the mixture kernels at K <= 32 -------------------------------------

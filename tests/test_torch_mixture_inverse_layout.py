@@ -37,6 +37,10 @@ from categoricalnf_tpu_torch.ops import numerics as nm
 from categoricalnf_tpu_torch.ops.cuda import build
 from categoricalnf_tpu_torch.ops.cuda.mixture import MAX_ITERS
 
+# one intra-op thread: pytest-xdist runs six workers at once, and each at
+# torch's default pool oversubscribes the cores on these small tensors
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F32 = np.float32
 # The geometry and constants csrc/mixture.cu builds the inverse with

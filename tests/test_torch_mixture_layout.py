@@ -20,10 +20,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from categoricalnf_tpu.ops import numerics as jnm
 from categoricalnf_tpu.ops.pallas.mixture import mixture_forward_pallas
 from categoricalnf_tpu_torch.ops.cuda import build
+
+# one intra-op thread: pytest-xdist runs six workers at once, and each at
+# torch's default pool oversubscribes the cores on these small tensors
+torch.set_num_threads(1)
 
 F32 = np.float32
 MAX_K = 16

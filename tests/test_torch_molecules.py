@@ -41,6 +41,10 @@ from categoricalnf_tpu_torch.networks.graph import (incidence_matrix,
 from categoricalnf_tpu_torch.tasks import chem as tchem
 from categoricalnf_tpu_torch.tasks import molecules as tmol
 
+# one intra-op thread: pytest-xdist runs six workers at once, and each at
+# torch's default pool oversubscribes the cores on these small tensors
+torch.set_num_threads(1)
+
 TOL = 1e-4
 GRAD_REL = 1e-3
 N, E, B = 6, 15, 3

@@ -16,6 +16,10 @@ from categoricalnf_tpu.ops.pallas.mixture import (mixture_forward_pallas,
 from categoricalnf_tpu_torch.ops import dispatch
 from categoricalnf_tpu_torch.ops import numerics as tnm
 
+# one intra-op thread: pytest-xdist runs six workers at once, and each at
+# torch's default pool oversubscribes the cores on these small tensors
+torch.set_num_threads(1)
+
 
 def _mix(seed, shape, k):
     r = np.random.default_rng(seed)

@@ -28,6 +28,10 @@ from categoricalnf_tpu_torch.convert import from_jax_params
 from categoricalnf_tpu_torch.networks import SetTransformer
 from categoricalnf_tpu_torch.tasks import SetShufflingTask
 
+# one intra-op thread: pytest-xdist runs six workers at once, and each at
+# torch's default pool oversubscribes the cores on these small tensors
+torch.set_num_threads(1)
+
 B, T, D, K, HIDDEN, DEPTH = 4, 5, 4, 3, 16, 2
 TOL = 1e-4
 

@@ -30,6 +30,10 @@ from categoricalnf_tpu_torch.ops import dispatch as tdispatch
 from categoricalnf_tpu_torch.ops import numerics as tnm
 from categoricalnf_tpu_torch.tasks import set_modeling as tsm
 
+# one intra-op thread: pytest-xdist runs six workers at once, and each at
+# torch's default pool oversubscribes the cores on these small tensors
+torch.set_num_threads(1)
+
 B, S, K = 8, 6, 5
 TINY = dict(set_size=S, num_categories=K, batch_size=B, num_layers=2,
             hidden_dim=16, num_mixtures=3, encoding_dim=2, vardeq_hidden=16,

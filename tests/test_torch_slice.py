@@ -30,6 +30,10 @@ from categoricalnf_tpu_torch.convert import flatten_tree, from_jax_params
 from categoricalnf_tpu_torch.networks import SetTransformer
 from categoricalnf_tpu_torch.tasks import SetShufflingTask
 
+# one intra-op thread: pytest-xdist runs six workers at once, and each at
+# torch's default pool oversubscribes the cores on these small tensors
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(set_size=6, batch_size=16, num_layers=2, hidden_dim=24,
             num_mixtures=3, encoding_dim=2, compute_dtype="float32")
@@ -322,11 +326,12 @@ def test_port_imports_no_jax():
     orbax or anything of the JAX package."""
     sources = list(_port_sources())
     assert len(sources) > 20
-    # the molecule slice's modules among them
+    # the molecule slice's modules and the causal transformer among them
     names = {os.path.relpath(p, REPO) for p in sources}
     assert {f"categoricalnf_tpu_torch/{m}.py" for m in (
         "tasks/chem", "data/smiles", "networks/graph", "models/graphcnf",
-        "tasks/molecules", "experiments/molecule_generation")} <= names
+        "tasks/molecules", "experiments/molecule_generation",
+        "networks/causal_transformer")} <= names
     bad = []
     for path in sources:
         with open(path) as f:

@@ -28,6 +28,10 @@ from categoricalnf_tpu_torch.training.schedules import ScheduleSpec
 from categoricalnf_tpu_torch.training.state import (OptimizerConfig,
                                                     TrainState)
 
+# one intra-op thread: pytest-xdist runs six workers at once, and each at
+# torch's default pool oversubscribes the cores on these small tensors
+torch.set_num_threads(1)
+
 SEED = 3
 TINY = dict(set_size=8, batch_size=16, num_layers=2, hidden_dim=16,
             num_mixtures=3, encoding_dim=2, eval_batches_count=1,

@@ -39,6 +39,10 @@ from categoricalnf_tpu_torch.training.schedules import ScheduleSpec
 from categoricalnf_tpu_torch.training.state import (OptimizerConfig,
                                                     TrainState)
 
+# one intra-op thread: pytest-xdist runs six workers at once, and each at
+# torch's default pool oversubscribes the cores on these small tensors
+torch.set_num_threads(1)
+
 B, T, D = 16, 8, 4
 TINY = dict(set_size=T, batch_size=B, num_layers=2, hidden_dim=32,
             num_mixtures=4, encoding_dim=D, eval_batches_count=1)
@@ -359,10 +363,20 @@ def test_sigterm_finishes_the_step_and_runs_the_final_phase(tmp_path):
 
 
 def test_trainer_refuses_what_is_not_ported():
+    """An LM backbone that neither package has is refused, by name; the
+    reference's two (the LSTM and the causal transformer) build; a
+    steps_per_call below 1 is refused."""
+    from categoricalnf_tpu_torch.networks import CausalTransformer
     from categoricalnf_tpu_torch.tasks import LanguageModelingTask
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LanguageModelingTask(corpus_name="synthetic", net="transformer",
-                             device="cpu")
+    tiny = dict(corpus_name="synthetic", seq_len=8, encoding_dim=2,
+                num_layers=1, hidden_dim=8, lstm_layers=1, num_mixtures=2,
+                device="cpu")
+    with pytest.raises(ValueError, match="unknown LM net 'gru'"):
+        LanguageModelingTask(**tiny, net="gru")
+    task = LanguageModelingTask(**tiny, net="transformer")
+    nets = [m for m in task.model.modules()
+            if isinstance(m, CausalTransformer)]
+    assert len(nets) == 2 and all(n.max_len == 8 for n in nets)
     with pytest.raises(ValueError, match="steps_per_call"):
         Trainer(_task(), _cfg(None, steps_per_call=0))
 

@@ -6,7 +6,10 @@ sets of 16 (65,536 rows), and the fp32 train step's pair, #3 as a
 differentiable call runs it and #4, with the 3xTF32 #4 of
 ``tools/f32_bwd_tf32x3.py`` where the checkout has it, at 64, 256 and 1024
 sets of 16 (1,024, 4,096 and 16,384 rows: a flagship fp32 step,
-chip_smoke's checks, a flagship batch); on chip_smoke's seeded nets.
+chip_smoke's checks, a flagship batch); and, in checkouts whose kernels
+take a key mask, #3/#4 bf16 and #3 fp32 at GraphCNF's node flow (hidden
+192, 128 graphs of 24 nodes, masked; fp32 at 4 chains); on chip_smoke's
+seeded nets.
 
     python3 tools/fused_ab.py --tree DIR --out A.pt   # DIR: a checkout
     python3 tools/fused_ab.py --compare A.pt B.pt
@@ -15,7 +18,8 @@ The first form imports the port from DIR, runs the kernels once, saves
 their results and prints each kernel's device ms (``chip_smoke.cuda_ms``)
 and the fp32 forward's relative norm error against the tree's own plain
 path (TF32 off).  The second says whether the bf16 #4's gradients (dx and
-the 12 weight gradients) are bitwise equal and how far apart the two
+the 12 weight gradients) are bitwise equal (at hidden 192 too, with both
+forwards there: ``bwd_bitwise_equal`` holds all of them) and how far apart the two
 trees' forwards are, in each dtype, and how far apart their fp32 train
 step's outputs and gradients are (the largest relative norm difference
 over dx and the 12 weight gradients; the 3xTF32 #4's against the other
@@ -138,9 +142,37 @@ def run(tree: str, out: str) -> None:
                                                          for t in dwst]
                 result[f"bwd_f32_tf32x3_ms_{rows}"] = cs.cuda_ms(
                     bwd_tf32x3, 10)[0]
+        # GraphCNF's node flow (hidden 192, 128 graphs of 24 nodes, its key
+        # mask), in a checkout whose kernels take the mask
+        mol = {}
+        if mask_slot:
+            mask = cs.molecule_key_mask(0, dev)
+            xm = torch.randn(cs.MOL_BATCH, cs.MOL_NODES, cs.MOL_NODE_DIM,
+                             generator=g3, device=dev)
+            gm = torch.randn(cs.MOL_BATCH, cs.MOL_NODES, cs.MOL_OUT,
+                             generator=g3, device=dev).bfloat16()
+            netm = cs.molecule_net("bfloat16", dev, 0)
+            pm = ft.PackedWeights(ft.flatten_params(netm), torch.bfloat16)
+            mol["y"] = ft.fused_set_transformer(pm, xm, num_heads=cs.HEADS,
+                                                mask=mask).cpu()
+            dxm, dwsm = ft.fused_set_transformer_bwd(
+                pm, xm, gm, num_heads=cs.HEADS, mask=mask)
+            mol["grads"] = [dxm.cpu()] + [t.cpu() for t in dwsm]
+            netm32 = cs.molecule_net("float32", dev, 0)
+            pm32 = ft.PackedWeights(ft.flatten_params(netm32), torch.float32)
+            mask4 = mask.repeat(cs.EVAL_CHAINS, 1)
+            xm4 = torch.randn(cs.EVAL_CHAINS * cs.MOL_BATCH, cs.MOL_NODES,
+                              cs.MOL_NODE_DIM, generator=g3, device=dev)
+            mol["y32"] = ft.fused_set_transformer(
+                pm32, xm4, num_heads=cs.HEADS, mask=mask4).cpu()
+            result["mol_fwd_ms"] = cs.cuda_ms(lambda: ft.fused_set_transformer(
+                pm, xm, num_heads=cs.HEADS, mask=mask), 20)[0]
+            result["mol_bwd_ms"] = cs.cuda_ms(
+                lambda: ft.fused_set_transformer_bwd(
+                    pm, xm, gm, num_heads=cs.HEADS, mask=mask), 10)[0]
     torch.save({"y": y.cpu(), "dx": dx.cpu(), "y32": y32.cpu(),
-                "dws": [t.cpu() for t in dws], "train": train, **result},
-               out)
+                "dws": [t.cpu() for t in dws], "train": train, "mol": mol,
+                **result}, out)
     print(json.dumps(result), flush=True)
 
 
@@ -155,8 +187,21 @@ def compare(a: str, b: str) -> bool:
         torch.equal(p, q) for p, q in zip(one["dws"], two["dws"]))
     ya, yb = one["y"].float(), two["y"].float()
     fa, fb = one["y32"], two["y32"]
+    ma, mb = one.get("mol") or {}, two.get("mol") or {}
+    mol = {}
+    if ma and mb:
+        mol = {"mol_bwd_bitwise_equal": all(
+                   torch.equal(p, q) for p, q in zip(ma["grads"],
+                                                     mb["grads"])),
+               "mol_fwd_bitwise_equal": torch.equal(ma["y"], mb["y"]),
+               "mol_fwd_f32_bitwise_equal": torch.equal(ma["y32"], mb["y32"]),
+               "mol_fwd_ms": [one["mol_fwd_ms"], two["mol_fwd_ms"]],
+               "mol_bwd_ms": [one["mol_bwd_ms"], two["mol_bwd_ms"]]}
+        same = same and all(v for k, v in mol.items()
+                            if k.endswith("bitwise_equal"))
     print(json.dumps({
         "a": one["tree"], "b": two["tree"], "bwd_bitwise_equal": same,
+        **mol,
         "fwd_bitwise_equal": torch.equal(ya, yb),
         "fwd_rel_diff": float((ya - yb).norm() / yb.norm()),
         "fwd_max_abs_diff": float((ya - yb).abs().max()),
