@@ -85,7 +85,8 @@ class SetTransformer(nn.Module):
         forward launches.  (A call the forward refuses raises there.)  In
         bf16 every net of the reference's configs fits, the hidden-256 ones
         with the residual copies in global memory; what is left is the fp32
-        FMA pair's tile and a bf16 tile too large even so."""
+        FMA pair's tile at widths of 192 and up (GraphCNF's node flow at
+        sets of 24) and a bf16 tile too large even so."""
         cd = torch_dtype(self.compute_dtype)
         H, mlp = self.hidden_dim, self.mlp_ratio * self.hidden_dim
         if not ft.supported(x, None, None, H, self.num_heads,
@@ -96,7 +97,7 @@ class SetTransformer(nn.Module):
                            self.num_layers):
             item = ("Queue C: a call the kernels refuse"
                     if cd == torch.bfloat16
-                    else "Queue B 3 and 8: the fp32 train step's pair")
+                    else "Queue B 14: the fp32 pair's tile")
             raise NotImplementedError(
                 f"the fused SetTransformer backward has no tile for width "
                 f"{H} at sets of {x.shape[1]} in {self.compute_dtype}: its "

@@ -14,20 +14,20 @@ these wrappers take CUDA tensors only and raise on what the kernels do not
 take.  ``PackedWeights`` checks and casts the weights once, so a launch does
 neither; in bf16 it casts them straight into the padded operand layouts
 that both tensor-core kernels read (``padded_layouts``), in fp32 it splits
-them into the TF32 pairs the forward reads (``tf32x3_layouts``).
-``FusedSetTransformer`` ties the two kernels together for autograd, as
-``defvjp`` does in the reference.  ``LAUNCHES`` and ``BWD_LAUNCHES`` count
-launches by compute dtype, ``TRAIN_FWD_LAUNCHES`` those of the fp32 FMA
-forward of a differentiable call; ``MASKED_LAUNCHES`` and
+them into the TF32 pairs the forward reads (``tf32x3_layouts``) and into
+the zero-padded W and W^T that the FMA pair reads (``padded_layouts`` with
+``pad4``).  ``FusedSetTransformer`` ties the two kernels together for
+autograd, as ``defvjp`` does in the reference.  ``LAUNCHES`` and
+``BWD_LAUNCHES`` count launches by compute dtype, ``TRAIN_FWD_LAUNCHES``
+those of the fp32 FMA forward of a differentiable call;
+``MASKED_LAUNCHES``, ``MASKED_TRAIN_FWD_LAUNCHES`` and
 ``MASKED_BWD_LAUNCHES`` count, among them, those that took a key mask, and
 ``GLOBAL_H_BWD_LAUNCHES`` the bf16 backward's with its residual copies in
 global memory (nets whose tile does not fit otherwise: hidden 256).
 
-A key mask ``[B, S]`` (nonzero = a valid key) reaches the bf16 pair and the
-fp32 forward as one byte a key, cast once here: the logits of masked keys
-are -1e9 before the softmax, as in the reference's masked attention.  The
-fp32 FMA pair of a differentiable fp32 call takes no mask and raises on one
-(ROADMAP.md, Queue B 3 and 8).
+A key mask ``[B, S]`` (nonzero = a valid key) reaches every kernel as one
+byte a key, cast once here: the logits of masked keys are -1e9 before the
+softmax, as in the reference's masked attention.
 """
 
 from __future__ import annotations
@@ -39,8 +39,8 @@ import torch
 
 from categoricalnf_tpu_torch.ops.cuda import build
 
-# Must agree with csrc/fused_transformer.cu (kMaxSet, kTileTarget,
-# kRowsPerThread), csrc/fused_transformer_bf16.cu (kTileTarget, 16-row
+# Must agree with csrc/fused_transformer.cu (kMaxSet, kTileTarget, kRowPad,
+# make_dims), csrc/fused_transformer_bf16.cu (kTileTarget, 16-row
 # m-tiles, kLnVals), csrc/fused_transformer_tf32x3.cu (kTileTarget,
 # kMinTile, kSlack, pick_layout) and the H100's 227 KB of shared memory per
 # block.
@@ -52,9 +52,15 @@ F32_MIN_TILE = 16
 F32_SLACK = 8  # floats past the fp32 forward's last buffer
 # bf16 forward blocks an SM its launch bounds give registers for (kFwdBlocks)
 FWD_BLOCKS = 2
-ROWS_PER_THREAD = 8
+# the same for the fp32 FMA forward (its __launch_bounds__)
+FMA_FWD_BLOCKS = 2
+ROW_PAD = 8  # the fp32 tiles' rows are padded to a multiple of this
 MAX_HIDDEN_BF16 = 256  # LN rows held in registers, 8 values a lane
 MAX_SMEM = 232_448
+# the FMA pair's weight rings (csrc/fused_transformer.cu kRingSteps,
+# kRingCg): 8 warps x 4 steps x 4 rows x 6 column groups x 16 bytes, taken
+# wherever they fit beside a block's buffers
+FMA_RING_BYTES = 8 * 4 * 4 * 6 * 16
 # an H100 SM's shared memory, of which the runtime reserves 1 KB a block
 SMEM_PER_SM = 233_472
 
@@ -63,7 +69,8 @@ LAUNCHES = {"bfloat16": 0, "float32": 0}
 BWD_LAUNCHES = {"bfloat16": 0, "float32": 0}
 TRAIN_FWD_LAUNCHES = {"float32": 0}
 MASKED_LAUNCHES = {"bfloat16": 0, "float32": 0}
-MASKED_BWD_LAUNCHES = {"bfloat16": 0}
+MASKED_TRAIN_FWD_LAUNCHES = {"float32": 0}
+MASKED_BWD_LAUNCHES = {"bfloat16": 0, "float32": 0}
 # the bf16 backward's launches with the residual copies in global memory
 GLOBAL_H_BWD_LAUNCHES = {"bfloat16": 0}
 
@@ -130,7 +137,7 @@ def _f32_fwd_layout(set_size: int, in_dim: int, hidden: int,
 
 
 def _tile(set_size: int, target: int = TILE_TARGET,
-          pad: int = ROWS_PER_THREAD) -> tuple[int, int]:
+          pad: int = ROW_PAD) -> tuple[int, int]:
     tile = max(1, target // set_size) * set_size
     return tile, -(-tile // pad) * pad
 
@@ -149,17 +156,20 @@ def bwd_layout(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
     not fit (nets wider or deeper than the flagship); where neither fits,
     or with ``global_h``, the same tiles with the residual stream's copies
     at the block boundaries in a global workspace (``h_workspace_elems``)
-    and one in shared memory.  fp32: up to 32 rows padded to 8, rows one
-    float wider than the data, the copies in shared memory.  Both hold the
+    and one in shared memory.  fp32: up to 32 rows padded to 8, rows
+    ``conflict_free`` wide (x's a multiple of 4), the copies in shared
+    memory (``make_dims`` in ``csrc/fused_transformer.cu``).  Both hold the
     residual stream at each of the layers + 1 block boundaries, five
     [tile, H] buffers, qkv, a region for the MLP pair / the qkv gradient /
-    g / x, and the fp32 softmax statistics."""
+    g / x, and the fp32 softmax statistics; the fp32 block also its warps'
+    weight rings where they fit (``with_rings``)."""
     if dtype != torch.bfloat16:
         tile, tile_pad = _tile(set_size)
-        ld_h, ld_big, ld_f = hidden + 1, 3 * hidden + 1, mlp + 1
-        ld_r2 = max(2 * ld_f, ld_big, out_dim + 1, in_dim)
-        return tile, 4 * tile_pad * ((layers + 6) * ld_h + ld_big + ld_r2
-                                     + 3 * heads), False
+        ld_h, ld_big, ld_f = (conflict_free(n)
+                              for n in (hidden, 3 * hidden, mlp))
+        ld_r2 = max(2 * ld_f, ld_big, conflict_free(out_dim), pad4(in_dim))
+        return tile, with_rings(4 * tile_pad * (
+            (layers + 6) * ld_h + ld_big + ld_r2 + 3 * heads)), False
     ld_h, ld_big, ld_f = (pad16(n) + 8 for n in (hidden, 3 * hidden, mlp))
     ld_r2 = max(2 * ld_f, ld_big, pad16(out_dim) + 8, pad16(in_dim) + 8)
     for in_global in ((True,) if global_h else (False, True)):
@@ -209,6 +219,25 @@ def fwd_shape(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
     return tile, smem
 
 
+def fma_fwd_shape(set_size: int, in_dim: int, hidden: int,
+                  mlp: int) -> tuple[int, int]:
+    """(rows of a tile, dynamic shared memory of one block) of the fp32 FMA
+    forward of a differentiable call, as ``make_dims`` and its entry lay
+    them out: the backward's tile, and h, the LN/attention output and the
+    widest of x, qkv and the MLP hidden layer, rows ``conflict_free``
+    wide (x's a multiple of 4), and the weight rings (``with_rings``)."""
+    tile, tile_pad = _tile(set_size)
+    big = max(conflict_free(3 * hidden), conflict_free(mlp), pad4(in_dim))
+    return tile, with_rings(4 * tile_pad * (2 * conflict_free(hidden) + big))
+
+
+def with_rings(smem: int) -> int:
+    """An FMA block's shared memory with its warps' weight rings
+    (FMA_RING_BYTES) where they fit beside its ``smem`` bytes of buffers,
+    as ``with_rings`` in the kernel; without them where they do not."""
+    return smem + FMA_RING_BYTES if smem + FMA_RING_BYTES <= MAX_SMEM else smem
+
+
 def fwd_blocks_per_sm(smem: int) -> int:
     """Blocks of the bf16 forward an SM holds: as many as its shared memory
     allows, up to the FWD_BLOCKS its launch bounds give registers for."""
@@ -226,20 +255,29 @@ def bwd_grid(rows: int, tile: int, smem: int, sms: int) -> int:
     return max(1, min(-(-rows // tile), sms * smem_blocks_per_sm(smem)))
 
 
-def padded_layouts(mats, dtype: torch.dtype | None = None) -> list:
-    """The bf16 kernels' operand layouts of the weights ``mats`` (each W
-    [..., kd, n], any device), cast to ``dtype`` (by default theirs) and
-    zero-padded to multiples of 16: the 6 forward layouts W^T [...,
-    pad16(n), pad16(kd)], the B operands of the products x @ W, then the 6
-    input-gradient layouts W [..., pad16(kd), pad16(n)], those of g @ W^T.
-    Each is contiguous, rows along the output, so a tensor-core fragment
-    reads two neighbouring contraction values at once.  They are views of
-    one zeroed buffer: one fill, and one copy a layout, which casts."""
+def pad4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def padded_layouts(mats, dtype: torch.dtype | None = None,
+                   pad=pad16) -> list:
+    """The operand layouts of the weights ``mats`` (each W [..., kd, n], any
+    device), cast to ``dtype`` (by default theirs) and zero-padded to
+    multiples of ``pad``'s: the 6 layouts W^T [..., pad(n), pad(kd)], then
+    the 6 layouts W [..., pad(kd), pad(n)].  Each is contiguous.  With
+    ``pad16`` they are the bf16 kernels': W^T the B operands of the
+    products x @ W, W those of g @ W^T, rows along the output, so a
+    tensor-core fragment reads two neighbouring contraction values at once.
+    With ``pad4`` they are the fp32 FMA pair's (``csrc/fused_transformer.cu``
+    ``FmaWeights``): W for the forward products, W^T for the input
+    gradients, each read as a float4 of 4 outputs a contraction step.  They
+    are views of one zeroed buffer: one fill, and one copy a layout, which
+    casts."""
     shapes = []
     for w in mats:
         *lead, kd, n = w.shape
-        shapes.append(((*lead, pad16(n), pad16(kd)),
-                       (*lead, pad16(kd), pad16(n))))
+        shapes.append(((*lead, pad(n), pad(kd)),
+                       (*lead, pad(kd), pad(n))))
     fwd_shapes, bwd_shapes = zip(*shapes)
     shapes = list(fwd_shapes + bwd_shapes)
     sizes = [math.prod(shape) for shape in shapes]
@@ -299,8 +337,7 @@ def supported(x, cond, mask, hidden_dim: int, num_heads: int,
     cond, x [B, S, IN] with S <= 32, a key mask (if any) of shape [B, S],
     heads dividing the width, in bf16 a width of at most 256, and a tile
     that fits.  The forward's limits only: the backward's tile is larger
-    (``bwd_fits``), and the fp32 FMA pair of a differentiable fp32 call
-    takes no mask."""
+    (``bwd_fits``)."""
     if cond is not None or x.dim() != 3:
         return False
     if mask is not None and tuple(mask.shape) != tuple(x.shape[:2]):
@@ -322,17 +359,22 @@ def bwd_fits(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-# the fp32 FMA pair (no key mask)
+# a forward and a backward without a key mask (the 3xTF32 #4 of
+# tools/f32_bwd_tf32x3.cu)
 _FWD_ARGS = [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P]
 _BWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I,
              _P]
-# the entries that take a key mask, the pointer after x's; the bf16
-# backward also takes the residual copies' workspace after dw and its
-# layout after grid
+# the entries that take a key mask, the pointer after x's: every forward,
+# and the fp32 FMA backward; the bf16 backward also takes the residual
+# copies' workspace after dw and its layout after grid
 _MASKED_FWD_ARGS = _FWD_ARGS[:1] + [_P] + _FWD_ARGS[1:]
+_FMA_BWD_ARGS = _BWD_ARGS[:1] + [_P] + _BWD_ARGS[1:]
 _MASKED_BWD_ARGS = (_BWD_ARGS[:1] + [_P] + _BWD_ARGS[1:7] + [_P]
                     + _BWD_ARGS[7:-1] + [_I, _P])
+# sets the FMA pair's shared-memory limit once a device
+_FMA_INIT = "fused_set_transformer_f32_init"
 _fns: dict = {}
+_fma_ready: set = set()
 
 
 def _fn(source: str, name: str, argtypes):
@@ -345,13 +387,26 @@ def _fn(source: str, name: str, argtypes):
     return fn
 
 
+def _fma_fn(name: str, argtypes, device):
+    """Entry ``name`` of the FMA pair (``csrc/fused_transformer.cu``), its
+    kernels' shared-memory limit raised on ``device`` at the first call
+    there (the current device, as every launch here)."""
+    fn = _fn("fused_transformer", name, argtypes)
+    index = torch.device(device).index
+    if index not in _fma_ready:
+        build.check(_fn("fused_transformer", _FMA_INIT, [])(), _FMA_INIT)
+        _fma_ready.add(index)
+    return fn
+
+
 def pack_matrices(ws, compute_dtype: torch.dtype) -> tuple[list, list]:
     """The matrices of the 12-tuple ``ws`` (fp32) as the kernels of
     ``compute_dtype`` read them: (the forward's, the backward's).  fp32: the
     6 ``tf32x3_layouts`` for the forward, the 6 fp32 matrices for the
-    backward.  bf16: the 12 ``padded_layouts``, cast straight from fp32 (one
-    fill and 12 casting copies a repack); the forward reads the 6 W^T
-    layouts, the backward all 12."""
+    backward (``PackedWeights`` pads them for the FMA pair).  bf16: the 12
+    ``padded_layouts``, cast straight from fp32 (one fill and 12 casting
+    copies a repack); the forward reads the 6 W^T layouts, the backward all
+    12."""
     mats = [ws[j].detach() for j in (0, 2, 4, 6, 8, 10)]
     if compute_dtype != torch.bfloat16:
         mats = [m.to(compute_dtype).contiguous() for m in mats]
@@ -362,9 +417,10 @@ def pack_matrices(ws, compute_dtype: torch.dtype) -> tuple[list, list]:
 
 class PackedWeights:
     """The 12-tuple ``ws`` (fp32, on the card) checked and made ready for
-    the kernels once: the matrices as ``pack_matrices`` lays them out, the
-    6 fp32 biases contiguous, and their pointers; reused by every launch of
-    the forward and the backward."""
+    the kernels once: the matrices as ``pack_matrices`` lays them out (in
+    fp32 also the FMA pair's 12 ``padded_layouts`` at ``pad4``), the 6 fp32
+    biases contiguous, and their pointers; reused by every launch of the
+    forward and the backward."""
 
     def __init__(self, ws, compute_dtype: torch.dtype):
         if compute_dtype not in _ENTRY:
@@ -400,8 +456,11 @@ class PackedWeights:
             self.mats, self.bwd_mats = pack_matrices(ws, compute_dtype)
             self.biases = [ws[j].detach().contiguous()
                            for j in (1, 3, 5, 7, 9, 11)]
+            self.fma_mats = (padded_layouts(self.bwd_mats, pad=pad4)
+                             if compute_dtype == torch.float32 else [])
         self.w_ptrs = _ptrs(self.mats)
         self.bwd_w_ptrs = _ptrs(self.bwd_mats)
+        self.fma_w_ptrs = _ptrs(self.fma_mats)
         self.b_ptrs = _ptrs(self.biases)
 
 
@@ -445,33 +504,28 @@ def _mask_ptr(km) -> int | None:
 def _forward_launch(packed: PackedWeights, x, num_heads: int,
                     differentiable: bool = False, mask=None):
     """Kernel #3.  A differentiable fp32 call takes the FMA forward whose
-    arithmetic the fp32 backward recomputes (bf16 has one forward); that
-    forward takes no key mask."""
+    arithmetic the fp32 backward recomputes (bf16 has one forward)."""
     _check_x(packed, x, num_heads, "forward", mask)
     train = differentiable and packed.dtype == torch.float32
-    if train and mask is not None:
-        raise NotImplementedError(
-            "the fp32 train step's fused pair takes no key mask yet "
-            "(ROADMAP.md, Queue B 3 and 8); the bf16 kernels and the fp32 "
-            "forward without grad take one")
     B, S, in_dim = x.shape
     x2 = x.detach().to(packed.dtype).contiguous()
     km = key_mask_bytes(mask)
     y = torch.empty(B, S, packed.out_dim, dtype=packed.dtype, device=x.device)
     source, name = _TRAIN_FWD_ENTRY if train else _ENTRY[packed.dtype]
-    # the FMA forward takes no key mask and reads the backward's layouts
-    lead, argtypes, w_ptrs = (
-        ((x2.data_ptr(),), _FWD_ARGS, packed.bwd_w_ptrs) if train else
-        ((x2.data_ptr(), _mask_ptr(km)), _MASKED_FWD_ARGS, packed.w_ptrs))
     with torch.cuda.device(x.device):
+        fn = (_fma_fn(name, _MASKED_FWD_ARGS, x.device) if train
+              else _fn(source, name, _MASKED_FWD_ARGS))
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fn(source, name, argtypes)(
-            *lead, w_ptrs, packed.b_ptrs, y.data_ptr(), B * S, S, in_dim,
-            packed.hidden, num_heads, packed.layers, packed.mlp,
-            packed.out_dim, stream)
+        err = fn(x2.data_ptr(), _mask_ptr(km),
+                 packed.fma_w_ptrs if train else packed.w_ptrs,
+                 packed.b_ptrs, y.data_ptr(), B * S, S, in_dim,
+                 packed.hidden, num_heads, packed.layers, packed.mlp,
+                 packed.out_dim, stream)
     build.check(err, name)
     if train:
         TRAIN_FWD_LAUNCHES["float32"] += 1
+        if km is not None:
+            MASKED_TRAIN_FWD_LAUNCHES["float32"] += 1
     else:
         LAUNCHES[_KEY[packed.dtype]] += 1
         if km is not None:
@@ -496,7 +550,7 @@ def fused_set_transformer_bwd(packed: PackedWeights, x, g, *,
                               num_heads: int, mask=None,
                               _global_h: bool = False):
     """Kernel #4: the cotangent ``g`` [B, S, OUT] of the net's output pulled
-    back to x and the 12 weights, under the forward's key mask (bf16 only).
+    back to x and the 12 weights, under the forward's key mask.
     Returns (dx in x's dtype, 12 fp32 weight gradients shaped as
     ``flatten_params``).  The matrices' gradients are rounded to the
     compute dtype, as the transpose of their cast.  ``_global_h`` (bf16)
@@ -504,10 +558,6 @@ def fused_set_transformer_bwd(packed: PackedWeights, x, g, *,
     fits too: a check that the two give the same bits, not an option."""
     _check_x(packed, x, num_heads, "backward", mask)
     bf16 = packed.dtype == torch.bfloat16
-    if mask is not None and not bf16:
-        raise NotImplementedError(
-            "the fp32 backward takes no key mask yet (ROADMAP.md, Queue B 3 "
-            "and 8)")
     B, S, in_dim = x.shape
     if tuple(g.shape) != (B, S, packed.out_dim) or g.device != x.device:
         raise ValueError(f"fused SetTransformer backward: g "
@@ -533,19 +583,19 @@ def fused_set_transformer_bwd(packed: PackedWeights, x, g, *,
            if in_global else None)
     km = key_mask_bytes(mask)
     source, name = _BWD_ENTRY[packed.dtype]
-    # the bf16 entry takes the key mask after x, the workspace after dw and
-    # its layout after grid; the fp32 one takes none of them
-    lead = ((x2.data_ptr(), _mask_ptr(km), g2.data_ptr()) if bf16
-            else (x2.data_ptr(), g2.data_ptr()))
+    # both entries take the key mask after x; the bf16 one also the
+    # workspace after dw and its layout after grid
     mid = (None if hws is None else hws.data_ptr(),) if bf16 else ()
     tail = (int(in_global),) if bf16 else ()
-    argtypes = _MASKED_BWD_ARGS if bf16 else _BWD_ARGS
     with torch.cuda.device(x.device):
+        fn = (_fn(source, name, _MASKED_BWD_ARGS) if bf16
+              else _fma_fn(name, _FMA_BWD_ARGS, x.device))
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fn(source, name, argtypes)(
-            *lead, packed.bwd_w_ptrs, packed.b_ptrs, dx.data_ptr(),
-            part.data_ptr(), dw.data_ptr(), *mid, B * S, S, in_dim, H,
-            num_heads, L, RH, OUT, grid, *tail, stream)
+        err = fn(x2.data_ptr(), _mask_ptr(km), g2.data_ptr(),
+                 packed.bwd_w_ptrs if bf16 else packed.fma_w_ptrs,
+                 packed.b_ptrs, dx.data_ptr(), part.data_ptr(),
+                 dw.data_ptr(), *mid, B * S, S, in_dim, H, num_heads, L, RH,
+                 OUT, grid, *tail, stream)
     build.check(err, name)
     BWD_LAUNCHES[_KEY[packed.dtype]] += 1
     if km is not None:

@@ -51,6 +51,15 @@ Run from the root of a checkout on a machine with one NVIDIA card:
    of seeds 0 and 1) is known to pass: at seed 2 the control reads inside
    its limit on some tensor, the port's kernels as they are included, so
    --seed 1 or above may refuse a sound program (ROADMAP.md, Queue C).
+   Then trains in fp32 through that pair (#3 fp32 with grad and #4 fp32):
+   runs/set16/config.json with compute_dtype float32 (the CLI's switch)
+   for FP32_SET_STEPS (60) steps, its fp32 IS eval untrained and at the
+   end, with the checks of 4. and each of the pair launched 8 times a
+   step, 10 more steps traced; and runs/molecules/config.json's
+   architecture (hidden 96, 4 node and 4 edge layers, K = 8, batch 64)
+   with compute_dtype float32 and dataset synthetic for FP32_MOL_STEPS
+   (30) steps with the checks of 4. but the optimum, the pair launched
+   with the node flow's key mask, 10 more steps traced.
 6. The graph-coloring family (runs/coloring/config.json as it is: bf16,
    batch 256, graphs of 10-20 nodes padded to 20, a ScannedBlocks stack of
    3 two-parity blocks of RGCN couplings).  First, with the kernel checks
@@ -122,7 +131,13 @@ Run from the root of a checkout on a machine with one NVIDIA card:
    one of none: each within its tolerance of plain, the same call without
    the mask above 10 x that tolerance, a mask of ones bitwise the call
    without one; #4 at hidden 192 with the copies in global memory bitwise
-   the shared layout's; each timed.  Then runs/molecules_v4/config.json as
+   the shared layout's; each timed.  The fp32 train step's pair with the
+   key mask at runs/molecules' hidden 96 and at 128 (in 6, out 156, 64 and
+   128 graphs of 24 nodes), at --seed and --seed + 1: #3's output within
+   1e-4 and each gradient of #4 within 2e-4 (allclose's) of plain_forward
+   and autograd through it with the mask, the pair without the mask above
+   10 x each, a mask of ones bitwise no mask; timed at hidden 96 on 64
+   graphs.  Then runs/molecules_v4/config.json as
    it is but for its dataset (the in-memory synthetic molecules; hidden
    192, 4 node and 6 edge layers, K = 8, bf16, batch 128) for MOL_STEPS
    (60) steps with the checks of 4.,
@@ -778,10 +793,12 @@ def check_train_fwd(device, gen, report):
         n_w = sum(w.numel() for w in ws[0::2])
         n_b = sum(b.numel() for b in ws[1::2])
         macs = rows * net_macs_per_row(D, H, HEADS, 2, 2 * H, OUT, S)
+        tile, smem = ft.fma_fwd_shape(S, D, H, 2 * H)
         report[name] = dict(
             max_abs_err=max_err(y, y_p), rel_err=rel_err(y, y_p), rows=rows,
             **t, bytes=rows * (D + OUT) * 4 + (n_w + n_b) * 4, ops=2 * macs,
-            dtype="float32")
+            dtype="float32", tile=tile, smem=smem, blocks_per_sm=min(
+                ft.FMA_FWD_BLOCKS, ft.smem_blocks_per_sm(smem)))
 
 
 def mixture_bwd_case(device, g, shape, k):
@@ -1091,7 +1108,8 @@ def reset_launches():
     from categoricalnf_tpu_torch.ops.cuda import mixture as cm
     for counts in (cm.LAUNCHES, ft.LAUNCHES, ft.BWD_LAUNCHES,
                    ft.TRAIN_FWD_LAUNCHES, ft.MASKED_LAUNCHES,
-                   ft.MASKED_BWD_LAUNCHES, ft.GLOBAL_H_BWD_LAUNCHES):
+                   ft.MASKED_TRAIN_FWD_LAUNCHES, ft.MASKED_BWD_LAUNCHES,
+                   ft.GLOBAL_H_BWD_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -1107,6 +1125,8 @@ def read_launches() -> dict:
                for k, v in ft.BWD_LAUNCHES.items()},
             "fused_set_transformer_train_f32":
                 ft.TRAIN_FWD_LAUNCHES["float32"],
+            "fused_set_transformer_train_f32_masked":
+                ft.MASKED_TRAIN_FWD_LAUNCHES["float32"],
             **{f"fused_set_transformer_{short[k]}_masked": v
                for k, v in ft.MASKED_LAUNCHES.items()},
             **{f"fused_set_transformer_bwd_{short[k]}_masked": v
@@ -1248,7 +1268,7 @@ def rate_windows(rows, after: int) -> tuple:
 
 
 def train_checked(task, task_name: str, args: dict, tcfg, out_dir: str,
-                  timings: dict, kernels) -> dict:
+                  timings: dict, kernels, rate_after=None) -> dict:
     """Train ``task`` through the port's Trainer into ``out_dir`` (its
     config.json written from ``task_name`` and ``args``) and check the run:
     it starts from the untrained model (the seed's parameters,
@@ -1258,7 +1278,8 @@ def train_checked(task, task_name: str, args: dict, tcfg, out_dir: str,
     ``kernels`` was launched.  Records in ``timings`` the wall time, the
     peak device memory, the bpds and samples/s over the steps after the
     first eval of ``tcfg`` (101-200 at TRAIN_STEPS; the Trainer's windows,
-    which count training steps only).  Returns the
+    which count training steps only), or after step ``rate_after`` where
+    it is given.  Returns the
     final metrics with the launches of the run under "launches"."""
     import numpy as np
     import torch
@@ -1310,7 +1331,8 @@ def train_checked(task, task_name: str, args: dict, tcfg, out_dir: str,
                    test_bpd=final["test_bpd"])
     check(best < bpd0 - 0.2, f"training did not lower the bpd by 0.2: "
           f"{bpd0} -> {best}")
-    steps, secs, timings["rate_steps"] = rate_windows(rows, tcfg.eval_every)
+    steps, secs, timings["rate_steps"] = rate_windows(
+        rows, tcfg.eval_every if rate_after is None else rate_after)
     timings["train_ms_per_step"] = secs * 1e3 / steps
     timings["train_samples_per_s"] = steps * task.batch_size / secs
     for name in kernels:
@@ -1384,6 +1406,101 @@ def train_flagship(seed: int, timings: dict, card: str,
                       "batch_size": task.batch_size, "device": card}),
           flush=True)
     return final["launches"]
+
+
+# fp32 training through the FMA pair: runs/set16 and runs/molecules' steps
+FP32_SET_STEPS, FP32_MOL_STEPS = 60, 30
+FP32_PAIR = ("fused_set_transformer_train_f32",
+             "fused_set_transformer_bwd_f32")
+FP32_MOL_KERNELS = ("mixture_forward", "mixture_forward_bwd",
+                    "mixture_inverse", "fused_set_transformer_f32",
+                    "fused_set_transformer_f32_masked") + FP32_PAIR + tuple(
+                        f"{name}_masked" for name in FP32_PAIR)
+
+
+def fp32_training_phase(seed: int, timings: dict, card: str,
+                        device: str = "cuda") -> dict:
+    """Train in fp32 on the card, through the fp32 train step's pair (#3
+    fp32 with grad, #4 fp32).  runs/set16/config.json with compute_dtype
+    float32 (the CLI's --compute_dtype switch; the config otherwise as it
+    is: 8 couplings, hidden 96, batch 1024) for FP32_SET_STEPS steps, its
+    fp32 IS eval (one batch of 1024, 4 chains) untrained and at the end,
+    with ``train_checked``'s checks, the best above the optimum and each of
+    the pair launched 8 times a step (once a coupling); then
+    runs/molecules/config.json's architecture (hidden 96, 4 node and 4
+    edge layers, K = 8, batch 64) with compute_dtype float32 and dataset
+    synthetic (its .npz is not in the repo) for FP32_MOL_STEPS steps (evals
+    of its 8 batches of 4 chains before, at half and at the end), with
+    ``train_checked``'s checks and the pair launched with the node flow's
+    key mask.  Each run traces 10 more steps.  Returns the launches of the
+    two trainings."""
+    from categoricalnf_tpu_torch import inference
+    from categoricalnf_tpu_torch.utils.config import load_config
+
+    launches = {}
+    cfg = load_config(os.path.join(REPO, "runs", "set16"))
+    a = cfg["args"]
+    args = {**a, "compute_dtype": "float32", "seed": seed,
+            "eval_batches_count": 1}
+    task = inference.build_task(cfg["task"], args, device=device)
+    check(task.compute_dtype == "float32" and task.batch_size == 1024,
+          "runs/set16 in fp32 is not the model this phase is written for")
+    tcfg = dataclasses.replace(train_config(a, seed, 4),
+                               num_steps=FP32_SET_STEPS,
+                               eval_every=FP32_SET_STEPS)
+    set_timings: dict = {"cut": {"compute_dtype": "float32"}}
+    with tempfile.TemporaryDirectory() as out_dir:
+        final = train_checked(task, cfg["task"], args, tcfg, out_dir,
+                              set_timings, ("mixture_forward",
+                                            "mixture_forward_bwd",
+                                            "fused_set_transformer_f32")
+                              + FP32_PAIR, rate_after=TRAIN_LOG_EVERY)
+        optimum = task.analytic_optimum_bpd()
+        check(final["best_bpd"] > optimum,
+              f"fp32 best bpd {final['best_bpd']} below the optimum {optimum}")
+        for name in FP32_PAIR:
+            check(final["launches"][name] == 8 * FP32_SET_STEPS,
+                  f"fp32 training launched {name} "
+                  f"{final['launches'][name]} times in {FP32_SET_STEPS} "
+                  "steps, not 8 a step")
+        set_timings["step_profile"] = profile_steps(task, tcfg.optimizer,
+                                                    seed)
+    launches["set16_fp32_training"] = final["launches"]
+    timings["set16"] = set_timings
+
+    cfg = load_config(os.path.join(REPO, "runs", "molecules"))
+    a = cfg["args"]
+    m_args = {**a, "compute_dtype": "float32", "dataset": "synthetic",
+              "seed": seed}
+    mol = inference.build_task(cfg["task"], m_args, device=device)
+    check((mol.hidden_dim, mol.num_layers_node, mol.num_layers_edge,
+           mol.num_mixtures, mol.batch_size, mol.compute_dtype)
+          == (96, 4, 4, 8, 64, "float32"),
+          "runs/molecules in fp32 is not the model this phase is written for")
+    tcfg = dataclasses.replace(train_config(a, seed, a["eval_samples"]),
+                               num_steps=FP32_MOL_STEPS,
+                               eval_every=FP32_MOL_STEPS // 2, log_every=10)
+    mol_timings: dict = {"cut": {"dataset": "synthetic",
+                                 "compute_dtype": "float32"}}
+    with tempfile.TemporaryDirectory() as out_dir:
+        final = train_checked(mol, cfg["task"], m_args, tcfg, out_dir,
+                              mol_timings, FP32_MOL_KERNELS)
+        mol_timings["step_profile"] = profile_steps(mol, tcfg.optimizer,
+                                                    seed)
+    launches["molecules_fp32_training"] = final["launches"]
+    timings["molecules"] = mol_timings
+    for run, t, b in (("set16", set_timings, task.batch_size),
+                      ("molecules", mol_timings, mol.batch_size)):
+        print(json.dumps({"metric": "fp32_train_samples_per_s", "run": run,
+                          "value": t["train_samples_per_s"],
+                          "unit": "samples/s", "steps": t["rate_steps"],
+                          "batch_size": b,
+                          "ms_per_step": t["train_ms_per_step"],
+                          "peak_mem_gib": t["train_peak_mem_gib"],
+                          "device_idle_share": t["step_profile"].get(
+                              "device_idle_share"),
+                          "device": card}), flush=True)
+    return launches
 
 
 COLORING_VALIDITY = ("coloring_validity", "coloring_validity_ci95",
@@ -2298,6 +2415,149 @@ def check_molecule_kernels(device, seeds, report):
     report.update(moses_fused_reports(device, seed, readings))
     report["fused_set_transformer_bwd_bf16_global_h"][
         "layout_bitwise_at_192"] = layout["bitwise"]
+
+
+# The fp32 train step's pair against its plain version (``check_train_fwd``,
+# ``fused_bwd_report``): #3's output and each gradient of #4 within these
+# tolerances, as torch.allclose with rtol = atol = the tolerance
+F32_TRAIN_FWD_TOL, F32_BWD_TOL = 1e-4, 2e-4
+# the node flow's widths at which the pair runs (runs/molecules, and
+# molecules_long/_v2 at 128), and its batches of graphs
+FP32_NODE_HIDDEN = (96, 128)
+FP32_NODE_BATCHES = (64, 128)
+
+
+def allclose_err(a, b) -> float:
+    """max |a - b| / (1 + |b|): at most tol exactly where
+    torch.allclose(a, b, rtol=tol, atol=tol) holds."""
+    a, b = a.float(), b.float()
+    return float(((a - b).abs() / (1.0 + b.abs())).max())
+
+
+def masked_f32_pair_readings(net, x, mask, g) -> dict:
+    """The fp32 train step's pair with the key mask (a differentiable call:
+    #3 through ``FusedSetTransformer``, #4 in its backward) against
+    ``plain_forward`` with it and autograd through that: the output within
+    F32_TRAIN_FWD_TOL and each gradient within F32_BWD_TOL
+    (``allclose_err``); the control, the pair without the mask, above
+    MASK_CONTROL x those on the output and on some gradient; a mask of ones
+    bitwise the call without one, output and gradients; the masked
+    launches counted."""
+    import torch
+    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+    params = list(net.parameters())
+
+    def run(plain, m):
+        xr = x.clone().requires_grad_(True)
+        y = net.plain_forward(xr, mask=m) if plain else net(xr, mask=m)
+        return (y.detach(), *torch.autograd.grad(y, [xr] + params, g))
+
+    n_fwd = ft.MASKED_TRAIN_FWD_LAUNCHES["float32"]
+    n_bwd = ft.MASKED_BWD_LAUNCHES["float32"]
+    got = twice(lambda: run(False, mask))
+    check(ft.MASKED_TRAIN_FWD_LAUNCHES["float32"] == n_fwd + 2
+          and ft.MASKED_BWD_LAUNCHES["float32"] == n_bwd + 2,
+          "the masked fp32 call did not launch the masked pair")
+    want = run(True, mask)
+    none = run(False, None)
+    ones = run(False, torch.ones_like(mask))
+    fwd, bwd = allclose_err(got[0], want[0]), max(
+        allclose_err(a, w) for a, w in zip(got[1:], want[1:]))
+    c_fwd, c_bwd = allclose_err(none[0], want[0]), max(
+        allclose_err(a, w) for a, w in zip(none[1:], want[1:]))
+    what = f"the masked fp32 pair at {tuple(x.shape)}, hidden {net.hidden_dim}"
+    check(bool(torch.isfinite(got[0]).all()), f"{what}: not finite")
+    check(fwd <= F32_TRAIN_FWD_TOL, f"{what}: #3 off plain by {fwd}")
+    check(bwd <= F32_BWD_TOL, f"{what}: #4 off autograd of plain by {bwd}")
+    check(c_fwd > MASK_CONTROL * F32_TRAIN_FWD_TOL
+          and c_bwd > MASK_CONTROL * F32_BWD_TOL,
+          f"{what}: the pair without the mask reads {c_fwd}, {c_bwd}, inside "
+          f"{MASK_CONTROL} x the tolerances")
+    check(all(torch.equal(a, b) for a, b in zip(ones, none)),
+          f"{what}: a mask of ones is not bitwise the call without a mask")
+    rels = [rel_err(a, w) for a, w in zip(got, want)]
+    return dict(fwd_err=fwd, bwd_err=bwd, control_fwd_err=c_fwd,
+                control_bwd_err=c_bwd, rel_err=max(rels[1:]),
+                fwd_rel_err=rels[0],
+                control_rel_err=max(rel_err(a, w)
+                                    for a, w in zip(none, want)),
+                max_abs_err=max(max_err(a, w) for a, w in zip(got, want)))
+
+
+def check_masked_f32_pair(device, seeds, report):
+    """The fp32 train step's pair with the key mask at the node flow's
+    shapes (in 6, out 156, sets of 24; hidden 96 and 128 on 64 and 128
+    graphs), at each seed, masks from a synthetic batch with one set of a
+    single valid key and one of none (``masked_f32_pair_readings``); then
+    #3 and #4 timed at runs/molecules' shape (hidden 96, 64 graphs: 1,536
+    rows), with their tiles, shared memory and grid."""
+    import torch
+    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+    readings: dict = {}
+    for seed in seeds:
+        g = torch.Generator(device).manual_seed(seed + 53)
+        for hidden in FP32_NODE_HIDDEN:
+            net = molecule_net("float32", device, seed, hidden)
+            for batch in FP32_NODE_BATCHES:
+                mask = molecule_key_mask(seed, device, batch)
+                x = torch.randn(batch, MOL_NODES, MOL_NODE_DIM, generator=g,
+                                device=device)
+                gy = torch.randn(batch, MOL_NODES, MOL_OUT, generator=g,
+                                 device=device)
+                readings[f"{seed}/h{hidden}/rows{batch * MOL_NODES}"] = (
+                    masked_f32_pair_readings(net, x, mask, gy))
+    print(f"the masked fp32 pair at the node flow's shapes (limits: #3 "
+          f"{F32_TRAIN_FWD_TOL}, #4 {F32_BWD_TOL}; controls above "
+          f"{MASK_CONTROL} x): " + json.dumps(readings), flush=True)
+
+    seed, hidden, batch = seeds[0], FP32_NODE_HIDDEN[0], FP32_NODE_BATCHES[0]
+    g = torch.Generator(device).manual_seed(seed + 54)
+    mask = molecule_key_mask(seed, device, batch)
+    x = torch.randn(batch, MOL_NODES, MOL_NODE_DIM, generator=g,
+                    device=device)
+    gy = torch.randn(batch, MOL_NODES, MOL_OUT, generator=g, device=device)
+    net = molecule_net("float32", device, seed, hidden)
+    ws = ft.flatten_params(net)
+    packed = net._packed_weights(torch.float32)
+    params = list(net.parameters())
+    rows = batch * MOL_NODES
+    r = readings[f"{seed}/h{hidden}/rows{rows}"]
+    with torch.no_grad():
+        t_fwd = timed(lambda: ft.FusedSetTransformer.apply(
+            x, packed, HEADS, mask, *ws),
+            lambda: net.plain_forward(x, mask=mask), 20, 5)
+    xr = x.clone().requires_grad_(True)
+    y_p = net.plain_forward(xr, mask=mask)
+    t_bwd = timed(lambda: ft.fused_set_transformer_bwd(
+        packed, x, gy, num_heads=HEADS, mask=mask),
+        lambda: torch.autograd.grad(y_p, [xr] + params, gy,
+                                    retain_graph=True), 10, 5)
+    n_w = sum(w.numel() for w in ws[0::2])
+    n_b = sum(b.numel() for b in ws[1::2])
+    macs = rows * net_macs_per_row(MOL_NODE_DIM, hidden, HEADS, 2,
+                                   2 * hidden, MOL_OUT, MOL_NODES)
+    tile, smem = ft.fma_fwd_shape(MOL_NODES, MOL_NODE_DIM, hidden,
+                                  2 * hidden)
+    report["fused_set_transformer_train_f32_molecules"] = dict(
+        max_abs_err=r["max_abs_err"], rel_err=r["fwd_rel_err"],
+        control_rel_err=r["control_rel_err"], rows=rows, **t_fwd,
+        dtype="float32", tile=tile, smem=smem, blocks_per_sm=min(
+            ft.FMA_FWD_BLOCKS, ft.smem_blocks_per_sm(smem)),
+        # x and y, the weights, and one byte a key of the mask
+        bytes=rows * ((MOL_NODE_DIM + MOL_OUT) * 4 + 1) + (n_w + n_b) * 4,
+        ops=2 * macs)
+    tile, smem = ft.bwd_shape(torch.float32, MOL_NODES, MOL_NODE_DIM, hidden,
+                              2 * hidden, MOL_OUT, HEADS, 2)
+    report["fused_set_transformer_bwd_f32_molecules"] = dict(
+        max_abs_err=r["max_abs_err"], rel_err=r["rel_err"],
+        control_rel_err=r["control_rel_err"], rows=rows, **t_bwd,
+        dtype="float32", tile=tile, smem=smem,
+        blocks_per_sm=ft.smem_blocks_per_sm(smem),
+        grid=ft.bwd_grid(rows, tile, smem, torch.cuda.get_device_properties(
+            device).multi_processor_count),
+        # x, g, dx and the mask; the weights and their fp32 gradients
+        bytes=rows * ((2 * MOL_NODE_DIM + MOL_OUT) * 4 + 1)
+        + 2 * (n_w + n_b) * 4, ops=3 * 2 * macs)
 
 
 def global_h_bitwise(device, seed: int) -> dict:
@@ -3252,6 +3512,25 @@ def fused_bwd_resources(log: str) -> dict:
     return out
 
 
+def fma_pair_resources(log: str) -> dict:
+    """ptxas's registers and spills of the fp32 train step's pair
+    (csrc/fused_transformer.cu) by the report entries that launch them,
+    and the blocks an SM its launch bounds and registers allow."""
+    res = kernel_resources(log)
+    out = {}
+    for tag, names in (("fused_set_transformer_fwd",
+                        ("fused_set_transformer_train_f32",)),
+                       ("fused_set_transformer_bwd",
+                        ("fused_set_transformer_bwd_f32",))):
+        hits = [v for f, v in res.items() if tag in f]
+        check(len(hits) == 1, f"no ptxas line for {tag} in "
+              "fused_transformer.cu's log")
+        out.update({name: dict(hits[0], warps_per_sm_by_registers=
+                               warps_by_registers(hits[0]["registers"], 256))
+                    for name in names})
+    return out
+
+
 def mixture_resources(log: str) -> dict:
     """ptxas's registers and spills of the three mixture kernels as the
     flagship's K = 8 launches them, and the warps an SM they allow."""
@@ -3351,11 +3630,17 @@ MOLECULE_REPORTS = {
         "fused_set_transformer_f32")}
 MOLECULE_REPORTS["fused_set_transformer_bf16"].append(
     "fused_set_transformer_bf16_moses")
+# the fp32 train step's pair with the key mask at runs/molecules' shape
+# (``check_masked_f32_pair``)
+MOLECULE_REPORTS.update({
+    name: [f"{name}_molecules"] for name in (
+        "fused_set_transformer_train_f32", "fused_set_transformer_bwd_f32")})
 # what a fused kernel's line adds: ptxas's registers and spills, its tile
 # and shared memory, the backward's grid, scratch and residual workspace,
 # the readings of its masked check
 FUSED_KEYS = ("registers", "spill_bytes", "tile", "smem", "grid",
-              "scratch_mb", "workspace_mb", "rel_err", "control_rel_err",
+              "blocks_per_sm", "warps_per_sm_by_registers", "scratch_mb",
+              "workspace_mb", "rel_err", "control_rel_err",
               "layout_bitwise_at_192")
 MOLECULE_REPORT_KEYS = ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
                         "max_abs_err", "rel_err", "control_rel_err")
@@ -3366,8 +3651,8 @@ PATH_OF = {**{k: "serving" for k in SERVING_KERNELS},
            "mixture_forward_bwd": "training",
            "fused_set_transformer_bwd_bf16": "training",
            "fused_set_transformer_bwd_bf16_global_h": "moses_training",
-           "fused_set_transformer_bwd_f32": "train_step_fp32",
-           "fused_set_transformer_train_f32": "train_step_fp32",
+           "fused_set_transformer_bwd_f32": "set16_fp32_training",
+           "fused_set_transformer_train_f32": "set16_fp32_training",
            "mixture_inverse_bwd": "set_summation_training"}
 
 
@@ -3433,9 +3718,11 @@ def main() -> int:
     check_set_modeling_kernels(device, (args.seed, args.seed + 1), report)
     check_lm_kernels(device, (args.seed, args.seed + 1), report)
     check_molecule_kernels(device, (args.seed, args.seed + 1), report)
+    check_masked_f32_pair(device, (args.seed, args.seed + 1), report)
     for name, r in {**mixture_resources(logs["mixture"]),
                     **lm_mixture_resources(logs["mixture"]),
-                    **fused_bwd_resources(logs["fused_transformer_bf16"])
+                    **fused_bwd_resources(logs["fused_transformer_bf16"]),
+                    **fma_pair_resources(logs["fused_transformer"])
                     }.items():
         report[name].update(r)
     for r in report.values():
@@ -3494,10 +3781,12 @@ def main() -> int:
     launches["train_step_fp32"] = check_train_step_against_cpu(args.seed,
                                                                {})
     check_train_step_against_cpu(args.seed + 1, {})
-    for name in ("fused_set_transformer_train_f32",
-                 "fused_set_transformer_bwd_f32"):
+    for name in FP32_PAIR:
         check(launches["train_step_fp32"][name] > 0,
               f"the fp32 train step did not launch {name}")
+    fp32_timings: dict = {}
+    launches.update(fp32_training_phase(args.seed, fp32_timings, card))
+    print("fp32 training: " + json.dumps(fp32_timings), flush=True)
     coloring_timings: dict = {}
     launches.update(coloring_phase(args.seed, coloring_timings, card))
     print("coloring: " + json.dumps(coloring_timings), flush=True)

@@ -856,8 +856,9 @@ def test_mixture_inverse_bwd_against_the_exact_derivative(dev, seed):
 def test_refused_calls_raise_on_the_card(dev, cd, case):
     """A set of 40, and a key mask of another shape than the sets', which
     the kernels do not take, raise on the card rather than run the plain
-    path there, with or without grad; so does a key mask in the fp32 train
-    step's pair (a differentiable fp32 call).  No kernel launches."""
+    path there, with or without grad.  No kernel launches.  A key mask of
+    the sets' shape in a differentiable fp32 call runs the fp32 train
+    step's pair with the mask."""
     net = _net(cd, dev)
     set_size = 40 if case == "set40" else 16
     x = torch.randn(4, set_size, 4, device=dev, requires_grad=True)
@@ -870,11 +871,16 @@ def test_refused_calls_raise_on_the_card(dev, cd, case):
     for grad in (False, True):
         with torch.set_grad_enabled(grad), pytest.raises(ValueError):
             net(x, mask=mask)
-    if case == "mask" and cd == "float32":
-        with pytest.raises(NotImplementedError, match="Queue B 3 and 8"):
-            net(x, mask=torch.ones(4, set_size, device=dev))
     assert (dict(ft.LAUNCHES), dict(ft.BWD_LAUNCHES),
             dict(ft.TRAIN_FWD_LAUNCHES)) == before
+    if case == "mask" and cd == "float32":
+        n = (ft.MASKED_TRAIN_FWD_LAUNCHES["float32"],
+             ft.MASKED_BWD_LAUNCHES["float32"])
+        y = net(x, mask=torch.ones(4, set_size, device=dev))
+        y.sum().backward()
+        assert (ft.MASKED_TRAIN_FWD_LAUNCHES["float32"],
+                ft.MASKED_BWD_LAUNCHES["float32"]) == (n[0] + 1, n[1] + 1)
+        assert torch.isfinite(x.grad).all()
 
 
 def test_fused_bf16_at_the_vardeq_main_flow_shape(dev):
@@ -1025,6 +1031,38 @@ def test_masked_kernels_match_plain(dev, kernel, s):
     if cd == "float32":
         with torch.no_grad():
             _close(net(x, mask=mask), net.plain_forward(x, mask=mask), 1e-4)
+
+
+@pytest.mark.parametrize("hidden,b", [(96, 64), (128, 128), (48, 40)])
+def test_masked_f32_pair_matches_plain(dev, hidden, b):
+    """The fp32 train step's pair with the key mask at the node flow's
+    widths (in 6, out 156, sets of 24; a set of one valid key and one of
+    none) by chip_smoke's rules (``masked_f32_pair_readings``): #3 within
+    1e-4 and each gradient of #4 within 2e-4 of plain_forward and autograd
+    through it, the pair without the mask above 10 x those, a mask of ones
+    bitwise no mask, the masked launches counted."""
+    net = cs.molecule_net("float32", dev, 2, hidden, 6 * 26)
+    g = torch.Generator(dev).manual_seed(hidden + b)
+    x = torch.randn(b, 24, 6, generator=g, device=dev)
+    gy = torch.randn(b, 24, 6 * 26, generator=g, device=dev)
+    r = cs.masked_f32_pair_readings(net, x, _key_mask(b, 24, dev, hidden),
+                                    gy)
+    assert r["fwd_err"] <= cs.F32_TRAIN_FWD_TOL
+    assert r["bwd_err"] <= cs.F32_BWD_TOL
+
+
+@pytest.mark.parametrize("s", [5, 16])
+def test_masked_f32_pair_with_a_ragged_head_width(dev, s):
+    """The pair's scalar attention path (a head width of 3, not a multiple
+    of 4) and a set size that leaves padded rows in a tile, with the key
+    mask, by the same rules."""
+    net = _net("float32", dev, hidden=12, heads=4, in_dim=3, out_dim=7)
+    g = torch.Generator(dev).manual_seed(s)
+    x = torch.randn(9, s, 3, generator=g, device=dev)
+    gy = torch.randn(9, s, 7, generator=g, device=dev)
+    r = cs.masked_f32_pair_readings(net, x, _key_mask(9, s, dev, s), gy)
+    assert r["fwd_err"] <= cs.F32_TRAIN_FWD_TOL
+    assert r["bwd_err"] <= cs.F32_BWD_TOL
 
 
 @pytest.mark.parametrize("cd", ["float32", "bfloat16"])

@@ -1,8 +1,9 @@
-"""The host-side arithmetic of the bf16 fused SetTransformer backward
-(kernel #4, ``csrc/fused_transformer_bf16.cu``), on the CPU: the padded
-weight layouts its tensor-core products read (``padded_layouts``), and its
-tile, shared memory and grid per compute dtype (``bwd_shape``,
-``bwd_grid``).  Needs neither a card nor nvcc."""
+"""The host-side arithmetic of the fused SetTransformer backward (kernel
+#4: bf16 in ``csrc/fused_transformer_bf16.cu``, fp32 in
+``csrc/fused_transformer.cu``), on the CPU: the padded weight layouts its
+products read (``padded_layouts``: at 16 for the bf16 tensor cores, at 4
+for the fp32 FMA pair), and its tile, shared memory and grid per compute
+dtype (``bwd_shape``, ``bwd_grid``).  Needs neither a card nor nvcc."""
 
 import numpy as np
 import pytest
@@ -63,6 +64,37 @@ def test_products_through_padded_layouts_equal_unpadded(kd, n):
     assert not y[:, n:].any() and not dx[:, kd:].any()
 
 
+# (kd, n) of the weights of GraphCNF's node flow at hidden 96 and 128 (in 6,
+# out 156)
+NODE_FLOW_SHAPES = [(6, 96), (96, 288), (96, 192), (192, 96), (96, 156),
+                    (6, 128), (128, 384), (128, 256), (256, 128), (128, 156)]
+
+
+@pytest.mark.parametrize("kd,n", SHAPES[:6] + NODE_FLOW_SHAPES)
+def test_fma_layouts_are_zero_padded_to_4(kd, n):
+    """The fp32 FMA pair's weights (``PackedWeights.fma_mats``):
+    ``padded_layouts`` at ``pad4`` in fp32, W^T [..., pad4(n), pad4(kd)]
+    and W [..., pad4(kd), pad4(n)], the values bitwise, the pads zero, each
+    view 16-byte aligned for the kernels' float4 loads (every size a
+    multiple of 4 floats), layer strides pad4(kd) pad4(n)."""
+    rng = np.random.default_rng(kd * 7 + n)
+    w = torch.tensor(rng.standard_normal((2, kd, n)), dtype=torch.float32)
+    other = torch.ones(1, 6, 26)  # a matrix of odd widths before it
+    wt_o, wt, w_o, wp = ft.padded_layouts([other, w], pad=ft.pad4)
+    pk, pn = ft.pad4(kd), ft.pad4(n)
+    assert wt.shape == (2, pn, pk) and wp.shape == (2, pk, pn)
+    assert wt_o.shape == (1, 28, 8) and w_o.shape == (1, 8, 28)
+    assert wt.dtype == wp.dtype == torch.float32
+    base = wt_o.data_ptr()
+    for t in (wt, w_o, wp):
+        assert t.is_contiguous() and (t.data_ptr() - base) % 16 == 0
+    assert torch.equal(wt[:, :n, :kd], w.transpose(1, 2))
+    assert torch.equal(wp[:, :kd, :n], w)
+    for t, rows, cols in ((wt, n, kd), (wp, kd, n)):
+        assert not t[:, rows:].any() and not t[:, :, cols:].any()
+    assert wp[1].data_ptr() - wp[0].data_ptr() == 4 * pk * pn
+
+
 FLAGSHIP = dict(in_dim=4, hidden=96, mlp=192, out_dim=104, heads=4,
                 layers=2)
 
@@ -77,11 +109,16 @@ def test_bwd_shape_of_the_flagship_per_dtype():
     assert smem <= ft.MAX_SMEM and ft.smem_blocks_per_sm(smem) == 1
     assert ft.bwd_grid(16_384, tile, smem, 132) == 132
     assert ft.bwd_grid(112, tile, smem, 132) == 2
-    # fp32 keeps its 32-row tile and fp32 rows one float wider
+    # fp32 keeps its 32-row tile, its fp32 rows 4 mod 8 floats wide
+    # (conflict_free: 100, 292 and 2 x 196 for the MLP pair) beside its
+    # warps' weight rings (12,288 B), and the grid of the rows one float
+    # wider that it had: one block an SM
     tile, smem = ft.bwd_shape(f32, 16, **FLAGSHIP)
     assert tile == 32
-    assert smem == 4 * 32 * (8 * 97 + 289 + 386 + 3 * 4) == 187_264
+    assert smem == 4 * 32 * (8 * 100 + 292 + 392 + 3 * 4) + 12_288 == 203_776
+    assert ft.smem_blocks_per_sm(smem) == ft.smem_blocks_per_sm(187_264) == 1
     assert ft.bwd_grid(4096, tile, smem, 132) == 128
+    assert ft.bwd_grid(16_384, tile, smem, 132) == 132
 
 
 @pytest.mark.parametrize("s,tile", [(32, 64), (16, 64), (6, 60), (24, 48),

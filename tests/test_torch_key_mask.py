@@ -1,13 +1,15 @@
 """The key mask of the fused SetTransformer kernels (#3 bf16, #4 bf16, #3
-fp32), on the CPU: the kernels' plain version with a mask against the
-reference's masked ``apply``, the wrappers' mask handling and argument
-order against the entry points' signatures (read from the ``.cu`` sources),
-the tile shapes at GraphCNF's node sets, and the backward's check at
-width 256.  The kernels themselves run in
+fp32, and the fp32 train step's FMA pair), on the CPU: the kernels' plain
+version with a mask against the reference's masked ``apply`` (and, in
+fp32, its gradients against ``jax.grad`` of it), the wrappers' mask
+handling and argument order against the entry points' signatures (read
+from the ``.cu`` sources), the tile shapes at GraphCNF's node sets, and
+the backward's check at width 256.  The kernels themselves run in
 ``tests/test_torch_cuda.py`` on the card.
 
 Tolerances: fp32 within ``TOL`` = 1e-4, as the graph-coloring slice's
-test; bf16 within 2 bf16 ulps at the output's scale, as the RGCN's test.
+test (gradients within ``TOL`` of their largest magnitude); bf16 within 2
+bf16 ulps at the output's scale, as the RGCN's test.
 """
 
 import os
@@ -71,6 +73,53 @@ def test_masked_plain_forward_matches_reference(s, cd):
     np.testing.assert_allclose(got, want, rtol=0, atol=tol)
     # the mask matters: the unmasked net reads far from it
     assert np.abs(unmasked - want).max() > 10 * tol
+
+
+def test_masked_fp32_gradients_match_jax_grad():
+    """In fp32, at sets of 6, hidden 16 and a ragged mask (a set of one
+    valid key and one of none), the output and the gradients of x and of
+    every parameter through the port's plain path (autograd, the plain
+    version of the FMA pair) against ``jax.grad`` of the reference's masked
+    ``apply`` for the same cotangent, the weights carried across by
+    ``convert.flatten_tree``: each within TOL of its largest magnitude."""
+    r = np.random.default_rng(11)
+    j = JaxSetTransformer(hidden_dim=16, num_heads=4, num_layers=2,
+                          compute_dtype="float32")
+    params = jax.tree.map(np.asarray, j.init(jax.random.PRNGKey(11), 3, 10))
+    params["out"]["w"] = (r.standard_normal(params["out"]["w"].shape)
+                          * 0.3).astype(np.float32)
+    x = r.standard_normal((5, 6, 3)).astype(np.float32)
+    g = r.standard_normal((5, 6, 10)).astype(np.float32)
+    mask = _masks(5, 6, 12)
+
+    def loss(p, xx):
+        return jnp.sum(j.apply(p, xx, mask=jnp.asarray(mask)) * g)
+
+    want_y = np.asarray(j.apply(params, jnp.asarray(x),
+                                mask=jnp.asarray(mask)))
+    gp, gx = jax.grad(loss, argnums=(0, 1))(params, jnp.asarray(x))
+    want = {k: np.asarray(v) for k, v in flatten_tree(gp).items()}
+    net = SetTransformer(3, 10, hidden_dim=16, num_heads=4,
+                         compute_dtype="float32")
+    net.load_state_dict(flatten_tree(params))
+    xt = torch.tensor(x, requires_grad=True)
+    y = net(xt, mask=torch.tensor(mask))
+    names, params_t = zip(*net.named_parameters())
+    grads = torch.autograd.grad(y, [xt, *params_t], torch.tensor(g))
+
+    def near(a, b):
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=TOL * max(np.abs(b).max(), 1.0))
+
+    near(y.detach().numpy(), want_y)
+    near(grads[0].numpy(), np.asarray(gx))
+    assert set(names) == set(want)
+    for name, got in zip(names, grads[1:]):
+        near(got.numpy(), want[name].reshape(got.shape))
+    # the mask matters to the gradients too
+    y_u = net(xt)
+    gx_u = torch.autograd.grad(y_u, xt, torch.tensor(g))[0]
+    assert np.abs(gx_u.numpy() - np.asarray(gx)).max() > 10 * TOL
 
 
 def test_masked_keys_do_not_reach_valid_rows():
@@ -142,16 +191,17 @@ def _signature(source: str, entry: str) -> list:
     ("categoricalnf_tpu_torch/csrc/fused_transformer_tf32x3.cu",
      "fused_set_transformer_fwd_f32", "_MASKED_FWD_ARGS", 1),
     ("categoricalnf_tpu_torch/csrc/fused_transformer.cu",
-     "fused_set_transformer_train_fwd_f32", "_FWD_ARGS", None),
+     "fused_set_transformer_train_fwd_f32", "_MASKED_FWD_ARGS", 1),
     ("categoricalnf_tpu_torch/csrc/fused_transformer.cu",
-     "fused_set_transformer_bwd_f32", "_BWD_ARGS", None),
+     "fused_set_transformer_bwd_f32", "_FMA_BWD_ARGS", 1),
     ("tools/f32_bwd_tf32x3.cu", "fused_set_transformer_bwd_f32_tf32x3",
      "_BWD_ARGS", None)])
 def test_wrapper_argument_order_matches_the_entry_points(source, entry, args,
                                                          mask_at):
     """Each entry point's C signature against the ctypes list its wrapper
-    calls it with: the same count and types, the key mask (where taken)
-    the pointer after x's, and no mask in the fp32 FMA pair."""
+    calls it with: the same count and types, the key mask (where taken:
+    every kernel of the port, the fp32 FMA pair too) the pointer after
+    x's, and none in the 3xTF32 #4 that waits in tools/."""
     sig = _signature(source, entry)
     assert [_CTYPES[t] for t, _ in sig] == getattr(ft, args)
     names = [n for _, n in sig]
@@ -163,19 +213,22 @@ def test_wrapper_argument_order_matches_the_entry_points(source, entry, args,
 
 
 # (hidden, out) of the node flow's nets at its sets of 24 nodes, in 6 -> the
-# tile and shared memory of #3 bf16, #4 bf16 and #3 fp32, as the kernels
-# pick them (a shared-memory limit of 232,448 B); #4 bf16 at 256 with its
-# residual copies in global memory (252,928 B with them in shared memory)
+# tile and shared memory of #3 bf16, #4 bf16, #3 fp32 and the fp32 FMA #4,
+# as the kernels pick them (a shared-memory limit of 232,448 B); #4 bf16 at
+# 256 with its residual copies in global memory (252,928 B with them in
+# shared memory); the FMA #4 at 24 (padded to 24) rows of (2 + 6) [24, 100]
+# buffers, qkv [24, 292], the MLP pair [24, 2 x 196] and the statistics at
+# 96, with its warps' weight rings (12,288 B), and over the limit from 192
 NODE_FLOW_TILES = {
-    96: ((48, 48_384), (48, 148_992), (24, 47_264)),
-    128: ((48, 63_744), (48, 195_072), (24, 62_624)),
-    192: ((48, 94_464), (24, 191_488), (24, 93_344)),
-    256: ((48, 125_184), (24, 219_136), (24, 124_064))}
+    96: ((48, 48_384), (48, 148_992), (24, 47_264), (24, 155_904)),
+    128: ((48, 63_744), (48, 195_072), (24, 62_624), (24, 201_984)),
+    192: ((48, 94_464), (24, 191_488), (24, 93_344), (24, 281_856)),
+    256: ((48, 125_184), (24, 219_136), (24, 124_064), (24, 374_016))}
 
 
 @pytest.mark.parametrize("hidden", sorted(NODE_FLOW_TILES))
 def test_node_flow_tiles(hidden):
-    fwd, bwd, f32 = NODE_FLOW_TILES[hidden]
+    fwd, bwd, f32, fma_bwd = NODE_FLOW_TILES[hidden]
     out = 6 * (2 + 3 * 8)
     assert ft.fwd_shape(BF16, 24, 6, hidden, 2 * hidden) == fwd
     assert ft.bwd_shape(BF16, 24, 6, hidden, 2 * hidden, out, 4, 2) == bwd
@@ -185,6 +238,49 @@ def test_node_flow_tiles(hidden):
     assert ft.bwd_fits(BF16, 24, 6, hidden, 2 * hidden, out, 4, 2)
     assert ft.supported(torch.zeros(2, 24, 6), None, torch.ones(2, 24),
                         hidden, 4, compute_dtype=BF16)
+    # the fp32 train step's pair: its backward's tile fits to hidden 128;
+    # past it a differentiable fp32 call is refused before it launches,
+    # naming the ROADMAP item that stays open for it
+    F32 = torch.float32
+    assert ft.bwd_layout(F32, 24, 6, hidden, 2 * hidden, out, 4, 2) == (
+        *fma_bwd, False)
+    fits = fma_bwd[1] <= ft.MAX_SMEM
+    assert ft.bwd_fits(F32, 24, 6, hidden, 2 * hidden, out, 4, 2) == fits
+    assert fits == (hidden <= 128)
+    net = SetTransformer(6, out, hidden_dim=hidden, num_heads=4,
+                         compute_dtype="float32")
+    x = torch.zeros(2, 24, 6)
+    if fits:
+        net.check_backward_fits(x)
+    else:
+        with pytest.raises(NotImplementedError, match="Queue B 14"):
+            net.check_backward_fits(x)
+
+
+@pytest.mark.parametrize("s,in_dim,hidden,out,want", [
+    (16, 4, 96, 104, (32, 75_264)),   # the flagship
+    (16, 1, 96, 26, (32, 75_264)),    # the vardeq main flow
+    (24, 6, 96, 156, (24, 59_520)),   # runs/molecules' node flow
+    (24, 6, 128, 156, (24, 74_880)),  # molecules_long, _v2
+    (5, 3, 18, 7, (30, 4 * 32 * (2 * 20 + 60) + 12_288))])
+def test_fma_forward_shape(s, in_dim, hidden, out, want):
+    """The fp32 FMA forward's tile and shared memory (``fma_fwd_shape``):
+    whole sets up to 32 rows padded to 8, h and the LN/attention output
+    [tile, conflict_free(H)] and the widest of qkv, the MLP hidden layer
+    and x, every row 4 mod 8 floats wide but x's; and the 8 warps' weight
+    rings, 4 steps of 4 rows of 6 column groups of 16 bytes each."""
+    tile, smem = ft.fma_fwd_shape(s, in_dim, hidden, 2 * hidden)
+    assert (tile, smem) == want and tile % s == 0
+    pad = -(-tile // 8) * 8
+    big = max(ft.conflict_free(3 * hidden), ft.conflict_free(2 * hidden),
+              ft.pad4(in_dim))
+    assert ft.FMA_RING_BYTES == 8 * 4 * 4 * 6 * 16 == 12_288
+    assert smem == 4 * pad * (2 * ft.conflict_free(hidden) + big) + 12_288
+    assert ft.conflict_free(hidden) % 8 == 4 and big % 4 == 0
+    assert smem <= ft.MAX_SMEM
+    # the rings are left out where they would not fit beside the buffers
+    assert ft.with_rings(ft.MAX_SMEM - 12_287) == ft.MAX_SMEM - 12_287
+    assert ft.with_rings(ft.MAX_SMEM - 12_288) == ft.MAX_SMEM
 
 
 @pytest.mark.parametrize("hidden,k", [(256, 8), (256, 16), (192, 8)])
