@@ -1,10 +1,14 @@
-"""ctypes wrappers of the corpus generators in ``corpus.cpp``.
+"""ctypes wrappers of the host data generators in ``corpus.cpp``: the set
+tasks' permutations and sum-constrained sequences, the language-modeling
+corpora and their crops (counterpart of
+``categoricalnf_tpu/data/native_loader.py``).
 
 The library is compiled with the host's C++ compiler at first use into the
 git-ignored ``_build/`` beside the package (named by a hash of the source
-and flags), never at import.  Where it cannot be built, the wrappers return
-None and the callers take their numpy paths, as the reference's do: the
-library speeds up host data, it is not a device path.
+and flags), never at import.  Where it cannot be built, or ``CNF_NATIVE=0``
+is set, the wrappers return None and the callers take their numpy paths,
+as the reference's do: the library speeds up host data, it is not a device
+path.
 """
 
 from __future__ import annotations
@@ -57,7 +61,8 @@ def library() -> Optional[ctypes.CDLL]:
     with _lock:
         if not _tried:
             _tried = True
-            path = _build()
+            path = (None if os.environ.get("CNF_NATIVE", "1") == "0"
+                    else _build())
             if path is not None:
                 lib = ctypes.CDLL(path)
                 u64, i64, i32 = (ctypes.c_uint64, ctypes.c_int64,
@@ -65,11 +70,39 @@ def library() -> Optional[ctypes.CDLL]:
                 pi32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
                 pf64 = np.ctypeslib.ndpointer(np.float64,
                                               flags="C_CONTIGUOUS")
+                lib.gen_permutations.argtypes = [u64, i64, i32, pi32]
+                lib.gen_sum_sequences.argtypes = [u64, i64, i32, i32, i32,
+                                                  pi32]
+                lib.gen_sum_sequences.restype = i64
+                lib.gen_permutations.restype = None
                 lib.markov_rollout.argtypes = [u64, pf64, i32, i64, i32, pi32]
                 lib.chunk_corpus.argtypes = [u64, pi32, i64, i64, i32, pi32]
                 lib.markov_rollout.restype = lib.chunk_corpus.restype = None
                 _lib = lib
         return _lib
+
+
+def gen_permutations(seed: int, n: int, S: int) -> Optional[np.ndarray]:
+    """[n, S] int32 random permutations of 0..S-1; None without the
+    library."""
+    lib = library()
+    if lib is None:
+        return None
+    out = np.empty((n, S), np.int32)
+    lib.gen_permutations(seed & (2**64 - 1), n, S, out)
+    return out
+
+
+def gen_sum_sequences(seed: int, n: int, S: int, K: int,
+                      target: int) -> Optional[np.ndarray]:
+    """[n, S] int32 in 0..K-1 whose values shifted to 1..K sum to
+    ``target``; None without the library or for sets above 512."""
+    lib = library()
+    if lib is None or S > 512:
+        return None
+    out = np.empty((n, S), np.int32)
+    lib.gen_sum_sequences(seed & (2**64 - 1), n, S, K, target, out)
+    return out
 
 
 def markov_rollout(seed: int, P: np.ndarray, length: int,

@@ -1,7 +1,9 @@
 """Activation normalization with masked data-dependent init.
 
-Counterpart of ``ActNorm`` in ``categoricalnf_tpu/flows/actnorm.py``:
-``y = (z + bias) * exp(ls)`` with ``ls = cap * tanh(log_scale / cap)``.
+Counterparts of ``ActNorm`` and ``ExtActNorm`` in
+``categoricalnf_tpu/flows/actnorm.py``: ``y = (z + bias) * exp(ls)`` with
+``ls = cap * tanh(log_scale / cap)``; ``ExtActNorm`` takes its bias and
+raw log-scale from ``cond``.
 """
 
 from __future__ import annotations
@@ -62,3 +64,25 @@ def _masked_moments(z: torch.Tensor, mask: Optional[torch.Tensor]):
         mean = (flat * m).sum(dim=0) / denom
         var = ((flat - mean) ** 2 * m).sum(dim=0) / denom
     return mean, var
+
+
+class ExtActNorm(Transform):
+    """The affine of ``ActNorm`` with its bias and raw log-scale given by
+    ``cond`` ([..., 2D]: the first D channels the bias, the next D the raw
+    log-scale, squashed as ``cap * tanh(raw / cap)``); no parameters."""
+
+    def __init__(self, scale_cap: float = 3.0):
+        super().__init__()
+        self.scale_cap = scale_cap
+
+    def _split(self, cond, d: int):
+        bias, raw = cond[..., :d], cond[..., d:2 * d]
+        return bias, self.scale_cap * torch.tanh(raw / self.scale_cap)
+
+    def forward(self, z, ldj, *, cond=None, mask=None):
+        bias, ls = self._split(cond, z.shape[-1])
+        return (z + bias) * torch.exp(ls), ldj + sum_ldj(ls, mask)
+
+    def inverse(self, z, ldj, *, cond=None, mask=None):
+        bias, ls = self._split(cond, z.shape[-1])
+        return z * torch.exp(-ls) - bias, ldj - sum_ldj(ls, mask)

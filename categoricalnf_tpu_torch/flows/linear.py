@@ -1,6 +1,8 @@
-"""LU-parameterised invertible channel mixing (GLOW 1x1).
+"""Channel permutations and LU-parameterised invertible channel mixing
+(GLOW 1x1).
 
-Counterpart of ``InvertibleLinear`` in ``categoricalnf_tpu/flows/linear.py``:
+Counterparts of ``ReverseChannels`` and ``InvertibleLinear`` in
+``categoricalnf_tpu/flows/linear.py``.  ``InvertibleLinear``:
 W = P @ L @ (U + diag(sign_s * exp(ls))), ls tanh-capped.  ``perm`` and
 ``sign_s`` are buffers, never trained.  Everything runs in fp32 with TF32
 off (the reference uses ``Precision.HIGHEST``).
@@ -19,6 +21,16 @@ def _random_orthogonal(d: int, generator) -> torch.Tensor:
     a = torch.randn(d, d, generator=generator, dtype=torch.float64)
     q, r = torch.linalg.qr(a)
     return q * torch.sign(torch.diagonal(r))[None, :]
+
+
+class ReverseChannels(Transform):
+    """The channels in reverse order; its log-det is 0."""
+
+    def forward(self, z, ldj, *, cond=None, mask=None):
+        return z.flip(-1), ldj
+
+    def inverse(self, z, ldj, *, cond=None, mask=None):
+        return z.flip(-1), ldj
 
 
 class InvertibleLinear(Transform):

@@ -53,18 +53,21 @@ class CategoricalFlow(nn.Module):
                 "log_dec": log_dec, "log_q": log_q}
 
     def loss_bpd(self, x, beta=1.0, *, cond=None, mask=None, generator=None,
-                 noise=None):
+                 noise=None, batch_mean=None):
         """Mean bits/variable of the beta-annealed ELBO, plus the reference's
         positive-ELBO guard: a positive batch-mean ELBO certifies that the
         flow exploits a gap between its claimed ldj and the fp32 map, and
         the quadratic penalty points the gradient back out (inert in
-        legitimate training)."""
+        legitimate training).  ``batch_mean`` (default ``torch.mean``)
+        takes that mean, over the global batch where ``x`` is one rank's
+        rows."""
         parts = self.elbo(x, cond=cond, mask=mask, generator=generator,
                           noise=noise)
         obj = parts["log_pz"] + parts["log_dec"] - beta * parts["log_q"]
         n = _num_vars(x, mask)
         loss = torch.mean(-obj / (n * LN2))
-        cheat = torch.relu(torch.mean(parts["elbo"] / (n * LN2)))
+        cheat = torch.relu((batch_mean or torch.mean)(parts["elbo"]
+                                                      / (n * LN2)))
         return loss + 10.0 * cheat * cheat
 
     def iw_log_prob(self, x, num_samples: int, *, cond=None, mask=None,

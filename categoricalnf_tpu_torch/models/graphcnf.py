@@ -206,16 +206,18 @@ class GraphCNF(nn.Module):
                 "log_dec": log_dec, "log_q": log_q}
 
     def loss_bpd(self, atoms, edges, node_mask, beta=1.0, *, generator=None,
-                 noise=None):
+                 noise=None, batch_mean=None):
         """Mean bits/variable of the beta-annealed ELBO with the reference's
-        positive-ELBO guard (``CategoricalFlow.loss_bpd``); a graph's
-        variables are its nodes and its node pairs."""
+        positive-ELBO guard and its ``batch_mean``
+        (``CategoricalFlow.loss_bpd``); a graph's variables are its nodes
+        and its node pairs."""
         parts = self.elbo(atoms, edges, node_mask, generator=generator,
                           noise=noise)
         obj = parts["log_p"] + parts["log_dec"] - beta * parts["log_q"]
         n = self.num_vars(node_mask)
         loss = torch.mean(-obj / (n * LN2))
-        cheat = torch.relu(torch.mean(parts["elbo"] / (n * LN2)))
+        cheat = torch.relu((batch_mean or torch.mean)(parts["elbo"]
+                                                      / (n * LN2)))
         return loss + 10.0 * cheat * cheat
 
     def iw_log_prob(self, atoms, edges, node_mask, num_samples: int, *,

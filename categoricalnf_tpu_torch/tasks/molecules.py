@@ -143,9 +143,11 @@ class MoleculeTask(TaskTemplate):
 
     # -- objective ------------------------------------------------------------
 
-    def loss(self, batch: dict, beta=1.0, *, generator=None, noise=None):
+    def loss(self, batch: dict, beta=1.0, *, generator=None, noise=None,
+             batch_mean=None):
         return self.model.loss_bpd(*self._graph(batch), beta,
-                                   generator=generator, noise=noise)
+                                   generator=generator, noise=noise,
+                                   batch_mean=batch_mean)
 
     @torch.no_grad()
     def eval_step(self, batch: dict, num_samples: int, *, generator=None,
@@ -155,6 +157,13 @@ class MoleculeTask(TaskTemplate):
         bpd = self.eval_model.eval_bpd(*self._graph(batch), num_samples,
                                        generator=generator, noise=noise)
         return bpd + self.eval_bpd_extra(batch)
+
+    @torch.no_grad()
+    def elbo(self, batch: dict, *, generator=None, noise=None):
+        """Single-sample per-graph ELBO [B] (fp32 twin); ``noise``: the
+        three stages' uniforms."""
+        return self.eval_model.elbo(*self._graph(batch), generator=generator,
+                                    noise=noise)["elbo"]
 
     def num_vars(self, batch) -> torch.Tensor:
         return self.model.num_vars(self._graph(batch)[2])

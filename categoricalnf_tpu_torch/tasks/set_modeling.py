@@ -6,7 +6,9 @@
 - Set summation: uniform over sequences in {1..K}^S that sum to L; the
   optimum is log2(#{such sequences})/S from a counting DP.
 
-Batches are drawn with numpy here (the port keeps its own generators).
+Batches come from the port's copy of the reference's C++ generators
+(``data/corpus.py``) where the host's compiler builds them, else from
+numpy; either way the same seed gives the reference's batches.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from categoricalnf_tpu_torch import flows
+from categoricalnf_tpu_torch.data import corpus as native
 from categoricalnf_tpu_torch.encodings import create_encoding
 from categoricalnf_tpu_torch.models.categorical_flow import CategoricalFlow
 from categoricalnf_tpu_torch.networks import SetTransformer
@@ -148,8 +151,14 @@ class SetShufflingTask(_SetTask):
         return self.set_size
 
     def _gen(self, rng: np.random.Generator, n: int) -> np.ndarray:
-        return np.argsort(rng.random((n, self.set_size)),
-                          axis=1).astype(np.int64)
+        """The reference's draw: one ``integers(2**62)`` seeds the native
+        generator; without it, numpy's argsort of uniforms after that
+        draw."""
+        out = native.gen_permutations(int(rng.integers(2**62)), n,
+                                      self.set_size)
+        if out is None:
+            out = np.argsort(rng.random((n, self.set_size)), axis=1)
+        return out.astype(np.int64)
 
     def analytic_optimum_bpd(self) -> float:
         return math.log2(math.factorial(self.set_size)) / self.set_size
@@ -214,11 +223,15 @@ class SetSummationTask(_SetTask):
         return self.num_categories
 
     def _gen(self, rng: np.random.Generator, n: int) -> np.ndarray:
-        """Rejection sampling, 4n candidates a round, values shifted from
-        1..K to 0..K-1.  The first draw is the one the reference spends on
-        its native generator's seed, so that with no native generator its
-        batches are these."""
-        rng.integers(2**62)
+        """Rejection sampling, values shifted from 1..K to 0..K-1: the
+        native generator seeded with one ``integers(2**62)``, as the
+        reference's; without it, numpy after that draw, 4n candidates a
+        round."""
+        out = native.gen_sum_sequences(int(rng.integers(2**62)), n,
+                                       self.set_size, self.num_categories,
+                                       self.target_sum)
+        if out is not None:
+            return out.astype(np.int64)
         out = np.empty((0, self.set_size), np.int64)
         while out.shape[0] < n:
             cand = rng.integers(1, self.num_categories + 1,

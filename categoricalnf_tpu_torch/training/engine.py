@@ -16,10 +16,19 @@ after a resume off a multiple of K) runs as single steps on batches of a
 stream of its own, seeded ``seed + 17``.  The steps and their noise are
 those of K = 1 on the same batches.
 
-Differences from the reference: the step runs eagerly (no jit, mesh or
+With a ``mesh`` (``parallel/mesh.py``, one process a rank), every rank
+draws the same seeded stream of global batches and trains on its rows of
+each: ActNorm's data init runs on the whole first batch on every rank, the
+positive-ELBO penalty reads the global batch's mean, the gradients are
+averaged over the world before the clip, and the IS evals split their
+chains and rows over the mesh (``parallel/eval.py``); only rank 0 writes
+metrics, checkpoints and samples.  A 1 x 1 mesh trains bitwise as no mesh.
+
+Differences from the reference: the step runs eagerly (no jit or
 profiler); the per-step noise comes from a ``torch.Generator`` seeded from
-``(seed, step)``, so a resume reproduces the stream; ``steps_per_s`` counts
-training steps only (the clock restarts after an eval or a save).
+``(seed, step)``, and from ``(seed, step, data coordinate)`` on a mesh of
+several data ranks, so a resume reproduces the stream; ``steps_per_s``
+counts training steps only (the clock restarts after an eval or a save).
 """
 
 from __future__ import annotations
@@ -35,6 +44,8 @@ import numpy as np
 import torch
 
 from categoricalnf_tpu_torch.data.prefetch import Prefetcher, pin, to_device
+from categoricalnf_tpu_torch.parallel.eval import make_task_sharded_iw_eval
+from categoricalnf_tpu_torch.parallel.mesh import Mesh, shard_batch
 from categoricalnf_tpu_torch.training.checkpoint import CheckpointManager
 from categoricalnf_tpu_torch.training.metrics import MetricsLogger
 from categoricalnf_tpu_torch.training.schedules import ScheduleSpec
@@ -81,20 +92,39 @@ def grouped(batches, k: int):
 
 
 class Trainer:
-    def __init__(self, task: TaskTemplate, config: TrainConfig):
+    def __init__(self, task: TaskTemplate, config: TrainConfig,
+                 mesh: Optional[Mesh] = None):
         if config.steps_per_call < 1:
             raise ValueError(f"steps_per_call must be at least 1, got "
                              f"{config.steps_per_call}")
         self.task = task
         self.config = config
+        self.mesh = mesh
+        # rank 0 writes the run's files and prints its metrics
+        self.writes = mesh is None or mesh.rank == 0
         self.beta_fn = config.beta_schedule.build()
-        self.logger = MetricsLogger(config.out_dir)
+        self.logger = MetricsLogger(config.out_dir if self.writes else None,
+                                    echo=self.writes)
         self.state: Optional[TrainState] = None
+        self._sharded_eval = (None if mesh is None
+                              else make_task_sharded_iw_eval(task, mesh))
+        # what keys a rank's noise beside the step: its rows' coordinate
+        # (its chains' too for an eval), none where the mesh has one rank
+        self._step_key = (() if mesh is None or mesh.num_data == 1
+                          else (mesh.data_index,))
+        self._eval_key = (() if mesh is None or mesh.world == 1
+                          else (mesh.data_index, mesh.sample_index))
+
+    def _rows(self, batch):
+        """This rank's rows of a global batch (all of it without a mesh)."""
+        return batch if self.mesh is None else shard_batch(self.mesh, batch)
 
     def init_model(self, batch: dict) -> None:
         """Fresh parameters from the seed, ActNorm data-initialised on
         ``batch``: with the first training batch, the model that ``train``
-        starts from when there is no checkpoint."""
+        starts from when there is no checkpoint.  On a mesh every rank
+        runs it on the whole global batch with the same generator, so that
+        ActNorm takes the global batch's statistics."""
         self.task.init_params(self.config.seed)
         self.task.data_init(batch, generator=step_generator(
             self.task.device, self.config.seed, _DATA_INIT))
@@ -105,9 +135,9 @@ class Trainer:
         bpds = []
         for i, batch in enumerate(batches):
             gen = step_generator(self.task.device, self.config.seed, *stream,
-                                 i)
-            bpds.append(self.task.eval_step(batch, num_samples,
-                                            generator=gen).cpu().numpy())
+                                 i, *self._eval_key)
+            fn = self._sharded_eval or self.task.eval_step
+            bpds.append(fn(batch, num_samples, generator=gen).cpu().numpy())
         return float(np.mean(np.concatenate(bpds)))
 
     def evaluate(self, num_samples: int, seed_step: int) -> dict:
@@ -136,6 +166,10 @@ class Trainer:
         num_samples = num_samples or self.config.final_eval_samples
         bpd = self._eval_batches(self.task.test_batches(), num_samples,
                                  _TEST, seed)
+        if self._sharded_eval is not None:
+            # the chain count rounded up to tile the sample axis
+            num_samples = self._sharded_eval.effective_num_samples(
+                num_samples)
         out = {"test_bpd": bpd, "num_importance_samples": num_samples}
         opt = self.task.analytic_optimum_bpd()
         if opt is not None:
@@ -182,8 +216,9 @@ class Trainer:
                 best_bpd = self.evaluate(cfg.eval_samples,
                                          _EVAL - 1)["bpd"]
                 task.model.load_state_dict(current)
-            print(f"resumed from step {state.step} (best_bpd "
-                  f"{best_bpd:.4f}, re-evaluated)", flush=True)
+            if self.writes:
+                print(f"resumed from step {state.step} (best_bpd "
+                      f"{best_bpd:.4f}, re-evaluated)", flush=True)
 
         self._stop_requested = False
         prev_handler = None
@@ -204,17 +239,35 @@ class Trainer:
             data_iter.close()
             self.logger.close()
 
-    def _step(self, state, batch):
-        """One train step on ``batch`` (on the task's device): the loss at
-        beta of the step, its backward, the clipped update.  Returns (loss,
-        gradient norm, beta)."""
-        cfg, task = self.config, self.task
-        beta = self.beta_fn(state.step)
-        gen = step_generator(task.device, cfg.seed, state.step)
-        loss = task.loss(batch, beta, generator=gen)
-        state.optimizer.zero_grad(set_to_none=True)
+    def gradients(self, batch, beta, *, generator=None, noise=None):
+        """The loss of ``batch`` (this rank's rows, on the task's device) at
+        ``beta``, its gradients left in the parameters' ``.grad``; on a mesh
+        the global batch's loss, with the gradients averaged over the
+        world."""
+        task, mesh = self.task, self.mesh
+        loss = task.loss(batch, beta, generator=generator, noise=noise,
+                         batch_mean=None if mesh is None else mesh.batch_mean)
+        task.model.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            mesh.average_gradients(task.model.parameters())
+            loss = mesh.data_mean(loss.detach())
+        return loss
+
+    def _step(self, state, batch):
+        """One train step on ``batch``: ``gradients`` at beta of the step,
+        then the clipped update.  Returns (loss, gradient norm, beta)."""
+        beta = self.beta_fn(state.step)
+        loss = self.gradients(batch, beta, generator=step_generator(
+            self.task.device, self.config.seed, state.step, *self._step_key))
         return loss, state.apply_gradients(), beta
+
+    def _stopping(self) -> bool:
+        """SIGTERM's stop, agreed over the mesh: every rank leaves the loop
+        at the same step."""
+        if self.mesh is not None:
+            self._stop_requested = self.mesh.any(self._stop_requested)
+        return self._stop_requested
 
     def _train_loop(self, data_iter, state, ckpt, ckpt_last,
                     best_bpd) -> dict:
@@ -227,12 +280,13 @@ class Trainer:
             cfg.seed + _REMAINDER_STREAM)) if per_call > 1 else data_iter)
         best_state = None
         t_last, steps_since = time.perf_counter(), 0
-        while state.step < cfg.num_steps and not self._stop_requested:
+        while state.step < cfg.num_steps and not self._stopping():
             prev = state.step
             if per_call > 1 and prev + per_call <= cfg.num_steps:
-                group = to_device(next(data_iter), task.device)
+                group = [to_device(self._rows(b), task.device)
+                         for b in next(data_iter)]
             else:
-                group = [to_device(next(single), task.device)]
+                group = [to_device(self._rows(next(single)), task.device)]
             for batch in group:
                 loss, gnorm, beta = self._step(state, batch)
             step = state.step
@@ -260,16 +314,16 @@ class Trainer:
                     best_bpd = ev["bpd"]
                     best_state = {k: v.detach().clone() for k, v in
                                   model.state_dict().items()}
-                    if ckpt is not None:
+                    if ckpt is not None and self.writes:
                         ckpt.save(step, model, optimizer=state.optimizer,
                                   metrics=ev)
                 # the periodic "last" checkpoint beside the best-metric one
-                if ckpt_last is not None:
+                if ckpt_last is not None and self.writes:
                     ckpt_last.save(step, model, optimizer=state.optimizer)
                 # the rate counts training steps only
                 t_last, steps_since = time.perf_counter(), 0
 
-        if self._stop_requested and ckpt_last is not None:
+        if self._stop_requested and ckpt_last is not None and self.writes:
             ckpt_last.save(state.step, model, optimizer=state.optimizer)
 
         # the final phase runs on the best parameters (what best_bpd refers
@@ -284,7 +338,7 @@ class Trainer:
             final["preempted"] = 1.0
         final.update(task.sample_metrics(generator=step_generator(
             task.device, cfg.seed, _FINAL_SAMPLES)))
-        if cfg.out_dir:
+        if cfg.out_dir and self.writes:
             task.sample_artifacts(cfg.out_dir, generator=step_generator(
                 task.device, cfg.seed, _ARTIFACTS))
         test_metrics = self.test()

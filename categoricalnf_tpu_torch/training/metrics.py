@@ -2,7 +2,8 @@
 
 Counterpart of ``categoricalnf_tpu/training/metrics.py``: one record per
 ``log`` call with the keys ``step``, ``time`` (seconds since the logger
-started), ``prefix`` and the scalars, appended to ``<out_dir>/metrics.jsonl``.
+started), ``prefix`` and the scalars, appended to ``<out_dir>/metrics.jsonl``
+and, unless ``echo`` is off, printed.
 """
 
 from __future__ import annotations
@@ -14,8 +15,9 @@ from typing import Optional
 
 
 class MetricsLogger:
-    def __init__(self, out_dir: Optional[str] = None):
+    def __init__(self, out_dir: Optional[str] = None, echo: bool = True):
         self.out_dir = out_dir
+        self.echo = echo
         self._jsonl = None
         self._tb = None
         self._t0 = time.time()
@@ -39,8 +41,10 @@ class MetricsLogger:
         if self._tb:
             for k, v in scalars.items():
                 self._tb.add_scalar(f"{prefix}/{k}", float(v), step)
-        parts = " ".join(f"{k}={float(v):.4f}" for k, v in scalars.items())
-        print(f"[{prefix} @ {step}] {parts}", flush=True)
+        if self.echo:
+            parts = " ".join(f"{k}={float(v):.4f}"
+                             for k, v in scalars.items())
+            print(f"[{prefix} @ {step}] {parts}", flush=True)
 
     def close(self):
         if self._jsonl:

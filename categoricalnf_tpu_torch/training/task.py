@@ -14,6 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from categoricalnf_tpu_torch.models.categorical_flow import _num_vars
 from categoricalnf_tpu_torch.utils.tree import tree_map
 
 
@@ -71,13 +72,17 @@ class TaskTemplate:
                              cond=self._tensor(batch.get("cond")),
                              generator=generator, noise=noise)
 
-    def loss(self, batch: dict, beta=1.0, *, generator=None, noise=None):
+    def loss(self, batch: dict, beta=1.0, *, generator=None, noise=None,
+             batch_mean=None):
         """The training objective of one batch (mean bits/var), through the
-        model in its own compute dtype; the fp32 twin only evaluates."""
+        model in its own compute dtype; the fp32 twin only evaluates.
+        ``batch_mean`` takes the positive-ELBO penalty's mean over the
+        global batch where the rows are one rank's (``Mesh.batch_mean``)."""
         return self.model.loss_bpd(self._tensor(batch["x"], torch.long), beta,
                                    mask=self._tensor(batch.get("mask")),
                                    cond=self._tensor(batch.get("cond")),
-                                   generator=generator, noise=noise)
+                                   generator=generator, noise=noise,
+                                   batch_mean=batch_mean)
 
     def test_batches(self) -> list:
         """Held-out test split; defaults to the validation batches."""
@@ -92,6 +97,31 @@ class TaskTemplate:
             mask=self._tensor(batch.get("mask")),
             cond=self._tensor(batch.get("cond")), generator=generator,
             noise=noise)
+
+    # The three hooks below are the pieces of ``eval_step`` that the sharded
+    # evaluation (parallel/eval.py) runs separately, as the reference's
+    # (categoricalnf_tpu/training/task.py): over S chains, ``eval_step``
+    # equals ``-(logsumexp_S(elbo) - ln S) / (num_vars ln 2) +
+    # eval_bpd_extra``.
+
+    @torch.no_grad()
+    def elbo(self, batch: dict, *, generator=None, noise=None):
+        """Single-sample per-example ELBO [B] (fp32 twin)."""
+        return self.eval_model.elbo(
+            self._tensor(batch["x"], torch.long),
+            mask=self._tensor(batch.get("mask")),
+            cond=self._tensor(batch.get("cond")), generator=generator,
+            noise=noise)["elbo"]
+
+    def num_vars(self, batch: dict) -> torch.Tensor:
+        """Per-example count of categorical variables [B] (fp32)."""
+        return _num_vars(self._tensor(batch["x"]),
+                         self._tensor(batch.get("mask")))
+
+    def eval_bpd_extra(self, batch: dict):
+        """An additive per-example bpd outside the IS bound (the molecule
+        task's node-count prior); 0 here."""
+        return 0.0
 
     def sample_metrics(self, generator=None, **kw) -> dict:
         return {}

@@ -5,7 +5,10 @@ Counterpart of ``categoricalnf_tpu/utils/cli.py``: the same flags, the same
 changes the architecture, and ``run_training``, which writes the run's
 ``config.json`` as ``{"args", "task"}`` so that ``inference.load_run`` and
 ``serve.py`` can rebuild the task.  ``--device`` picks the device (the card
-unless ``cpu`` is given).
+unless ``cpu`` is given).  Started as one process a card with the
+reference's ``CNF_COORDINATOR_ADDRESS``, ``CNF_NUM_PROCESSES`` and
+``CNF_PROCESS_ID``, ``run_training`` joins their process group and trains
+data-parallel over the mesh of all ranks, each on its own card.
 """
 
 from __future__ import annotations
@@ -13,7 +16,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 
+import torch.distributed as dist
+
 from categoricalnf_tpu_torch.inference import _ARG_RENAMES
+from categoricalnf_tpu_torch.parallel.mesh import (create_mesh,
+                                                   maybe_init_distributed)
 from categoricalnf_tpu_torch.training.engine import TrainConfig, Trainer
 from categoricalnf_tpu_torch.training.schedules import ScheduleSpec
 from categoricalnf_tpu_torch.training.state import OptimizerConfig
@@ -124,8 +131,21 @@ def check_resume_args(out_dir: str, args: dict, task=None) -> None:
 def run_training(task, args) -> dict:
     set_seed(args.seed)
     cfg = train_config_from_args(args)
-    if args.out_dir:
-        if args.resume:
-            check_resume_args(args.out_dir, vars(args), task=task)
-        save_config(args.out_dir, {"args": vars(args), "task": task.name})
-    return Trainer(task, cfg).train(resume=args.resume)
+    joined = not dist.is_initialized()
+    device = maybe_init_distributed(task.device)
+    joined = joined and dist.is_initialized()
+    if device is not None:
+        # this rank's card: the Trainer rebuilds the model on it
+        task.device = device
+    mesh = create_mesh() if dist.is_initialized() else None
+    try:
+        if args.out_dir:
+            if args.resume:
+                check_resume_args(args.out_dir, vars(args), task=task)
+            if mesh is None or mesh.rank == 0:
+                save_config(args.out_dir, {"args": vars(args),
+                                           "task": task.name})
+        return Trainer(task, cfg, mesh=mesh).train(resume=args.resume)
+    finally:
+        if joined:  # the group this call joined, left with it
+            dist.destroy_process_group()

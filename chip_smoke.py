@@ -154,7 +154,16 @@ Run from the root of a checkout on a machine with one NVIDIA card:
    bond_cond_degree, batch 192; synthetic molecules) the same way for
    MOSES_STEPS (60) steps, #4 bf16 launched with the copies in global
    memory.
-10. Prints one JSON line of kernel numbers (with the coloring's, the
+10. The parallel layer (``parallel_phase``): a process group of one rank
+   over NCCL from a FileStore, its 1 x 1 ``create_mesh()``; runs/set16 as
+   it is for PARALLEL_STEPS (10) steps through the Trainer on that mesh
+   and without one from the same seed: every logged row (the losses, the
+   gradient norms, the evals) and every parameter at the end bitwise
+   equal, #3 bf16, #4 bf16, #2 and #2' launched under the all-reduces;
+   then the sharded IS eval on the mesh bitwise ``eval_step`` on one eval
+   batch x 4 chains, #3 fp32 and #2 launched; ms a step with and without
+   the mesh printed, not bounded.
+11. Prints one JSON line of kernel numbers (with the coloring's, the
    dequantized flows', the LM's and the molecules' shapes, and every
    path's launches), then, as the last line, {"ok": true, "device":
    {...}}.
@@ -170,6 +179,7 @@ import contextlib
 import dataclasses
 import http.client
 import json
+import math
 import os
 import re
 import statistics
@@ -1765,6 +1775,138 @@ def set_modeling_phase(seed: int, timings: dict, card: str,
     return launches
 
 
+# The parallel layer: runs/set16's steps through the Trainer on a mesh of
+# one rank and without one, and the sharded IS eval on that mesh.
+PARALLEL_STEPS, PARALLEL_LOG_EVERY = 10, 5
+PARALLEL_TRAINING_KERNELS = ("mixture_forward", "mixture_forward_bwd",
+                             "fused_set_transformer_bf16",
+                             "fused_set_transformer_bwd_bf16")
+PARALLEL_EVAL_KERNELS = ("mixture_forward", "fused_set_transformer_f32")
+
+
+def parallel_phase(seed: int, timings: dict, card: str,
+                   device: str = "cuda") -> dict:
+    """The data-parallel path on a world of one rank: a process group over
+    NCCL, in-process from a FileStore in a temporary directory, and its
+    ``create_mesh()`` (1 x 1).  runs/set16/config.json as it is (bf16,
+    batch 1024, 8 couplings, hidden 96) for PARALLEL_STEPS steps through
+    the Trainer with that mesh and without one, from the same seed (its
+    eval at the end on one batch of 1024, 4 chains; the final sample
+    metrics and the test): every logged row but its clock, and every
+    parameter at the end, bitwise equal, the all-reduces running all the
+    same, and #3 bf16, #4 bf16, #2 and #2' launched under them.  Then the
+    sharded IS eval (``parallel.make_task_sharded_iw_eval``) on that mesh
+    against ``eval_step`` on one eval batch x 4 chains from one generator
+    seed: bitwise, #3 fp32 and #2 launched.  Records ms a step of steps
+    6-10 with and without the mesh (not bounded).  Destroys the process
+    group.  Returns the launches of the mesh's training and its eval."""
+    import torch
+    import torch.distributed as dist
+    from categoricalnf_tpu_torch import inference
+    from categoricalnf_tpu_torch.parallel import (create_mesh,
+                                                  make_task_sharded_iw_eval)
+    from categoricalnf_tpu_torch.training.engine import Trainer
+    from categoricalnf_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    cfg = load_config(os.path.join(REPO, "runs", "set16"))
+    a = cfg["args"]
+    args = {**a, "seed": seed, "eval_batches_count": 1}
+    tcfg = dataclasses.replace(
+        train_config(a, seed, EVAL_CHAINS), num_steps=PARALLEL_STEPS,
+        eval_every=PARALLEL_STEPS, log_every=PARALLEL_LOG_EVERY)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1,
+            device_id=torch.device("cuda", torch.cuda.current_device()))
+        try:
+            mesh = create_mesh()
+            check(mesh.shape == {"data": 1, "sample": 1},
+                  f"the mesh of one rank is {mesh.shape}")
+            runs = {}
+            for arm in ("mesh", "none"):
+                task = inference.build_task(cfg["task"], args, device=device)
+                check((task.batch_size, task.num_layers, task.hidden_dim,
+                       task.compute_dtype) == (1024, 8, 96, "bfloat16"),
+                      "runs/set16 is not the model this phase is written "
+                      "for")
+                out = os.path.join(tmp, arm)
+                trainer = Trainer(task, dataclasses.replace(tcfg,
+                                                            out_dir=out),
+                                  mesh=mesh if arm == "mesh" else None)
+                torch.cuda.synchronize()
+                reset_launches()
+                trainer.train(resume=False)
+                torch.cuda.synchronize()
+                if arm == "mesh":
+                    launches["parallel_training"] = read_launches()
+                rows = [json.loads(line) for line in
+                        open(os.path.join(out, "metrics.jsonl"))]
+                runs[arm] = {"task": task, "rows": rows}
+                window = [r for r in rows if r["prefix"] == "train"][-1]
+                timings[f"ms_per_step_{arm}"] = 1e3 / window["steps_per_s"]
+            clockless = {arm: [{k: v for k, v in r.items()
+                                if k not in ("time", "steps_per_s")}
+                               for r in runs[arm]["rows"]] for arm in runs}
+            check(clockless["mesh"] == clockless["none"],
+                  "the Trainer on a mesh of one rank logged other numbers "
+                  f"than without one: {clockless}")
+            losses = [r["loss"] for r in clockless["mesh"]
+                      if r["prefix"] == "train"]
+            check(len(losses) == PARALLEL_STEPS // PARALLEL_LOG_EVERY
+                  and all(math.isfinite(v) for v in losses),
+                  f"the mesh's logged losses: {losses}")
+            state = {arm: runs[arm]["task"].model.state_dict()
+                     for arm in runs}
+            differ = [k for k, v in state["none"].items()
+                      if not torch.equal(state["mesh"][k], v)]
+            check(not differ, "parameters after the mesh's steps differ "
+                  f"from those without it: {differ[:5]}")
+            for name in PARALLEL_TRAINING_KERNELS:
+                check(launches["parallel_training"][name] > 0,
+                      f"kernel {name} was not launched on the mesh")
+            timings.update(logged_rows=len(clockless["mesh"]),
+                           losses=losses,
+                           final_bpd=[r["bpd"] for r in clockless["mesh"]
+                                      if r["prefix"] == "val"])
+
+            task = runs["mesh"]["task"]
+            batch = task.eval_batches()[0]
+            sharded = make_task_sharded_iw_eval(task, mesh)
+
+            def gen():
+                return torch.Generator(device).manual_seed(seed + 5)
+            torch.cuda.synchronize()
+            reset_launches()
+            got = sharded(batch, EVAL_CHAINS, generator=gen())
+            torch.cuda.synchronize()
+            launches["parallel_eval"] = read_launches()
+            want = task.eval_step(batch, EVAL_CHAINS, generator=gen())
+            check(got.shape == want.shape == (task.batch_size,)
+                  and torch.equal(got, want),
+                  "the sharded eval on a 1 x 1 mesh is not eval_step: max "
+                  f"abs err {max_err(got, want)}")
+            check(bool(torch.isfinite(got).all()),
+                  "the sharded eval's bpd is not finite")
+            for name in PARALLEL_EVAL_KERNELS:
+                check(launches["parallel_eval"][name] > 0,
+                      f"kernel {name} was not launched by the sharded eval")
+            timings.update(
+                sharded_eval_bpd=float(got.mean()),
+                sharded_eval_chains=sharded.effective_num_samples(
+                    EVAL_CHAINS))
+        finally:
+            dist.destroy_process_group()
+    timings["phase_s"] = time.perf_counter() - t_phase
+    print(f"parallel: {timings['ms_per_step_mesh']!r} ms a step on a mesh "
+          f"of one rank, {timings['ms_per_step_none']!r} without "
+          f"(steps {PARALLEL_STEPS - PARALLEL_LOG_EVERY + 1}-"
+          f"{PARALLEL_STEPS}; {card})", flush=True)
+    return launches
+
+
 # The language-modeling path (runs/lm_v6/config.json): batches of 128
 # sequences of 256 characters, encoding dim 4, K = 32 components.  #2 and
 # #2' run on a train step's density pass (M = 128 x 256 x 4 = 131,072); #1
@@ -3232,7 +3374,12 @@ def train_step_readings(seed: int):
     args = {**a, "seed": seed, "compute_dtype": "float32"}
     cpu = build_task("set_shuffling", args, device="cpu")
     gpu = build_task("set_shuffling", args, device="cuda")
-    x = cpu._gen(np.random.default_rng(seed + 3), 64)
+    # the 64 sets this check's rules (a)-(c) were read on: numpy's argsort
+    # of uniforms, the port's draw before its set tasks took the reference's
+    # native generator; on the reference's sets at --seed + 1, rule (b)
+    # refuses the unchanged kernels as it refuses all arithmetic but the
+    # plain path's (ROADMAP C3, C4)
+    x = np.argsort(np.random.default_rng(seed + 3).random((64, S)), axis=1)
     cpu.data_init({"x": x}, generator=torch.Generator().manual_seed(seed))
     with torch.no_grad():
         g = torch.Generator().manual_seed(seed + 4)
@@ -3336,6 +3483,19 @@ def implicit_inverse_on_cpu():
         dispatch.mixture_inverse = card
 
 
+@contextlib.contextmanager
+def numpy_set_batches():
+    """The set tasks' numpy draws in place of their native generator (its
+    fallback, as where the library cannot be built)."""
+    from categoricalnf_tpu_torch.data import corpus
+    saved = corpus._lib, corpus._tried
+    corpus._lib, corpus._tried = None, True
+    try:
+        yield
+    finally:
+        corpus._lib, corpus._tried = saved
+
+
 def check_vardeq_step_against_cpu(seed: int, report: dict) -> dict:
     """One fp32 train step of runs/sum_vardeq at full width (64 sets,
     shared noise, beta 0.7, random output layers in every coupling net and
@@ -3361,7 +3521,10 @@ def check_vardeq_step_against_cpu(seed: int, report: dict) -> dict:
     gpu = build_task("set_summation", args, device="cuda")
     ref = build_task("set_summation", {**args, "compute_dtype": "float64"},
                      device="cpu")
-    x = cpu._gen(np.random.default_rng(seed + 3), 64)
+    # the 64 sequences this check's rule was read on: the numpy draw, which
+    # the native generator replaces in training
+    with numpy_set_batches():
+        x = cpu._gen(np.random.default_rng(seed + 3), 64)
     cpu.data_init({"x": x}, generator=torch.Generator().manual_seed(seed))
     randomize_coupling_nets(cpu.model, seed + 4)
     g = torch.Generator().manual_seed(seed + 6)
@@ -3806,6 +3969,9 @@ def main() -> int:
     mol_timings: dict = {}
     launches.update(molecule_phase(args.seed, mol_timings, card))
     print("molecules: " + json.dumps(mol_timings), flush=True)
+    parallel_timings: dict = {}
+    launches.update(parallel_phase(args.seed, parallel_timings, card))
+    print("parallel: " + json.dumps(parallel_timings), flush=True)
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():

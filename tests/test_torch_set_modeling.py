@@ -26,6 +26,7 @@ from categoricalnf_tpu.data import native_loader
 from categoricalnf_tpu.ops import numerics as jnm
 from categoricalnf_tpu.tasks import set_modeling as jsm
 from categoricalnf_tpu_torch.convert import flatten_tree, from_jax_params
+from categoricalnf_tpu_torch.data import corpus as tcorpus
 from categoricalnf_tpu_torch.ops import dispatch as tdispatch
 from categoricalnf_tpu_torch.ops import numerics as tnm
 from categoricalnf_tpu_torch.tasks import set_modeling as tsm
@@ -62,11 +63,14 @@ def test_count_and_optimum_match_reference(length, num_cat, target):
 
 
 def test_sampler_matches_reference_numpy_path(monkeypatch):
-    """With no native generator (``get_lib`` cached as None) the
+    """With no native generator in either package (the reference's
+    ``get_lib`` and the port's ``corpus.library`` cached as None) the
     reference's batches are the port's, bit for bit; each sums to the
     target once shifted back to 1..K."""
     monkeypatch.setattr(native_loader, "_LIB", None)
     monkeypatch.setattr(native_loader, "_TRIED", True)
+    monkeypatch.setattr(tcorpus, "_lib", None)
+    monkeypatch.setattr(tcorpus, "_tried", True)
     jtask = jsm.SetSummationTask(**TINY)
     ttask = tsm.SetSummationTask(**TINY, device="cpu")
     for seed in (0, 1):

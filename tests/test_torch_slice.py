@@ -310,8 +310,10 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    # the parallel tests' workers start in processes of their own
+    yield os.path.join(REPO, "tests", "_torch_parallel_workers.py")
     for tool in ("fused_ab.py", "mixture_ab.py", "f32_forward_rounding.py",
-                 "f32_bwd_tf32x3.py"):
+                 "f32_bwd_tf32x3.py", "dp_check.py"):
         yield os.path.join(REPO, "tools", tool)
 
 
@@ -322,16 +324,20 @@ def _banned(module: str) -> bool:
 
 
 def test_port_imports_no_jax():
-    """(g) no module of the port and no chip_smoke.py imports JAX, optax,
-    orbax or anything of the JAX package."""
+    """(g) no module of the port, no chip_smoke.py and not the parallel
+    tests' workers import JAX, optax, orbax or anything of the JAX
+    package."""
     sources = list(_port_sources())
     assert len(sources) > 20
-    # the molecule slice's modules and the causal transformer among them
+    # the molecule slice's modules, the causal transformer and the
+    # parallel layer among them
     names = {os.path.relpath(p, REPO) for p in sources}
     assert {f"categoricalnf_tpu_torch/{m}.py" for m in (
         "tasks/chem", "data/smiles", "networks/graph", "models/graphcnf",
         "tasks/molecules", "experiments/molecule_generation",
-        "networks/causal_transformer")} <= names
+        "networks/causal_transformer", "parallel/__init__", "parallel/mesh",
+        "parallel/eval")} <= names
+    assert "tests/_torch_parallel_workers.py" in names
     bad = []
     for path in sources:
         with open(path) as f:
