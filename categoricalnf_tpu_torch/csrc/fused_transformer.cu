@@ -116,6 +116,9 @@ struct Dims {
   // MLP buffers, the output cotangent, x; the backward's second big region
   int ld_h, ld_big, ld_f, ld_g, ld_x, ld_r2;
   int rings;  // whether the block has its warps' weight rings
+  // the backward's regions in its per-block global workspace: the first
+  // ws of (the residual copies, the MLP pair, qkv); 0 where all is shared
+  int ws;
 };
 
 __host__ __device__ inline int pad4(int n) { return (n + 3) / 4 * 4; }
@@ -735,6 +738,20 @@ fused_set_transformer_fwd(const float* __restrict__ x,
 // a thread fetches its scratch slice's old values before its row loop, and
 // the scratch goes through L2 as streaming data, so that at a flagship
 // batch (80 MB of slices) it does not push the weights out of L2.
+//
+// Where a block does not fit in shared memory (GraphCNF's node flow at
+// hidden 192 and 256, sets of 24: 281,856 and 374,016 B), its [tile, .]
+// regions move to the CUDA block's slice of a global workspace, in a
+// fixed order until the rest fits (``Dims::ws``): (1) the residual copies
+// at the block boundaries 0 .. L - 1, as the bf16 kernel's GLOBAL_H,
+// leaving one residual stream in shared memory; (2) the MLP pair f | m;
+// (3) qkv.  Hidden 192 moves (1) and (2), 256 all three (about 14
+// buffers of width H against the 9.3 a block holds there): 112,128 and
+// 223,104 B a block, 14.4 and 29.4 MB at their grids, inside L2.  The
+// regions are whole [tile_pad, ld] images read and written by the same
+// instructions, so every output is bitwise the shared layout's at the
+// same tile and grid; the weight rings stay where they fit beside the
+// rest (not at 192 or 256).
 
 // Padded rows (>= valid) carry zero gradients, so they add nothing.
 
@@ -1112,29 +1129,58 @@ __device__ __forceinline__ void copy_tile(const float* src, float* dst,
     sts4(dst + i, lds4(src + i));
 }
 
+// Floats of one block's slice of the workspace: the residual copies at
+// the block boundaries 0 .. L - 1, the MLP pair, qkv, as far as dm.ws
+// moves them.
+__host__ __device__ inline long ws_floats(const Dims& dm) {
+  long n = 0;
+  if (dm.ws >= 1) n += (long)dm.layers * dm.tile_pad * dm.ld_h;
+  if (dm.ws >= 2) n += 2L * dm.tile_pad * dm.ld_f;
+  if (dm.ws >= 3) n += (long)dm.tile_pad * dm.ld_big;
+  return n;
+}
+
+// WS: dm.ws > 0, the layout with the workspace ws ([grid, ws_floats]);
+// without it (every net that fits) the code is the shared layout's.
+template <bool WS>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 fused_set_transformer_bwd(const float* __restrict__ x,
                           const unsigned char* __restrict__ key_mask,
                           const float* __restrict__ g, FmaWeights wt,
                           float* __restrict__ dx, float* __restrict__ part,
-                          Dims dm) {
+                          float* ws, Dims dm) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int H = dm.hidden, RH = dm.mlp, L = dm.layers, OUT = dm.out_dim;
   const int TP = dm.tile_pad, IN = dm.in_dim;
   const int hsz = TP * dm.ld_h;
-  float* hs = smem;                  // [L + 1] residual streams
-  float* gh = hs + (L + 1) * hsz;    // d loss / d h
+  const bool qkv_shared = !WS || dm.ws < 3;
+  float* hs = smem;                  // [L + 1] residual streams (WS: one)
+  float* gh = hs + (WS ? 1 : L + 1) * hsz;  // d loss / d h
   float* a = gh + hsz;               // LN outputs
   float* o = a + hsz;                // attention output
   float* hm = o + hsz;               // h after the attention residual
   float* gs = hm + hsz;              // ga, ga2, go, ga1
   float* qkv = gs + hsz;             // [TP, ld_big]
-  float* r2 = qkv + TP * dm.ld_big;  // [TP, ld_r2]: f | m, gqkv, g, x
+  float* r2 = qkv + (qkv_shared ? TP * dm.ld_big : 0);
+  // r2 [TP, ld_r2]: f | m (where shared), gqkv, g, x
   float* stats = r2 + TP * dm.ld_r2; // [heads, TP, 3]
   float* rings = dm.rings ? stats + TP * 3 * dm.heads : nullptr;
   float* f = r2;                     // [TP, ld_f] pre-gelu, then its grad
   float* m = r2 + TP * dm.ld_f;      // [TP, ld_f] gelu(f)
+  // WS: this block's copies of h at the block boundaries 0 .. L - 1, then
+  // f | m and qkv where they moved
+  float* hg = nullptr;
+  if constexpr (WS) {
+    hg = ws + blockIdx.x * ws_floats(dm);
+    float* next = hg + (long)L * hsz;
+    if (dm.ws >= 2) {
+      f = next;
+      m = f + TP * dm.ld_f;
+      next = m + TP * dm.ld_f;
+    }
+    if (dm.ws >= 3) qkv = next;
+  }
   const Offsets og = grad_offsets(dm);
   float* pw = part + blockIdx.x * og.off[12];
   const long ntiles = (dm.rows + dm.tile - 1) / dm.tile;
@@ -1155,8 +1201,13 @@ fused_set_transformer_bwd(const float* __restrict__ x,
                        nullptr, valid, dm, rings);
     __syncthreads();
     for (int l = 0; l < L; ++l) {
-      float* h = hs + (l + 1) * hsz;
-      copy_tile(hs + l * hsz, h, dm);
+      float* h = hs;
+      if constexpr (WS) {
+        copy_tile(hs, hg + (long)l * hsz, dm);  // h_l, kept for phase 3
+      } else {
+        h = hs + (l + 1) * hsz;
+        copy_tile(hs + l * hsz, h, dm);
+      }
       __syncthreads();
       layer_norm_tile(h, a, dm);
       __syncthreads();
@@ -1182,8 +1233,10 @@ fused_set_transformer_bwd(const float* __restrict__ x,
       __syncthreads();
     }
 
-    // 2. output layer: y = dense(LN(h_L))
-    layer_norm_tile(hs + L * hsz, a, dm);
+    // 2. output layer: y = dense(LN(h_L)); h_L is the last copy, or the
+    // one residual stream (WS)
+    const float* h_last = hs + (WS ? 0 : L) * hsz;
+    layer_norm_tile(h_last, a, dm);
     for (int i = threadIdx.x; i < TP * OUT; i += blockDim.x) {
       const int r = i / OUT, c = i % OUT;
       r2[r * dm.ld_g + c] = r < valid ? g[row0 * OUT + i] : 0.0f;
@@ -1194,12 +1247,18 @@ fused_set_transformer_bwd(const float* __restrict__ x,
     dense_bwd_tile<kBwdStore>(r2, dm.ld_g, OUT, wt.wt[5], H, gs, dm.ld_h,
                               nullptr, valid, dm, rings);
     __syncthreads();
-    layer_norm_bwd_tile<false>(hs + L * hsz, gs, gh, dm);
+    layer_norm_bwd_tile<false>(h_last, gs, gh, dm);
     __syncthreads();
 
     // 3. the blocks in reverse, each recomputed from its input h
     for (int l = L - 1; l >= 0; --l) {
-      const float* h = hs + l * hsz;
+      const float* h = hs;
+      if constexpr (WS) {
+        copy_tile(hg + (long)l * hsz, hs, dm);  // h_l back from phase 1
+        __syncthreads();
+      } else {
+        h = hs + l * hsz;
+      }
       layer_norm_tile(h, a, dm);
       copy_tile(h, hm, dm);
       __syncthreads();
@@ -1267,6 +1326,8 @@ fused_set_transformer_bwd(const float* __restrict__ x,
   }
 }
 
+void set_bwd_regions(Dims& dm, int ws);
+
 // The tile and shared-memory rows of a net, as both kernels lay them out
 // (ops/cuda/fused_transformer.py bwd_layout mirrors the backward's).
 bool make_dims(Dims& dm, long rows, int set_size, int in_dim, int hidden,
@@ -1290,20 +1351,43 @@ bool make_dims(Dims& dm, long rows, int set_size, int in_dim, int hidden,
   dm.ld_f = conflict_free(mlp);
   dm.ld_g = conflict_free(out_dim);
   dm.ld_x = pad4(in_dim);
-  int r2 = 2 * dm.ld_f;
+  dm.rings = 0;
+  set_bwd_regions(dm, 0);
+  return true;
+}
+
+// The backward's layout with its first ``ws`` regions in the global
+// workspace (see fused_set_transformer_bwd): r2 holds the MLP pair where
+// it stays in shared memory, and always the qkv gradient, g and x.
+void set_bwd_regions(Dims& dm, int ws) {
+  dm.ws = ws;
+  int r2 = ws >= 2 ? 0 : 2 * dm.ld_f;
   if (dm.ld_big > r2) r2 = dm.ld_big;
   if (dm.ld_g > r2) r2 = dm.ld_g;
   if (dm.ld_x > r2) r2 = dm.ld_x;
   dm.ld_r2 = r2;
-  dm.rings = 0;
-  return true;
 }
 
-// Shared-memory floats of one backward block (see fused_set_transformer_bwd)
-// without the weight rings.
+// Shared-memory floats of one backward block without the weight rings:
+// the residual copies at the L + 1 block boundaries (one stream where they
+// are in the workspace), five [tile, ld_h] buffers, qkv (where it is
+// shared), r2 and the softmax statistics.
 size_t bwd_smem_floats(const Dims& dm) {
+  const int copies = dm.ws >= 1 ? 1 : dm.layers + 1;
+  const int qkv = dm.ws >= 3 ? 0 : dm.ld_big;
   return (size_t)dm.tile_pad *
-         ((dm.layers + 6) * dm.ld_h + dm.ld_big + dm.ld_r2 + 3 * dm.heads);
+         ((copies + 5) * dm.ld_h + qkv + dm.ld_r2 + 3 * dm.heads);
+}
+
+// The backward's layout: the first of 0, 1, 2, 3 regions in the workspace
+// with which its buffers fit in shared memory (3 with ``all_global``, which
+// checks that only the storage moves); false where none fits.
+bool pick_bwd_regions(Dims& dm, bool all_global) {
+  for (int ws = all_global ? 3 : 0; ws <= 3; ++ws) {
+    set_bwd_regions(dm, ws);
+    if (sizeof(float) * bwd_smem_floats(dm) <= (size_t)kMaxSmem) return true;
+  }
+  return false;
 }
 
 // The bytes of a block of `threads` with `floats` of buffers and, where
@@ -1332,17 +1416,22 @@ FmaWeights fma_weights(const void* const* w, const float* const* b) {
 
 extern "C" {
 
-// Raise both kernels' dynamic shared-memory limit to a block's maximum, once
-// for the current device (the attribute belongs to its context), so that no
-// launch sets it.  Returns the first error.
+// Raise the kernels' dynamic shared-memory limit (the forward's, and the
+// backward's in both layouts) to a block's maximum, once for the current
+// device (the attribute belongs to its context), so that no launch sets
+// it.  Returns the first error.
 int fused_set_transformer_f32_init(void) {
   cudaError_t err = cudaFuncSetAttribute(
       fused_set_transformer_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kMaxSmem);
   if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(fused_set_transformer_bwd<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kMaxSmem);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaFuncSetAttribute(
-      fused_set_transformer_bwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kMaxSmem);
+      fused_set_transformer_bwd<true>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
 }
 
 // The forward of a differentiable fp32 call, x [rows, in] to y [rows,
@@ -1381,28 +1470,34 @@ int fused_set_transformer_train_fwd_f32(const void* x, const void* key_mask,
 // writes dx [rows, in] and the 12 fp32 weight gradients, flat in
 // flatten_params order, to dw.  part is fp32 scratch of grid x (the size
 // of dw); grid (<= the number of tiles) is the number of persistent
-// blocks.  The bf16 backward is the tensor-core kernel of
-// fused_transformer_bf16.cu.
+// blocks.  The layout: every region in shared memory where it fits, else
+// the residual copies, then the MLP pair, then qkv in ws, fp32 scratch of
+// grid x (their floats a block) (null where the shared layout is taken);
+// global_ws = 1 moves all three, a check that only the storage moves.
+// The bf16 backward is the tensor-core kernel of fused_transformer_bf16.cu.
 int fused_set_transformer_bwd_f32(const void* x, const void* key_mask,
                                   const void* g, const void* const* w,
                                   const float* const* b, void* dx,
-                                  float* part, float* dw, long rows,
-                                  int set_size, int in_dim, int hidden,
-                                  int heads, int layers, int mlp, int out_dim,
-                                  int grid, void* stream) {
+                                  float* part, float* dw, void* ws,
+                                  long rows, int set_size, int in_dim,
+                                  int hidden, int heads, int layers, int mlp,
+                                  int out_dim, int grid, int global_ws,
+                                  void* stream) {
   Dims dm;
   if (!make_dims(dm, rows, set_size, in_dim, hidden, heads, layers, mlp,
-                 out_dim) || grid < 1)
+                 out_dim) || grid < 1 || !pick_bwd_regions(dm, global_ws))
     return (int)cudaErrorInvalidValue;
+  if (dm.ws > 0 && ws == nullptr) return (int)cudaErrorInvalidValue;
   const size_t smem = with_rings(bwd_smem_floats(dm), kBwdThreads, dm);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaSuccess;
   const long ntiles = (rows + dm.tile - 1) / dm.tile;
   if (grid > ntiles) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  fused_set_transformer_bwd<<<grid, kBwdThreads, smem, s>>>(
+  const auto kernel = dm.ws > 0 ? fused_set_transformer_bwd<true>
+                                : fused_set_transformer_bwd<false>;
+  kernel<<<grid, kBwdThreads, smem, s>>>(
       (const float*)x, (const unsigned char*)key_mask, (const float*)g,
-      fma_weights(w, b), (float*)dx, part, dm);
+      fma_weights(w, b), (float*)dx, part, (float*)ws, dm);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const Offsets og = grad_offsets(dm);

@@ -5,9 +5,11 @@ positional embeddings; keys of invalid elements are masked with -1e9.
 A CUDA tensor always runs the whole net in one CUDA kernel
 (``ops/cuda/fused_transformer.py``), key mask included, which raises on
 what it does not take (a condition, sets above 32); with grad on, its
-backward is the backward kernel (in bf16 at width 256 with the residual
-copies in global memory), and a call whose backward tile would not fit
-raises before the forward launches.  A CPU tensor takes the unfused
+backward is the backward kernel (at widths whose tile does not fit
+otherwise, with regions of it in a global workspace: in bf16 the residual
+copies at 256, in fp32 also the MLP pair from 192 and qkv at 256), and a
+call whose backward tile would not fit even so raises before the forward
+launches.  A CPU tensor takes the unfused
 path, ``plain_forward``, which is also the kernels' plain version
 (autograd through it for the backward).  The reference's ``fused`` switch
 has no counterpart: the device chooses.
@@ -82,11 +84,12 @@ class SetTransformer(nn.Module):
     def check_backward_fits(self, x) -> None:
         """Raise unless the backward kernel takes this net at x's set size
         where the forward does: a differentiable call is refused before its
-        forward launches.  (A call the forward refuses raises there.)  In
-        bf16 every net of the reference's configs fits, the hidden-256 ones
-        with the residual copies in global memory; what is left is the fp32
-        FMA pair's tile at widths of 192 and up (GraphCNF's node flow at
-        sets of 24) and a bf16 tile too large even so."""
+        forward launches.  (A call the forward refuses raises there.)
+        Every net of the reference's configs fits in both dtypes, the wide
+        ones with regions of the tile in global memory (GraphCNF's node
+        flow at hidden 192 and 256 in fp32, at 256 in bf16); what is left
+        is a tile too large even so (a width above 264 in fp32, above 256 or
+        an MLP ratio of 4 at 256 in bf16, at sets of 24)."""
         cd = torch_dtype(self.compute_dtype)
         H, mlp = self.hidden_dim, self.mlp_ratio * self.hidden_dim
         if not ft.supported(x, None, None, H, self.num_heads,
@@ -95,14 +98,12 @@ class SetTransformer(nn.Module):
         if not ft.bwd_fits(cd, x.shape[1], x.shape[2], H, mlp,
                            self.out.w.shape[1], self.num_heads,
                            self.num_layers):
-            item = ("Queue C: a call the kernels refuse"
-                    if cd == torch.bfloat16
-                    else "Queue B 14: the fp32 pair's tile")
             raise NotImplementedError(
                 f"the fused SetTransformer backward has no tile for width "
                 f"{H} at sets of {x.shape[1]} in {self.compute_dtype}: its "
-                f"shared memory is over {ft.MAX_SMEM} bytes (ROADMAP.md, "
-                f"{item})")
+                f"shared memory is over {ft.MAX_SMEM} bytes even with its "
+                f"regions in global memory (ROADMAP.md, Queue C: a call "
+                f"the kernels refuse)")
 
     def forward(self, x, cond=None, mask=None):
         if not x.is_cuda:

@@ -22,8 +22,9 @@ autograd, as ``defvjp`` does in the reference.  ``LAUNCHES`` and
 those of the fp32 FMA forward of a differentiable call;
 ``MASKED_LAUNCHES``, ``MASKED_TRAIN_FWD_LAUNCHES`` and
 ``MASKED_BWD_LAUNCHES`` count, among them, those that took a key mask, and
-``GLOBAL_H_BWD_LAUNCHES`` the bf16 backward's with its residual copies in
-global memory (nets whose tile does not fit otherwise: hidden 256).
+``GLOBAL_H_BWD_LAUNCHES`` the backward's with regions in a global workspace
+(nets whose tile does not fit otherwise: in bf16 the residual copies at
+hidden 256; in fp32 also the MLP pair at 192, and qkv at 256).
 
 A key mask ``[B, S]`` (nonzero = a valid key) reaches every kernel as one
 byte a key, cast once here: the logits of masked keys are -1e9 before the
@@ -71,8 +72,11 @@ TRAIN_FWD_LAUNCHES = {"float32": 0}
 MASKED_LAUNCHES = {"bfloat16": 0, "float32": 0}
 MASKED_TRAIN_FWD_LAUNCHES = {"float32": 0}
 MASKED_BWD_LAUNCHES = {"bfloat16": 0, "float32": 0}
-# the bf16 backward's launches with the residual copies in global memory
-GLOBAL_H_BWD_LAUNCHES = {"bfloat16": 0}
+# the backward's launches with regions in its global workspace
+GLOBAL_H_BWD_LAUNCHES = {"bfloat16": 0, "float32": 0}
+# the fp32 backward's regions that move to its workspace, in this order,
+# until its tile fits (csrc/fused_transformer.cu pick_bwd_regions)
+FMA_WS_REGIONS = ("copies", "mlp", "qkv")
 
 # (source, entry point) of the forward and of the backward
 _ENTRY = {torch.bfloat16: ("fused_transformer_bf16",
@@ -148,28 +152,40 @@ def pad16(n: int) -> int:
 
 def bwd_layout(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
                mlp: int, out_dim: int, heads: int, layers: int,
-               global_h: bool = False) -> tuple[int, int, bool]:
-    """(rows of a tile, dynamic shared memory of one block, whether the
-    residual copies live in global memory) of the backward, as the kernel
-    picks them.  bf16: whole sets up to 64 rows, padded to 16-row m-tiles,
-    rows of bf16 a multiple of 16 plus 8 wide; 32-row tiles where 64 do
-    not fit (nets wider or deeper than the flagship); where neither fits,
-    or with ``global_h``, the same tiles with the residual stream's copies
-    at the block boundaries in a global workspace (``h_workspace_elems``)
-    and one in shared memory.  fp32: up to 32 rows padded to 8, rows
-    ``conflict_free`` wide (x's a multiple of 4), the copies in shared
-    memory (``make_dims`` in ``csrc/fused_transformer.cu``).  Both hold the
-    residual stream at each of the layers + 1 block boundaries, five
-    [tile, H] buffers, qkv, a region for the MLP pair / the qkv gradient /
-    g / x, and the fp32 softmax statistics; the fp32 block also its warps'
-    weight rings where they fit (``with_rings``)."""
+               global_h: bool = False) -> tuple[int, int, bool | tuple]:
+    """(rows of a tile, dynamic shared memory of one block, what lives in
+    global memory) of the backward, as the kernel picks them.  bf16: whole
+    sets up to 64 rows, padded to 16-row m-tiles, rows of bf16 a multiple
+    of 16 plus 8 wide; 32-row tiles where 64 do not fit (nets wider or
+    deeper than the flagship); where neither fits, or with ``global_h``,
+    the same tiles with the residual stream's copies at the block
+    boundaries in a global workspace (``h_workspace_elems``) and one in
+    shared memory; the third item says whether they are.  fp32: up to 32
+    rows padded to 8, rows ``conflict_free`` wide (x's a multiple of 4),
+    the first regions of ``FMA_WS_REGIONS`` (the copies, the MLP pair, qkv)
+    in a global workspace (``fma_workspace_elems``) with which the rest
+    fits, none where all fits, all three with ``global_h``; the third item
+    names them (``pick_bwd_regions`` in ``csrc/fused_transformer.cu``).
+    Both hold the residual stream at each of the layers + 1 block
+    boundaries (or one), five [tile, H] buffers, qkv, a region for the MLP
+    pair / the qkv gradient / g / x, and the fp32 softmax statistics; the
+    fp32 block also its warps' weight rings where they fit
+    (``with_rings``).  Where nothing fits the last layout is returned,
+    over MAX_SMEM."""
     if dtype != torch.bfloat16:
         tile, tile_pad = _tile(set_size)
         ld_h, ld_big, ld_f = (conflict_free(n)
                               for n in (hidden, 3 * hidden, mlp))
-        ld_r2 = max(2 * ld_f, ld_big, conflict_free(out_dim), pad4(in_dim))
-        return tile, with_rings(4 * tile_pad * (
-            (layers + 6) * ld_h + ld_big + ld_r2 + 3 * heads)), False
+        ld_rest = max(ld_big, conflict_free(out_dim), pad4(in_dim))
+        for ws in range(3 if global_h else 0, 4):
+            copies = 1 if ws >= 1 else layers + 1
+            ld_r2 = ld_rest if ws >= 2 else max(2 * ld_f, ld_rest)
+            smem = 4 * tile_pad * ((copies + 5) * ld_h
+                                   + (0 if ws >= 3 else ld_big) + ld_r2
+                                   + 3 * heads)
+            if smem <= MAX_SMEM:
+                break
+        return tile, with_rings(smem), FMA_WS_REGIONS[:ws]
     ld_h, ld_big, ld_f = (pad16(n) + 8 for n in (hidden, 3 * hidden, mlp))
     ld_r2 = max(2 * ld_f, ld_big, pad16(out_dim) + 8, pad16(in_dim) + 8)
     for in_global in ((True,) if global_h else (False, True)):
@@ -197,6 +213,20 @@ def h_workspace_elems(tile: int, hidden: int, layers: int, grid: int) -> int:
     copies: for each of ``grid`` blocks, h at the block boundaries 0 ..
     layers - 1, each a [pad16(tile), pad16(hidden) + 8] image."""
     return grid * layers * pad16(tile) * (pad16(hidden) + 8)
+
+
+def fma_workspace_elems(regions: tuple, tile: int, hidden: int, mlp: int,
+                        layers: int, grid: int) -> int:
+    """fp32 elements of the fp32 backward's global workspace holding
+    ``regions`` (``bwd_layout``'s): for each of ``grid`` blocks, h at the
+    block boundaries 0 .. layers - 1, the MLP pair f | m and qkv, each a
+    [tile padded to 8, conflict_free(width)] image (``ws_floats`` in the
+    kernel)."""
+    tile_pad = -(-tile // ROW_PAD) * ROW_PAD
+    widths = {"copies": layers * conflict_free(hidden),
+              "mlp": 2 * conflict_free(mlp),
+              "qkv": conflict_free(3 * hidden)}
+    return grid * tile_pad * sum(widths[r] for r in regions)
 
 
 def fwd_shape(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
@@ -253,6 +283,21 @@ def bwd_grid(rows: int, tile: int, smem: int, sms: int) -> int:
     """Persistent blocks of the backward: as many as fit on the card at
     once, never more than there are tiles."""
     return max(1, min(-(-rows // tile), sms * smem_blocks_per_sm(smem)))
+
+
+def bwd_launch(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
+               mlp: int, out_dim: int, heads: int, layers: int, rows: int,
+               sms: int, global_h: bool = False) -> tuple:
+    """(tile, shared memory, what lives in global memory, grid) of a
+    backward launch on ``rows`` rows over ``sms`` SMs: ``bwd_layout``'s,
+    and ``bwd_grid``'s grid.  A layout forced global (``global_h``) keeps
+    the default layout's grid, so the weight gradients' slices are summed
+    in the same order."""
+    net = (dtype, set_size, in_dim, hidden, mlp, out_dim, heads, layers)
+    tile, smem, in_global = bwd_layout(*net, global_h)
+    grid = bwd_grid(rows, tile, bwd_layout(*net)[1] if global_h else smem,
+                    sms)
+    return tile, smem, in_global, grid
 
 
 def pad4(n: int) -> int:
@@ -364,13 +409,13 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
 _FWD_ARGS = [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P]
 _BWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I,
              _P]
-# the entries that take a key mask, the pointer after x's: every forward,
-# and the fp32 FMA backward; the bf16 backward also takes the residual
-# copies' workspace after dw and its layout after grid
+# the entries that take a key mask, the pointer after x's: every forward
+# and both backwards; each backward also takes its global workspace after
+# dw and its layout switch after grid
 _MASKED_FWD_ARGS = _FWD_ARGS[:1] + [_P] + _FWD_ARGS[1:]
-_FMA_BWD_ARGS = _BWD_ARGS[:1] + [_P] + _BWD_ARGS[1:]
 _MASKED_BWD_ARGS = (_BWD_ARGS[:1] + [_P] + _BWD_ARGS[1:7] + [_P]
                     + _BWD_ARGS[7:-1] + [_I, _P])
+_FMA_BWD_ARGS = _MASKED_BWD_ARGS
 # sets the FMA pair's shared-memory limit once a device
 _FMA_INIT = "fused_set_transformer_f32_init"
 _fns: dict = {}
@@ -553,9 +598,11 @@ def fused_set_transformer_bwd(packed: PackedWeights, x, g, *,
     back to x and the 12 weights, under the forward's key mask.
     Returns (dx in x's dtype, 12 fp32 weight gradients shaped as
     ``flatten_params``).  The matrices' gradients are rounded to the
-    compute dtype, as the transpose of their cast.  ``_global_h`` (bf16)
-    takes the global layout of the residual copies where the shared one
-    fits too: a check that the two give the same bits, not an option."""
+    compute dtype, as the transpose of their cast.  ``_global_h`` takes the
+    global layout where the shared one fits too (bf16: the residual copies
+    in the workspace; fp32: all of ``FMA_WS_REGIONS``), at the shared
+    layout's grid: a check that the two give the same bits, not an
+    option."""
     _check_x(packed, x, num_heads, "backward", mask)
     bf16 = packed.dtype == torch.bfloat16
     B, S, in_dim = x.shape
@@ -564,8 +611,10 @@ def fused_set_transformer_bwd(packed: PackedWeights, x, g, *,
                          f"{tuple(g.shape)} on {g.device}, want "
                          f"{(B, S, packed.out_dim)} on {x.device}")
     H, L, RH, OUT = packed.hidden, packed.layers, packed.mlp, packed.out_dim
-    tile, smem, in_global = bwd_layout(packed.dtype, S, in_dim, H, RH, OUT,
-                                       num_heads, L, _global_h and bf16)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    tile, smem, in_global, grid = bwd_launch(
+        packed.dtype, S, in_dim, H, RH, OUT, num_heads, L, B * S, sms,
+        _global_h)
     if smem > MAX_SMEM:
         raise ValueError(f"fused SetTransformer backward: a tile needs "
                          f"{smem} bytes of shared memory, over {MAX_SMEM}")
@@ -573,20 +622,19 @@ def fused_set_transformer_bwd(packed: PackedWeights, x, g, *,
     g2 = g.detach().to(packed.dtype).contiguous()
     sizes = [math.prod(shape) for shape in packed.shapes]
     total = sum(sizes)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    grid = bwd_grid(B * S, tile, smem, sms)
     dx = torch.empty_like(x2)
     part = torch.empty(grid, total, dtype=torch.float32, device=x.device)
     dw = torch.empty(total, dtype=torch.float32, device=x.device)
-    hws = (torch.empty(h_workspace_elems(tile, H, L, grid),
-                       dtype=torch.bfloat16, device=x.device)
-           if in_global else None)
+    if not in_global:
+        ws = None
+    elif bf16:
+        ws = torch.empty(h_workspace_elems(tile, H, L, grid),
+                         dtype=torch.bfloat16, device=x.device)
+    else:
+        ws = torch.empty(fma_workspace_elems(in_global, tile, H, RH, L, grid),
+                         dtype=torch.float32, device=x.device)
     km = key_mask_bytes(mask)
     source, name = _BWD_ENTRY[packed.dtype]
-    # both entries take the key mask after x; the bf16 one also the
-    # workspace after dw and its layout after grid
-    mid = (None if hws is None else hws.data_ptr(),) if bf16 else ()
-    tail = (int(in_global),) if bf16 else ()
     with torch.cuda.device(x.device):
         fn = (_fn(source, name, _MASKED_BWD_ARGS) if bf16
               else _fma_fn(name, _FMA_BWD_ARGS, x.device))
@@ -594,14 +642,15 @@ def fused_set_transformer_bwd(packed: PackedWeights, x, g, *,
         err = fn(x2.data_ptr(), _mask_ptr(km), g2.data_ptr(),
                  packed.bwd_w_ptrs if bf16 else packed.fma_w_ptrs,
                  packed.b_ptrs, dx.data_ptr(), part.data_ptr(),
-                 dw.data_ptr(), *mid, B * S, S, in_dim, H, num_heads, L, RH,
-                 OUT, grid, *tail, stream)
+                 dw.data_ptr(), None if ws is None else ws.data_ptr(),
+                 B * S, S, in_dim, H, num_heads, L, RH, OUT, grid,
+                 int(_global_h), stream)
     build.check(err, name)
     BWD_LAUNCHES[_KEY[packed.dtype]] += 1
     if km is not None:
         MASKED_BWD_LAUNCHES[_KEY[packed.dtype]] += 1
     if in_global:
-        GLOBAL_H_BWD_LAUNCHES["bfloat16"] += 1
+        GLOBAL_H_BWD_LAUNCHES[_KEY[packed.dtype]] += 1
     dws = tuple(t.view(shape) for t, shape in
                 zip(dw.split(sizes), packed.shapes))
     return dx.to(x.dtype), dws

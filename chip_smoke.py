@@ -59,7 +59,13 @@ Run from the root of a checkout on a machine with one NVIDIA card:
    architecture (hidden 96, 4 node and 4 edge layers, K = 8, batch 64)
    with compute_dtype float32 and dataset synthetic for FP32_MOL_STEPS
    (30) steps with the checks of 4. but the optimum, the pair launched
-   with the node flow's key mask, 10 more steps traced.
+   with the node flow's key mask, 10 more steps traced; the same for
+   runs/molecules_v4/config.json (hidden 192, 4 node and 6 edge layers,
+   batch 128; evals untrained and at the end), #4 launched with the
+   residual copies and the MLP pair in its global workspace; and
+   runs/moses/config.json (hidden 256, K = 16, batch 192) in fp32 for
+   FP32_MOSES_CALLS (2) calls of its 4 steps a call, no eval: every loss
+   finite, #4 with qkv in its workspace too.
 6. The graph-coloring family (runs/coloring/config.json as it is: bf16,
    batch 256, graphs of 10-20 nodes padded to 20, a ScannedBlocks stack of
    3 two-parity blocks of RGCN couplings).  First, with the kernel checks
@@ -136,11 +142,15 @@ Run from the root of a checkout on a machine with one NVIDIA card:
    128 graphs of 24 nodes), at --seed and --seed + 1: #3's output within
    1e-4 and each gradient of #4 within 2e-4 (allclose's) of plain_forward
    and autograd through it with the mask, the pair without the mask above
-   10 x each, a mask of ones bitwise no mask; timed at hidden 96 on 64
-   graphs.  Then runs/molecules_v4/config.json as
+   10 x each, a mask of ones bitwise no mask; the same at molecules_v4's
+   hidden 192 on 128 graphs and at moses's 256 on 192 graphs (out 300),
+   where #4 keeps regions of its tile in a global workspace (its launches
+   counted); timed at hidden 96 on 64 graphs and at the two wide shapes;
+   #4 with every region in the workspace forced at hidden 96 and 128
+   bitwise the shared layout's.  Then runs/molecules_v4/config.json as
    it is but for its dataset (the in-memory synthetic molecules; hidden
    192, 4 node and 6 edge layers, K = 8, bf16, batch 128) for MOL_STEPS
-   (60) steps with the checks of 4.,
+   (20) steps with the checks of 4.,
    every molecule kernel launched with the mask, the final sample metrics
    at 1,024 and sampled_molecules.json; prints
    molecule_generation_train_samples_per_s, the peak memory, the validity
@@ -152,7 +162,7 @@ Run from the root of a checkout on a machine with one NVIDIA card:
    --seed and --seed + 1.  Then runs/moses/config.json at
    full width (hidden 256, K = 16, 12 bond layers, node_cond_atoms,
    bond_cond_degree, batch 192; synthetic molecules) the same way for
-   MOSES_STEPS (60) steps, #4 bf16 launched with the copies in global
+   MOSES_STEPS (20) steps, #4 bf16 launched with the copies in global
    memory.
 10. The parallel layer (``parallel_phase``): a process group of one rank
    over NCCL from a FileStore, its 1 x 1 ``create_mesh()``; runs/set16 as
@@ -163,10 +173,10 @@ Run from the root of a checkout on a machine with one NVIDIA card:
    then the sharded IS eval on the mesh bitwise ``eval_step`` on one eval
    batch x 4 chains, #3 fp32 and #2 launched; ms a step with and without
    the mesh printed, not bounded.
-11. Prints one JSON line of kernel numbers (with the coloring's, the
-   dequantized flows', the LM's and the molecules' shapes, and every
-   path's launches), then, as the last line, {"ok": true, "device":
-   {...}}.
+11. Prints each phase's seconds, one JSON line of kernel numbers (with
+   the coloring's, the dequantized flows', the LM's and the molecules'
+   shapes, and every path's launches), then, as the last line, {"ok":
+   true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA card, outside a checkout
 of the repo, or when any check fails.  Imports nothing of JAX.
@@ -1141,8 +1151,8 @@ def read_launches() -> dict:
                for k, v in ft.MASKED_LAUNCHES.items()},
             **{f"fused_set_transformer_bwd_{short[k]}_masked": v
                for k, v in ft.MASKED_BWD_LAUNCHES.items()},
-            "fused_set_transformer_bwd_bf16_global_h":
-                ft.GLOBAL_H_BWD_LAUNCHES["bfloat16"]}
+            **{f"fused_set_transformer_bwd_{short[k]}_global_h": v
+               for k, v in ft.GLOBAL_H_BWD_LAUNCHES.items()}}
 
 
 TRAIN_STEPS, TRAIN_EVAL_EVERY, TRAIN_LOG_EVERY = 200, 100, 20
@@ -1351,6 +1361,52 @@ def train_checked(task, task_name: str, args: dict, tcfg, out_dir: str,
     return {**final, "launches": launches}
 
 
+def train_calls(task, tcfg, calls: int, timings: dict, kernels) -> dict:
+    """``calls`` calls of ``tcfg.steps_per_call`` train steps of ``task``
+    through the Trainer's step (its data init on the first batch, its
+    batches grouped as ``Trainer.train`` groups them, its beta and noise a
+    step), with no eval: every loss finite and each of ``kernels``
+    launched.  Records the losses, the wall seconds, ms a step and
+    samples/s over the calls after the first, and the peak device memory.
+    Returns the launches of the steps."""
+    import numpy as np
+    import torch
+    from categoricalnf_tpu_torch.data.prefetch import to_device
+    from categoricalnf_tpu_torch.training.engine import Trainer, grouped
+    from categoricalnf_tpu_torch.training.state import TrainState
+
+    trainer = Trainer(task, tcfg)
+    batches = grouped(task.train_batches(np.random.default_rng(tcfg.seed)),
+                      tcfg.steps_per_call)
+    trainer.init_model(next(batches)[0])
+    state = trainer.state = TrainState.create(task.model, tcfg.optimizer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, ends = [], []
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        for batch in next(batches):
+            loss, _, _ = trainer._step(state, to_device(batch, task.device))
+            losses.append(float(loss.detach()))
+        ends.append(time.perf_counter())
+    launches = read_launches()
+    check(all(np.isfinite(v) for v in losses),
+          f"training loss not finite: {losses}")
+    for name in kernels:
+        check(launches[name] > 0, f"kernel {name} was not launched "
+              "while training")
+    steps = (calls - 1) * tcfg.steps_per_call
+    secs = ends[-1] - ends[0]
+    timings.update(
+        losses=losses, wall_s=ends[-1] - t0,
+        train_peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        rate_steps=f"{tcfg.steps_per_call + 1}-{len(losses)}",
+        train_ms_per_step=secs * 1e3 / steps,
+        train_samples_per_s=steps * task.batch_size / secs)
+    return launches
+
+
 def train_flagship(seed: int, timings: dict, card: str,
                    device: str = "cuda") -> dict:
     """Train the flagship (runs/set16/config.json: bf16, 8 layers, hidden
@@ -1418,14 +1474,24 @@ def train_flagship(seed: int, timings: dict, card: str,
     return final["launches"]
 
 
-# fp32 training through the FMA pair: runs/set16 and runs/molecules' steps
+# fp32 training through the FMA pair: runs/set16's, runs/molecules' and
+# runs/molecules_v4's steps; runs/moses's, 2 calls of its 4 steps a call
 FP32_SET_STEPS, FP32_MOL_STEPS = 60, 30
+FP32_MOSES_CALLS = 2
 FP32_PAIR = ("fused_set_transformer_train_f32",
              "fused_set_transformer_bwd_f32")
 FP32_MOL_KERNELS = ("mixture_forward", "mixture_forward_bwd",
                     "mixture_inverse", "fused_set_transformer_f32",
                     "fused_set_transformer_f32_masked") + FP32_PAIR + tuple(
                         f"{name}_masked" for name in FP32_PAIR)
+# the wide nets' #4 keeps regions of its tile in global memory; what their
+# train steps alone launch (no eval, no sample)
+FP32_WIDE_KERNELS = FP32_MOL_KERNELS + (
+    "fused_set_transformer_bwd_f32_global_h",)
+FP32_WIDE_STEP_KERNELS = ("mixture_forward", "mixture_forward_bwd",
+                          "fused_set_transformer_bwd_f32_global_h"
+                          ) + FP32_PAIR + tuple(f"{name}_masked"
+                                                for name in FP32_PAIR)
 
 
 def fp32_training_phase(seed: int, timings: dict, card: str,
@@ -1442,8 +1508,15 @@ def fp32_training_phase(seed: int, timings: dict, card: str,
     synthetic (its .npz is not in the repo) for FP32_MOL_STEPS steps (evals
     of its 8 batches of 4 chains before, at half and at the end), with
     ``train_checked``'s checks and the pair launched with the node flow's
-    key mask.  Each run traces 10 more steps.  Returns the launches of the
-    two trainings."""
+    key mask; runs/molecules_v4/config.json (hidden 192, 4 node and 6 edge
+    layers, K = 8, batch 128) the same way for FP32_MOL_STEPS steps, evals
+    untrained and at the end, #4 launched with regions of its tile in its
+    global workspace.  Each of these traces 10 more steps.  Then
+    runs/moses/config.json (hidden 256, K = 16, batch 192) in fp32 for
+    FP32_MOSES_CALLS calls of its 4 steps a call, no eval
+    (``train_calls``: the losses finite, #4 in its global layout), and
+    traces one call more after a warm-up step.  Returns the launches of
+    the four trainings."""
     from categoricalnf_tpu_torch import inference
     from categoricalnf_tpu_torch.utils.config import load_config
 
@@ -1499,8 +1572,60 @@ def fp32_training_phase(seed: int, timings: dict, card: str,
                                                     seed)
     launches["molecules_fp32_training"] = final["launches"]
     timings["molecules"] = mol_timings
+
+    # runs/molecules_v4 in fp32 (hidden 192: #4's copies and MLP pair in
+    # its global workspace), evals untrained and at the end
+    t0 = time.perf_counter()
+    cfg = load_config(os.path.join(REPO, "runs", "molecules_v4"))
+    a = cfg["args"]
+    v4_args = {**a, "compute_dtype": "float32", "dataset": "synthetic",
+               "seed": seed}
+    v4 = inference.build_task(cfg["task"], v4_args, device=device)
+    check((v4.hidden_dim, v4.num_layers_node, v4.num_layers_edge,
+           v4.num_mixtures, v4.batch_size, v4.compute_dtype)
+          == (MOL_HIDDEN, 4, 6, K, MOL_BATCH, "float32"),
+          "runs/molecules_v4 in fp32 is not the model this phase is written "
+          "for")
+    tcfg = dataclasses.replace(train_config(a, seed, a["eval_samples"]),
+                               num_steps=FP32_MOL_STEPS,
+                               eval_every=FP32_MOL_STEPS, log_every=10)
+    v4_timings: dict = {"cut": {"dataset": "synthetic",
+                                "compute_dtype": "float32"}}
+    with tempfile.TemporaryDirectory() as out_dir:
+        final = train_checked(v4, cfg["task"], v4_args, tcfg, out_dir,
+                              v4_timings, FP32_WIDE_KERNELS,
+                              rate_after=tcfg.log_every)
+        v4_timings["step_profile"] = profile_steps(v4, tcfg.optimizer, seed)
+    launches["molecules_v4_fp32_training"] = final["launches"]
+    v4_timings["phase_s"] = time.perf_counter() - t0
+    timings["molecules_v4"] = v4_timings
+
+    # runs/moses in fp32 (hidden 256: qkv in the workspace too): two calls
+    # of its steps_per_call steps, no eval
+    t0 = time.perf_counter()
+    cfg = load_config(os.path.join(REPO, "runs", "moses"))
+    a = cfg["args"]
+    moses_args = {**a, "compute_dtype": "float32", "dataset": "synthetic",
+                  "seed": seed}
+    moses = inference.build_task(cfg["task"], moses_args, device=device)
+    check((moses.hidden_dim, moses.num_mixtures, moses.batch_size,
+           moses.compute_dtype) == (MOSES_HIDDEN, MOSES_K, MOSES_BATCH,
+                                    "float32"),
+          "runs/moses in fp32 is not the model this phase is written for")
+    tcfg = train_config(a, seed, a["eval_samples"])
+    moses_timings: dict = {"cut": {"dataset": "synthetic",
+                                   "compute_dtype": "float32",
+                                   "eval": "none"}}
+    launches["moses_fp32_training"] = train_calls(
+        moses, tcfg, FP32_MOSES_CALLS, moses_timings, FP32_WIDE_STEP_KERNELS)
+    moses_timings["step_profile"] = profile_steps(
+        moses, tcfg.optimizer, seed, warmup=1, steps=tcfg.steps_per_call)
+    moses_timings["phase_s"] = time.perf_counter() - t0
+    timings["moses"] = moses_timings
     for run, t, b in (("set16", set_timings, task.batch_size),
-                      ("molecules", mol_timings, mol.batch_size)):
+                      ("molecules", mol_timings, mol.batch_size),
+                      ("molecules_v4", v4_timings, v4.batch_size),
+                      ("moses", moses_timings, moses.batch_size)):
         print(json.dumps({"metric": "fp32_train_samples_per_s", "run": run,
                           "value": t["train_samples_per_s"],
                           "unit": "samples/s", "steps": t["rate_steps"],
@@ -1916,9 +2041,10 @@ LM_K = 32
 LM_SHAPES = {"density": (128, 256, 4), "m512": (128, 4), "m16": (4, 4)}
 # the LM phase's train steps, chosen from the step time measured on the
 # card so that the phase fits the script's time (PERF.md, section 4: 40
-# until the transformer's phase and runs/moses's training came), and its
-# log cadence
-LM_STEPS, LM_LOG_EVERY = 20, 5
+# until the transformer's phase and runs/moses's training came, 20 until
+# the fp32 runs of molecules_v4 and moses came), and its log cadence: the
+# rate is read over the second half
+LM_STEPS, LM_LOG_EVERY = 8, 4
 # the characters of the crops the LM phase traces a step on (profile_steps)
 LM_PROFILE_CROP = 32
 # what runs/lm_v6/config.json builds, which the phase checks it trains
@@ -2088,9 +2214,10 @@ def check_lm_against_cpu(task, seed: int, n: int = 8, length: int = 32):
 
 
 LM_KERNELS = ("mixture_forward", "mixture_forward_bwd", "mixture_inverse")
-# the transformer backbone's train steps on runs/lm_v6 (net transformer), and
-# the sequences of its KV-cache rollout check
-LM_TRANSFORMER_STEPS, KV_ROLLOUT_BATCH = 20, 16
+# the transformer backbone's train steps on runs/lm_v6 (net transformer; 20
+# until the fp32 runs of molecules_v4 and moses came), and the sequences of
+# its KV-cache rollout check
+LM_TRANSFORMER_STEPS, KV_ROLLOUT_BATCH = 8, 16
 # the rollout against the batched pass: fp32 within 2e-4 (the reference's
 # own test of its cache, tests/test_language.py); bf16 by the relative error
 # of the norm within BF16_FWD_REL, the limit of #3 bf16 against its plain
@@ -2242,7 +2369,7 @@ def lm_phase(seed: int, timings: dict, card: str, device: str = "cuda",
         check(os.path.exists(os.path.join(out_dir, "samples.txt")),
               "the LM run wrote no samples.txt")
         steps, secs, timings["rate_steps"] = rate_windows(rows,
-                                                          2 * LM_LOG_EVERY)
+                                                          num_steps // 2)
         timings.update(
             optimum_bpd=optimum, untrained_bpd=bpd0, val_bpd=vals,
             best_bpd=final["best_bpd"], test_bpd=final["test_bpd"],
@@ -2336,9 +2463,9 @@ MOL_NODES, MOL_NODE_DIM, MOL_BATCH, MOL_HIDDEN = 24, 6, 128, 192
 MOSES_BATCH, MOSES_HIDDEN, MOSES_K = 192, 256, 16
 # molecules_v4's and runs/moses's training steps, evals at half and at the
 # end: a v4 step takes 0.3-0.6 s on the card's host (PERF.md), and v4 was
-# cut from 120 steps to 60 when moses began to train, to keep the script
-# inside its time
-MOL_STEPS, MOSES_STEPS = 60, 60
+# cut from 120 steps to 60 when moses began to train, and both to 20 when
+# their fp32 runs came, to keep the script inside its time
+MOL_STEPS, MOSES_STEPS = 20, 20
 MOL_OUT = MOL_NODE_DIM * (2 + 3 * K)
 MOSES_OUT = MOL_NODE_DIM * (2 + 3 * MOSES_K)
 # #4 bf16's tolerance (``fused_bwd_report``): the largest relative error of
@@ -2567,6 +2694,11 @@ F32_TRAIN_FWD_TOL, F32_BWD_TOL = 1e-4, 2e-4
 # molecules_long/_v2 at 128), and its batches of graphs
 FP32_NODE_HIDDEN = (96, 128)
 FP32_NODE_BATCHES = (64, 128)
+# the widths whose #4 keeps regions of its tile in a global workspace, at
+# their configs' batches and outputs: molecules_v3/_v4 (hidden 192, K = 8,
+# 128 graphs) and moses (hidden 256, K = 16, 192 graphs), by report name
+FP32_WIDE_NODE_CASES = {"molecules_v4": (MOL_HIDDEN, MOL_BATCH, MOL_OUT),
+                        "moses": (MOSES_HIDDEN, MOSES_BATCH, MOSES_OUT)}
 
 
 def allclose_err(a, b) -> float:
@@ -2628,42 +2760,82 @@ def masked_f32_pair_readings(net, x, mask, g) -> dict:
 
 def check_masked_f32_pair(device, seeds, report):
     """The fp32 train step's pair with the key mask at the node flow's
-    shapes (in 6, out 156, sets of 24; hidden 96 and 128 on 64 and 128
-    graphs), at each seed, masks from a synthetic batch with one set of a
+    shapes (in 6, sets of 24; hidden 96 and 128 on 64 and 128 graphs, out
+    156; hidden 192 on 128 graphs, out 156, and 256 on 192 graphs, out
+    300, where #4 keeps regions of its tile in global memory, its launches
+    counted), at each seed, masks from a synthetic batch with one set of a
     single valid key and one of none (``masked_f32_pair_readings``); then
     #3 and #4 timed at runs/molecules' shape (hidden 96, 64 graphs: 1,536
-    rows), with their tiles, shared memory and grid."""
+    rows) and at the two wide ones, with their tiles, shared memory, grid
+    and workspace; and #4 with the workspace layout forced at hidden 96
+    and 128 bitwise the shared layout's (``fma_workspace_bitwise``)."""
     import torch
     from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+    cases = [(hidden, batch, MOL_OUT) for hidden in FP32_NODE_HIDDEN
+             for batch in FP32_NODE_BATCHES]
+    cases += list(FP32_WIDE_NODE_CASES.values())
     readings: dict = {}
     for seed in seeds:
         g = torch.Generator(device).manual_seed(seed + 53)
-        for hidden in FP32_NODE_HIDDEN:
-            net = molecule_net("float32", device, seed, hidden)
-            for batch in FP32_NODE_BATCHES:
-                mask = molecule_key_mask(seed, device, batch)
-                x = torch.randn(batch, MOL_NODES, MOL_NODE_DIM, generator=g,
-                                device=device)
-                gy = torch.randn(batch, MOL_NODES, MOL_OUT, generator=g,
-                                 device=device)
-                readings[f"{seed}/h{hidden}/rows{batch * MOL_NODES}"] = (
-                    masked_f32_pair_readings(net, x, mask, gy))
+        for hidden, batch, out in cases:
+            net = molecule_net("float32", device, seed, hidden, out)
+            mask = molecule_key_mask(seed, device, batch)
+            x = torch.randn(batch, MOL_NODES, MOL_NODE_DIM, generator=g,
+                            device=device)
+            gy = torch.randn(batch, MOL_NODES, out, generator=g,
+                             device=device)
+            n_global = ft.GLOBAL_H_BWD_LAUNCHES["float32"]
+            readings[f"{seed}/h{hidden}/rows{batch * MOL_NODES}"] = (
+                masked_f32_pair_readings(net, x, mask, gy))
+            n_global = ft.GLOBAL_H_BWD_LAUNCHES["float32"] - n_global
+            check((n_global > 0) == (hidden >= MOL_HIDDEN),
+                  f"the masked fp32 pair at hidden {hidden}: #4's global "
+                  f"layout launched {n_global} times")
     print(f"the masked fp32 pair at the node flow's shapes (limits: #3 "
           f"{F32_TRAIN_FWD_TOL}, #4 {F32_BWD_TOL}; controls above "
           f"{MASK_CONTROL} x): " + json.dumps(readings), flush=True)
 
-    seed, hidden, batch = seeds[0], FP32_NODE_HIDDEN[0], FP32_NODE_BATCHES[0]
+    seed = seeds[0]
+    timed_cases = {"molecules": (FP32_NODE_HIDDEN[0], FP32_NODE_BATCHES[0],
+                                 MOL_OUT), **FP32_WIDE_NODE_CASES}
+    for run, (hidden, batch, out) in timed_cases.items():
+        fwd_name = f"fused_set_transformer_train_f32_{run}"
+        bwd_name = ("fused_set_transformer_bwd_f32_molecules"
+                    if run == "molecules" else
+                    "fused_set_transformer_bwd_f32_global_h" + (
+                        "" if run == "molecules_v4" else f"_{run}"))
+        report.update(masked_f32_pair_reports(
+            device, seed, hidden, batch, out,
+            readings[f"{seed}/h{hidden}/rows{batch * MOL_NODES}"],
+            fwd_name, bwd_name))
+    layout = fma_workspace_bitwise(device, seed)
+    print("the fp32 #4 with its workspace layout forced, against the shared "
+          "layout: " + json.dumps(layout), flush=True)
+    report["fused_set_transformer_bwd_f32_global_h"][
+        "layout_bitwise_at_96_128"] = all(v["bitwise"]
+                                          for v in layout.values())
+
+
+def masked_f32_pair_reports(device, seed: int, hidden: int, batch: int,
+                            out: int, r: dict, fwd_name: str,
+                            bwd_name: str) -> dict:
+    """#3 fp32 with grad and #4 fp32, masked, timed at the node flow's
+    shape (hidden, batch graphs of 24 nodes, in 6, out) against plain and
+    autograd of plain, with ``r``, their readings at ``seed``, the bounds'
+    bytes and operations, the tiles, shared memory, grid, the regions of
+    #4's tile in global memory and its workspace."""
+    import torch
+    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
     g = torch.Generator(device).manual_seed(seed + 54)
     mask = molecule_key_mask(seed, device, batch)
     x = torch.randn(batch, MOL_NODES, MOL_NODE_DIM, generator=g,
                     device=device)
-    gy = torch.randn(batch, MOL_NODES, MOL_OUT, generator=g, device=device)
-    net = molecule_net("float32", device, seed, hidden)
+    gy = torch.randn(batch, MOL_NODES, out, generator=g, device=device)
+    net = molecule_net("float32", device, seed, hidden, out)
     ws = ft.flatten_params(net)
     packed = net._packed_weights(torch.float32)
     params = list(net.parameters())
     rows = batch * MOL_NODES
-    r = readings[f"{seed}/h{hidden}/rows{rows}"]
     with torch.no_grad():
         t_fwd = timed(lambda: ft.FusedSetTransformer.apply(
             x, packed, HEADS, mask, *ws),
@@ -2677,29 +2849,78 @@ def check_masked_f32_pair(device, seeds, report):
     n_w = sum(w.numel() for w in ws[0::2])
     n_b = sum(b.numel() for b in ws[1::2])
     macs = rows * net_macs_per_row(MOL_NODE_DIM, hidden, HEADS, 2,
-                                   2 * hidden, MOL_OUT, MOL_NODES)
+                                   2 * hidden, out, MOL_NODES)
     tile, smem = ft.fma_fwd_shape(MOL_NODES, MOL_NODE_DIM, hidden,
                                   2 * hidden)
-    report["fused_set_transformer_train_f32_molecules"] = dict(
+    fwd = dict(
         max_abs_err=r["max_abs_err"], rel_err=r["fwd_rel_err"],
         control_rel_err=r["control_rel_err"], rows=rows, **t_fwd,
         dtype="float32", tile=tile, smem=smem, blocks_per_sm=min(
             ft.FMA_FWD_BLOCKS, ft.smem_blocks_per_sm(smem)),
         # x and y, the weights, and one byte a key of the mask
-        bytes=rows * ((MOL_NODE_DIM + MOL_OUT) * 4 + 1) + (n_w + n_b) * 4,
+        bytes=rows * ((MOL_NODE_DIM + out) * 4 + 1) + (n_w + n_b) * 4,
         ops=2 * macs)
-    tile, smem = ft.bwd_shape(torch.float32, MOL_NODES, MOL_NODE_DIM, hidden,
-                              2 * hidden, MOL_OUT, HEADS, 2)
-    report["fused_set_transformer_bwd_f32_molecules"] = dict(
+    tile, smem, regions, grid = ft.bwd_launch(
+        torch.float32, MOL_NODES, MOL_NODE_DIM, hidden, 2 * hidden, out,
+        HEADS, 2, rows, torch.cuda.get_device_properties(
+            device).multi_processor_count)
+    bwd = dict(
         max_abs_err=r["max_abs_err"], rel_err=r["rel_err"],
         control_rel_err=r["control_rel_err"], rows=rows, **t_bwd,
-        dtype="float32", tile=tile, smem=smem,
-        blocks_per_sm=ft.smem_blocks_per_sm(smem),
-        grid=ft.bwd_grid(rows, tile, smem, torch.cuda.get_device_properties(
-            device).multi_processor_count),
+        dtype="float32", tile=tile, smem=smem, grid=grid,
+        blocks_per_sm=ft.smem_blocks_per_sm(smem), regions=list(regions),
+        scratch_mb=grid * (n_w + n_b) * 4 / 2**20,
+        workspace_mb=ft.fma_workspace_elems(regions, tile, hidden,
+                                            2 * hidden, 2, grid) * 4 / 2**20,
         # x, g, dx and the mask; the weights and their fp32 gradients
-        bytes=rows * ((2 * MOL_NODE_DIM + MOL_OUT) * 4 + 1)
+        bytes=rows * ((2 * MOL_NODE_DIM + out) * 4 + 1)
         + 2 * (n_w + n_b) * 4, ops=3 * 2 * macs)
+    return {fwd_name: fwd, bwd_name: bwd}
+
+
+def fma_workspace_bitwise(device, seed: int) -> dict:
+    """#4 fp32 at the node flow's hidden 96 and 128 (64 and 128 graphs of
+    24 nodes, in 6, out 156, masked), whose tiles fit in shared memory,
+    with every region of ``ft.FMA_WS_REGIONS`` in the global workspace
+    instead (the wrapper's private ``_global_h``): dx and the 12 weight
+    gradients bitwise the shared layout's at the same tile and grid, so
+    only the storage moved."""
+    import torch
+    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+    out = {}
+    g = torch.Generator(device).manual_seed(seed + 55)
+    for hidden, batch in zip(FP32_NODE_HIDDEN, FP32_NODE_BATCHES):
+        x = torch.randn(batch, MOL_NODES, MOL_NODE_DIM, generator=g,
+                        device=device)
+        gy = torch.randn(batch, MOL_NODES, MOL_OUT, generator=g,
+                         device=device)
+        mask = molecule_key_mask(seed, device, batch)
+        packed = molecule_net("float32", device, seed,
+                              hidden)._packed_weights(torch.float32)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        shape = (torch.float32, MOL_NODES, MOL_NODE_DIM, hidden, 2 * hidden,
+                 MOL_OUT, HEADS, 2, batch * MOL_NODES, sms)
+        shared, forced = ft.bwd_launch(*shape), ft.bwd_launch(*shape, True)
+        check(not shared[2] and forced[2] == ft.FMA_WS_REGIONS
+              and (forced[0], forced[3]) == (shared[0], shared[3]),
+              f"#4 fp32 layouts at hidden {hidden}: {shared}, {forced}")
+        n_global = ft.GLOBAL_H_BWD_LAUNCHES["float32"]
+        with torch.no_grad():
+            a = ft.fused_set_transformer_bwd(packed, x, gy, num_heads=HEADS,
+                                             mask=mask)
+            c = ft.fused_set_transformer_bwd(packed, x, gy, num_heads=HEADS,
+                                             mask=mask, _global_h=True)
+        check(ft.GLOBAL_H_BWD_LAUNCHES["float32"] == n_global + 1,
+              f"#4 fp32 at hidden {hidden}: the forced layout was not the "
+              "global one")
+        same = [torch.equal(u, v) for u, v in zip((a[0], *a[1]),
+                                                   (c[0], *c[1]))]
+        check(all(same), f"#4 fp32 at hidden {hidden}: the workspace "
+              f"layout's gradients differ from the shared layout's ({same})")
+        out[f"h{hidden}"] = {"tile": shared[0], "grid": shared[3],
+                             "smem_shared": shared[1],
+                             "smem_global": forced[1], "bitwise": all(same)}
+    return out
 
 
 def global_h_bitwise(device, seed: int) -> dict:
@@ -3612,16 +3833,18 @@ def tensor_core_instructions(source: str) -> dict:
 
 def kernel_resources(log: str) -> dict:
     """Registers and spilled bytes (stores and loads) of each entry function
-    of an nvcc build log (``-Xptxas -v``), by mangled name."""
+    of an nvcc build log (``-Xptxas -v``), by mangled name; the spills are
+    the entry's and those of the functions it calls that are not inlined
+    (the FMA backward's ``wgrad_tile``), listed in its section."""
     out: dict = {}
     function = None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             function = line.split("'")[1]
-            out[function] = {}
+            out[function] = {"spill_bytes": 0}
         elif function and "spill stores" in line:
             _, stores, loads = re.findall(r"(\d+) bytes", line)
-            out[function]["spill_bytes"] = int(stores) + int(loads)
+            out[function]["spill_bytes"] += int(stores) + int(loads)
         elif function and "registers" in line:
             out[function]["registers"] = int(
                 re.search(r"Used (\d+) registers", line).group(1))
@@ -3677,14 +3900,19 @@ def fused_bwd_resources(log: str) -> dict:
 
 def fma_pair_resources(log: str) -> dict:
     """ptxas's registers and spills of the fp32 train step's pair
-    (csrc/fused_transformer.cu) by the report entries that launch them,
-    and the blocks an SM its launch bounds and registers allow."""
+    (csrc/fused_transformer.cu: the forward, and the backward's two
+    instances, its tile all in shared memory and with regions in the
+    global workspace) by the report entries that launch them, and the
+    blocks an SM its launch bounds and registers allow."""
     res = kernel_resources(log)
     out = {}
     for tag, names in (("fused_set_transformer_fwd",
                         ("fused_set_transformer_train_f32",)),
-                       ("fused_set_transformer_bwd",
-                        ("fused_set_transformer_bwd_f32",))):
+                       ("fused_set_transformer_bwdILb0E",
+                        ("fused_set_transformer_bwd_f32",)),
+                       ("fused_set_transformer_bwdILb1E",
+                        ("fused_set_transformer_bwd_f32_global_h",
+                         "fused_set_transformer_bwd_f32_global_h_moses"))):
         hits = [v for f, v in res.items() if tag in f]
         check(len(hits) == 1, f"no ptxas line for {tag} in "
               "fused_transformer.cu's log")
@@ -3737,6 +3965,12 @@ SOURCES = {
         "categoricalnf_tpu_torch/csrc/fused_transformer_bf16.cu",
         "categoricalnf_tpu/ops/pallas/fused_transformer.py:303"),
     "fused_set_transformer_bwd_f32": (
+        "categoricalnf_tpu_torch/csrc/fused_transformer.cu",
+        "categoricalnf_tpu/ops/pallas/fused_transformer.py:303"),
+    # #4 fp32 with regions of its tile in a global workspace: the instance
+    # that the nets of hidden 192 and 256 launch in fp32 (molecules_v3-v7,
+    # moses)
+    "fused_set_transformer_bwd_f32_global_h": (
         "categoricalnf_tpu_torch/csrc/fused_transformer.cu",
         "categoricalnf_tpu/ops/pallas/fused_transformer.py:303"),
     # #3 in fp32 with grad: the FMA forward that the fp32 backward recomputes
@@ -3793,18 +4027,23 @@ MOLECULE_REPORTS = {
         "fused_set_transformer_f32")}
 MOLECULE_REPORTS["fused_set_transformer_bf16"].append(
     "fused_set_transformer_bf16_moses")
-# the fp32 train step's pair with the key mask at runs/molecules' shape
-# (``check_masked_f32_pair``)
+# the fp32 train step's pair with the key mask at runs/molecules' shape and
+# at the wide ones, molecules_v4's and moses's (``check_masked_f32_pair``)
 MOLECULE_REPORTS.update({
-    name: [f"{name}_molecules"] for name in (
-        "fused_set_transformer_train_f32", "fused_set_transformer_bwd_f32")})
+    "fused_set_transformer_train_f32": [
+        f"fused_set_transformer_train_f32_{run}"
+        for run in ("molecules", *FP32_WIDE_NODE_CASES)],
+    "fused_set_transformer_bwd_f32": [
+        "fused_set_transformer_bwd_f32_molecules",
+        "fused_set_transformer_bwd_f32_global_h",
+        "fused_set_transformer_bwd_f32_global_h_moses"]})
 # what a fused kernel's line adds: ptxas's registers and spills, its tile
 # and shared memory, the backward's grid, scratch and residual workspace,
 # the readings of its masked check
 FUSED_KEYS = ("registers", "spill_bytes", "tile", "smem", "grid",
               "blocks_per_sm", "warps_per_sm_by_registers", "scratch_mb",
-              "workspace_mb", "rel_err", "control_rel_err",
-              "layout_bitwise_at_192")
+              "workspace_mb", "regions", "rel_err", "control_rel_err",
+              "layout_bitwise_at_192", "layout_bitwise_at_96_128")
 MOLECULE_REPORT_KEYS = ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
                         "max_abs_err", "rel_err", "control_rel_err")
 SERVING_KERNELS = ("mixture_inverse", "mixture_forward",
@@ -3816,6 +4055,8 @@ PATH_OF = {**{k: "serving" for k in SERVING_KERNELS},
            "fused_set_transformer_bwd_bf16_global_h": "moses_training",
            "fused_set_transformer_bwd_f32": "set16_fp32_training",
            "fused_set_transformer_train_f32": "set16_fp32_training",
+           "fused_set_transformer_bwd_f32_global_h":
+               "molecules_v4_fp32_training",
            "mixture_inverse_bwd": "set_summation_training"}
 
 
@@ -3841,6 +4082,15 @@ def main() -> int:
     from categoricalnf_tpu_torch.utils.device import resolve_device
 
     t_start = time.perf_counter()
+    # the seconds of each phase, from the end of the one before
+    phase_s: dict = {}
+    t_lap = [t_start]
+
+    def lap(phase: str) -> None:
+        now = time.perf_counter()
+        phase_s[phase] = now - t_lap[0]
+        t_lap[0] = now
+
     card = card_line()
     print(card, flush=True)  # name, power limit: as nvidia-smi gives them
     t0 = time.perf_counter()
@@ -3867,6 +4117,7 @@ def main() -> int:
     print(f"fused_set_transformer_fwd_f32: {n} HMMA instructions in the SASS "
           "of fused_transformer_tf32x3.cu", flush=True)
     check(n > 0, "the fp32 forward has no tensor-core instruction")
+    lap("build")
 
     device = resolve_device("cuda")
     gen = torch.Generator(device).manual_seed(args.seed)
@@ -3881,7 +4132,9 @@ def main() -> int:
     check_set_modeling_kernels(device, (args.seed, args.seed + 1), report)
     check_lm_kernels(device, (args.seed, args.seed + 1), report)
     check_molecule_kernels(device, (args.seed, args.seed + 1), report)
+    lap("kernel_checks")
     check_masked_f32_pair(device, (args.seed, args.seed + 1), report)
+    lap("masked_f32_pair_checks")
     for name, r in {**mixture_resources(logs["mixture"]),
                     **lm_mixture_resources(logs["mixture"]),
                     **fused_bwd_resources(logs["fused_transformer_bf16"]),
@@ -3922,7 +4175,9 @@ def main() -> int:
                  "read as much" if "scratch_written_mb" in r else "")
               + (f", grid {r['grid']}" if "grid" in r else "")
               + (f", residual workspace {r['workspace_mb']:.2f} MB"
-                 if "workspace_mb" in r else "")
+                 if "workspace_mb" in r and "regions" not in r else "")
+              + (f", in global memory {r['regions']} (workspace "
+                 f"{r['workspace_mb']:.2f} MB)" if "regions" in r else "")
               + (f", {r['registers']} registers, {r['spill_bytes']} B "
                  "spilled" if "registers" in r and "lanes" not in r else "")
               + (f", {r['lanes']} lanes an element, {r['registers']} "
@@ -3938,40 +4193,51 @@ def main() -> int:
     timings: dict = {}
     launches = {"serving": serve_flagship(args.seed, timings)}
     print("serving: " + json.dumps(timings), flush=True)
+    lap("serving")
     train_timings: dict = {}
     launches["training"] = train_flagship(args.seed, train_timings, card)
     print("training: " + json.dumps(train_timings), flush=True)
+    lap("training")
     launches["train_step_fp32"] = check_train_step_against_cpu(args.seed,
                                                                {})
     check_train_step_against_cpu(args.seed + 1, {})
     for name in FP32_PAIR:
         check(launches["train_step_fp32"][name] > 0,
               f"the fp32 train step did not launch {name}")
+    lap("fp32_train_step_checks")
     fp32_timings: dict = {}
     launches.update(fp32_training_phase(args.seed, fp32_timings, card))
     print("fp32 training: " + json.dumps(fp32_timings), flush=True)
+    lap("fp32_training")
     coloring_timings: dict = {}
     launches.update(coloring_phase(args.seed, coloring_timings, card))
     print("coloring: " + json.dumps(coloring_timings), flush=True)
+    lap("coloring")
     set_timings: dict = {}
     launches.update(set_modeling_phase(args.seed, set_timings, card))
     print("set modeling: " + json.dumps(set_timings), flush=True)
+    lap("set_modeling")
     launches["vardeq_train_step_fp32"] = check_vardeq_step_against_cpu(
         args.seed, {})
+    lap("vardeq_train_step_check")
     lm_timings: dict = {}
     launches.update(lm_phase(args.seed, lm_timings, card))
     print("language modeling: " + json.dumps(lm_timings), flush=True)
+    lap("language_modeling")
     lm_timings = {}
     launches.update(lm_phase(args.seed, lm_timings, card, net="transformer",
                              num_steps=LM_TRANSFORMER_STEPS))
     print("language modeling, transformer: " + json.dumps(lm_timings),
           flush=True)
+    lap("language_modeling_transformer")
     mol_timings: dict = {}
     launches.update(molecule_phase(args.seed, mol_timings, card))
     print("molecules: " + json.dumps(mol_timings), flush=True)
+    lap("molecules")
     parallel_timings: dict = {}
     launches.update(parallel_phase(args.seed, parallel_timings, card))
     print("parallel: " + json.dumps(parallel_timings), flush=True)
+    lap("parallel")
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():
@@ -4002,11 +4268,15 @@ def main() -> int:
             **({"at_molecule_shapes": [
                 {"case": c, "rows": report[c]["rows"],
                  **{key: report[c][key] for key in MOLECULE_REPORT_KEYS},
+                 **{key: report[c][key] for key in ("regions",
+                                                    "workspace_mb")
+                    if key in report[c]},
                  "masked_launches_by_path": {
                      p: n[f"{name}_masked"] for p, n in launches.items()
                      if p.startswith(("molecule", "moses"))}}
                 for c in MOLECULE_REPORTS[name]]}
                if name in MOLECULE_REPORTS else {})})
+    print("phase seconds: " + json.dumps(phase_s), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

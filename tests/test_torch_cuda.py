@@ -1133,3 +1133,37 @@ def test_global_h_layout_is_bitwise_the_shared_one(dev, hidden, b):
                                          mask=mask, _global_h=True)
     for u, v in zip((a[0], *a[1]), (c[0], *c[1])):
         assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("hidden,b,k", [(192, 128, 8), (256, 192, 16)])
+def test_masked_f32_pair_with_a_global_workspace_matches_plain(dev, hidden,
+                                                               b, k):
+    """The fp32 train step's pair at the node flow's wide nets (hidden 192,
+    K = 8, 128 graphs: #4's residual copies and MLP pair in its global
+    workspace; hidden 256, K = 16, 192 graphs: qkv too) by chip_smoke's
+    rules (``masked_f32_pair_readings``), the global layout's launch
+    counted."""
+    out = 6 * (2 + 3 * k)
+    regions = ft.bwd_layout(torch.float32, 24, 6, hidden, 2 * hidden, out,
+                            4, 2)[2]
+    assert regions == ft.FMA_WS_REGIONS[:2 if hidden == 192 else 3]
+    net = cs.molecule_net("float32", dev, 3, hidden, out)
+    g = torch.Generator(dev).manual_seed(hidden + b)
+    x = torch.randn(b, 24, 6, generator=g, device=dev)
+    gy = torch.randn(b, 24, out, generator=g, device=dev)
+    n = ft.GLOBAL_H_BWD_LAUNCHES["float32"]
+    r = cs.masked_f32_pair_readings(net, x, _key_mask(b, 24, dev, hidden),
+                                    gy)
+    assert ft.GLOBAL_H_BWD_LAUNCHES["float32"] > n
+    assert r["fwd_err"] <= cs.F32_TRAIN_FWD_TOL
+    assert r["bwd_err"] <= cs.F32_BWD_TOL
+
+
+def test_fma_workspace_layout_is_bitwise_the_shared_one(dev):
+    """#4 fp32 with every region in the global workspace (forced) gives dx
+    and the 12 weight gradients bitwise the shared layout's at hidden 96
+    and 128, at the same tile and grid (``chip_smoke.fma_workspace_bitwise``
+    fails otherwise)."""
+    out = cs.fma_workspace_bitwise(dev, 1)
+    assert set(out) == {"h96", "h128"}
+    assert all(v["bitwise"] for v in out.values())

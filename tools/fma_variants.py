@@ -37,8 +37,8 @@ SOURCE = os.path.join("categoricalnf_tpu_torch", "csrc", "fused_transformer.cu")
 VARIANTS = {
     "base": [],
     # the weights of the dense products from global memory, no rings
-    "no_rings": [("  dm.rings = bytes + rings <= (size_t)kMaxSmem;",
-                  "  dm.rings = false;")],
+    "no_rings": [("  dm.rings = bytes + rings <= (size_t)kMaxSmem &&",
+                  "  dm.rings = false &&")],
     "no_wgrad": [("float* __restrict__ pb, int valid,\n"
                   "                                        bool first) {\n",
                   "float* __restrict__ pb, int valid,\n"

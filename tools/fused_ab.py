@@ -8,10 +8,13 @@ differentiable call runs it and #4, with the 3xTF32 #4 of
 sets of 16 (1,024, 4,096 and 16,384 rows: a flagship fp32 step,
 chip_smoke's checks, a flagship batch) and at GraphCNF's node flow (hidden
 96 and 128, 64 graphs of 24 nodes, in 6, out 156, no mask: 1,536 rows),
-with ptxas's registers and spills of the pair; and, in checkouts whose
-kernels take a key mask, #3/#4 bf16 and #3 fp32 at GraphCNF's node flow
-(hidden 192, 128 graphs of 24 nodes, masked; fp32 at 4 chains); on
-chip_smoke's seeded nets.
+with ptxas's registers and spills of the pair, and, in checkouts whose
+fp32 #4 has a global workspace, that #4 with the workspace layout forced
+at hidden 96 and 128 (64 and 128 graphs, masked) against its shared
+layout (``chip_smoke.fma_workspace_bitwise``, which fails unless the two
+are bitwise equal); and, in checkouts whose kernels take a key mask,
+#3/#4 bf16 and #3 fp32 at GraphCNF's node flow (hidden 192, 128 graphs of
+24 nodes, masked; fp32 at 4 chains); on chip_smoke's seeded nets.
 
     python3 tools/fused_ab.py --tree DIR --out A.pt   # DIR: a checkout
     python3 tools/fused_ab.py --tree DIR --out A.pt --pair
@@ -211,6 +214,8 @@ def _train_pair(cs, ft, dev, tf32x3, result: dict) -> dict:
             lambda: ft.fused_set_transformer_bwd(pn, xn, gn,
                                                  num_heads=cs.HEADS),
             result, f"h{hidden}")
+    if hasattr(ft, "FMA_WS_REGIONS"):
+        result["workspace_layout"] = cs.fma_workspace_bitwise(dev, 0)
     return train
 
 
@@ -266,7 +271,11 @@ def compare(a: str, b: str) -> bool:
     head = {"a": one["tree"], "b": two["tree"],
             "f32_pair_bitwise_equal": pair_same,
             "fma_pair_ptxas": [one.get("fma_pair_ptxas"),
-                               two.get("fma_pair_ptxas")]}
+                               two.get("fma_pair_ptxas")],
+            # each tree's fp32 #4 with the workspace forced against its
+            # shared layout (held bitwise where the tree has it)
+            "workspace_layout": [one.get("workspace_layout"),
+                                 two.get("workspace_layout")]}
     if "dx" not in one or "dx" not in two:  # runs of the pair alone
         print(json.dumps({**head, **pair}), flush=True)
         return pair_same
