@@ -87,7 +87,6 @@ constexpr int kMC = 4;             // its columns: one float4
 constexpr int kMaxSet = 32;        // largest set size attention handles
 constexpr int kTileTarget = 32;    // rows a tile aims for (whole sets)
 constexpr int kMaxSmem = 232448;   // an H100 block's shared memory
-constexpr float kMaskedLogit = -1e9f;  // the reference's masked logit
 // A dense product's weights come through a ring in shared memory, a warp's
 // own: kRingSteps steps of 4 contraction indices in flight (cp.async), of
 // the at most kRingCg column groups its 32 items span (a tile pads to 24

@@ -85,6 +85,29 @@
 // recompute rebuilds the same probabilities and gives a masked logit no
 // gradient (the reference's where() passes none to it).  A null mask
 // leaves every instruction of the arithmetic as it was.
+//
+// Sets of 33 to 128 rows (the reference's Pallas tiles take sets of 64 and
+// 128, its XLA path the others).  Each kernel has a BIG instance; the
+// instances for sets up to 32 hold none of its code, so they are the code
+// and the bits of the kernels before it.  A BIG tile is one set: whole
+// where it is at most 64 rows (the dense products' four m-tiles) and
+// fits, else half of it (rounded up) on each block of a cluster of two
+// (cudaLaunchKernelEx with the cluster dimension), each block with the
+// 64-row layout.  Every row-wise phase stays in its block; attention reads
+// the other block's rows through distributed shared memory (SetRows,
+// fused_transformer.cuh) behind cluster barriers: once qkv is made, after
+// the attention (before a layer overwrites qkv or the MLP's region), and
+// in the backward between its two passes (phase 2 reads the other block's
+// queries, output cotangents and softmax statistics) and after them.
+// Attention holds 32 keys' logits at a time: the softmax statistics
+// online, then the probabilities from the final max and sum, so that they
+// round where plain_forward rounds them (attention_big); the backward
+// recomputes them the same way (attention_bwd_q_big), then dK and dV go
+// key-major over both blocks' queries (attention_bwd_kv_big): no block
+// adds into another's rows.  The weight-gradient partials stay one a
+// block.  Bound as above: at the set-64 run's 65,536 rows the forward
+// does 23.9 GFLOP (24 us at 989 TFLOP/s); attention, on the CUDA cores,
+// takes most of the time (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,7 +122,8 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxSet = 32;                // largest set size handled
+constexpr int kMaxSet = 32;   // largest set the unrolled attention takes
+constexpr int kMaxBigSet = 128;  // largest set handled (chunked attention)
 constexpr int kTileTarget = 64;            // rows a tile aims for
 constexpr int kMaxMTiles = kTileTarget / 16;  // 16-row m-tiles in a tile
 constexpr int kKChunk = 4;   // k-steps whose B fragments load together
@@ -115,6 +139,7 @@ struct Dims {
   long rows;
   int set_size, in_dim, hidden, heads, layers, mlp, out_dim;
   int tile, tile_pad;                 // rows of a tile; padded to 16
+  int cluster, split;  // blocks a set spans (1, 2); rows of it in rank 0
   int p_in, p_h, p_big, p_f, p_out;   // widths padded to 16
   int ld_h, ld_big, ld_f, ld_g, ld_x, ld_r2;  // shared-memory rows (bf16)
 };
@@ -146,8 +171,6 @@ struct KeyMask {
 __device__ __forceinline__ bool key_masked(const KeyMask& km, int r) {
   return km.m != nullptr && r < km.valid && km.m[r] == 0;
 }
-
-constexpr float kMaskedLogit = -1e9f;  // the reference's masked logit
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -699,6 +722,221 @@ __device__ __forceinline__ void attention_bwd(const bf16* qkv,
   }
 }
 
+// A block's part of a set above kMaxSet rows (a tile holds one): whether
+// the set spans a cluster of two blocks, the rows of it in this block, the
+// first of them in the set, and the set's key mask (null: none).
+struct BigSet {
+  bool clustered;
+  int n_local, offset;
+  const unsigned char* km;
+};
+
+// Attention backward of a set above kMaxSet rows, phase 1, as
+// attention_bwd_q over the set's keys in chunks (kv: the set's qkv rows in
+// both blocks): one thread per (head, query row); the softmax statistics
+// online, then D_i = sum_j p_ij R(gP_ij), then gq_i, each pass recomputing
+// the chunk's logits and gP.  Rows past this block's part of the set, to
+// tile_pad, get zeros.
+__device__ __noinline__ void attention_bwd_q_big(const bf16* qkv,
+                                                 SetRows<bf16> kv,
+                                                 const bf16* go, bf16* gqkv,
+                                                 float* stats, const Dims& dm,
+                                                 const BigSet& bs) {
+  const int H = dm.hidden, nh = dm.heads, hd = H / nh, S = dm.set_size;
+  const float inv_root = 1.0f / sqrtf((float)hd);
+  const bf16 zero = __float2bfloat16_rn(0.0f);
+  const int wpad = dm.p_big - 3 * H;
+  if (wpad > 0)
+    for (int i = threadIdx.x; i < dm.tile_pad * wpad; i += blockDim.x)
+      gqkv[(i / wpad) * dm.ld_big + 3 * H + i % wpad] = zero;
+  for (int item = threadIdx.x; item < dm.tile_pad * nh;
+       item += blockDim.x) {
+    const int hh = item / dm.tile_pad;
+    const int r = item % dm.tile_pad;
+    bf16* gq = gqkv + r * dm.ld_big + hh * hd;
+    if (r >= bs.n_local) {
+      for (int d = 0; d < hd; ++d) gq[d] = gq[H + d] = gq[2 * H + d] = zero;
+      continue;
+    }
+    const bf16* q = qkv + r * dm.ld_big + hh * hd;
+    const bf16* g_o = go + r * dm.ld_h + hh * hd;
+    const int kcol = H + hh * hd, vcol = 2 * H + hh * hd;
+    float mx, sum;
+    softmax_stats<bf16>(q, kv, kcol, hd, S, inv_root, bs.km, mx, sum);
+    const float inv_sum = 1.0f / sum;
+    float D = 0.0f;
+    for (int j0 = 0; j0 < S; j0 += kKeyChunk) {
+      const int n = min(kKeyChunk, S - j0);
+      float l[kKeyChunk], gp[kKeyChunk];
+      chunk_logits<bf16>(q, kv, kcol, hd, j0, n, inv_root, bs.km, l);
+      chunk_dots<bf16>(g_o, kv, vcol, hd, j0, n, gp);
+#pragma unroll
+      for (int jj = 0; jj < kKeyChunk; ++jj)
+        if (jj < n) D = fmaf(expf(l[jj] - mx) * inv_sum, rnd(gp[jj]), D);
+    }
+    for (int db = 0; db < hd; db += kDBlock) {
+      float acc[kDBlock];
+#pragma unroll
+      for (int dd = 0; dd < kDBlock; ++dd) acc[dd] = 0.0f;
+      for (int j0 = 0; j0 < S; j0 += kKeyChunk) {
+        const int n = min(kKeyChunk, S - j0);
+        float l[kKeyChunk], gp[kKeyChunk];
+        chunk_logits<bf16>(q, kv, kcol, hd, j0, n, inv_root, bs.km, l);
+        chunk_dots<bf16>(g_o, kv, vcol, hd, j0, n, gp);
+#pragma unroll
+        for (int jj = 0; jj < kKeyChunk; ++jj) {
+          if (jj < n) {
+            // the softmax's backward, then the 1/sqrt(hd) scale of the
+            // logits; a masked logit takes none
+            const float p = expf(l[jj] - mx) * inv_sum;
+            const float gl =
+                bs.km != nullptr && bs.km[j0 + jj] == 0
+                    ? 0.0f
+                    : p * (rnd(gp[jj]) - D) * inv_root;
+            const bf16* kj = kv.row(j0 + jj) + kcol + db;
+#pragma unroll
+            for (int dd = 0; dd < kDBlock; ++dd)
+              if (db + dd < hd) acc[dd] = fmaf(gl, bf(kj[dd]), acc[dd]);
+          }
+        }
+      }
+#pragma unroll
+      for (int dd = 0; dd < kDBlock; ++dd)
+        if (db + dd < hd) gq[db + dd] = __float2bfloat16_rn(acc[dd]);
+    }
+    float* st = stats + (hh * dm.tile_pad + r) * 3;
+    st[0] = mx;
+    st[1] = sum;
+    st[2] = D;
+  }
+}
+
+// Phase 2, as attention_bwd_kv over the set's queries in chunks: one
+// thread per (head, key row j) of this block's part of the set; qs, gos
+// and sts: the set's qkv rows, attention-output cotangents and softmax
+// statistics (head 0's; a head's are tile_pad rows further) in both
+// blocks.
+__device__ __noinline__ void attention_bwd_kv_big(
+    const bf16* qkv, SetRows<bf16> qs, SetRows<bf16> gos, SetRows<float> sts,
+    bf16* gqkv, const Dims& dm, const BigSet& bs) {
+  const int H = dm.hidden, nh = dm.heads, hd = H / nh, S = dm.set_size;
+  const float inv_root = 1.0f / sqrtf((float)hd);
+  for (int item = threadIdx.x; item < bs.n_local * nh;
+       item += blockDim.x) {
+    const int hh = item / bs.n_local;
+    const int j = item % bs.n_local;
+    const bool masked = bs.km != nullptr && bs.km[bs.offset + j] == 0;
+    const bf16* kj = qkv + j * dm.ld_big + H + hh * hd;
+    const bf16* vj = kj + H;
+    const int st_off = hh * dm.tile_pad * 3;
+    for (int db = 0; db < hd; db += kDBlock) {
+      float ak[kDBlock], av[kDBlock];
+#pragma unroll
+      for (int dd = 0; dd < kDBlock; ++dd) ak[dd] = av[dd] = 0.0f;
+      for (int i0 = 0; i0 < S; i0 += kKeyChunk) {
+        const int n = min(kKeyChunk, S - i0);
+        // q_i . k_j and go_i . v_j for the chunk's queries i
+        float gl[kKeyChunk], pq[kKeyChunk];
+        chunk_dots<bf16>(kj, qs, hh * hd, hd, i0, n, gl);
+        chunk_dots<bf16>(vj, gos, hh * hd, hd, i0, n, pq);
+#pragma unroll
+        for (int ii = 0; ii < kKeyChunk; ++ii) {
+          if (ii < n) {
+            const float* st = sts.row(i0 + ii) + st_off;
+            const float p =
+                masked ? expf(kMaskedLogit - st[0]) * (1.0f / st[1])
+                       : expf(gl[ii] * inv_root - st[0]) * (1.0f / st[1]);
+            const float g = masked ? 0.0f : p * (rnd(pq[ii]) - st[2]) * inv_root;
+            const float pr = rnd(p);
+            const bf16* qi = qs.row(i0 + ii) + hh * hd + db;
+            const bf16* goi = gos.row(i0 + ii) + hh * hd + db;
+#pragma unroll
+            for (int dd = 0; dd < kDBlock; ++dd) {
+              if (db + dd < hd) {
+                ak[dd] = fmaf(g, bf(qi[dd]), ak[dd]);
+                av[dd] = fmaf(pr, bf(goi[dd]), av[dd]);
+              }
+            }
+          }
+        }
+      }
+      bf16* gk = gqkv + j * dm.ld_big + H + hh * hd + db;
+#pragma unroll
+      for (int dd = 0; dd < kDBlock; ++dd) {
+        if (db + dd < hd) {
+          gk[dd] = __float2bfloat16_rn(ak[dd]);
+          gk[H + dd] = __float2bfloat16_rn(av[dd]);
+        }
+      }
+    }
+  }
+}
+
+// The attention of a tile: attention() for sets up to kMaxSet rows (the
+// kernels' instances without BIG), else the chunked attention over the
+// set's rows in this block and, in a cluster, the other's.
+template <bool BIG, int BLOCKS = 1>
+__device__ __forceinline__ void attend(const bf16* qkv, bf16* out,
+                                       const Dims& dm, const KeyMask& km,
+                                       const BigSet& bs) {
+  if constexpr (!BIG) {
+    attention<BLOCKS>(qkv, out, dm, km);
+    return;
+  }
+  attention_big<bf16, BLOCKS>(
+      qkv, dm.ld_big, set_rows<bf16>(qkv, dm.ld_big, dm.split, bs.clustered),
+      out, dm.ld_h, dm.hidden, dm.heads, dm.set_size, bs.n_local, bs.km);
+}
+
+// Its backward; a set in a cluster syncs the cluster between the passes,
+// since phase 2 reads the other block's statistics.
+template <bool BIG>
+__device__ __forceinline__ void attend_bwd(const bf16* qkv, const bf16* go,
+                                           bf16* gqkv, float* stats,
+                                           const Dims& dm, const KeyMask& km,
+                                           const BigSet& bs) {
+  if constexpr (!BIG) {
+    attention_bwd(qkv, go, gqkv, stats, dm, km);
+    return;
+  }
+  const SetRows<bf16> rows =
+      set_rows<bf16>(qkv, dm.ld_big, dm.split, bs.clustered);
+  attention_bwd_q_big(qkv, rows, go, gqkv, stats, dm, bs);
+  set_sync(bs.clustered);
+  attention_bwd_kv_big(qkv, rows,
+                       set_rows<bf16>(go, dm.ld_h, dm.split, bs.clustered),
+                       set_rows<float>(stats, 3, dm.split, bs.clustered),
+                       gqkv, dm, bs);
+}
+
+// The rows of this block's tile t: in a cluster of two, its part of set t,
+// else tile t of dm.tile rows; and (BIG) the set's part in a BigSet.
+template <bool BIG>
+__device__ __forceinline__ void tile_rows(const Dims& dm, long t,
+                                          const unsigned char* key_mask,
+                                          long& row0, int& valid,
+                                          BigSet& bs) {
+  if constexpr (!BIG) {
+    row0 = t * dm.tile;
+    const long left = dm.rows - row0;
+    valid = left < dm.tile ? (int)left : dm.tile;
+    return;
+  }
+  bs.clustered = dm.cluster == 2;
+  const int rank = bs.clustered ? (int)cg::this_cluster().block_rank() : 0;
+  if (bs.clustered) {
+    row0 = t * dm.set_size + rank * dm.split;
+    valid = rank == 0 ? dm.split : dm.set_size - dm.split;
+  } else {
+    row0 = t * dm.tile;
+    const long left = dm.rows - row0;
+    valid = left < dm.tile ? (int)left : dm.tile;
+  }
+  bs.n_local = valid;
+  bs.offset = rank * dm.split;
+  bs.km = key_mask ? key_mask + row0 - bs.offset : nullptr;
+}
+
 // 16-byte copies and clears; every region is a multiple of 16 bytes and
 // 16-byte aligned.
 __device__ __forceinline__ void copy16(const void* src, void* dst,
@@ -748,7 +986,12 @@ __host__ __device__ inline size_t smem_bytes(const Dims& dm, bool global_h) {
 // values the shared layout reads: the same bits, for one copy of h out and
 // one back through L2 a boundary and tile.
 // Without GLOBAL_H (every net that fits) the code is the shared layout's.
-template <bool GLOBAL_H>
+//
+// BIG: the instance for sets above kMaxSet rows (one set a tile, over a
+// cluster of two where it does not fit one block; the chunked attention);
+// without it the instance is the one for sets up to kMaxSet, whose code
+// holds nothing of that.
+template <bool GLOBAL_H, bool BIG>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_set_transformer_bwd(const bf16* __restrict__ x,
                           const unsigned char* __restrict__ key_mask,
@@ -774,17 +1017,24 @@ fused_set_transformer_bwd(const bf16* __restrict__ x,
   bf16* m = r2 + TP * dm.ld_f;       // [TP, ld_f] R(gelu(f))
   const Offsets og = grad_offsets(dm);
   float* pw = part + blockIdx.x * og.off[12];
-  const long ntiles = (dm.rows + dm.tile - 1) / dm.tile;
+  // a set in a cluster of two: the cluster walks the sets, each of its
+  // blocks its part of one
+  const bool clustered = BIG && dm.cluster == 2;
+  const long slot = clustered ? blockIdx.x / 2 : blockIdx.x;
+  const long stride = clustered ? gridDim.x / 2 : gridDim.x;
+  const long ntiles = clustered ? dm.rows / dm.set_size
+                                : (dm.rows + dm.tile - 1) / dm.tile;
   // GLOBAL_H: this block's copies of h at the block boundaries 0 .. L - 1
   bf16* hg = GLOBAL_H ? hws + (long)blockIdx.x * L * hsz : nullptr;
 
   clear16(smem_raw, (int)smem_bytes(dm, GLOBAL_H));
   __syncthreads();
-  for (long t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const bool first = t == blockIdx.x;
-    const long row0 = t * dm.tile;
-    const long left = dm.rows - row0;
-    const int valid = left < dm.tile ? (int)left : dm.tile;
+  for (long t = slot; t < ntiles; t += stride) {
+    const bool first = t == slot;
+    long row0;
+    int valid;
+    BigSet bs;
+    tile_rows<BIG>(dm, t, key_mask, row0, valid, bs);
     const KeyMask km = {key_mask ? key_mask + row0 : nullptr, valid};
 
     // 1. forward, keeping h at each block boundary
@@ -807,9 +1057,9 @@ fused_set_transformer_bwd(const bf16* __restrict__ x,
       mma_dense<kStore>(a, dm.ld_h, PH, wt.wt[1] + (long)l * PB * PH, PB,
                         3 * H, wt.b[1] + l * 3 * H, qkv, dm.ld_big, nullptr,
                         nullptr, valid, dm);
-      __syncthreads();
-      attention(qkv, o, dm, km);
-      __syncthreads();
+      set_sync(clustered);
+      attend<BIG>(qkv, o, dm, km, bs);
+      set_sync(clustered);
       mma_dense<kResidual>(o, dm.ld_h, PH, wt.wt[2] + (long)l * PH * PH, PH,
                            H, wt.b[2] + l * H, h, dm.ld_h, nullptr, nullptr,
                            valid, dm);
@@ -854,9 +1104,9 @@ fused_set_transformer_bwd(const bf16* __restrict__ x,
       mma_dense<kStore>(a, dm.ld_h, PH, wt.wt[1] + (long)l * PB * PH, PB,
                         3 * H, wt.b[1] + l * 3 * H, qkv, dm.ld_big, nullptr,
                         nullptr, valid, dm);
-      __syncthreads();
-      attention(qkv, o, dm, km);
-      __syncthreads();
+      set_sync(clustered);
+      attend<BIG>(qkv, o, dm, km, bs);
+      set_sync(clustered);
       mma_dense<kResidual>(o, dm.ld_h, PH, wt.wt[2] + (long)l * PH * PH, PH,
                            H, wt.b[2] + l * H, hm, dm.ld_h, nullptr, nullptr,
                            valid, dm);
@@ -892,8 +1142,8 @@ fused_set_transformer_bwd(const bf16* __restrict__ x,
                            dm);
       layer_norm_tile(h, a, dm);  // a1 again, for the qkv weights
       __syncthreads();
-      attention_bwd(qkv, gs, r2, stats, dm, km);
-      __syncthreads();
+      attend_bwd<BIG>(qkv, gs, r2, stats, dm, km, bs);
+      set_sync(clustered);
       mma_wgrad(a, dm.ld_h, H, r2, dm.ld_big, 3 * H,
                 pw + og.off[2] + (long)l * H * 3 * H,
                 pw + og.off[3] + l * 3 * H, first, dm);
@@ -933,6 +1183,8 @@ __host__ __device__ inline size_t fwd_smem_bytes(const Dims& dm) {
 // the MLP hidden layer.  Rows past the last set (tile <= r < tile_pad) and
 // past valid hold finite values that no valid row reads: every dense
 // product, LN and the epilogues act row by row, and attention within sets.
+// BIG as in the backward.
+template <bool BIG>
 __global__ void __launch_bounds__(kThreads, kFwdBlocks)
 fused_set_transformer_fwd(const bf16* __restrict__ x,
                           const unsigned char* __restrict__ key_mask,
@@ -943,9 +1195,12 @@ fused_set_transformer_fwd(const bf16* __restrict__ x,
   bf16* h = reinterpret_cast<bf16*>(smem_raw);  // [TP, ld_h] residual
   bf16* a = h + TP * dm.ld_h;                   // [TP, ld_h] LN / attention
   bf16* big = a + TP * dm.ld_h;                 // x, qkv, MLP hidden layer
-  const long row0 = blockIdx.x * (long)dm.tile;
-  const long left = dm.rows - row0;
-  const int valid = left < dm.tile ? (int)left : dm.tile;
+  const bool clustered = BIG && dm.cluster == 2;
+  long row0;
+  int valid;
+  BigSet bs;
+  tile_rows<BIG>(dm, clustered ? blockIdx.x / 2 : blockIdx.x, key_mask,
+                 row0, valid, bs);
   const KeyMask km = {key_mask ? key_mask + row0 : nullptr, valid};
 
   clear16(smem_raw, (int)fwd_smem_bytes(dm));
@@ -961,9 +1216,9 @@ fused_set_transformer_fwd(const bf16* __restrict__ x,
     mma_dense<kStore>(a, dm.ld_h, PH, wt.wt[1] + (long)l * PB * PH, PB,
                       3 * H, wt.b[1] + l * 3 * H, big, dm.ld_big, nullptr,
                       nullptr, valid, dm);
-    __syncthreads();
-    attention<kFwdBlocks>(big, a, dm, km);
-    __syncthreads();
+    set_sync(clustered);
+    attend<BIG, kFwdBlocks>(big, a, dm, km, bs);
+    set_sync(clustered);
     mma_dense<kResidual>(a, dm.ld_h, PH, wt.wt[2] + (long)l * PH * PH, PH, H,
                          wt.b[2] + l * H, h, dm.ld_h, nullptr, nullptr, valid,
                          dm);
@@ -1015,6 +1270,8 @@ Dims make_dims(long rows, int set_size, int in_dim, int hidden, int heads,
   if (dm.ld_g > r2) r2 = dm.ld_g;
   if (dm.ld_x > r2) r2 = dm.ld_x;
   dm.ld_r2 = r2;
+  dm.cluster = 1;
+  dm.split = set_size;
   return dm;
 }
 
@@ -1025,12 +1282,154 @@ void set_tile(Dims& dm, int target) {
   dm.tile_pad = pad16(dm.tile);
 }
 
+// A set above kMaxSet rows takes a tile of its own, spread over ``cl``
+// blocks of a cluster (1: the whole set in one), rank 0 holding the first
+// split = ceil(S / cl) rows.  The entries take cl = 1 where the tile is at
+// most kTileTarget rows (mma_dense's m-tiles) and its layout fits, else
+// 2; returns false where the tile is over kTileTarget rows.
+bool split_set(Dims& dm, int cl) {
+  dm.cluster = cl;
+  dm.split = (dm.set_size + cl - 1) / cl;
+  dm.tile = dm.split;
+  dm.tile_pad = pad16(dm.tile);
+  return dm.tile_pad <= kTileTarget;
+}
+
 cudaError_t max_smem_optin(int* max_smem) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   return cudaDeviceGetAttribute(max_smem,
                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+}
+
+// The entry points' bodies (below), for the instances of sets up to
+// kMaxSet (BIG false) or above (true).
+template <bool BIG>
+int fwd_entry(const void* x, const void* key_mask, const void* const* w,
+              const float* const* b, void* y, long rows, int set_size,
+              int in_dim, int hidden, int heads, int layers, int mlp,
+              int out_dim, void* stream) {
+  if (set_size < 1 || set_size > kMaxBigSet || heads < 1 ||
+      hidden % heads || hidden > 32 * kLnVals || rows % set_size ||
+      (set_size > kMaxSet) != BIG)
+    return (int)cudaErrorInvalidValue;
+  Dims dm = make_dims(rows, set_size, in_dim, hidden, heads, layers, mlp,
+                      out_dim);
+  int max_smem = 0;
+  cudaError_t err = max_smem_optin(&max_smem);
+  if (err != cudaSuccess) return (int)err;
+  // 64-row tiles, or 32-row ones where a net too wide for 64 rows (not the
+  // flagship) would not fit in shared memory; a set above kMaxSet rows
+  // whole, or over a cluster of two
+  size_t smem = 0;
+  if constexpr (BIG) {
+    bool fits = false;
+    for (int cl = 1; cl <= 2 && !fits; ++cl) {
+      fits = split_set(dm, cl);
+      smem = fwd_smem_bytes(dm);
+      fits = fits && smem <= (size_t)max_smem;
+    }
+    if (!fits) return (int)cudaErrorInvalidValue;
+  } else {
+    for (int target = kTileTarget; target >= kTileTarget / 2; target /= 2) {
+      set_tile(dm, target);
+      smem = fwd_smem_bytes(dm);
+      if (smem <= (size_t)max_smem) break;
+    }
+  }
+  if (rows == 0) return (int)cudaSuccess;
+  const auto kernel = fused_set_transformer_fwd<BIG>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  PadWeights wt;
+  for (int j = 0; j < 6; ++j) {
+    wt.wt[j] = (const bf16*)w[j];
+    wt.w[j] = nullptr;
+    wt.b[j] = b[j];
+  }
+  const unsigned grid =
+      dm.cluster == 2 ? (unsigned)(2 * (rows / set_size))
+                      : (unsigned)((rows + dm.tile - 1) / dm.tile);
+  return (int)launch_clustered(kernel, grid, kThreads, smem,
+                               (cudaStream_t)stream, dm.cluster,
+                               (const bf16*)x, (const unsigned char*)key_mask,
+                               wt, (bf16*)y, dm);
+}
+
+template <bool BIG>
+int bwd_entry(const void* x, const void* key_mask, const void* g,
+              const void* const* w, const float* const* b, void* dx,
+              float* part, float* dw, void* hws, long rows, int set_size,
+              int in_dim, int hidden, int heads, int layers, int mlp,
+              int out_dim, int grid, int global_h, void* stream) {
+  if (set_size < 1 || set_size > kMaxBigSet || heads < 1 ||
+      hidden % heads || hidden > 32 * kLnVals || grid < 1 ||
+      rows % set_size || (set_size > kMaxSet) != BIG)
+    return (int)cudaErrorInvalidValue;
+  Dims dm = make_dims(rows, set_size, in_dim, hidden, heads, layers, mlp,
+                      out_dim);
+  int max_smem = 0;
+  cudaError_t err = max_smem_optin(&max_smem);
+  if (err != cudaSuccess) return (int)err;
+  // 64-row tiles, or 32-row ones where a net too wide or deep for 64 rows
+  // (not the flagship) would not fit in shared memory; the shared layout
+  // first, then the global one
+  size_t smem = 0;
+  bool fits = false, use_global = false;
+  if constexpr (BIG) {
+    // a set above kMaxSet rows: the whole set in one block, else over a
+    // cluster of two, the residual copies in shared memory (the BIG
+    // instance has no global layout)
+    if (global_h) return (int)cudaErrorInvalidValue;
+    for (int cl = 1; cl <= 2 && !fits; ++cl) {
+      fits = split_set(dm, cl);
+      smem = smem_bytes(dm, false);
+      fits = fits && smem <= (size_t)max_smem;
+    }
+  } else {
+    for (int pass = global_h ? 1 : 0; pass < 2 && !fits; ++pass) {
+      use_global = pass == 1;
+      for (int target = kTileTarget; target >= kTileTarget / 2;
+           target /= 2) {
+        set_tile(dm, target);
+        smem = smem_bytes(dm, use_global);
+        fits = smem <= (size_t)max_smem;
+        if (fits) break;
+      }
+    }
+  }
+  if (!fits || (use_global && hws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0) return (int)cudaSuccess;
+  // a cluster's blocks walk the sets together: an even grid
+  const long ntiles = dm.cluster == 2 ? 2 * (rows / set_size)
+                                      : (rows + dm.tile - 1) / dm.tile;
+  if (grid > ntiles || grid % dm.cluster) return (int)cudaErrorInvalidValue;
+  auto kernel = fused_set_transformer_bwd<false, BIG>;
+  if constexpr (!BIG)
+    if (use_global) kernel = fused_set_transformer_bwd<true, false>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  PadWeights wt;
+  for (int j = 0; j < 6; ++j) {
+    wt.wt[j] = (const bf16*)w[j];
+    wt.w[j] = (const bf16*)w[6 + j];
+    wt.b[j] = b[j];
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  err = launch_clustered(kernel, (unsigned)grid, kThreads, smem, s,
+                         dm.cluster, (const bf16*)x,
+                         (const unsigned char*)key_mask, (const bf16*)g, wt,
+                         (bf16*)dx, part, (bf16*)hws, dm);
+  if (err != cudaSuccess) return (int)err;
+  const Offsets og = grad_offsets(dm);
+  reduce_wgrad<bf16><<<(unsigned)((og.off[12] + kThreads - 1) / kThreads),
+                       kThreads, 0, s>>>(part, grid, og, dw);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1048,37 +1447,9 @@ int fused_set_transformer_fwd_bf16(const void* x, const void* key_mask,
                                    int set_size, int in_dim, int hidden,
                                    int heads, int layers, int mlp,
                                    int out_dim, void* stream) {
-  if (set_size < 1 || set_size > kMaxSet || heads < 1 || hidden % heads ||
-      hidden > 32 * kLnVals || rows % set_size)
-    return (int)cudaErrorInvalidValue;
-  Dims dm = make_dims(rows, set_size, in_dim, hidden, heads, layers, mlp,
-                      out_dim);
-  int max_smem = 0;
-  cudaError_t err = max_smem_optin(&max_smem);
-  if (err != cudaSuccess) return (int)err;
-  // 64-row tiles, or 32-row ones where a net too wide for 64 rows (not the
-  // flagship) would not fit in shared memory
-  size_t smem = 0;
-  for (int target = kTileTarget; target >= kTileTarget / 2; target /= 2) {
-    set_tile(dm, target);
-    smem = fwd_smem_bytes(dm);
-    if (smem <= (size_t)max_smem) break;
-  }
-  if (rows == 0) return (int)cudaSuccess;
-  err = cudaFuncSetAttribute(fused_set_transformer_fwd,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  PadWeights wt;
-  for (int j = 0; j < 6; ++j) {
-    wt.wt[j] = (const bf16*)w[j];
-    wt.w[j] = nullptr;
-    wt.b[j] = b[j];
-  }
-  const unsigned grid = (unsigned)((rows + dm.tile - 1) / dm.tile);
-  fused_set_transformer_fwd<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const unsigned char*)key_mask, wt, (bf16*)y, dm);
-  return (int)cudaGetLastError();
+  const auto entry = set_size > kMaxSet ? fwd_entry<true> : fwd_entry<false>;
+  return entry(x, key_mask, w, b, y, rows, set_size, in_dim, hidden, heads,
+               layers, mlp, out_dim, stream);
 }
 
 // Backward in bf16: x [rows, in] and g [rows, out] in bf16, key_mask as
@@ -1093,7 +1464,9 @@ int fused_set_transformer_fwd_bf16(const void* x, const void* key_mask,
 // residual copies in shared memory at 64-row tiles, else at 32-row ones,
 // else (or with global_h = 1, which checks that only the storage moves)
 // in hws, bf16 scratch of grid x layers x tile_pad x ld_h (null where the
-// shared layout is taken), at 64 rows, else 32.
+// shared layout is taken), at 64 rows, else 32.  A set above 32 rows
+// takes the BIG instance: global_h must be 0 (its residual copies stay in
+// shared memory) and grid even where a set spans a cluster of two.
 int fused_set_transformer_bwd_bf16(const void* x, const void* key_mask,
                                    const void* g,
                                    const void* const* w,
@@ -1103,54 +1476,10 @@ int fused_set_transformer_bwd_bf16(const void* x, const void* key_mask,
                                    int hidden, int heads, int layers, int mlp,
                                    int out_dim, int grid, int global_h,
                                    void* stream) {
-  if (set_size < 1 || set_size > kMaxSet || heads < 1 || hidden % heads ||
-      hidden > 32 * kLnVals || grid < 1 || rows % set_size)
-    return (int)cudaErrorInvalidValue;
-  Dims dm = make_dims(rows, set_size, in_dim, hidden, heads, layers, mlp,
-                      out_dim);
-  int max_smem = 0;
-  cudaError_t err = max_smem_optin(&max_smem);
-  if (err != cudaSuccess) return (int)err;
-  // 64-row tiles, or 32-row ones where a net too wide or deep for 64 rows
-  // (not the flagship) would not fit in shared memory; the shared layout
-  // first, then the global one
-  size_t smem = 0;
-  bool fits = false, use_global = false;
-  for (int pass = global_h ? 1 : 0; pass < 2 && !fits; ++pass) {
-    use_global = pass == 1;
-    for (int target = kTileTarget; target >= kTileTarget / 2; target /= 2) {
-      set_tile(dm, target);
-      smem = smem_bytes(dm, use_global);
-      fits = smem <= (size_t)max_smem;
-      if (fits) break;
-    }
-  }
-  if (!fits || (use_global && hws == nullptr))
-    return (int)cudaErrorInvalidValue;
-  if (rows == 0) return (int)cudaSuccess;
-  const long ntiles = (rows + dm.tile - 1) / dm.tile;
-  if (grid > ntiles) return (int)cudaErrorInvalidValue;
-  const auto kernel = use_global ? fused_set_transformer_bwd<true>
-                                 : fused_set_transformer_bwd<false>;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  PadWeights wt;
-  for (int j = 0; j < 6; ++j) {
-    wt.wt[j] = (const bf16*)w[j];
-    wt.w[j] = (const bf16*)w[6 + j];
-    wt.b[j] = b[j];
-  }
-  cudaStream_t s = (cudaStream_t)stream;
-  kernel<<<grid, kThreads, smem, s>>>(
-      (const bf16*)x, (const unsigned char*)key_mask, (const bf16*)g, wt,
-      (bf16*)dx, part, (bf16*)hws, dm);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const Offsets og = grad_offsets(dm);
-  reduce_wgrad<bf16><<<(unsigned)((og.off[12] + kThreads - 1) / kThreads),
-                       kThreads, 0, s>>>(part, grid, og, dw);
-  return (int)cudaGetLastError();
+  const auto entry = set_size > kMaxSet ? bwd_entry<true> : bwd_entry<false>;
+  return entry(x, key_mask, g, w, b, dx, part, dw, hws, rows, set_size,
+               in_dim, hidden, heads, layers, mlp, out_dim, grid, global_h,
+               stream);
 }
 
 }  // extern "C"

@@ -55,6 +55,13 @@
 // probability is exactly 0 where any key of the set is valid, and a set
 // whose keys are all masked attends uniformly over them.  A null mask
 // leaves the arithmetic as it was.
+//
+// Sets of 33 to 128 rows: a BIG instance (the one for sets up to 32 holds
+// none of its code), a tile of one set, whole where it fits (up to 100
+// rows at the flagship's width), else half of it on each block of a
+// cluster of two; attention chunked over 32 keys at a time, reading the
+// other block's keys and values through distributed shared memory, as
+// fused_transformer_bf16.cu describes.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -66,13 +73,18 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxSet = 32;      // largest set size attention handles
+constexpr int kMaxSet = 32;      // largest set the unrolled attention takes
+constexpr int kMaxBigSet = 128;  // largest set handled (chunked attention)
 // Rows a tile aims for (whole sets): 32, two m-tiles, three blocks an SM.
 // 64-row tiles (126 KB, one block of 8 warps an SM) took 1.66 ms against
 // 0.96 ms at the flagship on an H100.
 constexpr int kTileTarget = 32;
 constexpr int kMinTile = 16;     // the fallback where a net does not fit
 constexpr int kBlocks = 3;       // blocks an SM the launch bounds allow
+// The BIG instance's: its tile of one set (125,984 B at 64 rows, the
+// flagship's width) leaves room for one block an SM at the main path's sets
+// of 64 and 128, so the launch bounds leave it every register.
+constexpr int kBigBlocks = 1;
 constexpr int kChunk = 8;        // own-row values held in registers
 constexpr int kSlack = 8;        // floats past the last buffer (pad reads)
 
@@ -80,6 +92,7 @@ struct Dims {
   long rows;
   int set_size, in_dim, hidden, heads, layers, mlp, out_dim;
   int tile;                       // rows of a tile: whole sets, all stored
+  int cluster, split;  // blocks a set spans (1, 2); rows of it in rank 0
   int k_in, k_h, k_f;             // contraction widths padded to 8
   int n_h, n_qkv, n_f, n_out;     // output widths padded to 8
   int ld_x, ld_h, ld_qkv, ld_f, ld_big;  // shared-memory rows (floats)
@@ -275,8 +288,6 @@ __device__ __forceinline__ void set_dots(const float* mine, const float* rows,
   }
 }
 
-constexpr float kMaskedLogit = -1e9f;  // the reference's masked logit
-
 // Attention within each set, one thread per (head, query row): logits
 // q.k / sqrt(hd), the logit of a key with km[j] == 0 (j < valid) set to
 // kMaskedLogit, softmax, then out = sum_j p_j v_j, all fp32.  Rows past
@@ -349,8 +360,13 @@ __host__ __device__ inline size_t smem_floats(const Dims& dm) {
 }
 
 // The launch bounds give registers for the three blocks an SM that shared
-// memory holds at the flagship (63 KB each).
-__global__ void __launch_bounds__(kThreads, kBlocks)
+// memory holds at the flagship (63 KB each).  BIG: the instance for sets
+// above kMaxSet rows (one set a tile, over a cluster of two where it does
+// not fit one block; the chunked attention); without it the instance for
+// sets up to kMaxSet, whose code holds nothing of that; its launch bounds
+// are kBigBlocks'.
+template <bool BIG>
+__global__ void __launch_bounds__(kThreads, BIG ? kBigBlocks : kBlocks)
 fused_set_transformer_fwd_tf32x3(const float* __restrict__ x,
                                  const unsigned char* __restrict__ key_mask,
                                  SplitWeights wt, float* __restrict__ y,
@@ -360,10 +376,22 @@ fused_set_transformer_fwd_tf32x3(const float* __restrict__ x,
   float* h = smem;                // [T, ld_h] residual stream
   float* a = h + T * dm.ld_h;     // [T, ld_h] LN / attention output
   float* big = a + T * dm.ld_h;   // x, qkv, the MLP hidden layer
-  const long row0 = blockIdx.x * (long)T;
-  const long left = dm.rows - row0;
-  const int valid = left < T ? (int)left : T;
+  // a set in a cluster of two: this block's part of set blockIdx.x / 2
+  const bool clustered = BIG && dm.cluster == 2;
+  const int rank = clustered ? (int)cg::this_cluster().block_rank() : 0;
+  long row0;
+  int valid;
+  if (clustered) {
+    row0 = (blockIdx.x / 2) * (long)dm.set_size + rank * dm.split;
+    valid = rank == 0 ? dm.split : dm.set_size - dm.split;
+  } else {
+    row0 = blockIdx.x * (long)T;
+    const long left = dm.rows - row0;
+    valid = left < T ? (int)left : T;
+  }
   const unsigned char* km = key_mask ? key_mask + row0 : nullptr;
+  // a set above kMaxSet rows: its key mask from its first row
+  const unsigned char* km_set = km ? km - rank * dm.split : nullptr;
 
   const int total = (int)smem_floats(dm);
   for (int i = threadIdx.x; i < total; i += blockDim.x) smem[i] = 0.0f;
@@ -383,9 +411,15 @@ fused_set_transformer_fwd_tf32x3(const float* __restrict__ x,
                       wt.wt[1] + (long)l * dm.n_qkv * 2 * dm.k_h, dm.n_qkv,
                       3 * H, wt.b[1] + l * 3 * H, big, dm.ld_qkv, nullptr,
                       valid, dm);
-    __syncthreads();
-    attention(big, a, dm, km, valid);
-    __syncthreads();
+    set_sync(clustered);
+    if constexpr (!BIG)
+      attention(big, a, dm, km, valid);
+    else
+      attention_big<float, kBigBlocks>(
+          big, dm.ld_qkv,
+          set_rows<float>(big, dm.ld_qkv, dm.split, clustered), a, dm.ld_h,
+          H, dm.heads, dm.set_size, valid, km_set);
+    set_sync(clustered);
     mma_dense<kResidual>(a, dm.ld_h, dm.k_h,
                          wt.wt[2] + (long)l * dm.n_h * 2 * dm.k_h, dm.n_h, H,
                          wt.b[2] + l * H, h, dm.ld_h, nullptr, valid, dm);
@@ -414,12 +448,24 @@ fused_set_transformer_fwd_tf32x3(const float* __restrict__ x,
 // conflict-free rows; the same with rows at their true width.  Returns
 // false where none fits.  ops/cuda/fused_transformer.py fwd_shape mirrors
 // it.
+//
+// A set above kMaxSet rows is a tile of its own: the whole set with
+// conflict-free rows, then with rows at their true width; then half of it
+// (rounded up) in each block of a cluster of two, the same two ways.
 bool pick_layout(Dims& dm, int max_smem) {
   const int targets[3] = {kTileTarget, kMinTile, kMinTile};
-  for (int i = 0; i < 3; ++i) {
-    const int tt = targets[i];
+  const bool big = dm.set_size > kMaxSet;
+  dm.cluster = 1;
+  dm.split = dm.set_size;
+  for (int i = 0; i < (big ? 4 : 3); ++i) {
+    const int tt = targets[i < 3 ? i : 2];
     dm.tile = (tt >= dm.set_size ? tt / dm.set_size : 1) * dm.set_size;
-    const bool spread = i < 2;
+    if (big) {
+      dm.cluster = i < 2 ? 1 : 2;
+      dm.split = (dm.set_size + dm.cluster - 1) / dm.cluster;
+      dm.tile = dm.split;
+    }
+    const bool spread = big ? i % 2 == 0 : i < 2;
     auto ld = [spread](int n) { return spread ? conflict_free(n) : n; };
     dm.ld_x = ld(dm.in_dim);
     dm.ld_h = ld(dm.hidden);
@@ -446,8 +492,8 @@ int fused_set_transformer_fwd_f32(const void* x, const void* key_mask,
                                   int set_size, int in_dim, int hidden,
                                   int heads, int layers, int mlp, int out_dim,
                                   void* stream) {
-  if (set_size < 1 || set_size > kMaxSet || heads < 1 || hidden % heads ||
-      rows % set_size)
+  if (set_size < 1 || set_size > kMaxBigSet || heads < 1 ||
+      hidden % heads || rows % set_size)
     return (int)cudaErrorInvalidValue;
   Dims dm;
   dm.rows = rows;
@@ -479,15 +525,21 @@ int fused_set_transformer_fwd_f32(const void* x, const void* key_mask,
     wt.b[j] = b[j];
   }
   const size_t smem = sizeof(float) * smem_floats(dm);
-  err = cudaFuncSetAttribute(fused_set_transformer_fwd_tf32x3,
+  const auto kernel = set_size > kMaxSet
+                          ? fused_set_transformer_fwd_tf32x3<true>
+                          : fused_set_transformer_fwd_tf32x3<false>;
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const unsigned grid = (unsigned)((rows + dm.tile - 1) / dm.tile);
-  fused_set_transformer_fwd_tf32x3<<<grid, kThreads, smem,
-                                     (cudaStream_t)stream>>>(
-      (const float*)x, (const unsigned char*)key_mask, wt, (float*)y, dm);
-  return (int)cudaGetLastError();
+  const unsigned grid =
+      dm.cluster == 2 ? (unsigned)(2 * (rows / set_size))
+                      : (unsigned)((rows + dm.tile - 1) / dm.tile);
+  return (int)launch_clustered(kernel, grid, kThreads, smem,
+                               (cudaStream_t)stream, dm.cluster,
+                               (const float*)x,
+                               (const unsigned char*)key_mask, wt, (float*)y,
+                               dm);
 }
 
 }  // extern "C"

@@ -6,6 +6,9 @@
 //   mixture_forward_bwd_f32: its backward, which has no Pallas
 //     counterpart (the reference differentiates the plain math,
 //     numerics.mixture_logit_cdf_and_ldj, with XLA's autodiff)
+//   mixture_inverse_loop_bwd_f32: the inverse's backward, which has none
+//     either (XLA's reverse mode through numerics.mixture_inverse_logit_cdf's
+//     loop; see the note above mixture_inverse_loop_bwd_kernel)
 //
 // Bound on an H100.  The inverse reads y and 3 x K fp32 parameters once
 // and writes x: 4 + 12K + 4 bytes an element (104 at K=8), 6.8 MB at
@@ -15,9 +18,9 @@
 // 4 + 12K + 8 bytes an element, so it is bound by bytes; so is its
 // backward (4 + 12K + 8 in, 4 + 12K out).
 //
-// All three kernels put an element on a group of lanes, a few components a
-// lane (the TPU kernels, too, put the components on an axis of their own),
-// so that the loads of the strided parameter rows and the stores of the
+// The forward, its backward and the inverse put an element on a group of
+// lanes, a few components a lane (the TPU kernels, too, put the components
+// on an axis of their own), so that the loads of the strided parameter rows and the stores of the
 // [M, K] gradients run over contiguous bytes.  The parameter rows may be
 // strided (they are slices of the coupling net's output), so each array
 // comes with its row stride and no copy is needed.  The log-softmax of the
@@ -668,6 +671,265 @@ __global__ void mixture_inverse_kernel(
   }
 }
 
+// The inverse's backward by the reference's rule (#1'): the reference
+// differentiates its inverse (categoricalnf_tpu/ops/numerics.py
+// mixture_inverse_logit_cdf, 42 bisections in the bracket [min_k, max_k](mu_k
+// + s_k y), then 3 Newton steps clipped to the last bracket) with XLA's
+// reverse mode, and the port's plain loop (ops/numerics.py) with autograd.
+// This kernel reruns that loop from the inputs, one thread an element, and
+// pulls gx back through it as reverse mode does:
+// - bisection: every bracket is lo0, hi0 or a midpoint of two earlier ones,
+//   so it is a lo0 + b hi0 with (a, b) carried beside it (halving is exact);
+//   the comparisons pass no gradient;
+// - Newton: x <- min(max(x - step, lo), hi), the gradient to each side ½ at a
+//   tie (jnp.clip's and torch.maximum/minimum's rule); step = (log F - log S
+//   - y) exp(log F + log S - log f) by its first derivatives; the 3 iterates
+//   and their clip weights are kept, the terms at each are recomputed;
+// - the bracket's ends: to the arg-min and arg-max components (shared
+//   equally among ties), then through mu_k + exp(ls_k) y;
+// - a log-scale outside [kLogScaleMin, kLogScaleMax] gets 0 (the clip).
+// Every operation mirrors the plain loop's on the card (the products and
+// sums unfused, the sums over the components in the order of torch's CUDA
+// kernels: torch_sum_order), so that its bisections take the plain loop's
+// branches.  A branch depends on the last bit of log F - log S near the
+// root, and one taken the other way moves that element's gradient between
+// lo0 and hi0 by up to all of it; tools/loop_branches.py compares the
+// branches on the card (PERF.md).  Bound on an H100: 45 evaluations of the K
+// components' terms an element (about 20 operations a component each; 0.9
+// MFLOP a K = 4 element set at M = 65,536: operations), against 12 + 24 K
+// bytes an element in and out.
+constexpr int kNumBisect = 42;
+constexpr int kNumNewton = 3;
+
+template <int C>
+struct LoopParams {
+  float log_pi[C], mean[C], ls[C], inv_s[C];
+};
+
+// The sum of e[0, k) (e[c] = 0 for c >= k) in the order of torch's sums
+// over a short last dimension on the card, which torch.sum (so
+// torch.logsumexp) and torch.log_softmax share: a butterfly over W lanes, W
+// the least power of two >= k, so that lane 0 adds element l + o to l for o
+// = W/2, ..., 1.  The halvings above W add exact zeros.  (On an H100 with
+// torch 2.11 this order gives torch's bits on every row at each K of
+// 1..32: tools/loop_branches.py.)
+template <int C>
+__device__ __forceinline__ float torch_sum_order(float (&e)[C]) {
+#pragma unroll
+  for (int o = C / 2; o >= 1; o /= 2) {
+#pragma unroll
+    for (int l = 0; l < o; ++l) e[l] = __fadd_rn(e[l], e[l + o]);
+  }
+  return e[0];
+}
+
+// logsumexp over the element's k components as torch.logsumexp: the max,
+// then max + log(sum exp(v - max)), the sum in torch.sum's order.
+template <int C>
+__device__ __forceinline__ float loop_lse(const float (&v)[C], int k) {
+  float m = -INFINITY;
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    if (c < k) m = fmaxf(m, v[c]);
+  if (isinf(m)) return m;
+  float e[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) e[c] = c < k ? expf(__fsub_rn(v[c], m)) : 0.0f;
+  return __fadd_rn(logf(torch_sum_order<C>(e)), m);
+}
+
+// The terms of the loop at x: a = log pi + log sigmoid(z), b = log pi +
+// log sigmoid(-z) and (PDF) c = log pi + a' + b' - ls, and their
+// logsumexps log F, log S, log f.
+template <int C, bool PDF>
+__device__ __forceinline__ void loop_parts(const LoopParams<C>& p, int k,
+                                           float x, float (&z)[C],
+                                           float (&a)[C], float (&b)[C],
+                                           float (&c)[C], float& lf,
+                                           float& ls_, float& lp) {
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    z[j] = __fmul_rn(__fsub_rn(x, p.mean[j]), p.inv_s[j]);
+    float lsp, lsn;
+    log_sigmoid_pair(z[j], lsp, lsn);
+    a[j] = __fadd_rn(p.log_pi[j], lsp);
+    b[j] = __fadd_rn(p.log_pi[j], lsn);
+    if constexpr (PDF)
+      c[j] = __fsub_rn(__fadd_rn(__fadd_rn(p.log_pi[j], lsp), lsn), p.ls[j]);
+  }
+  lf = loop_lse<C>(a, k);
+  ls_ = loop_lse<C>(b, k);
+  if constexpr (PDF) lp = loop_lse<C>(c, k);
+}
+
+template <int C>
+__global__ void mixture_inverse_loop_bwd_kernel(
+    const float* __restrict__ y, const float* __restrict__ pi, long pi_stride,
+    const float* __restrict__ mu, long mu_stride,
+    const float* __restrict__ lsr, long ls_stride,
+    const float* __restrict__ gx, float* __restrict__ gy,
+    float* __restrict__ gpi, float* __restrict__ gmu, float* __restrict__ gls,
+    long m, int k) {
+  const long i = blockIdx.x * (long)blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  LoopParams<C> p;
+  bool inside[C];
+  float logit[C], mx = -INFINITY;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    logit[c] = 0.0f;
+    p.mean[c] = 0.0f;
+    p.ls[c] = 0.0f;
+    inside[c] = false;
+    if (c < k) {
+      logit[c] = pi[i * pi_stride + c];
+      p.mean[c] = mu[i * mu_stride + c];
+      const float raw = lsr[i * ls_stride + c];
+      inside[c] = raw >= kLogScaleMin && raw <= kLogScaleMax;
+      p.ls[c] = fminf(fmaxf(raw, kLogScaleMin), kLogScaleMax);
+      mx = fmaxf(mx, logit[c]);
+    }
+  }
+  // log_softmax as torch: (v - max) - log(sum exp(v - max))
+  float e[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    e[c] = c < k ? expf(__fsub_rn(logit[c], mx)) : 0.0f;
+  const float lse = logf(torch_sum_order<C>(e));
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    p.log_pi[c] = __fsub_rn(__fsub_rn(logit[c], mx), lse);
+    p.inv_s[c] = expf(-p.ls[c]);
+  }
+  const float yi = y[i];
+
+  // the bracket, and which components give its ends
+  float scale[C], lo0 = INFINITY, hi0 = -INFINITY;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    scale[c] = expf(p.ls[c]);
+    if (c < k) {
+      const float cand = __fadd_rn(p.mean[c], __fmul_rn(scale[c], yi));
+      lo0 = fminf(lo0, cand);
+      hi0 = fmaxf(hi0, cand);
+    }
+  }
+  // bisection: lo = la lo0 + lb hi0, hi = ha lo0 + hb hi0
+  float lo = lo0, hi = hi0, la = 1.0f, lb = 0.0f, ha = 0.0f, hb = 1.0f;
+  float z[C], ta[C], tb[C], tc[C];
+#pragma unroll 1
+  for (int it = 0; it < kNumBisect; ++it) {
+    const float mid = 0.5f * __fadd_rn(lo, hi);
+    const float ma = 0.5f * __fadd_rn(la, ha), mb = 0.5f * __fadd_rn(lb, hb);
+    float lf, lsf, unused;
+    loop_parts<C, false>(p, k, mid, z, ta, tb, tc, lf, lsf, unused);
+    if (__fsub_rn(lf, lsf) < yi) {
+      lo = mid;
+      la = ma;
+      lb = mb;
+    } else {
+      hi = mid;
+      ha = ma;
+      hb = mb;
+    }
+  }
+  // Newton: the iterates and the clip's weights (to the step, to lo, to hi)
+  float xs[kNumNewton], w_u[kNumNewton], w_lo[kNumNewton], w_hi[kNumNewton];
+  float x = 0.5f * __fadd_rn(lo, hi);
+#pragma unroll
+  for (int n = 0; n < kNumNewton; ++n) {
+    xs[n] = x;
+    float lf, lsf, lpdf;
+    loop_parts<C, true>(p, k, x, z, ta, tb, tc, lf, lsf, lpdf);
+    const float step =
+        __fmul_rn(__fsub_rn(__fsub_rn(lf, lsf), yi),
+                  expf(__fsub_rn(__fadd_rn(lf, lsf), lpdf)));
+    const float u = __fsub_rn(x, step);
+    const float mxv = fmaxf(u, lo);
+    const float to_u = u > lo ? 1.0f : (u == lo ? 0.5f : 0.0f);
+    const float to_m = mxv < hi ? 1.0f : (mxv == hi ? 0.5f : 0.0f);
+    w_u[n] = to_m * to_u;
+    w_lo[n] = to_m * (1.0f - to_u);
+    w_hi[n] = 1.0f - to_m;
+    x = fminf(mxv, hi);
+  }
+
+  // reverse
+  float g = gx[i], g_lo = 0.0f, g_hi = 0.0f, g_y = 0.0f;
+  float g_lp[C], g_mu[C], g_ls[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) g_lp[c] = g_mu[c] = g_ls[c] = 0.0f;
+#pragma unroll
+  for (int n = kNumNewton - 1; n >= 0; --n) {
+    g_lo += g * w_lo[n];
+    g_hi += g * w_hi[n];
+    const float g_u = g * w_u[n];
+    float lf, lsf, lpdf;
+    loop_parts<C, true>(p, k, xs[n], z, ta, tb, tc, lf, lsf, lpdf);
+    const float f = __fsub_rn(__fsub_rn(lf, lsf), yi);
+    const float e = expf(__fsub_rn(__fadd_rn(lf, lsf), lpdf));
+    const float g_step = -g_u;
+    const float g_f = g_step * e, g_e = g_step * f * e;
+    const float g_lf = g_f + g_e, g_lsf = g_e - g_f, g_lpdf = -g_e;
+    g_y -= g_f;
+    float g_x = g_u;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if (c < k) {
+        const float ga = g_lf * expf(ta[c] - lf);
+        const float gb = g_lsf * expf(tb[c] - lsf);
+        const float gc = g_lpdf * expf(tc[c] - lpdf);
+        g_lp[c] += ga + gb + gc;
+        // d lsp/dz = sigmoid(-z) = exp(lsp - z), d lsn/dz = -sigmoid(z)
+        float lsp, lsn;
+        log_sigmoid_pair(z[c], lsp, lsn);
+        const float gz =
+            (ga + gc) * expf(lsp - z[c]) - (gb + gc) * expf(lsp);
+        g_x += gz * p.inv_s[c];
+        g_mu[c] -= gz * p.inv_s[c];
+        g_ls[c] -= gc + gz * z[c];
+      }
+    }
+    g = g_x;
+  }
+  // x0 = (lo + hi) / 2, then lo, hi to the bracket's ends
+  const float g_lo_end = 0.5f * g + g_lo, g_hi_end = 0.5f * g + g_hi;
+  const float g_lo0 = g_lo_end * la + g_hi_end * ha;
+  const float g_hi0 = g_lo_end * lb + g_hi_end * hb;
+  int n_lo = 0, n_hi = 0;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (c < k) {
+      const float cand = __fadd_rn(p.mean[c], __fmul_rn(scale[c], yi));
+      n_lo += cand == lo0;
+      n_hi += cand == hi0;
+    }
+  }
+  float g_lp_sum = 0.0f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (c < k) {
+      const float cand = __fadd_rn(p.mean[c], __fmul_rn(scale[c], yi));
+      const float gc = (cand == lo0 ? g_lo0 / n_lo : 0.0f) +
+                       (cand == hi0 ? g_hi0 / n_hi : 0.0f);
+      g_mu[c] += gc;
+      g_y += gc * scale[c];
+      g_ls[c] += gc * scale[c] * yi;
+      g_lp_sum += g_lp[c];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (c < k) {
+      const long o = i * k + c;
+      gpi[o] = g_lp[c] - expf(p.log_pi[c]) * g_lp_sum;
+      gmu[o] = g_mu[c];
+      gls[o] = inside[c] ? g_ls[c] : 0.0f;
+    }
+  }
+  gy[i] = g_y;
+}
+
 constexpr int kThreads = 256;
 
 inline unsigned blocks_for(long m) {
@@ -741,6 +1003,17 @@ inline void inverse_launch(const float* y, const float* pi, long pi_stride,
         y, pi, pi_stride, mu, mu_stride, ls, ls_stride, out, iters, m, k);
 }
 
+template <int C>
+inline void loop_bwd_launch(const float* y, const float* pi, long pi_stride,
+                            const float* mu, long mu_stride, const float* ls,
+                            long ls_stride, const float* gx, float* gy,
+                            float* gpi, float* gmu, float* gls, long m, int k,
+                            cudaStream_t s) {
+  mixture_inverse_loop_bwd_kernel<C><<<blocks_for(m), kThreads, 0, s>>>(
+      y, pi, pi_stride, mu, mu_stride, ls, ls_stride, gx, gy, gpi, gmu, gls, m,
+      k);
+}
+
 }  // namespace
 
 extern "C" {
@@ -804,6 +1077,32 @@ int mixture_forward_bwd_f32(const float* x, const float* pi, long pi_stride,
     bwd_launch<2 * kBwdLanes, 8 / kBwdLanes>(x, pi, pi_stride, mu, mu_stride,
                                              ls, ls_stride, gy, gldj, gx, gpi,
                                              gmu, gls, m, k, s);
+  return (int)cudaGetLastError();
+}
+
+// The inverse's backward by the reference's rule, from its inputs y and
+// the parameters and the cotangent gx of its root: gy [m] and gpi, gmu, gls
+// as contiguous [m, k].
+int mixture_inverse_loop_bwd_f32(const float* y, const float* pi,
+                                 long pi_stride, const float* mu,
+                                 long mu_stride, const float* ls,
+                                 long ls_stride, const float* gx, float* gy,
+                                 float* gpi, float* gmu, float* gls, long m,
+                                 int k, void* stream) {
+  if (m == 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (k <= 4)
+    loop_bwd_launch<4>(y, pi, pi_stride, mu, mu_stride, ls, ls_stride, gx, gy,
+                       gpi, gmu, gls, m, k, s);
+  else if (k <= 8)
+    loop_bwd_launch<8>(y, pi, pi_stride, mu, mu_stride, ls, ls_stride, gx, gy,
+                       gpi, gmu, gls, m, k, s);
+  else if (k <= 16)
+    loop_bwd_launch<16>(y, pi, pi_stride, mu, mu_stride, ls, ls_stride, gx,
+                        gy, gpi, gmu, gls, m, k, s);
+  else
+    loop_bwd_launch<32>(y, pi, pi_stride, mu, mu_stride, ls, ls_stride, gx,
+                        gy, gpi, gmu, gls, m, k, s);
   return (int)cudaGetLastError();
 }
 

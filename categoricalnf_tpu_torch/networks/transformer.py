@@ -4,7 +4,8 @@ Counterpart of ``categoricalnf_tpu/networks/transformer.py``.  No
 positional embeddings; keys of invalid elements are masked with -1e9.
 A CUDA tensor always runs the whole net in one CUDA kernel
 (``ops/cuda/fused_transformer.py``), key mask included, which raises on
-what it does not take (a condition, sets above 32); with grad on, its
+what it does not take (a condition, sets above 128; in fp32 with grad,
+sets above 32: ROADMAP B15); with grad on, its
 backward is the backward kernel (at widths whose tile does not fit
 otherwise, with regions of it in a global workspace: in bf16 the residual
 copies at 256, in fp32 also the MLP pair from 192 and qkv at 256), and a
@@ -89,12 +90,21 @@ class SetTransformer(nn.Module):
         ones with regions of the tile in global memory (GraphCNF's node
         flow at hidden 192 and 256 in fp32, at 256 in bf16); what is left
         is a tile too large even so (a width above 264 in fp32, above 256 or
-        an MLP ratio of 4 at 256 in bf16, at sets of 24)."""
+        an MLP ratio of 4 at 256 in bf16, at sets of 24), and in fp32 a set
+        above 32 rows, which the fp32 train step's FMA pair does not take
+        (ROADMAP B15; the bf16 pair and the fp32 forward without grad take
+        sets up to 128)."""
         cd = torch_dtype(self.compute_dtype)
         H, mlp = self.hidden_dim, self.mlp_ratio * self.hidden_dim
         if not ft.supported(x, None, None, H, self.num_heads,
                             self.mlp_ratio, cd):
             return
+        if cd == torch.float32 and x.shape[1] > ft.MAX_SET:
+            raise NotImplementedError(
+                f"the fused SetTransformer's fp32 train step (the FMA pair) "
+                f"takes sets up to {ft.MAX_SET} rows, not {x.shape[1]} "
+                f"(ROADMAP.md, Queue B, B15): train at these sets in "
+                f"bfloat16")
         if not ft.bwd_fits(cd, x.shape[1], x.shape[2], H, mlp,
                            self.out.w.shape[1], self.num_heads,
                            self.num_layers):

@@ -42,10 +42,17 @@ from categoricalnf_tpu_torch.ops.cuda import build
 
 # Must agree with csrc/fused_transformer.cu (kMaxSet, kTileTarget, kRowPad,
 # make_dims), csrc/fused_transformer_bf16.cu (kTileTarget, 16-row
-# m-tiles, kLnVals), csrc/fused_transformer_tf32x3.cu (kTileTarget,
-# kMinTile, kSlack, pick_layout) and the H100's 227 KB of shared memory per
-# block.
+# m-tiles, kLnVals, kMaxBigSet, split_set), csrc/fused_transformer_tf32x3.cu
+# (kTileTarget, kMinTile, kSlack, kMaxBigSet, pick_layout) and the H100's
+# 227 KB of shared memory per block.
+# Sets up to MAX_SET rows: every kernel, a tile of whole sets.  Above, up to
+# MAX_BIG_SET (the reference's largest Pallas tile of whole sets): the bf16
+# pair and the 3xTF32 forward, a tile of one set, split over the CLUSTER
+# blocks of a thread-block cluster where the whole set's tile does not fit
+# (``split_rows``); the fp32 FMA pair refuses them (ROADMAP B15).
 MAX_SET = 32
+MAX_BIG_SET = 128
+CLUSTER = 2
 TILE_TARGET = 32  # the fp32 backward and the FMA forward it recomputes
 BF16_TILE_TARGET = 64  # both bf16 kernels
 F32_TILE_TARGET = 32  # the fp32 forward; 16 where a net does not fit
@@ -120,24 +127,36 @@ def conflict_free(n: int) -> int:
     return n + (4 - n) % 8
 
 
+def split_rows(set_size: int, cluster: int) -> int:
+    """Rows of a set above MAX_SET in each block (rank 0; rank 1 holds the
+    rest) where it spans ``cluster`` blocks: ceil(set_size / cluster)."""
+    return -(-set_size // cluster)
+
+
 def _f32_fwd_layout(set_size: int, in_dim: int, hidden: int,
-                    mlp: int) -> tuple[int, int]:
-    """(tile, shared-memory bytes) of the fp32 forward: the first that fits
-    of whole sets up to 32 rows with conflict-free rows, whole sets
-    up to 16 rows (one set where a set is larger) with conflict-free rows,
-    and the same with rows at their true width; the last when none fits.
+                    mlp: int) -> tuple[int, int, int]:
+    """(tile, shared-memory bytes, blocks a set spans) of the fp32 forward:
+    the first that fits of whole sets up to 32 rows with conflict-free
+    rows, whole sets up to 16 rows (one set where a set is larger) with
+    conflict-free rows, and the same with rows at their true width; a set
+    above MAX_SET rows whole, then over a cluster of two, each with
+    conflict-free rows, then at their true width; the last when none fits.
     Three buffers: h and the LN/attention output [tile, H], and the widest
     of x, qkv and the MLP hidden layer, plus the slack that the padded
     contraction of the last row reads (``pick_layout`` in the kernel)."""
-    for tt, ld in ((F32_TILE_TARGET, conflict_free),
-                   (F32_MIN_TILE, conflict_free),
-                   (F32_MIN_TILE, int)):
-        tile = _tile(set_size, tt, 1)[0]
+    if set_size > MAX_SET:
+        choices = [(split_rows(set_size, cl), ld, cl)
+                   for cl in (1, CLUSTER) for ld in (conflict_free, int)]
+    else:
+        choices = [(_tile(set_size, tt, 1)[0], ld, 1) for tt, ld in
+                   ((F32_TILE_TARGET, conflict_free),
+                    (F32_MIN_TILE, conflict_free), (F32_MIN_TILE, int))]
+    for tile, ld, cluster in choices:
         ld_big = max(ld(in_dim), ld(3 * hidden), ld(mlp))
         smem = 4 * (tile * (2 * ld(hidden) + ld_big) + F32_SLACK)
         if smem <= MAX_SMEM:
             break
-    return tile, smem
+    return tile, smem, cluster
 
 
 def _tile(set_size: int, target: int = TILE_TARGET,
@@ -152,15 +171,19 @@ def pad16(n: int) -> int:
 
 def bwd_layout(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
                mlp: int, out_dim: int, heads: int, layers: int,
-               global_h: bool = False) -> tuple[int, int, bool | tuple]:
+               global_h: bool = False) -> tuple:
     """(rows of a tile, dynamic shared memory of one block, what lives in
-    global memory) of the backward, as the kernel picks them.  bf16: whole
-    sets up to 64 rows, padded to 16-row m-tiles, rows of bf16 a multiple
-    of 16 plus 8 wide; 32-row tiles where 64 do not fit (nets wider or
-    deeper than the flagship); where neither fits, or with ``global_h``,
-    the same tiles with the residual stream's copies at the block
-    boundaries in a global workspace (``h_workspace_elems``) and one in
-    shared memory; the third item says whether they are.  fp32: up to 32
+    global memory, blocks a set spans) of the backward, as the kernel picks
+    them.  bf16: whole sets up to 64 rows, padded to 16-row m-tiles, rows
+    of bf16 a multiple of 16 plus 8 wide; 32-row tiles where 64 do not fit
+    (nets wider or deeper than the flagship); where neither fits, or with
+    ``global_h``, the same tiles with the residual stream's copies at the
+    block boundaries in a global workspace (``h_workspace_elems``) and one
+    in shared memory; the third item says whether they are.  A set above
+    MAX_SET rows is a tile of its own, the residual copies in shared
+    memory: the whole set where it is at most BF16_TILE_TARGET rows and
+    fits, else ``split_rows`` of it on each block of a cluster of two
+    (``split_set`` in the kernel); ``global_h`` is refused there.  fp32: up to 32
     rows padded to 8, rows ``conflict_free`` wide (x's a multiple of 4),
     the first regions of ``FMA_WS_REGIONS`` (the copies, the MLP pair, qkv)
     in a global workspace (``fma_workspace_elems``) with which the rest
@@ -170,8 +193,10 @@ def bwd_layout(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
     boundaries (or one), five [tile, H] buffers, qkv, a region for the MLP
     pair / the qkv gradient / g / x, and the fp32 softmax statistics; the
     fp32 block also its warps' weight rings where they fit
-    (``with_rings``).  Where nothing fits the last layout is returned,
-    over MAX_SMEM."""
+    (``with_rings``); a set above MAX_SET rows fits nowhere (ROADMAP B15).
+    Where nothing fits the last layout is returned, over MAX_SMEM."""
+    if dtype != torch.bfloat16 and set_size > MAX_SET:
+        return set_size, MAX_SMEM + 1, (), 1
     if dtype != torch.bfloat16:
         tile, tile_pad = _tile(set_size)
         ld_h, ld_big, ld_f = (conflict_free(n)
@@ -185,27 +210,28 @@ def bwd_layout(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
                                    + 3 * heads)
             if smem <= MAX_SMEM:
                 break
-        return tile, with_rings(smem), FMA_WS_REGIONS[:ws]
+        return tile, with_rings(smem), FMA_WS_REGIONS[:ws], 1
     ld_h, ld_big, ld_f = (pad16(n) + 8 for n in (hidden, 3 * hidden, mlp))
     ld_r2 = max(2 * ld_f, ld_big, pad16(out_dim) + 8, pad16(in_dim) + 8)
-    for in_global in ((True,) if global_h else (False, True)):
+    globals_ = (True,) if global_h else (False, True)
+    if set_size > MAX_SET:
+        if global_h:
+            return set_size, MAX_SMEM + 1, True, 1
+        choices = [(split_rows(set_size, cl), False, cl) for cl in (1, CLUSTER)
+                   if pad16(split_rows(set_size, cl)) <= BF16_TILE_TARGET]
+        if not choices:  # above MAX_BIG_SET (ROADMAP B16)
+            return set_size, MAX_SMEM + 1, False, CLUSTER
+    else:
+        choices = [(_tile(set_size, target, 16)[0], g, 1) for g in globals_
+                   for target in (BF16_TILE_TARGET, BF16_TILE_TARGET // 2)]
+    for tile, in_global, cluster in choices:
         copies = 1 if in_global else layers + 1
-        for target in (BF16_TILE_TARGET, BF16_TILE_TARGET // 2):
-            tile, tile_pad = _tile(set_size, target, 16)
-            smem = (2 * tile_pad * ((copies + 5) * ld_h + ld_big + ld_r2)
-                    + 4 * tile_pad * 3 * heads)
-            if smem <= MAX_SMEM:
-                return tile, smem, in_global
-    return tile, smem, in_global
-
-
-def bwd_shape(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
-              mlp: int, out_dim: int, heads: int,
-              layers: int) -> tuple[int, int]:
-    """(rows of a tile, dynamic shared memory of one block) of the
-    backward: ``bwd_layout``'s."""
-    return bwd_layout(dtype, set_size, in_dim, hidden, mlp, out_dim, heads,
-                      layers)[:2]
+        tile_pad = pad16(tile)
+        smem = (2 * tile_pad * ((copies + 5) * ld_h + ld_big + ld_r2)
+                + 4 * tile_pad * 3 * heads)
+        if smem <= MAX_SMEM:
+            break
+    return tile, smem, in_global, cluster
 
 
 def h_workspace_elems(tile: int, hidden: int, layers: int, grid: int) -> int:
@@ -230,23 +256,33 @@ def fma_workspace_elems(regions: tuple, tile: int, hidden: int, mlp: int,
 
 
 def fwd_shape(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
-              mlp: int) -> tuple[int, int]:
-    """(rows of a tile, dynamic shared memory of one block) of the forward,
-    as the kernel picks them.  bf16: whole sets up to 64 rows, padded to
-    16-row m-tiles, or up to 32 where 64 would not fit (nets much wider than
-    the flagship); three bf16 buffers, h and the LN/attention output
-    [tile, H] and the region for x, qkv or the MLP hidden layer, rows a
-    multiple of 16 plus 8 wide.  fp32: ``_f32_fwd_layout``'s tile."""
+              mlp: int) -> tuple[int, int, int]:
+    """(rows of a tile, dynamic shared memory of one block, blocks a set
+    spans) of the forward, as the kernel picks them.  bf16: whole sets up
+    to 64 rows, padded to 16-row m-tiles, or up to 32 where 64 would not
+    fit (nets much wider than the flagship); a set above MAX_SET rows
+    whole where it is at most BF16_TILE_TARGET rows and fits, else
+    ``split_rows`` of it on each block of a cluster of two;
+    three bf16 buffers, h and the LN/attention output [tile, H] and the
+    region for x, qkv or the MLP hidden layer, rows a multiple of 16 plus 8
+    wide.  fp32: ``_f32_fwd_layout``'s."""
     if dtype != torch.bfloat16:
         return _f32_fwd_layout(set_size, in_dim, hidden, mlp)
     ld_h = pad16(hidden) + 8
     ld_big = max(pad16(n) + 8 for n in (3 * hidden, mlp, in_dim))
-    for target in (BF16_TILE_TARGET, BF16_TILE_TARGET // 2):
-        tile, tile_pad = _tile(set_size, target, 16)
-        smem = 2 * tile_pad * (2 * ld_h + ld_big)
+    if set_size > MAX_SET:
+        choices = [(split_rows(set_size, cl), cl) for cl in (1, CLUSTER)
+                   if pad16(split_rows(set_size, cl)) <= BF16_TILE_TARGET]
+        if not choices:  # above MAX_BIG_SET (ROADMAP B16)
+            return set_size, MAX_SMEM + 1, CLUSTER
+    else:
+        choices = [(_tile(set_size, target, 16)[0], 1)
+                   for target in (BF16_TILE_TARGET, BF16_TILE_TARGET // 2)]
+    for tile, cluster in choices:
+        smem = 2 * pad16(tile) * (2 * ld_h + ld_big)
         if smem <= MAX_SMEM:
             break
-    return tile, smem
+    return tile, smem, cluster
 
 
 def fma_fwd_shape(set_size: int, in_dim: int, hidden: int,
@@ -279,9 +315,15 @@ def smem_blocks_per_sm(smem: int) -> int:
     return max(1, SMEM_PER_SM // (smem + 1024))
 
 
-def bwd_grid(rows: int, tile: int, smem: int, sms: int) -> int:
+def bwd_grid(rows: int, tile: int, smem: int, sms: int,
+             set_size: int = 0, cluster: int = 1) -> int:
     """Persistent blocks of the backward: as many as fit on the card at
-    once, never more than there are tiles."""
+    once, never more than there are tiles; where a set spans a cluster of
+    two blocks, an even number, never more than two a set."""
+    if cluster > 1:
+        sets = rows // set_size
+        return cluster * max(1, min(sets, sms * smem_blocks_per_sm(smem)
+                                    // cluster))
     return max(1, min(-(-rows // tile), sms * smem_blocks_per_sm(smem)))
 
 
@@ -294,9 +336,9 @@ def bwd_launch(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
     the default layout's grid, so the weight gradients' slices are summed
     in the same order."""
     net = (dtype, set_size, in_dim, hidden, mlp, out_dim, heads, layers)
-    tile, smem, in_global = bwd_layout(*net, global_h)
+    tile, smem, in_global, cluster = bwd_layout(*net, global_h)
     grid = bwd_grid(rows, tile, bwd_layout(*net)[1] if global_h else smem,
-                    sms)
+                    sms, set_size, cluster)
     return tile, smem, in_global, grid
 
 
@@ -379,28 +421,29 @@ def supported(x, cond, mask, hidden_dim: int, num_heads: int,
               mlp_ratio: int = 2,
               compute_dtype: torch.dtype = torch.float32) -> bool:
     """Whether the forward kernel of ``compute_dtype`` covers this call: no
-    cond, x [B, S, IN] with S <= 32, a key mask (if any) of shape [B, S],
-    heads dividing the width, in bf16 a width of at most 256, and a tile
-    that fits.  The forward's limits only: the backward's tile is larger
-    (``bwd_fits``)."""
+    cond, x [B, S, IN] with S <= MAX_BIG_SET (128), a key mask (if any) of
+    shape [B, S], heads dividing the width, in bf16 a width of at most 256,
+    and a tile that fits.  The forward's limits only: the backward's tile
+    is larger (``bwd_fits``), and a differentiable fp32 call takes the FMA
+    pair, which refuses sets above MAX_SET (ROADMAP B15)."""
     if cond is not None or x.dim() != 3:
         return False
     if mask is not None and tuple(mask.shape) != tuple(x.shape[:2]):
         return False
-    if hidden_dim % num_heads != 0 or not 1 <= x.shape[1] <= MAX_SET:
+    if hidden_dim % num_heads != 0 or not 1 <= x.shape[1] <= MAX_BIG_SET:
         return False
     if compute_dtype == torch.bfloat16 and hidden_dim > MAX_HIDDEN_BF16:
         return False
-    _, smem = fwd_shape(compute_dtype, x.shape[1], x.shape[2], hidden_dim,
-                        mlp_ratio * hidden_dim)
+    smem = fwd_shape(compute_dtype, x.shape[1], x.shape[2], hidden_dim,
+                     mlp_ratio * hidden_dim)[1]
     return smem <= MAX_SMEM
 
 
 def bwd_fits(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
              mlp: int, out_dim: int, heads: int, layers: int) -> bool:
     """Whether a tile of the backward kernel fits in shared memory."""
-    return bwd_shape(dtype, set_size, in_dim, hidden, mlp, out_dim, heads,
-                     layers)[1] <= MAX_SMEM
+    return bwd_layout(dtype, set_size, in_dim, hidden, mlp, out_dim, heads,
+                      layers)[1] <= MAX_SMEM
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long

@@ -9,11 +9,16 @@ the kernels do not take.  ``LAUNCHES`` counts the kernel launches.
 Both are differentiable.  ``MixtureForward`` pulls gradients back through
 the hand-written backward kernel (``mixture_forward_bwd_f32``), whose plain
 version is autograd through the numerics.  ``MixtureInverse``'s backward,
-#1', is the implicit rule at the root x* (``numerics.mixture_inverse_vjp``
-is its plain version): #2 gives ldj(x*), g_y = g_x exp(-ldj), and #2' with
-the cotangents (-g_y, 0) gives the parameters' gradients -g_y dy/dtheta.
-The reference differentiates its inverse's loop with XLA instead; where
-the loop's last Newton step converged inside its bracket the two agree.
+#1', is the reference's rule: the reference differentiates its inverse's
+loop (42 bisections, 3 clipped Newton steps) with XLA's reverse mode, and
+the loop-rule kernel (``mixture_inverse_loop_bwd_f32``) reruns that loop
+from the inputs and pulls the cotangent back through it
+(``numerics.mixture_inverse_loop_vjp`` is its plain version; autograd
+through ``numerics.mixture_inverse_logit_cdf`` its spec).  The implicit
+rule at the root x* (``mixture_inverse_bwd_cuda``: #2 gives ldj(x*), g_y =
+g_x exp(-ldj), #2' with the cotangents (-g_y, 0) the parameters'
+gradients, the exact derivative) is on no path of the port: the checks
+hold it beside the loop rule as their control.
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ MAX_K = 32
 MAX_ITERS = 48
 
 LAUNCHES = {"mixture_inverse": 0, "mixture_forward": 0,
-            "mixture_forward_bwd": 0, "mixture_inverse_bwd": 0}
+            "mixture_forward_bwd": 0, "mixture_inverse_bwd": 0,
+            "mixture_inverse_loop_bwd": 0}
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
 
@@ -49,6 +55,10 @@ def _lib():
                                                 _P, _P, _P, _P, _P, _P, _L,
                                                 _I, _P]
         lib.mixture_forward_bwd_f32.restype = _I
+        lib.mixture_inverse_loop_bwd_f32.argtypes = [_P, _P, _L, _P, _L, _P,
+                                                     _L, _P, _P, _P, _P, _P,
+                                                     _L, _I, _P]
+        lib.mixture_inverse_loop_bwd_f32.restype = _I
         lib._cnf_typed = True
     return lib
 
@@ -171,10 +181,11 @@ def mixture_forward_bwd_cuda(x, pi_logits, means, log_scales, gy, gldj):
 
 
 def mixture_inverse_bwd_cuda(x, pi_logits, means, log_scales, gx):
-    """#1': (gy, gpi, gmu, gls), the cotangent ``gx`` of the inverse's root
-    ``x`` pulled back to its four inputs by the implicit rule, from one
-    launch of #2 (ldj at x) and one of #2' (the cotangents (-gy, 0)).  The
-    gls of a clipped log-scale is 0, as in #2'."""
+    """The implicit rule: (gy, gpi, gmu, gls), the cotangent ``gx`` of the
+    inverse's root ``x`` pulled back to its four inputs, from one launch of
+    #2 (ldj at x) and one of #2' (the cotangents (-gy, 0)).  The gls of a
+    clipped log-scale is 0, as in #2'.  The exact derivative, which the
+    reference does not take: the control of the checks of #1'."""
     _, ldj = _forward_launch(x, pi_logits, means, log_scales)
     gy = gx * torch.exp(-ldj)
     _, gpi, gmu, gls = mixture_forward_bwd_cuda(
@@ -183,20 +194,50 @@ def mixture_inverse_bwd_cuda(x, pi_logits, means, log_scales, gx):
     return gy, gpi, gmu, gls
 
 
+def mixture_inverse_loop_bwd_cuda(y, pi_logits, means, log_scales, gx):
+    """#1': (gy, gpi, gmu, gls), the cotangent ``gx`` of the inverse's root
+    pulled back to its four inputs through the reference's loop, which the
+    kernel reruns from them (``numerics.mixture_inverse_loop_vjp`` is its
+    plain version).  The gls of a clipped log-scale is 0."""
+    k = _check(y, pi_logits, means, log_scales, "mixture_inverse_loop_bwd")
+    if (gx.device != y.device or gx.dtype != torch.float32
+            or tuple(gx.shape) != tuple(y.shape)):
+        raise ValueError(f"mixture_inverse_loop_bwd: gx must be float32 "
+                         f"{tuple(y.shape)} on {y.device}")
+    m = y.numel()
+    y1, gx1 = y.contiguous(), gx.contiguous()
+    pi, mu, ls = _params(m, k, pi_logits, means, log_scales)
+    gy = torch.empty_like(y1)
+    gpi, gmu, gls = (torch.empty(m, k, dtype=torch.float32, device=y.device)
+                     for _ in range(3))
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().mixture_inverse_loop_bwd_f32(
+            y1.data_ptr(), pi.data_ptr(), pi.stride(0), mu.data_ptr(),
+            mu.stride(0), ls.data_ptr(), ls.stride(0), gx1.data_ptr(),
+            gy.data_ptr(), gpi.data_ptr(), gmu.data_ptr(), gls.data_ptr(), m,
+            k, stream)
+    build.check(err, "mixture_inverse_loop_bwd_f32")
+    LAUNCHES["mixture_inverse_loop_bwd"] += 1
+    shape = tuple(pi_logits.shape)
+    return (gy.view(y.shape), gpi.view(shape), gmu.view(shape),
+            gls.view(shape))
+
+
 class MixtureInverse(torch.autograd.Function):
-    """The root x of #1; its backward is #1' (``mixture_inverse_bwd_cuda``).
-    Saves the root and the parameters."""
+    """The root x of #1; its backward is #1'
+    (``mixture_inverse_loop_bwd_cuda``), which reruns the reference's loop
+    from the inputs: only they are saved."""
 
     @staticmethod
     def forward(ctx, y, pi_logits, means, log_scales):
-        x = _inverse_launch(y, pi_logits, means, log_scales)
-        ctx.save_for_backward(x, pi_logits, means, log_scales)
-        return x
+        ctx.save_for_backward(y, pi_logits, means, log_scales)
+        return _inverse_launch(y, pi_logits, means, log_scales)
 
     @staticmethod
     def backward(ctx, gx):
-        return mixture_inverse_bwd_cuda(*ctx.saved_tensors,
-                                        gx.contiguous())
+        return mixture_inverse_loop_bwd_cuda(*ctx.saved_tensors,
+                                             gx.contiguous())
 
 
 def mixture_inverse_cuda(y, pi_logits, means, log_scales) -> torch.Tensor:

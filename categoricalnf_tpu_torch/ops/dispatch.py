@@ -3,9 +3,13 @@
 A CUDA tensor always goes to the hand-written kernel (``ops/cuda/mixture``),
 a CPU tensor to the plain fp32 version in ``ops.numerics``.  On the card the
 forward is ``MixtureForward``, whose backward is a kernel too, and the
-inverse is ``MixtureInverse``, whose backward (#1') is two launches of the
-forward's kernels at the root.  A CPU tensor's inverse is differentiated
-through its loop, as XLA does in the reference.  There is no size
+inverse is ``MixtureInverse``, whose backward (#1') is the loop-rule kernel:
+it reruns the reference's loop (42 bisections, 3 clipped Newton steps) and
+pulls the cotangent back through it as reverse mode does.  A CPU tensor's
+inverse is differentiated through that loop by autograd.  So both devices
+take the reference's gradient, XLA's reverse mode through the loop (the
+reference sends every encoder's inverse to XLA: its Pallas inverse starts
+at 2^17 elements, the encoders run 16,384 and 65,536).  There is no size
 threshold: the TPU's was measured on a TPU, and one for the H100 has not
 been measured yet.
 """

@@ -117,12 +117,105 @@ def mixture_inverse_logit_cdf(y, pi_logits, means, log_scales, *,
     return x
 
 
+def mixture_inverse_loop_vjp(y, pi_logits, means, log_scales, gx, *,
+                             num_bisect: int = 42, num_newton: int = 3):
+    """(gy, gpi, gmu, gls): the cotangent ``gx`` of
+    ``mixture_inverse_logit_cdf``'s root pulled back through its loop, as
+    reverse mode does (the reference's rule, XLA's autodiff of its loop;
+    autograd through the loop is the spec), by the algorithm of the CUDA
+    inverse's backward (#1', ``mixture_inverse_loop_bwd_f32``), of which
+    this is the plain version: the loop rerun from the inputs, each
+    bisection's bracket kept as a lo0 + b hi0 (the comparisons pass no
+    gradient), the Newton iterates and their clip weights kept (1/2 to each
+    side at a tie), then the steps reversed by their first derivatives, the
+    bracket's ends to their arg-min and arg-max components (shared among
+    ties), the log-softmax, and 0 for a clipped log-scale."""
+    with torch.no_grad():
+        y = at_least_f32(y)
+        logits = at_least_f32(pi_logits)
+        log_pi = torch.log_softmax(logits, dim=-1)
+        raw = at_least_f32(log_scales)
+        inside = (raw >= LOG_SCALE_MIN) & (raw <= LOG_SCALE_MAX)
+        log_scales = raw.clamp(LOG_SCALE_MIN, LOG_SCALE_MAX)
+        means = at_least_f32(means)
+        scale = torch.exp(log_scales)
+        cand = means + scale * y[..., None]
+        lo0 = cand.min(dim=-1).values
+        hi0 = cand.max(dim=-1).values
+        inv_scales = torch.exp(-log_scales)
+
+        def parts(x):
+            z = (x[..., None] - means) * inv_scales
+            lsp, lsn = _log_sigmoid_pair(z)
+            a, b = log_pi + lsp, log_pi + lsn
+            c = log_pi + lsp + lsn - log_scales
+            return z, lsp, (a, b, c), [torch.logsumexp(t, dim=-1)
+                                       for t in (a, b, c)]
+
+        one, zero = torch.ones_like(lo0), torch.zeros_like(lo0)
+        lo, hi, la, lb, ha, hb = lo0, hi0, one, zero, zero, one
+        for _ in range(num_bisect):
+            mid = 0.5 * (lo + hi)
+            ma, mb = 0.5 * (la + ha), 0.5 * (lb + hb)
+            _, _, _, (log_cdf, log_sf, _) = parts(mid)
+            right = (log_cdf - log_sf) < y
+            lo, la, lb = (torch.where(right, new, old) for new, old in
+                          ((mid, lo), (ma, la), (mb, lb)))
+            hi, ha, hb = (torch.where(right, old, new) for new, old in
+                          ((mid, hi), (ma, ha), (mb, hb)))
+        x = 0.5 * (lo + hi)
+        trace = []
+        for _ in range(num_newton):
+            _, _, _, (log_cdf, log_sf, log_pdf) = parts(x)
+            u = x - (log_cdf - log_sf - y) * torch.exp(log_cdf + log_sf
+                                                       - log_pdf)
+            m = torch.maximum(u, lo)
+            to_u = torch.where(u > lo, 1.0, torch.where(u == lo, 0.5, 0.0))
+            to_m = torch.where(m < hi, 1.0, torch.where(m == hi, 0.5, 0.0))
+            trace.append((x, to_m * to_u, to_m * (1 - to_u), 1 - to_m))
+            x = torch.minimum(m, hi)
+
+        g = at_least_f32(gx)
+        g_lo, g_hi, g_y = zero, zero, zero
+        g_lp = g_mu = g_ls = torch.zeros_like(cand)
+        for x, w_u, w_lo, w_hi in reversed(trace):
+            g_lo, g_hi = g_lo + g * w_lo, g_hi + g * w_hi
+            g_u = g * w_u
+            z, lsp, (a, b, c), (log_cdf, log_sf, log_pdf) = parts(x)
+            f = log_cdf - log_sf - y
+            e = torch.exp(log_cdf + log_sf - log_pdf)
+            g_f, g_e = -g_u * e, -g_u * f * e
+            ga = (g_f + g_e)[..., None] * torch.exp(a - log_cdf[..., None])
+            gb = (g_e - g_f)[..., None] * torch.exp(b - log_sf[..., None])
+            gc = -g_e[..., None] * torch.exp(c - log_pdf[..., None])
+            g_y = g_y - g_f
+            g_lp = g_lp + ga + gb + gc
+            gz = (ga + gc) * torch.exp(lsp - z) - (gb + gc) * torch.exp(lsp)
+            g = g_u + (gz * inv_scales).sum(-1)
+            g_mu = g_mu - gz * inv_scales
+            g_ls = g_ls - gc - gz * z
+        g_lo_end, g_hi_end = 0.5 * g + g_lo, 0.5 * g + g_hi
+        g_lo0 = g_lo_end * la + g_hi_end * ha
+        g_hi0 = g_lo_end * lb + g_hi_end * hb
+        at_lo, at_hi = cand == lo0[..., None], cand == hi0[..., None]
+        g_cand = (at_lo * (g_lo0 / at_lo.sum(-1))[..., None]
+                  + at_hi * (g_hi0 / at_hi.sum(-1))[..., None])
+        g_mu = g_mu + g_cand
+        g_y = g_y + (g_cand * scale).sum(-1)
+        g_ls = g_ls + g_cand * scale * y[..., None]
+        g_pi = g_lp - torch.exp(log_pi) * g_lp.sum(-1, keepdim=True)
+        return g_y, g_pi, g_mu, torch.where(inside, g_ls, 0.0)
+
+
 def mixture_inverse_vjp(x, pi_logits, means, log_scales, gx):
     """The implicit rule at the root ``x`` of logit F(x; theta) = y, for
     the cotangent ``gx``: (gy, gpi, gmu, gls) with gy = gx exp(-ldj(x)) and
-    the parameters' gradients -gy dy/dtheta (0 for a clipped log-scale).
-    The plain version of the CUDA inverse's backward (#1'); the inverse
-    on a CPU tensor is differentiated through its loop instead."""
+    the parameters' gradients -gy dy/dtheta (0 for a clipped log-scale):
+    the exact derivative.  The plain version of the implicit-rule launches
+    (``ops/cuda/mixture.py`` ``mixture_inverse_bwd_cuda``), which are on no
+    path of the port: the reference, and with it the port on both devices,
+    differentiates the inverse's loop instead (``mixture_inverse_loop_vjp``);
+    the checks hold this rule beside that one as their control."""
     with torch.enable_grad():
         params = [t.detach().requires_grad_(True)
                   for t in (pi_logits, means, log_scales)]
@@ -133,11 +226,9 @@ def mixture_inverse_vjp(x, pi_logits, means, log_scales, gx):
 
 
 class ImplicitInverse(torch.autograd.Function):
-    """The plain inverse with #1''s rule for its backward
-    (``mixture_inverse_vjp``): the gradient the card's ``MixtureInverse``
-    takes.  The port's CPU path differentiates the loop instead; tests and
-    chip_smoke put this in ``dispatch.mixture_inverse`` to hold a CPU step
-    against the card's, or against the reference's given the same rule."""
+    """The plain inverse with the implicit rule for its backward
+    (``mixture_inverse_vjp``), on no path of the port; chip_smoke puts it in
+    ``dispatch.mixture_inverse`` as the control of its vardeq step check."""
 
     @staticmethod
     def forward(ctx, y, pi_logits, means, log_scales):

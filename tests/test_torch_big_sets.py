@@ -1,0 +1,231 @@
+"""Sets of 33 to 128 rows, on the CPU.
+
+The reference runs sets of 64 and 128 through its fused Pallas kernels
+(tiles of whole sets, per-set attention by a block-diagonal bias) and other
+sizes through XLA; the port runs every size up to 128 through its fused
+kernels on the card (``--set_size`` of the set CLIs).  Here the kernels'
+plain version, ``SetTransformer.plain_forward`` (and autograd through it),
+is held against the reference's fused kernel in interpret mode at sets of
+64 and 128 and against its XLA SetTransformer at 48 and 100; the set task
+at set_size 64 against the reference's (batches, one ELBO); the kernels'
+layout mirrors (whole-set tiles, 2-CTA clusters) at sets of 33 to 128 and
+their refusal of 129; and the fp32 train step's refusal above 32 (ROADMAP
+B15).  The kernels themselves run in ``tests/test_torch_cuda.py`` on the
+card.
+
+Tolerances: fp32 within TOL = 1e-4 of the reference's largest magnitude,
+as ``tests/test_torch_key_mask.py``; the ELBO's parts within 1e-4, as
+``tests/test_torch_slice.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from categoricalnf_tpu import flows as jflows
+from categoricalnf_tpu.networks.transformer import \
+    SetTransformer as JaxSetTransformer
+from categoricalnf_tpu.ops.pallas import fused_transformer as jft
+from categoricalnf_tpu.tasks.set_modeling import \
+    SetShufflingTask as JaxSetShufflingTask
+from categoricalnf_tpu_torch.convert import flatten_tree, from_jax_params
+from categoricalnf_tpu_torch.networks import SetTransformer
+from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+from categoricalnf_tpu_torch.tasks import SetShufflingTask
+
+# one intra-op thread: pytest-xdist runs six workers at once, and each at
+# torch's default pool oversubscribes the cores on these small tensors
+torch.set_num_threads(1)
+
+TOL = 1e-4
+HIDDEN, HEADS, IN, OUT = 16, 4, 3, 10
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+def _pair(s, seed, hidden=HIDDEN):
+    """The reference's fp32 SetTransformer (hidden ``hidden``, 4 heads, 2
+    blocks, in 3, out 10, output layer random) and the port's with the same
+    weights (``convert.flatten_tree``)."""
+    r = np.random.default_rng(seed)
+    j = JaxSetTransformer(hidden_dim=hidden, num_heads=HEADS, num_layers=2,
+                          compute_dtype="float32")
+    params = jax.tree.map(np.asarray, j.init(jax.random.PRNGKey(seed), IN,
+                                             OUT))
+    params["out"]["w"] = (r.standard_normal(params["out"]["w"].shape)
+                          * 0.3).astype(np.float32)
+    net = SetTransformer(IN, OUT, hidden_dim=hidden, num_heads=HEADS,
+                         compute_dtype="float32")
+    net.load_state_dict(flatten_tree(params))
+    return j, params, net
+
+
+def _near(a, b):
+    np.testing.assert_allclose(a, b, rtol=0,
+                               atol=TOL * max(np.abs(b).max(), 1.0))
+
+
+def _against(jax_fn, s, b, seed):
+    """The port's plain path (output, and the gradients of x and of every
+    parameter for a random cotangent) against ``jax_fn(params, x)`` and
+    ``jax.grad`` of it, on ``b`` sets of ``s``."""
+    j, params, net = _pair(s, seed)
+    r = np.random.default_rng(seed + 1)
+    x = r.standard_normal((b, s, IN)).astype(np.float32)
+    g = r.standard_normal((b, s, OUT)).astype(np.float32)
+    want_y = np.asarray(jax_fn(params, jnp.asarray(x)))
+    gp, gx = jax.grad(lambda p, xx: jnp.sum(jax_fn(p, xx) * g),
+                      argnums=(0, 1))(params, jnp.asarray(x))
+    want = {k: np.asarray(v) for k, v in flatten_tree(gp).items()}
+    xt = torch.tensor(x, requires_grad=True)
+    y = net(xt)
+    names, params_t = zip(*net.named_parameters())
+    grads = torch.autograd.grad(y, [xt, *params_t], torch.tensor(g))
+    _near(y.detach().numpy(), want_y)
+    _near(grads[0].numpy(), np.asarray(gx))
+    assert set(names) == set(want)
+    for name, got in zip(names, grads[1:]):
+        _near(got.numpy(), want[name].reshape(got.shape))
+
+
+@pytest.mark.parametrize("s", [64, 128])
+def test_plain_path_matches_the_reference_fused_kernel(s):
+    """Sets of 64 and 128, which the reference runs through its Pallas
+    kernels (interpret mode here, as ``tests/test_fused_transformer.py``
+    runs them): the output and every gradient within TOL of the largest
+    magnitude."""
+    j = JaxSetTransformer(hidden_dim=HIDDEN, num_heads=HEADS, num_layers=2,
+                          compute_dtype="float32")
+    x = jnp.zeros((2, s, IN))
+    assert jft.supported(x, None, None, HIDDEN, HEADS)
+
+    def fused(params, xx):
+        return jft.fused_set_transformer(
+            params, xx, hidden_dim=HIDDEN, num_heads=HEADS, num_layers=2,
+            mlp_ratio=j.mlp_ratio, compute_dtype="float32", out_dim=OUT)
+
+    _against(fused, s, 2, s)
+
+
+@pytest.mark.parametrize("s", [48, 100])
+def test_plain_path_matches_the_reference_xla_path(s):
+    """Sets of 48 and 100, which the reference's fused kernel does not take
+    (its tiles of 128 rows hold no whole number of them) and it runs
+    through XLA: the same rule."""
+    j, _, _ = _pair(s, s)
+    assert not jft.supported(jnp.zeros((2, s, IN)), None, None, HIDDEN,
+                             HEADS)
+    _against(j.apply, s, 2, s)
+
+
+def test_set_task_at_64_matches_the_reference():
+    """SetShufflingTask at set_size 64 (a tiny width): its batches equal
+    the reference's, and one ELBO on the reference's data-initialised
+    weights and its encoder noise within 1e-4 (log_pz, log_dec, log_q)."""
+    tiny = dict(set_size=64, batch_size=4, num_layers=2, hidden_dim=16,
+                num_mixtures=3, encoding_dim=2, compute_dtype="float32")
+    jtask = JaxSetShufflingTask(**tiny)
+    ttask = SetShufflingTask(**tiny, device="cpu")
+    for seed in (0, 1):
+        np.testing.assert_array_equal(
+            ttask._gen(np.random.default_rng(seed), 4),
+            jtask._gen(np.random.default_rng(seed), 4))
+    x = jtask._gen(np.random.default_rng(2), 4)
+    assert x.shape == (4, 64)
+    params = jtask.data_init(jtask.init_params(jax.random.PRNGKey(0)),
+                             {"x": jnp.asarray(x)}, jax.random.PRNGKey(1))
+    params = jax.tree.map(np.asarray, params)
+    for i, layer in enumerate(jtask.model.flow.layers):
+        if isinstance(layer, jflows.MixtureCDFCoupling):
+            out = params["flow"][i]["net"]["out"]
+            r = np.random.default_rng(10 + i)
+            out["w"] = (r.standard_normal(out["w"].shape)
+                        * 0.1).astype(np.float32)
+    ttask.model.load_state_dict(from_jax_params(ttask, params))
+    key = jax.random.PRNGKey(9)
+    parts = jax.jit(jtask.model.elbo)(params, jnp.asarray(x), key)
+    u = np.asarray(jax.random.uniform(key, (4, 64, 2), jnp.float32,
+                                      minval=1e-6, maxval=1.0 - 1e-6))
+    with torch.no_grad():
+        tparts = ttask.model.elbo(torch.tensor(x), noise=torch.tensor(u))
+    for k in ("log_pz", "log_dec", "log_q", "elbo"):
+        np.testing.assert_allclose(tparts[k].numpy(), np.asarray(parts[k]),
+                                   rtol=1e-4, atol=1e-4)
+    assert ttask.analytic_optimum_bpd() == pytest.approx(4.6249, abs=1e-4)
+
+
+# the flagship's coupling net (in 4, out 104) and the vardeq main flow's
+# (in 1, out 26), hidden 96, 4 heads, 2 blocks, MLP 192
+NETS = {"flagship": (4, 104), "vardeq": (1, 26)}
+
+
+@pytest.mark.parametrize("net", sorted(NETS))
+@pytest.mark.parametrize("s", [33, 48, 64, 99, 100, 128])
+def test_big_set_layouts_fit(net, s):
+    """At sets of 33 to 128 the forward of each dtype takes the call and its
+    tile fits, and the bf16 backward's tile fits: a whole set where it fits
+    one block (the bf16 pair up to its 64-row tiles, #3 fp32 up to 100 at
+    these widths), else ceil(s / 2) rows a block of a 2-CTA cluster, whose
+    blocks each fit; the persistent grid of a cluster is even and at most
+    two blocks a set."""
+    in_dim, out = NETS[net]
+    x = torch.zeros(8, s, in_dim)
+    for cd in (BF16, F32):
+        assert ft.supported(x, None, None, 96, HEADS, 2, cd)
+        tile, smem, cluster = ft.fwd_shape(cd, s, in_dim, 96, 192)
+        assert smem <= ft.MAX_SMEM
+        assert tile == (s if cluster == 1 else -(-s // 2))
+    assert ft.fwd_shape(F32, s, in_dim, 96, 192)[2] == (1 if s <= 100
+                                                          else 2)
+    assert ft.fwd_shape(BF16, s, in_dim, 96, 192)[2] == (1 if s <= 64
+                                                           else 2)
+    tile, smem, in_global, cluster = ft.bwd_layout(
+        BF16, s, in_dim, 96, 192, out, HEADS, 2)
+    assert smem <= ft.MAX_SMEM and not in_global
+    assert cluster == (1 if s <= 64 else 2)
+    assert tile == ft.split_rows(s, cluster)
+    assert ft.bwd_fits(BF16, s, in_dim, 96, 192, out, HEADS, 2)
+    _, _, _, grid = ft.bwd_launch(BF16, s, in_dim, 96, 192, out, HEADS, 2,
+                                  1024 * s, 132)
+    assert grid % cluster == 0 and grid <= cluster * 1024
+
+
+def test_bf16_tiles_stay_at_64_rows():
+    """The bf16 pair's tiles hold at most 64 rows (four 16-row m-tiles of
+    its dense products): a set of 65 goes over a cluster of two, 33 rows a
+    block, though its whole-set forward would fit; the backward with its
+    residual copies in global memory, a test switch, is refused above 32."""
+    assert ft.fwd_shape(BF16, 65, 4, 96, 192)[::2] == (33, 2)
+    assert ft.fwd_shape(BF16, 64, 4, 192, 384)[::2] == (64, 1)
+    assert ft.fwd_shape(BF16, 128, 4, 192, 384)[::2] == (64, 2)
+    assert ft.bwd_layout(BF16, 65, 4, 96, 192, 104, HEADS, 2)[::3] == (33, 2)
+    assert ft.bwd_layout(BF16, 64, 4, 96, 192, 104, HEADS, 2,
+                         True)[1] > ft.MAX_SMEM
+
+
+@pytest.mark.parametrize("cd", [BF16, F32])
+def test_sets_above_128_are_refused(cd):
+    """A set of 129 (ROADMAP B16): the forward refuses it, so the card's
+    wrappers raise before a launch; 128 is taken."""
+    assert not ft.supported(torch.zeros(2, 129, 4), None, None, 96, HEADS,
+                            2, cd)
+    assert ft.supported(torch.zeros(2, 128, 4), None, None, 96, HEADS, 2,
+                        cd)
+
+
+@pytest.mark.parametrize("s", [33, 64])
+def test_fp32_training_above_32_is_refused_naming_b15(s):
+    """A differentiable fp32 call at a set above 32 raises
+    NotImplementedError naming B15 before any launch: the fp32 train
+    step's FMA pair takes sets up to 32.  The same call in bf16, and the
+    fp32 call without grad, pass the check."""
+    x = torch.zeros(2, s, 4)
+    net = SetTransformer(4, 104, hidden_dim=96, num_heads=HEADS,
+                         compute_dtype="float32")
+    with pytest.raises(NotImplementedError, match="B15"):
+        net.check_backward_fits(x)
+    assert not ft.bwd_fits(F32, s, 4, 96, 192, 104, HEADS, 2)
+    SetTransformer(4, 104, hidden_dim=96, num_heads=HEADS,
+                   compute_dtype="bfloat16").check_backward_fits(x)
+    net.check_backward_fits(torch.zeros(2, 32, 4))

@@ -633,24 +633,36 @@ def test_mixture_bwd_takes_strided_slices_and_is_deterministic(dev, b):
         _close(a, w, 1e-4)
 
 
-def test_wrappers_without_backward_raise_on_grad(dev):
-    """The inverse now has a backward, #1': with grad on, its gradients are
-    the plain implicit rule's at the kernel's root (within 1e-4 of each
-    gradient's norm), from one launch of #1' (#2 and #2' at the root), and
-    under no_grad it gives the same root.  The plain forward wrapper of #3
-    keeps no graph: with grad on it raises rather than drop it."""
-    x, pi, mu, ls = _mix((4, 4), 8, dev)
-    y, _ = nm.mixture_logit_cdf_and_ldj(x, pi, mu, ls)
+@pytest.mark.parametrize("case", ["vardeq", "k8", "k16", "k32",
+                                  "k8_wide", "k16_wide", "k32_wide"])
+def test_wrappers_without_backward_raise_on_grad(dev, case):
+    """The inverse has a backward, #1', the reference's rule: with grad on,
+    one launch of the loop-rule kernel and no other, its gradients within
+    chip_smoke's elementwise rule of its plain version
+    (``numerics.mixture_inverse_loop_vjp``) on at least INV_LOOP_SHARE of
+    the elements, at the vardeq encoder's shape (K = 4) and at every other
+    width the kernel is built for (K = 8, 16, 32 on ``_mix``'s inputs, 16
+    and 4,096 elements), and under no_grad the same root.  The plain
+    forward wrapper of #3 keeps no graph: with grad on it raises rather
+    than drop it."""
+    if case == "vardeq":
+        y, pi, mu, ls = cs.encoder_inverse_cases(0, dev)["vardeq"]
+    else:
+        k = int(case[1:].split("_")[0])
+        x, pi, mu, ls = _mix((64, 64) if case.endswith("wide") else (4, 4),
+                             k, dev)
+        y, _ = nm.mixture_logit_cdf_and_ldj(x, pi, mu, ls)
     args = [t.clone().requires_grad_(True) for t in (y, pi, mu, ls)]
     before = dict(cm.LAUNCHES)
     root = cm.mixture_inverse_cuda(*args)
     gx = torch.randn_like(root)
     got = torch.autograd.grad(root, args, gx)
-    assert cm.LAUNCHES["mixture_inverse_bwd"] == \
-        before["mixture_inverse_bwd"] + 1
-    want = nm.mixture_inverse_vjp(root.detach(), pi, mu, ls, gx)
+    assert cm.LAUNCHES["mixture_inverse_loop_bwd"] == \
+        before["mixture_inverse_loop_bwd"] + 1
+    assert cm.LAUNCHES["mixture_inverse_bwd"] == before["mixture_inverse_bwd"]
+    want = nm.mixture_inverse_loop_vjp(y, pi, mu, ls, gx)
     for a, w in zip(got, want):
-        assert _rel(a, w) <= 1e-4
+        assert cs.near_share(a, w) >= cs.INV_LOOP_SHARE
     with torch.no_grad():
         assert torch.equal(cm.mixture_inverse_cuda(y, pi, mu, ls),
                            root.detach())
@@ -835,12 +847,12 @@ def test_scanned_set_stack_remat_on_card(dev):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_mixture_inverse_bwd_against_the_exact_derivative(dev, seed):
     """#1' at the encoders' shapes (M = 16,384 and 65,536, K = 4, the
-    parameters as strided slices of one leaf) by chip_smoke's rule: each
-    gradient within INV_BWD_REL of the exact derivative (central
-    differences of the plain inverse in float64) and within
-    INV_BWD_PLAIN_REL of the plain implicit rule at the kernel's root;
-    autograd through the plain fp32 inverse, the control, reads above
-    INV_BWD_REL; and #1 passes the residual rule there."""
+    parameters as strided slices of one leaf) by chip_smoke's rule
+    (``inverse_bwd_readings``): the loop-rule kernel, the reference's
+    gradient, within the elementwise rule of autograd through the plain
+    loop on the card, and so is its plain version; the exact derivative
+    (the implicit rule) is now the control, which fails that rule on some
+    gradient; and #1 passes the residual rule there."""
     for name, (y, pi, mu, ls) in cs.encoder_inverse_cases(seed,
                                                           dev).items():
         g = torch.Generator(dev).manual_seed(seed + 40)
@@ -852,15 +864,15 @@ def test_mixture_inverse_bwd_against_the_exact_derivative(dev, seed):
 
 
 @pytest.mark.parametrize("cd", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", ["set40", "mask"])
+@pytest.mark.parametrize("case", ["set129", "mask"])
 def test_refused_calls_raise_on_the_card(dev, cd, case):
-    """A set of 40, and a key mask of another shape than the sets', which
+    """A set of 129, and a key mask of another shape than the sets', which
     the kernels do not take, raise on the card rather than run the plain
     path there, with or without grad.  No kernel launches.  A key mask of
     the sets' shape in a differentiable fp32 call runs the fp32 train
     step's pair with the mask."""
     net = _net(cd, dev)
-    set_size = 40 if case == "set40" else 16
+    set_size = 129 if case == "set129" else 16
     x = torch.randn(4, set_size, 4, device=dev, requires_grad=True)
     mask = None
     if case == "mask":
@@ -900,12 +912,14 @@ def test_fused_bf16_at_the_vardeq_main_flow_shape(dev):
 
 def test_vardeq_train_step_against_fp64(dev):
     """One fp32 train step of runs/sum_vardeq at full width on the card,
-    #1' in the encoder, held per tensor by chip_smoke's rule against the
-    same step in float64 on the CPU with the same implicit rule; the
-    control, the CPU step through the inverse's loop, reads over the limit
-    on some encoder tensor."""
+    #1' (the loop rule) in the encoder, held by chip_smoke's rules against
+    the same step on the CPU through the loop (the tensors outside the
+    encoder per tensor against float64, the encoder's elementwise against
+    the CPU fp32 step); the control, the CPU step with the implicit rule,
+    fails the elementwise rule on some encoder tensor."""
     launches = cs.check_vardeq_step_against_cpu(0, {})
-    assert launches["mixture_inverse_bwd"] > 0
+    assert launches["mixture_inverse_loop_bwd"] > 0
+    assert launches["mixture_inverse_bwd"] == 0
 
 
 # -- the language models: K up to 32, the LSTM flow on the card -----------
@@ -1094,8 +1108,7 @@ def test_hidden_256_bf16_training_matches_plain(dev):
     rules (``masked_bwd_readings``: 0.03 of each gradient's norm, the
     control without the mask above 10 x that, a mask of ones bitwise no
     mask); the launch counted as masked."""
-    _, _, in_global = ft.bwd_layout(torch.bfloat16, 24, 6, 256, 512, 300, 4,
-                                    2)
+    in_global = ft.bwd_layout(torch.bfloat16, 24, 6, 256, 512, 300, 4, 2)[2]
     assert in_global
     net = cs.molecule_net("bfloat16", dev, 0, 256, 300)
     g = torch.Generator(dev).manual_seed(7)
@@ -1167,3 +1180,48 @@ def test_fma_workspace_layout_is_bitwise_the_shared_one(dev):
     out = cs.fma_workspace_bitwise(dev, 1)
     assert set(out) == {"h96", "h128"}
     assert all(v["bitwise"] for v in out.values())
+
+
+# -- sets of 33 to 128: chunked attention, 2-CTA clusters -----------------
+
+@pytest.mark.parametrize("s", [33, 48, 64, 99, 100, 128])
+def test_big_sets_match_plain(dev, s):
+    """#3 bf16, #4 bf16 and #3 fp32 at sets of ``s`` (whole-set tiles, and
+    for #4 bf16 above 64 and #3 fp32 above 100 two blocks of a cluster,
+    rank 1 holding one row fewer at 99) against plain by chip_smoke's
+    limits (``fused_fwd_report``, ``fused_bwd_report``)."""
+    g = torch.Generator(dev).manual_seed(s)
+    sets = 4096 // s
+    x = torch.randn(sets, s, cs.D, generator=g, device=dev)
+    gy = torch.randn(sets, s, cs.OUT, generator=g,
+                     device=dev).to(torch.bfloat16)
+    assert cs.fused_fwd_report(cs.flagship_net("bfloat16", dev),
+                               x)["rel_err"] <= cs.BF16_FWD_REL
+    assert cs.fused_bwd_report(cs.flagship_net("bfloat16", dev), x, gy,
+                               f"sets of {s}")["rel_err"] <= 0.03
+    assert cs.fused_fwd_report(cs.flagship_net("float32", dev),
+                               x)["rel_err"] <= cs.F32_FWD_REL
+
+
+def test_big_sets_masked_and_cluster_forward(dev):
+    """The key mask at sets of 64 in #3 bf16, #4 bf16 and #3 fp32
+    (``check_big_set_kernels``, which also runs every size of BIG_SETS at
+    one seed and #3 bf16 over a cluster at hidden 192)."""
+    cs.check_big_set_kernels(dev, (0,), {})
+
+
+def test_fp32_training_above_32_raises_before_launch(dev):
+    """A differentiable fp32 call at a set of 64 raises NotImplementedError
+    naming B15 and launches nothing; without grad it runs #3 fp32."""
+    net = _net("float32", dev)
+    x = torch.randn(4, 64, 4, device=dev, requires_grad=True)
+    before = (dict(ft.LAUNCHES), dict(ft.BWD_LAUNCHES),
+              dict(ft.TRAIN_FWD_LAUNCHES))
+    with pytest.raises(NotImplementedError, match="B15"):
+        net(x)
+    assert (dict(ft.LAUNCHES), dict(ft.BWD_LAUNCHES),
+            dict(ft.TRAIN_FWD_LAUNCHES)) == before
+    with torch.no_grad():
+        y = net(x)
+    assert ft.LAUNCHES["float32"] == before[0]["float32"] + 1
+    assert torch.isfinite(y).all()

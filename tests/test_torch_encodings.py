@@ -379,15 +379,15 @@ def test_plain_inverse_autograd_matches_reference(seed):
 
 # -- the shapes the SetTransformer kernels take ------------------------------
 
-@pytest.mark.parametrize("case", ["mask", "cond", "set40", "wide_bf16"])
+@pytest.mark.parametrize("case", ["mask", "cond", "set129", "wide_bf16"])
 def test_kernels_refuse_what_they_do_not_take(case):
     """``ft.supported``, which the card's wrappers ask before a launch and
     raise on when it refuses (shapes only, so it runs here on CPU
     tensors), refuses a key mask of another shape than the sets' (the
-    kernels take one of their shape), a condition, a set above 32 and a
+    kernels take one of their shape), a condition, a set above 128 and a
     bf16 width above 256, and takes the same call without them."""
     hidden = 288 if case == "wide_bf16" else 32
-    set_size = 40 if case == "set40" else 16
+    set_size = 129 if case == "set129" else 16
     x = torch.randn(3, set_size, 1)
     cond = torch.randn(3, set_size, 1) if case == "cond" else None
     mask = torch.ones(3, set_size - 1) if case == "mask" else None
@@ -404,7 +404,7 @@ def test_kernels_take_the_flagship_and_the_vardeq_shapes():
         x = torch.zeros(1024, 16, in_dim)
         for cd in (torch.bfloat16, torch.float32):
             assert ft.supported(x, None, None, 96, 4, 2, cd)
-            _, smem = ft.bwd_shape(cd, 16, in_dim, 96, 192, out, 4, 2)
+            smem = ft.bwd_layout(cd, 16, in_dim, 96, 192, out, 4, 2)[1]
             assert smem <= ft.MAX_SMEM
     assert not ft.supported(torch.zeros(2, 16, 1), None, None, 96, 5, 2,
                             torch.bfloat16)

@@ -3,7 +3,7 @@
 ``csrc/fused_transformer.cu``), on the CPU: the padded weight layouts its
 products read (``padded_layouts``: at 16 for the bf16 tensor cores, at 4
 for the fp32 FMA pair), and its tile, shared memory and grid per compute
-dtype (``bwd_shape``, ``bwd_grid``).  Needs neither a card nor nvcc."""
+dtype (``bwd_layout``, ``bwd_grid``).  Needs neither a card nor nvcc."""
 
 import numpy as np
 import pytest
@@ -101,7 +101,7 @@ FLAGSHIP = dict(in_dim=4, hidden=96, mlp=192, out_dim=104, heads=4,
 
 def test_bwd_shape_of_the_flagship_per_dtype():
     bf16, f32 = torch.bfloat16, torch.float32
-    tile, smem = ft.bwd_shape(bf16, 16, **FLAGSHIP)
+    tile, smem = ft.bwd_layout(bf16, 16, **FLAGSHIP)[:2]
     # 64 rows: (L + 6) [64, 104] buffers, qkv [64, 296], the MLP pair
     # [64, 2 x 200], all bf16, and the fp32 softmax statistics
     assert tile == 64
@@ -113,7 +113,7 @@ def test_bwd_shape_of_the_flagship_per_dtype():
     # (conflict_free: 100, 292 and 2 x 196 for the MLP pair) beside its
     # warps' weight rings (12,288 B), and the grid of the rows one float
     # wider that it had: one block an SM
-    tile, smem = ft.bwd_shape(f32, 16, **FLAGSHIP)
+    tile, smem = ft.bwd_layout(f32, 16, **FLAGSHIP)[:2]
     assert tile == 32
     assert smem == 4 * 32 * (8 * 100 + 292 + 392 + 3 * 4) + 12_288 == 203_776
     assert ft.smem_blocks_per_sm(smem) == ft.smem_blocks_per_sm(187_264) == 1
@@ -126,20 +126,20 @@ def test_bwd_shape_of_the_flagship_per_dtype():
 def test_bf16_tiles_hold_whole_sets_and_fit(s, tile):
     """Whole sets up to 64 rows, padded to 16-row m-tiles; S = 32 (two sets
     a tile) fits at the flagship width like S = 16."""
-    got, smem = ft.bwd_shape(torch.bfloat16, s, **FLAGSHIP)
+    got, smem = ft.bwd_layout(torch.bfloat16, s, **FLAGSHIP)[:2]
     assert got == tile and got % s == 0
     assert smem <= ft.MAX_SMEM
     if ft.pad16(tile) == 64:
-        assert smem == ft.bwd_shape(torch.bfloat16, 16, **FLAGSHIP)[1]
+        assert smem == ft.bwd_layout(torch.bfloat16, 16, **FLAGSHIP)[1]
 
 
 def test_deeper_nets_take_32_row_tiles():
     """A net with 5 blocks does not fit a 64-row bf16 tile; the kernel then
     takes 32 rows, so every shape the fp32-layout kernel took still fits."""
     deep = dict(FLAGSHIP, layers=5)
-    tile, smem = ft.bwd_shape(torch.bfloat16, 16, **deep)
+    tile, smem = ft.bwd_layout(torch.bfloat16, 16, **deep)[:2]
     assert tile == 32 and smem <= ft.MAX_SMEM
     for layers, hidden in ((2, 112), (5, 96), (6, 64)):
         net = dict(FLAGSHIP, layers=layers, hidden=hidden, mlp=2 * hidden)
-        if ft.bwd_shape(torch.float32, 16, **net)[1] <= ft.MAX_SMEM:
-            assert ft.bwd_shape(torch.bfloat16, 16, **net)[1] <= ft.MAX_SMEM
+        if ft.bwd_layout(torch.float32, 16, **net)[1] <= ft.MAX_SMEM:
+            assert ft.bwd_layout(torch.bfloat16, 16, **net)[1] <= ft.MAX_SMEM

@@ -90,7 +90,7 @@ def test_fwd_shape_of_the_flagship():
     rows 4 mod 8 floats wide: h and the LN/attention output [32, 96 + 4],
     and qkv [32, 288 + 4], plus 8 floats of slack: 63 KB, three blocks an
     SM."""
-    tile, smem = ft.fwd_shape(F32, 16, **FLAGSHIP)
+    tile, smem = ft.fwd_shape(F32, 16, **FLAGSHIP)[:2]
     assert (tile, smem) == (32, 4 * (32 * (100 + 100 + 292) + 8)) \
         == (32, 63_008)
     assert ft.smem_blocks_per_sm(smem) == 3
@@ -105,7 +105,7 @@ def test_fwd_tiles_hold_whole_sets_and_fit(s, hidden, mlp):
     two 16-row m-tiles, within MAX_SMEM; a net too wide for that takes
     whole sets up to 16 rows.  What fits in none of its layouts, the FFMA
     forward did not take either."""
-    tile, smem = ft.fwd_shape(F32, s, 4, hidden, mlp)
+    tile, smem = ft.fwd_shape(F32, s, 4, hidden, mlp)[:2]
     if smem > ft.MAX_SMEM:
         assert not _old_fp32_rule(s, 4, hidden, 4, mlp)
         return
@@ -149,14 +149,16 @@ def test_supported_takes_every_call_the_old_kernel_took():
 
 def test_supported_keeps_its_other_rules():
     """A key mask of the sets' shape is taken since the fp32 forward takes
-    one; a mask of another shape, or a condition, is not."""
+    one; a mask of another shape, or a condition, is not; sets up to 128
+    rows are taken, 129 is not."""
     x = torch.zeros(2, 16, 4)
     assert ft.supported(x, None, torch.ones(2, 16), 96, 4)
     assert not ft.supported(x, None, torch.ones(1, 16), 96, 4)
     assert not ft.supported(x, torch.ones(2, 16, 1), None, 96, 4)
     assert not ft.supported(x, None, None, 96, 5)
-    assert not ft.supported(torch.zeros(2, 33, 4), None, None, 96, 4)
-    assert ft.supported(torch.zeros(2, 32, 4), None, None, 96, 4)
+    assert not ft.supported(torch.zeros(2, 129, 4), None, None, 96, 4)
+    assert ft.supported(torch.zeros(2, 128, 4), None, None, 96, 4)
+    assert ft.supported(torch.zeros(2, 33, 4), None, None, 96, 4)
 
 
 # -- the 3xTF32 arithmetic, emulated -------------------------------------

@@ -29,14 +29,14 @@ def test_fwd_shape_of_the_flagship():
     LN/attention output [64, 96 + 8], and qkv [64, 288 + 8], the widest of
     x, qkv and the MLP hidden layer: 63 KB, so shared memory holds three
     blocks of 8 warps an SM; the launch bounds give registers for two."""
-    tile, smem = ft.fwd_shape(BF16, 16, **FLAGSHIP)
+    tile, smem = ft.fwd_shape(BF16, 16, **FLAGSHIP)[:2]
     assert tile == 64
     assert smem == 2 * 64 * (104 + 104 + 296) == 64_512
     assert ft.smem_blocks_per_sm(smem) == 3
     assert ft.fwd_blocks_per_sm(smem) == ft.FWD_BLOCKS == 2
     # the fp32 forward keeps its 32-row tile of fp32 rows
     assert ft.fwd_shape(F32, 16, **FLAGSHIP) == (
-        32, ft.smem_bytes(16, 4, 96, 192))
+        32, ft.smem_bytes(16, 4, 96, 192), 1)
 
 
 @pytest.mark.parametrize("s,tile,half", [(1, 64, 32), (6, 60, 30),
@@ -47,12 +47,12 @@ def test_bf16_fwd_tiles_hold_whole_sets_and_fit(s, tile, half):
     at most four 16-row m-tiles; shared memory holds three blocks an SM at
     the flagship width.  A net too wide for 64 rows (hidden 256, MLP ratio
     8) takes whole sets up to 32 rows, one block an SM."""
-    got, smem = ft.fwd_shape(BF16, s, **FLAGSHIP)
+    got, smem = ft.fwd_shape(BF16, s, **FLAGSHIP)[:2]
     assert got == tile and got % s == 0 and ft.pad16(got) <= 64
     assert smem == 2 * ft.pad16(got) * (104 + 104 + 296)
     assert ft.smem_blocks_per_sm(smem) >= 3
     assert ft.fwd_blocks_per_sm(smem) == ft.FWD_BLOCKS
-    got, smem = ft.fwd_shape(BF16, s, **WIDE)
+    got, smem = ft.fwd_shape(BF16, s, **WIDE)[:2]
     assert got == half and got % s == 0 and ft.pad16(got) <= 32
     assert smem == 2 * ft.pad16(got) * (264 + 264 + 2056) <= ft.MAX_SMEM
     assert ft.fwd_blocks_per_sm(smem) == 1
@@ -61,7 +61,7 @@ def test_bf16_fwd_tiles_hold_whole_sets_and_fit(s, tile, half):
 def test_wide_nets_take_half_tiles():
     """An MLP too wide for a 64-row tile (ratio 8 at hidden 256) takes 32
     rows; the backward's limit on the width still holds it."""
-    tile, smem = ft.fwd_shape(BF16, 16, **WIDE)
+    tile, smem = ft.fwd_shape(BF16, 16, **WIDE)[:2]
     assert tile == 32 and smem == 2 * 32 * (2 * 264 + 2056) <= ft.MAX_SMEM
     assert 2 * 64 * (2 * 264 + 2056) > ft.MAX_SMEM
     assert ft.supported(torch.zeros(2, 16, 4), None, None, 256, 4, 8,
@@ -81,16 +81,19 @@ def test_supported_rejects_hidden_over_256_in_bf16(hidden, heads, ok):
 
 def test_supported_keeps_its_other_rules_in_bf16():
     """A key mask of the sets' shape is taken since the kernels take one;
-    a mask of another shape is not."""
+    a mask of another shape is not; sets up to 128 rows are taken, 129 is
+    not."""
     x = torch.zeros(2, 16, 4)
     assert ft.supported(x, None, torch.ones(2, 16), 96, 4,
                         compute_dtype=BF16)
     assert not ft.supported(x, None, torch.ones(2, 15), 96, 4,
                             compute_dtype=BF16)
     assert not ft.supported(x, None, None, 96, 5, compute_dtype=BF16)
-    assert not ft.supported(torch.zeros(2, 33, 4), None, None, 96, 4,
+    assert not ft.supported(torch.zeros(2, 129, 4), None, None, 96, 4,
                             compute_dtype=BF16)
-    assert ft.supported(torch.zeros(2, 32, 4), None, None, 96, 4,
+    assert ft.supported(torch.zeros(2, 128, 4), None, None, 96, 4,
+                        compute_dtype=BF16)
+    assert ft.supported(torch.zeros(2, 33, 4), None, None, 96, 4,
                         compute_dtype=BF16)
 
 

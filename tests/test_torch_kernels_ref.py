@@ -120,7 +120,10 @@ def test_supported_rule():
     assert not ft.supported(x, None, torch.ones(B, 15), 96, 4)
     assert not ft.supported(x, torch.ones(B, 16, 2), None, 96, 4)
     assert not ft.supported(x, None, None, 96, 5)
-    assert not ft.supported(torch.zeros(B, 33, IN), None, None, 96, 4)
+    # sets up to 128 rows (the reference's largest Pallas tile of whole
+    # sets), not above
+    assert ft.supported(torch.zeros(B, 128, IN), None, None, 96, 4)
+    assert not ft.supported(torch.zeros(B, 129, IN), None, None, 96, 4)
     # the flagship tile: 32 rows of h, LN buffer and qkv in fp32, rows 4
     # mod 8 floats wide, and 8 floats of slack
     assert ft.smem_bytes(16, 4, 96, 192) == 4 * (32 * (2 * 100 + 292) + 8)

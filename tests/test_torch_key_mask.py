@@ -263,11 +263,10 @@ NODE_FLOW_TILES = {
 def test_node_flow_tiles(hidden):
     fwd, bwd, f32, fma_bwd = NODE_FLOW_TILES[hidden]
     out = 6 * (2 + 3 * 8)
-    assert ft.fwd_shape(BF16, 24, 6, hidden, 2 * hidden) == fwd
-    assert ft.bwd_shape(BF16, 24, 6, hidden, 2 * hidden, out, 4, 2) == bwd
+    assert ft.fwd_shape(BF16, 24, 6, hidden, 2 * hidden)[:2] == fwd
     assert ft.bwd_layout(BF16, 24, 6, hidden, 2 * hidden, out, 4, 2) == (
-        *bwd, hidden == 256)
-    assert ft.fwd_shape(torch.float32, 24, 6, hidden, 2 * hidden) == f32
+        *bwd, hidden == 256, 1)
+    assert ft.fwd_shape(torch.float32, 24, 6, hidden, 2 * hidden)[:2] == f32
     assert ft.bwd_fits(BF16, 24, 6, hidden, 2 * hidden, out, 4, 2)
     assert ft.supported(torch.zeros(2, 24, 6), None, torch.ones(2, 24),
                         hidden, 4, compute_dtype=BF16)
@@ -275,8 +274,8 @@ def test_node_flow_tiles(hidden):
     # of the node flow, from 192 with regions in global memory, and a
     # differentiable fp32 call passes the check before its launch
     F32 = torch.float32
-    assert ft.bwd_layout(F32, 24, 6, hidden, 2 * hidden, out, 4, 2) == (
-        fma_bwd)
+    assert ft.bwd_layout(F32, 24, 6, hidden, 2 * hidden, out, 4,
+                         2)[:3] == fma_bwd
     assert fma_bwd[1] <= ft.MAX_SMEM
     assert ft.bwd_fits(F32, 24, 6, hidden, 2 * hidden, out, 4, 2)
     assert bool(fma_bwd[2]) == (hidden >= 192)
@@ -326,7 +325,7 @@ def test_fma_bwd_layout_rule(net, regions, grid):
     s, in_dim, hidden, out, rows = net
     F32 = torch.float32
     shape = (F32, s, in_dim, hidden, 2 * hidden, out, 4, 2)
-    tile, smem, got = ft.bwd_layout(*shape)
+    tile, smem, got, _ = ft.bwd_layout(*shape)
     assert got == regions == ft.FMA_WS_REGIONS[:len(regions)]
     need = _fma_bwd_bytes(s, in_dim, hidden, out, regions)
     assert smem == ft.with_rings(need) <= ft.MAX_SMEM
@@ -377,8 +376,8 @@ def test_fp32_training_over_shared_memory_is_refused_before_launch(
     out = 6 * (2 + 3 * k)
     net = SetTransformer(6, out, hidden_dim=hidden, num_heads=4,
                          mlp_ratio=mlp_ratio, compute_dtype="float32")
-    tile, smem, regions = ft.bwd_layout(torch.float32, 24, 6, hidden,
-                                        mlp_ratio * hidden, out, 4, 2)
+    tile, smem, regions, _ = ft.bwd_layout(torch.float32, 24, 6, hidden,
+                                           mlp_ratio * hidden, out, 4, 2)
     assert regions == ft.FMA_WS_REGIONS and smem > ft.MAX_SMEM
     assert not ft.bwd_fits(torch.float32, 24, 6, hidden, mlp_ratio * hidden,
                            out, 4, 2)
@@ -431,8 +430,8 @@ def test_width_256_bf16_training_is_refused_before_launch(hidden, k):
                          compute_dtype="bfloat16")
     x = torch.zeros(2, 24, 6)
     net.check_backward_fits(x)
-    tile, smem, in_global = ft.bwd_layout(BF16, 24, 6, hidden, 2 * hidden,
-                                          out, 4, 2)
+    tile, smem, in_global, _ = ft.bwd_layout(BF16, 24, 6, hidden,
+                                             2 * hidden, out, 4, 2)
     assert tile == 24 and smem <= ft.MAX_SMEM
     assert in_global == (hidden == 256)
     if in_global:

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Train a run's config on one card in three arms that differ only in the
+"""Train a run's config on one card in arms that differ only in the
 encoder's gradient or the beta schedule, and print each arm's eval bits/var
 every ``--eval_every`` steps from the untrained model on.
 
-- ``implicit``: the port as it trains on the card; the encoder's inverse is
-  differentiated by #1' (the implicit rule at the root).
-- ``loop``: the reference's rule; the inverse runs its plain loop on the
-  card and autograd differentiates it (``numerics.mixture_inverse_logit_cdf``
-  in ``dispatch.mixture_inverse``), as XLA does in the reference.
-- ``beta1``: as ``implicit``, with beta held at 1 from the first step
+- ``kernel``: the port as it trains on the card; the encoder's inverse is
+  differentiated by #1', the loop-rule kernel (the reference's rule).
+- ``loop``: the same rule from the plain loop on the card under autograd
+  (``numerics.mixture_inverse_logit_cdf`` in ``dispatch.mixture_inverse``),
+  as XLA does in the reference.
+- ``implicit``: the exact derivative instead, the implicit rule at the
+  kernel's root (``mixture_inverse_bwd_cuda``), which the card took before
+  it took the reference's rule.
+- ``beta1``: as ``kernel``, with beta held at 1 from the first step
   instead of the run's sigmoid warm-up from 0.5.
 
     python3 tools/encoder_grad_ab.py [--runs sum_vardeq shuffle_linear]
-        [--steps 200] [--eval_every 25] [--seed 0]
+        [--arms kernel loop implicit beta1] [--steps 200] [--eval_every 25]
+        [--seed 0]
 
 Each arm starts from the same seeded, data-initialised model and draws the
 same batches; the Trainer, its config and the eval (one batch of 1,024 with
@@ -58,6 +62,38 @@ def loop_inverse():
         dispatch.mixture_inverse = card
 
 
+@contextlib.contextmanager
+def implicit_inverse():
+    """The inverse of every CUDA tensor through #1, differentiated by the
+    implicit rule at its root (``mixture_inverse_bwd_cuda``)."""
+    import torch
+    from categoricalnf_tpu_torch.ops import dispatch
+    from categoricalnf_tpu_torch.ops.cuda import mixture as cm
+
+    class Implicit(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, y, pi, mu, ls):
+            with torch.no_grad():
+                x = cm.mixture_inverse_cuda(y, pi, mu, ls)
+            ctx.save_for_backward(x, pi, mu, ls)
+            return x
+
+        @staticmethod
+        def backward(ctx, gx):
+            return cm.mixture_inverse_bwd_cuda(*ctx.saved_tensors,
+                                               gx.contiguous())
+
+    card = dispatch.mixture_inverse
+    dispatch.mixture_inverse = Implicit.apply
+    try:
+        yield
+    finally:
+        dispatch.mixture_inverse = card
+
+
+ARMS = {"loop": loop_inverse, "implicit": implicit_inverse}
+
+
 def train_arm(cs, run: str, arm: str, steps: int, eval_every: int,
               seed: int, device: str = "cuda") -> dict:
     import numpy as np
@@ -78,7 +114,7 @@ def train_arm(cs, run: str, arm: str, steps: int, eval_every: int,
         tcfg = dataclasses.replace(tcfg, beta_schedule=ScheduleSpec(
             kind="constant", value=1.0))
     with tempfile.TemporaryDirectory() as out_dir, \
-            (loop_inverse() if arm == "loop" else contextlib.nullcontext()):
+            ARMS.get(arm, contextlib.nullcontext)():
         tcfg = dataclasses.replace(tcfg, out_dir=out_dir)
         save_config(out_dir, {"task": cfg["task"], "args": args})
         trainer = Trainer(task, tcfg)
@@ -106,7 +142,7 @@ def main() -> int:
     ap.add_argument("--runs", nargs="+",
                     default=["sum_vardeq", "shuffle_linear"])
     ap.add_argument("--arms", nargs="+",
-                    default=["implicit", "loop", "beta1"])
+                    default=["kernel", "loop", "implicit", "beta1"])
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--eval_every", type=int, default=25)
     ap.add_argument("--seed", type=int, default=0)
