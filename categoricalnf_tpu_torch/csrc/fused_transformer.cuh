@@ -4,8 +4,8 @@
 // (fused_transformer_tf32x3.cu): the compute-dtype casts, tanh-gelu and its
 // derivative, the layout of the flat weight gradient, the fixed-order sum
 // of the backward's per-block gradient slices, the masked logit, and the
-// attention of sets above 32 rows, whose rows may lie in the two blocks of
-// a thread-block cluster.
+// attention of sets above 32 rows, whose rows may lie in the blocks of a
+// thread-block cluster.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -105,40 +105,53 @@ __global__ void reduce_wgrad(const float* __restrict__ part, int slices,
 // so they are rounded where the plain path rounds them (bf16: before A.V),
 // and A.V sums over the keys in their order.  A tile holds one set.  Where
 // a set's tile does not fit in one block's shared memory it is split over
-// the two blocks of a cluster (rows 0 .. split - 1 in rank 0, the rest in
-// rank 1), and a block reads the other's rows through distributed shared
-// memory (SetRows); every row-wise phase stays in its own block.
+// the blocks of a cluster (rows r split .. (r + 1) split - 1 in rank r),
+// and a block reads the others' rows through distributed shared memory
+// (SetRows); every row-wise phase stays in its own block.
 
 constexpr int kKeyChunk = 32;  // keys whose logits a thread holds at once
 constexpr int kDBlock = 32;    // head dimensions summed at once
 
-// The rows of one set: row j at lo + j ld for j < split, else at hi + (j -
-// split) ld (a cluster's two blocks; lo == hi with split = the set in one).
-template <typename T>
+// The rows of one set over the N blocks of a cluster: row j at base[r] +
+// (j - r split) ld in rank r = j / split (every base the same buffer with
+// split = the set in one block).
+template <typename T, int N = 2>
 struct SetRows {
-  const T* lo;
-  const T* hi;
+  const T* base[N];
   int split, ld;
   __device__ __forceinline__ const T* row(int j) const {
-    return j < split ? lo + j * ld : hi + (j - split) * ld;
+    const T* b = base[0];
+#pragma unroll
+    for (int r = 1; r < N; ++r) {
+      if (j >= split) {
+        b = base[r];
+        j -= split;
+      }
+    }
+    return b + j * ld;
   }
 };
 
 namespace cg = cooperative_groups;
 
-// The set's rows of ``mine`` (this block's buffer, rows ld apart): in a
-// cluster of two (``clustered``) rank 0's and rank 1's buffers at the same
-// offset, else this block's alone.
-template <typename T>
-__device__ __forceinline__ SetRows<T> set_rows(const T* mine, int ld,
-                                               int split, bool clustered) {
-  SetRows<T> v = {mine, mine, split, ld};
-  if (clustered) {
+// The set's rows of ``mine`` (this block's buffer, rows ld apart) over
+// the ``cluster`` (<= N) blocks of this block's cluster: rank r's buffer at
+// the same offset for r < cluster (this block's own for its rank).
+template <typename T, int N>
+__device__ __forceinline__ SetRows<T, N> set_rows_of(const T* mine, int ld,
+                                                     int split, int cluster) {
+  SetRows<T, N> v;
+  v.split = split;
+  v.ld = ld;
+#pragma unroll
+  for (int r = 0; r < N; ++r) v.base[r] = mine;
+  if (cluster > 1) {
     cg::cluster_group cl = cg::this_cluster();
     const int rank = (int)cl.block_rank();
-    const T* other = cl.map_shared_rank(const_cast<T*>(mine), rank ^ 1);
-    v.lo = rank == 0 ? mine : other;
-    v.hi = rank == 0 ? other : mine;
+#pragma unroll
+    for (int r = 0; r < N; ++r)
+      if (r < cluster && r != rank)
+        v.base[r] = cl.map_shared_rank(const_cast<T*>(mine), r);
   }
   return v;
 }
@@ -171,8 +184,8 @@ cudaError_t launch_clustered(void (*kernel)(Ts...), unsigned grid,
 }
 
 // Every thread of the set's blocks: the cluster's barrier where the set
-// spans two blocks (it also orders their shared-memory writes before the
-// other block's reads), else the block's.
+// spans several blocks (it also orders their shared-memory writes before
+// the other blocks' reads), else the block's.
 __device__ __forceinline__ void set_sync(bool clustered) {
   if (clustered)
     cg::this_cluster().sync();
@@ -183,9 +196,9 @@ __device__ __forceinline__ void set_sync(bool clustered) {
 // dot[jj] = sum_{d < hd} mine[d] rows.row(j0 + jj)[off + d] for jj < n, in
 // the order of d from 0 (mine: this thread's row, 8 values at a time in
 // registers).
-template <typename T>
+template <typename T, int N>
 __device__ __forceinline__ void chunk_dots(const T* mine,
-                                           const SetRows<T>& rows, int off,
+                                           const SetRows<T, N>& rows, int off,
                                            int hd, int j0, int n,
                                            float (&dot)[kKeyChunk]) {
 #pragma unroll
@@ -210,10 +223,10 @@ __device__ __forceinline__ void chunk_dots(const T* mine,
 // The scaled logits of query q against keys j0 .. j0 + n - 1 of the set
 // (their columns from ``off``), kMaskedLogit for a masked key (km: one byte
 // a row of the set, 0 = masked; null = none).
-template <typename T>
+template <typename T, int N>
 __device__ __forceinline__ void chunk_logits(const T* q,
-                                             const SetRows<T>& keys, int off,
-                                             int hd, int j0, int n,
+                                             const SetRows<T, N>& keys,
+                                             int off, int hd, int j0, int n,
                                              float inv_root,
                                              const unsigned char* km,
                                              float (&l)[kKeyChunk]) {
@@ -227,10 +240,11 @@ __device__ __forceinline__ void chunk_logits(const T* q,
 
 // The softmax max and sum of query q's logits over the S keys, online over
 // chunks of kKeyChunk.
-template <typename T>
+template <typename T, int N>
 __device__ __forceinline__ void softmax_stats(const T* q,
-                                              const SetRows<T>& keys, int off,
-                                              int hd, int S, float inv_root,
+                                              const SetRows<T, N>& keys,
+                                              int off, int hd, int S,
+                                              float inv_root,
                                               const unsigned char* km,
                                               float& mx, float& sum) {
   mx = -INFINITY;
@@ -253,14 +267,15 @@ __device__ __forceinline__ void softmax_stats(const T* q,
 }
 
 // Attention of the set's n_local query rows in this block (qkv: [rows, ld]
-// with q, k, v at columns 0, H, 2H; kv: the set's qkv rows, both blocks'),
+// with q, k, v at columns 0, H, 2H; kv: the set's qkv rows, every block's),
 // one thread per (head, query row): out = R(sum_j R(p_j) v_j), p the
 // softmax of the scaled logits, R the compute dtype's rounding.  BLOCKS
 // gives each calling kernel its own out-of-line copy.
-template <typename T, int BLOCKS>
+template <typename T, int BLOCKS, int N>
 __device__ __noinline__ void attention_big(const T* qkv, int ld,
-                                           SetRows<T> kv, T* out, int ld_out,
-                                           int H, int nh, int S, int n_local,
+                                           SetRows<T, N> kv, T* out,
+                                           int ld_out, int H, int nh, int S,
+                                           int n_local,
                                            const unsigned char* km) {
   const int hd = H / nh;
   const float inv_root = 1.0f / sqrtf((float)hd);

@@ -884,7 +884,8 @@ __device__ __forceinline__ void attend(const bf16* qkv, bf16* out,
     return;
   }
   attention_big<bf16, BLOCKS>(
-      qkv, dm.ld_big, set_rows<bf16>(qkv, dm.ld_big, dm.split, bs.clustered),
+      qkv, dm.ld_big,
+      set_rows_of<bf16, 2>(qkv, dm.ld_big, dm.split, bs.clustered ? 2 : 1),
       out, dm.ld_h, dm.hidden, dm.heads, dm.set_size, bs.n_local, bs.km);
 }
 
@@ -899,13 +900,14 @@ __device__ __forceinline__ void attend_bwd(const bf16* qkv, const bf16* go,
     attention_bwd(qkv, go, gqkv, stats, dm, km);
     return;
   }
+  const int n = bs.clustered ? 2 : 1;
   const SetRows<bf16> rows =
-      set_rows<bf16>(qkv, dm.ld_big, dm.split, bs.clustered);
+      set_rows_of<bf16, 2>(qkv, dm.ld_big, dm.split, n);
   attention_bwd_q_big(qkv, rows, go, gqkv, stats, dm, bs);
   set_sync(bs.clustered);
   attention_bwd_kv_big(qkv, rows,
-                       set_rows<bf16>(go, dm.ld_h, dm.split, bs.clustered),
-                       set_rows<float>(stats, 3, dm.split, bs.clustered),
+                       set_rows_of<bf16, 2>(go, dm.ld_h, dm.split, n),
+                       set_rows_of<float, 2>(stats, 3, dm.split, n),
                        gqkv, dm, bs);
 }
 

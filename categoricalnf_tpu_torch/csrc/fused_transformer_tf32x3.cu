@@ -417,7 +417,9 @@ fused_set_transformer_fwd_tf32x3(const float* __restrict__ x,
     else
       attention_big<float, kBigBlocks>(
           big, dm.ld_qkv,
-          set_rows<float>(big, dm.ld_qkv, dm.split, clustered), a, dm.ld_h,
+          set_rows_of<float, 2>(big, dm.ld_qkv, dm.split,
+                                clustered ? 2 : 1),
+          a, dm.ld_h,
           H, dm.heads, dm.set_size, valid, km_set);
     set_sync(clustered);
     mma_dense<kResidual>(a, dm.ld_h, dm.k_h,

@@ -4,11 +4,11 @@ Counterpart of ``categoricalnf_tpu/networks/transformer.py``.  No
 positional embeddings; keys of invalid elements are masked with -1e9.
 A CUDA tensor always runs the whole net in one CUDA kernel
 (``ops/cuda/fused_transformer.py``), key mask included, which raises on
-what it does not take (a condition, sets above 128; in fp32 with grad,
-sets above 32: ROADMAP B15); with grad on, its
-backward is the backward kernel (at widths whose tile does not fit
-otherwise, with regions of it in a global workspace: in bf16 the residual
-copies at 256, in fp32 also the MLP pair from 192 and qkv at 256), and a
+what it does not take (a condition, sets above 128: ROADMAP B16); with
+grad on, its backward is the backward kernel (at widths whose tile does
+not fit otherwise, with regions of it in a global workspace: in bf16 the
+residual copies at 256, in fp32 also the MLP pair from 192 and qkv at 256;
+in fp32 at sets of 33 to 128 a set over a thread-block cluster), and a
 call whose backward tile would not fit even so raises before the forward
 launches.  A CPU tensor takes the unfused
 path, ``plain_forward``, which is also the kernels' plain version
@@ -85,26 +85,26 @@ class SetTransformer(nn.Module):
     def check_backward_fits(self, x) -> None:
         """Raise unless the backward kernel takes this net at x's set size
         where the forward does: a differentiable call is refused before its
-        forward launches.  (A call the forward refuses raises there.)
-        Every net of the reference's configs fits in both dtypes, the wide
-        ones with regions of the tile in global memory (GraphCNF's node
-        flow at hidden 192 and 256 in fp32, at 256 in bf16); what is left
-        is a tile too large even so (a width above 264 in fp32, above 256 or
-        an MLP ratio of 4 at 256 in bf16, at sets of 24), and in fp32 a set
-        above 32 rows, which the fp32 train step's FMA pair does not take
-        (ROADMAP B15; the bf16 pair and the fp32 forward without grad take
-        sets up to 128)."""
+        forward launches.  A set above 128 rows raises ``ValueError`` here
+        (ROADMAP B16: no kernel takes it); another call the forward refuses
+        raises there.  Every net of the reference's configs fits in both
+        dtypes, the wide ones with regions of the tile in global memory
+        (GraphCNF's node flow at hidden 192 and 256 in fp32, at 256 in
+        bf16), and sets of 33 to 128 at the set tasks' widths (in fp32 a set
+        over a thread-block cluster); what is left is a tile too large even
+        so (a width above 264 in fp32, above 256 or an MLP ratio of 4 at 256
+        in bf16, at sets of 24; in fp32 at sets above 32, whose instance has
+        no workspace, a width of 120 or more)."""
         cd = torch_dtype(self.compute_dtype)
         H, mlp = self.hidden_dim, self.mlp_ratio * self.hidden_dim
+        if x.dim() == 3 and x.shape[1] > ft.MAX_BIG_SET:
+            raise ValueError(
+                f"the fused SetTransformer kernels take sets up to "
+                f"{ft.MAX_BIG_SET} rows, not {x.shape[1]} (ROADMAP.md, "
+                f"Queue B, B16)")
         if not ft.supported(x, None, None, H, self.num_heads,
                             self.mlp_ratio, cd):
             return
-        if cd == torch.float32 and x.shape[1] > ft.MAX_SET:
-            raise NotImplementedError(
-                f"the fused SetTransformer's fp32 train step (the FMA pair) "
-                f"takes sets up to {ft.MAX_SET} rows, not {x.shape[1]} "
-                f"(ROADMAP.md, Queue B, B15): train at these sets in "
-                f"bfloat16")
         if not ft.bwd_fits(cd, x.shape[1], x.shape[2], H, mlp,
                            self.out.w.shape[1], self.num_heads,
                            self.num_layers):
@@ -112,7 +112,8 @@ class SetTransformer(nn.Module):
                 f"the fused SetTransformer backward has no tile for width "
                 f"{H} at sets of {x.shape[1]} in {self.compute_dtype}: its "
                 f"shared memory is over {ft.MAX_SMEM} bytes even with its "
-                f"regions in global memory (ROADMAP.md, Queue C: a call "
+                f"regions in global memory (at sets above {ft.MAX_SET} in "
+                f"fp32: all in shared memory) (ROADMAP.md, Queue C: a call "
                 f"the kernels refuse)")
 
     def forward(self, x, cond=None, mask=None):

@@ -2,9 +2,12 @@
 backward (#4).  In fp32 the forward of a call without grad (the eval_model
 twin) is the 3xTF32 tensor-core kernel of
 ``csrc/fused_transformer_tf32x3.cu``; a differentiable call's forward and
-the backward are the FMA kernels of ``csrc/fused_transformer.cu``, one
-arithmetic.  In bf16 both are the tensor-core kernels of
-``csrc/fused_transformer_bf16.cu``.
+the backward are the FMA kernels of ``csrc/fused_transformer.cu`` (the
+backward with regions of its tile in a global workspace:
+``csrc/fused_transformer_f32_ws.cu``; sets of 33 to 128 rows:
+``csrc/fused_transformer_f32_big.cu``, a set over a thread-block cluster),
+one arithmetic.  In bf16 both are the tensor-core
+kernels of ``csrc/fused_transformer_bf16.cu``.
 
 Counterparts of ``_fused_fwd`` and ``_fused_bwd`` in
 ``categoricalnf_tpu/ops/pallas/fused_transformer.py``.  The kernels' plain
@@ -19,12 +22,16 @@ the zero-padded W and W^T that the FMA pair reads (``padded_layouts`` with
 ``pad4``).  ``FusedSetTransformer`` ties the two kernels together for
 autograd, as ``defvjp`` does in the reference.  ``LAUNCHES`` and
 ``BWD_LAUNCHES`` count launches by compute dtype, ``TRAIN_FWD_LAUNCHES``
-those of the fp32 FMA forward of a differentiable call;
+those of the fp32 FMA forward of a differentiable call, each at sets up
+to 32 (``csrc/fused_transformer.cu``'s instances), and
+``CLUSTER_TRAIN_FWD_LAUNCHES`` and ``CLUSTER_BWD_LAUNCHES`` the fp32
+pair's at sets above 32 (its instances over clusters);
 ``MASKED_LAUNCHES``, ``MASKED_TRAIN_FWD_LAUNCHES`` and
-``MASKED_BWD_LAUNCHES`` count, among them, those that took a key mask, and
-``GLOBAL_H_BWD_LAUNCHES`` the backward's with regions in a global workspace
-(nets whose tile does not fit otherwise: in bf16 the residual copies at
-hidden 256; in fp32 also the MLP pair at 192, and qkv at 256).
+``MASKED_BWD_LAUNCHES`` count, among all of them, those that took a key
+mask, and ``GLOBAL_H_BWD_LAUNCHES`` the backward's with regions in a
+global workspace (nets whose tile does not fit otherwise: in bf16 the
+residual copies at hidden 256; in fp32 also the MLP pair at 192, and qkv
+at 256).
 
 A key mask ``[B, S]`` (nonzero = a valid key) reaches every kernel as one
 byte a key, cast once here: the logits of masked keys are -1e9 before the
@@ -40,19 +47,21 @@ import torch
 
 from categoricalnf_tpu_torch.ops.cuda import build
 
-# Must agree with csrc/fused_transformer.cu (kMaxSet, kTileTarget, kRowPad,
-# make_dims), csrc/fused_transformer_bf16.cu (kTileTarget, 16-row
-# m-tiles, kLnVals, kMaxBigSet, split_set), csrc/fused_transformer_tf32x3.cu
-# (kTileTarget, kMinTile, kSlack, kMaxBigSet, pick_layout) and the H100's
-# 227 KB of shared memory per block.
+# Must agree with csrc/fused_transformer_fma.cuh (kMaxSet, kMaxBigSet,
+# kMaxCluster, kTileTarget, kRowPad, make_dims), csrc/fused_transformer_bf16.cu
+# (kTileTarget, 16-row m-tiles, kLnVals, kMaxBigSet, split_set),
+# csrc/fused_transformer_tf32x3.cu (kTileTarget, kMinTile, kSlack,
+# kMaxBigSet, pick_layout) and the H100's 227 KB of shared memory per block.
 # Sets up to MAX_SET rows: every kernel, a tile of whole sets.  Above, up to
-# MAX_BIG_SET (the reference's largest Pallas tile of whole sets): the bf16
-# pair and the 3xTF32 forward, a tile of one set, split over the CLUSTER
+# MAX_BIG_SET (the reference's largest Pallas tile of whole sets), a tile of
+# one set: the bf16 pair and the 3xTF32 forward split it over the CLUSTER
 # blocks of a thread-block cluster where the whole set's tile does not fit
-# (``split_rows``); the fp32 FMA pair refuses them (ROADMAP B15).
+# (``split_rows``); the fp32 FMA pair always splits it, over 2 blocks up to
+# 2 MAX_SET rows and FMA_MAX_CLUSTER above (``fma_tile``).
 MAX_SET = 32
 MAX_BIG_SET = 128
 CLUSTER = 2
+FMA_MAX_CLUSTER = 4
 TILE_TARGET = 32  # the fp32 backward and the FMA forward it recomputes
 BF16_TILE_TARGET = 64  # both bf16 kernels
 F32_TILE_TARGET = 32  # the fp32 forward; 16 where a net does not fit
@@ -65,7 +74,7 @@ FMA_FWD_BLOCKS = 2
 ROW_PAD = 8  # the fp32 tiles' rows are padded to a multiple of this
 MAX_HIDDEN_BF16 = 256  # LN rows held in registers, 8 values a lane
 MAX_SMEM = 232_448
-# the FMA pair's weight rings (csrc/fused_transformer.cu kRingSteps,
+# the FMA pair's weight rings (csrc/fused_transformer_fma.cuh kRingSteps,
 # kRingCg): 8 warps x 4 steps x 4 rows x 6 column groups x 16 bytes, taken
 # wherever they fit beside a block's buffers
 FMA_RING_BYTES = 8 * 4 * 4 * 6 * 16
@@ -79,10 +88,13 @@ TRAIN_FWD_LAUNCHES = {"float32": 0}
 MASKED_LAUNCHES = {"bfloat16": 0, "float32": 0}
 MASKED_TRAIN_FWD_LAUNCHES = {"float32": 0}
 MASKED_BWD_LAUNCHES = {"bfloat16": 0, "float32": 0}
+# the fp32 pair's launches at sets above MAX_SET (over clusters)
+CLUSTER_TRAIN_FWD_LAUNCHES = {"float32": 0}
+CLUSTER_BWD_LAUNCHES = {"float32": 0}
 # the backward's launches with regions in its global workspace
 GLOBAL_H_BWD_LAUNCHES = {"bfloat16": 0, "float32": 0}
 # the fp32 backward's regions that move to its workspace, in this order,
-# until its tile fits (csrc/fused_transformer.cu pick_bwd_regions)
+# until its tile fits (csrc/fused_transformer_fma.cuh pick_bwd_regions)
 FMA_WS_REGIONS = ("copies", "mlp", "qkv")
 
 # (source, entry point) of the forward and of the backward
@@ -90,12 +102,20 @@ _ENTRY = {torch.bfloat16: ("fused_transformer_bf16",
                            "fused_set_transformer_fwd_bf16"),
           torch.float32: ("fused_transformer_tf32x3",
                           "fused_set_transformer_fwd_f32")}
-# an fp32 call with grad: the forward whose arithmetic the backward recomputes
+# an fp32 call with grad: the forward whose arithmetic the backward
+# recomputes; at sets above MAX_SET both from the BIG source
 _TRAIN_FWD_ENTRY = ("fused_transformer", "fused_set_transformer_train_fwd_f32")
+_FMA_BIG = "fused_transformer_f32_big"
+_BIG_TRAIN_FWD_ENTRY = (_FMA_BIG, "fused_set_transformer_train_fwd_f32_big")
+_BIG_BWD_ENTRY = (_FMA_BIG, "fused_set_transformer_bwd_f32_big")
 _BWD_ENTRY = {torch.bfloat16: ("fused_transformer_bf16",
                                "fused_set_transformer_bwd_bf16"),
               torch.float32: ("fused_transformer",
                               "fused_set_transformer_bwd_f32")}
+# the fp32 backward with regions of its tile in the global workspace: an
+# instance in a source of its own, so that it builds beside the others
+_FMA_WS = "fused_transformer_f32_ws"
+_WS_BWD_ENTRY = (_FMA_WS, "fused_set_transformer_bwd_f32_ws")
 _KEY = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
 
 
@@ -165,6 +185,20 @@ def _tile(set_size: int, target: int = TILE_TARGET,
     return tile, -(-tile // pad) * pad
 
 
+def fma_tile(set_size: int) -> tuple[int, int, int]:
+    """(rows of a tile, the tile padded to ROW_PAD, blocks a set spans) of
+    the fp32 FMA pair, both kernels alike (``make_dims``): whole sets up to
+    TILE_TARGET rows for sets up to MAX_SET; above, one set over a cluster
+    of 2 blocks up to 2 MAX_SET rows and of FMA_MAX_CLUSTER above,
+    ``split_rows`` of it a block (so at most 32 rows a block up to
+    MAX_BIG_SET)."""
+    if set_size <= MAX_SET:
+        return (*_tile(set_size), 1)
+    cluster = 2 if set_size <= 2 * MAX_SET else FMA_MAX_CLUSTER
+    tile = split_rows(set_size, cluster)
+    return tile, -(-tile // ROW_PAD) * ROW_PAD, cluster
+
+
 def pad16(n: int) -> int:
     return -(-n // 16) * 16
 
@@ -183,26 +217,29 @@ def bwd_layout(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
     MAX_SET rows is a tile of its own, the residual copies in shared
     memory: the whole set where it is at most BF16_TILE_TARGET rows and
     fits, else ``split_rows`` of it on each block of a cluster of two
-    (``split_set`` in the kernel); ``global_h`` is refused there.  fp32: up to 32
-    rows padded to 8, rows ``conflict_free`` wide (x's a multiple of 4),
-    the first regions of ``FMA_WS_REGIONS`` (the copies, the MLP pair, qkv)
-    in a global workspace (``fma_workspace_elems``) with which the rest
-    fits, none where all fits, all three with ``global_h``; the third item
-    names them (``pick_bwd_regions`` in ``csrc/fused_transformer.cu``).
-    Both hold the residual stream at each of the layers + 1 block
-    boundaries (or one), five [tile, H] buffers, qkv, a region for the MLP
-    pair / the qkv gradient / g / x, and the fp32 softmax statistics; the
-    fp32 block also its warps' weight rings where they fit
-    (``with_rings``); a set above MAX_SET rows fits nowhere (ROADMAP B15).
-    Where nothing fits the last layout is returned, over MAX_SMEM."""
-    if dtype != torch.bfloat16 and set_size > MAX_SET:
-        return set_size, MAX_SMEM + 1, (), 1
+    (``split_set`` in the kernel); ``global_h`` is refused there.  fp32:
+    ``fma_tile``'s tile (up to 32 rows) padded to 8, rows
+    ``conflict_free`` wide (x's a multiple of 4), the first regions of
+    ``FMA_WS_REGIONS`` (the copies, the MLP pair, qkv) in a global
+    workspace (``fma_workspace_elems``) with which the rest fits, none where
+    all fits, all three with ``global_h``; the third item names them
+    (``pick_bwd_regions`` in ``csrc/fused_transformer_fma.cuh``).  A set
+    above MAX_SET rows takes the layout all in shared memory (its instance
+    has no workspace; ``global_h`` is refused there).  Both hold the
+    residual stream at each of the layers + 1 block boundaries (or one),
+    five [tile, H] buffers, qkv, a region for the MLP pair / the qkv
+    gradient / g / x, and the fp32 softmax statistics; the fp32 block also
+    its warps' weight rings where they fit (``with_rings``).  A set above
+    MAX_BIG_SET fits nowhere (ROADMAP B16).  Where nothing fits the last
+    layout is returned, over MAX_SMEM."""
     if dtype != torch.bfloat16:
-        tile, tile_pad = _tile(set_size)
+        if set_size > MAX_BIG_SET or (global_h and set_size > MAX_SET):
+            return set_size, MAX_SMEM + 1, (), FMA_MAX_CLUSTER
+        tile, tile_pad, cluster = fma_tile(set_size)
         ld_h, ld_big, ld_f = (conflict_free(n)
                               for n in (hidden, 3 * hidden, mlp))
         ld_rest = max(ld_big, conflict_free(out_dim), pad4(in_dim))
-        for ws in range(3 if global_h else 0, 4):
+        for ws in range(3 if global_h else 0, 4 if cluster == 1 else 1):
             copies = 1 if ws >= 1 else layers + 1
             ld_r2 = ld_rest if ws >= 2 else max(2 * ld_f, ld_rest)
             smem = 4 * tile_pad * ((copies + 5) * ld_h
@@ -210,7 +247,7 @@ def bwd_layout(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
                                    + 3 * heads)
             if smem <= MAX_SMEM:
                 break
-        return tile, with_rings(smem), FMA_WS_REGIONS[:ws], 1
+        return tile, with_rings(smem), FMA_WS_REGIONS[:ws], cluster
     ld_h, ld_big, ld_f = (pad16(n) + 8 for n in (hidden, 3 * hidden, mlp))
     ld_r2 = max(2 * ld_f, ld_big, pad16(out_dim) + 8, pad16(in_dim) + 8)
     globals_ = (True,) if global_h else (False, True)
@@ -286,15 +323,17 @@ def fwd_shape(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
 
 
 def fma_fwd_shape(set_size: int, in_dim: int, hidden: int,
-                  mlp: int) -> tuple[int, int]:
-    """(rows of a tile, dynamic shared memory of one block) of the fp32 FMA
-    forward of a differentiable call, as ``make_dims`` and its entry lay
-    them out: the backward's tile, and h, the LN/attention output and the
-    widest of x, qkv and the MLP hidden layer, rows ``conflict_free``
-    wide (x's a multiple of 4), and the weight rings (``with_rings``)."""
-    tile, tile_pad = _tile(set_size)
+                  mlp: int) -> tuple[int, int, int]:
+    """(rows of a tile, dynamic shared memory of one block, blocks a set
+    spans) of the fp32 FMA forward of a differentiable call, as
+    ``make_dims`` and ``fwd_smem`` lay them out: the backward's tile and
+    cluster (``fma_tile``), and h, the LN/attention output and the widest
+    of x, qkv and the MLP hidden layer, rows ``conflict_free`` wide (x's a
+    multiple of 4), and the weight rings (``with_rings``)."""
+    tile, tile_pad, cluster = fma_tile(set_size)
     big = max(conflict_free(3 * hidden), conflict_free(mlp), pad4(in_dim))
-    return tile, with_rings(4 * tile_pad * (2 * conflict_free(hidden) + big))
+    return tile, with_rings(4 * tile_pad * (2 * conflict_free(hidden)
+                                            + big)), cluster
 
 
 def with_rings(smem: int) -> int:
@@ -316,29 +355,41 @@ def smem_blocks_per_sm(smem: int) -> int:
 
 
 def bwd_grid(rows: int, tile: int, smem: int, sms: int,
-             set_size: int = 0, cluster: int = 1) -> int:
+             set_size: int = 0, cluster: int = 1,
+             max_clusters: int | None = None) -> int:
     """Persistent blocks of the backward: as many as fit on the card at
     once, never more than there are tiles; where a set spans a cluster of
-    two blocks, an even number, never more than two a set."""
+    blocks, a multiple of the cluster, never more than one cluster a set:
+    ``max_clusters`` clusters where the card was asked how many it holds
+    at once (``cudaOccupancyMaxActiveClusters``), else as many as the SMs'
+    shared memory holds.  Only the fp32 pair asks the card: the SM rule
+    overcounts its clusters of 4 (it would give 33 on an H100, which holds
+    30).  #4 bf16's clusters of 2 keep the SM rule, because the grid fixes
+    the order in which the weight gradients' per-block partials are summed,
+    so their bits, which ``chip_smoke.py``'s digests pin.  Whether the card
+    would give bf16's layout the same 66 clusters of 2 has not been
+    asked."""
     if cluster > 1:
         sets = rows // set_size
-        return cluster * max(1, min(sets, sms * smem_blocks_per_sm(smem)
-                                    // cluster))
+        if max_clusters is None:
+            max_clusters = sms * smem_blocks_per_sm(smem) // cluster
+        return cluster * max(1, min(sets, max_clusters))
     return max(1, min(-(-rows // tile), sms * smem_blocks_per_sm(smem)))
 
 
 def bwd_launch(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
                mlp: int, out_dim: int, heads: int, layers: int, rows: int,
-               sms: int, global_h: bool = False) -> tuple:
+               sms: int, global_h: bool = False,
+               max_clusters: int | None = None) -> tuple:
     """(tile, shared memory, what lives in global memory, grid) of a
     backward launch on ``rows`` rows over ``sms`` SMs: ``bwd_layout``'s,
-    and ``bwd_grid``'s grid.  A layout forced global (``global_h``) keeps
-    the default layout's grid, so the weight gradients' slices are summed
-    in the same order."""
+    and ``bwd_grid``'s grid (``max_clusters`` as there).  A layout forced
+    global (``global_h``) keeps the default layout's grid, so the weight
+    gradients' slices are summed in the same order."""
     net = (dtype, set_size, in_dim, hidden, mlp, out_dim, heads, layers)
     tile, smem, in_global, cluster = bwd_layout(*net, global_h)
     grid = bwd_grid(rows, tile, bwd_layout(*net)[1] if global_h else smem,
-                    sms, set_size, cluster)
+                    sms, set_size, cluster, max_clusters)
     return tile, smem, in_global, grid
 
 
@@ -424,8 +475,8 @@ def supported(x, cond, mask, hidden_dim: int, num_heads: int,
     cond, x [B, S, IN] with S <= MAX_BIG_SET (128), a key mask (if any) of
     shape [B, S], heads dividing the width, in bf16 a width of at most 256,
     and a tile that fits.  The forward's limits only: the backward's tile
-    is larger (``bwd_fits``), and a differentiable fp32 call takes the FMA
-    pair, which refuses sets above MAX_SET (ROADMAP B15)."""
+    is larger (``bwd_fits``); a differentiable fp32 call takes the FMA
+    pair, at sets above MAX_SET over clusters (``fma_fwd_shape``)."""
     if cond is not None or x.dim() != 3:
         return False
     if mask is not None and tuple(mask.shape) != tuple(x.shape[:2]):
@@ -459,10 +510,14 @@ _MASKED_FWD_ARGS = _FWD_ARGS[:1] + [_P] + _FWD_ARGS[1:]
 _MASKED_BWD_ARGS = (_BWD_ARGS[:1] + [_P] + _BWD_ARGS[1:7] + [_P]
                     + _BWD_ARGS[7:-1] + [_I, _P])
 _FMA_BWD_ARGS = _MASKED_BWD_ARGS
-# sets the FMA pair's shared-memory limit once a device
-_FMA_INIT = "fused_set_transformer_f32_init"
+# sets the FMA pair's shared-memory limit once a device, by source
+_FMA_INIT = {"fused_transformer": "fused_set_transformer_f32_init",
+             _FMA_WS: "fused_set_transformer_f32_ws_init",
+             _FMA_BIG: "fused_set_transformer_f32_big_init"}
+_FMA_CLUSTERS = "fused_set_transformer_f32_big_clusters"
 _fns: dict = {}
 _fma_ready: set = set()
+_fma_clusters: dict = {}
 
 
 def _fn(source: str, name: str, argtypes):
@@ -475,16 +530,35 @@ def _fn(source: str, name: str, argtypes):
     return fn
 
 
-def _fma_fn(name: str, argtypes, device):
-    """Entry ``name`` of the FMA pair (``csrc/fused_transformer.cu``), its
-    kernels' shared-memory limit raised on ``device`` at the first call
-    there (the current device, as every launch here)."""
-    fn = _fn("fused_transformer", name, argtypes)
-    index = torch.device(device).index
-    if index not in _fma_ready:
-        build.check(_fn("fused_transformer", _FMA_INIT, [])(), _FMA_INIT)
-        _fma_ready.add(index)
+def _fma_fn(source: str, name: str, argtypes, device):
+    """Entry ``name`` of the FMA pair's ``csrc/<source>.cu``
+    (``fused_transformer``, ``fused_transformer_f32_ws`` or
+    ``fused_transformer_f32_big``), its kernels'
+    shared-memory limit raised on ``device`` at the first call there (the
+    current device, as every launch here)."""
+    fn = _fn(source, name, argtypes)
+    key = (source, torch.device(device).index)
+    if key not in _fma_ready:
+        init = _FMA_INIT[source]
+        build.check(_fn(source, init, [])(), init)
+        _fma_ready.add(key)
     return fn
+
+
+def fma_max_clusters(device, set_size: int, in_dim: int, hidden: int,
+                     heads: int, layers: int, mlp: int, out_dim: int) -> int:
+    """Clusters of the fp32 backward at a set above MAX_SET that the card
+    ``device`` holds at once (``cudaOccupancyMaxActiveClusters`` at its
+    layout), asked once a device and net."""
+    key = (torch.device(device).index, set_size, in_dim, hidden, heads,
+           layers, mlp, out_dim)
+    if key not in _fma_clusters:
+        fn = _fma_fn(_FMA_BIG, _FMA_CLUSTERS,
+                     [_I] * 7 + [ctypes.POINTER(ctypes.c_int)], device)
+        n = ctypes.c_int(0)
+        build.check(fn(*key[1:], ctypes.byref(n)), _FMA_CLUSTERS)
+        _fma_clusters[key] = n.value
+    return _fma_clusters[key]
 
 
 def pack_matrices(ws, compute_dtype: torch.dtype) -> tuple[list, list]:
@@ -569,7 +643,9 @@ def _check_x(packed: PackedWeights, x, num_heads: int, what: str,
                              packed.mlp // packed.hidden, packed.dtype)):
         raise ValueError(f"fused SetTransformer {what}: unsupported call x "
                          f"{tuple(x.shape)}, H={packed.hidden}, "
-                         f"heads={num_heads}")
+                         f"heads={num_heads}" + (
+                             f" (sets above {MAX_BIG_SET} rows: ROADMAP.md, "
+                             f"B16)" if x.shape[1] > MAX_BIG_SET else ""))
     if mask is not None and (tuple(mask.shape) != tuple(x.shape[:2])
                              or mask.device != x.device):
         raise ValueError(f"fused SetTransformer {what}: key mask "
@@ -592,16 +668,19 @@ def _mask_ptr(km) -> int | None:
 def _forward_launch(packed: PackedWeights, x, num_heads: int,
                     differentiable: bool = False, mask=None):
     """Kernel #3.  A differentiable fp32 call takes the FMA forward whose
-    arithmetic the fp32 backward recomputes (bf16 has one forward)."""
+    arithmetic the fp32 backward recomputes (bf16 has one forward), at a
+    set above MAX_SET its instance over clusters."""
     _check_x(packed, x, num_heads, "forward", mask)
     train = differentiable and packed.dtype == torch.float32
     B, S, in_dim = x.shape
+    big = train and S > MAX_SET
     x2 = x.detach().to(packed.dtype).contiguous()
     km = key_mask_bytes(mask)
     y = torch.empty(B, S, packed.out_dim, dtype=packed.dtype, device=x.device)
-    source, name = _TRAIN_FWD_ENTRY if train else _ENTRY[packed.dtype]
+    source, name = (_BIG_TRAIN_FWD_ENTRY if big else _TRAIN_FWD_ENTRY
+                    ) if train else _ENTRY[packed.dtype]
     with torch.cuda.device(x.device):
-        fn = (_fma_fn(name, _MASKED_FWD_ARGS, x.device) if train
+        fn = (_fma_fn(source, name, _MASKED_FWD_ARGS, x.device) if train
               else _fn(source, name, _MASKED_FWD_ARGS))
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x2.data_ptr(), _mask_ptr(km),
@@ -611,7 +690,8 @@ def _forward_launch(packed: PackedWeights, x, num_heads: int,
                  packed.out_dim, stream)
     build.check(err, name)
     if train:
-        TRAIN_FWD_LAUNCHES["float32"] += 1
+        (CLUSTER_TRAIN_FWD_LAUNCHES if big else TRAIN_FWD_LAUNCHES
+         )["float32"] += 1
         if km is not None:
             MASKED_TRAIN_FWD_LAUNCHES["float32"] += 1
     else:
@@ -654,10 +734,13 @@ def fused_set_transformer_bwd(packed: PackedWeights, x, g, *,
                          f"{tuple(g.shape)} on {g.device}, want "
                          f"{(B, S, packed.out_dim)} on {x.device}")
     H, L, RH, OUT = packed.hidden, packed.layers, packed.mlp, packed.out_dim
+    big = not bf16 and S > MAX_SET
+    net = (packed.dtype, S, in_dim, H, RH, OUT, num_heads, L)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     tile, smem, in_global, grid = bwd_launch(
-        packed.dtype, S, in_dim, H, RH, OUT, num_heads, L, B * S, sms,
-        _global_h)
+        *net, B * S, sms, _global_h,
+        fma_max_clusters(x.device, S, in_dim, H, num_heads, L, RH, OUT)
+        if big and bwd_fits(*net) and not _global_h else None)
     if smem > MAX_SMEM:
         raise ValueError(f"fused SetTransformer backward: a tile needs "
                          f"{smem} bytes of shared memory, over {MAX_SMEM}")
@@ -677,10 +760,12 @@ def fused_set_transformer_bwd(packed: PackedWeights, x, g, *,
         ws = torch.empty(fma_workspace_elems(in_global, tile, H, RH, L, grid),
                          dtype=torch.float32, device=x.device)
     km = key_mask_bytes(mask)
-    source, name = _BWD_ENTRY[packed.dtype]
+    source, name = (_BIG_BWD_ENTRY if big
+                    else _WS_BWD_ENTRY if in_global and not bf16
+                    else _BWD_ENTRY[packed.dtype])
     with torch.cuda.device(x.device):
         fn = (_fn(source, name, _MASKED_BWD_ARGS) if bf16
-              else _fma_fn(name, _FMA_BWD_ARGS, x.device))
+              else _fma_fn(source, name, _FMA_BWD_ARGS, x.device))
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x2.data_ptr(), _mask_ptr(km), g2.data_ptr(),
                  packed.bwd_w_ptrs if bf16 else packed.fma_w_ptrs,
@@ -689,7 +774,7 @@ def fused_set_transformer_bwd(packed: PackedWeights, x, g, *,
                  B * S, S, in_dim, H, num_heads, L, RH, OUT, grid,
                  int(_global_h), stream)
     build.check(err, name)
-    BWD_LAUNCHES[_KEY[packed.dtype]] += 1
+    (CLUSTER_BWD_LAUNCHES if big else BWD_LAUNCHES)[_KEY[packed.dtype]] += 1
     if km is not None:
         MASKED_BWD_LAUNCHES[_KEY[packed.dtype]] += 1
     if in_global:

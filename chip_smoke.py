@@ -31,10 +31,15 @@ Run from the root of a checkout on a machine with one NVIDIA card:
    spills.  #3 bf16, #4 bf16 and #3 fp32 at sets of 33, 48, 64, 100 and
    128 (``check_big_set_kernels``: whole-set tiles, and 2-CTA clusters
    where a set does not fit one block) against plain within the
-   flagship's limits at --seed and --seed + 1, masked at 64, timed at the
-   set-64 and set-128 runs' 1024 sets; at sets of 16 and 24 their outputs
-   hash to the digests of the tree before sets above 32
-   (``SMALL_SET_DIGESTS``).
+   flagship's limits at --seed and --seed + 1, masked at 64, and the fp32
+   train step's pair (#3 fp32 with grad, #4 fp32; a set over a cluster of
+   2 blocks up to 64 rows, of 4 above) against autograd of plain within
+   1e-4 and 2e-4 as torch.allclose, masked at 64 beside the call without
+   the mask above 10 x; each of the five 4 times on the same inputs
+   bitwise; each timed at the set-64 and set-128 runs' 1024 sets; their
+   outputs on fixed inputs hash to the digests of the trees before
+   (``SMALL_SET_DIGESTS`` at sets of 16 and 24; ``PAIR_AND_BIG_SET_DIGESTS``:
+   the fp32 pair at 16 and 24, the other three at 64 and 128).
 3. Serves the flagship set-shuffling flow (runs/set16/config.json as it
    is, seeded random weights, data init on one batch) over HTTP:
    /health, /sample, /sample_metrics; then the fp32 importance-sampled
@@ -70,7 +75,7 @@ Run from the root of a checkout on a machine with one NVIDIA card:
    step, 10 more steps traced; and runs/molecules/config.json's
    architecture (hidden 96, 4 node and 4 edge layers, K = 8, batch 64)
    with compute_dtype float32 and dataset synthetic for FP32_MOL_STEPS
-   (30) steps with the checks of 4. but the optimum, the pair launched
+   (20) steps with the checks of 4. but the optimum, the pair launched
    with the node flow's key mask, 10 more steps traced; the same for
    runs/molecules_v4/config.json (hidden 192, 4 node and 6 edge layers,
    batch 128; evals untrained and at the end), #4 launched with the
@@ -78,6 +83,12 @@ Run from the root of a checkout on a machine with one NVIDIA card:
    runs/moses/config.json (hidden 256, K = 16, batch 192) in fp32 for
    FP32_MOSES_CALLS (2) calls of its 4 steps a call, no eval: every loss
    finite, #4 with qkv in its workspace too.
+5b. runs/set16 in fp32 at the CLI's --set_size 64 (``fp32_big_set_phase``):
+   FP32_BIG_SET_STEPS (30) steps through the Trainer with the checks of 4.
+   (its fp32 IS eval untrained and at the end, above log2(64!)/64), the
+   pair over clusters 8 times a step, 10 steps traced; then at --set_size
+   128 three train steps with finite losses and one eval batch above
+   log2(128!)/128 = 5.5950.
 6. The graph-coloring family (runs/coloring/config.json as it is: bf16,
    batch 256, graphs of 10-20 nodes padded to 20, a ScannedBlocks stack of
    3 two-parity blocks of RGCN couplings).  First, with the kernel checks
@@ -128,7 +139,8 @@ Run from the root of a checkout on a machine with one NVIDIA card:
    it is (full width and depth: 4 blocks of two autoregressive layers,
    2-layer LSTMs of hidden 512 in bf16, K = 32, the HMM prior of 32
    states, batch 128 of 256 characters) for LM_STEPS steps, its IS
-   bits/char on its 8 eval batches of 8 chains before and after, the final
+   bits/char on LM_EVAL_BATCHES (4) eval batches of 8 chains before and
+   after, the final
    sample metrics and the test: the losses finite and falling, every bpd
    finite and above the analytic optimum, no alarm, #1, #2 and #2'
    launched; prints language_modeling_train_samples_per_s with the peak
@@ -165,7 +177,7 @@ Run from the root of a checkout on a machine with one NVIDIA card:
    bitwise the shared layout's.  Then runs/molecules_v4/config.json as
    it is but for its dataset (the in-memory synthetic molecules; hidden
    192, 4 node and 6 edge layers, K = 8, bf16, batch 128) for MOL_STEPS
-   (20) steps with the checks of 4.,
+   (10) steps with the checks of 4.,
    every molecule kernel launched with the mask, the final sample metrics
    at 1,024 and sampled_molecules.json; prints
    molecule_generation_train_samples_per_s, the peak memory, the validity
@@ -721,11 +733,12 @@ BIG_SET_ROWS = 16_384
 BIG_SET_TIMED = (64, 128)
 
 
-# sha256 digests of the kernels' outputs at sets of 16 and 24
-# (``small_set_digests``) from the tree before sets above 32
-# (tools/set_digests.py on commit b72488a, NVIDIA H100 80GB HBM3, 700.00
-# W): those sets take the instances without the chunked attention, whose
-# code is that tree's, so the bits must not move
+# sha256 digests of the kernels' outputs on fixed inputs (``set_digests``)
+# from the trees before a change to their instances, read by
+# tools/set_digests.py on an NVIDIA H100 80GB HBM3 at 700.00 W.  At sets of
+# 16 and 24 #3 bf16, #4 bf16 and #3 fp32, from commit b72488a (the tree
+# before sets above 32): those sets take the instances without the chunked
+# attention, whose code is that tree's, so the bits must not move.
 SMALL_SET_DIGESTS = {
     "fwd_bfloat16_set16": "a656c64d803df850",
     "bwd_bfloat16_set16": "fc57c015a9bb8180",
@@ -733,13 +746,35 @@ SMALL_SET_DIGESTS = {
     "fwd_bfloat16_set24": "e1e38ac7a9ab120c",
     "bwd_bfloat16_set24": "92cd3a0fbc7be279",
     "fwd_float32_set24": "a9cb4e9133ed29b4"}
+# From commit d493a85 (the tree before the fp32 pair's instances for sets
+# above 32): the fp32 train step's pair (#3 fp32 with grad, #4 fp32's dx and
+# 12 weight gradients) at sets of 16 and 24, whose code that change moved
+# into a header and templated, and the BIG instances of #3 bf16, #4 bf16 and
+# #3 fp32 (without grad) at sets of 64 and 128, whose row addressing over
+# a cluster it generalised.
+PAIR_AND_BIG_SET_DIGESTS = {
+    "train_fwd_float32_set16": "36b0c115040615d3",
+    "bwd_float32_set16": "6d411fa7a17525b8",
+    "train_fwd_float32_set24": "6832036f752837f5",
+    "bwd_float32_set24": "e582ecbe0c870e00",
+    "fwd_bfloat16_set64": "2bad0d7a43486e53",
+    "bwd_bfloat16_set64": "8075f7fc9376b150",
+    "fwd_float32_set64": "b1e0cbbcade9f55b",
+    "fwd_bfloat16_set128": "96adf45a30930934",
+    "bwd_bfloat16_set128": "b01f321af4a8fdbc",
+    "fwd_float32_set128": "560ff3a42bbcfab6",
+    "fwd_bfloat16_set128_masked": "bec2a2570d20276b",
+    "bwd_bfloat16_set128_masked": "f1ba9f5cecdcf23d",
+    "fwd_float32_set128_masked": "a77b00a3d547d202"}
 
 
-def small_set_digests(device) -> dict:
-    """sha256 of the bytes of #3 bf16's output, #4 bf16's dx and 12 weight
-    gradients and #3 fp32's output on the flagship's nets (in 4, out 104)
-    at 64 sets of 16 and, with a key mask (``set_mask``), 64 sets of 24,
-    on inputs from fixed seeds, by kernel and set size."""
+def set_digests(device) -> dict:
+    """sha256 of the bytes of each kernel's outputs on the flagship's nets
+    (in 4, out 104) on inputs from fixed seeds, by kernel and set size: #3
+    bf16's output, #4 bf16's dx and 12 weight gradients, #3 fp32's output
+    and the fp32 pair's (#3 fp32 with grad, #4 fp32) at 64 sets of 16 and,
+    with a key mask (``set_mask``), 64 sets of 24; the first three at 64
+    sets of 64 and of 128, and with a key mask at 128."""
     import hashlib
 
     import torch
@@ -753,22 +788,33 @@ def small_set_digests(device) -> dict:
         return h.hexdigest()[:16]
 
     out = {}
-    for s, mask in ((16, None), (24, set_mask(64, 24, 5, device))):
+    for s, mask in ((16, None), (24, set_mask(64, 24, 5, device)),
+                    (64, None), (128, None),
+                    (128, set_mask(64, 128, 6, device))):
         g = torch.Generator(device).manual_seed(100 + s)
         x = torch.randn(64, s, D, generator=g, device=device)
         gy = torch.randn(64, s, OUT, generator=g,
                          device=device).to(torch.bfloat16)
+        gf = torch.randn(64, s, OUT, generator=g, device=device)
+        tag = f"set{s}" + ("_masked" if mask is not None and s > 24 else "")
         with torch.no_grad():
             for cd in ("bfloat16", "float32"):
                 tdt = getattr(torch, cd)
-                packed = ft.PackedWeights(
-                    ft.flatten_params(flagship_net(cd, device)), tdt)
-                out[f"fwd_{cd}_set{s}"] = digest([ft.fused_set_transformer(
+                ws = ft.flatten_params(flagship_net(cd, device))
+                packed = ft.PackedWeights(ws, tdt)
+                out[f"fwd_{cd}_{tag}"] = digest([ft.fused_set_transformer(
                     packed, x, num_heads=HEADS, mask=mask)])
                 if cd == "bfloat16":
                     dx, dws = ft.fused_set_transformer_bwd(
                         packed, x, gy, num_heads=HEADS, mask=mask)
-                    out[f"bwd_{cd}_set{s}"] = digest([dx, *dws])
+                    out[f"bwd_{cd}_{tag}"] = digest([dx, *dws])
+                elif s <= ft.MAX_SET:
+                    out[f"train_fwd_{cd}_{tag}"] = digest([
+                        ft.FusedSetTransformer.apply(x, packed, HEADS, mask,
+                                                     *ws)])
+                    dx, dws = ft.fused_set_transformer_bwd(
+                        packed, x, gf, num_heads=HEADS, mask=mask)
+                    out[f"bwd_{cd}_{tag}"] = digest([dx, *dws])
     return out
 
 
@@ -778,25 +824,29 @@ BIG_SET_REPEATS = 4
 
 
 def big_set_repeats(device, seed: int) -> dict:
-    """#3 bf16, #4 bf16 (dx and the 12 weight gradients) and #3 fp32 at
-    each size of BIG_SETS, unmasked and masked (``set_mask``), called
-    BIG_SET_REPEATS times on the same inputs: whether every call gave the
-    first one's bits.  A race between a block's warps or a cluster's two
-    blocks, or a read of memory no one wrote, shows here as a difference.
-    The sets number BIG_SET_ROWS // s, so the bf16 backward's persistent
-    grid walks several sets a block at every size."""
+    """#3 bf16, #4 bf16 (dx and the 12 weight gradients), #3 fp32 and the
+    fp32 train step's pair (#3 fp32 with grad, #4 fp32) at each size of
+    BIG_SETS, unmasked and masked (``set_mask``), called BIG_SET_REPEATS
+    times on the same inputs: whether every call gave the first one's bits.
+    A race between a block's warps or a cluster's blocks, or a read of
+    memory no one wrote, shows here as a difference.  The sets number
+    BIG_SET_ROWS // s, so the backwards' persistent grids walk several
+    sets a block at every size."""
     import torch
     g = torch.Generator(device).manual_seed(seed + 62)
+    gp = torch.Generator(device).manual_seed(seed + 65)
     nets = {cd: flagship_net(cd, device) for cd in ("bfloat16", "float32")}
     packed = {cd: net._packed_weights(getattr(torch, cd))
               for cd, net in nets.items()}
     from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+    ws = ft.flatten_params(nets["float32"])
     out = {}
     for s in BIG_SETS:
         sets = BIG_SET_ROWS // s
         x = torch.randn(sets, s, D, generator=g, device=device)
         gy = torch.randn(sets, s, OUT, generator=g,
                          device=device).to(torch.bfloat16)
+        gf = torch.randn(sets, s, OUT, generator=gp, device=device)
         for masked in (False, True):
             mask = set_mask(sets, s, seed, device) if masked else None
             calls = {
@@ -807,7 +857,13 @@ def big_set_repeats(device, seed: int) -> dict:
                         packed["bfloat16"], x, gy, num_heads=HEADS,
                         mask=mask)),
                 "fwd_f32": lambda: [ft.fused_set_transformer(
-                    packed["float32"], x, num_heads=HEADS, mask=mask)]}
+                    packed["float32"], x, num_heads=HEADS, mask=mask)],
+                "train_fwd_f32": lambda: [ft.FusedSetTransformer.apply(
+                    x, packed["float32"], HEADS, mask, *ws)],
+                "bwd_f32": lambda: (lambda r: [r[0], *r[1]])(
+                    ft.fused_set_transformer_bwd(
+                        packed["float32"], x, gf, num_heads=HEADS,
+                        mask=mask))}
             with torch.no_grad():
                 for name, call in calls.items():
                     first = call()
@@ -832,14 +888,19 @@ def check_big_set_kernels(device, seeds, report):
     """#3 bf16, #4 bf16 and #3 fp32 at sets of BIG_SETS rows (whole-set
     tiles, and 2-CTA clusters where a set does not fit one block) against
     plain, at each seed, within the flagship's limits
-    (``fused_fwd_report``, ``fused_bwd_report``); the key mask at 64
-    (``masked_fwd_readings``, ``masked_bwd_readings``); each timed at the
-    set-64 and set-128 runs' 1024 sets, into ``report``."""
+    (``fused_fwd_report``, ``fused_bwd_report``), and the fp32 train step's
+    pair (a cluster of 2 blocks up to 64 rows, of 4 above) against autograd
+    of plain within F32_TRAIN_FWD_TOL and F32_BWD_TOL and against float64
+    by ``f32_pair_failures`` (``f32_pair_readings``; at the timed 1,024
+    sets by the latter alone, ``f32_pair_set_reports``); the key mask at 64 (``masked_fwd_readings``,
+    ``masked_bwd_readings``, ``masked_f32_pair_readings``); each timed at
+    the set-64 and set-128 runs' 1024 sets, into ``report``."""
     import torch
     from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
     readings: dict = {}
     for seed in seeds:
         g = torch.Generator(device).manual_seed(seed + 60)
+        gp = torch.Generator(device).manual_seed(seed + 63)
         for s in BIG_SETS:
             sets = BIG_SET_ROWS // s
             x = torch.randn(sets, s, D, generator=g, device=device)
@@ -855,6 +916,15 @@ def check_big_set_kernels(device, seeds, report):
             readings[f"{seed}/set{s}"] = {
                 k: {key: v[key] for key in ("rel_err", "tile", "smem")}
                 for k, v in r.items()}
+            pair = f32_pair_readings(
+                flagship_net("float32", device), x,
+                torch.randn(sets, s, OUT, generator=gp, device=device))
+            check(pair["fwd_err"] <= F32_TRAIN_FWD_TOL
+                  and pair["bwd_err"] <= F32_BWD_TOL,
+                  f"the fp32 pair at {sets} sets of {s}: #3 and #4 off "
+                  f"autograd of plain by {pair['fwd_err']}, "
+                  f"{pair['bwd_err']}")
+            readings[f"{seed}/set{s}"]["pair_f32"] = pair
         s = 64
         mask = set_mask(BIG_SET_ROWS // s, s, seed, device)
         x = torch.randn(BIG_SET_ROWS // s, s, D, generator=g, device=device)
@@ -865,22 +935,30 @@ def check_big_set_kernels(device, seeds, report):
             "fwd_bf16": masked_fwd_readings(bf, x, mask, BF16_FWD_REL),
             "bwd_bf16": masked_bwd_readings(bf, x, mask, gy),
             "fwd_f32": masked_fwd_readings(flagship_net("float32", device),
-                                           x, mask, F32_FWD_REL)}
+                                           x, mask, F32_FWD_REL),
+            "pair_f32": masked_f32_pair_readings(
+                flagship_net("float32", device), x, mask,
+                torch.randn(x.shape[0], s, OUT, generator=gp,
+                            device=device))}
     print("fused kernels at sets above 32 (limits: bf16 #3 "
-          f"{BF16_FWD_REL}, #4 0.03, fp32 #3 {F32_FWD_REL}): "
+          f"{BF16_FWD_REL}, #4 0.03, fp32 #3 {F32_FWD_REL}; the fp32 pair "
+          f"{F32_TRAIN_FWD_TOL} and {F32_BWD_TOL} as torch.allclose and "
+          "within max(those, 2 x plain fp32's distance) of float64, the "
+          f"masked pair's control above {MASK_CONTROL} x): "
           + json.dumps(readings), flush=True)
     repeats = big_set_repeats(device, seeds[0])
     print(f"fused kernels at sets above 32, {BIG_SET_REPEATS} calls on the "
           "same inputs bitwise equal: " + json.dumps(repeats), flush=True)
     check(all(repeats.values()), "a fused kernel at a set above 32 gave "
           f"other bits on the same inputs: {repeats}")
-    digests = small_set_digests(device)
-    print("fused kernels at sets of 16 and 24 against the tree before "
-          "sets above 32: " + json.dumps(
-              {k: v == SMALL_SET_DIGESTS[k] for k, v in digests.items()}),
+    digests = set_digests(device)
+    pinned = {**SMALL_SET_DIGESTS, **PAIR_AND_BIG_SET_DIGESTS}
+    print("fused kernels against the trees before (SMALL_SET_DIGESTS, "
+          "PAIR_AND_BIG_SET_DIGESTS): " + json.dumps(
+              {k: v == pinned.get(k) for k, v in digests.items()}),
           flush=True)
-    check(digests == SMALL_SET_DIGESTS, "the kernels at sets of 16 or 24 "
-          f"moved off the tree before sets above 32: {digests}")
+    check(digests == pinned, "a kernel's bits moved off the tree before: "
+          f"{digests}")
     g = torch.Generator(device).manual_seed(seeds[0] + 61)
     for s in BIG_SET_TIMED:
         x = torch.randn(B, s, D, generator=g, device=device)
@@ -900,7 +978,159 @@ def check_big_set_kernels(device, seeds, report):
             r["cluster"] = (ft.bwd_layout(
                 dt, s, D, H, 2 * H, OUT, HEADS, 2)[3] if name == "bwd_bf16"
                 else ft.fwd_shape(dt, s, D, H, 2 * H)[2])
+        report.update(f32_pair_set_reports(device, seeds[0], s))
+    for name in FP32_BIG_PAIR:
+        report[name] = report[f"{name}_set{BIG_SET_TIMED[0]}"]
     return readings
+
+
+def f32_pair_readings(net, x, g) -> dict:
+    """The fp32 train step's pair (a differentiable call: #3 through
+    ``FusedSetTransformer``, #4 in its backward), twice and bitwise, against
+    ``plain_forward`` and autograd through it on x with the cotangent g,
+    in fp32 (read: ``fwd_err``, ``bwd_err`` by ``allclose_err``) and in
+    float64 (held: ``f32_pair_failures``), the launches at a set above 32
+    counted among those over clusters."""
+    import copy
+
+    import torch
+    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+
+    def run(model, plain, xx):
+        xr = xx.clone().requires_grad_(True)
+        y = model.plain_forward(xr) if plain else model(xr)
+        return (y.detach(), *torch.autograd.grad(
+            y, [xr] + list(model.parameters()), g.to(xx.dtype)))
+
+    n = (ft.CLUSTER_TRAIN_FWD_LAUNCHES["float32"],
+         ft.CLUSTER_BWD_LAUNCHES["float32"])
+    got = twice(lambda: run(net, False, x))
+    big = x.shape[1] > ft.MAX_SET
+    check((ft.CLUSTER_TRAIN_FWD_LAUNCHES["float32"],
+           ft.CLUSTER_BWD_LAUNCHES["float32"])
+          == (n[0] + 2 * big, n[1] + 2 * big),
+          f"the fp32 pair at sets of {x.shape[1]} did not launch over "
+          "clusters")
+    want = run(net, True, x)
+    # (the copy leaves out the net's cached kernel weights, whose ctypes
+    # pointers do not copy)
+    net64 = copy.deepcopy(net, {id(net._packed): None}).double()
+    net64.compute_dtype = "float64"
+    ref = run(net64, True, x.double())
+    del net64
+    what = f"the fp32 pair at {tuple(x.shape)}"
+    check(bool(torch.isfinite(got[0]).all()), f"{what}: not finite")
+    names = ["y", "dx"] + [k for k, _ in net.named_parameters()]
+    failed, fp64 = f32_pair_failures(names, got, want, ref)
+    check(not failed, f"{what}: " + "; ".join(failed))
+    rels = [rel_err(a, w) for a, w in zip(got, want)]
+    return dict(fwd_err=allclose_err(got[0], want[0]),
+                bwd_err=max(allclose_err(a, w)
+                            for a, w in zip(got[1:], want[1:])),
+                fp64=fp64, fwd_rel_err=rels[0], rel_err=max(rels[1:]),
+                max_abs_err=max(max_err(a, w) for a, w in zip(got, want)),
+                cluster=ft.fma_fwd_shape(x.shape[1], x.shape[2],
+                                         net.hidden_dim,
+                                         2 * net.hidden_dim)[2])
+
+
+# The fp32 pair at sets above 32 against the same call in float64 on the
+# card (``plain_forward`` and autograd through it), per tensor (the output,
+# dx and the 12 parameters' gradients) by ``allclose_err``, in the form of
+# the train step's rule (b): the kernels within max(floor, 2 e_plain),
+# e_plain plain fp32's own distance from float64, the floor
+# F32_TRAIN_FWD_TOL for the output and F32_BWD_TOL for a gradient.  Both
+# fp32 results drift from float64 as the weight gradients sum over more
+# rows (past 2e-4 at 1,024 sets of 64 or 128, on an H100 80GB HBM3 at
+# 700 W), so a fixed limit against plain fp32 reads fp32's own noise
+# there.  The control, the kernels' values rounded once to bf16, must fail
+# the limit on the output and on some gradient.
+
+
+def f32_pair_failures(names, got, plain, ref) -> tuple:
+    """The rule above on the kernels' ``got``, plain fp32's ``plain`` and
+    float64's ``ref`` (output first, then the gradients, named ``names``):
+    (a message for each failure, the readings)."""
+    import torch
+    failed, lims, kern, ctrl = [], [], [], []
+    for i, (name, a, p, r) in enumerate(zip(names, got, plain, ref)):
+        r = r.float()
+        lim = max(F32_TRAIN_FWD_TOL if i == 0 else F32_BWD_TOL,
+                  2 * allclose_err(p, r))
+        e = allclose_err(a, r)
+        c = allclose_err(a.to(torch.bfloat16), r)
+        if not e <= lim:
+            failed.append(f"{name} {e} from float64, over {lim}")
+        lims.append(lim)
+        kern.append(e)
+        ctrl.append(c > lim)
+    if not (ctrl[0] and any(ctrl[1:])):
+        failed.append("the bf16-rounded control is inside the limit on "
+                      + ("the output" if not ctrl[0] else "every gradient"))
+    worst = max(range(len(kern)), key=lambda i: kern[i] / lims[i])
+    return failed, dict(
+        fwd=kern[0], fwd_limit=lims[0], bwd=max(kern[1:]),
+        worst=names[worst], worst_share=kern[worst] / lims[worst],
+        bwd_limit_max=max(lims[1:]), control_over=sum(ctrl))
+
+
+# the fp32 train step's pair at sets above 32: its instances over clusters
+FP32_BIG_PAIR = ("fused_set_transformer_train_f32_big",
+                 "fused_set_transformer_bwd_f32_big")
+
+
+def f32_pair_set_reports(device, seed: int, s: int) -> dict:
+    """#3 fp32 with grad and #4 fp32 on the flagship's net at 1,024 sets of
+    ``s`` (runs/set16's batch at --set_size s): against autograd of plain
+    in float64 (``f32_pair_readings``, ``f32_pair_failures``; the fp32
+    plain path's distance is read), timed, with the bounds' bytes and
+    operations, the tiles, clusters, shared memory, and #4's grid and the
+    clusters the card holds at once."""
+    import torch
+    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+    g = torch.Generator(device).manual_seed(seed + 64)
+    x = torch.randn(B, s, D, generator=g, device=device)
+    gy = torch.randn(B, s, OUT, generator=g, device=device)
+    net = flagship_net("float32", device)
+    r = f32_pair_readings(net, x, gy)
+    ws = ft.flatten_params(net)
+    packed = net._packed_weights(torch.float32)
+    params = list(net.parameters())
+    rows = B * s
+    with torch.no_grad():
+        t_fwd = timed(lambda: ft.FusedSetTransformer.apply(
+            x, packed, HEADS, None, *ws), lambda: net.plain_forward(x), 10, 5)
+    xr = x.clone().requires_grad_(True)
+    y_p = net.plain_forward(xr)
+    t_bwd = timed(lambda: ft.fused_set_transformer_bwd(
+        packed, x, gy, num_heads=HEADS),
+        lambda: torch.autograd.grad(y_p, [xr] + params, gy,
+                                    retain_graph=True), 5, 3)
+    n_w = sum(w.numel() for w in ws[0::2])
+    n_b = sum(b.numel() for b in ws[1::2])
+    macs = rows * net_macs_per_row(D, H, HEADS, 2, 2 * H, OUT, s)
+    tile, smem, cluster = ft.fma_fwd_shape(s, D, H, 2 * H)
+    fwd = dict(max_abs_err=r["max_abs_err"], rel_err=r["fwd_rel_err"],
+               allclose_err=r["fwd_err"], fp64=r["fp64"], rows=rows, **t_fwd, dtype="float32", tile=tile, smem=smem,
+               cluster=cluster, blocks_per_sm=min(
+                   ft.FMA_FWD_BLOCKS, ft.smem_blocks_per_sm(smem)),
+               grid=cluster * B,
+               bytes=rows * (D + OUT) * 4 + (n_w + n_b) * 4, ops=2 * macs)
+    clusters = ft.fma_max_clusters(device, s, D, H, HEADS, 2, 2 * H, OUT)
+    tile, smem, _, grid = ft.bwd_launch(
+        torch.float32, s, D, H, 2 * H, OUT, HEADS, 2, rows,
+        torch.cuda.get_device_properties(device).multi_processor_count,
+        max_clusters=clusters)
+    bwd = dict(max_abs_err=r["max_abs_err"], rel_err=r["rel_err"],
+               allclose_err=r["bwd_err"], fp64=r["fp64"], rows=rows, **t_bwd, dtype="float32", tile=tile, smem=smem,
+               cluster=cluster, grid=grid, max_active_clusters=clusters,
+               blocks_per_sm=ft.smem_blocks_per_sm(smem),
+               scratch_mb=grid * (n_w + n_b) * 4 / 2**20,
+               # x, g, dx; the weights and their fp32 gradients
+               bytes=rows * (2 * D + OUT) * 4 + 2 * (n_w + n_b) * 4,
+               ops=3 * 2 * macs)
+    return {f"{FP32_BIG_PAIR[0]}_set{s}": fwd,
+            f"{FP32_BIG_PAIR[1]}_set{s}": bwd}
 
 
 def net_macs_per_row(in_dim, hidden, heads, layers, mlp, out_dim, s):
@@ -1059,7 +1289,7 @@ def check_train_fwd(device, gen, report):
         n_w = sum(w.numel() for w in ws[0::2])
         n_b = sum(b.numel() for b in ws[1::2])
         macs = rows * net_macs_per_row(D, H, HEADS, 2, 2 * H, OUT, S)
-        tile, smem = ft.fma_fwd_shape(S, D, H, 2 * H)
+        tile, smem, _ = ft.fma_fwd_shape(S, D, H, 2 * H)
         report[name] = dict(
             max_abs_err=max_err(y, y_p), rel_err=rel_err(y, y_p), rows=rows,
             **t, bytes=rows * (D + OUT) * 4 + (n_w + n_b) * 4, ops=2 * macs,
@@ -1377,7 +1607,8 @@ def reset_launches():
     for counts in (cm.LAUNCHES, ft.LAUNCHES, ft.BWD_LAUNCHES,
                    ft.TRAIN_FWD_LAUNCHES, ft.MASKED_LAUNCHES,
                    ft.MASKED_TRAIN_FWD_LAUNCHES, ft.MASKED_BWD_LAUNCHES,
-                   ft.GLOBAL_H_BWD_LAUNCHES):
+                   ft.GLOBAL_H_BWD_LAUNCHES, ft.CLUSTER_TRAIN_FWD_LAUNCHES,
+                   ft.CLUSTER_BWD_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -1400,12 +1631,16 @@ def read_launches() -> dict:
             **{f"fused_set_transformer_bwd_{short[k]}_masked": v
                for k, v in ft.MASKED_BWD_LAUNCHES.items()},
             **{f"fused_set_transformer_bwd_{short[k]}_global_h": v
-               for k, v in ft.GLOBAL_H_BWD_LAUNCHES.items()}}
+               for k, v in ft.GLOBAL_H_BWD_LAUNCHES.items()},
+            FP32_BIG_PAIR[0]: ft.CLUSTER_TRAIN_FWD_LAUNCHES["float32"],
+            FP32_BIG_PAIR[1]: ft.CLUSTER_BWD_LAUNCHES["float32"]}
 
 
 TRAIN_STEPS, TRAIN_EVAL_EVERY, TRAIN_LOG_EVERY = 200, 100, 20
-# train steps traced after the measured run: untraced warm-up, then traced
-PROFILE_WARMUP, PROFILE_STEPS = 5, 10
+# train steps traced after the measured run: untraced warm-up (5 until the
+# fp32 runs at sets of 64 and 128 came: the model and the allocator are
+# warm from its training by then), then traced
+PROFILE_WARMUP, PROFILE_STEPS = 2, 10
 
 
 def profile_steps(task, optimizer, seed: int, *, warmup: int = PROFILE_WARMUP,
@@ -1734,14 +1969,16 @@ BIG_SET_KERNELS = ("mixture_forward", "mixture_forward_bwd",
                    "fused_set_transformer_f32")
 
 
-def big_set_task(seed: int, set_size: int, device: str = "cuda"):
+def big_set_task(seed: int, set_size: int, device: str = "cuda",
+                 compute_dtype: str | None = None):
     """runs/set16/config.json as it is but for ``--set_size`` (and one eval
-    batch): (task name, args, task)."""
+    batch; ``--compute_dtype`` where given): (task name, args, task)."""
     from categoricalnf_tpu_torch import inference
     from categoricalnf_tpu_torch.utils.config import load_config
     cfg = load_config(os.path.join(REPO, "runs", "set16"))
     args = {**cfg["args"], "seed": seed, "set_size": set_size,
-            "eval_batches_count": 1}
+            "eval_batches_count": 1,
+            **({"compute_dtype": compute_dtype} if compute_dtype else {})}
     return cfg["task"], args, inference.build_task(cfg["task"], args,
                                                    device=device)
 
@@ -1854,9 +2091,100 @@ def big_set_phase(seed: int, timings: dict, card: str,
     return launches
 
 
+# runs/set16 in fp32 at --set_size 64 and 128, through the fp32 train
+# step's pair over clusters of 2 and 4 blocks: at 64 the Trainer for
+# FP32_BIG_SET_STEPS steps (evals untrained and at the end), 10 more traced;
+# at 128 BIG_SET_128_CALLS calls of one step and one eval batch
+FP32_BIG_SET_STEPS, FP32_BIG_SET_LOG_EVERY = 30, 10
+FP32_BIG_SET_KERNELS = ("mixture_forward", "mixture_forward_bwd",
+                        "fused_set_transformer_f32") + FP32_BIG_PAIR
+
+
+def fp32_big_set_phase(seed: int, timings: dict, card: str,
+                       device: str = "cuda") -> dict:
+    """runs/set16 with compute_dtype float32 at --set_size 64: trained
+    through the Trainer for FP32_BIG_SET_STEPS steps (``train_checked``:
+    its fp32 IS eval, one batch of 1024 and 4 chains, untrained and at the
+    end; the best 0.2 bits/var below the untrained, every bpd above the
+    optimum log2(64!)/64, no alarm), each step launching both kernels of
+    the pair over clusters once a coupling, and no other instance of the
+    pair (none at sets up to 32); 10 more steps traced
+    (``profile_steps``).  Then --set_size 128:
+    BIG_SET_128_CALLS calls of one train step (``train_calls``: every loss
+    finite, the pair over clusters of 4) and the fp32 IS eval of one batch
+    (finite, above log2(128!)/128).  Returns the launches by path."""
+    import torch
+    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+
+    launches = {}
+    name, args, task = big_set_task(seed, 64, device, "float32")
+    check(task.compute_dtype == "float32" and task.batch_size == B,
+          "runs/set16 in fp32 at set 64 is not the model this phase is "
+          "written for")
+    a = {**args, "steps_per_call": 1}
+    tcfg = dataclasses.replace(train_config(a, seed, 4),
+                               num_steps=FP32_BIG_SET_STEPS,
+                               eval_every=FP32_BIG_SET_STEPS,
+                               log_every=FP32_BIG_SET_LOG_EVERY)
+    t64: dict = {"cut": {"compute_dtype": "float32", "set_size": 64}}
+    with tempfile.TemporaryDirectory() as out_dir:
+        final = train_checked(task, name, args, tcfg, out_dir, t64,
+                              FP32_BIG_SET_KERNELS, rate_after=2
+                              * FP32_BIG_SET_LOG_EVERY)
+        optimum = task.analytic_optimum_bpd()
+        t64["optimum_bpd"] = optimum
+        check(all(b > optimum for b in t64["val_bpd"]
+                  + [t64["best_bpd"], t64["untrained_bpd"]]),
+              f"fp32 set 64: an eval bpd below the optimum {optimum}: {t64}")
+        n = final["launches"]
+        for kernel, small in zip(FP32_BIG_PAIR, FP32_PAIR):
+            check(n[kernel] == 8 * FP32_BIG_SET_STEPS and n[small] == 0,
+                  f"fp32 set 64: {kernel} launched {n[kernel]} times in "
+                  f"{FP32_BIG_SET_STEPS} steps, not 8 a step ({small}: "
+                  f"{n[small]}, not 0)")
+        t64["step_profile"] = profile_steps(task, tcfg.optimizer, seed)
+    launches["set64_fp32_training"] = final["launches"]
+    timings["set64"] = t64
+
+    name, args, task = big_set_task(seed, 128, device, "float32")
+    tcfg = train_config({**args, "steps_per_call": 1}, seed, 4)
+    t128: dict = {"cut": {"compute_dtype": "float32", "set_size": 128}}
+    step = train_calls(task, tcfg, BIG_SET_128_CALLS, t128,
+                       ("mixture_forward", "mixture_forward_bwd")
+                       + FP32_BIG_PAIR)
+    reset_launches()
+    with torch.no_grad():
+        bpd = task.eval_step(task.eval_batches()[0], 4).cpu()
+    torch.cuda.synchronize()
+    evals = read_launches()
+    check(bool(torch.isfinite(bpd).all())
+          and float(bpd.mean()) > task.analytic_optimum_bpd(),
+          f"fp32 set 128 eval bpd {bpd.mean()}")
+    t128.update(eval_bpd_mean=float(bpd.mean()),
+                optimum_bpd=task.analytic_optimum_bpd(),
+                clusters={"train_fwd_f32": ft.fma_fwd_shape(
+                    128, D, H, 2 * H)[2], "bwd_f32": ft.bwd_layout(
+                        torch.float32, 128, D, H, 2 * H, OUT, HEADS, 2)[3]})
+    launches["set128_fp32_training"] = {k: step[k] + evals[k] for k in step}
+    timings["set128"] = t128
+    for size, t in ((64, t64), (128, t128)):
+        print(json.dumps({"metric": "fp32_train_samples_per_s",
+                          "run": f"set16_set{size}",
+                          "value": t["train_samples_per_s"],
+                          "unit": "samples/s", "steps": t["rate_steps"],
+                          "batch_size": task.batch_size,
+                          "ms_per_step": t["train_ms_per_step"],
+                          "peak_mem_gib": t["train_peak_mem_gib"],
+                          "device_idle_share": t.get("step_profile", {}).get(
+                              "device_idle_share"),
+                          "device": card}), flush=True)
+    return launches
+
+
 # fp32 training through the FMA pair: runs/set16's, runs/molecules' and
 # runs/molecules_v4's steps; runs/moses's, 2 calls of its 4 steps a call
-FP32_SET_STEPS, FP32_MOL_STEPS = 60, 30
+# (FP32_MOL_STEPS: 30 until the fp32 runs at sets of 64 and 128 came)
+FP32_SET_STEPS, FP32_MOL_STEPS = 60, 20
 FP32_MOSES_CALLS = 2
 FP32_PAIR = ("fused_set_transformer_train_f32",
              "fused_set_transformer_bwd_f32")
@@ -1886,7 +2214,7 @@ def fp32_training_phase(seed: int, timings: dict, card: str,
     runs/molecules/config.json's architecture (hidden 96, 4 node and 4
     edge layers, K = 8, batch 64) with compute_dtype float32 and dataset
     synthetic (its .npz is not in the repo) for FP32_MOL_STEPS steps (evals
-    of its 8 batches of 4 chains before, at half and at the end), with
+    of its 8 batches of 4 chains untrained and at the end), with
     ``train_checked``'s checks and the pair launched with the node flow's
     key mask; runs/molecules_v4/config.json (hidden 192, 4 node and 6 edge
     layers, K = 8, batch 128) the same way for FP32_MOL_STEPS steps, evals
@@ -1942,12 +2270,13 @@ def fp32_training_phase(seed: int, timings: dict, card: str,
           "runs/molecules in fp32 is not the model this phase is written for")
     tcfg = dataclasses.replace(train_config(a, seed, a["eval_samples"]),
                                num_steps=FP32_MOL_STEPS,
-                               eval_every=FP32_MOL_STEPS // 2, log_every=10)
+                               eval_every=FP32_MOL_STEPS, log_every=10)
     mol_timings: dict = {"cut": {"dataset": "synthetic",
                                  "compute_dtype": "float32"}}
     with tempfile.TemporaryDirectory() as out_dir:
         final = train_checked(mol, cfg["task"], m_args, tcfg, out_dir,
-                              mol_timings, FP32_MOL_KERNELS)
+                              mol_timings, FP32_MOL_KERNELS,
+                              rate_after=tcfg.log_every)
         mol_timings["step_profile"] = profile_steps(mol, tcfg.optimizer,
                                                     seed)
     launches["molecules_fp32_training"] = final["launches"]
@@ -2425,6 +2754,9 @@ LM_SHAPES = {"density": (128, 256, 4), "m512": (128, 4), "m16": (4, 4)}
 # the fp32 runs of molecules_v4 and moses came), and its log cadence: the
 # rate is read over the second half
 LM_STEPS, LM_LOG_EVERY = 8, 4
+# the eval batches of both LM phases (runs/lm_v6's 8 until the fp32 runs at
+# sets of 64 and 128 came; their evals took most of the transformer phase)
+LM_EVAL_BATCHES = 4
 # the characters of the crops the LM phase traces a step on (profile_steps)
 LM_PROFILE_CROP = 32
 # what runs/lm_v6/config.json builds, which the phase checks it trains
@@ -2662,9 +2994,9 @@ def lm_phase(seed: int, timings: dict, card: str, device: str = "cuda",
     states, batch 128 of 256 characters), or with ``net`` transformer its
     2-block causal transformers (4 heads, KV cache of 256), for
     ``num_steps`` steps through the
-    port's Trainer, with its 8 eval batches of 8 chains before training
-    and at the end, the final sample metrics and the test: every logged
-    loss finite and the last below the first, every bpd finite and above
+    port's Trainer, with LM_EVAL_BATCHES eval batches of 8 chains before
+    training and at the end, the final sample metrics and the test: every
+    logged loss finite and the last below the first, every bpd finite and above
     the analytic optimum, no alarm, #2, #2' and #1 launched.  Then, for the
     LSTMs, traces 2
     steps on crops of LM_PROFILE_CROP characters with the host's activity
@@ -2690,7 +3022,8 @@ def lm_phase(seed: int, timings: dict, card: str, device: str = "cuda",
 
     cfg = load_config(os.path.join(REPO, "runs", "lm_v6"))
     a = cfg["args"]
-    args = {**a, "seed": seed, "net": net}
+    args = {**a, "seed": seed, "net": net,
+            "eval_batches_count": LM_EVAL_BATCHES}
     key = "lm" if net == "lstm" else f"lm_{net}"
     t0 = time.perf_counter()
     task = inference.build_task(cfg["task"], args, device=device)
@@ -2842,10 +3175,14 @@ def lm_phase(seed: int, timings: dict, card: str, device: str = "cuda",
 MOL_NODES, MOL_NODE_DIM, MOL_BATCH, MOL_HIDDEN = 24, 6, 128, 192
 MOSES_BATCH, MOSES_HIDDEN, MOSES_K = 192, 256, 16
 # molecules_v4's and runs/moses's training steps, evals at half and at the
-# end: a v4 step takes 0.3-0.6 s on the card's host (PERF.md), and v4 was
-# cut from 120 steps to 60 when moses began to train, and both to 20 when
-# their fp32 runs came, to keep the script inside its time
-MOL_STEPS, MOSES_STEPS = 20, 20
+# end, one log at the end: a v4 step takes 0.3-0.6 s on the card's host
+# (PERF.md), and v4 was cut from 120 steps to 60 when moses began to train,
+# both to 20 when their fp32 runs came, and v4 to 10 when the fp32 runs at
+# sets of 64 and 128 came, to keep the script inside its time (moses at 8
+# steps, two calls of its 4, read its served model 1.59e-3 bits/var off its
+# CPU copy, over the 1e-3 that check_molecules_against_cpu allows: ROADMAP
+# Queue C)
+MOL_STEPS, MOSES_STEPS = 10, 20
 MOL_OUT = MOL_NODE_DIM * (2 + 3 * K)
 MOSES_OUT = MOL_NODE_DIM * (2 + 3 * MOSES_K)
 # #4 bf16's tolerance (``fused_bwd_report``): the largest relative error of
@@ -3230,8 +3567,8 @@ def masked_f32_pair_reports(device, seed: int, hidden: int, batch: int,
     n_b = sum(b.numel() for b in ws[1::2])
     macs = rows * net_macs_per_row(MOL_NODE_DIM, hidden, HEADS, 2,
                                    2 * hidden, out, MOL_NODES)
-    tile, smem = ft.fma_fwd_shape(MOL_NODES, MOL_NODE_DIM, hidden,
-                                  2 * hidden)
+    tile, smem, _ = ft.fma_fwd_shape(MOL_NODES, MOL_NODE_DIM, hidden,
+                                     2 * hidden)
     fwd = dict(
         max_abs_err=r["max_abs_err"], rel_err=r["fwd_rel_err"],
         control_rel_err=r["control_rel_err"], rows=rows, **t_fwd,
@@ -3600,7 +3937,8 @@ def molecule_phase(seed: int, timings: dict, card: str,
     task = inference.build_task(cfg["task"], args, device=device)
     timings["build_task_s"] = time.perf_counter() - t0
     tcfg = dataclasses.replace(train_config(a, seed, a["eval_samples"]),
-                               num_steps=MOL_STEPS, eval_every=MOL_STEPS // 2)
+                               num_steps=MOL_STEPS, eval_every=MOL_STEPS // 2,
+                               log_every=MOL_STEPS)
     launches = {}
     with tempfile.TemporaryDirectory() as out_dir:
         final = train_checked(task, cfg["task"], args, tcfg, out_dir,
@@ -3637,7 +3975,8 @@ def molecule_phase(seed: int, timings: dict, card: str,
           "runs/moses is not the model this phase is written for")
     tcfg = dataclasses.replace(train_config(a, seed, a["eval_samples"]),
                                num_steps=MOSES_STEPS,
-                               eval_every=MOSES_STEPS // 2)
+                               eval_every=MOSES_STEPS // 2,
+                               log_every=MOSES_STEPS)
     moses_timings: dict = {"cut": {"dataset": "synthetic"}}
     with tempfile.TemporaryDirectory() as out_dir:
         final = train_checked(moses, cfg["task"], m_args, tcfg, out_dir,
@@ -4347,26 +4686,46 @@ def big_set_resources(logs: dict) -> dict:
 
 
 def fma_pair_resources(log: str) -> dict:
-    """ptxas's registers and spills of the fp32 train step's pair
-    (csrc/fused_transformer.cu: the forward, and the backward's two
-    instances, its tile all in shared memory and with regions in the
-    global workspace) by the report entries that launch them, and the
-    blocks an SM its launch bounds and registers allow."""
+    """ptxas's registers and spills of the fp32 train step's pair (the
+    logs of csrc/fused_transformer.cu, the forward and the backward with
+    its tile all in shared memory, and of csrc/fused_transformer_f32_ws.cu,
+    the backward with regions in the global workspace) by the report
+    entries that launch them, and the blocks an SM its launch bounds and
+    registers allow."""
     res = kernel_resources(log)
     out = {}
-    for tag, names in (("fused_set_transformer_fwd",
+    for tag, names in (("fused_set_transformer_fwdILb0E",
                         ("fused_set_transformer_train_f32",)),
-                       ("fused_set_transformer_bwdILb0E",
+                       ("fused_set_transformer_bwdILb0ELb0E",
                         ("fused_set_transformer_bwd_f32",)),
-                       ("fused_set_transformer_bwdILb1E",
+                       ("fused_set_transformer_bwdILb1ELb0E",
                         ("fused_set_transformer_bwd_f32_global_h",
                          "fused_set_transformer_bwd_f32_global_h_moses"))):
         hits = [v for f, v in res.items() if tag in f]
-        check(len(hits) == 1, f"no ptxas line for {tag} in "
-              "fused_transformer.cu's log")
+        check(len(hits) == 1, f"no ptxas line for {tag} in the fp32 "
+              "pair's logs")
         out.update({name: dict(hits[0], warps_per_sm_by_registers=
                                warps_by_registers(hits[0]["registers"], 256))
                     for name in names})
+    return out
+
+
+def fma_big_resources(log: str) -> dict:
+    """ptxas's registers and spills of the fp32 pair's instances for sets
+    above 32 (csrc/fused_transformer_f32_big.cu: ``fused_set_transformer_
+    fwd<true>`` and ``fused_set_transformer_bwd<false, true>``, with their
+    ``__noinline__`` callees' spills) by the report entries that launch
+    them."""
+    res = kernel_resources(log)
+    out = {}
+    for tag, name in (("fused_set_transformer_fwdILb1E", FP32_BIG_PAIR[0]),
+                      ("fused_set_transformer_bwdILb0ELb1E",
+                       FP32_BIG_PAIR[1])):
+        hits = [v for f, v in res.items() if tag in f]
+        check(len(hits) == 1, f"no ptxas line for {tag} in "
+              "fused_transformer_f32_big.cu's log")
+        out.update({f"{name}{suffix}": hits[0]
+                    for suffix in ("", *(f"_set{s}" for s in BIG_SET_TIMED))})
     return out
 
 
@@ -4394,8 +4753,9 @@ def mixture_resources(log: str) -> dict:
 # read 0.00116 here on an H100 80GB HBM3 at 700 W
 BF16_FWD_REL = 0.01
 
-SOURCE_NAMES = ["mixture", "fused_transformer", "fused_transformer_bf16",
-                "fused_transformer_tf32x3"]
+SOURCE_NAMES = ["mixture", "fused_transformer", "fused_transformer_f32_ws",
+                "fused_transformer_bf16", "fused_transformer_tf32x3",
+                "fused_transformer_f32_big"]
 SOURCES = {
     "mixture_inverse": ("categoricalnf_tpu_torch/csrc/mixture.cu",
                         "categoricalnf_tpu/ops/pallas/mixture.py:137"),
@@ -4432,6 +4792,13 @@ SOURCES = {
     "fused_set_transformer_train_f32": (
         "categoricalnf_tpu_torch/csrc/fused_transformer.cu",
         "categoricalnf_tpu/ops/pallas/fused_transformer.py:286"),
+    # the fp32 train step's pair at sets of 33-128, a set over a cluster
+    "fused_set_transformer_train_f32_big": (
+        "categoricalnf_tpu_torch/csrc/fused_transformer_f32_big.cu",
+        "categoricalnf_tpu/ops/pallas/fused_transformer.py:286"),
+    "fused_set_transformer_bwd_f32_big": (
+        "categoricalnf_tpu_torch/csrc/fused_transformer_f32_big.cu",
+        "categoricalnf_tpu/ops/pallas/fused_transformer.py:303"),
     # #1' has no Pallas counterpart either: it takes the place of XLA's
     # reverse mode through the reference's inverse loop, the same rule
     "mixture_inverse_loop_bwd": ("categoricalnf_tpu_torch/csrc/mixture.cu",
@@ -4469,10 +4836,11 @@ BIG_SET_REPORTS = {
     name: [f"{name}_set{s}" for s in BIG_SET_TIMED]
     for name in ("fused_set_transformer_bf16",
                  "fused_set_transformer_bwd_bf16",
-                 "fused_set_transformer_f32")}
+                 "fused_set_transformer_f32") + FP32_BIG_PAIR}
 BIG_SET_KEYS = ("rows", "cluster", "tile", "smem", "grid", "ms", "host_ms",
                 "plain_ms", "bound_ms", "bound_by", "max_abs_err", "rel_err",
-                "registers", "spill_bytes")
+                "registers", "spill_bytes", "max_active_clusters",
+                "allclose_err", "fp64")
 # the entries of the LM path's shapes at K = 32 (``check_lm_kernels``)
 # that a kernel's line carries, and their keys
 LM_REPORTS = {name: [f"{name}_lm_{shape}" for shape in
@@ -4521,6 +4889,7 @@ PATH_OF = {**{k: "serving" for k in SERVING_KERNELS},
            "fused_set_transformer_train_f32": "set16_fp32_training",
            "fused_set_transformer_bwd_f32_global_h":
                "molecules_v4_fp32_training",
+           **{k: "set64_fp32_training" for k in FP32_BIG_PAIR},
            "mixture_inverse_loop_bwd": "set_summation_training"}
 
 
@@ -4604,7 +4973,9 @@ def main() -> int:
                     **lm_mixture_resources(logs["mixture"]),
                     **fused_bwd_resources(logs["fused_transformer_bf16"]),
                     **big_set_resources(logs),
-                    **fma_pair_resources(logs["fused_transformer"])
+                    **fma_pair_resources(logs["fused_transformer"]
+                                         + logs["fused_transformer_f32_ws"]),
+                    **fma_big_resources(logs["fused_transformer_f32_big"])
                     }.items():
         report[name].update(r)
     for r in report.values():
@@ -4679,6 +5050,11 @@ def main() -> int:
     launches.update(fp32_training_phase(args.seed, fp32_timings, card))
     print("fp32 training: " + json.dumps(fp32_timings), flush=True)
     lap("fp32_training")
+    fp32_timings = {}
+    launches.update(fp32_big_set_phase(args.seed, fp32_timings, card))
+    print("fp32 training at sets of 64 and 128: "
+          + json.dumps(fp32_timings), flush=True)
+    lap("fp32_big_sets")
     coloring_timings: dict = {}
     launches.update(coloring_phase(args.seed, coloring_timings, card))
     print("coloring: " + json.dumps(coloring_timings), flush=True)

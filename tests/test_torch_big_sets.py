@@ -7,11 +7,11 @@ kernels on the card (``--set_size`` of the set CLIs).  Here the kernels'
 plain version, ``SetTransformer.plain_forward`` (and autograd through it),
 is held against the reference's fused kernel in interpret mode at sets of
 64 and 128 and against its XLA SetTransformer at 48 and 100; the set task
-at set_size 64 against the reference's (batches, one ELBO); the kernels'
-layout mirrors (whole-set tiles, 2-CTA clusters) at sets of 33 to 128 and
-their refusal of 129; and the fp32 train step's refusal above 32 (ROADMAP
-B15).  The kernels themselves run in ``tests/test_torch_cuda.py`` on the
-card.
+at set_size 64 against the reference's (batches, one ELBO, and the fp32
+loss and gradients of a train step); the kernels' layout mirrors
+(whole-set tiles, clusters of 2 and 4 blocks, the fp32 train step's pair
+included) at sets of 33 to 128 and their refusal of 129 (ROADMAP B16).  The
+kernels themselves run in ``tests/test_torch_cuda.py`` on the card.
 
 Tolerances: fp32 within TOL = 1e-4 of the reference's largest magnitude,
 as ``tests/test_torch_key_mask.py``; the ELBO's parts within 1e-4, as
@@ -27,6 +27,7 @@ import torch
 from categoricalnf_tpu import flows as jflows
 from categoricalnf_tpu.networks.transformer import \
     SetTransformer as JaxSetTransformer
+from categoricalnf_tpu.ops import numerics as jnm
 from categoricalnf_tpu.ops.pallas import fused_transformer as jft
 from categoricalnf_tpu.tasks.set_modeling import \
     SetShufflingTask as JaxSetShufflingTask
@@ -119,20 +120,17 @@ def test_plain_path_matches_the_reference_xla_path(s):
     _against(j.apply, s, 2, s)
 
 
-def test_set_task_at_64_matches_the_reference():
-    """SetShufflingTask at set_size 64 (a tiny width): its batches equal
-    the reference's, and one ELBO on the reference's data-initialised
-    weights and its encoder noise within 1e-4 (log_pz, log_dec, log_q)."""
-    tiny = dict(set_size=64, batch_size=4, num_layers=2, hidden_dim=16,
-                num_mixtures=3, encoding_dim=2, compute_dtype="float32")
-    jtask = JaxSetShufflingTask(**tiny)
-    ttask = SetShufflingTask(**tiny, device="cpu")
-    for seed in (0, 1):
-        np.testing.assert_array_equal(
-            ttask._gen(np.random.default_rng(seed), 4),
-            jtask._gen(np.random.default_rng(seed), 4))
+TINY64 = dict(set_size=64, batch_size=4, num_layers=2, hidden_dim=16,
+              num_mixtures=3, encoding_dim=2, compute_dtype="float32")
+
+
+def _set_task_pair():
+    """SetShufflingTask at set_size 64 (a tiny width, fp32) in both
+    frameworks on the reference's data-initialised weights, the coupling
+    output layers random: (reference task, its params, port task, x)."""
+    jtask = JaxSetShufflingTask(**TINY64)
+    ttask = SetShufflingTask(**TINY64, device="cpu")
     x = jtask._gen(np.random.default_rng(2), 4)
-    assert x.shape == (4, 64)
     params = jtask.data_init(jtask.init_params(jax.random.PRNGKey(0)),
                              {"x": jnp.asarray(x)}, jax.random.PRNGKey(1))
     params = jax.tree.map(np.asarray, params)
@@ -143,6 +141,19 @@ def test_set_task_at_64_matches_the_reference():
             out["w"] = (r.standard_normal(out["w"].shape)
                         * 0.1).astype(np.float32)
     ttask.model.load_state_dict(from_jax_params(ttask, params))
+    return jtask, params, ttask, x
+
+
+def test_set_task_at_64_matches_the_reference():
+    """SetShufflingTask at set_size 64 (a tiny width): its batches equal
+    the reference's, and one ELBO on the reference's data-initialised
+    weights and its encoder noise within 1e-4 (log_pz, log_dec, log_q)."""
+    jtask, params, ttask, x = _set_task_pair()
+    for seed in (0, 1):
+        np.testing.assert_array_equal(
+            ttask._gen(np.random.default_rng(seed), 4),
+            jtask._gen(np.random.default_rng(seed), 4))
+    assert x.shape == (4, 64)
     key = jax.random.PRNGKey(9)
     parts = jax.jit(jtask.model.elbo)(params, jnp.asarray(x), key)
     u = np.asarray(jax.random.uniform(key, (4, 64, 2), jnp.float32,
@@ -153,6 +164,43 @@ def test_set_task_at_64_matches_the_reference():
         np.testing.assert_allclose(tparts[k].numpy(), np.asarray(parts[k]),
                                    rtol=1e-4, atol=1e-4)
     assert ttask.analytic_optimum_bpd() == pytest.approx(4.6249, abs=1e-4)
+
+
+def test_set_task_fp32_gradients_at_64_match_the_reference(monkeypatch):
+    """The fp32 train step at set_size 64, whose nets the card runs through
+    the fp32 pair over clusters: the port's loss (beta 0.8) and every
+    parameter's gradient, through the plain path, against
+    ``jax.value_and_grad`` of the reference's ``task.loss`` on the same
+    weights and encoder noise: the loss to 1e-5 (``tests/
+    test_torch_training.py``'s fp32 case), each gradient within TOL of its
+    largest magnitude (this file's rule; at sets of 64 the sums run four
+    times longer than that case's 8, and rtol 1e-4 alone is not met on a
+    few elements near 0.2, 3.7e-5 off)."""
+    jtask, params, ttask, x = _set_task_pair()
+    u = np.random.default_rng(13).uniform(1e-6, 1 - 1e-6,
+                                          (4, 64, 2)).astype(np.float32)
+
+    def sample(rng, shape, mean=0.0, log_scale=0.0):
+        logit_u = jnp.log(u) - jnp.log1p(-u)
+        return jnp.float32(mean) + jnp.exp(jnp.float32(log_scale)) * logit_u
+
+    monkeypatch.setattr(jnm, "logistic_sample", sample)
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jtask.loss(p, {"x": jnp.asarray(x)},
+                             jax.random.PRNGKey(5), 0.8)))(params)
+    jgrads = jax.tree.map(np.asarray, jgrads)
+    want = {**flatten_tree(jgrads["encoding"], "encoding."),
+            **flatten_tree(list(jgrads["flow"]), "flow.layers.")}
+    loss = ttask.loss({"x": x}, 0.8, noise=torch.tensor(u))
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jloss),
+                               rtol=1e-5, atol=1e-5)
+    got = dict(ttask.model.named_parameters())
+    assert set(got) <= set(want)
+    for k in set(want) - set(got):  # the reference's untrained buffers
+        assert not np.asarray(want[k]).any(), k
+    for k, p in got.items():
+        _near(p.grad.numpy(), np.asarray(want[k]))
 
 
 # the flagship's coupling net (in 4, out 104) and the vardeq main flow's
@@ -214,18 +262,52 @@ def test_sets_above_128_are_refused(cd):
                         cd)
 
 
-@pytest.mark.parametrize("s", [33, 64])
-def test_fp32_training_above_32_is_refused_naming_b15(s):
-    """A differentiable fp32 call at a set above 32 raises
-    NotImplementedError naming B15 before any launch: the fp32 train
-    step's FMA pair takes sets up to 32.  The same call in bf16, and the
-    fp32 call without grad, pass the check."""
-    x = torch.zeros(2, s, 4)
+@pytest.mark.parametrize("net", sorted(NETS))
+@pytest.mark.parametrize("s", [33, 48, 64, 99, 100, 128])
+def test_fma_pair_layouts_at_big_sets(net, s):
+    """The fp32 train step's pair (#3 fp32 with grad, #4 fp32) at sets of
+    33 to 128 on the flagship's and the vardeq nets: a set over a cluster
+    of 2 blocks up to 64 rows and of 4 above, ceil(s / cluster) rows a
+    block (at most 32, the tile of the sets up to 32), both kernels
+    splitting it alike (the backward's recompute rebuilds the forward's
+    probabilities), each block's shared memory within MAX_SMEM (the
+    backward's all of it, no workspace), and a persistent grid of whole
+    clusters, at most one a set, from the SMs or from the clusters the card
+    says it holds."""
+    in_dim, out = NETS[net]
+    cluster = 2 if s <= 64 else 4
+    tile, smem_fwd, fwd_cluster = ft.fma_fwd_shape(s, in_dim, 96, 192)
+    btile, smem, regions, bcluster = ft.bwd_layout(F32, s, in_dim, 96, 192,
+                                                   out, HEADS, 2)
+    assert (tile, fwd_cluster) == (btile, bcluster) == (-(-s // cluster),
+                                                        cluster)
+    assert tile <= ft.MAX_SET and tile * (cluster - 1) < s
+    assert max(smem_fwd, smem) <= ft.MAX_SMEM and regions == ()
+    assert ft.bwd_fits(F32, s, in_dim, 96, 192, out, HEADS, 2)
+    for sets, clusters in ((1024, None), (1024, 30), (3, None), (3, 30)):
+        grid = ft.bwd_launch(F32, s, in_dim, 96, 192, out, HEADS, 2,
+                             sets * s, 132, max_clusters=clusters)[3]
+        assert grid % cluster == 0 and 0 < grid <= cluster * sets
+        if clusters is not None:
+            assert grid == cluster * min(sets, clusters)
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+def test_backward_fits_checks_sets_up_to_128_and_names_b16(cd):
+    """A differentiable call's check passes at every set of 33 to 128 rows
+    (in fp32 the pair over clusters) and raises, naming B16, at 129,
+    before any launch; the fp32 train step's pair refuses a width whose
+    32-row tile does not fit in shared memory at these sets (120, with no
+    workspace layout) by the same check."""
     net = SetTransformer(4, 104, hidden_dim=96, num_heads=HEADS,
-                         compute_dtype="float32")
-    with pytest.raises(NotImplementedError, match="B15"):
-        net.check_backward_fits(x)
-    assert not ft.bwd_fits(F32, s, 4, 96, 192, 104, HEADS, 2)
-    SetTransformer(4, 104, hidden_dim=96, num_heads=HEADS,
-                   compute_dtype="bfloat16").check_backward_fits(x)
-    net.check_backward_fits(torch.zeros(2, 32, 4))
+                         compute_dtype=cd)
+    for s in (33, 48, 64, 65, 99, 100, 128):
+        net.check_backward_fits(torch.zeros(2, s, 4))
+    with pytest.raises((NotImplementedError, ValueError), match="B16"):
+        net.check_backward_fits(torch.zeros(2, 129, 4))
+    wide = SetTransformer(4, 104, hidden_dim=120, num_heads=HEADS,
+                          compute_dtype=cd)
+    wide.check_backward_fits(torch.zeros(2, 32, 4))
+    if cd == "float32":
+        with pytest.raises(NotImplementedError):
+            wide.check_backward_fits(torch.zeros(2, 64, 4))

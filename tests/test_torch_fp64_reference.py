@@ -149,6 +149,56 @@ def test_rule_limits_and_floors():
     assert cs.train_step_failures({"t": (A / 2, B / 2, B * 1.01, 2 * B)})
 
 
+# the fp32 pair's rule at sets above 32 (``chip_smoke.f32_pair_failures``)
+# on made-up tensors: the output and two gradients on values that bf16
+# does not hold exactly, each moved at one element by e (1 + |value|), so
+# that its allclose_err is e
+FWD, BWD = cs.F32_TRAIN_FWD_TOL, cs.F32_BWD_TOL
+
+
+def _moved(ref, e):
+    out = ref.clone()
+    out[7] += e * (1 + ref[7].abs())
+    return out.float()
+
+
+def _pair_failures(e_plain, e_kern, ref=None):
+    ref = torch.linspace(1.0, 3.0, 257, dtype=torch.float64) \
+        if ref is None else ref
+    names = ["y", "dx", "w"]
+    got = [_moved(ref, e) for e in e_kern]
+    plain = [_moved(ref, e) for e in e_plain]
+    return cs.f32_pair_failures(names, got, plain, [ref] * 3)
+
+
+@pytest.mark.parametrize("e_plain,e_kern,fails", [
+    # within the floors: 1e-4 for the output, 2e-4 for a gradient
+    ((0, 0, 0), (0.9 * FWD, 0.9 * BWD, 0.9 * BWD), []),
+    ((0, 0, 0), (1.5 * FWD, 0, 0), ["y"]),
+    ((0, 0, 0), (0, 0, 1.1 * BWD), ["w"]),
+    # raised to twice plain fp32's own distance, tensor by tensor
+    ((0, 4 * BWD, 0), (0, 7.9 * BWD, 0), []),
+    ((0, 4 * BWD, 0), (0, 8.1 * BWD, 0), ["dx"]),
+    ((0, 4 * BWD, 0), (0, 0, 1.1 * BWD), ["w"]),
+    # a NaN fails
+    ((0, 0, 0), (0, float("nan"), 0), ["dx"]),
+])
+def test_f32_pair_rule_on_made_up_tensors(e_plain, e_kern, fails):
+    got, readings = _pair_failures(e_plain, e_kern)
+    assert [m.split()[0] for m in got] == fails
+    # the bf16-rounded values lie outside every limit but a NaN's
+    assert readings["control_over"] == sum(e == e for e in e_kern)
+
+
+def test_f32_pair_rule_wants_the_control_outside():
+    """On values bf16 holds exactly the control reads 0 and the rule
+    fails, whatever the kernels read."""
+    ref = torch.linspace(1.0, 2.0, 129, dtype=torch.float64)
+    got, readings = _pair_failures((0, 0, 0), (0, 0, 0), ref)
+    assert readings["control_over"] == 0
+    assert len(got) == 1 and "control" in got[0]
+
+
 def test_cli_refuses_float64():
     from categoricalnf_tpu_torch import serve
     from categoricalnf_tpu_torch.utils.cli import default_parser

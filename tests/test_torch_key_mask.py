@@ -214,6 +214,12 @@ def _signature(source: str, entry: str) -> list:
      "fused_set_transformer_train_fwd_f32", "_MASKED_FWD_ARGS", 1),
     ("categoricalnf_tpu_torch/csrc/fused_transformer.cu",
      "fused_set_transformer_bwd_f32", "_FMA_BWD_ARGS", 1),
+    ("categoricalnf_tpu_torch/csrc/fused_transformer_f32_ws.cu",
+     "fused_set_transformer_bwd_f32_ws", "_FMA_BWD_ARGS", 1),
+    ("categoricalnf_tpu_torch/csrc/fused_transformer_f32_big.cu",
+     "fused_set_transformer_train_fwd_f32_big", "_MASKED_FWD_ARGS", 1),
+    ("categoricalnf_tpu_torch/csrc/fused_transformer_f32_big.cu",
+     "fused_set_transformer_bwd_f32_big", "_FMA_BWD_ARGS", 1),
     ("tools/f32_bwd_tf32x3.cu", "fused_set_transformer_bwd_f32_tf32x3",
      "_BWD_ARGS", None)])
 def test_wrapper_argument_order_matches_the_entry_points(source, entry, args,
@@ -401,8 +407,8 @@ def test_fma_forward_shape(s, in_dim, hidden, out, want):
     [tile, conflict_free(H)] and the widest of qkv, the MLP hidden layer
     and x, every row 4 mod 8 floats wide but x's; and the 8 warps' weight
     rings, 4 steps of 4 rows of 6 column groups of 16 bytes each."""
-    tile, smem = ft.fma_fwd_shape(s, in_dim, hidden, 2 * hidden)
-    assert (tile, smem) == want and tile % s == 0
+    tile, smem, cluster = ft.fma_fwd_shape(s, in_dim, hidden, 2 * hidden)
+    assert (tile, smem) == want and tile % s == 0 and cluster == 1
     pad = -(-tile // 8) * 8
     big = max(ft.conflict_free(3 * hidden), ft.conflict_free(2 * hidden),
               ft.pad4(in_dim))

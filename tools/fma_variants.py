@@ -1,14 +1,21 @@
 #!/usr/bin/env python3
 """Where the fp32 train step's pair spends its time: time variants of
-``csrc/fused_transformer.cu`` (#3 fp32 with grad and #4 fp32) on one card.
+``csrc/fused_transformer_fma.cuh`` (#3 fp32 with grad and #4 fp32, the
+device code of ``csrc/fused_transformer.cu``) on one card.
 
     python3 tools/fma_variants.py [--tree DIR] [--variants base no_wgrad ...]
+    python3 tools/fma_variants.py --big [--variants base no_attention_big ...]
 
 Each variant is a copy of the checkout DIR's port in a temporary directory
 with named edits of that source; ``tools/fused_ab.py --pair`` builds and
 times it (the flagship at 1,024, 4,096 and 16,384 rows, the node flow at
 hidden 96 and 128 on 1,536 rows), and its results are compared with the
-first variant's (bitwise, and device ms).  ``no_rings`` (the dense
+first variant's (bitwise, and device ms).  With ``--big`` the variants
+build ``csrc/fused_transformer_f32_big.cu`` (the pair's instances for
+sets of 33-128) all at once, one nvcc each, and each times #3 fp32 with
+grad and #4 fp32 on the flagship's net at 1,024 sets of 64 and of 128,
+with ptxas's registers and spilled bytes of both kernels (the spills'
+traffic on the card is not measured: ncu does not run there).  ``no_rings`` (the dense
 products' weights straight from global memory), ``bwd_threads_512``,
 ``bwd_threads_192``, ``inline_wgrad`` and ``fwd_launch_1`` keep every
 output bitwise; the
@@ -22,6 +29,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import shutil
@@ -30,7 +38,8 @@ import sys
 import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join("categoricalnf_tpu_torch", "csrc", "fused_transformer.cu")
+SOURCE = os.path.join("categoricalnf_tpu_torch", "csrc",
+                      "fused_transformer_fma.cuh")
 
 # (text, replacement[, how many times the text occurs]) edits of the
 # source, by variant
@@ -58,11 +67,12 @@ VARIANTS = {
         "  return;\n  const int ldw = pad4(n), ncg = ldw / kMC, nrg = "
         "dm.tile_pad / kMR;\n")],
     # the softmax's exp and divisions as fast intrinsics and products
-    # (values wrong): what their IEEE sequences cost
-    "fast_softmax": [("expf(", "__expf(", 3), ("/ root_hd", "* root_hd", 4),
+    # (values wrong): what their IEEE sequences cost (the sets above 32's
+    # attention backward too, which fused_ab.py --pair does not run)
+    "fast_softmax": [("expf(", "__expf(", 6), ("/ root_hd", "* root_hd", 4),
                      ("own<MAXS, P>(p, m, half) / sum",
                       "own<MAXS, P>(p, m, half) * sum"),
-                     ("/ st[1]", "* st[1]", 2)],
+                     ("/ st[1]", "* st[1]", 3)],
     # the weight-gradient scratch stored, never read back (values wrong):
     # what its read-modify-write costs
     "no_scratch_read": [
@@ -82,6 +92,20 @@ VARIANTS = {
     # the forward at one block an SM by its launch bounds (bitwise)
     "fwd_launch_1": [("__launch_bounds__(kThreads, 2)",
                       "__launch_bounds__(kThreads, 1)")],
+    # the sets above 32: the chunked attention of #3 and of #4's
+    # recompute; #4's attention backward, both passes or the key-major one
+    "no_attention_big": [("  if constexpr (BIG)\n    attention_big<float, "
+                          "BLOCKS>(",
+                          "  if constexpr (BIG) {\n  } else if constexpr "
+                          "(false)\n    attention_big<float, BLOCKS>(")],
+    "no_attention_bwd_big": [
+        ("  } else {\n    const SetRows<float, kMaxCluster> rows =\n",
+         "  } else {\n    return;\n    const SetRows<float, kMaxCluster> "
+         "rows =\n")],
+    "no_attention_bwd_kv_big": [
+        ("    attention_bwd_kv_big(qkv, rows, cluster_rows(go, dm.ld_h, "
+         "dm),\n", "    if (false) attention_bwd_kv_big(qkv, rows, "
+         "cluster_rows(go, dm.ld_h, dm),\n")],
     "no_layer_norm": [
         ("__device__ void layer_norm_tile(const float* in, float* out, "
          "const Dims& dm) {\n",
@@ -92,6 +116,12 @@ VARIANTS = {
          "                                    float* gout, const Dims& dm) "
          "{\n  return;\n  const int lane")],
 }
+
+
+# the variants that --big runs unless told others
+BIG_VARIANTS = ["base", "no_attention_big", "no_attention_bwd_big",
+                "no_attention_bwd_kv_big", "no_dense", "no_dense_bwd",
+                "no_wgrad", "no_layer_norm"]
 
 
 def variant_tree(tree: str, name: str, root: str) -> str:
@@ -113,16 +143,103 @@ def variant_tree(tree: str, name: str, root: str) -> str:
     return dst
 
 
+BIG_SOURCE = "fused_transformer_f32_big"
+BIG_SETS = (64, 128)
+
+
+def _chip_smoke():
+    path = os.path.join(HERE, "..", "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def time_big(tree: str) -> dict:
+    """#3 fp32 with grad and #4 fp32 of ``tree``'s port on the flagship's
+    net at 1,024 sets of each of BIG_SETS: device ms (``cuda_ms``), and
+    ptxas's registers and spilled bytes of the two kernels."""
+    sys.path.insert(0, os.path.abspath(tree))
+    cs = _chip_smoke()
+    import torch
+    from categoricalnf_tpu_torch.ops.cuda import build
+    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+    dev = torch.device("cuda")
+    ptxas = cs.kernel_resources(build.build_all([BIG_SOURCE])[BIG_SOURCE])
+    out: dict = {"registers": {k: v for k, v in ptxas.items()
+                               if "fused_set_transformer" in k}}
+    net = cs.flagship_net("float32", dev)
+    ws = ft.flatten_params(net)
+    packed = net._packed_weights(torch.float32)
+    for s in BIG_SETS:
+        g = torch.Generator(dev).manual_seed(s)
+        x = torch.randn(cs.B, s, cs.D, generator=g, device=dev)
+        gy = torch.randn(cs.B, s, cs.OUT, generator=g, device=dev)
+        with torch.no_grad():
+            out[f"train_fwd_set{s}"] = cs.cuda_ms(
+                lambda: ft.FusedSetTransformer.apply(
+                    x, packed, cs.HEADS, None, *ws), 10)[0]
+            out[f"bwd_set{s}"] = cs.cuda_ms(
+                lambda: ft.fused_set_transformer_bwd(
+                    packed, x, gy, num_heads=cs.HEADS), 5)[0]
+    return out
+
+
+def main_big(args) -> int:
+    """Build every variant's BIG source at once, then time each alone."""
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); from "
+            "categoricalnf_tpu_torch.ops.cuda import build; "
+            f"build.build_all([{BIG_SOURCE!r}])")
+    with tempfile.TemporaryDirectory() as root:
+        trees = {name: variant_tree(args.tree, name, root)
+                 for name in args.variants}
+        builds = {name: subprocess.Popen(
+                      [sys.executable, "-c", code, tree],
+                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                      text=True)
+                  for name, tree in trees.items()}
+        failed = False
+        for name, proc in builds.items():
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                print(f"{name}: the build failed\n{log[-4000:]}",
+                      flush=True)
+                failed = True
+        if failed:
+            return 1
+        for name, tree in trees.items():
+            run = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                  "--time-big", tree],
+                                 capture_output=True, text=True)
+            if run.returncode != 0:
+                print(run.stdout[-2000:], run.stderr[-4000:], flush=True)
+                return 1
+            line = json.loads(run.stdout.strip().splitlines()[-1])
+            print(json.dumps({"variant": name, **line}), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=os.path.dirname(HERE),
                     help="checkout whose port to vary")
-    ap.add_argument("--variants", nargs="+", default=list(VARIANTS),
+    ap.add_argument("--variants", nargs="+", default=None,
                     choices=list(VARIANTS))
+    ap.add_argument("--big", action="store_true",
+                    help="time the instances for sets of 33-128")
+    ap.add_argument("--time-big", metavar="TREE", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.time_big:
+        print(json.dumps(time_big(args.time_big)), flush=True)
+        return 0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
+    if args.big:
+        args.variants = args.variants or BIG_VARIANTS
+        return main_big(args)
+    args.variants = args.variants or [
+        v for v in VARIANTS if not v.endswith("_big")]
     fused_ab = os.path.join(HERE, "fused_ab.py")
     with tempfile.TemporaryDirectory() as root:
         first = None

@@ -76,9 +76,14 @@ def run(tree: str, out: str, pair_only: bool = False) -> None:
         sys.exit("fused_ab: no CUDA device")
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
+    # the pair's sources (its workspace instance in a source of its own
+    # in trees that have one)
+    pair = [n for n in ("fused_transformer", "fused_transformer_f32_ws")
+            if os.path.exists(os.path.join(tree, "categoricalnf_tpu_torch",
+                                           "csrc", f"{n}.cu"))]
     result = {"tree": tree, "card": cs.card_line(),
-              "fma_pair_ptxas": cs.kernel_resources(build.build_all(
-                  ["fused_transformer"])["fused_transformer"])}
+              "fma_pair_ptxas": cs.kernel_resources("".join(
+                  build.build_all(pair).values()))}
     if pair_only:
         with torch.no_grad():
             train = _train_pair(cs, ft, dev, None, result)

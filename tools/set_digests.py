@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Digests of the fused SetTransformer kernels' outputs at sets of 16 and
-24, for a checkout's port, on one card.
+"""Digests of the fused SetTransformer kernels' outputs on fixed inputs,
+for a checkout's port, on one card.
 
     python3 tools/set_digests.py --tree DIR
 
 Imports the port from DIR, builds its kernels and prints one JSON line:
 the card, and the sha256 digests (first 16 hex digits) of #3 bf16's
-output, #4 bf16's gradients and #3 fp32's output on fixed inputs
-(``chip_smoke.small_set_digests`` of this checkout).  Run on the tree
-before a change to the kernels, they are ``chip_smoke.SMALL_SET_DIGESTS``,
-which chip_smoke holds the checkout's kernels to.  Imports nothing of JAX.
+output, #4 bf16's gradients, #3 fp32's output and the fp32 train step's
+pair's at sets of 16 and 24, and of the first three at sets of 64 and 128
+(``chip_smoke.set_digests`` of this checkout).  Run on the tree before a
+change to the kernels, they are ``chip_smoke.SMALL_SET_DIGESTS`` and
+``PAIR_AND_BIG_SET_DIGESTS``, which chip_smoke holds the checkout's
+kernels to.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -36,9 +38,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("set_digests: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    build.build_all(["fused_transformer_bf16", "fused_transformer_tf32x3"])
+    build.build_all(["fused_transformer", "fused_transformer_bf16",
+                     "fused_transformer_tf32x3"])
     print(json.dumps({"tree": args.tree, "card": cs.card_line(),
-                      "digests": cs.small_set_digests(torch.device("cuda"))}),
+                      "digests": cs.set_digests(torch.device("cuda"))}),
           flush=True)
     return 0
 
