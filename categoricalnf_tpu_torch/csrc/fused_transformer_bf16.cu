@@ -99,15 +99,18 @@
 // the attention (before a layer overwrites qkv or the MLP's region), and
 // in the backward between its two passes (phase 2 reads the other block's
 // queries, output cotangents and softmax statistics) and after them.
-// Attention holds 32 keys' logits at a time: the softmax statistics
-// online, then the probabilities from the final max and sum, so that they
-// round where plain_forward rounds them (attention_big); the backward
-// recomputes them the same way (attention_bwd_q_big), then dK and dV go
-// key-major over both blocks' queries (attention_bwd_kv_big): no block
-// adds into another's rows.  The weight-gradient partials stay one a
-// block.  Bound as above: at the set-64 run's 65,536 rows the forward
-// does 23.9 GFLOP (24 us at 989 TFLOP/s); attention, on the CUDA cores,
-// takes most of the time (PERF.md).
+// The forward's attention holds 32 keys' logits at a time: the softmax
+// statistics online, then the probabilities from the final max and sum, so
+// that they round where plain_forward rounds them (attention_big, one
+// thread a (head, row)).  The backward's runs on the tensor cores, a warp
+// a head's 16 rows against the whole set (attention_mma_big for the
+// recompute, which keeps the rows' statistics; attention_bwd_q_big
+// query-major, then dK and dV key-major over both blocks' queries,
+// attention_bwd_kv_big: no block adds into another's rows).  The
+// weight-gradient partials stay one a block.  Bound as above: at the
+// set-64 run's 65,536 rows the forward does 23.9 GFLOP (24 us at 989
+// TFLOP/s); the forward's attention on the CUDA cores takes most of its
+// time (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -731,184 +734,653 @@ struct BigSet {
   const unsigned char* km;
 };
 
-// Attention backward of a set above kMaxSet rows, phase 1, as
-// attention_bwd_q over the set's keys in chunks (kv: the set's qkv rows in
-// both blocks): one thread per (head, query row); the softmax statistics
-// online, then D_i = sum_j p_ij R(gP_ij), then gq_i, each pass recomputing
-// the chunk's logits and gP.  Rows past this block's part of the set, to
-// tile_pad, get zeros.
-__device__ __noinline__ void attention_bwd_q_big(const bf16* qkv,
-                                                 SetRows<bf16> kv,
+// #4's attention at sets above kMaxSet rows, on the tensor cores.  A warp
+// owns a 16-row m-tile of one head: its queries' logits against the whole
+// set in the recompute and phase 1, its keys' against every query of the
+// set in phase 2, KT n-tiles of 8 (8 up to 64 rows, 16 up to 128) in the
+// fp32 accumulators of mma.sync.m16n8k16 (a head width's last 8 or fewer
+// columns a k8 step, zero past the width).  The probabilities and the
+// logits' cotangents go from the accumulators straight into the A
+// fragments of the next product (the FlashAttention-2 register layout:
+// n-tiles 2kk and 2kk + 1 of C are k-step kk of A), so a logit is formed
+// once a pass.  The recompute keeps each query row's softmax max and
+// 1 / sum in stats for phase 1, which adds D_i = sum_j p_ij R(gP_ij) from
+// the same tile as dQ; phase 2 reads all three.  Where a set spans two
+// blocks, each pass first copies the other block's rows it reads (K and V,
+// or Q and the output cotangent) once, 16 bytes a thread, into a region of
+// its own tile that is dead during the pass (``stage``), so every operand
+// lies in the block's shared memory; a 16-row group of them comes in by
+// ldmatrix where the head width is a multiple of 8 and the group lies in
+// one buffer, else in 32-bit pairs.  Rounding points as attention_big and
+// plain_forward: logits and softmax in fp32, a masked key's logit
+// kMaskedLogit before the row's max, p rounded to bf16 before A.V and dV,
+// R(gP), every output rounded once; a logit's cotangent dS (fp32) enters
+// dQ and dK as bf16 hi + lo, so the products keep 16 bits of its mantissa.
+// Rows past this block's part of the set are zero.
+
+// (lo, hi) rounded to bf16, packed as a fragment register holds them.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t bits16(const bf16* p) {
+  return *reinterpret_cast<const unsigned short*>(p);
+}
+
+// row[c], row[c + 1] packed, zero past n; ``even``: n is even, so row + c
+// is 4-byte aligned for every even c and one load reads both.  A column
+// past n reads column 0 and is zeroed after the load: no load is behind a
+// branch, so a warp issues a fragment's loads together.
+__device__ __forceinline__ uint32_t ld_pair(const bf16* row, int c, int n,
+                                            bool even) {
+  if (even) {
+    const uint32_t v =
+        *reinterpret_cast<const uint32_t*>(row + (c < n ? c : 0));
+    return c < n ? v : 0u;
+  }
+  const uint32_t lo = bits16(row + (c < n ? c : 0));
+  const uint32_t hi = bits16(row + (c + 1 < n ? c + 1 : 0));
+  return (c < n ? lo : 0u) | (c + 1 < n ? hi << 16 : 0u);
+}
+
+// a[c], b[c] packed (two rows' column c).
+__device__ __forceinline__ uint32_t ld_two(const bf16* a, const bf16* b,
+                                           int c) {
+  return bits16(a + c) | bits16(b + c) << 16;
+}
+
+// Two 8x8 bf16 matrices; lanes 0-15 give the row addresses.
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2],
+                                              const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// d += a (16x8, row) . b (8x8, col), bf16 in, fp32 accumulators.
+__device__ __forceinline__ void mma_bf16_k8(float (&d)[4], uint32_t a0,
+                                            uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+// The rows of one operand of a set in this block's shared memory: the
+// block's own part (set rows offset .. offset + n_local - 1) in ``own``,
+// the other block's (from set row other0) staged in ``other``, each
+// pointer at the operand's first column.
+struct LocalRows {
+  const bf16* own;
+  const bf16* other;
+  int ld_own, ld_other, offset, n_local, other0;
+  __device__ __forceinline__ const bf16* row(int k) const {
+    const int j = k - offset;
+    return j >= 0 && j < n_local ? own + j * ld_own
+                                 : other + (k - other0) * ld_other;
+  }
+  // rows k0 .. k0 + 15 lie in one buffer, below nb
+  __device__ __forceinline__ bool one_buffer(int k0, int nb) const {
+    const bool mine = k0 >= offset && k0 + 16 <= offset + n_local;
+    const bool theirs = k0 + 16 <= offset || k0 >= offset + n_local;
+    return k0 + 16 <= nb && (mine || theirs);
+  }
+};
+
+// acc[j] = the 16 x 8 tile of rows r0 .. r0 + 15 of ``a`` (rows lda apart,
+// from column col) against rows 8j .. 8j + 7 of ``b`` (from column bcol):
+// the dot products over the head width hd, a warp's m-tile by KT n-tiles.
+// ``fast``: hd is a multiple of 8, so every fragment is 16-byte aligned
+// and comes by ldmatrix (B's where its 16-row group lies in one buffer).
+// A row of ``a`` from na and of ``b`` from nb reads the last valid one: the
+// callers drop those rows' results, or give their keys no weight.
+template <int KT>
+__device__ __forceinline__ void warp_dots(const bf16* a, int lda, int col,
+                                          int na, int r0,
+                                          const LocalRows& b, int bcol,
+                                          int nb, int hd, bool fast,
+                                          float (&acc)[KT][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool even = hd % 2 == 0;
+  const bf16* a0 = a + min(r0 + g, na - 1) * lda + col;
+  const bf16* a1 = a + min(r0 + g + 8, na - 1) * lda + col;
+  // ldmatrix: lane l gives row (l & 15) of A, column half l >> 4; of B's
+  // 16-row group, row (l & 7) + 8 (l >> 4), column half (l >> 3) & 1
+  const bf16* al = a + min(r0 + (lane & 15), na - 1) * lda + col +
+                   (lane >> 4) * 8;
+  const int bk = (lane & 7) + 8 * (lane >> 4), bh = ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int j = 0; j < KT; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+  for (int d0 = 0; d0 < hd; d0 += 16) {
+    const int c = d0 + 2 * t;
+    const bool k16 = hd - d0 > 8;
+    uint32_t af[4];
+    if (fast && k16) {
+      ldsm_x4(af, al + d0);
+    } else if (fast) {
+      uint32_t h[2];
+      ldsm_x2(h, al + d0);  // lanes 0-15: rows 0-15 at column d0
+      af[0] = h[0];
+      af[1] = h[1];
+    } else {
+      af[0] = ld_pair(a0, c, hd, even);
+      af[1] = ld_pair(a1, c, hd, even);
+      af[2] = ld_pair(a0, c + 8, hd, even);
+      af[3] = ld_pair(a1, c + 8, hd, even);
+    }
+#pragma unroll
+    for (int jp = 0; jp < KT / 2; ++jp) {
+      uint32_t bf[4];
+      if (fast && b.one_buffer(16 * jp, nb)) {
+        // k16: b0, b1 of n-tile 2jp, then of 2jp + 1; k8: b0 of both
+        const bf16* p = b.row(16 * jp + bk) + bcol + d0;
+        if (k16) {
+          ldsm_x4(bf, p + bh);
+        } else {
+          uint32_t h[2];
+          ldsm_x2(h, b.row(16 * jp + (lane & 7) + bh) + bcol + d0);
+          bf[0] = h[0];
+          bf[2] = h[1];
+        }
+      } else {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const bf16* br = b.row(min(16 * jp + 8 * h + g, nb - 1)) + bcol;
+          bf[2 * h] = ld_pair(br, c, hd, even);
+          bf[2 * h + 1] = k16 ? ld_pair(br, c + 8, hd, even) : 0u;
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (k16)
+          mma_bf16(acc[2 * jp + h], af, bf[2 * h], bf[2 * h + 1]);
+        else
+          mma_bf16_k8(acc[2 * jp + h], af[0], af[1], bf[2 * h]);
+      }
+    }
+  }
+}
+
+// The column of accumulator element e of n-tile j (its row is g or g + 8
+// as e < 2 or not).
+__device__ __forceinline__ int acc_col(int j, int e) {
+  return 8 * j + 2 * (threadIdx.x & 3) + (e & 1);
+}
+
+// The accumulators rounded to bf16 and packed in pairs (elements 0, 1 and
+// 2, 3 of each n-tile: a row's two columns).
+template <int KT>
+__device__ __forceinline__ void pack_acc(const float (&v)[KT][4],
+                                         uint32_t (&out)[KT][2]) {
+#pragma unroll
+  for (int j = 0; j < KT; ++j) {
+    out[j][0] = pack_bf16(v[j][0], v[j][1]);
+    out[j][1] = pack_bf16(v[j][2], v[j][3]);
+  }
+}
+
+// Element ``hi`` (0: the low half) of a packed pair, as fp32.
+__device__ __forceinline__ float unpack_bf16(uint32_t w, int hi) {
+  return __uint_as_float(hi ? w & 0xffff0000u : w << 16);
+}
+
+// A logit: the scaled dot product, or kMaskedLogit for a masked key (km:
+// the set's key mask, null: none).  One product, never contracted, so
+// that every pass forms the same value.
+__device__ __forceinline__ float logit_of(float dot, float inv_root,
+                                          const unsigned char* km, int key) {
+  return km != nullptr && km[key] == 0 ? kMaskedLogit
+                                       : __fmul_rn(dot, inv_root);
+}
+
+// Sum over the 4 lanes of a quad (the lanes of one accumulator row).
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// A fragments of the 16 x 8KT tile held as accumulators: k-step kk from
+// n-tiles 2kk and 2kk + 1, each value rounded to bf16 (hi); ``lo`` (where
+// given) the rounding of what hi leaves.
+template <int KT>
+__device__ __forceinline__ void acc_to_a(const float (&v)[KT][4],
+                                         uint32_t (&hi)[KT / 2][4],
+                                         uint32_t (*lo)[4] = nullptr) {
+#pragma unroll
+  for (int kk = 0; kk < KT / 2; ++kk) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float* s = v[2 * kk + q / 2] + 2 * (q % 2);
+      hi[kk][q] = pack_bf16(s[0], s[1]);
+      if (lo != nullptr)
+        lo[kk][q] = pack_bf16(s[0] - rnd(s[0]), s[1] - rnd(s[1]));
+    }
+  }
+}
+
+// out rows r0 + g, r0 + g + 8 (those below n_out; ld_out apart, from
+// column ocol) = R(sum over the A fragments' NA parts of A . B), B the
+// rows 0 .. 8 KT - 1 of ``b`` from column bcol: the 16 x hd product of a
+// tile of weights with the set's rows, two n-tiles of 8 columns at a time
+// (B by ldmatrix.trans where ``fast`` and a k-step's 16 rows lie in one
+// buffer).  The weights of the rows from nb are zero, and those rows read
+// the last valid one; a column past hd reads the last valid one and is not
+// stored.
+template <int KT, int NA>
+__device__ __forceinline__ void warp_combine(
+    const uint32_t (&af)[NA][KT / 2][4], const LocalRows& b, int bcol,
+    int nb, int hd, bool fast, bf16* out, int ld_out, int ocol, int r0,
+    int n_out) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  // ldmatrix.trans: lane l gives row (l & 7) + 8 ((l >> 3) & 1) of a
+  // k-step's 16, column block l >> 4
+  const int bk = (lane & 7) + 8 * ((lane >> 3) & 1), bh = (lane >> 4) * 8;
+  for (int n0 = 0; n0 < hd; n0 += 16) {
+    const bool two = n0 + 8 < hd;
+    float acc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+    for (int kk = 0; kk < KT / 2; ++kk) {
+      uint32_t bf[4];
+      if (fast && b.one_buffer(16 * kk, nb)) {
+        const bf16* p = b.row(16 * kk + bk) + bcol + n0;
+        if (two) {
+          ldsm_x4_trans(bf, p + bh);
+        } else {
+          uint32_t h[2];
+          ldsm_x2_trans(h, p);
+          bf[0] = h[0];
+          bf[1] = h[1];
+        }
+      } else {
+        const bf16* br[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          br[q] = b.row(min(16 * kk + 2 * t + (q & 1) + 8 * (q >> 1), nb - 1));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = bcol + min(n0 + 8 * h + g, hd - 1);
+          bf[2 * h] = ld_two(br[0], br[1], c);
+          bf[2 * h + 1] = ld_two(br[2], br[3], c);
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < NA; ++p) {
+        mma_bf16(acc[0], af[p][kk], bf[0], bf[1]);
+        if (two) mma_bf16(acc[1], af[p][kk], bf[2], bf[3]);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + g + 8 * (e >> 1);
+        const int d = n0 + 8 * h + 2 * t + (e & 1);
+        if (r < n_out && d < hd)
+          out[r * ld_out + ocol + d] = __float2bfloat16_rn(acc[h][e]);
+      }
+  }
+}
+
+// The other block's rows of the set (``src`` in its shared memory, ld_src
+// apart, columns c0 .. c0 + w - 1, n rows) to ``dst`` (ld_dst apart), by
+// every thread of the block: 16 bytes at a time where every row and column
+// is 16-byte aligned, else 2.
+__device__ __forceinline__ void stage_rows(const bf16* src, int ld_src,
+                                           int c0, int w, int n, bf16* dst,
+                                           int ld_dst) {
+  if ((c0 | w | ld_src | ld_dst) % 8 == 0) {
+    const int w8 = w / 8;
+    for (int i = threadIdx.x; i < n * w8; i += blockDim.x) {
+      const int r = i / w8, c = i % w8 * 8;
+      *reinterpret_cast<uint4*>(dst + r * ld_dst + c) =
+          *reinterpret_cast<const uint4*>(src + r * ld_src + c0 + c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n * w; i += blockDim.x)
+      dst[i / w * ld_dst + i % w] = src[i / w * ld_src + c0 + i % w];
+  }
+}
+
+// Rows of the staged copy: 2H wide (K | V, or Q | output cotangent), a
+// multiple of 16 plus 8 as the tile's other buffers.
+__host__ __device__ inline int stage_ld(int hidden) {
+  return pad16(2 * hidden) + 8;
+}
+
+// The set's rows of columns c0 of ``mine`` (this block's buffer, ld apart)
+// and of columns sc0 of the staged copy of the other block's (``stage``;
+// the whole set in this block where it does not span a cluster).
+__device__ __forceinline__ LocalRows local_rows(const bf16* mine, int ld,
+                                                int c0, const bf16* stage,
+                                                int sc0, const Dims& dm,
+                                                const BigSet& bs) {
+  LocalRows v;
+  v.own = mine + c0;
+  v.other = stage + sc0;
+  v.ld_own = ld;
+  v.ld_other = stage_ld(dm.hidden);
+  v.offset = bs.offset;
+  v.n_local = bs.n_local;
+  v.other0 = bs.offset == 0 ? bs.n_local : 0;
+  return v;
+}
+
+// The other block's rows of ``buf`` (ld apart, columns c0 .. c0 + w - 1)
+// staged at column sc0 of ``stage``; the caller syncs the block before the
+// copy is read.
+__device__ __forceinline__ void stage_other(const bf16* buf, int ld, int c0,
+                                            int w, bf16* stage, int sc0,
+                                            const Dims& dm,
+                                            const BigSet& bs) {
+  if (!bs.clustered) return;
+  cg::cluster_group cl = cg::this_cluster();
+  const bf16* src = cl.map_shared_rank(const_cast<bf16*>(buf),
+                                       1 - (int)cl.block_rank());
+  stage_rows(src, ld, c0, w, dm.set_size - bs.n_local, stage + sc0,
+             stage_ld(dm.hidden));
+}
+
+// The recompute's attention (attention_big's function): out = R(sum_j
+// R(p_ij) v_j) for this block's rows of the set, and each row's softmax max
+// and 1 / sum in stats [heads, tile_pad, 3] (kv: K from column 0, V from
+// column H of the set's rows).
+template <int KT>
+__device__ __forceinline__ void attention_mma_big(const bf16* qkv,
+                                               LocalRows kv, bf16* out,
+                                               float* stats, const Dims& dm,
+                                               const BigSet& bs) {
+  const int H = dm.hidden, nh = dm.heads, hd = H / nh, S = dm.set_size;
+  const float inv_root = 1.0f / sqrtf((float)hd);
+  const bool fast = hd % 8 == 0;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
+  const int mt = (bs.n_local + 15) / 16;
+  for (int item = warp; item < nh * mt; item += kWarps) {
+    const int hh = item / mt, r0 = item % mt * 16;
+    float l[KT][4];
+    warp_dots<KT>(qkv, dm.ld_big, hh * hd, bs.n_local, r0, kv, hh * hd, S,
+                  hd, fast, l);
+    float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < KT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = acc_col(j, e);
+        l[j][e] = key < S ? logit_of(l[j][e], inv_root, bs.km, key)
+                          : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], l[j][e]);
+      }
+    mx[0] = quad_max(mx[0]);
+    mx[1] = quad_max(mx[1]);
+#pragma unroll
+    for (int j = 0; j < KT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (acc_col(j, e) < S) sum[e >> 1] += expf(l[j][e] - mx[e >> 1]);
+    sum[0] = quad_sum(sum[0]);
+    sum[1] = quad_sum(sum[1]);
+    const float inv_sum[2] = {1.0f / sum[0], 1.0f / sum[1]};
+#pragma unroll
+    for (int j = 0; j < KT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        l[j][e] = acc_col(j, e) < S
+                      ? expf(l[j][e] - mx[e >> 1]) * inv_sum[e >> 1]
+                      : 0.0f;
+    uint32_t pf[1][KT / 2][4];
+    acc_to_a<KT>(l, pf[0]);
+    warp_combine<KT, 1>(pf, kv, H + hh * hd, S, hd, fast, out, dm.ld_h,
+                        hh * hd, r0, bs.n_local);
+    if ((threadIdx.x & 3) == 0) {
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int r = r0 + g + 8 * h2;
+        if (r < bs.n_local) {
+          float* st = stats + (hh * dm.tile_pad + r) * 3;
+          st[0] = mx[h2];
+          st[1] = inv_sum[h2];
+        }
+      }
+    }
+  }
+}
+
+// Attention backward of a set above kMaxSet rows, phase 1 (query-major):
+// for this block's query rows, gP = R(go . v_j), p from the recompute's
+// statistics, D_i = sum_j p_ij gP_ij, the logits' cotangent dS = p (gP -
+// D) / sqrt(hd) (none for a masked key), and gq = R(dS . K); D goes to
+// stats (kv as the recompute's).  Rows past this block's part of the set,
+// to tile_pad, and the columns past 3H get zeros.
+template <int KT>
+__device__ __forceinline__ void attention_bwd_q_big(const bf16* qkv,
+                                                 LocalRows kv,
                                                  const bf16* go, bf16* gqkv,
                                                  float* stats, const Dims& dm,
                                                  const BigSet& bs) {
   const int H = dm.hidden, nh = dm.heads, hd = H / nh, S = dm.set_size;
   const float inv_root = 1.0f / sqrtf((float)hd);
+  const bool fast = hd % 8 == 0;
   const bf16 zero = __float2bfloat16_rn(0.0f);
   const int wpad = dm.p_big - 3 * H;
   if (wpad > 0)
     for (int i = threadIdx.x; i < dm.tile_pad * wpad; i += blockDim.x)
       gqkv[(i / wpad) * dm.ld_big + 3 * H + i % wpad] = zero;
-  for (int item = threadIdx.x; item < dm.tile_pad * nh;
-       item += blockDim.x) {
-    const int hh = item / dm.tile_pad;
-    const int r = item % dm.tile_pad;
-    bf16* gq = gqkv + r * dm.ld_big + hh * hd;
-    if (r >= bs.n_local) {
-      for (int d = 0; d < hd; ++d) gq[d] = gq[H + d] = gq[2 * H + d] = zero;
-      continue;
+  const int past = dm.tile_pad - bs.n_local;
+  for (int i = threadIdx.x; i < past * 3 * H; i += blockDim.x)
+    gqkv[(bs.n_local + i / (3 * H)) * dm.ld_big + i % (3 * H)] = zero;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
+  const int mt = (bs.n_local + 15) / 16;
+  for (int item = warp; item < nh * mt; item += kWarps) {
+    const int hh = item / mt, r0 = item % mt * 16;
+    float p[KT][4];
+    uint32_t gpk[KT][2];  // R(gP), packed as bf16 pairs
+    warp_dots<KT>(go, dm.ld_h, hh * hd, bs.n_local, r0, kv, H + hh * hd, S,
+                  hd, fast, p);
+    pack_acc<KT>(p, gpk);
+    warp_dots<KT>(qkv, dm.ld_big, hh * hd, bs.n_local, r0, kv, hh * hd, S,
+                  hd, fast, p);
+    float mx[2], inv_sum[2], D[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int r = min(r0 + g + 8 * h2, bs.n_local - 1);
+      const float* st = stats + (hh * dm.tile_pad + r) * 3;
+      mx[h2] = st[0];
+      inv_sum[h2] = st[1];
     }
-    const bf16* q = qkv + r * dm.ld_big + hh * hd;
-    const bf16* g_o = go + r * dm.ld_h + hh * hd;
-    const int kcol = H + hh * hd, vcol = 2 * H + hh * hd;
-    float mx, sum;
-    softmax_stats<bf16>(q, kv, kcol, hd, S, inv_root, bs.km, mx, sum);
-    const float inv_sum = 1.0f / sum;
-    float D = 0.0f;
-    for (int j0 = 0; j0 < S; j0 += kKeyChunk) {
-      const int n = min(kKeyChunk, S - j0);
-      float l[kKeyChunk], gp[kKeyChunk];
-      chunk_logits<bf16>(q, kv, kcol, hd, j0, n, inv_root, bs.km, l);
-      chunk_dots<bf16>(g_o, kv, vcol, hd, j0, n, gp);
 #pragma unroll
-      for (int jj = 0; jj < kKeyChunk; ++jj)
-        if (jj < n) D = fmaf(expf(l[jj] - mx) * inv_sum, rnd(gp[jj]), D);
-    }
-    for (int db = 0; db < hd; db += kDBlock) {
-      float acc[kDBlock];
+    for (int j = 0; j < KT; ++j)
 #pragma unroll
-      for (int dd = 0; dd < kDBlock; ++dd) acc[dd] = 0.0f;
-      for (int j0 = 0; j0 < S; j0 += kKeyChunk) {
-        const int n = min(kKeyChunk, S - j0);
-        float l[kKeyChunk], gp[kKeyChunk];
-        chunk_logits<bf16>(q, kv, kcol, hd, j0, n, inv_root, bs.km, l);
-        chunk_dots<bf16>(g_o, kv, vcol, hd, j0, n, gp);
-#pragma unroll
-        for (int jj = 0; jj < kKeyChunk; ++jj) {
-          if (jj < n) {
-            // the softmax's backward, then the 1/sqrt(hd) scale of the
-            // logits; a masked logit takes none
-            const float p = expf(l[jj] - mx) * inv_sum;
-            const float gl =
-                bs.km != nullptr && bs.km[j0 + jj] == 0
-                    ? 0.0f
-                    : p * (rnd(gp[jj]) - D) * inv_root;
-            const bf16* kj = kv.row(j0 + jj) + kcol + db;
-#pragma unroll
-            for (int dd = 0; dd < kDBlock; ++dd)
-              if (db + dd < hd) acc[dd] = fmaf(gl, bf(kj[dd]), acc[dd]);
-          }
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int key = acc_col(j, e);
+        p[j][e] = key < S ? expf(logit_of(p[j][e], inv_root, bs.km, key) -
+                                 mx[e >> 1]) * inv_sum[e >> 1]
+                          : 0.0f;
+        D[e >> 1] = fmaf(p[j][e], unpack_bf16(gpk[j][e >> 1], e & 1),
+                         D[e >> 1]);
       }
+    D[0] = quad_sum(D[0]);
+    D[1] = quad_sum(D[1]);
+    // the softmax's backward, then the 1/sqrt(hd) scale of the logits; a
+    // masked logit takes none
 #pragma unroll
-      for (int dd = 0; dd < kDBlock; ++dd)
-        if (db + dd < hd) gq[db + dd] = __float2bfloat16_rn(acc[dd]);
+    for (int j = 0; j < KT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = acc_col(j, e);
+        p[j][e] = key >= S || (bs.km != nullptr && bs.km[key] == 0)
+                      ? 0.0f
+                      : p[j][e] * (unpack_bf16(gpk[j][e >> 1], e & 1) -
+                                   D[e >> 1]) * inv_root;
+      }
+    uint32_t df[2][KT / 2][4];
+    acc_to_a<KT>(p, df[0], df[1]);
+    warp_combine<KT, 2>(df, kv, hh * hd, S, hd, fast, gqkv, dm.ld_big,
+                        hh * hd, r0, bs.n_local);
+    if ((threadIdx.x & 3) == 0) {
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int r = r0 + g + 8 * h2;
+        if (r < bs.n_local) stats[(hh * dm.tile_pad + r) * 3 + 2] = D[h2];
+      }
     }
-    float* st = stats + (hh * dm.tile_pad + r) * 3;
-    st[0] = mx;
-    st[1] = sum;
-    st[2] = D;
   }
 }
 
-// Phase 2, as attention_bwd_kv over the set's queries in chunks: one
-// thread per (head, key row j) of this block's part of the set; qs, gos
-// and sts: the set's qkv rows, attention-output cotangents and softmax
-// statistics (head 0's; a head's are tile_pad rows further) in both
-// blocks.
-__device__ __noinline__ void attention_bwd_kv_big(
-    const bf16* qkv, SetRows<bf16> qs, SetRows<bf16> gos, SetRows<float> sts,
-    bf16* gqkv, const Dims& dm, const BigSet& bs) {
+// Phase 2 (key-major): for this block's key rows j, the logits against
+// every query i of the set, p_ij from the query's statistics (qs, gos: the
+// set's Q and output cotangents; sts: its statistics, head 0's, a head's
+// tile_pad rows further, in both blocks), gk_j = R(sum_i dS_ij q_i) and
+// gv_j = R(sum_i R(p_ij) go_i).
+template <int KT>
+__device__ __forceinline__ void attention_bwd_kv_big(const bf16* qkv,
+                                                  LocalRows qs, LocalRows gos,
+                                                  SetRows<float> sts,
+                                                  bf16* gqkv, const Dims& dm,
+                                                  const BigSet& bs) {
   const int H = dm.hidden, nh = dm.heads, hd = H / nh, S = dm.set_size;
   const float inv_root = 1.0f / sqrtf((float)hd);
-  for (int item = threadIdx.x; item < bs.n_local * nh;
-       item += blockDim.x) {
-    const int hh = item / bs.n_local;
-    const int j = item % bs.n_local;
-    const bool masked = bs.km != nullptr && bs.km[bs.offset + j] == 0;
-    const bf16* kj = qkv + j * dm.ld_big + H + hh * hd;
-    const bf16* vj = kj + H;
+  const bool fast = hd % 8 == 0;
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
+  const int mt = (bs.n_local + 15) / 16;
+  for (int item = warp; item < nh * mt; item += kWarps) {
+    const int hh = item / mt, r0 = item % mt * 16;
     const int st_off = hh * dm.tile_pad * 3;
-    for (int db = 0; db < hd; db += kDBlock) {
-      float ak[kDBlock], av[kDBlock];
+    float lt[KT][4];
+    uint32_t gpk[KT][2];  // R(gP^T), packed as bf16 pairs
+    warp_dots<KT>(qkv, dm.ld_big, 2 * H + hh * hd, bs.n_local, r0, gos,
+                  hh * hd, S, hd, fast, lt);
+    pack_acc<KT>(lt, gpk);
+    warp_dots<KT>(qkv, dm.ld_big, H + hh * hd, bs.n_local, r0, qs, hh * hd,
+                  S, hd, fast, lt);
+    bool masked[2];
 #pragma unroll
-      for (int dd = 0; dd < kDBlock; ++dd) ak[dd] = av[dd] = 0.0f;
-      for (int i0 = 0; i0 < S; i0 += kKeyChunk) {
-        const int n = min(kKeyChunk, S - i0);
-        // q_i . k_j and go_i . v_j for the chunk's queries i
-        float gl[kKeyChunk], pq[kKeyChunk];
-        chunk_dots<bf16>(kj, qs, hh * hd, hd, i0, n, gl);
-        chunk_dots<bf16>(vj, gos, hh * hd, hd, i0, n, pq);
-#pragma unroll
-        for (int ii = 0; ii < kKeyChunk; ++ii) {
-          if (ii < n) {
-            const float* st = sts.row(i0 + ii) + st_off;
-            const float p =
-                masked ? expf(kMaskedLogit - st[0]) * (1.0f / st[1])
-                       : expf(gl[ii] * inv_root - st[0]) * (1.0f / st[1]);
-            const float g = masked ? 0.0f : p * (rnd(pq[ii]) - st[2]) * inv_root;
-            const float pr = rnd(p);
-            const bf16* qi = qs.row(i0 + ii) + hh * hd + db;
-            const bf16* goi = gos.row(i0 + ii) + hh * hd + db;
-#pragma unroll
-            for (int dd = 0; dd < kDBlock; ++dd) {
-              if (db + dd < hd) {
-                ak[dd] = fmaf(g, bf(qi[dd]), ak[dd]);
-                av[dd] = fmaf(pr, bf(goi[dd]), av[dd]);
-              }
-            }
-          }
-        }
-      }
-      bf16* gk = gqkv + j * dm.ld_big + H + hh * hd + db;
-#pragma unroll
-      for (int dd = 0; dd < kDBlock; ++dd) {
-        if (db + dd < hd) {
-          gk[dd] = __float2bfloat16_rn(ak[dd]);
-          gk[H + dd] = __float2bfloat16_rn(av[dd]);
-        }
-      }
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int j = r0 + g + 8 * h2;
+      masked[h2] = bs.km != nullptr && j < bs.n_local &&
+                   bs.km[bs.offset + j] == 0;
     }
+    uint32_t df[2][KT / 2][4], pf[1][KT / 2][4];
+#pragma unroll
+    for (int jt = 0; jt < KT; ++jt) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = acc_col(jt, e);
+        // a query past the set reads the last one's statistics, no weight
+        const float* st = sts.row(min(i, S - 1)) + st_off;
+        const float mx = st[0], inv_sum = st[1], D = st[2];
+        const float l = masked[e >> 1] ? kMaskedLogit
+                                       : __fmul_rn(lt[jt][e], inv_root);
+        p[e] = i < S ? expf(l - mx) * inv_sum : 0.0f;
+        lt[jt][e] = i >= S || masked[e >> 1]
+                        ? 0.0f
+                        : p[e] * (unpack_bf16(gpk[jt][e >> 1], e & 1) - D) *
+                              inv_root;
+      }
+      // p into its A fragment (k-step jt / 2, as acc_to_a places it)
+      pf[0][jt / 2][2 * (jt & 1)] = pack_bf16(p[0], p[1]);
+      pf[0][jt / 2][2 * (jt & 1) + 1] = pack_bf16(p[2], p[3]);
+    }
+    acc_to_a<KT>(lt, df[0], df[1]);
+    warp_combine<KT, 2>(df, qs, hh * hd, S, hd, fast, gqkv, dm.ld_big,
+                        H + hh * hd, r0, bs.n_local);
+    warp_combine<KT, 1>(pf, gos, hh * hd, S, hd, fast, gqkv, dm.ld_big,
+                        2 * H + hh * hd, r0, bs.n_local);
   }
 }
 
 // The attention of a tile: attention() for sets up to kMaxSet rows (the
-// kernels' instances without BIG), else the chunked attention over the
-// set's rows in this block and, in a cluster, the other's.
+// kernels' instances without BIG), else over the set's rows in this block
+// and, in a cluster, the other's: #3 (BLOCKS kFwdBlocks) by the chunked
+// attention_big, through distributed shared memory; #4's recompute
+// (BLOCKS 1) on the tensor cores, the other block's K and V staged in
+// ``stage``, keeping the rows' softmax statistics in stats for its
+// backward.
 template <bool BIG, int BLOCKS = 1>
 __device__ __forceinline__ void attend(const bf16* qkv, bf16* out,
                                        const Dims& dm, const KeyMask& km,
-                                       const BigSet& bs) {
+                                       const BigSet& bs,
+                                       float* stats = nullptr,
+                                       bf16* stage = nullptr) {
   if constexpr (!BIG) {
     attention<BLOCKS>(qkv, out, dm, km);
     return;
   }
-  attention_big<bf16, BLOCKS>(
-      qkv, dm.ld_big,
-      set_rows_of<bf16, 2>(qkv, dm.ld_big, dm.split, bs.clustered ? 2 : 1),
-      out, dm.ld_h, dm.hidden, dm.heads, dm.set_size, bs.n_local, bs.km);
+  if constexpr (BLOCKS != 1) {
+    attention_big<bf16, BLOCKS>(
+        qkv, dm.ld_big,
+        set_rows_of<bf16, 2>(qkv, dm.ld_big, dm.split, bs.clustered ? 2 : 1),
+        out, dm.ld_h, dm.hidden, dm.heads, dm.set_size, bs.n_local, bs.km);
+    return;
+  }
+  const int H = dm.hidden;
+  stage_other(qkv, dm.ld_big, H, 2 * H, stage, 0, dm, bs);
+  __syncthreads();
+  const LocalRows kv = local_rows(qkv, dm.ld_big, H, stage, 0, dm, bs);
+  if (dm.set_size <= 64)
+    attention_mma_big<8>(qkv, kv, out, stats, dm, bs);
+  else
+    attention_mma_big<16>(qkv, kv, out, stats, dm, bs);
 }
 
-// Its backward; a set in a cluster syncs the cluster between the passes,
-// since phase 2 reads the other block's statistics.
+// Its backward (stats: the recompute's; ``stage``: a region dead during
+// it): phase 1 on the other block's K and V staged, then, after the
+// cluster's barrier where the set spans two blocks (phase 2 reads the
+// other block's output cotangents and statistics), phase 2 on its Q and
+// output cotangents staged.
+template <int KT>
+__device__ __forceinline__ void attention_bwd_big(const bf16* qkv,
+                                                  const bf16* go, bf16* gqkv,
+                                                  float* stats, bf16* stage,
+                                                  const Dims& dm,
+                                                  const BigSet& bs) {
+  const int H = dm.hidden;
+  stage_other(qkv, dm.ld_big, H, 2 * H, stage, 0, dm, bs);
+  __syncthreads();
+  attention_bwd_q_big<KT>(qkv, local_rows(qkv, dm.ld_big, H, stage, 0, dm,
+                                          bs),
+                          go, gqkv, stats, dm, bs);
+  set_sync(bs.clustered);
+  stage_other(qkv, dm.ld_big, 0, H, stage, 0, dm, bs);
+  stage_other(go, dm.ld_h, 0, H, stage, H, dm, bs);
+  __syncthreads();
+  attention_bwd_kv_big<KT>(qkv, local_rows(qkv, dm.ld_big, 0, stage, 0, dm,
+                                           bs),
+                           local_rows(go, dm.ld_h, 0, stage, H, dm, bs),
+                           set_rows_of<float, 2>(stats, 3, dm.split,
+                                                 bs.clustered ? 2 : 1),
+                           gqkv, dm, bs);
+}
+
 template <bool BIG>
 __device__ __forceinline__ void attend_bwd(const bf16* qkv, const bf16* go,
                                            bf16* gqkv, float* stats,
                                            const Dims& dm, const KeyMask& km,
-                                           const BigSet& bs) {
-  if constexpr (!BIG) {
+                                           const BigSet& bs,
+                                           bf16* stage = nullptr) {
+  if constexpr (!BIG)
     attention_bwd(qkv, go, gqkv, stats, dm, km);
-    return;
-  }
-  const int n = bs.clustered ? 2 : 1;
-  const SetRows<bf16> rows =
-      set_rows_of<bf16, 2>(qkv, dm.ld_big, dm.split, n);
-  attention_bwd_q_big(qkv, rows, go, gqkv, stats, dm, bs);
-  set_sync(bs.clustered);
-  attention_bwd_kv_big(qkv, rows,
-                       set_rows_of<bf16, 2>(go, dm.ld_h, dm.split, n),
-                       set_rows_of<float, 2>(stats, 3, dm.split, n),
-                       gqkv, dm, bs);
+  else if (dm.set_size <= 64)
+    attention_bwd_big<8>(qkv, go, gqkv, stats, stage, dm, bs);
+  else
+    attention_bwd_big<16>(qkv, go, gqkv, stats, stage, dm, bs);
 }
 
 // The rows of this block's tile t: in a cluster of two, its part of set t,
@@ -1060,7 +1532,7 @@ fused_set_transformer_bwd(const bf16* __restrict__ x,
                         3 * H, wt.b[1] + l * 3 * H, qkv, dm.ld_big, nullptr,
                         nullptr, valid, dm);
       set_sync(clustered);
-      attend<BIG>(qkv, o, dm, km, bs);
+      attend<BIG>(qkv, o, dm, km, bs, stats, hm);  // hm | gs unused here
       set_sync(clustered);
       mma_dense<kResidual>(o, dm.ld_h, PH, wt.wt[2] + (long)l * PH * PH, PH,
                            H, wt.b[2] + l * H, h, dm.ld_h, nullptr, nullptr,
@@ -1101,14 +1573,19 @@ fused_set_transformer_bwd(const bf16* __restrict__ x,
         h = hs + l * hsz;
       }
       layer_norm_tile(h, a, dm);
-      copy16(h, hm, 2 * hsz);
+      if constexpr (!BIG) copy16(h, hm, 2 * hsz);
       __syncthreads();
       mma_dense<kStore>(a, dm.ld_h, PH, wt.wt[1] + (long)l * PB * PH, PB,
                         3 * H, wt.b[1] + l * 3 * H, qkv, dm.ld_big, nullptr,
                         nullptr, valid, dm);
       set_sync(clustered);
-      attend<BIG>(qkv, o, dm, km, bs);
+      attend<BIG>(qkv, o, dm, km, bs, stats, hm);
       set_sync(clustered);
+      if constexpr (BIG) {
+        // hm | gs held the other block's K and V during the attention
+        copy16(h, hm, 2 * hsz);
+        __syncthreads();
+      }
       mma_dense<kResidual>(o, dm.ld_h, PH, wt.wt[2] + (long)l * PH * PH, PH,
                            H, wt.b[2] + l * H, hm, dm.ld_h, nullptr, nullptr,
                            valid, dm);
@@ -1144,7 +1621,7 @@ fused_set_transformer_bwd(const bf16* __restrict__ x,
                            dm);
       layer_norm_tile(h, a, dm);  // a1 again, for the qkv weights
       __syncthreads();
-      attend_bwd<BIG>(qkv, gs, r2, stats, dm, km, bs);
+      attend_bwd<BIG>(qkv, gs, r2, stats, dm, km, bs, o);  // o | hm dead
       set_sync(clustered);
       mma_wgrad(a, dm.ld_h, H, r2, dm.ld_big, 3 * H,
                 pw + og.off[2] + (long)l * H * 3 * H,

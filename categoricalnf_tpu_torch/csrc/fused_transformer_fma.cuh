@@ -676,16 +676,17 @@ __device__ __forceinline__ long layer_stride(int kd, int n) {
 // layout of the sets up to 32 (at most 32 rows padded to 8, the weight
 // rings), and every row-wise phase (LN, the dense products, the MLP, the
 // weight-gradient partials, one slice a block) runs unchanged.  Attention
-// alone crosses blocks: the chunked attention of fused_transformer.cuh
-// (attention_big, fp32 here) reads the other blocks' q, k and v through
-// distributed shared memory between cluster barriers, and its backward
-// (attention_bwd_q_big, attention_bwd_kv_big) takes dQ query-major and dK,
-// dV key-major over every block's queries, so that no sum crosses blocks.
-// The forward and the backward split a set alike and run one attention
-// function, so the backward's recompute rebuilds the forward's
-// probabilities bitwise.  The backward's persistent grid walks the sets a
-// cluster at a time.  The instances without BIG hold none of this: their
-// code is the one of the sets up to 32.
+// alone crosses blocks, reading the other blocks' rows through distributed
+// shared memory between cluster barriers: the forward's is the chunked
+// attention of fused_transformer.cuh (attention_big, fp32 here); the
+// backward's runs on register tiles (attention_tiled_big for the
+// recompute, attention_bwd_q_big, attention_bwd_kv_big, below) and takes
+// dQ query-major and dK, dV key-major over every block's queries, so that
+// no sum crosses blocks.  The two split a set alike; the recompute sums
+// the attention in another order than the forward, so its activations may
+// differ from the forward's in the last bits.  The backward's persistent
+// grid walks the sets a cluster at a time.  The instances without BIG hold
+// none of this: their code is the one of the sets up to 32.
 
 // A block's part of a set above kMaxSet rows: its first row in the set,
 // its rows, and the set's key mask (null: none).
@@ -721,23 +722,237 @@ __device__ __forceinline__ SetRows<float, kMaxCluster> cluster_rows(
   return set_rows_of<float, kMaxCluster>(mine, ld, dm.split, dm.cluster);
 }
 
+// #4's attention at sets above kMaxSet rows (BIG), on register tiles of
+// the FMA units.  A warp owns a 16-row tile of one head: its queries'
+// logits against the whole set in the recompute and phase 1, its keys'
+// against every query of the set in phase 2.  Lane l holds rows rg + 4i
+// (rg = l % 4, i < 4) of the tile against the set's rows cg + 8c (cg =
+// l / 4, c < NC: 8 up to 64 rows, 16 up to 128), so each load of V values
+// of a row (a float4 where the head width allows) feeds 4 x NC x V FMAs of
+// the dot products (``tile_dots``); the products over the set
+// (``tile_combine``) sum each lane's rows in registers and add the 8
+// lanes' sums by shuffles.  The recompute keeps each query row's softmax
+// max and 1 / sum in stats for phase 1, which adds D_i = sum_j p_ij gP_ij
+// from the same tile as dQ; phase 2 reads all three, so a pass forms a logit
+// once.  The other blocks' rows are read through distributed shared
+// memory (SetRows), V values at a time.  Every dot product over the head
+// width is one fmaf chain in the order of d, the same in every pass, so
+// phase 1 and 2 rebuild the recompute's probabilities bitwise; logits and
+// softmax in fp32, a masked key's logit kMaskedLogit before the row's max,
+// a masked logit without gradient.
+
+// A logit: the scaled dot product, or kMaskedLogit for a masked key (km:
+// the set's key mask, null: none); one product, never contracted.
+__device__ __forceinline__ float logit_of(float dot, float inv_root,
+                                          const unsigned char* km, int key) {
+  return km != nullptr && km[key] == 0 ? kMaskedLogit
+                                       : __fmul_rn(dot, inv_root);
+}
+
+// Over the 8 lanes that hold one row (xor 4, 8, 16): every lane gets the
+// same value.
+__device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int m = 4; m < 32; m *= 2)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, m));
+  return v;
+}
+
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int m = 4; m < 32; m *= 2) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
+}
+
+// acc[i][c] = sum_{d < hd} a[r0 + rg + 4i][col + d] b[cg + 8c][bcol + d]
+// in the order of d (a: this block's rows, lda apart; b: the set's).  A row
+// of ``a`` from na and of ``b`` from nb reads the last valid one: the
+// callers drop those rows' results, or give their keys no weight.  No load
+// is behind a branch, so a lane issues a step's loads together.
+template <int V, int NC>
+__device__ __forceinline__ void tile_dots(
+    const float* a, int lda, int col, int na, int r0,
+    const SetRows<float, kMaxCluster>& b, int bcol, int nb, int hd,
+    float (&acc)[4][NC]) {
+  const int lane = threadIdx.x & 31, rg = lane & 3, cg = lane >> 2;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
+  for (int d0 = 0; d0 < hd; d0 += V) {
+    float av[4][V];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      ldv<V>(av[i], a + min(r0 + rg + 4 * i, na - 1) * lda + col + d0);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      float bv[V];
+      ldv<V>(bv, b.row(min(cg + 8 * c, nb - 1)) + bcol + d0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          acc[i][c] = fmaf(av[i][e], bv[e], acc[i][c]);
+    }
+  }
+}
+
+// out[r0 + rg + 4i][ocol + d] (rows below n_out, ld_out apart) = sum over
+// the set's rows k = cg + 8c of w[i][c] b[k][bcol + d], d < hd: each lane
+// sums its rows k in their order for 8 columns at a time, then the 8 lanes
+// of its rows add their sums (a reduce-scatter over xor 16, 8 and 4), which
+// leaves lane (rg, cg) row rg + 4 (cg / 2)'s columns 4 (cg % 2) .. 4 (cg %
+// 2) + 3 of the 8.  The weights of the rows from nb are zero, and those
+// rows read the last valid one; a column past hd reads the last valid one
+// and is not stored.
+template <int V, int NC>
+__device__ __forceinline__ void tile_combine(
+    const float (&w)[4][NC], const SetRows<float, kMaxCluster>& b, int bcol,
+    int nb, int hd, float* out, int ld_out, int ocol, int r0, int n_out) {
+  const int lane = threadIdx.x & 31, rg = lane & 3, cg = lane >> 2;
+  for (int d0 = 0; d0 < hd; d0 += 8) {
+    float v[32];  // v[8i + e]: row i, column d0 + e
+#pragma unroll
+    for (int k = 0; k < 32; ++k) v[k] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float* br = b.row(min(cg + 8 * c, nb - 1)) + bcol + d0;
+      float bv[8];
+      if (V == 4 && d0 + 8 <= hd) {
+        const float4 x = lds4(br), y = lds4(br + 4);
+        bv[0] = x.x;
+        bv[1] = x.y;
+        bv[2] = x.z;
+        bv[3] = x.w;
+        bv[4] = y.x;
+        bv[5] = y.y;
+        bv[6] = y.z;
+        bv[7] = y.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) bv[e] = br[min(e, hd - 1 - d0)];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          v[8 * i + e] = fmaf(w[i][c], bv[e], v[8 * i + e]);
+    }
+    float h16[16], h8[8], h4[4];
+    const bool b16 = lane & 16, b8 = lane & 8, b4 = lane & 4;
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      h16[k] = (b16 ? v[16 + k] : v[k]) +
+               __shfl_xor_sync(0xffffffffu, b16 ? v[k] : v[16 + k], 16);
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      h8[k] = (b8 ? h16[8 + k] : h16[k]) +
+              __shfl_xor_sync(0xffffffffu, b8 ? h16[k] : h16[8 + k], 8);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      h4[k] = (b4 ? h8[4 + k] : h8[k]) +
+              __shfl_xor_sync(0xffffffffu, b4 ? h8[k] : h8[4 + k], 4);
+    const int r = r0 + rg + 4 * (cg >> 1), d = d0 + 4 * (cg & 1);
+    if (r < n_out) {
+      float* o = out + r * ld_out + ocol + d;
+      if (V == 4 && d + 4 <= hd) {
+        stv<4>(o, h4);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (d + k < hd) o[k] = h4[k];
+      }
+    }
+  }
+}
+
+// The recompute's attention (attention_big's function): out = sum_j p_ij
+// v_j for this block's rows of the set, and each row's softmax max and
+// 1 / sum in stats [heads, tile_pad, 3] (kv: the set's qkv rows in every
+// block of its cluster).
+template <int V, int NC>
+__device__ __noinline__ void attention_tiled_big(
+    const float* qkv, SetRows<float, kMaxCluster> kv, float* out,
+    float* stats, const Dims& dm, const BigSet& bs) {
+  const int H = dm.hidden, nh = dm.heads, hd = H / nh, S = dm.set_size;
+  const float inv_root = 1.0f / sqrtf((float)hd);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = lane & 3, cg = lane >> 2;
+  const int mt = (bs.n_local + 15) / 16;
+  for (int item = warp; item < nh * mt; item += kBwdThreads / 32) {
+    const int hh = item / mt, r0 = item % mt * 16;
+    float l[4][NC];
+    tile_dots<V, NC>(qkv, dm.ld_big, hh * hd, bs.n_local, r0, kv,
+                     H + hh * hd, S, hd, l);
+    float mx[4], inv_sum[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      mx[i] = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int key = cg + 8 * c;
+        l[i][c] = key < S ? logit_of(l[i][c], inv_root, bs.km, key)
+                          : -INFINITY;
+        mx[i] = fmaxf(mx[i], l[i][c]);
+      }
+      mx[i] = row_max(mx[i]);
+      float s = 0.0f;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        if (cg + 8 * c < S) s += expf(l[i][c] - mx[i]);
+      inv_sum[i] = 1.0f / row_sum(s);
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        l[i][c] = cg + 8 * c < S ? expf(l[i][c] - mx[i]) * inv_sum[i] : 0.0f;
+    }
+    tile_combine<V, NC>(l, kv, 2 * H + hh * hd, S, hd, out, dm.ld_h,
+                        hh * hd, r0, bs.n_local);
+    if (cg == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = r0 + rg + 4 * i;
+        if (r < bs.n_local) {
+          float* st = stats + (hh * dm.tile_pad + r) * 3;
+          st[0] = mx[i];
+          st[1] = inv_sum[i];
+        }
+      }
+    }
+  }
+}
+
+
 // The attention of a tile between barriers: P lanes an item, the block's
-// barriers; BIG the chunked attention of the block's part of its set
-// between cluster barriers (the first orders the other blocks' qkv before
-// the reads, the second the reads before their next writes).  BLOCKS gives
-// each kernel its own copy of attention_big.
+// barriers; BIG over the block's part of its set between cluster barriers
+// (the first orders the other blocks' qkv before the reads, the second the
+// reads before their next writes): #3 (BLOCKS 2) by the chunked
+// attention_big, #4's recompute (BLOCKS 1) on register tiles
+// (attention_tiled_big, at the set's head width and size), keeping the
+// rows' softmax statistics in stats for its backward.
 template <bool BIG, int P, int BLOCKS>
 __device__ __forceinline__ void attend(const float* qkv, float* out,
                                        const Dims& dm, const KeyMask& km,
-                                       const BigSet& bs) {
+                                       const BigSet& bs,
+                                       float* stats = nullptr) {
   set_sync(BIG);
-  if constexpr (BIG)
-    attention_big<float, BLOCKS>(qkv, dm.ld_big,
-                                 cluster_rows(qkv, dm.ld_big, dm), out,
-                                 dm.ld_h, dm.hidden, dm.heads, dm.set_size,
-                                 bs.n_local, bs.km);
-  else
+  if constexpr (BIG) {
+    const SetRows<float, kMaxCluster> kv = cluster_rows(qkv, dm.ld_big, dm);
+    const bool v4 = (dm.hidden / dm.heads) % 4 == 0;
+    if constexpr (BLOCKS != 1)
+      attention_big<float, BLOCKS>(qkv, dm.ld_big, kv, out, dm.ld_h,
+                                   dm.hidden, dm.heads, dm.set_size,
+                                   bs.n_local, bs.km);
+    else if (dm.set_size <= 2 * kMaxSet && v4)
+      attention_tiled_big<4, 8>(qkv, kv, out, stats, dm, bs);
+    else if (dm.set_size <= 2 * kMaxSet)
+      attention_tiled_big<1, 8>(qkv, kv, out, stats, dm, bs);
+    else if (v4)
+      attention_tiled_big<4, 16>(qkv, kv, out, stats, dm, bs);
+    else
+      attention_tiled_big<1, 16>(qkv, kv, out, stats, dm, bs);
+  } else {
     attention<P>(qkv, out, dm, km);
+  }
   set_sync(BIG);
 }
 
@@ -1204,144 +1419,142 @@ __device__ __forceinline__ void attention_bwd(const float* qkv,
   }
 }
 
-// Attention backward of a set above kMaxSet rows (BIG), phase 1, as
-// attention_bwd_q over the set's keys in chunks of kKeyChunk (kv: the set's
-// qkv rows in every block of its cluster): one thread per (head, query
-// row); the softmax statistics online (attention_big's), then D_i = sum_j
-// p_ij gP_ij, then the query gradient, each pass recomputing the chunk's
-// logits and gP.  Rows past this block's part of the set, to tile_pad, get
-// zero gradients.
+// Attention backward of a set above kMaxSet rows, phase 1 (query-major):
+// for this block's query rows, gP = go . v_j, p from the recompute's
+// statistics, D_i = sum_j p_ij gP_ij, the logits' cotangent dS = p (gP -
+// D) / sqrt(hd) (none for a masked key) and gq = dS . K; D goes to stats.
+// Rows past this block's part of the set, to tile_pad, get zero
+// gradients.
+template <int V, int NC>
 __device__ __noinline__ void attention_bwd_q_big(
     const float* qkv, SetRows<float, kMaxCluster> kv, const float* go,
     float* gqkv, float* stats, const Dims& dm, const BigSet& bs) {
   const int H = dm.hidden, nh = dm.heads, hd = H / nh, S = dm.set_size;
   const float inv_root = 1.0f / sqrtf((float)hd);
-  for (int item = threadIdx.x; item < dm.tile_pad * nh;
-       item += blockDim.x) {
-    const int hh = item / dm.tile_pad;
-    const int r = item % dm.tile_pad;
-    float* gq = gqkv + r * dm.ld_big + hh * hd;
-    if (r >= bs.n_local) {
-      for (int d = 0; d < hd; ++d) gq[d] = gq[H + d] = gq[2 * H + d] = 0.0f;
-      continue;
-    }
-    const float* q = qkv + r * dm.ld_big + hh * hd;
-    const float* g_o = go + r * dm.ld_h + hh * hd;
-    const int kcol = H + hh * hd, vcol = 2 * H + hh * hd;
-    float mx, sum;
-    softmax_stats<float>(q, kv, kcol, hd, S, inv_root, bs.km, mx, sum);
-    const float inv_sum = 1.0f / sum;
-    float D = 0.0f;
-    for (int j0 = 0; j0 < S; j0 += kKeyChunk) {
-      const int n = min(kKeyChunk, S - j0);
-      float l[kKeyChunk], gp[kKeyChunk];
-      chunk_logits<float>(q, kv, kcol, hd, j0, n, inv_root, bs.km, l);
-      chunk_dots<float>(g_o, kv, vcol, hd, j0, n, gp);
+  const int past = dm.tile_pad - bs.n_local;
+  for (int i = threadIdx.x; i < past * 3 * H; i += blockDim.x)
+    gqkv[(bs.n_local + i / (3 * H)) * dm.ld_big + i % (3 * H)] = 0.0f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = lane & 3, cg = lane >> 2;
+  const int mt = (bs.n_local + 15) / 16;
+  for (int item = warp; item < nh * mt; item += kBwdThreads / 32) {
+    const int hh = item / mt, r0 = item % mt * 16;
+    float gp[4][NC], p[4][NC];
+    tile_dots<V, NC>(go, dm.ld_h, hh * hd, bs.n_local, r0, kv,
+                     2 * H + hh * hd, S, hd, gp);
+    tile_dots<V, NC>(qkv, dm.ld_big, hh * hd, bs.n_local, r0, kv,
+                     H + hh * hd, S, hd, p);
+    float D[4];
 #pragma unroll
-      for (int jj = 0; jj < kKeyChunk; ++jj)
-        if (jj < n) D = fmaf(expf(l[jj] - mx) * inv_sum, gp[jj], D);
-    }
-    for (int db = 0; db < hd; db += kDBlock) {
-      float acc[kDBlock];
+    for (int i = 0; i < 4; ++i) {
+      const int r = min(r0 + rg + 4 * i, bs.n_local - 1);
+      const float* st = stats + (hh * dm.tile_pad + r) * 3;
+      const float mx = st[0], inv_sum = st[1];
+      float d = 0.0f;
 #pragma unroll
-      for (int dd = 0; dd < kDBlock; ++dd) acc[dd] = 0.0f;
-      for (int j0 = 0; j0 < S; j0 += kKeyChunk) {
-        const int n = min(kKeyChunk, S - j0);
-        float l[kKeyChunk], gp[kKeyChunk];
-        chunk_logits<float>(q, kv, kcol, hd, j0, n, inv_root, bs.km, l);
-        chunk_dots<float>(g_o, kv, vcol, hd, j0, n, gp);
-#pragma unroll
-        for (int jj = 0; jj < kKeyChunk; ++jj) {
-          if (jj < n) {
-            // the softmax's backward, then the 1/sqrt(hd) scale of the
-            // logits; a masked logit takes none
-            const float p = expf(l[jj] - mx) * inv_sum;
-            const float gl = bs.km != nullptr && bs.km[j0 + jj] == 0
-                                 ? 0.0f
-                                 : p * (gp[jj] - D) * inv_root;
-            const float* kj = kv.row(j0 + jj) + kcol + db;
-#pragma unroll
-            for (int dd = 0; dd < kDBlock; ++dd)
-              if (db + dd < hd) acc[dd] = fmaf(gl, kj[dd], acc[dd]);
-          }
-        }
+      for (int c = 0; c < NC; ++c) {
+        const int key = cg + 8 * c;
+        p[i][c] = key < S ? expf(logit_of(p[i][c], inv_root, bs.km, key) -
+                                 mx) * inv_sum
+                          : 0.0f;
+        d = fmaf(p[i][c], gp[i][c], d);
       }
+      D[i] = row_sum(d);
+      // the softmax's backward, then the 1/sqrt(hd) scale of the logits;
+      // a masked logit takes none
 #pragma unroll
-      for (int dd = 0; dd < kDBlock; ++dd)
-        if (db + dd < hd) gq[db + dd] = acc[dd];
+      for (int c = 0; c < NC; ++c) {
+        const int key = cg + 8 * c;
+        p[i][c] = key >= S || (bs.km != nullptr && bs.km[key] == 0)
+                      ? 0.0f
+                      : p[i][c] * (gp[i][c] - D[i]) * inv_root;
+      }
     }
-    float* st = stats + (hh * dm.tile_pad + r) * 3;
-    st[0] = mx;
-    st[1] = sum;
-    st[2] = D;
+    tile_combine<V, NC>(p, kv, H + hh * hd, S, hd, gqkv, dm.ld_big, hh * hd,
+                        r0, bs.n_local);
+    if (cg == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = r0 + rg + 4 * i;
+        if (r < bs.n_local) stats[(hh * dm.tile_pad + r) * 3 + 2] = D[i];
+      }
+    }
   }
 }
 
-// Phase 2, as attention_bwd_kv over the set's queries in chunks: one
-// thread per (head, key row j) of this block's part of the set; qs, gos
-// and sts: the set's qkv rows, attention-output cotangents and softmax
-// statistics (head 0's; a head's are tile_pad rows further) in every
-// block of its cluster.  The logit is the product chunk_logits forms,
-// rounded before the statistics are taken off it, so that p is phase 1's.
+// Phase 2 (key-major): for this block's key rows j, the logits against
+// every query i of the set, p_ij from the query's statistics (qs, gos and
+// sts: the set's qkv rows, attention-output cotangents and statistics,
+// head 0's, a head's tile_pad rows further, in every block of its
+// cluster), gk_j = sum_i dS_ij q_i and gv_j = sum_i p_ij go_i.
+template <int V, int NC>
 __device__ __noinline__ void attention_bwd_kv_big(
     const float* qkv, SetRows<float, kMaxCluster> qs,
     SetRows<float, kMaxCluster> gos, SetRows<float, kMaxCluster> sts,
     float* gqkv, const Dims& dm, const BigSet& bs) {
   const int H = dm.hidden, nh = dm.heads, hd = H / nh, S = dm.set_size;
   const float inv_root = 1.0f / sqrtf((float)hd);
-  for (int item = threadIdx.x; item < bs.n_local * nh;
-       item += blockDim.x) {
-    const int hh = item / bs.n_local;
-    const int j = item % bs.n_local;
-    const bool masked = bs.km != nullptr && bs.km[bs.offset + j] == 0;
-    const float* kj = qkv + j * dm.ld_big + H + hh * hd;
-    const float* vj = kj + H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = lane & 3, cg = lane >> 2;
+  const int mt = (bs.n_local + 15) / 16;
+  for (int item = warp; item < nh * mt; item += kBwdThreads / 32) {
+    const int hh = item / mt, r0 = item % mt * 16;
     const int st_off = hh * dm.tile_pad * 3;
-    for (int db = 0; db < hd; db += kDBlock) {
-      float ak[kDBlock], av[kDBlock];
+    float lt[4][NC], gpt[4][NC];
+    tile_dots<V, NC>(qkv, dm.ld_big, H + hh * hd, bs.n_local, r0, qs,
+                     hh * hd, S, hd, lt);
+    tile_dots<V, NC>(qkv, dm.ld_big, 2 * H + hh * hd, bs.n_local, r0, gos,
+                     hh * hd, S, hd, gpt);
+    bool masked[4];
 #pragma unroll
-      for (int dd = 0; dd < kDBlock; ++dd) ak[dd] = av[dd] = 0.0f;
-      for (int i0 = 0; i0 < S; i0 += kKeyChunk) {
-        const int n = min(kKeyChunk, S - i0);
-        // q_i . k_j and go_i . v_j for the chunk's queries i
-        float gl[kKeyChunk], pq[kKeyChunk];
-        chunk_dots<float>(kj, qs, hh * hd, hd, i0, n, gl);
-        chunk_dots<float>(vj, gos, hh * hd, hd, i0, n, pq);
+    for (int i = 0; i < 4; ++i) {
+      const int j = r0 + rg + 4 * i;
+      masked[i] = bs.km != nullptr && j < bs.n_local &&
+                  bs.km[bs.offset + j] == 0;
+    }
 #pragma unroll
-        for (int ii = 0; ii < kKeyChunk; ++ii) {
-          if (ii < n) {
-            const float* st = sts.row(i0 + ii) + st_off;
-            const float l =
-                masked ? kMaskedLogit : __fmul_rn(gl[ii], inv_root);
-            const float p = expf(l - st[0]) * (1.0f / st[1]);
-            const float g = masked ? 0.0f : p * (pq[ii] - st[2]) * inv_root;
-            const float* qi = qs.row(i0 + ii) + hh * hd + db;
-            const float* goi = gos.row(i0 + ii) + hh * hd + db;
+    for (int c = 0; c < NC; ++c) {
+      // a query past the set reads the last one's statistics, no weight
+      const int q = cg + 8 * c;
+      const float* st = sts.row(min(q, S - 1)) + st_off;
+      const float mx = st[0], inv_sum = st[1], D = st[2];
 #pragma unroll
-            for (int dd = 0; dd < kDBlock; ++dd) {
-              if (db + dd < hd) {
-                ak[dd] = fmaf(g, qi[dd], ak[dd]);
-                av[dd] = fmaf(p, goi[dd], av[dd]);
-              }
-            }
-          }
+      for (int i = 0; i < 4; ++i) {
+        float p = 0.0f, ds = 0.0f;
+        if (q < S) {
+          const float l = masked[i] ? kMaskedLogit
+                                    : __fmul_rn(lt[i][c], inv_root);
+          p = expf(l - mx) * inv_sum;
+          ds = masked[i] ? 0.0f : p * (gpt[i][c] - D) * inv_root;
         }
-      }
-      float* gk = gqkv + j * dm.ld_big + H + hh * hd + db;
-#pragma unroll
-      for (int dd = 0; dd < kDBlock; ++dd) {
-        if (db + dd < hd) {
-          gk[dd] = ak[dd];
-          gk[H + dd] = av[dd];
-        }
+        lt[i][c] = ds;
+        gpt[i][c] = p;
       }
     }
+    tile_combine<V, NC>(lt, qs, hh * hd, S, hd, gqkv, dm.ld_big,
+                        H + hh * hd, r0, bs.n_local);
+    tile_combine<V, NC>(gpt, gos, hh * hd, S, hd, gqkv, dm.ld_big,
+                        2 * H + hh * hd, r0, bs.n_local);
   }
 }
 
-// The attention backward of a tile; BIG over the set's cluster, with a
-// cluster barrier between the passes, since phase 2 reads the other
-// blocks' cotangents and statistics.
+// Both passes of the attention backward (BIG), with a cluster barrier
+// between them, since phase 2 reads the other blocks' cotangents and
+// statistics.
+template <int V, int NC>
+__device__ __forceinline__ void attention_bwd_big(
+    const float* qkv, const float* go, float* gqkv, float* stats,
+    const Dims& dm, const BigSet& bs) {
+  const SetRows<float, kMaxCluster> rows = cluster_rows(qkv, dm.ld_big, dm);
+  attention_bwd_q_big<V, NC>(qkv, rows, go, gqkv, stats, dm, bs);
+  set_sync(true);
+  attention_bwd_kv_big<V, NC>(qkv, rows, cluster_rows(go, dm.ld_h, dm),
+                              cluster_rows(stats, 3, dm), gqkv, dm, bs);
+}
+
+// The attention backward of a tile; BIG at the set's head width (float4
+// rows where it is a multiple of 4) and size (8 or 16 of the set's rows a
+// lane).
 template <bool BIG>
 __device__ __forceinline__ void attend_bwd(const float* qkv, const float* go,
                                            float* gqkv, float* stats,
@@ -1350,12 +1563,18 @@ __device__ __forceinline__ void attend_bwd(const float* qkv, const float* go,
   if constexpr (!BIG) {
     attention_bwd(qkv, go, gqkv, stats, dm, km);
   } else {
-    const SetRows<float, kMaxCluster> rows =
-        cluster_rows(qkv, dm.ld_big, dm);
-    attention_bwd_q_big(qkv, rows, go, gqkv, stats, dm, bs);
-    set_sync(true);
-    attention_bwd_kv_big(qkv, rows, cluster_rows(go, dm.ld_h, dm),
-                         cluster_rows(stats, 3, dm), gqkv, dm, bs);
+    const bool v4 = (dm.hidden / dm.heads) % 4 == 0;
+    if (dm.set_size <= 2 * kMaxSet) {
+      if (v4)
+        attention_bwd_big<4, 8>(qkv, go, gqkv, stats, dm, bs);
+      else
+        attention_bwd_big<1, 8>(qkv, go, gqkv, stats, dm, bs);
+    } else {
+      if (v4)
+        attention_bwd_big<4, 16>(qkv, go, gqkv, stats, dm, bs);
+      else
+        attention_bwd_big<1, 16>(qkv, go, gqkv, stats, dm, bs);
+    }
   }
 }
 
@@ -1458,7 +1677,7 @@ fused_set_transformer_bwd(const float* __restrict__ x,
       dense_tile<kStore>(a, dm.ld_h, H, wt.w[1] + l * s_qkv,
                          wt.b[1] + l * 3 * H, 3 * H, qkv, dm.ld_big, nullptr,
                          valid, dm, rings);
-      attend<BIG, kBwdLanesPerItem, 1>(qkv, o, dm, km, bs);
+      attend<BIG, kBwdLanesPerItem, 1>(qkv, o, dm, km, bs, stats);
       dense_tile<kResidual>(o, dm.ld_h, H, wt.w[2] + l * s_proj,
                             wt.b[2] + l * H, H, h, dm.ld_h, nullptr, valid,
                             dm, rings);
@@ -1507,7 +1726,7 @@ fused_set_transformer_bwd(const float* __restrict__ x,
       dense_tile<kStore>(a, dm.ld_h, H, wt.w[1] + l * s_qkv,
                          wt.b[1] + l * 3 * H, 3 * H, qkv, dm.ld_big, nullptr,
                          valid, dm, rings);
-      attend<BIG, kBwdLanesPerItem, 1>(qkv, o, dm, km, bs);
+      attend<BIG, kBwdLanesPerItem, 1>(qkv, o, dm, km, bs, stats);
       dense_tile<kResidual>(o, dm.ld_h, H, wt.w[2] + l * s_proj,
                             wt.b[2] + l * H, H, hm, dm.ld_h, nullptr, valid,
                             dm, rings);

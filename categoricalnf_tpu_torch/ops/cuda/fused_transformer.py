@@ -271,6 +271,21 @@ def bwd_layout(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
     return tile, smem, in_global, cluster
 
 
+def bf16_big_stage(set_size: int, hidden: int, cluster: int) -> tuple:
+    """(bytes, room) of #4 bf16's staged copy of the other block's rows where
+    a set above MAX_SET spans a cluster of two (``stage_other`` in
+    ``csrc/fused_transformer_bf16.cu``): at most ``split_rows`` rows of K
+    and V, or of Q and the output cotangent, 2 x hidden bf16 a row,
+    ``pad16(2 hidden) + 8`` wide; and the two adjacent [tile_pad, ld_h]
+    buffers of its tile that a pass leaves dead and the copy goes to (the
+    attention output and h after it in phase 1 and 2, h after it and the
+    cotangent buffer in the recompute).  No copy at one block."""
+    tile = split_rows(set_size, cluster)
+    rows = tile if cluster > 1 else 0
+    return (2 * rows * (pad16(2 * hidden) + 8),
+            2 * 2 * pad16(tile) * (pad16(hidden) + 8))
+
+
 def h_workspace_elems(tile: int, hidden: int, layers: int, grid: int) -> int:
     """bf16 elements of the bf16 backward's global workspace of residual
     copies: for each of ``grid`` blocks, h at the block boundaries 0 ..

@@ -749,23 +749,34 @@ SMALL_SET_DIGESTS = {
 # From commit d493a85 (the tree before the fp32 pair's instances for sets
 # above 32): the fp32 train step's pair (#3 fp32 with grad, #4 fp32's dx and
 # 12 weight gradients) at sets of 16 and 24, whose code that change moved
-# into a header and templated, and the BIG instances of #3 bf16, #4 bf16 and
-# #3 fp32 (without grad) at sets of 64 and 128, whose row addressing over
-# a cluster it generalised.
+# into a header and templated, and the BIG instances of #3 bf16 and #3 fp32
+# (without grad) at sets of 64 and 128, whose row addressing over a cluster
+# it generalised.  From commit b6a0554 (the tree before #4's attention at
+# sets above 32 moved to warp tiles): #3 fp32 with grad's BIG instance at
+# 64 and 128, which that change left as it was.  From the commit after
+# b6a0554 that made that change (tools/set_digests.py on its tree): #4
+# bf16's and #4 fp32's BIG instances at 64 and 128, whose sums it
+# reordered (QK^T and PV on mma.sync in bf16, register tiles in fp32).
 PAIR_AND_BIG_SET_DIGESTS = {
     "train_fwd_float32_set16": "36b0c115040615d3",
     "bwd_float32_set16": "6d411fa7a17525b8",
     "train_fwd_float32_set24": "6832036f752837f5",
     "bwd_float32_set24": "e582ecbe0c870e00",
     "fwd_bfloat16_set64": "2bad0d7a43486e53",
-    "bwd_bfloat16_set64": "8075f7fc9376b150",
+    "bwd_bfloat16_set64": "6a46ce2228fc8d94",
     "fwd_float32_set64": "b1e0cbbcade9f55b",
+    "train_fwd_float32_set64": "4e9acaee31ee935c",
+    "bwd_float32_set64": "06e0bbc6bf125f27",
     "fwd_bfloat16_set128": "96adf45a30930934",
-    "bwd_bfloat16_set128": "b01f321af4a8fdbc",
+    "bwd_bfloat16_set128": "2763b1292b9398bf",
     "fwd_float32_set128": "560ff3a42bbcfab6",
+    "train_fwd_float32_set128": "117b98ca87f4b7fb",
+    "bwd_float32_set128": "53d248d3aa257314",
     "fwd_bfloat16_set128_masked": "bec2a2570d20276b",
-    "bwd_bfloat16_set128_masked": "f1ba9f5cecdcf23d",
-    "fwd_float32_set128_masked": "a77b00a3d547d202"}
+    "bwd_bfloat16_set128_masked": "76beff9943c6849d",
+    "fwd_float32_set128_masked": "a77b00a3d547d202",
+    "train_fwd_float32_set128_masked": "a331aad78041fb1e",
+    "bwd_float32_set128_masked": "b8c74ac9f4e2fa23"}
 
 
 def set_digests(device) -> dict:
@@ -773,8 +784,8 @@ def set_digests(device) -> dict:
     (in 4, out 104) on inputs from fixed seeds, by kernel and set size: #3
     bf16's output, #4 bf16's dx and 12 weight gradients, #3 fp32's output
     and the fp32 pair's (#3 fp32 with grad, #4 fp32) at 64 sets of 16 and,
-    with a key mask (``set_mask``), 64 sets of 24; the first three at 64
-    sets of 64 and of 128, and with a key mask at 128."""
+    with a key mask (``set_mask``), 64 sets of 24; all five at 64 sets of
+    64 and of 128, and with a key mask at 128."""
     import hashlib
 
     import torch
@@ -808,7 +819,7 @@ def set_digests(device) -> dict:
                     dx, dws = ft.fused_set_transformer_bwd(
                         packed, x, gy, num_heads=HEADS, mask=mask)
                     out[f"bwd_{cd}_{tag}"] = digest([dx, *dws])
-                elif s <= ft.MAX_SET:
+                else:
                     out[f"train_fwd_{cd}_{tag}"] = digest([
                         ft.FusedSetTransformer.apply(x, packed, HEADS, mask,
                                                      *ws)])

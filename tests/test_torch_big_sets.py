@@ -270,10 +270,10 @@ def test_fma_pair_layouts_at_big_sets(net, s):
     of 2 blocks up to 64 rows and of 4 above, ceil(s / cluster) rows a
     block (at most 32, the tile of the sets up to 32), both kernels
     splitting it alike (the backward's recompute rebuilds the forward's
-    probabilities), each block's shared memory within MAX_SMEM (the
-    backward's all of it, no workspace), and a persistent grid of whole
-    clusters, at most one a set, from the SMs or from the clusters the card
-    says it holds."""
+    rows where the forward computed them), each block's shared memory
+    within MAX_SMEM (the backward's all of it, no workspace), and a
+    persistent grid of whole clusters, at most one a set, from the SMs or
+    from the clusters the card says it holds."""
     in_dim, out = NETS[net]
     cluster = 2 if s <= 64 else 4
     tile, smem_fwd, fwd_cluster = ft.fma_fwd_shape(s, in_dim, 96, 192)

@@ -1182,15 +1182,18 @@ def test_fma_workspace_layout_is_bitwise_the_shared_one(dev):
     assert all(v["bitwise"] for v in out.values())
 
 
-# -- sets of 33 to 128: chunked attention, 2-CTA clusters -----------------
+# -- sets of 33 to 128: clusters, #4 on warp tiles ------------------------
 
+@pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("s", [33, 48, 64, 99, 100, 128])
-def test_big_sets_match_plain(dev, s):
+def test_big_sets_match_plain(dev, s, seed):
     """#3 bf16, #4 bf16 and #3 fp32 at sets of ``s`` (whole-set tiles, and
     for #4 bf16 above 64 and #3 fp32 above 100 two blocks of a cluster,
     rank 1 holding one row fewer at 99) against plain by chip_smoke's
-    limits (``fused_fwd_report``, ``fused_bwd_report``)."""
-    g = torch.Generator(dev).manual_seed(s)
+    limits (``fused_fwd_report``, ``fused_bwd_report``), at two seeds; at
+    the ragged sets of 33 and 100 also #4 bf16 with a key mask, its
+    control without the mask above 10 x (``masked_bwd_readings``)."""
+    g = torch.Generator(dev).manual_seed(s + 1000 * seed)
     sets = 4096 // s
     x = torch.randn(sets, s, cs.D, generator=g, device=dev)
     gy = torch.randn(sets, s, cs.OUT, generator=g,
@@ -1201,6 +1204,50 @@ def test_big_sets_match_plain(dev, s):
                                f"sets of {s}")["rel_err"] <= 0.03
     assert cs.fused_fwd_report(cs.flagship_net("float32", dev),
                                x)["rel_err"] <= cs.F32_FWD_REL
+    if s in (33, 100):
+        r = cs.masked_bwd_readings(cs.flagship_net("bfloat16", dev), x,
+                                   cs.set_mask(sets, s, seed, dev), gy)
+        assert r["rel_err"] <= 0.03 < r["control_rel_err"] / 10
+
+
+@pytest.mark.parametrize("cd", ["bfloat16", "float32"])
+@pytest.mark.parametrize("hidden,heads", [(96, 8), (80, 4), (36, 4)])
+@pytest.mark.parametrize("s", [33, 100])
+def test_big_set_backward_at_head_widths_off_8(dev, cd, hidden, heads, s):
+    """#4's attention at sets above 32 pads a head width to its tiles
+    (bf16: k16 steps and a k8 tail of mma.sync, zero past the width;
+    fp32: float4 rows where the width is a multiple of 4, else single
+    values): widths of 12, 20 and 9 at the ragged sets of 33 and 100 (with
+    a key mask at 100) against autograd of plain, bf16 within 0.03 of each
+    gradient's norm, fp32 within 2e-4 as torch.allclose."""
+    net = SetTransformer(cs.D, cs.OUT, hidden_dim=hidden, num_heads=heads,
+                         compute_dtype=cd,
+                         generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        net.out.w.copy_(torch.randn(net.out.w.shape, generator=torch
+                                    .Generator().manual_seed(4)) * 0.1)
+    net = net.to(dev)
+    g = torch.Generator(dev).manual_seed(hidden + s)
+    x = torch.randn(64, s, cs.D, generator=g, device=dev)
+    gy = torch.randn(64, s, cs.OUT, generator=g, device=dev)
+    mask = cs.set_mask(64, s, 7, dev) if s == 100 else None
+    params = list(net.parameters())
+
+    def grads(plain):
+        xr = x.clone().requires_grad_(True)
+        y = net.plain_forward(xr, mask=mask) if plain else net(xr, mask=mask)
+        return torch.autograd.grad(y, [xr] + params, gy.to(y.dtype))
+
+    def launches():
+        return ft.BWD_LAUNCHES[cd] + ft.CLUSTER_BWD_LAUNCHES.get(cd, 0)
+
+    n = launches()
+    got, want = grads(False), grads(True)
+    assert launches() > n
+    if cd == "bfloat16":
+        assert max(cs.rel_err(a, w) for a, w in zip(got, want)) <= 0.03
+    else:
+        assert max(cs.allclose_err(a, w) for a, w in zip(got, want)) <= 2e-4
 
 
 def test_big_sets_masked_and_cluster_forward(dev):
@@ -1210,17 +1257,20 @@ def test_big_sets_masked_and_cluster_forward(dev):
     cs.check_big_set_kernels(dev, (0,), {})
 
 
+@pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("s,masked", [(33, False), (64, False),
                                       (100, False), (128, False),
-                                      (64, True)])
-def test_fp32_training_above_32_matches_autograd_of_plain(dev, s, masked):
+                                      (64, True), (33, True), (100, True)])
+def test_fp32_training_above_32_matches_autograd_of_plain(dev, s, masked,
+                                                          seed):
     """A differentiable fp32 call at a set above 32 runs the fp32 train
     step's pair over a cluster of 2 blocks
     (up to 64 rows) or 4: #3 within 1e-4 and #4 within 2e-4 of autograd of
-    plain as torch.allclose (``f32_pair_readings``; masked at 64 with the
-    control without the mask above 10 x, ``masked_f32_pair_readings``),
-    both kernels launched over clusters."""
-    g = torch.Generator(dev).manual_seed(s)
+    plain as torch.allclose (``f32_pair_readings``; masked at 33, 64 and
+    100 with the control without the mask above 10 x,
+    ``masked_f32_pair_readings``), both kernels launched over clusters, at
+    two seeds."""
+    g = torch.Generator(dev).manual_seed(s + 1000 * seed)
     sets = 2048 // s
     x = torch.randn(sets, s, 4, generator=g, device=dev)
     gy = torch.randn(sets, s, 104, generator=g, device=dev)
@@ -1228,7 +1278,8 @@ def test_fp32_training_above_32_matches_autograd_of_plain(dev, s, masked):
     n = (ft.CLUSTER_TRAIN_FWD_LAUNCHES["float32"],
          ft.CLUSTER_BWD_LAUNCHES["float32"])
     if masked:
-        r = cs.masked_f32_pair_readings(net, x, cs.set_mask(sets, s, 3, dev),
+        r = cs.masked_f32_pair_readings(net, x,
+                                        cs.set_mask(sets, s, 3 + seed, dev),
                                         gy)
     else:
         r = cs.f32_pair_readings(net, x, gy)

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Where the fp32 train step's pair spends its time: time variants of
-``csrc/fused_transformer_fma.cuh`` (#3 fp32 with grad and #4 fp32, the
-device code of ``csrc/fused_transformer.cu``) on one card.
+"""Where the fused SetTransformer's backward spends its time: time variants
+of ``csrc/fused_transformer_fma.cuh`` (#3 fp32 with grad and #4 fp32, the
+device code of ``csrc/fused_transformer.cu``) or, at sets above 32, of
+``csrc/fused_transformer_bf16.cu`` (#3 and #4 bf16) on one card.
 
     python3 tools/fma_variants.py [--tree DIR] [--variants base no_wgrad ...]
     python3 tools/fma_variants.py --big [--variants base no_attention_big ...]
+    python3 tools/fma_variants.py --big --dtype bfloat16 [--variants ...]
 
 Each variant is a copy of the checkout DIR's port in a temporary directory
 with named edits of that source; ``tools/fused_ab.py --pair`` builds and
@@ -15,7 +17,15 @@ build ``csrc/fused_transformer_f32_big.cu`` (the pair's instances for
 sets of 33-128) all at once, one nvcc each, and each times #3 fp32 with
 grad and #4 fp32 on the flagship's net at 1,024 sets of 64 and of 128,
 with ptxas's registers and spilled bytes of both kernels (the spills'
-traffic on the card is not measured: ncu does not run there).  ``no_rings`` (the dense
+traffic on the card is not measured: ncu does not run there); with
+``--dtype bfloat16`` the variants (``BF16_VARIANTS``) build
+``csrc/fused_transformer_bf16.cu`` and time #3 bf16 and #4 bf16 the same
+way.  The ``_big`` variants leave out a part of #4's attention at the
+call sites in its kernel, whose text is the same before and after the
+attention's redesign for the H100, so one variant reads the same phase in
+both trees: the recompute's attention (``no_attention_big``), the
+attention backward (``no_attention_bwd_big``) or its key-major pass
+(``no_attention_bwd_kv_big``).  ``no_rings`` (the dense
 products' weights straight from global memory), ``bwd_threads_512``,
 ``bwd_threads_192``, ``inline_wgrad`` and ``fwd_launch_1`` keep every
 output bitwise; the
@@ -92,20 +102,33 @@ VARIANTS = {
     # the forward at one block an SM by its launch bounds (bitwise)
     "fwd_launch_1": [("__launch_bounds__(kThreads, 2)",
                       "__launch_bounds__(kThreads, 1)")],
-    # the sets above 32: the chunked attention of #3 and of #4's
-    # recompute; #4's attention backward, both passes or the key-major one
-    "no_attention_big": [("  if constexpr (BIG)\n    attention_big<float, "
-                          "BLOCKS>(",
-                          "  if constexpr (BIG) {\n  } else if constexpr "
-                          "(false)\n    attention_big<float, BLOCKS>(")],
+    # the sets above 32: the attention of #4's recompute (both calls in
+    # its kernel); #4's attention backward, both passes or the key-major one
+    "no_attention_big": [("      attend<BIG, kBwdLanesPerItem, 1>(qkv, o, "
+                          "dm, km, bs",
+                          "      if (!BIG) attend<BIG, kBwdLanesPerItem, 1>("
+                          "qkv, o, dm, km, bs", 2)],
     "no_attention_bwd_big": [
-        ("  } else {\n    const SetRows<float, kMaxCluster> rows =\n",
-         "  } else {\n    return;\n    const SetRows<float, kMaxCluster> "
-         "rows =\n")],
+        ("      attend_bwd<BIG>(qkv, gs, r2, stats, dm, km, bs",
+         "      if (!BIG) attend_bwd<BIG>(qkv, gs, r2, stats, dm, km, bs")],
     "no_attention_bwd_kv_big": [
-        ("    attention_bwd_kv_big(qkv, rows, cluster_rows(go, dm.ld_h, "
-         "dm),\n", "    if (false) attention_bwd_kv_big(qkv, rows, "
-         "cluster_rows(go, dm.ld_h, dm),\n")],
+        (("    attention_bwd_kv_big(qkv, rows, cluster_rows(go, dm.ld_h, "
+          "dm),\n",
+          "  attention_bwd_kv_big<V, NC>(qkv, rows, cluster_rows(go, "
+          "dm.ld_h, dm),\n"),
+         ("    if (false) attention_bwd_kv_big(qkv, rows, "
+          "cluster_rows(go, dm.ld_h, dm),\n",
+          "  if (false) attention_bwd_kv_big<V, NC>(qkv, rows, "
+          "cluster_rows(go, dm.ld_h, dm),\n"))],
+    # #4's warp-tile attention at sets above 32 inlined into its kernel
+    # (bitwise)
+    "inline_attention_big": [
+        ("__device__ __noinline__ void attention_tiled_big(",
+         "__device__ __forceinline__ void attention_tiled_big("),
+        ("__device__ __noinline__ void attention_bwd_q_big(",
+         "__device__ __forceinline__ void attention_bwd_q_big("),
+        ("__device__ __noinline__ void attention_bwd_kv_big(",
+         "__device__ __forceinline__ void attention_bwd_kv_big(")],
     "no_layer_norm": [
         ("__device__ void layer_norm_tile(const float* in, float* out, "
          "const Dims& dm) {\n",
@@ -123,27 +146,93 @@ BIG_VARIANTS = ["base", "no_attention_big", "no_attention_bwd_big",
                 "no_attention_bwd_kv_big", "no_dense", "no_dense_bwd",
                 "no_wgrad", "no_layer_norm"]
 
+BF16_SOURCE = os.path.join("categoricalnf_tpu_torch", "csrc",
+                           "fused_transformer_bf16.cu")
 
-def variant_tree(tree: str, name: str, root: str) -> str:
-    """A copy of ``tree``'s port under ``root`` with ``name``'s edits."""
+# edits of BF16_SOURCE (--big --dtype bfloat16), as VARIANTS: #4 bf16's
+# attention at sets above 32, by the call sites in its kernel, and its
+# weight gradients
+BF16_VARIANTS = {
+    "base": [],
+    "no_attention_big": [("      attend<BIG>(qkv, o, dm, km, bs",
+                          "      if (!BIG) attend<BIG>(qkv, o, dm, km, bs",
+                          2)],
+    "no_attention_bwd_big": [
+        ("      attend_bwd<BIG>(qkv, gs, r2, stats, dm, km, bs",
+         "      if (!BIG) attend_bwd<BIG>(qkv, gs, r2, stats, dm, km, bs")],
+    "no_attention_bwd_kv_big": [(("  attention_bwd_kv_big(qkv, rows,",
+                                  "  attention_bwd_kv_big<KT>(qkv, "
+                                  "local_rows("),
+                                 ("  if (false) attention_bwd_kv_big(qkv, "
+                                  "rows,", "  if (false) "
+                                  "attention_bwd_kv_big<KT>(qkv, "
+                                  "local_rows("))],
+    # #4's warp-tile attention out of line (__noinline__, bitwise), as it
+    # was first written: the kernel's live registers then spill around
+    # the calls
+    "noinline_attention_big": [
+        ("__device__ __forceinline__ void attention_mma_big(",
+         "__device__ __noinline__ void attention_mma_big("),
+        ("__device__ __forceinline__ void attention_bwd_q_big(",
+         "__device__ __noinline__ void attention_bwd_q_big("),
+        ("__device__ __forceinline__ void attention_bwd_kv_big(",
+         "__device__ __noinline__ void attention_bwd_kv_big(")],
+    # parts of #4's warp-tile attention (values wrong): what the IEEE expf
+    # of its softmax costs, phase 2's reads of the other block's
+    # statistics through distributed shared memory (read from this
+    # block's), and phase 2's two products over the set
+    "fast_exp_big": [
+        ("sum[e >> 1] += expf(l[j][e]", "sum[e >> 1] += __expf(l[j][e]"),
+        ("                      ? expf(l[j][e] - mx[e >> 1])",
+         "                      ? __expf(l[j][e] - mx[e >> 1])"),
+        ("p[j][e] = key < S ? expf(logit_of(",
+         "p[j][e] = key < S ? __expf(logit_of("),
+        ("p[e] = i < S ? expf(l - mx)", "p[e] = i < S ? __expf(l - mx)")],
+    "local_stats_big": [("sts.row(min(i, S - 1)) + st_off",
+                         "sts.row(bs.offset + min(i, S - 1) % bs.n_local) "
+                         "+ st_off")],
+    "no_combine_kv_big": [
+        ("    warp_combine<KT, 2>(df, qs, hh * hd",
+         "    if (false) warp_combine<KT, 2>(df, qs, hh * hd"),
+        ("    warp_combine<KT, 1>(pf, gos, hh * hd",
+         "    if (false) warp_combine<KT, 1>(pf, gos, hh * hd")],
+    "no_wgrad": [("                                       const Dims& dm) "
+                  "{\n  const int warp = threadIdx.x >> 5, lane",
+                  "                                       const Dims& dm) "
+                  "{\n  return;\n  const int warp = threadIdx.x >> 5, "
+                  "lane")]}
+
+
+def variant_tree(tree: str, name: str, root: str,
+                 bf16: bool = False) -> str:
+    """A copy of ``tree``'s port under ``root`` with ``name``'s edits (of
+    BF16_SOURCE where ``bf16``)."""
     dst = os.path.join(root, name)
     shutil.copytree(os.path.join(tree, "categoricalnf_tpu_torch"),
                     os.path.join(dst, "categoricalnf_tpu_torch"),
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    path = os.path.join(dst, SOURCE)
+    source = BF16_SOURCE if bf16 else SOURCE
+    path = os.path.join(dst, source)
     with open(path) as f:
         text = f.read()
-    for old, new, *times in VARIANTS[name]:
-        if text.count(old) != (times[0] if times else 1):
+    for old, new, *times in (BF16_VARIANTS if bf16 else VARIANTS)[name]:
+        # a pair of tuples: the text before the attention's redesign and
+        # after, whichever the tree has
+        olds, news = (old, new) if isinstance(old, tuple) else ((old,),
+                                                                 (new,))
+        want = times[0] if times else 1
+        hits = [i for i, o in enumerate(olds) if text.count(o) == want]
+        if not hits:
             sys.exit(f"fma_variants: the edit of {name} does not match "
-                     f"{SOURCE} as it should")
-        text = text.replace(old, new)
+                     f"{source} as it should")
+        text = text.replace(olds[hits[0]], news[hits[0]])
     with open(path, "w") as f:
         f.write(text)
     return dst
 
 
 BIG_SOURCE = "fused_transformer_f32_big"
+BF16_BIG_SOURCE = "fused_transformer_bf16"
 BIG_SETS = (64, 128)
 
 
@@ -155,30 +244,38 @@ def _chip_smoke():
     return module
 
 
-def time_big(tree: str) -> dict:
-    """#3 fp32 with grad and #4 fp32 of ``tree``'s port on the flagship's
-    net at 1,024 sets of each of BIG_SETS: device ms (``cuda_ms``), and
-    ptxas's registers and spilled bytes of the two kernels."""
+def time_big(tree: str, bf16: bool = False) -> dict:
+    """#3 fp32 with grad and #4 fp32 (``bf16``: #3 and #4 bf16) of
+    ``tree``'s port on the flagship's net at 1,024 sets of each of
+    BIG_SETS: device ms (``cuda_ms``), and ptxas's registers and spilled
+    bytes of the kernels."""
     sys.path.insert(0, os.path.abspath(tree))
     cs = _chip_smoke()
     import torch
     from categoricalnf_tpu_torch.ops.cuda import build
     from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
     dev = torch.device("cuda")
-    ptxas = cs.kernel_resources(build.build_all([BIG_SOURCE])[BIG_SOURCE])
+    source = BF16_BIG_SOURCE if bf16 else BIG_SOURCE
+    ptxas = cs.kernel_resources(build.build_all([source])[source])
     out: dict = {"registers": {k: v for k, v in ptxas.items()
                                if "fused_set_transformer" in k}}
-    net = cs.flagship_net("float32", dev)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    net = cs.flagship_net("bfloat16" if bf16 else "float32", dev)
     ws = ft.flatten_params(net)
-    packed = net._packed_weights(torch.float32)
+    packed = net._packed_weights(dt)
     for s in BIG_SETS:
         g = torch.Generator(dev).manual_seed(s)
         x = torch.randn(cs.B, s, cs.D, generator=g, device=dev)
-        gy = torch.randn(cs.B, s, cs.OUT, generator=g, device=dev)
+        gy = torch.randn(cs.B, s, cs.OUT, generator=g, device=dev).to(dt)
         with torch.no_grad():
-            out[f"train_fwd_set{s}"] = cs.cuda_ms(
-                lambda: ft.FusedSetTransformer.apply(
-                    x, packed, cs.HEADS, None, *ws), 10)[0]
+            if bf16:
+                out[f"fwd_set{s}"] = cs.cuda_ms(
+                    lambda: ft.fused_set_transformer(
+                        packed, x, num_heads=cs.HEADS), 10)[0]
+            else:
+                out[f"train_fwd_set{s}"] = cs.cuda_ms(
+                    lambda: ft.FusedSetTransformer.apply(
+                        x, packed, cs.HEADS, None, *ws), 10)[0]
             out[f"bwd_set{s}"] = cs.cuda_ms(
                 lambda: ft.fused_set_transformer_bwd(
                     packed, x, gy, num_heads=cs.HEADS), 5)[0]
@@ -187,11 +284,13 @@ def time_big(tree: str) -> dict:
 
 def main_big(args) -> int:
     """Build every variant's BIG source at once, then time each alone."""
+    bf16 = args.dtype == "bfloat16"
+    source = BF16_BIG_SOURCE if bf16 else BIG_SOURCE
     code = ("import sys; sys.path.insert(0, sys.argv[1]); from "
             "categoricalnf_tpu_torch.ops.cuda import build; "
-            f"build.build_all([{BIG_SOURCE!r}])")
+            f"build.build_all([{source!r}])")
     with tempfile.TemporaryDirectory() as root:
-        trees = {name: variant_tree(args.tree, name, root)
+        trees = {name: variant_tree(args.tree, name, root, bf16)
                  for name in args.variants}
         builds = {name: subprocess.Popen(
                       [sys.executable, "-c", code, tree],
@@ -209,7 +308,7 @@ def main_big(args) -> int:
             return 1
         for name, tree in trees.items():
             run = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                  "--time-big", tree],
+                                  "--time-big", tree, "--dtype", args.dtype],
                                  capture_output=True, text=True)
             if run.returncode != 0:
                 print(run.stdout[-2000:], run.stderr[-4000:], flush=True)
@@ -224,19 +323,28 @@ def main() -> int:
     ap.add_argument("--tree", default=os.path.dirname(HERE),
                     help="checkout whose port to vary")
     ap.add_argument("--variants", nargs="+", default=None,
-                    choices=list(VARIANTS))
+                    choices=sorted(set(VARIANTS) | set(BF16_VARIANTS)))
     ap.add_argument("--big", action="store_true",
                     help="time the instances for sets of 33-128")
+    ap.add_argument("--dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="with --big: the fp32 pair or the bf16 kernels")
     ap.add_argument("--time-big", metavar="TREE", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.time_big:
-        print(json.dumps(time_big(args.time_big)), flush=True)
+        print(json.dumps(time_big(args.time_big,
+                                  args.dtype == "bfloat16")), flush=True)
         return 0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     if args.big:
-        args.variants = args.variants or BIG_VARIANTS
+        table = BF16_VARIANTS if args.dtype == "bfloat16" else VARIANTS
+        args.variants = args.variants or (
+            list(BF16_VARIANTS) if table is BF16_VARIANTS else BIG_VARIANTS)
+        unknown = set(args.variants) - set(table)
+        if unknown:
+            ap.error(f"no {args.dtype} variants {sorted(unknown)}")
         return main_big(args)
     args.variants = args.variants or [
         v for v in VARIANTS if not v.endswith("_big")]
