@@ -99,18 +99,17 @@
 // the attention (before a layer overwrites qkv or the MLP's region), and
 // in the backward between its two passes (phase 2 reads the other block's
 // queries, output cotangents and softmax statistics) and after them.
-// The forward's attention holds 32 keys' logits at a time: the softmax
-// statistics online, then the probabilities from the final max and sum, so
-// that they round where plain_forward rounds them (attention_big, one
-// thread a (head, row)).  The backward's runs on the tensor cores, a warp
-// a head's 16 rows against the whole set (attention_mma_big for the
-// recompute, which keeps the rows' statistics; attention_bwd_q_big
-// query-major, then dK and dV key-major over both blocks' queries,
-// attention_bwd_kv_big: no block adds into another's rows).  The
+// Both kernels' attention runs on the tensor cores, a warp a head's 16
+// rows against the whole set (attention_mma_big: the forward's, and the
+// backward's recompute, which keeps the rows' statistics;
+// attention_bwd_q_big query-major, then dK and dV key-major over both
+// blocks' queries, attention_bwd_kv_big: no block adds into another's
+// rows), so up to 64 rows the forward's output is what the recompute
+// rebuilds; above, the forward sums a row's softmax over two halves of
+// the keys (attention_mma_halves), in another order.  The
 // weight-gradient partials stay one a block.  Bound as above: at the
 // set-64 run's 65,536 rows the forward does 23.9 GFLOP (24 us at 989
-// TFLOP/s); the forward's attention on the CUDA cores takes most of its
-// time (PERF.md).
+// TFLOP/s); it is latency-bound (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -126,7 +125,7 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSet = 32;   // largest set the unrolled attention takes
-constexpr int kMaxBigSet = 128;  // largest set handled (chunked attention)
+constexpr int kMaxBigSet = 128;  // largest set handled (BIG instances)
 constexpr int kTileTarget = 64;            // rows a tile aims for
 constexpr int kMaxMTiles = kTileTarget / 16;  // 16-row m-tiles in a tile
 constexpr int kKChunk = 4;   // k-steps whose B fragments load together
@@ -136,6 +135,11 @@ constexpr int kLnVals = 8;   // LN values a lane holds: hidden <= 256
 // memory holds three at the flagship tile, but at 16,384 rows the 256 tiles
 // fill only two an SM, and the registers of three (80 a thread) spill: the
 // kernel took 0.155 ms at three against 0.132 ms at two on an H100.
+// The BIG instance (sets of 33-128) keeps two: its attention spills at 128
+// registers, more so where a warp's 16 rows of logits span 16 n-tiles
+// (sets above 64, so those hold them in two halves), yet two blocks an SM
+// ran it 1.2-1.6x faster than one block with 255 registers and no spills
+// (PERF.md).
 constexpr int kFwdBlocks = 2;
 
 struct Dims {
@@ -734,7 +738,7 @@ struct BigSet {
   const unsigned char* km;
 };
 
-// #4's attention at sets above kMaxSet rows, on the tensor cores.  A warp
+// Attention at sets above kMaxSet rows, on the tensor cores.  A warp
 // owns a 16-row m-tile of one head: its queries' logits against the whole
 // set in the recompute and phase 1, its keys' against every query of the
 // set in phase 2, KT n-tiles of 8 (8 up to 64 rows, 16 up to 128) in the
@@ -745,15 +749,17 @@ struct BigSet {
 // n-tiles 2kk and 2kk + 1 of C are k-step kk of A), so a logit is formed
 // once a pass.  The recompute keeps each query row's softmax max and
 // 1 / sum in stats for phase 1, which adds D_i = sum_j p_ij R(gP_ij) from
-// the same tile as dQ; phase 2 reads all three.  Where a set spans two
+// the same tile as dQ; phase 2 reads all three.  #3 runs the recompute's
+// pass without the statistics (above 64 rows with its logits in two
+// halves, attention_mma_halves).  Where a set spans two
 // blocks, each pass first copies the other block's rows it reads (K and V,
 // or Q and the output cotangent) once, 16 bytes a thread, into a region of
 // its own tile that is dead during the pass (``stage``), so every operand
 // lies in the block's shared memory; a 16-row group of them comes in by
 // ldmatrix where the head width is a multiple of 8 and the group lies in
-// one buffer, else in 32-bit pairs.  Rounding points as attention_big and
-// plain_forward: logits and softmax in fp32, a masked key's logit
-// kMaskedLogit before the row's max, p rounded to bf16 before A.V and dV,
+// one buffer, else in 32-bit pairs.  Rounding points as plain_forward:
+// logits and softmax in fp32, a masked key's logit kMaskedLogit before the
+// row's max, p rounded to bf16 before A.V and dV,
 // R(gP), every output rounded once; a logit's cotangent dS (fp32) enters
 // dQ and dK as bf16 hi + lo, so the products keep 16 bits of its mantissa.
 // Rows past this block's part of the set are zero.
@@ -1098,14 +1104,17 @@ __device__ __forceinline__ void stage_other(const bf16* buf, int ld, int c0,
              stage_ld(dm.hidden));
 }
 
-// The recompute's attention (attention_big's function): out = R(sum_j
-// R(p_ij) v_j) for this block's rows of the set, and each row's softmax max
-// and 1 / sum in stats [heads, tile_pad, 3] (kv: K from column 0, V from
-// column H of the set's rows).
-template <int KT>
+// The attention of a set above kMaxSet rows: out = R(sum_j R(p_ij) v_j)
+// for this block's rows of the set (ld_out apart), and (STATS: #4's
+// recompute) each row's softmax max and 1 / sum in stats [heads,
+// tile_pad, 3] (kv: K from column 0, V from column H of the set's rows).
+// A warp reads its item's Q rows before it writes their output, and no
+// other warp reads them, so the output may go over Q.
+template <int KT, bool STATS>
 __device__ __forceinline__ void attention_mma_big(const bf16* qkv,
                                                LocalRows kv, bf16* out,
-                                               float* stats, const Dims& dm,
+                                               int ld_out, float* stats,
+                                               const Dims& dm,
                                                const BigSet& bs) {
   const int H = dm.hidden, nh = dm.heads, hd = H / nh, S = dm.set_size;
   const float inv_root = 1.0f / sqrtf((float)hd);
@@ -1146,9 +1155,9 @@ __device__ __forceinline__ void attention_mma_big(const bf16* qkv,
                       : 0.0f;
     uint32_t pf[1][KT / 2][4];
     acc_to_a<KT>(l, pf[0]);
-    warp_combine<KT, 1>(pf, kv, H + hh * hd, S, hd, fast, out, dm.ld_h,
+    warp_combine<KT, 1>(pf, kv, H + hh * hd, S, hd, fast, out, ld_out,
                         hh * hd, r0, bs.n_local);
-    if ((threadIdx.x & 3) == 0) {
+    if (STATS && (threadIdx.x & 3) == 0) {
 #pragma unroll
       for (int h2 = 0; h2 < 2; ++h2) {
         const int r = r0 + g + 8 * h2;
@@ -1159,6 +1168,92 @@ __device__ __forceinline__ void attention_mma_big(const bf16* qkv,
         }
       }
     }
+  }
+}
+
+// #3's attention at sets of 65-128 (16 n-tiles), as attention_mma_big
+// without the statistics but with a warp's logits held 8 n-tiles at a
+// time, so that two blocks fit an SM's registers: the row's max and sum
+// over the two halves of the keys under a running max (the sum of the
+// first half rescaled where the second raises the max: another order of
+// the sum than the recompute's), then each half's logits again, their
+// probabilities from the final max and 1 / sum into the A fragments of
+// P.V over the whole set.
+__device__ __forceinline__ LocalRows keys_from(LocalRows v, int k0) {
+  v.offset -= k0;
+  v.other0 -= k0;
+  return v;
+}
+
+__device__ __forceinline__ void attention_mma_halves(const bf16* qkv,
+                                                     LocalRows kv, bf16* out,
+                                                     int ld_out,
+                                                     const Dims& dm,
+                                                     const BigSet& bs) {
+  const int H = dm.hidden, nh = dm.heads, hd = H / nh, S = dm.set_size;
+  const float inv_root = 1.0f / sqrtf((float)hd);
+  const bool fast = hd % 8 == 0;
+  const int warp = threadIdx.x >> 5;
+  const int mt = (bs.n_local + 15) / 16;
+  for (int item = warp; item < nh * mt; item += kWarps) {
+    const int hh = item / mt, r0 = item % mt * 16;
+    float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int k0 = 64 * half;
+      float l[8][4];
+      warp_dots<8>(qkv, dm.ld_big, hh * hd, bs.n_local, r0,
+                   keys_from(kv, k0), hh * hd, S - k0, hd, fast, l);
+      float m[2] = {mx[0], mx[1]}, s[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + acc_col(j, e);
+          l[j][e] = key < S ? logit_of(l[j][e], inv_root, bs.km, key)
+                            : -INFINITY;
+          m[e >> 1] = fmaxf(m[e >> 1], l[j][e]);
+        }
+      m[0] = quad_max(m[0]);
+      m[1] = quad_max(m[1]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + acc_col(j, e) < S) s[e >> 1] += expf(l[j][e] - m[e >> 1]);
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        sum[h2] = sum[h2] * expf(mx[h2] - m[h2]) + s[h2];
+        mx[h2] = m[h2];
+      }
+    }
+    const float inv_sum[2] = {1.0f / quad_sum(sum[0]),
+                              1.0f / quad_sum(sum[1])};
+    uint32_t pf[1][8][4];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int k0 = 64 * half;
+      float l[8][4];
+      warp_dots<8>(qkv, dm.ld_big, hh * hd, bs.n_local, r0,
+                   keys_from(kv, k0), hh * hd, S - k0, hd, fast, l);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + acc_col(j, e);
+          l[j][e] = key < S ? expf(logit_of(l[j][e], inv_root, bs.km, key) -
+                                   mx[e >> 1]) * inv_sum[e >> 1]
+                            : 0.0f;
+        }
+      uint32_t ph[4][4];
+      acc_to_a<8>(l, ph);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) pf[0][4 * half + kk][q] = ph[kk][q];
+    }
+    warp_combine<16, 1>(pf, kv, H + hh * hd, S, hd, fast, out, ld_out,
+                        hh * hd, r0, bs.n_local);
   }
 }
 
@@ -1308,13 +1403,16 @@ __device__ __forceinline__ void attention_bwd_kv_big(const bf16* qkv,
 
 // The attention of a tile: attention() for sets up to kMaxSet rows (the
 // kernels' instances without BIG), else over the set's rows in this block
-// and, in a cluster, the other's: #3 (BLOCKS kFwdBlocks) by the chunked
-// attention_big, through distributed shared memory; #4's recompute
-// (BLOCKS 1) on the tensor cores, the other block's K and V staged in
-// ``stage``, keeping the rows' softmax statistics in stats for its
-// backward.
+// and, in a cluster, the other's, on the tensor cores, the other block's K
+// and V staged in ``stage``: #4's recompute (BLOCKS 1) keeps the rows'
+// softmax statistics in stats for its backward; #3 (BLOCKS kFwdBlocks)
+// keeps none, holds its logits in two halves above 64 rows
+// (attention_mma_halves) and stages in the region of ``out``, which is at
+// least the staged rows' size (fwd_smem_bytes), so over a cluster its
+// rows' output goes over their Q, then to ``out`` (zero past H: the
+// output projection reads the padded columns).
 template <bool BIG, int BLOCKS = 1>
-__device__ __forceinline__ void attend(const bf16* qkv, bf16* out,
+__device__ __forceinline__ void attend(bf16* qkv, bf16* out,
                                        const Dims& dm, const KeyMask& km,
                                        const BigSet& bs,
                                        float* stats = nullptr,
@@ -1323,21 +1421,31 @@ __device__ __forceinline__ void attend(const bf16* qkv, bf16* out,
     attention<BLOCKS>(qkv, out, dm, km);
     return;
   }
-  if constexpr (BLOCKS != 1) {
-    attention_big<bf16, BLOCKS>(
-        qkv, dm.ld_big,
-        set_rows_of<bf16, 2>(qkv, dm.ld_big, dm.split, bs.clustered ? 2 : 1),
-        out, dm.ld_h, dm.hidden, dm.heads, dm.set_size, bs.n_local, bs.km);
-    return;
-  }
+  constexpr bool kStats = BLOCKS == 1;
   const int H = dm.hidden;
+  if constexpr (!kStats) stage = out;
   stage_other(qkv, dm.ld_big, H, 2 * H, stage, 0, dm, bs);
   __syncthreads();
   const LocalRows kv = local_rows(qkv, dm.ld_big, H, stage, 0, dm, bs);
+  bf16* o = out;
+  int ld_o = dm.ld_h;
+  if (!kStats && bs.clustered) {
+    o = qkv;
+    ld_o = dm.ld_big;
+  }
   if (dm.set_size <= 64)
-    attention_mma_big<8>(qkv, kv, out, stats, dm, bs);
+    attention_mma_big<8, kStats>(qkv, kv, o, ld_o, stats, dm, bs);
+  else if constexpr (kStats)
+    attention_mma_big<16, kStats>(qkv, kv, o, ld_o, stats, dm, bs);
   else
-    attention_mma_big<16>(qkv, kv, out, stats, dm, bs);
+    attention_mma_halves(qkv, kv, o, ld_o, dm, bs);
+  if (kStats || !bs.clustered) return;
+  __syncthreads();
+  const bf16 zero = __float2bfloat16_rn(0.0f);
+  for (int i = threadIdx.x; i < dm.tile_pad * dm.ld_h; i += blockDim.x) {
+    const int r = i / dm.ld_h, c = i % dm.ld_h;
+    out[i] = c < H ? qkv[r * dm.ld_big + c] : zero;
+  }
 }
 
 // Its backward (stats: the recompute's; ``stage``: a region dead during
@@ -1462,7 +1570,7 @@ __host__ __device__ inline size_t smem_bytes(const Dims& dm, bool global_h) {
 // Without GLOBAL_H (every net that fits) the code is the shared layout's.
 //
 // BIG: the instance for sets above kMaxSet rows (one set a tile, over a
-// cluster of two where it does not fit one block; the chunked attention);
+// cluster of two where it does not fit one block; attention on warp tiles);
 // without it the instance is the one for sets up to kMaxSet, whose code
 // holds nothing of that.
 template <bool GLOBAL_H, bool BIG>
@@ -1646,14 +1754,24 @@ fused_set_transformer_bwd(const bf16* __restrict__ x,
 }
 
 // Shared-memory bytes of one forward block: h and a [tile, ld_h], and the
-// region that holds x, then qkv or the MLP hidden layer (all bf16).
+// region that holds x, then qkv or the MLP hidden layer (all bf16); where
+// a set spans a cluster of two, a's region also holds the other block's K
+// and V during the attention (split rows of stage_ld), and is the larger
+// of the two.
 __host__ __device__ inline int fwd_ld_big(const Dims& dm) {
   const int w = dm.ld_big > dm.ld_f ? dm.ld_big : dm.ld_f;
   return w > dm.ld_x ? w : dm.ld_x;
 }
 
+__host__ __device__ inline size_t fwd_a_elems(const Dims& dm) {
+  const size_t a = (size_t)dm.tile_pad * dm.ld_h;
+  const size_t staged = (size_t)dm.split * stage_ld(dm.hidden);
+  return dm.cluster == 2 && staged > a ? staged : a;
+}
+
 __host__ __device__ inline size_t fwd_smem_bytes(const Dims& dm) {
-  return 2 * (size_t)dm.tile_pad * (2 * dm.ld_h + fwd_ld_big(dm));
+  return 2 * ((size_t)dm.tile_pad * (dm.ld_h + fwd_ld_big(dm)) +
+              fwd_a_elems(dm));
 }
 
 // The forward: one block a tile, the same steps as the backward's phase 1
@@ -1662,7 +1780,8 @@ __host__ __device__ inline size_t fwd_smem_bytes(const Dims& dm) {
 // the MLP hidden layer.  Rows past the last set (tile <= r < tile_pad) and
 // past valid hold finite values that no valid row reads: every dense
 // product, LN and the epilogues act row by row, and attention within sets.
-// BIG as in the backward.
+// BIG as in the backward, with a last, its region the staged copy's too
+// (fwd_smem_bytes).
 template <bool BIG>
 __global__ void __launch_bounds__(kThreads, kFwdBlocks)
 fused_set_transformer_fwd(const bf16* __restrict__ x,
@@ -1674,6 +1793,10 @@ fused_set_transformer_fwd(const bf16* __restrict__ x,
   bf16* h = reinterpret_cast<bf16*>(smem_raw);  // [TP, ld_h] residual
   bf16* a = h + TP * dm.ld_h;                   // [TP, ld_h] LN / attention
   bf16* big = a + TP * dm.ld_h;                 // x, qkv, MLP hidden layer
+  if constexpr (BIG) {
+    big = a;
+    a = big + TP * fwd_ld_big(dm);
+  }
   const bool clustered = BIG && dm.cluster == 2;
   long row0;
   int valid;

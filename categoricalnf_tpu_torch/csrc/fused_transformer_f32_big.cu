@@ -5,8 +5,8 @@
 // 128), ceil(S / cluster) rows a block, so that each block keeps the
 // 32-row tile of the sets up to 32; only attention crosses blocks, through
 // distributed shared memory.  Their arithmetic is the pair's (fmaf chains,
-// fp32 LN and softmax statistics) with the chunked attention of
-// fused_transformer.cuh.  Replaces, at these sets, the TPU kernels
+// fp32 LN and softmax statistics), attention on register tiles, a warp a
+// head's 16 rows against the set (attention_tiled_big).  Replaces, at these sets, the TPU kernels
 // categoricalnf_tpu/ops/pallas/fused_transformer.py _fused_fwd and
 // _fused_bwd, which the reference runs at sets of 64 and 128 (tiles of
 // whole sets up to 128 rows).

@@ -677,14 +677,14 @@ __device__ __forceinline__ long layer_stride(int kd, int n) {
 // rings), and every row-wise phase (LN, the dense products, the MLP, the
 // weight-gradient partials, one slice a block) runs unchanged.  Attention
 // alone crosses blocks, reading the other blocks' rows through distributed
-// shared memory between cluster barriers: the forward's is the chunked
-// attention of fused_transformer.cuh (attention_big, fp32 here); the
-// backward's runs on register tiles (attention_tiled_big for the
-// recompute, attention_bwd_q_big, attention_bwd_kv_big, below) and takes
-// dQ query-major and dK, dV key-major over every block's queries, so that
-// no sum crosses blocks.  The two split a set alike; the recompute sums
-// the attention in another order than the forward, so its activations may
-// differ from the forward's in the last bits.  The backward's persistent
+// shared memory between cluster barriers, on register tiles: the
+// forward's and the backward's recompute by attention_tiled_big (the
+// forward's instance keeps no statistics), the backward's by
+// attention_bwd_q_big and attention_bwd_kv_big (below), dQ query-major and
+// dK, dV key-major over every block's queries, so that no sum crosses
+// blocks.  The two split a set alike and sum the attention in one order,
+// so the forward's output is bitwise what the recompute rebuilds, as at
+// the sets up to 32.  The backward's persistent
 // grid walks the sets a cluster at a time.  The instances without BIG hold
 // none of this: their code is the one of the sets up to 32.
 
@@ -866,11 +866,12 @@ __device__ __forceinline__ void tile_combine(
   }
 }
 
-// The recompute's attention (attention_big's function): out = sum_j p_ij
-// v_j for this block's rows of the set, and each row's softmax max and
-// 1 / sum in stats [heads, tile_pad, 3] (kv: the set's qkv rows in every
-// block of its cluster).
-template <int V, int NC>
+// The attention of a set above kMaxSet rows: out = sum_j p_ij v_j for
+// this block's rows of the set, and (STATS: #4's recompute, in blocks of
+// kBwdThreads; else #3, of kThreads) each row's softmax max and 1 / sum in
+// stats [heads, tile_pad, 3] (kv: the set's qkv rows in every block of
+// its cluster).  An instance a kernel, each out of line.
+template <int V, int NC, bool STATS>
 __device__ __noinline__ void attention_tiled_big(
     const float* qkv, SetRows<float, kMaxCluster> kv, float* out,
     float* stats, const Dims& dm, const BigSet& bs) {
@@ -879,7 +880,8 @@ __device__ __noinline__ void attention_tiled_big(
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rg = lane & 3, cg = lane >> 2;
   const int mt = (bs.n_local + 15) / 16;
-  for (int item = warp; item < nh * mt; item += kBwdThreads / 32) {
+  constexpr int kItemWarps = (STATS ? kBwdThreads : kThreads) / 32;
+  for (int item = warp; item < nh * mt; item += kItemWarps) {
     const int hh = item / mt, r0 = item % mt * 16;
     float l[4][NC];
     tile_dots<V, NC>(qkv, dm.ld_big, hh * hd, bs.n_local, r0, kv,
@@ -907,7 +909,7 @@ __device__ __noinline__ void attention_tiled_big(
     }
     tile_combine<V, NC>(l, kv, 2 * H + hh * hd, S, hd, out, dm.ld_h,
                         hh * hd, r0, bs.n_local);
-    if (cg == 0) {
+    if (STATS && cg == 0) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = r0 + rg + 4 * i;
@@ -925,10 +927,9 @@ __device__ __noinline__ void attention_tiled_big(
 // The attention of a tile between barriers: P lanes an item, the block's
 // barriers; BIG over the block's part of its set between cluster barriers
 // (the first orders the other blocks' qkv before the reads, the second the
-// reads before their next writes): #3 (BLOCKS 2) by the chunked
-// attention_big, #4's recompute (BLOCKS 1) on register tiles
-// (attention_tiled_big, at the set's head width and size), keeping the
-// rows' softmax statistics in stats for its backward.
+// reads before their next writes), on register tiles (attention_tiled_big,
+// at the set's head width and size): #4's recompute (BLOCKS 1) keeps the
+// rows' softmax statistics in stats for its backward, #3 (BLOCKS 2) none.
 template <bool BIG, int P, int BLOCKS>
 __device__ __forceinline__ void attend(const float* qkv, float* out,
                                        const Dims& dm, const KeyMask& km,
@@ -938,18 +939,15 @@ __device__ __forceinline__ void attend(const float* qkv, float* out,
   if constexpr (BIG) {
     const SetRows<float, kMaxCluster> kv = cluster_rows(qkv, dm.ld_big, dm);
     const bool v4 = (dm.hidden / dm.heads) % 4 == 0;
-    if constexpr (BLOCKS != 1)
-      attention_big<float, BLOCKS>(qkv, dm.ld_big, kv, out, dm.ld_h,
-                                   dm.hidden, dm.heads, dm.set_size,
-                                   bs.n_local, bs.km);
-    else if (dm.set_size <= 2 * kMaxSet && v4)
-      attention_tiled_big<4, 8>(qkv, kv, out, stats, dm, bs);
+    constexpr bool kStats = BLOCKS == 1;
+    if (dm.set_size <= 2 * kMaxSet && v4)
+      attention_tiled_big<4, 8, kStats>(qkv, kv, out, stats, dm, bs);
     else if (dm.set_size <= 2 * kMaxSet)
-      attention_tiled_big<1, 8>(qkv, kv, out, stats, dm, bs);
+      attention_tiled_big<1, 8, kStats>(qkv, kv, out, stats, dm, bs);
     else if (v4)
-      attention_tiled_big<4, 16>(qkv, kv, out, stats, dm, bs);
+      attention_tiled_big<4, 16, kStats>(qkv, kv, out, stats, dm, bs);
     else
-      attention_tiled_big<1, 16>(qkv, kv, out, stats, dm, bs);
+      attention_tiled_big<1, 16, kStats>(qkv, kv, out, stats, dm, bs);
   } else {
     attention<P>(qkv, out, dm, km);
   }
@@ -958,7 +956,10 @@ __device__ __forceinline__ void attend(const float* qkv, float* out,
 
 // The forward of a differentiable call: the backward's phase 1 with one
 // residual stream and the output layer.  BIG: a block a part of a set, as
-// above, the grid a cluster a set.
+// above, the grid a cluster a set.  Two blocks an SM, BIG too: its
+// attention spills at 128 registers (a lane's 4 x 16 logits at 128 rows),
+// yet ran 1.2-1.4x faster than one block with 255 registers, and as fast
+// as its logits in two halves (PERF.md).
 template <bool BIG>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_set_transformer_fwd(const float* __restrict__ x,

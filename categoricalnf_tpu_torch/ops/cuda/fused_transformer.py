@@ -67,9 +67,10 @@ BF16_TILE_TARGET = 64  # both bf16 kernels
 F32_TILE_TARGET = 32  # the fp32 forward; 16 where a net does not fit
 F32_MIN_TILE = 16
 F32_SLACK = 8  # floats past the fp32 forward's last buffer
-# bf16 forward blocks an SM its launch bounds give registers for (kFwdBlocks)
+# bf16 forward blocks an SM its launch bounds give registers for
+# (kFwdBlocks), its BIG instance's too
 FWD_BLOCKS = 2
-# the same for the fp32 FMA forward (its __launch_bounds__)
+# the same for the fp32 FMA forward (its __launch_bounds__), BIG too
 FMA_FWD_BLOCKS = 2
 ROW_PAD = 8  # the fp32 tiles' rows are padded to a multiple of this
 MAX_HIDDEN_BF16 = 256  # LN rows held in registers, 8 values a lane
@@ -279,7 +280,9 @@ def bf16_big_stage(set_size: int, hidden: int, cluster: int) -> tuple:
     ``pad16(2 hidden) + 8`` wide; and the two adjacent [tile_pad, ld_h]
     buffers of its tile that a pass leaves dead and the copy goes to (the
     attention output and h after it in phase 1 and 2, h after it and the
-    cotangent buffer in the recompute).  No copy at one block."""
+    cotangent buffer in the recompute).  No copy at one block.  #3 bf16
+    stages K and V alike, in the region of its attention output
+    (``fwd_shape``)."""
     tile = split_rows(set_size, cluster)
     rows = tile if cluster > 1 else 0
     return (2 * rows * (pad16(2 * hidden) + 8),
@@ -317,7 +320,10 @@ def fwd_shape(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
     ``split_rows`` of it on each block of a cluster of two;
     three bf16 buffers, h and the LN/attention output [tile, H] and the
     region for x, qkv or the MLP hidden layer, rows a multiple of 16 plus 8
-    wide.  fp32: ``_f32_fwd_layout``'s."""
+    wide; over a cluster the LN/attention output's region also holds the
+    other block's K and V during the attention (``bf16_big_stage``'s
+    bytes; the output goes over Q meanwhile) and is the larger of the two
+    (``fwd_smem_bytes`` in the kernel).  fp32: ``_f32_fwd_layout``'s."""
     if dtype != torch.bfloat16:
         return _f32_fwd_layout(set_size, in_dim, hidden, mlp)
     ld_h = pad16(hidden) + 8
@@ -331,7 +337,9 @@ def fwd_shape(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
         choices = [(_tile(set_size, target, 16)[0], 1)
                    for target in (BF16_TILE_TARGET, BF16_TILE_TARGET // 2)]
     for tile, cluster in choices:
-        smem = 2 * pad16(tile) * (2 * ld_h + ld_big)
+        a = max(2 * pad16(tile) * ld_h,
+                bf16_big_stage(set_size, hidden, cluster)[0])
+        smem = 2 * pad16(tile) * (ld_h + ld_big) + a
         if smem <= MAX_SMEM:
             break
     return tile, smem, cluster

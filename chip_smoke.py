@@ -757,25 +757,30 @@ SMALL_SET_DIGESTS = {
 # b6a0554 that made that change (tools/set_digests.py on its tree): #4
 # bf16's and #4 fp32's BIG instances at 64 and 128, whose sums it
 # reordered (QK^T and PV on mma.sync in bf16, register tiles in fp32).
+# From the tree of the change after cb41803 that moved #3's BIG attention
+# to the same warp tiles (tools/set_digests.py on its tree): #3 bf16's and
+# #3 fp32 with grad's BIG instances at 64, 128 and 128 masked, whose sums
+# it reordered (#3 fp32 with grad's now #4's recompute; #3 bf16's above
+# 64 rows with its row sums over two halves of the keys).
 PAIR_AND_BIG_SET_DIGESTS = {
     "train_fwd_float32_set16": "36b0c115040615d3",
     "bwd_float32_set16": "6d411fa7a17525b8",
     "train_fwd_float32_set24": "6832036f752837f5",
     "bwd_float32_set24": "e582ecbe0c870e00",
-    "fwd_bfloat16_set64": "2bad0d7a43486e53",
+    "fwd_bfloat16_set64": "c1795036cdbfbbaf",
     "bwd_bfloat16_set64": "6a46ce2228fc8d94",
     "fwd_float32_set64": "b1e0cbbcade9f55b",
-    "train_fwd_float32_set64": "4e9acaee31ee935c",
+    "train_fwd_float32_set64": "3a48f73632cf0c1c",
     "bwd_float32_set64": "06e0bbc6bf125f27",
-    "fwd_bfloat16_set128": "96adf45a30930934",
+    "fwd_bfloat16_set128": "c47ed46a3e01ce60",
     "bwd_bfloat16_set128": "2763b1292b9398bf",
     "fwd_float32_set128": "560ff3a42bbcfab6",
-    "train_fwd_float32_set128": "117b98ca87f4b7fb",
+    "train_fwd_float32_set128": "d32f0bae8c88cbb2",
     "bwd_float32_set128": "53d248d3aa257314",
-    "fwd_bfloat16_set128_masked": "bec2a2570d20276b",
+    "fwd_bfloat16_set128_masked": "ae8c30a788764a8c",
     "bwd_bfloat16_set128_masked": "76beff9943c6849d",
     "fwd_float32_set128_masked": "a77b00a3d547d202",
-    "train_fwd_float32_set128_masked": "a331aad78041fb1e",
+    "train_fwd_float32_set128_masked": "ca2a55306085870f",
     "bwd_float32_set128_masked": "b8c74ac9f4e2fa23"}
 
 

@@ -1257,6 +1257,50 @@ def test_big_sets_masked_and_cluster_forward(dev):
     cs.check_big_set_kernels(dev, (0,), {})
 
 
+@pytest.mark.parametrize("cd", ["bfloat16", "float32"])
+@pytest.mark.parametrize("s", [33, 64, 65, 128])
+def test_big_forward_on_warp_tiles_matches_plain(dev, cd, s):
+    """#3's BIG instances, whose attention runs on warp tiles: bf16, and
+    fp32 with grad (the train step's forward, over a cluster of 2 or 4),
+    at sets of ``s`` (one block, or over a cluster with the other block's
+    K and V staged) against ``plain_forward``, bf16 within BF16_FWD_REL of
+    its norm, fp32 within 1e-4 as torch.allclose; four calls bitwise equal
+    and launched; at 64 with a key mask, its control without the mask
+    above 10 x (``masked_fwd_readings``, ``masked_f32_pair_readings``)."""
+    g = torch.Generator(dev).manual_seed(s + 17)
+    sets = 4096 // s
+    x = torch.randn(sets, s, cs.D, generator=g, device=dev)
+    net = cs.flagship_net(cd, dev)
+    bf16 = cd == "bfloat16"
+    packed = net._packed_weights(getattr(torch, cd))
+    ws = ft.flatten_params(net)
+    counts = ft.LAUNCHES if bf16 else ft.CLUSTER_TRAIN_FWD_LAUNCHES
+
+    def run():
+        if bf16:
+            return ft.fused_set_transformer(packed, x, num_heads=cs.HEADS)
+        return ft.FusedSetTransformer.apply(x, packed, cs.HEADS, None, *ws)
+
+    n = counts[cd]
+    with torch.no_grad():
+        ys = [run() for _ in range(4)]
+        y_p = net.plain_forward(x)
+    torch.cuda.synchronize()
+    assert counts[cd] == n + 4
+    assert all(torch.equal(y, ys[0]) for y in ys[1:])
+    if bf16:
+        assert cs.rel_err(ys[0], y_p) <= cs.BF16_FWD_REL
+    else:
+        assert cs.allclose_err(ys[0], y_p) <= 1e-4
+    if s == 64:
+        mask = cs.set_mask(sets, s, 5, dev)
+        if bf16:
+            cs.masked_fwd_readings(net, x, mask, cs.BF16_FWD_REL)
+        else:
+            gy = torch.randn(sets, s, cs.OUT, generator=g, device=dev)
+            cs.masked_f32_pair_readings(net, x, mask, gy)
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("s,masked", [(33, False), (64, False),
                                       (100, False), (128, False),

@@ -25,10 +25,17 @@ call sites in its kernel, whose text is the same before and after the
 attention's redesign for the H100, so one variant reads the same phase in
 both trees: the recompute's attention (``no_attention_big``), the
 attention backward (``no_attention_bwd_big``) or its key-major pass
-(``no_attention_bwd_kv_big``).  ``no_rings`` (the dense
-products' weights straight from global memory), ``bwd_threads_512``,
-``bwd_threads_192``, ``inline_wgrad`` and ``fwd_launch_1`` keep every
-output bitwise; the
+(``no_attention_bwd_kv_big``); ``no_attention_fwd_big`` leaves out #3's
+attention at its call site in the forward, likewise the same text before
+and after #3's redesign, in both dtypes.  #3's register routes at sets
+above 64 (edits of a tree after that redesign): in bf16
+``big_fwd_unsplit`` holds a warp's 16 n-tiles of logits whole at two
+blocks an SM, ``big_fwd_launch_1`` at one; in fp32 ``fwd_launch_1``
+(under ``--big``) gives the BIG instance one block an SM, and
+``big_fwd_halves`` holds a lane's logits in two halves.  ``no_rings``
+(the dense products' weights straight from global memory),
+``bwd_threads_512``, ``bwd_threads_192``, ``inline_wgrad`` and
+``fwd_launch_1`` keep every output bitwise; the
 others leave a phase out or change its arithmetic, give wrong gradients
 and say only what that phase costs.  The edits match
 the source as this tool was written: an edit that no longer matches stops
@@ -50,6 +57,80 @@ import tempfile
 HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join("categoricalnf_tpu_torch", "csrc",
                       "fused_transformer_fma.cuh")
+
+# #3 fp32 with grad's BIG instance (two blocks an SM, 128 registers) with
+# its attention at sets above 64 holding a lane's 4 x 16 logits in two
+# halves of 4 x 8 under a running max: the statistics over both halves,
+# then each half's logits again and its products with V added to the
+# output (sums in another order: not bitwise)
+_F32_HALVES = """// #3's attention at sets of 65-128 in two halves of the keys (a
+// running max), at two blocks an SM.
+template <int V>
+__device__ __noinline__ void attention_tiled_halves(
+    const float* qkv, SetRows<float, kMaxCluster> kv, float* out,
+    const Dims& dm, const BigSet& bs) {
+  const int H = dm.hidden, nh = dm.heads, hd = H / nh, S = dm.set_size;
+  const float inv_root = 1.0f / sqrtf((float)hd);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int cg = lane >> 2;
+  const int mt = (bs.n_local + 15) / 16;
+  for (int item = warp; item < nh * mt; item += kThreads / 32) {
+    const int hh = item / mt, r0 = item % mt * 16;
+    float mx[4], sum[4], inv_sum[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      mx[i] = -INFINITY;
+      sum[i] = 0.0f;
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int k0 = 64 * half;
+      float l[4][8];
+      tile_dots<V, 8>(qkv, dm.ld_big, hh * hd, bs.n_local, r0, kv,
+                      H + hh * hd, S, hd, l, k0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float m = mx[i];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int key = k0 + cg + 8 * c;
+          l[i][c] = key < S ? logit_of(l[i][c], inv_root, bs.km, key)
+                            : -INFINITY;
+          m = fmaxf(m, l[i][c]);
+        }
+        m = row_max(m);
+        float s = 0.0f;
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          if (k0 + cg + 8 * c < S) s += expf(l[i][c] - m);
+        sum[i] = sum[i] * expf(mx[i] - m) + s;
+        mx[i] = m;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) inv_sum[i] = 1.0f / row_sum(sum[i]);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int k0 = 64 * half;
+      float l[4][8];
+      tile_dots<V, 8>(qkv, dm.ld_big, hh * hd, bs.n_local, r0, kv,
+                      H + hh * hd, S, hd, l, k0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int key = k0 + cg + 8 * c;
+          l[i][c] = key < S ? expf(logit_of(l[i][c], inv_root, bs.km, key) -
+                                   mx[i]) * inv_sum[i]
+                            : 0.0f;
+        }
+      tile_combine<V, 8>(l, kv, 2 * H + hh * hd, S, hd, out, dm.ld_h,
+                         hh * hd, r0, bs.n_local, k0);
+    }
+  }
+}
+
+"""
 
 # (text, replacement[, how many times the text occurs]) edits of the
 # source, by variant
@@ -99,9 +180,44 @@ VARIANTS = {
     # the weight gradients inlined into the kernel (bitwise)
     "inline_wgrad": [("__device__ __noinline__ void wgrad_tile(",
                       "__device__ void wgrad_tile(")],
-    # the forward at one block an SM by its launch bounds (bitwise)
+    # the forward at one block an SM by its launch bounds (bitwise; under
+    # --big its BIG instance)
     "fwd_launch_1": [("__launch_bounds__(kThreads, 2)",
                       "__launch_bounds__(kThreads, 1)")],
+    # the sets above 32: #3's attention, by its call site in the forward
+    "no_attention_fwd_big": [("    attend<BIG, 1, 2>(big, a, dm, km, bs);",
+                              "    if (!BIG) attend<BIG, 1, 2>(big, a, dm, "
+                              "km, bs);")],
+    # #3's BIG instance with its logits at sets above 64 in two halves
+    # (_F32_HALVES)
+    "big_fwd_halves": [
+        ("    float (&acc)[4][NC]) {", "    float (&acc)[4][NC], int k0 = 0) {"),
+        ("      ldv<V>(bv, b.row(min(cg + 8 * c, nb - 1)) + bcol + d0);",
+         "      ldv<V>(bv, b.row(min(k0 + cg + 8 * c, nb - 1)) + bcol + d0);"),
+        ("    int nb, int hd, float* out, int ld_out, int ocol, int r0, "
+         "int n_out) {",
+         "    int nb, int hd, float* out, int ld_out, int ocol, int r0, "
+         "int n_out, int k0 = 0) {"),
+        ("      const float* br = b.row(min(cg + 8 * c, nb - 1)) + bcol + d0;",
+         "      const float* br = b.row(min(k0 + cg + 8 * c, nb - 1)) + bcol "
+         "+ d0;"),
+        ("      if (V == 4 && d + 4 <= hd) {\n        stv<4>(o, h4);",
+         "      if (k0 > 0)\n        for (int k = 0; k < 4; ++k)\n"
+         "          if (d + k < hd) h4[k] += o[k];\n"
+         "      if (V == 4 && d + 4 <= hd) {\n        stv<4>(o, h4);"),
+        ("// The attention of a tile between barriers: P lanes an item,",
+         _F32_HALVES + "// The attention of a tile between barriers: P lanes "
+         "an item,"),
+        ("      attention_tiled_big<4, 16, kStats>(qkv, kv, out, stats, dm, "
+         "bs);",
+         "      if constexpr (kStats) attention_tiled_big<4, 16, kStats>(qkv, "
+         "kv, out, stats, dm, bs); else attention_tiled_halves<4>(qkv, kv, "
+         "out, dm, bs);"),
+        ("      attention_tiled_big<1, 16, kStats>(qkv, kv, out, stats, dm, "
+         "bs);",
+         "      if constexpr (kStats) attention_tiled_big<1, 16, kStats>(qkv, "
+         "kv, out, stats, dm, bs); else attention_tiled_halves<1>(qkv, kv, "
+         "out, dm, bs);")],
     # the sets above 32: the attention of #4's recompute (both calls in
     # its kernel); #4's attention backward, both passes or the key-major one
     "no_attention_big": [("      attend<BIG, kBwdLanesPerItem, 1>(qkv, o, "
@@ -142,7 +258,8 @@ VARIANTS = {
 
 
 # the variants that --big runs unless told others
-BIG_VARIANTS = ["base", "no_attention_big", "no_attention_bwd_big",
+BIG_VARIANTS = ["base", "no_attention_fwd_big", "no_attention_big",
+                "no_attention_bwd_big",
                 "no_attention_bwd_kv_big", "no_dense", "no_dense_bwd",
                 "no_wgrad", "no_layer_norm"]
 
@@ -154,6 +271,25 @@ BF16_SOURCE = os.path.join("categoricalnf_tpu_torch", "csrc",
 # weight gradients
 BF16_VARIANTS = {
     "base": [],
+    # #3 bf16's attention at sets above 32, by its call site in the forward
+    "no_attention_fwd_big": [
+        ("    attend<BIG, kFwdBlocks>(big, a, dm, km, bs);",
+         "    if (!BIG) attend<BIG, kFwdBlocks>(big, a, dm, km, bs);")],
+    # #3 bf16's BIG instance with its logits at sets above 64 whole (16
+    # n-tiles, as #4's recompute: not bitwise), at two blocks an SM or, by
+    # its launch bounds, at one
+    "big_fwd_unsplit": [("    attention_mma_halves(qkv, kv, o, ld_o, dm, "
+                         "bs);",
+                         "    attention_mma_big<16, kStats>(qkv, kv, o, ld_o, "
+                         "stats, dm, bs);")],
+    "big_fwd_launch_1": [("    attention_mma_halves(qkv, kv, o, ld_o, dm, "
+                          "bs);",
+                          "    attention_mma_big<16, kStats>(qkv, kv, o, "
+                          "ld_o, stats, dm, bs);"),
+                         ("__launch_bounds__(kThreads, kFwdBlocks)\n"
+                          "fused_set_transformer_fwd(",
+                          "__launch_bounds__(kThreads, BIG ? 1 : kFwdBlocks)"
+                          "\nfused_set_transformer_fwd(")],
     "no_attention_big": [("      attend<BIG>(qkv, o, dm, km, bs",
                           "      if (!BIG) attend<BIG>(qkv, o, dm, km, bs",
                           2)],
