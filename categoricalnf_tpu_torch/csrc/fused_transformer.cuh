@@ -3,9 +3,9 @@
 // (fused_transformer_bf16.cu) and the 3xTF32 forward
 // (fused_transformer_tf32x3.cu): the compute-dtype casts, tanh-gelu and its
 // derivative, the layout of the flat weight gradient, the fixed-order sum
-// of the backward's per-block gradient slices, the masked logit, and the
-// attention of sets above 32 rows, whose rows may lie in the blocks of a
-// thread-block cluster.
+// of the backward's per-block gradient slices, the masked logit, and, for
+// sets above 32 rows, the addressing of a set's rows over the blocks of a
+// thread-block cluster, its launch and its barrier.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -95,22 +95,13 @@ __global__ void reduce_wgrad(const float* __restrict__ part, int slices,
 
 // ---- Sets above 32 rows ---------------------------------------------------
 //
-// The attention of the sets of 1..32 rows holds a query's logits over its
-// whole set in registers, its loops unrolled to the set.  Above 32 (up to
-// 128, the reference's largest Pallas tile of whole sets) a thread holds
-// the logits of kKeyChunk keys at a time: a first pass takes the row's
-// softmax max and sum online over the chunks (a running max, the sum
-// rescaled when it rises), a second recomputes each chunk's logits and
-// forms the probabilities p = exp(l - max) / sum from the final statistics,
-// so they are rounded where the plain path rounds them (bf16: before A.V),
-// and A.V sums over the keys in their order.  A tile holds one set.  Where
-// a set's tile does not fit in one block's shared memory it is split over
-// the blocks of a cluster (rows r split .. (r + 1) split - 1 in rank r),
-// and a block reads the others' rows through distributed shared memory
-// (SetRows); every row-wise phase stays in its own block.
-
-constexpr int kKeyChunk = 32;  // keys whose logits a thread holds at once
-constexpr int kDBlock = 32;    // head dimensions summed at once
+// Up to 128 rows (the reference's largest Pallas tile of whole sets) a tile
+// holds one set.  Where a set is split over the blocks of a cluster (rows r
+// split .. (r + 1) split - 1 in rank r), a block reads the others' rows
+// through distributed shared memory (SetRows); every row-wise phase stays
+// in its own block.  Each kernel's attention over the set is its own (warp
+// tiles of the tensor cores in bf16 and 3xTF32, register tiles of the FMA
+// units in fused_transformer_tiles.cuh).
 
 // The rows of one set over the N blocks of a cluster: row j at base[r] +
 // (j - r split) ld in rank r = j / split (every base the same buffer with
@@ -191,127 +182,6 @@ __device__ __forceinline__ void set_sync(bool clustered) {
     cg::this_cluster().sync();
   else
     __syncthreads();
-}
-
-// dot[jj] = sum_{d < hd} mine[d] rows.row(j0 + jj)[off + d] for jj < n, in
-// the order of d from 0 (mine: this thread's row, 8 values at a time in
-// registers).
-template <typename T, int N>
-__device__ __forceinline__ void chunk_dots(const T* mine,
-                                           const SetRows<T, N>& rows, int off,
-                                           int hd, int j0, int n,
-                                           float (&dot)[kKeyChunk]) {
-#pragma unroll
-  for (int jj = 0; jj < kKeyChunk; ++jj) dot[jj] = 0.0f;
-  for (int d0 = 0; d0 < hd; d0 += 8) {
-    float v[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      v[e] = d0 + e < hd ? Cd<T>::load(mine, d0 + e) : 0.0f;
-#pragma unroll
-    for (int jj = 0; jj < kKeyChunk; ++jj) {
-      if (jj < n) {
-        const T* rj = rows.row(j0 + jj) + off + d0;
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          if (d0 + e < hd) dot[jj] = fmaf(v[e], Cd<T>::load(rj, e), dot[jj]);
-      }
-    }
-  }
-}
-
-// The scaled logits of query q against keys j0 .. j0 + n - 1 of the set
-// (their columns from ``off``), kMaskedLogit for a masked key (km: one byte
-// a row of the set, 0 = masked; null = none).
-template <typename T, int N>
-__device__ __forceinline__ void chunk_logits(const T* q,
-                                             const SetRows<T, N>& keys,
-                                             int off, int hd, int j0, int n,
-                                             float inv_root,
-                                             const unsigned char* km,
-                                             float (&l)[kKeyChunk]) {
-  chunk_dots<T>(q, keys, off, hd, j0, n, l);
-#pragma unroll
-  for (int jj = 0; jj < kKeyChunk; ++jj)
-    if (jj < n)
-      l[jj] = km != nullptr && km[j0 + jj] == 0 ? kMaskedLogit
-                                                : l[jj] * inv_root;
-}
-
-// The softmax max and sum of query q's logits over the S keys, online over
-// chunks of kKeyChunk.
-template <typename T, int N>
-__device__ __forceinline__ void softmax_stats(const T* q,
-                                              const SetRows<T, N>& keys,
-                                              int off, int hd, int S,
-                                              float inv_root,
-                                              const unsigned char* km,
-                                              float& mx, float& sum) {
-  mx = -INFINITY;
-  sum = 0.0f;
-  for (int j0 = 0; j0 < S; j0 += kKeyChunk) {
-    const int n = min(kKeyChunk, S - j0);
-    float l[kKeyChunk];
-    chunk_logits<T>(q, keys, off, hd, j0, n, inv_root, km, l);
-    float cm = mx;
-#pragma unroll
-    for (int jj = 0; jj < kKeyChunk; ++jj)
-      if (jj < n) cm = fmaxf(cm, l[jj]);
-    float s = 0.0f;
-#pragma unroll
-    for (int jj = 0; jj < kKeyChunk; ++jj)
-      if (jj < n) s += expf(l[jj] - cm);
-    sum = sum * expf(mx - cm) + s;
-    mx = cm;
-  }
-}
-
-// Attention of the set's n_local query rows in this block (qkv: [rows, ld]
-// with q, k, v at columns 0, H, 2H; kv: the set's qkv rows, every block's),
-// one thread per (head, query row): out = R(sum_j R(p_j) v_j), p the
-// softmax of the scaled logits, R the compute dtype's rounding.  BLOCKS
-// gives each calling kernel its own out-of-line copy.
-template <typename T, int BLOCKS, int N>
-__device__ __noinline__ void attention_big(const T* qkv, int ld,
-                                           SetRows<T, N> kv, T* out,
-                                           int ld_out, int H, int nh, int S,
-                                           int n_local,
-                                           const unsigned char* km) {
-  const int hd = H / nh;
-  const float inv_root = 1.0f / sqrtf((float)hd);
-  for (int item = threadIdx.x; item < n_local * nh; item += blockDim.x) {
-    const int hh = item / n_local;
-    const int r = item % n_local;
-    const T* q = qkv + r * ld + hh * hd;
-    float mx, sum;
-    softmax_stats<T>(q, kv, H + hh * hd, hd, S, inv_root, km, mx, sum);
-    const float inv_sum = 1.0f / sum;
-    for (int db = 0; db < hd; db += kDBlock) {
-      float acc[kDBlock];
-#pragma unroll
-      for (int dd = 0; dd < kDBlock; ++dd) acc[dd] = 0.0f;
-      for (int j0 = 0; j0 < S; j0 += kKeyChunk) {
-        const int n = min(kKeyChunk, S - j0);
-        float l[kKeyChunk];
-        chunk_logits<T>(q, kv, H + hh * hd, hd, j0, n, inv_root, km, l);
-#pragma unroll
-        for (int jj = 0; jj < kKeyChunk; ++jj) {
-          if (jj < n) {
-            const float p = Cd<T>::round(expf(l[jj] - mx) * inv_sum);
-            const T* vj = kv.row(j0 + jj) + 2 * H + hh * hd + db;
-#pragma unroll
-            for (int dd = 0; dd < kDBlock; ++dd)
-              if (db + dd < hd)
-                acc[dd] = fmaf(p, Cd<T>::load(vj, dd), acc[dd]);
-          }
-        }
-      }
-      T* o = out + r * ld_out + hh * hd + db;
-#pragma unroll
-      for (int dd = 0; dd < kDBlock; ++dd)
-        if (db + dd < hd) o[dd] = Cd<T>::store(acc[dd]);
-    }
-  }
 }
 
 }  // namespace

@@ -79,6 +79,7 @@
 #include <math.h>
 
 #include "fused_transformer.cuh"
+#include "fused_transformer_tiles.cuh"
 
 namespace {
 
@@ -146,14 +147,6 @@ struct KeyMask {
 
 __device__ __forceinline__ bool key_masked(const KeyMask& km, int r) {
   return km.m != nullptr && r < km.valid && km.m[r] == 0;
-}
-
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void sts4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
 }
 
 __device__ __forceinline__ float4 ldg4(const float* p) {
@@ -461,31 +454,6 @@ __device__ void layer_norm_tile(const float* in, float* out, const Dims& dm) {
   }
 }
 
-// V values of a row at once: a float4 where the head width allows it.
-template <int V>
-__device__ __forceinline__ void ldv(float (&v)[V], const float* p) {
-  if constexpr (V == 4) {
-    const float4 t = lds4(p);
-    v[0] = t.x;
-    v[1] = t.y;
-    v[2] = t.z;
-    v[3] = t.w;
-  } else {
-#pragma unroll
-    for (int u = 0; u < V; ++u) v[u] = p[u];
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void stv(float* p, const float (&v)[V]) {
-  if constexpr (V == 4) {
-    sts4(p, make_float4(v[0], v[1], v[2], v[3]));
-  } else {
-#pragma unroll
-    for (int u = 0; u < V; ++u) p[u] = v[u];
-  }
-}
-
 // The attention passes give each (head, row) item to P neighbouring lanes
 // (P = 1 or 2): lane part h = lane % P takes the set's rows j = Pm + h of
 // the products over d (each one lane's fmaf chain, as a single thread
@@ -722,207 +690,16 @@ __device__ __forceinline__ SetRows<float, kMaxCluster> cluster_rows(
   return set_rows_of<float, kMaxCluster>(mine, ld, dm.split, dm.cluster);
 }
 
-// #4's attention at sets above kMaxSet rows (BIG), on register tiles of
-// the FMA units.  A warp owns a 16-row tile of one head: its queries'
-// logits against the whole set in the recompute and phase 1, its keys'
-// against every query of the set in phase 2.  Lane l holds rows rg + 4i
-// (rg = l % 4, i < 4) of the tile against the set's rows cg + 8c (cg =
-// l / 4, c < NC: 8 up to 64 rows, 16 up to 128), so each load of V values
-// of a row (a float4 where the head width allows) feeds 4 x NC x V FMAs of
-// the dot products (``tile_dots``); the products over the set
-// (``tile_combine``) sum each lane's rows in registers and add the 8
-// lanes' sums by shuffles.  The recompute keeps each query row's softmax
-// max and 1 / sum in stats for phase 1, which adds D_i = sum_j p_ij gP_ij
-// from the same tile as dQ; phase 2 reads all three, so a pass forms a logit
-// once.  The other blocks' rows are read through distributed shared
-// memory (SetRows), V values at a time.  Every dot product over the head
-// width is one fmaf chain in the order of d, the same in every pass, so
-// phase 1 and 2 rebuild the recompute's probabilities bitwise; logits and
-// softmax in fp32, a masked key's logit kMaskedLogit before the row's max,
-// a masked logit without gradient.
-
-// A logit: the scaled dot product, or kMaskedLogit for a masked key (km:
-// the set's key mask, null: none); one product, never contracted.
-__device__ __forceinline__ float logit_of(float dot, float inv_root,
-                                          const unsigned char* km, int key) {
-  return km != nullptr && km[key] == 0 ? kMaskedLogit
-                                       : __fmul_rn(dot, inv_root);
-}
-
-// Over the 8 lanes that hold one row (xor 4, 8, 16): every lane gets the
-// same value.
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int m = 4; m < 32; m *= 2)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, m));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int m = 4; m < 32; m *= 2) v += __shfl_xor_sync(0xffffffffu, v, m);
-  return v;
-}
-
-// acc[i][c] = sum_{d < hd} a[r0 + rg + 4i][col + d] b[cg + 8c][bcol + d]
-// in the order of d (a: this block's rows, lda apart; b: the set's).  A row
-// of ``a`` from na and of ``b`` from nb reads the last valid one: the
-// callers drop those rows' results, or give their keys no weight.  No load
-// is behind a branch, so a lane issues a step's loads together.
-template <int V, int NC>
-__device__ __forceinline__ void tile_dots(
-    const float* a, int lda, int col, int na, int r0,
-    const SetRows<float, kMaxCluster>& b, int bcol, int nb, int hd,
-    float (&acc)[4][NC]) {
-  const int lane = threadIdx.x & 31, rg = lane & 3, cg = lane >> 2;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
-  for (int d0 = 0; d0 < hd; d0 += V) {
-    float av[4][V];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      ldv<V>(av[i], a + min(r0 + rg + 4 * i, na - 1) * lda + col + d0);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      float bv[V];
-      ldv<V>(bv, b.row(min(cg + 8 * c, nb - 1)) + bcol + d0);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int e = 0; e < V; ++e)
-          acc[i][c] = fmaf(av[i][e], bv[e], acc[i][c]);
-    }
-  }
-}
-
-// out[r0 + rg + 4i][ocol + d] (rows below n_out, ld_out apart) = sum over
-// the set's rows k = cg + 8c of w[i][c] b[k][bcol + d], d < hd: each lane
-// sums its rows k in their order for 8 columns at a time, then the 8 lanes
-// of its rows add their sums (a reduce-scatter over xor 16, 8 and 4), which
-// leaves lane (rg, cg) row rg + 4 (cg / 2)'s columns 4 (cg % 2) .. 4 (cg %
-// 2) + 3 of the 8.  The weights of the rows from nb are zero, and those
-// rows read the last valid one; a column past hd reads the last valid one
-// and is not stored.
-template <int V, int NC>
-__device__ __forceinline__ void tile_combine(
-    const float (&w)[4][NC], const SetRows<float, kMaxCluster>& b, int bcol,
-    int nb, int hd, float* out, int ld_out, int ocol, int r0, int n_out) {
-  const int lane = threadIdx.x & 31, rg = lane & 3, cg = lane >> 2;
-  for (int d0 = 0; d0 < hd; d0 += 8) {
-    float v[32];  // v[8i + e]: row i, column d0 + e
-#pragma unroll
-    for (int k = 0; k < 32; ++k) v[k] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const float* br = b.row(min(cg + 8 * c, nb - 1)) + bcol + d0;
-      float bv[8];
-      if (V == 4 && d0 + 8 <= hd) {
-        const float4 x = lds4(br), y = lds4(br + 4);
-        bv[0] = x.x;
-        bv[1] = x.y;
-        bv[2] = x.z;
-        bv[3] = x.w;
-        bv[4] = y.x;
-        bv[5] = y.y;
-        bv[6] = y.z;
-        bv[7] = y.w;
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) bv[e] = br[min(e, hd - 1 - d0)];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          v[8 * i + e] = fmaf(w[i][c], bv[e], v[8 * i + e]);
-    }
-    float h16[16], h8[8], h4[4];
-    const bool b16 = lane & 16, b8 = lane & 8, b4 = lane & 4;
-#pragma unroll
-    for (int k = 0; k < 16; ++k)
-      h16[k] = (b16 ? v[16 + k] : v[k]) +
-               __shfl_xor_sync(0xffffffffu, b16 ? v[k] : v[16 + k], 16);
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      h8[k] = (b8 ? h16[8 + k] : h16[k]) +
-              __shfl_xor_sync(0xffffffffu, b8 ? h16[k] : h16[8 + k], 8);
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      h4[k] = (b4 ? h8[4 + k] : h8[k]) +
-              __shfl_xor_sync(0xffffffffu, b4 ? h8[k] : h8[4 + k], 4);
-    const int r = r0 + rg + 4 * (cg >> 1), d = d0 + 4 * (cg & 1);
-    if (r < n_out) {
-      float* o = out + r * ld_out + ocol + d;
-      if (V == 4 && d + 4 <= hd) {
-        stv<4>(o, h4);
-      } else {
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          if (d + k < hd) o[k] = h4[k];
-      }
-    }
-  }
-}
-
-// The attention of a set above kMaxSet rows: out = sum_j p_ij v_j for
-// this block's rows of the set, and (STATS: #4's recompute, in blocks of
-// kBwdThreads; else #3, of kThreads) each row's softmax max and 1 / sum in
-// stats [heads, tile_pad, 3] (kv: the set's qkv rows in every block of
-// its cluster).  An instance a kernel, each out of line.
+// attention_tiled_big on a block's part of a set (STATS: #4's recompute,
+// in blocks of kBwdThreads; else #3, of kThreads).
 template <int V, int NC, bool STATS>
-__device__ __noinline__ void attention_tiled_big(
-    const float* qkv, SetRows<float, kMaxCluster> kv, float* out,
+__device__ __forceinline__ void attend_tiled(
+    const float* qkv, const SetRows<float, kMaxCluster>& kv, float* out,
     float* stats, const Dims& dm, const BigSet& bs) {
-  const int H = dm.hidden, nh = dm.heads, hd = H / nh, S = dm.set_size;
-  const float inv_root = 1.0f / sqrtf((float)hd);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rg = lane & 3, cg = lane >> 2;
-  const int mt = (bs.n_local + 15) / 16;
-  constexpr int kItemWarps = (STATS ? kBwdThreads : kThreads) / 32;
-  for (int item = warp; item < nh * mt; item += kItemWarps) {
-    const int hh = item / mt, r0 = item % mt * 16;
-    float l[4][NC];
-    tile_dots<V, NC>(qkv, dm.ld_big, hh * hd, bs.n_local, r0, kv,
-                     H + hh * hd, S, hd, l);
-    float mx[4], inv_sum[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      mx[i] = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int key = cg + 8 * c;
-        l[i][c] = key < S ? logit_of(l[i][c], inv_root, bs.km, key)
-                          : -INFINITY;
-        mx[i] = fmaxf(mx[i], l[i][c]);
-      }
-      mx[i] = row_max(mx[i]);
-      float s = 0.0f;
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-        if (cg + 8 * c < S) s += expf(l[i][c] - mx[i]);
-      inv_sum[i] = 1.0f / row_sum(s);
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-        l[i][c] = cg + 8 * c < S ? expf(l[i][c] - mx[i]) * inv_sum[i] : 0.0f;
-    }
-    tile_combine<V, NC>(l, kv, 2 * H + hh * hd, S, hd, out, dm.ld_h,
-                        hh * hd, r0, bs.n_local);
-    if (STATS && cg == 0) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = r0 + rg + 4 * i;
-        if (r < bs.n_local) {
-          float* st = stats + (hh * dm.tile_pad + r) * 3;
-          st[0] = mx[i];
-          st[1] = inv_sum[i];
-        }
-      }
-    }
-  }
+  attention_tiled_big<V, NC, STATS, (STATS ? kBwdThreads : kThreads) / 32>(
+      qkv, dm.ld_big, kv, out, dm.ld_h, stats, dm.tile_pad, dm.hidden,
+      dm.heads, dm.set_size, bs.n_local, bs.km);
 }
-
 
 // The attention of a tile between barriers: P lanes an item, the block's
 // barriers; BIG over the block's part of its set between cluster barriers
@@ -941,13 +718,13 @@ __device__ __forceinline__ void attend(const float* qkv, float* out,
     const bool v4 = (dm.hidden / dm.heads) % 4 == 0;
     constexpr bool kStats = BLOCKS == 1;
     if (dm.set_size <= 2 * kMaxSet && v4)
-      attention_tiled_big<4, 8, kStats>(qkv, kv, out, stats, dm, bs);
+      attend_tiled<4, 8, kStats>(qkv, kv, out, stats, dm, bs);
     else if (dm.set_size <= 2 * kMaxSet)
-      attention_tiled_big<1, 8, kStats>(qkv, kv, out, stats, dm, bs);
+      attend_tiled<1, 8, kStats>(qkv, kv, out, stats, dm, bs);
     else if (v4)
-      attention_tiled_big<4, 16, kStats>(qkv, kv, out, stats, dm, bs);
+      attend_tiled<4, 16, kStats>(qkv, kv, out, stats, dm, bs);
     else
-      attention_tiled_big<1, 16, kStats>(qkv, kv, out, stats, dm, bs);
+      attend_tiled<1, 16, kStats>(qkv, kv, out, stats, dm, bs);
   } else {
     attention<P>(qkv, out, dm, km);
   }

@@ -45,9 +45,10 @@
 // B fragments of the split weights loaded as one 16-byte read a lane a
 // k-step, one k-step ahead; bias, residual and tanh-gelu in the fp32
 // epilogue; the output layer's rows < valid straight to global memory.
-// LayerNorm (one warp a row) and attention (one thread per head and query
-// row, its own row in registers, the set's rows broadcast, set loops
-// unrolled only to 16 or 32) run on the CUDA cores in fp32, out of line.
+// LayerNorm (one warp a row) and, at sets up to 32, attention (one thread
+// per head and query row, its own row in registers, the set's rows
+// broadcast, set loops unrolled only to 16 or 32) run on the CUDA cores in
+// fp32, out of line.
 //
 // Key mask.  The entry point takes an optional key mask, one byte a row of
 // x (0 = the key is masked), as the reference's masked attention: the
@@ -57,34 +58,42 @@
 // leaves the arithmetic as it was.
 //
 // Sets of 33 to 128 rows: a BIG instance (the one for sets up to 32 holds
-// none of its code), a tile of one set, whole where it fits (up to 100
-// rows at the flagship's width), else half of it on each block of a
-// cluster of two; attention chunked over 32 keys at a time, reading the
-// other block's keys and values through distributed shared memory, as
-// fused_transformer_bf16.cu describes.
+// none of its code), a set over a thread-block cluster as the fp32 train
+// step's pair splits it (2 blocks up to 64 rows, 4 up to 128, ceil(S /
+// cluster) rows a block: at most 32, the tile of the sets up to 32, so
+// three blocks fit an SM's shared memory), every row-wise phase in its own
+// block; attention on warp tiles of the tensor cores in 3xTF32 (described
+// where it starts, below), reading the other blocks' keys and values
+// through distributed shared memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "fused_transformer.cuh"
+#include "fused_transformer_tiles.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSet = 32;      // largest set the unrolled attention takes
-constexpr int kMaxBigSet = 128;  // largest set handled (chunked attention)
+constexpr int kMaxBigSet = 128;  // largest set handled (BIG instance)
+constexpr int kMaxCluster = 4;   // blocks a set spans at most (BIG)
+// Rows of a set above kMaxSet that a block holds at most: the set spans
+// the fewest of 1, 2, kMaxCluster blocks that keeps it within this.
+constexpr int kBigRows = 32;
 // Rows a tile aims for (whole sets): 32, two m-tiles, three blocks an SM.
 // 64-row tiles (126 KB, one block of 8 warps an SM) took 1.66 ms against
 // 0.96 ms at the flagship on an H100.
 constexpr int kTileTarget = 32;
 constexpr int kMinTile = 16;     // the fallback where a net does not fit
 constexpr int kBlocks = 3;       // blocks an SM the launch bounds allow
-// The BIG instance's: its tile of one set (125,984 B at 64 rows, the
-// flagship's width) leaves room for one block an SM at the main path's sets
-// of 64 and 128, so the launch bounds leave it every register.
-constexpr int kBigBlocks = 1;
+// The BIG instance's: two blocks an SM (128 registers a thread; its
+// shared memory, with the stage of its heads, holds two).
+constexpr int kBigBlocks = 2;
+// 8-column steps of the head width whose fragments a warp holds at once
+// (24: the flagship's head width)
+constexpr int kAttnSteps = 3;
 constexpr int kChunk = 8;        // own-row values held in registers
 constexpr int kSlack = 8;        // floats past the last buffer (pad reads)
 
@@ -92,10 +101,12 @@ struct Dims {
   long rows;
   int set_size, in_dim, hidden, heads, layers, mlp, out_dim;
   int tile;                       // rows of a tile: whole sets, all stored
-  int cluster, split;  // blocks a set spans (1, 2); rows of it in rank 0
+  int cluster, split;  // blocks a set spans (1, 2, 4); rows of each but
+                       // the last
   int k_in, k_h, k_f;             // contraction widths padded to 8
   int n_h, n_qkv, n_f, n_out;     // output widths padded to 8
   int ld_x, ld_h, ld_qkv, ld_f, ld_big;  // shared-memory rows (floats)
+  int ld_stage;  // BIG: rows of the stage of its block's heads
 };
 
 // The 6 split layouts (embed, qkv, proj, fc1, fc2, out; layer-stacked):
@@ -352,19 +363,321 @@ __device__ __forceinline__ void attention(const float* qkv, float* out,
     attention_tile<kMaxSet>(qkv, out, dm, km, valid);
 }
 
+// ---- Sets above kMaxSet rows: attention on warp tiles -------------------
+//
+// Each block of the set's cluster takes a share of its heads (head hh in
+// block hh % cluster) for every row of the set: it first copies the q, k
+// and v columns of its heads from every block's qkv rows into a stage of
+// its own shared memory, 16 bytes a thread where the widths allow (the
+// other blocks' through distributed shared memory), so that the attention
+// reads only its own shared memory, then writes each row's output to the
+// block that holds the row.  A warp owns a 16-row m-tile of one head's
+// queries against the whole set: their logits in the fp32 accumulators of
+// mma.sync.m16n8k8 (8 n-tiles of 8 keys up to 64 rows, 16 up to 128), each
+// formed once in 3xTF32 as the dense products form theirs (the operands
+// split hi + lo as a fragment is loaded, the large term added in fp32 a
+// k-step at a time).  The row's max and sum are taken in fp32 over the 4
+// lanes of a quad by shuffles, with a masked key's logit kMaskedLogit
+// before the max and no weight past the set; the probabilities go from the
+// accumulators straight into the A fragments of P.V, also in 3xTF32:
+// n-tile kk of the logits is k-step kk of P, its elements (2t, 2t + 1) at
+// k = t and t + 4, so V's B fragment takes key 2t at k = t and key 2t + 1
+// at k = t + 4.
+
+// The hi and lo TF32 parts of a fragment's four fp32 values.
+__device__ __forceinline__ void split_a(const float (&v)[4],
+                                        uint32_t (&hi)[4],
+                                        uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    hi[i] = tf32_rna(v[i]);
+    lo[i] = tf32_rna(v[i] - __uint_as_float(hi[i]));
+  }
+}
+
+// A k-step's B fragment from its values at k = t and t + 4, in the order
+// of the split weight layouts: hi, hi, lo, lo.
+__device__ __forceinline__ float4 split_b(float x, float y) {
+  const uint32_t hx = tf32_rna(x), hy = tf32_rna(y);
+  return make_float4(__uint_as_float(hx), __uint_as_float(hy),
+                     __uint_as_float(tf32_rna(x - __uint_as_float(hx))),
+                     __uint_as_float(tf32_rna(y - __uint_as_float(hy))));
+}
+
+// The column of accumulator element e of n-tile j (its row is g or g + 8
+// as e < 2 or not).
+__device__ __forceinline__ int acc_col(int j, int e) {
+  return 8 * j + 2 * (threadIdx.x & 3) + (e & 1);
+}
+
+// Over the 4 lanes of a quad (the lanes of one accumulator row).
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// acc[j] = the 16 x 8 tile of dot products over hd of query rows r0 + g,
+// r0 + g + 8 of ``q`` with key rows k0 + 8j .. k0 + 8j + 7 of ``k`` (both
+// ld apart, from their head's column), in 3xTF32: A's fragments of
+// kAttnSteps k-steps held split, B's split as they load.  A row from n
+// reads the last valid one (the callers drop those rows' results, or give
+// their keys no weight); a column from hd reads the last valid one and
+// counts as zero in A.
+template <int KT>
+__device__ __forceinline__ void warp_dots(const float* q, const float* k,
+                                          int ld, int r0, int k0, int n,
+                                          int hd, float (&acc)[KT][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* a0 = q + min(r0 + g, n - 1) * ld;
+  const float* a1 = q + min(r0 + g + 8, n - 1) * ld;
+#pragma unroll
+  for (int j = 0; j < KT; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+  for (int d0 = 0; d0 < hd; d0 += 8 * kAttnSteps) {
+    uint32_t hi[kAttnSteps][4], lo[kAttnSteps][4];
+#pragma unroll
+    for (int s = 0; s < kAttnSteps; ++s) {
+      // A fragment: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
+      const int c0 = d0 + 8 * s + t, c1 = c0 + 4;
+      const int e0 = min(c0, hd - 1), e1 = min(c1, hd - 1);
+      const float v[4] = {c0 < hd ? a0[e0] : 0.0f, c0 < hd ? a1[e0] : 0.0f,
+                          c1 < hd ? a0[e1] : 0.0f, c1 < hd ? a1[e1] : 0.0f};
+      split_a(v, hi[s], lo[s]);
+    }
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      const float* row = k + min(k0 + 8 * j + g, n - 1) * ld;
+      float small[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int s = 0; s < kAttnSteps; ++s) {
+        if (d0 + 8 * s < hd) {
+          const int c0 = d0 + 8 * s + t;
+          mma_3xtf32(small, acc[j], hi[s], lo[s],
+                     split_b(row[min(c0, hd - 1)], row[min(c0 + 4, hd - 1)]));
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += small[e];
+    }
+  }
+}
+
+// Rows r0 + g, r0 + g + 8 of the set (those below n) of ``out`` (the
+// buffer of the block that holds each row, ld_out apart, from column oc)
+// = (ADD: out +) the sum over keys k0 + acc_col(kk, e) of p . v, p the
+// warp's probabilities in its logits' accumulator layout and v the rows of
+// ``v`` (ld apart, from its head's column), in 3xTF32, kAttnSteps n-tiles
+// of 8 columns at a time.  A key from n reads the last valid row (its p is
+// zero); a column from hd reads the last valid one and is not stored.
+template <int KT, bool ADD>
+__device__ __forceinline__ void warp_pv(const float (&p)[KT][4],
+                                        const float* v, int ld, int k0,
+                                        int n, int hd,
+                                        const SetRows<float, kMaxCluster>& out,
+                                        int oc, int r0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int n0 = 0; n0 < hd; n0 += 8 * kAttnSteps) {
+    float small[kAttnSteps][4], big[kAttnSteps][4];
+#pragma unroll
+    for (int q = 0; q < kAttnSteps; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) small[q][e] = big[q][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      // A fragment: C's elements 0, 2 (key 2t) at k = t, 1, 3 at t + 4
+      const float pv[4] = {p[kk][0], p[kk][2], p[kk][1], p[kk][3]};
+      uint32_t hi[4], lo[4];
+      split_a(pv, hi, lo);
+      const int key = k0 + 8 * kk + 2 * t;
+      const float* v0 = v + min(key, n - 1) * ld;
+      const float* v1 = v + min(key + 1, n - 1) * ld;
+#pragma unroll
+      for (int q = 0; q < kAttnSteps; ++q) {
+        if (n0 + 8 * q < hd) {
+          const int c = min(n0 + 8 * q + g, hd - 1);
+          mma_3xtf32(small[q], big[q], hi, lo, split_b(v0[c], v1[c]));
+        }
+      }
+    }
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int r = r0 + g + 8 * h2;
+      if (r >= n) continue;
+      // the row's buffer, in this block or another of the cluster
+      float* o = const_cast<float*>(out.row(r)) + oc;
+#pragma unroll
+      for (int q = 0; q < kAttnSteps; ++q)
+#pragma unroll
+        for (int e = 2 * h2; e < 2 * h2 + 2; ++e) {
+          const int d = n0 + acc_col(q, e);
+          if (d < hd) {
+            const float val = big[q][e] + small[q][e];
+            o[d] = ADD ? o[d] + val : val;
+          }
+        }
+    }
+  }
+}
+
+// The q, k and v columns of this block's heads (head rank + i cluster in
+// slot i) for every row of the set, from the qkv rows of the block that
+// holds it, to ``stage``: q, k, v one after the other, each [S, ld_stage]
+// with slot i's head at column i hd; float4 copies where every row and
+// column they touch is 16-byte aligned.  The caller syncs the block
+// after.
+__device__ __forceinline__ void stage_heads(const float* qkv, float* stage,
+                                            const Dims& dm, int rank) {
+  const int H = dm.hidden, nh = dm.heads, hd = H / nh, S = dm.set_size;
+  const int cl = dm.cluster, slots = (nh + cl - 1) / cl;
+  const SetRows<float, kMaxCluster> rows =
+      set_rows_of<float, kMaxCluster>(qkv, dm.ld_qkv, dm.split, cl);
+  const bool v4 = hd % 4 == 0 && dm.ld_qkv % 4 == 0 &&
+                  dm.ld_stage % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(qkv) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(stage) % 16 == 0;
+  const int w = v4 ? hd / 4 : hd;  // copies a head's row
+  const int total = slots * 3 * S * w;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int c = i % w, j = i / w % S, part = i / (w * S) % 3;
+    const int slot = i / (w * S * 3), hh = rank + slot * cl;
+    if (hh >= nh) continue;
+    const float* src = rows.row(j) + part * H + hh * hd;
+    float* dst = stage + (part * S + j) * dm.ld_stage + slot * hd;
+    if (v4)
+      *reinterpret_cast<float4*>(dst + 4 * c) =
+          *reinterpret_cast<const float4*>(src + 4 * c);
+    else
+      dst[c] = src[c];
+  }
+}
+
+// The attention of a set above kMaxSet rows (km: its key mask, null:
+// none) into the attention output ``out`` (ld_h apart) of the blocks that
+// hold its rows: this block's heads for every row, staged (stage_heads),
+// each warp a (head, m-tile) item, the logits of KT n-tiles; HALVES holds
+// them KT / 2 at a time: the row's max and sum over the two halves of the
+// keys under a running max (the sum of the first rescaled where the second
+// raises the max), then each half's logits again, their probabilities
+// from the final max and 1 / sum, P.V of the second half added to the
+// first's.  Between the cluster's barriers that order the qkv rows before
+// it and its reads and writes before the next writes.
+template <int KT, bool HALVES>
+__device__ __forceinline__ void attention_warp_tiles(
+    const float* qkv, float* out, float* stage, const Dims& dm, int rank,
+    const unsigned char* km) {
+  const int H = dm.hidden, nh = dm.heads, hd = H / nh, S = dm.set_size;
+  const int cl = dm.cluster, slots = (nh + cl - 1) / cl;
+  const float inv_root = 1.0f / sqrtf((float)hd);
+  const int ld = dm.ld_stage, kv_off = S * ld;  // k from q, v from k
+  stage_heads(qkv, stage, dm, rank);
+  __syncthreads();
+  const SetRows<float, kMaxCluster> orows =
+      set_rows_of<float, kMaxCluster>(out, dm.ld_h, dm.split, cl);
+  const int mt = (S + 15) / 16;
+  constexpr int kParts = HALVES ? 2 : 1;
+  constexpr int KP = KT / kParts;  // n-tiles of logits held at once
+  for (int item = threadIdx.x >> 5; item < slots * mt; item += kWarps) {
+    const int slot = item / mt, r0 = item % mt * 16;
+    const int hh = rank + slot * cl;
+    if (hh >= nh) continue;
+    const float* qh = stage + slot * hd;
+    const float* kh = qh + kv_off;
+    const float* vh = kh + kv_off;
+    float l[KP][4];
+    float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int part = 0; part < kParts; ++part) {
+      const int k0 = 8 * KP * part;
+      warp_dots<KP>(qh, kh, ld, r0, k0, S, hd, l);
+      float m[2] = {mx[0], mx[1]}, s[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < KP; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + acc_col(j, e);
+          l[j][e] = key < S ? logit_of(l[j][e], inv_root, km, key)
+                            : -INFINITY;
+          m[e >> 1] = fmaxf(m[e >> 1], l[j][e]);
+        }
+      m[0] = quad_max(m[0]);
+      m[1] = quad_max(m[1]);
+      // exp(l - m), kept as p's numerator where the logits stay whole
+#pragma unroll
+      for (int j = 0; j < KP; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x =
+              k0 + acc_col(j, e) < S ? expf(l[j][e] - m[e >> 1]) : 0.0f;
+          s[e >> 1] += x;
+          if (!HALVES) l[j][e] = x;
+        }
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        sum[h2] = part == 0 ? s[h2] : sum[h2] * expf(mx[h2] - m[h2]) + s[h2];
+        mx[h2] = m[h2];
+      }
+    }
+    const float inv_sum[2] = {1.0f / quad_sum(sum[0]),
+                              1.0f / quad_sum(sum[1])};
+#pragma unroll
+    for (int part = 0; part < kParts; ++part) {
+      const int k0 = 8 * KP * part;
+      if (HALVES) warp_dots<KP>(qh, kh, ld, r0, k0, S, hd, l);
+#pragma unroll
+      for (int j = 0; j < KP; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + acc_col(j, e);
+          if (!HALVES)
+            l[j][e] *= inv_sum[e >> 1];
+          else if (key < S)
+            l[j][e] = expf(logit_of(l[j][e], inv_root, km, key) -
+                           mx[e >> 1]) * inv_sum[e >> 1];
+          else
+            l[j][e] = 0.0f;
+        }
+      if (part == 0)
+        warp_pv<KP, false>(l, vh, ld, k0, S, hd, orows, hh * hd, r0);
+      else
+        warp_pv<KP, true>(l, vh, ld, k0, S, hd, orows, hh * hd, r0);
+    }
+  }
+}
+
+// The attention of a set above kMaxSet rows at its size: 8 n-tiles of
+// logits up to 2 kMaxSet rows, whole; 16 above, in two halves of 8 (whole,
+// they spilled about 2 KB at 128 registers and ran 1.1-1.3x slower on an
+// H100, PERF.md).
+__device__ __forceinline__ void attend_big(const float* qkv, float* out,
+                                           float* stage, const Dims& dm,
+                                           int rank,
+                                           const unsigned char* km) {
+  if (dm.set_size <= 2 * kMaxSet)
+    attention_warp_tiles<8, false>(qkv, out, stage, dm, rank, km);
+  else
+    attention_warp_tiles<16, true>(qkv, out, stage, dm, rank, km);
+}
+
 // Floats of one block's shared memory: h and a [tile, ld_h], big [tile,
-// ld_big] (x, qkv or the MLP hidden layer), and the slack that the last
-// row's padded contraction reads.
+// ld_big] (x, qkv or the MLP hidden layer), the slack that the last row's
+// padded contraction reads and, for a set above kMaxSet rows, the stage
+// of its block's heads' q, k and v [3, S, ld_stage].
 __host__ __device__ inline size_t smem_floats(const Dims& dm) {
-  return (size_t)dm.tile * (2 * dm.ld_h + dm.ld_big) + kSlack;
+  return (size_t)dm.tile * (2 * dm.ld_h + dm.ld_big) + kSlack +
+         (dm.set_size > kMaxSet ? (size_t)3 * dm.set_size * dm.ld_stage
+                                : 0);
 }
 
 // The launch bounds give registers for the three blocks an SM that shared
 // memory holds at the flagship (63 KB each).  BIG: the instance for sets
-// above kMaxSet rows (one set a tile, over a cluster of two where it does
-// not fit one block; the chunked attention); without it the instance for
-// sets up to kMaxSet, whose code holds nothing of that; its launch bounds
-// are kBigBlocks'.
+// above kMaxSet rows (a set over a cluster, attention on warp tiles);
+// without it the instance for sets up to kMaxSet, whose code holds nothing
+// of that; its launch bounds are kBigBlocks'.
 template <bool BIG>
 __global__ void __launch_bounds__(kThreads, BIG ? kBigBlocks : kBlocks)
 fused_set_transformer_fwd_tf32x3(const float* __restrict__ x,
@@ -376,14 +689,15 @@ fused_set_transformer_fwd_tf32x3(const float* __restrict__ x,
   float* h = smem;                // [T, ld_h] residual stream
   float* a = h + T * dm.ld_h;     // [T, ld_h] LN / attention output
   float* big = a + T * dm.ld_h;   // x, qkv, the MLP hidden layer
-  // a set in a cluster of two: this block's part of set blockIdx.x / 2
-  const bool clustered = BIG && dm.cluster == 2;
+  float* stage = big + T * dm.ld_big + kSlack;  // BIG
+  // a set over a cluster: this block's part of set blockIdx.x / cluster
+  const bool clustered = BIG && dm.cluster > 1;
   const int rank = clustered ? (int)cg::this_cluster().block_rank() : 0;
   long row0;
   int valid;
   if (clustered) {
-    row0 = (blockIdx.x / 2) * (long)dm.set_size + rank * dm.split;
-    valid = rank == 0 ? dm.split : dm.set_size - dm.split;
+    row0 = (blockIdx.x / dm.cluster) * (long)dm.set_size + rank * dm.split;
+    valid = min(dm.split, dm.set_size - rank * dm.split);
   } else {
     row0 = blockIdx.x * (long)T;
     const long left = dm.rows - row0;
@@ -415,12 +729,7 @@ fused_set_transformer_fwd_tf32x3(const float* __restrict__ x,
     if constexpr (!BIG)
       attention(big, a, dm, km, valid);
     else
-      attention_big<float, kBigBlocks>(
-          big, dm.ld_qkv,
-          set_rows_of<float, 2>(big, dm.ld_qkv, dm.split,
-                                clustered ? 2 : 1),
-          a, dm.ld_h,
-          H, dm.heads, dm.set_size, valid, km_set);
+      attend_big(big, a, stage, dm, rank, km_set);
     set_sync(clustered);
     mma_dense<kResidual>(a, dm.ld_h, dm.k_h,
                          wt.wt[2] + (long)l * dm.n_h * 2 * dm.k_h, dm.n_h, H,
@@ -444,6 +753,23 @@ fused_set_transformer_fwd_tf32x3(const float* __restrict__ x,
                      wt.b[5], nullptr, 0, y + row0 * dm.out_dim, valid, dm);
 }
 
+// The leading dimensions of a tile of dm.tile rows (and of the stage of a
+// set above kMaxSet: the q, k or v columns of a block's heads, ceil(heads
+// / cluster) of them), conflict-free where ``spread``, else the rows' true
+// widths; whether its shared memory fits.
+bool layout_fits(Dims& dm, bool spread, int max_smem) {
+  auto ld = [spread](int n) { return spread ? conflict_free(n) : n; };
+  dm.ld_stage = ld((dm.heads + dm.cluster - 1) / dm.cluster *
+                   (dm.hidden / dm.heads));
+  dm.ld_x = ld(dm.in_dim);
+  dm.ld_h = ld(dm.hidden);
+  dm.ld_qkv = ld(3 * dm.hidden);
+  dm.ld_f = ld(dm.mlp);
+  dm.ld_big = dm.ld_qkv > dm.ld_f ? dm.ld_qkv : dm.ld_f;
+  if (dm.ld_x > dm.ld_big) dm.ld_big = dm.ld_x;
+  return sizeof(float) * smem_floats(dm) <= (size_t)max_smem;
+}
+
 // The tile and leading dimensions of a call, the first of these whose
 // shared memory fits: whole sets up to 32 rows with conflict-free rows;
 // whole sets up to 16 rows (one set where a set is larger) with
@@ -451,31 +777,29 @@ fused_set_transformer_fwd_tf32x3(const float* __restrict__ x,
 // false where none fits.  ops/cuda/fused_transformer.py fwd_shape mirrors
 // it.
 //
-// A set above kMaxSet rows is a tile of its own: the whole set with
-// conflict-free rows, then with rows at their true width; then half of it
-// (rounded up) in each block of a cluster of two, the same two ways.
+// A set above kMaxSet rows spans the fewest of 1, 2 and kMaxCluster blocks
+// of a cluster that keeps its rows a block (ceil(S / cluster), the tile)
+// within kBigRows, with conflict-free rows, else at their true width.
 bool pick_layout(Dims& dm, int max_smem) {
-  const int targets[3] = {kTileTarget, kMinTile, kMinTile};
-  const bool big = dm.set_size > kMaxSet;
   dm.cluster = 1;
   dm.split = dm.set_size;
-  for (int i = 0; i < (big ? 4 : 3); ++i) {
-    const int tt = targets[i < 3 ? i : 2];
-    dm.tile = (tt >= dm.set_size ? tt / dm.set_size : 1) * dm.set_size;
-    if (big) {
-      dm.cluster = i < 2 ? 1 : 2;
-      dm.split = (dm.set_size + dm.cluster - 1) / dm.cluster;
+  if (dm.set_size > kMaxSet) {
+    for (int cl = 1; cl <= kMaxCluster; cl *= 2) {
+      dm.cluster = cl;
+      dm.split = (dm.set_size + cl - 1) / cl;
       dm.tile = dm.split;
+      if (dm.split <= kBigRows &&
+          (layout_fits(dm, true, max_smem) ||
+           layout_fits(dm, false, max_smem)))
+        return true;
     }
-    const bool spread = big ? i % 2 == 0 : i < 2;
-    auto ld = [spread](int n) { return spread ? conflict_free(n) : n; };
-    dm.ld_x = ld(dm.in_dim);
-    dm.ld_h = ld(dm.hidden);
-    dm.ld_qkv = ld(3 * dm.hidden);
-    dm.ld_f = ld(dm.mlp);
-    dm.ld_big = dm.ld_qkv > dm.ld_f ? dm.ld_qkv : dm.ld_f;
-    if (dm.ld_x > dm.ld_big) dm.ld_big = dm.ld_x;
-    if (sizeof(float) * smem_floats(dm) <= (size_t)max_smem) return true;
+    return false;
+  }
+  const int targets[3] = {kTileTarget, kMinTile, kMinTile};
+  for (int i = 0; i < 3; ++i) {
+    const int tt = targets[i];
+    dm.tile = (tt >= dm.set_size ? tt / dm.set_size : 1) * dm.set_size;
+    if (layout_fits(dm, i < 2, max_smem)) return true;
   }
   return false;
 }
@@ -535,8 +859,8 @@ int fused_set_transformer_fwd_f32(const void* x, const void* key_mask,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid =
-      dm.cluster == 2 ? (unsigned)(2 * (rows / set_size))
-                      : (unsigned)((rows + dm.tile - 1) / dm.tile);
+      dm.cluster > 1 ? (unsigned)(dm.cluster * (rows / set_size))
+                     : (unsigned)((rows + dm.tile - 1) / dm.tile);
   return (int)launch_clustered(kernel, grid, kThreads, smem,
                                (cudaStream_t)stream, dm.cluster,
                                (const float*)x,

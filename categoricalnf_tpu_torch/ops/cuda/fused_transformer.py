@@ -54,10 +54,12 @@ from categoricalnf_tpu_torch.ops.cuda import build
 # kMaxBigSet, pick_layout) and the H100's 227 KB of shared memory per block.
 # Sets up to MAX_SET rows: every kernel, a tile of whole sets.  Above, up to
 # MAX_BIG_SET (the reference's largest Pallas tile of whole sets), a tile of
-# one set: the bf16 pair and the 3xTF32 forward split it over the CLUSTER
-# blocks of a thread-block cluster where the whole set's tile does not fit
-# (``split_rows``); the fp32 FMA pair always splits it, over 2 blocks up to
-# 2 MAX_SET rows and FMA_MAX_CLUSTER above (``fma_tile``).
+# one set: the bf16 pair splits it over the CLUSTER blocks of a
+# thread-block cluster where the whole set's tile does not fit
+# (``split_rows``); the fp32 FMA pair and the 3xTF32 forward always split
+# it, over 2 blocks up to 2 MAX_SET rows and FMA_MAX_CLUSTER above
+# (``fma_tile``; the 3xTF32 forward's rule, ``_f32_fwd_layout``, gives the
+# same at every width where 32 rows fit).
 MAX_SET = 32
 MAX_BIG_SET = 128
 CLUSTER = 2
@@ -67,6 +69,12 @@ BF16_TILE_TARGET = 64  # both bf16 kernels
 F32_TILE_TARGET = 32  # the fp32 forward; 16 where a net does not fit
 F32_MIN_TILE = 16
 F32_SLACK = 8  # floats past the fp32 forward's last buffer
+# rows of a set above MAX_SET a block of the fp32 forward holds at most
+# (kBigRows), and the blocks an SM its BIG instance's launch bounds give
+# registers for (kBigBlocks; kBlocks below MAX_SET)
+F32_BIG_ROWS = 32
+F32_BIG_BLOCKS = 2
+F32_BLOCKS = 3
 # bf16 forward blocks an SM its launch bounds give registers for
 # (kFwdBlocks), its BIG instance's too
 FWD_BLOCKS = 2
@@ -136,10 +144,11 @@ def flatten_params(net) -> tuple:
             net.out.w, net.out.b[None, :])
 
 
-def smem_bytes(set_size: int, in_dim: int, hidden: int, mlp: int) -> int:
+def smem_bytes(set_size: int, in_dim: int, hidden: int, mlp: int,
+               heads: int | None = None) -> int:
     """Dynamic shared memory of one block of the fp32 forward, as the kernel
-    computes it."""
-    return _f32_fwd_layout(set_size, in_dim, hidden, mlp)[1]
+    computes it (``heads``: above MAX_SET, as ``fwd_shape``)."""
+    return _f32_fwd_layout(set_size, in_dim, hidden, mlp, heads)[1]
 
 
 def conflict_free(n: int) -> int:
@@ -149,25 +158,38 @@ def conflict_free(n: int) -> int:
 
 
 def split_rows(set_size: int, cluster: int) -> int:
-    """Rows of a set above MAX_SET in each block (rank 0; rank 1 holds the
-    rest) where it spans ``cluster`` blocks: ceil(set_size / cluster)."""
+    """Rows of a set above MAX_SET in each block but the last (which holds
+    the rest) where it spans ``cluster`` blocks: ceil(set_size /
+    cluster)."""
     return -(-set_size // cluster)
 
 
-def _f32_fwd_layout(set_size: int, in_dim: int, hidden: int,
-                    mlp: int) -> tuple[int, int, int]:
+def _f32_fwd_layout(set_size: int, in_dim: int, hidden: int, mlp: int,
+                    heads: int | None) -> tuple[int, int, int]:
     """(tile, shared-memory bytes, blocks a set spans) of the fp32 forward:
     the first that fits of whole sets up to 32 rows with conflict-free
     rows, whole sets up to 16 rows (one set where a set is larger) with
     conflict-free rows, and the same with rows at their true width; a set
-    above MAX_SET rows whole, then over a cluster of two, each with
-    conflict-free rows, then at their true width; the last when none fits.
-    Three buffers: h and the LN/attention output [tile, H], and the widest
-    of x, qkv and the MLP hidden layer, plus the slack that the padded
-    contraction of the last row reads (``pick_layout`` in the kernel)."""
+    above MAX_SET rows over the fewest of 1, 2 and FMA_MAX_CLUSTER blocks
+    of a cluster that keeps ``split_rows`` of it a block within
+    F32_BIG_ROWS, with conflict-free rows, then at their true width; the
+    last when none fits.  Three buffers: h and the LN/attention output
+    [tile, H], and the widest of x, qkv and the MLP hidden layer, plus the
+    slack that the padded contraction of the last row reads; above
+    MAX_SET the stage of a block's share of the heads (ceil(heads /
+    cluster) of them), their q, k and v for the whole set [3, set_size,
+    ld(share x head width)], so there the layout needs ``heads``
+    (``pick_layout``, ``layout_fits`` in the kernel)."""
+    if set_size > MAX_BIG_SET:  # ROADMAP B16
+        return set_size, MAX_SMEM + 1, FMA_MAX_CLUSTER
     if set_size > MAX_SET:
+        if heads is None:
+            raise ValueError("the fp32 forward's layout of a set above "
+                             f"{MAX_SET} rows depends on its heads")
         choices = [(split_rows(set_size, cl), ld, cl)
-                   for cl in (1, CLUSTER) for ld in (conflict_free, int)]
+                   for cl in (1, 2, FMA_MAX_CLUSTER)
+                   if split_rows(set_size, cl) <= F32_BIG_ROWS
+                   for ld in (conflict_free, int)]
     else:
         choices = [(_tile(set_size, tt, 1)[0], ld, 1) for tt, ld in
                    ((F32_TILE_TARGET, conflict_free),
@@ -175,6 +197,9 @@ def _f32_fwd_layout(set_size: int, in_dim: int, hidden: int,
     for tile, ld, cluster in choices:
         ld_big = max(ld(in_dim), ld(3 * hidden), ld(mlp))
         smem = 4 * (tile * (2 * ld(hidden) + ld_big) + F32_SLACK)
+        if set_size > MAX_SET:
+            share = -(-heads // cluster) * (hidden // heads)
+            smem += 4 * 3 * set_size * ld(share)
         if smem <= MAX_SMEM:
             break
     return tile, smem, cluster
@@ -311,7 +336,7 @@ def fma_workspace_elems(regions: tuple, tile: int, hidden: int, mlp: int,
 
 
 def fwd_shape(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
-              mlp: int) -> tuple[int, int, int]:
+              mlp: int, heads: int | None = None) -> tuple[int, int, int]:
     """(rows of a tile, dynamic shared memory of one block, blocks a set
     spans) of the forward, as the kernel picks them.  bf16: whole sets up
     to 64 rows, padded to 16-row m-tiles, or up to 32 where 64 would not
@@ -323,9 +348,10 @@ def fwd_shape(dtype: torch.dtype, set_size: int, in_dim: int, hidden: int,
     wide; over a cluster the LN/attention output's region also holds the
     other block's K and V during the attention (``bf16_big_stage``'s
     bytes; the output goes over Q meanwhile) and is the larger of the two
-    (``fwd_smem_bytes`` in the kernel).  fp32: ``_f32_fwd_layout``'s."""
+    (``fwd_smem_bytes`` in the kernel).  fp32: ``_f32_fwd_layout``'s, which
+    above MAX_SET needs ``heads``."""
     if dtype != torch.bfloat16:
-        return _f32_fwd_layout(set_size, in_dim, hidden, mlp)
+        return _f32_fwd_layout(set_size, in_dim, hidden, mlp, heads)
     ld_h = pad16(hidden) + 8
     ld_big = max(pad16(n) + 8 for n in (3 * hidden, mlp, in_dim))
     if set_size > MAX_SET:
@@ -375,6 +401,14 @@ def fwd_blocks_per_sm(smem: int) -> int:
 def smem_blocks_per_sm(smem: int) -> int:
     """Blocks of ``smem`` bytes of shared memory that fit on an SM."""
     return max(1, SMEM_PER_SM // (smem + 1024))
+
+
+def f32_fwd_blocks_per_sm(set_size: int, smem: int) -> int:
+    """Blocks of the fp32 forward an SM holds: as many as its shared memory
+    allows, up to what its instance's launch bounds give registers for
+    (F32_BIG_BLOCKS above MAX_SET, else F32_BLOCKS)."""
+    bound = F32_BIG_BLOCKS if set_size > MAX_SET else F32_BLOCKS
+    return min(bound, smem_blocks_per_sm(smem))
 
 
 def bwd_grid(rows: int, tile: int, smem: int, sms: int,
@@ -509,7 +543,7 @@ def supported(x, cond, mask, hidden_dim: int, num_heads: int,
     if compute_dtype == torch.bfloat16 and hidden_dim > MAX_HIDDEN_BF16:
         return False
     smem = fwd_shape(compute_dtype, x.shape[1], x.shape[2], hidden_dim,
-                     mlp_ratio * hidden_dim)[1]
+                     mlp_ratio * hidden_dim, num_heads)[1]
     return smem <= MAX_SMEM
 
 

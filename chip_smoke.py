@@ -29,8 +29,9 @@ Run from the root of a checkout on a machine with one NVIDIA card:
    version cut short, which the rule must refuse; it is timed at M = 65,536
    and M = 256.  The mixture lines carry the kernels' registers and
    spills.  #3 bf16, #4 bf16 and #3 fp32 at sets of 33, 48, 64, 100 and
-   128 (``check_big_set_kernels``: whole-set tiles, and 2-CTA clusters
-   where a set does not fit one block) against plain within the
+   128 (``check_big_set_kernels``: in bf16 whole-set tiles, and 2-CTA
+   clusters where a set does not fit one block; #3 fp32 over clusters of
+   2 blocks up to 64 rows and 4 above) against plain within the
    flagship's limits at --seed and --seed + 1, masked at 64, and the fp32
    train step's pair (#3 fp32 with grad, #4 fp32; a set over a cluster of
    2 blocks up to 64 rows, of 4 above) against autograd of plain within
@@ -58,7 +59,8 @@ Run from the root of a checkout on a machine with one NVIDIA card:
    at 50 and 100; the best above log2(64!)/64 = 4.6249), 10 steps
    traced, served (/sample, /sample_metrics, eval_bpd) and held against
    its CPU copy; then at --set_size 128 three train steps with finite
-   losses and one eval batch, #4 bf16 and #3 fp32 over 2-CTA clusters.
+   losses and one eval batch, #4 bf16 over 2-CTA clusters and #3 fp32
+   over clusters of 4.
 5. One fp32 train step of the flagship (64 sets), at --seed and at
    --seed + 1: the kernels on the card, the plain path on the card and a
    CPU fp32 copy, each held per tensor against the same step in float64 on
@@ -723,7 +725,8 @@ def check_set_modeling_kernels(device, seeds, report):
 # Sets above 32 rows (runs/set16 at --set_size 33..128): #3 bf16, #4 bf16
 # and #3 fp32 at the flagship's width against plain at these set sizes, at
 # BIG_SET_ROWS rows (the bf16 pair over 2-CTA clusters above 64, #3 fp32
-# above 100); masked at 64; each timed at the set-64 and set-128 runs'
+# over clusters of 2 and of 4 above 64); masked at 64; each timed at the
+# set-64 and set-128 runs'
 # 1024 sets.  At sets of 16 and 24 the kernels
 # take the unrolled attention, unchanged: their outputs on fixed inputs
 # hash to the digests of the tree before the chunked attention
@@ -761,7 +764,11 @@ SMALL_SET_DIGESTS = {
 # to the same warp tiles (tools/set_digests.py on its tree): #3 bf16's and
 # #3 fp32 with grad's BIG instances at 64, 128 and 128 masked, whose sums
 # it reordered (#3 fp32 with grad's now #4's recompute; #3 bf16's above
-# 64 rows with its row sums over two halves of the keys).
+# 64 rows with its row sums over two halves of the keys).  From the tree of
+# the change after b685635 that moved the 3xTF32 eval twin's BIG attention
+# to warp tiles (tools/set_digests.py on its tree): #3 fp32's BIG instance
+# at 64, 128 and 128 masked, whose QK^T and P.V it moved to 3xTF32 on the
+# tensor cores.
 PAIR_AND_BIG_SET_DIGESTS = {
     "train_fwd_float32_set16": "36b0c115040615d3",
     "bwd_float32_set16": "6d411fa7a17525b8",
@@ -769,17 +776,17 @@ PAIR_AND_BIG_SET_DIGESTS = {
     "bwd_float32_set24": "e582ecbe0c870e00",
     "fwd_bfloat16_set64": "c1795036cdbfbbaf",
     "bwd_bfloat16_set64": "6a46ce2228fc8d94",
-    "fwd_float32_set64": "b1e0cbbcade9f55b",
+    "fwd_float32_set64": "be4f8ff10c23b419",
     "train_fwd_float32_set64": "3a48f73632cf0c1c",
     "bwd_float32_set64": "06e0bbc6bf125f27",
     "fwd_bfloat16_set128": "c47ed46a3e01ce60",
     "bwd_bfloat16_set128": "2763b1292b9398bf",
-    "fwd_float32_set128": "560ff3a42bbcfab6",
+    "fwd_float32_set128": "fc4b7b0b4dcd0d61",
     "train_fwd_float32_set128": "d32f0bae8c88cbb2",
     "bwd_float32_set128": "53d248d3aa257314",
     "fwd_bfloat16_set128_masked": "ae8c30a788764a8c",
     "bwd_bfloat16_set128_masked": "76beff9943c6849d",
-    "fwd_float32_set128_masked": "a77b00a3d547d202",
+    "fwd_float32_set128_masked": "82385ac1d1c3c928",
     "train_fwd_float32_set128_masked": "ca2a55306085870f",
     "bwd_float32_set128_masked": "b8c74ac9f4e2fa23"}
 
@@ -902,7 +909,7 @@ def set_mask(sets: int, s: int, seed: int, device):
 
 def check_big_set_kernels(device, seeds, report):
     """#3 bf16, #4 bf16 and #3 fp32 at sets of BIG_SETS rows (whole-set
-    tiles, and 2-CTA clusters where a set does not fit one block) against
+    tiles, and clusters where a set does not fit one block) against
     plain, at each seed, within the flagship's limits
     (``fused_fwd_report``, ``fused_bwd_report``), and the fp32 train step's
     pair (a cluster of 2 blocks up to 64 rows, of 4 above) against autograd
@@ -993,7 +1000,7 @@ def check_big_set_kernels(device, seeds, report):
             dt = torch.float32 if name == "f32" else torch.bfloat16
             r["cluster"] = (ft.bwd_layout(
                 dt, s, D, H, 2 * H, OUT, HEADS, 2)[3] if name == "bwd_bf16"
-                else ft.fwd_shape(dt, s, D, H, 2 * H)[2])
+                else ft.fwd_shape(dt, s, D, H, 2 * H, HEADS)[2])
         report.update(f32_pair_set_reports(device, seeds[0], s))
     for name in FP32_BIG_PAIR:
         report[name] = report[f"{name}_set{BIG_SET_TIMED[0]}"]
@@ -1221,7 +1228,7 @@ def fused_fwd_report(net, x, time_it: bool = True) -> dict:
             check(rel <= BF16_FWD_REL, f"fused bf16 at in {in_dim}, out "
                   f"{out}: relative error {rel} above {BF16_FWD_REL}")
             # the tile, as the kernel picks it, and the blocks an SM
-            tile, smem, _ = ft.fwd_shape(tdt, s, in_dim, H, 2 * H)
+            tile, smem, _ = ft.fwd_shape(tdt, s, in_dim, H, 2 * H, HEADS)
             extra = dict(rel_err=rel, tile=tile, smem=smem,
                          blocks_per_sm=ft.fwd_blocks_per_sm(smem))
         t = timed(lambda: ft.fused_set_transformer(packed, x,
@@ -1264,9 +1271,10 @@ def check_f32_accuracy(net, x, y, y_p) -> dict:
     check(control > F32_FWD_REL, f"plain_forward in TF32 reads {control}, "
           f"inside the limit {F32_FWD_REL}: the limit cannot tell it")
     tile, smem, _ = ft.fwd_shape(torch.float32, x.shape[1], x.shape[2], H,
-                                 2 * H)
+                                 2 * H, HEADS)
     return dict(rel_err=rel, tf32_control_rel_err=control, tile=tile,
-                smem=smem, blocks_per_sm=ft.smem_blocks_per_sm(smem))
+                smem=smem,
+                blocks_per_sm=ft.f32_fwd_blocks_per_sm(x.shape[1], smem))
 
 
 def rel_err(a, b) -> float:
@@ -1973,8 +1981,9 @@ def train_flagship(seed: int, timings: dict, card: str,
     return final["launches"]
 
 
-# runs/set16 at the CLI's --set_size 64 (whole-set tiles) and 128 (#4 bf16
-# and #3 fp32 over 2-CTA clusters), bf16, batch 1024: at 64 the Trainer for
+# runs/set16 at the CLI's --set_size 64 (bf16's whole-set tiles) and 128
+# (#4 bf16 over 2-CTA clusters, #3 fp32 over clusters of 4), bf16, batch
+# 1024: at 64 the Trainer for
 # BIG_SET_STEPS steps (evals at the middle and the end), served; at 128
 # BIG_SET_128_CALLS calls of one step and one eval batch
 BIG_SET_STEPS, BIG_SET_EVAL_EVERY = 100, 50
@@ -2010,7 +2019,7 @@ def big_set_phase(seed: int, timings: dict, card: str,
     128: BIG_SET_128_CALLS calls of one train step (``train_calls``: every
     loss finite) and the fp32 IS eval of one batch (finite, above the
     optimum), #3 bf16, #4 bf16 and #3 fp32 launched, the latter two over
-    2-CTA clusters.  Returns the launches by path."""
+    clusters.  Returns the launches by path."""
     import numpy as np
     import torch
     from http.server import ThreadingHTTPServer
@@ -2096,7 +2105,7 @@ def big_set_phase(seed: int, timings: dict, card: str,
                               torch.bfloat16, 128, D, H, 2 * H, OUT, HEADS,
                               2)[3],
                           "fwd_f32": ft.fwd_shape(torch.float32, 128, D,
-                                                  H, 2 * H)[2]})
+                                                  H, 2 * H, HEADS)[2]})
     launches["set128_training"] = {k: step[k] + evals[k] for k in step}
     timings["set128"] = t128
     print(json.dumps({"metric": "set_shuffling_64_train_samples_per_s",

@@ -3,7 +3,8 @@
 #4 (the fused SetTransformer backward) recomputes each block's forward and
 pulls the cotangent back through it.  At sets above 32 its attention runs
 in warp tiles (``csrc/fused_transformer_bf16.cu`` on the tensor cores,
-``csrc/fused_transformer_fma.cuh`` on register tiles of the FMA units):
+``csrc/fused_transformer_fma.cuh`` on the register tiles of the FMA units
+in ``csrc/fused_transformer_tiles.cuh``):
 
 * the recompute: a 16-row tile of one head's queries against every key of
   the set at once, the row's softmax max and sum kept for phase 1;

@@ -212,20 +212,23 @@ NETS = {"flagship": (4, 104), "vardeq": (1, 26)}
 @pytest.mark.parametrize("s", [33, 48, 64, 99, 100, 128])
 def test_big_set_layouts_fit(net, s):
     """At sets of 33 to 128 the forward of each dtype takes the call and its
-    tile fits, and the bf16 backward's tile fits: a whole set where it fits
-    one block (the bf16 pair up to its 64-row tiles, #3 fp32 up to 100 at
-    these widths), else ceil(s / 2) rows a block of a 2-CTA cluster, whose
-    blocks each fit; the persistent grid of a cluster is even and at most
-    two blocks a set."""
+    tile fits, and the bf16 backward's tile fits: in bf16 a whole set where
+    it fits one block (up to its 64-row tiles), else ceil(s / 2) rows a
+    block of a 2-CTA cluster; #3 fp32 (the 3xTF32 twin) splits a set as the
+    fp32 train step's pair does (``fma_tile``), over 2 blocks up to 64 rows
+    and 4 above, ceil(s / cluster) rows a block; every block fits; the
+    persistent grid of a cluster is even and at most two blocks a set."""
     in_dim, out = NETS[net]
     x = torch.zeros(8, s, in_dim)
     for cd in (BF16, F32):
         assert ft.supported(x, None, None, 96, HEADS, 2, cd)
-        tile, smem, cluster = ft.fwd_shape(cd, s, in_dim, 96, 192)
+        tile, smem, cluster = ft.fwd_shape(cd, s, in_dim, 96, 192, HEADS)
         assert smem <= ft.MAX_SMEM
-        assert tile == (s if cluster == 1 else -(-s // 2))
-    assert ft.fwd_shape(F32, s, in_dim, 96, 192)[2] == (1 if s <= 100
-                                                          else 2)
+        assert tile == ft.split_rows(s, cluster)
+    assert ft.fwd_shape(F32, s, in_dim, 96, 192, HEADS)[2] == (
+        2 if s <= 64 else 4)
+    assert ft.fwd_shape(F32, s, in_dim, 96, 192, HEADS)[::2] == \
+        ft.fma_tile(s)[::2]
     assert ft.fwd_shape(BF16, s, in_dim, 96, 192)[2] == (1 if s <= 64
                                                            else 2)
     tile, smem, in_global, cluster = ft.bwd_layout(

@@ -1301,6 +1301,60 @@ def test_big_forward_on_warp_tiles_matches_plain(dev, cd, s):
             cs.masked_f32_pair_readings(net, x, mask, gy)
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("s", [33, 48, 64, 100, 128])
+def test_twin_big_forward_on_warp_tiles_matches_plain(dev, s, masked):
+    """#3 fp32 without grad (the 3xTF32 eval twin) at sets of ``s``, its
+    attention on warp tiles in 3xTF32 over a cluster of 2 blocks up to 64
+    rows and of 4 above: against ``plain_forward`` within 1e-4 as
+    torch.allclose and within F32_FWD_REL of its norm (masked: with the key
+    mask, the call without it above 10 x, a mask of ones bitwise none,
+    ``masked_fwd_readings``); four calls bitwise equal, each launched."""
+    g = torch.Generator(dev).manual_seed(s + 29)
+    sets = 4096 // s
+    x = torch.randn(sets, s, cs.D, generator=g, device=dev)
+    net = cs.flagship_net("float32", dev)
+    packed = net._packed_weights(torch.float32)
+    mask = cs.set_mask(sets, s, 11, dev) if masked else None
+    cluster = ft.fwd_shape(torch.float32, s, cs.D, cs.H, 2 * cs.H,
+                           cs.HEADS)[2]
+    assert cluster == (2 if s <= 64 else 4)
+    n = ft.LAUNCHES["float32"]
+    with torch.no_grad():
+        ys = [ft.fused_set_transformer(packed, x, num_heads=cs.HEADS,
+                                       mask=mask) for _ in range(4)]
+        y_p = net.plain_forward(x, mask=mask)
+    torch.cuda.synchronize()
+    assert ft.LAUNCHES["float32"] == n + 4
+    assert all(torch.equal(y, ys[0]) for y in ys[1:])
+    assert cs.allclose_err(ys[0], y_p) <= 1e-4
+    assert cs.rel_err(ys[0], y_p) <= cs.F32_FWD_REL
+    if masked:
+        cs.masked_fwd_readings(net, x, mask, cs.F32_FWD_REL)
+
+
+# bytes the 3xTF32 forward's BIG instance spills (stores and loads), as
+# ptxas reports them for sm_90a and PERF.md records them
+TWIN_BIG_SPILL_BYTES = 140
+
+
+def test_twin_instances_registers_and_spills(dev):
+    """ptxas on the 3xTF32 forward: its BIG instance within the registers
+    its launch bounds give F32_BIG_BLOCKS blocks an SM, spilling no more
+    than PERF.md records (TWIN_BIG_SPILL_BYTES); the instance for sets up
+    to 32 at 80 registers (three blocks an SM), without spills, as
+    before."""
+    from categoricalnf_tpu_torch.ops.cuda import build
+    name = "fused_transformer_tf32x3"
+    res = cs.kernel_resources(build.build_all([name])[name])
+    big = [v for k, v in res.items() if "fwd_tf32x3ILb1" in k]
+    small = [v for k, v in res.items() if "fwd_tf32x3ILb0" in k]
+    assert len(big) == len(small) == 1, res
+    assert big[0]["registers"] <= 65536 // (256 * ft.F32_BIG_BLOCKS)
+    assert big[0]["spill_bytes"] <= TWIN_BIG_SPILL_BYTES, big
+    assert small[0] == {"registers": 80, "spill_bytes": 0}, small
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("s,masked", [(33, False), (64, False),
                                       (100, False), (128, False),

@@ -163,16 +163,21 @@ def test_supported_keeps_its_other_rules():
 
 # -- the 3xTF32 arithmetic, emulated -------------------------------------
 
-def _dense(a, w, b, split):
-    """a @ w + b as the kernel computes it: with ``split`` a_lo.b_hi +
-    a_hi.b_lo + a_hi.b_hi (TF32 parts, exact products, fp32 sums), else a
-    single TF32 pass a_hi.b_hi."""
+def _mm(a, w, split):
+    """a @ w as the kernel's tensor-core products compute it: with
+    ``split`` a_lo.b_hi + a_hi.b_lo + a_hi.b_hi (TF32 parts, exact
+    products, fp32 sums), else a single TF32 pass a_hi.b_hi."""
     a_hi, w_hi = ft.rna_tf32(a), ft.rna_tf32(w)
     y = a_hi @ w_hi
     if split:
         a_lo, w_lo = ft.rna_tf32(a - a_hi), ft.rna_tf32(w - w_hi)
         y = (a_lo @ w_hi + a_hi @ w_lo) + y
-    return y + b
+    return y
+
+
+def _dense(a, w, b, split):
+    """a @ w + b as the kernel computes it (``_mm``), the bias in fp32."""
+    return _mm(a, w, split) + b
 
 
 def _ln(h):
@@ -182,7 +187,10 @@ def _ln(h):
 
 
 def _emulated_net(x, ws, heads, split=True):
-    """The fp32 forward's whole net with its dense products emulated."""
+    """The fp32 forward's whole net with its dense products emulated, and
+    at sets above 32 (the BIG instance, whose attention runs on the tensor
+    cores) its attention's QK^T and P.V too; at sets up to 32 the
+    attention in fp32, as the kernel's CUDA cores take it."""
     (ew, eb, qw, qb, pw, pb, f1w, f1b, f2w, f2b, ow, ob) = ws
     B, S, _ = x.shape
     h = _dense(x, ew, eb[0], split)
@@ -191,8 +199,14 @@ def _emulated_net(x, ws, heads, split=True):
     for l in range(qw.shape[0]):
         qkv = _dense(_ln(h), qw[l], qb[l], split).reshape(B, S, 3, heads, hd)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        p = torch.softmax((q @ k.transpose(-1, -2)) / hd ** 0.5, dim=-1)
-        o = (p @ v).transpose(1, 2).reshape(B, S, H)
+        if S > ft.MAX_SET:
+            p = torch.softmax(_mm(q, k.transpose(-1, -2), split)
+                              * (1.0 / hd ** 0.5), dim=-1)
+            o = _mm(p, v, split)
+        else:
+            p = torch.softmax((q @ k.transpose(-1, -2)) / hd ** 0.5, dim=-1)
+            o = p @ v
+        o = o.transpose(1, 2).reshape(B, S, H)
         h = h + _dense(o, pw[l], pb[l], split)
         m = torch.nn.functional.gelu(_dense(_ln(h), f1w[l], f1b[l], split),
                                      approximate="tanh")
@@ -218,11 +232,12 @@ def _nets(s):
     return params, tnet, x
 
 
-@pytest.mark.parametrize("s", [16, 8])
+@pytest.mark.parametrize("s", [16, 8, 64, 128])
 def test_3xtf32_net_has_fp32_accuracy(s):
     """The emulated 3xTF32 net against the JAX package's fused net in fp32
     (Pallas interpret mode on the CPU) and the port's plain path, at hidden
-    96, 4 heads and 2 blocks: relative norm error within F32_FWD_REL.  The
+    96, 4 heads and 2 blocks: relative norm error within F32_FWD_REL, at
+    sets of 64 and 128 with the attention's products in 3xTF32 too.  The
     control, a single TF32 pass, reads above it."""
     params, tnet, x = _nets(s)
     want = np.asarray(jft.fused_set_transformer(

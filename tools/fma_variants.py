@@ -7,6 +7,7 @@ device code of ``csrc/fused_transformer.cu``) or, at sets above 32, of
     python3 tools/fma_variants.py [--tree DIR] [--variants base no_wgrad ...]
     python3 tools/fma_variants.py --big [--variants base no_attention_big ...]
     python3 tools/fma_variants.py --big --dtype bfloat16 [--variants ...]
+    python3 tools/fma_variants.py --big --twin [--variants base ...]
 
 Each variant is a copy of the checkout DIR's port in a temporary directory
 with named edits of that source; ``tools/fused_ab.py --pair`` builds and
@@ -189,7 +190,7 @@ VARIANTS = {
                               "    if (!BIG) attend<BIG, 1, 2>(big, a, dm, "
                               "km, bs);")],
     # #3's BIG instance with its logits at sets above 64 in two halves
-    # (_F32_HALVES)
+    # (_F32_HALVES; its tiles in TILES_SOURCE, or in SOURCE in older trees)
     "big_fwd_halves": [
         ("    float (&acc)[4][NC]) {", "    float (&acc)[4][NC], int k0 = 0) {"),
         ("      ldv<V>(bv, b.row(min(cg + 8 * c, nb - 1)) + bcol + d0);",
@@ -208,16 +209,24 @@ VARIANTS = {
         ("// The attention of a tile between barriers: P lanes an item,",
          _F32_HALVES + "// The attention of a tile between barriers: P lanes "
          "an item,"),
-        ("      attention_tiled_big<4, 16, kStats>(qkv, kv, out, stats, dm, "
-         "bs);",
-         "      if constexpr (kStats) attention_tiled_big<4, 16, kStats>(qkv, "
-         "kv, out, stats, dm, bs); else attention_tiled_halves<4>(qkv, kv, "
-         "out, dm, bs);"),
-        ("      attention_tiled_big<1, 16, kStats>(qkv, kv, out, stats, dm, "
-         "bs);",
-         "      if constexpr (kStats) attention_tiled_big<1, 16, kStats>(qkv, "
-         "kv, out, stats, dm, bs); else attention_tiled_halves<1>(qkv, kv, "
-         "out, dm, bs);")],
+        (("      attention_tiled_big<4, 16, kStats>(qkv, kv, out, stats, dm, "
+          "bs);",
+          "      attend_tiled<4, 16, kStats>(qkv, kv, out, stats, dm, bs);"),
+         ("      if constexpr (kStats) attention_tiled_big<4, 16, kStats>(qkv, "
+          "kv, out, stats, dm, bs); else attention_tiled_halves<4>(qkv, kv, "
+          "out, dm, bs);",
+          "      if constexpr (kStats) attend_tiled<4, 16, kStats>(qkv, kv, "
+          "out, stats, dm, bs); else attention_tiled_halves<4>(qkv, kv, out, "
+          "dm, bs);")),
+        (("      attention_tiled_big<1, 16, kStats>(qkv, kv, out, stats, dm, "
+          "bs);",
+          "      attend_tiled<1, 16, kStats>(qkv, kv, out, stats, dm, bs);"),
+         ("      if constexpr (kStats) attention_tiled_big<1, 16, kStats>(qkv, "
+          "kv, out, stats, dm, bs); else attention_tiled_halves<1>(qkv, kv, "
+          "out, dm, bs);",
+          "      if constexpr (kStats) attend_tiled<1, 16, kStats>(qkv, kv, "
+          "out, stats, dm, bs); else attention_tiled_halves<1>(qkv, kv, out, "
+          "dm, bs);"))],
     # the sets above 32: the attention of #4's recompute (both calls in
     # its kernel); #4's attention backward, both passes or the key-major one
     "no_attention_big": [("      attend<BIG, kBwdLanesPerItem, 1>(qkv, o, "
@@ -339,36 +348,115 @@ BF16_VARIANTS = {
                   "lane")]}
 
 
+TWIN_SOURCE = os.path.join("categoricalnf_tpu_torch", "csrc",
+                           "fused_transformer_tf32x3.cu")
+
+# The twin's BIG attention on the FMA register tiles of
+# csrc/fused_transformer_tiles.cuh (the fp32 pair's attention_tiled_big,
+# without statistics) in place of its 3xTF32 warp tiles
+_TWIN_FMA = """// The attention of a set above kMaxSet rows on the FMA register tiles.
+__device__ __forceinline__ void attend_big_fma(const float* qkv, float* out,
+                                               const Dims& dm, int n_local,
+                                               const unsigned char* km) {
+  const SetRows<float, kMaxCluster> kv = set_rows_of<float, kMaxCluster>(
+      qkv, dm.ld_qkv, dm.split, dm.cluster);
+  const bool v4 = (dm.hidden / dm.heads) % 4 == 0;
+  const bool nc8 = dm.set_size <= 2 * kMaxSet;
+  if (v4 && nc8)
+    attention_tiled_big<4, 8, false, kWarps>(qkv, dm.ld_qkv, kv, out,
+        dm.ld_h, nullptr, 0, dm.hidden, dm.heads, dm.set_size, n_local, km);
+  else if (nc8)
+    attention_tiled_big<1, 8, false, kWarps>(qkv, dm.ld_qkv, kv, out,
+        dm.ld_h, nullptr, 0, dm.hidden, dm.heads, dm.set_size, n_local, km);
+  else if (v4)
+    attention_tiled_big<4, 16, false, kWarps>(qkv, dm.ld_qkv, kv, out,
+        dm.ld_h, nullptr, 0, dm.hidden, dm.heads, dm.set_size, n_local, km);
+  else
+    attention_tiled_big<1, 16, false, kWarps>(qkv, dm.ld_qkv, kv, out,
+        dm.ld_h, nullptr, 0, dm.hidden, dm.heads, dm.set_size, n_local, km);
+}
+
+"""
+
+# edits of TWIN_SOURCE (--big --twin), as VARIANTS
+TWIN_VARIANTS = {
+    "base": [],
+    # the BIG instance's attention, by its call site
+    "no_attention_fwd_big": [
+        ("      attention(big, a, dm, km, valid);\n    else\n",
+         "      attention(big, a, dm, km, valid);\n    else if (false)\n")],
+    # the attention on the FMA register tiles (_TWIN_FMA)
+    "twin_fma_tiles": [
+        ("// Floats of one block's shared memory: h and a [tile, ld_h], big",
+         _TWIN_FMA + "// Floats of one block's shared memory: h and a [tile, "
+         "ld_h], big"),
+        ("      attend_big(big, a, stage, dm, rank, km_set);",
+         "      attend_big_fma(big, a, dm, valid, km_set);")],
+    # the logits above 64 rows whole (16 n-tiles), not in two halves
+    "twin_unsplit": [("    attention_warp_tiles<16, true>(qkv, out, stage, "
+                      "dm, rank, km);",
+                      "    attention_warp_tiles<16, false>(qkv, out, stage, "
+                      "dm, rank, km);")],
+    # one block an SM by the launch bounds (255 registers)
+    "twin_blocks_1": [("constexpr int kBigBlocks = 2;",
+                       "constexpr int kBigBlocks = 1;")],
+    # the layout before: a set whole in one block where it fits (up to 100
+    # rows at the flagship's width), else over a cluster of 2; one block an
+    # SM
+    "twin_whole_set": [("constexpr int kBigRows = 32;",
+                        "constexpr int kBigRows = kMaxBigSet;"),
+                       ("constexpr int kBigBlocks = 2;",
+                        "constexpr int kBigBlocks = 1;")],
+}
+
+TILES_SOURCE = os.path.join("categoricalnf_tpu_torch", "csrc",
+                            "fused_transformer_tiles.cuh")
+
+# (the sources an edit may match, in order; the variants' edits; the
+# source built by --big) by kind
+KINDS = {"float32": ((SOURCE, TILES_SOURCE), VARIANTS,
+                     "fused_transformer_f32_big"),
+         "bfloat16": ((BF16_SOURCE,), BF16_VARIANTS,
+                      "fused_transformer_bf16"),
+         "twin": ((TWIN_SOURCE,), TWIN_VARIANTS,
+                  "fused_transformer_tf32x3")}
+
+
 def variant_tree(tree: str, name: str, root: str,
-                 bf16: bool = False) -> str:
-    """A copy of ``tree``'s port under ``root`` with ``name``'s edits (of
-    BF16_SOURCE where ``bf16``)."""
+                 kind: str = "float32") -> str:
+    """A copy of ``tree``'s port under ``root`` with ``name``'s edits of
+    ``kind``'s sources (``KINDS``): each edit in the first of them whose
+    text it matches."""
     dst = os.path.join(root, name)
     shutil.copytree(os.path.join(tree, "categoricalnf_tpu_torch"),
                     os.path.join(dst, "categoricalnf_tpu_torch"),
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    source = BF16_SOURCE if bf16 else SOURCE
-    path = os.path.join(dst, source)
-    with open(path) as f:
-        text = f.read()
-    for old, new, *times in (BF16_VARIANTS if bf16 else VARIANTS)[name]:
+    sources, table, _ = KINDS[kind]
+    texts = {}
+    for source in sources:
+        path = os.path.join(dst, source)
+        if os.path.exists(path):
+            with open(path) as f:
+                texts[source] = f.read()
+    for old, new, *times in table[name]:
         # a pair of tuples: the text before the attention's redesign and
         # after, whichever the tree has
         olds, news = (old, new) if isinstance(old, tuple) else ((old,),
                                                                  (new,))
         want = times[0] if times else 1
-        hits = [i for i, o in enumerate(olds) if text.count(o) == want]
+        hits = [(src, i) for src, text in texts.items()
+                for i, o in enumerate(olds) if text.count(o) == want]
         if not hits:
             sys.exit(f"fma_variants: the edit of {name} does not match "
-                     f"{source} as it should")
-        text = text.replace(olds[hits[0]], news[hits[0]])
-    with open(path, "w") as f:
-        f.write(text)
+                     f"{' or '.join(sources)} as it should")
+        src, i = hits[0]
+        texts[src] = texts[src].replace(olds[i], news[i])
+    for source, text in texts.items():
+        with open(os.path.join(dst, source), "w") as f:
+            f.write(text)
     return dst
 
 
-BIG_SOURCE = "fused_transformer_f32_big"
-BF16_BIG_SOURCE = "fused_transformer_bf16"
 BIG_SETS = (64, 128)
 
 
@@ -380,27 +468,40 @@ def _chip_smoke():
     return module
 
 
-def time_big(tree: str, bf16: bool = False) -> dict:
-    """#3 fp32 with grad and #4 fp32 (``bf16``: #3 and #4 bf16) of
-    ``tree``'s port on the flagship's net at 1,024 sets of each of
-    BIG_SETS: device ms (``cuda_ms``), and ptxas's registers and spilled
-    bytes of the kernels."""
+def time_big(tree: str, kind: str = "float32") -> dict:
+    """#3 fp32 with grad and #4 fp32 (``bfloat16``: #3 and #4 bf16;
+    ``twin``: #3 fp32 without grad) of ``tree``'s port on the flagship's
+    net at 1,024 sets (the twin: 4 chains x 1,024) of each of BIG_SETS:
+    device ms (``cuda_ms``), and ptxas's registers and spilled bytes of the
+    kernels."""
     sys.path.insert(0, os.path.abspath(tree))
     cs = _chip_smoke()
     import torch
     from categoricalnf_tpu_torch.ops.cuda import build
     from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
     dev = torch.device("cuda")
-    source = BF16_BIG_SOURCE if bf16 else BIG_SOURCE
+    source = KINDS[kind][2]
     ptxas = cs.kernel_resources(build.build_all([source])[source])
     out: dict = {"registers": {k: v for k, v in ptxas.items()
                                if "fused_set_transformer" in k}}
+    bf16 = kind == "bfloat16"
     dt = torch.bfloat16 if bf16 else torch.float32
     net = cs.flagship_net("bfloat16" if bf16 else "float32", dev)
     ws = ft.flatten_params(net)
     packed = net._packed_weights(dt)
     for s in BIG_SETS:
         g = torch.Generator(dev).manual_seed(s)
+        if kind == "twin":
+            x = torch.randn(cs.EVAL_CHAINS * cs.B, s, cs.D, generator=g,
+                            device=dev)
+            with torch.no_grad():
+                y = ft.fused_set_transformer(packed, x, num_heads=cs.HEADS)
+                out[f"fwd_set{s}"] = cs.cuda_ms(
+                    lambda: ft.fused_set_transformer(
+                        packed, x, num_heads=cs.HEADS), 10)[0]
+                out[f"sum_set{s}"] = float(y.double().sum())
+                out[f"rel_err_set{s}"] = cs.rel_err(y, net.plain_forward(x))
+            continue
         x = torch.randn(cs.B, s, cs.D, generator=g, device=dev)
         gy = torch.randn(cs.B, s, cs.OUT, generator=g, device=dev).to(dt)
         with torch.no_grad():
@@ -420,13 +521,13 @@ def time_big(tree: str, bf16: bool = False) -> dict:
 
 def main_big(args) -> int:
     """Build every variant's BIG source at once, then time each alone."""
-    bf16 = args.dtype == "bfloat16"
-    source = BF16_BIG_SOURCE if bf16 else BIG_SOURCE
+    kind = "twin" if args.twin else args.dtype
+    source = KINDS[kind][2]
     code = ("import sys; sys.path.insert(0, sys.argv[1]); from "
             "categoricalnf_tpu_torch.ops.cuda import build; "
             f"build.build_all([{source!r}])")
     with tempfile.TemporaryDirectory() as root:
-        trees = {name: variant_tree(args.tree, name, root, bf16)
+        trees = {name: variant_tree(args.tree, name, root, kind)
                  for name in args.variants}
         builds = {name: subprocess.Popen(
                       [sys.executable, "-c", code, tree],
@@ -444,7 +545,7 @@ def main_big(args) -> int:
             return 1
         for name, tree in trees.items():
             run = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                  "--time-big", tree, "--dtype", args.dtype],
+                                  "--time-big", tree, "--kind", kind],
                                  capture_output=True, text=True)
             if run.returncode != 0:
                 print(run.stdout[-2000:], run.stderr[-4000:], flush=True)
@@ -459,28 +560,33 @@ def main() -> int:
     ap.add_argument("--tree", default=os.path.dirname(HERE),
                     help="checkout whose port to vary")
     ap.add_argument("--variants", nargs="+", default=None,
-                    choices=sorted(set(VARIANTS) | set(BF16_VARIANTS)))
+                    choices=sorted(set(VARIANTS) | set(BF16_VARIANTS)
+                                   | set(TWIN_VARIANTS)))
     ap.add_argument("--big", action="store_true",
                     help="time the instances for sets of 33-128")
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"],
                     help="with --big: the fp32 pair or the bf16 kernels")
+    ap.add_argument("--twin", action="store_true",
+                    help="with --big: the 3xTF32 eval twin (#3 fp32 "
+                    "without grad)")
     ap.add_argument("--time-big", metavar="TREE", help=argparse.SUPPRESS)
+    ap.add_argument("--kind", default="float32", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.time_big:
-        print(json.dumps(time_big(args.time_big,
-                                  args.dtype == "bfloat16")), flush=True)
+        print(json.dumps(time_big(args.time_big, args.kind)), flush=True)
         return 0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     if args.big:
-        table = BF16_VARIANTS if args.dtype == "bfloat16" else VARIANTS
+        kind = "twin" if args.twin else args.dtype
+        table = KINDS[kind][1]
         args.variants = args.variants or (
-            list(BF16_VARIANTS) if table is BF16_VARIANTS else BIG_VARIANTS)
+            BIG_VARIANTS if kind == "float32" else list(table))
         unknown = set(args.variants) - set(table)
         if unknown:
-            ap.error(f"no {args.dtype} variants {sorted(unknown)}")
+            ap.error(f"no {kind} variants {sorted(unknown)}")
         return main_big(args)
     args.variants = args.variants or [
         v for v in VARIANTS if not v.endswith("_big")]

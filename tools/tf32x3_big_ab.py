@@ -6,9 +6,9 @@ at sets above 32 for one or more checkouts on one card.
 
 For each DIR, in a process of its own (imports the port from DIR and that
 checkout's ``chip_smoke.py``): the device ms of a call on 4 chains x 1024
-sets of 48, 64 and 128 rows (the set-64 and set-128 evals' shape; 64 and
-128 take the ``BIG`` instance with one block an SM, 128 over 2-CTA
-clusters) on ``chip_smoke.flagship_net("float32")``, timed by
+sets of 48, 64 and 128 rows (the set-64 and set-128 evals' shape, all
+three in the ``BIG`` instance; its layout is the checkout's own) on
+``chip_smoke.flagship_net("float32")``, timed by
 ``chip_smoke.cuda_ms`` over 10 calls, and the sum of each output as a
 check that the trees compute the same.  One JSON line a tree.  Give the
 trees as A B B A to compare two in one call.  Imports nothing of JAX.
