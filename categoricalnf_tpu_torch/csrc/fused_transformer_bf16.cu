@@ -66,7 +66,9 @@
 //    wider or deeper net would not fit, and where even those do not, the
 //    residual copies at the block boundaries in a global workspace, the
 //    GLOBAL_H layout: 219,136 B at hidden 256, sets of 24, 2 transformer
-//    blocks, against 252,928 with them).  Leading dimensions are a
+//    blocks, against 252,928 with them; that instance also keeps phase 1's
+//    qkv, o, hm and f | m there for phase 3, runs its attention two lanes
+//    an item, and leaves its weight gradients to wgrad_tiles, below).  Leading dimensions are a
 //    multiple of 16 plus 8 elements, so ldmatrix's eight 16-byte rows fall
 //    in distinct banks.
 // 4. Scratch traffic.  A 64-row tile (4 sets of 16) halves the number of
@@ -701,6 +703,276 @@ __device__ __noinline__ void attention_bwd_kv(const bf16* qkv, const bf16* go,
                       S, gk);
     set_combine<MAXS>(pq, go + set0 * dm.ld_h + hh * hd, dm.ld_h, hd, S,
                       gk + H);
+  }
+}
+
+// The same three passes for the GLOBAL_H instance, LANES adjacent lanes an
+// item (one thread an item leaves 160 of 256 threads idle at sets of 24 in
+// a 24-row tile): each lane takes the dots with every LANES-th row of the
+// set and every LANES-th output column, and the item's lanes exchange the
+// dots by shuffles, so that each lane holds the item's whole row of them.
+// Every sum is the one-thread version's, in its order: the same bits.
+
+// own[jj] += sum_{d < hd} mine[d] * rows[j * ld + d] for the rows j = jj
+// LANES + sub < S, in order of d (set_dots' sums of those rows).
+template <int MAXS, int LANES>
+__device__ __forceinline__ void set_dots_split(const bf16* mine,
+                                               const bf16* rows, int ld,
+                                               int hd, int S, int sub,
+                                               float (&own)[MAXS / LANES]) {
+  for (int d0 = 0; d0 < hd; d0 += kChunk) {
+    float v[kChunk];
+#pragma unroll
+    for (int e = 0; e < kChunk; ++e)
+      v[e] = d0 + e < hd ? bf(mine[d0 + e]) : 0.0f;
+#pragma unroll
+    for (int jj = 0; jj < MAXS / LANES; ++jj) {
+      const int j = jj * LANES + sub;
+      if (j < S) {
+        const bf16* rj = rows + j * ld + d0;
+#pragma unroll
+        for (int e = 0; e < kChunk; ++e)
+          if (d0 + e < hd) own[jj] = fmaf(v[e], bf(rj[e]), own[jj]);
+      }
+    }
+  }
+}
+
+// The item's lanes: lane ``base + sub`` of the warp, sub < LANES.
+template <int LANES>
+struct ItemLanes {
+  int sub, base;
+  unsigned mask;
+  __device__ ItemLanes() {
+    const int lane = threadIdx.x & 31;
+    sub = lane % LANES;
+    base = lane - sub;
+    mask = ((1u << LANES) - 1) << base;
+  }
+};
+
+// all[j] = the dot of row j, from the lane that took it.
+template <int MAXS, int LANES>
+__device__ __forceinline__ void gather_dots(const float (&own)[MAXS / LANES],
+                                            float (&all)[MAXS],
+                                            const ItemLanes<LANES>& il) {
+#pragma unroll
+  for (int jj = 0; jj < MAXS / LANES; ++jj)
+#pragma unroll
+    for (int s = 0; s < LANES; ++s)
+      all[jj * LANES + s] = __shfl_sync(il.mask, own[jj], il.base + s);
+}
+
+// set_dots of all the set's rows into all[], through the item's lanes.
+template <int MAXS, int LANES>
+__device__ __forceinline__ void item_dots(const bf16* mine, const bf16* rows,
+                                          int ld, int hd, int S,
+                                          const ItemLanes<LANES>& il,
+                                          float (&all)[MAXS]) {
+  float own[MAXS / LANES];
+#pragma unroll
+  for (int jj = 0; jj < MAXS / LANES; ++jj) own[jj] = 0.0f;
+  set_dots_split<MAXS, LANES>(mine, rows, ld, hd, S, il.sub, own);
+  gather_dots<MAXS, LANES>(own, all, il);
+}
+
+// attn_row through the item's lanes (each lane ends with the whole row).
+template <int MAXS, int LANES>
+__device__ __forceinline__ void attn_row_split(const bf16* qkv, int r, int hh,
+                                               const Dims& dm,
+                                               const KeyMask& km,
+                                               const ItemLanes<LANES>& il,
+                                               float (&p)[MAXS], float& mx,
+                                               float& sum) {
+  const int H = dm.hidden, hd = H / dm.heads, S = dm.set_size;
+  const int set0 = (r / S) * S;
+  const float inv_root = 1.0f / sqrtf((float)hd);
+  item_dots<MAXS, LANES>(qkv + r * dm.ld_big + hh * hd,
+                         qkv + (r / S) * S * dm.ld_big + H + hh * hd,
+                         dm.ld_big, hd, S, il, p);
+  mx = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < MAXS; ++j) {
+    if (j < S) {
+      p[j] = key_masked(km, set0 + j) ? kMaskedLogit : p[j] * inv_root;
+      mx = fmaxf(mx, p[j]);
+    }
+  }
+  sum = 0.0f;
+#pragma unroll
+  for (int j = 0; j < MAXS; ++j) {
+    if (j < S) {
+      p[j] = expf(p[j] - mx);
+      sum += p[j];
+    }
+  }
+  const float inv_sum = 1.0f / sum;
+#pragma unroll
+  for (int j = 0; j < MAXS; ++j)
+    if (j < S) p[j] = p[j] * inv_sum;
+}
+
+// set_combine's columns d = sub, sub + LANES, ...
+template <int MAXS, int LANES>
+__device__ __forceinline__ void set_combine_split(const float (&w)[MAXS],
+                                                  const bf16* rows, int ld,
+                                                  int hd, int S, bf16* out,
+                                                  int sub) {
+  for (int d = sub; d < hd; d += LANES) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int j = 0; j < MAXS; ++j)
+      if (j < S) acc = fmaf(w[j], bf(rows[j * ld + d]), acc);
+    out[d] = __float2bfloat16_rn(acc);
+  }
+}
+
+template <int MAXS, int LANES>
+__device__ __noinline__ void attention_tile_split(const bf16* qkv, bf16* out,
+                                                  const Dims& dm,
+                                                  KeyMask km) {
+  const int H = dm.hidden, nh = dm.heads, hd = H / nh, S = dm.set_size;
+  const ItemLanes<LANES> il;
+  for (int item = threadIdx.x / LANES; item < dm.tile * nh;
+       item += blockDim.x / LANES) {
+    const int hh = item / dm.tile;
+    const int r = item % dm.tile;
+    float p[MAXS], mx, sum;
+    attn_row_split<MAXS, LANES>(qkv, r, hh, dm, km, il, p, mx, sum);
+#pragma unroll
+    for (int j = 0; j < MAXS; ++j)
+      if (j < S) p[j] = rnd(p[j]);
+    set_combine_split<MAXS, LANES>(
+        p, qkv + (r / S) * S * dm.ld_big + 2 * H + hh * hd, dm.ld_big, hd, S,
+        out + r * dm.ld_h + hh * hd, il.sub);
+  }
+}
+
+template <int MAXS, int LANES>
+__device__ __noinline__ void attention_bwd_q_split(const bf16* qkv,
+                                                   const bf16* go, bf16* gqkv,
+                                                   float* stats,
+                                                   const Dims& dm,
+                                                   KeyMask km) {
+  const int H = dm.hidden, nh = dm.heads, hd = H / nh, S = dm.set_size;
+  const float inv_root = 1.0f / sqrtf((float)hd);
+  const bf16 zero = __float2bfloat16_rn(0.0f);
+  const int wpad = dm.p_big - 3 * H;
+  if (wpad > 0)
+    for (int i = threadIdx.x; i < dm.tile_pad * wpad; i += blockDim.x)
+      gqkv[(i / wpad) * dm.ld_big + 3 * H + i % wpad] = zero;
+  const ItemLanes<LANES> il;
+  for (int item = threadIdx.x / LANES; item < dm.tile_pad * nh;
+       item += blockDim.x / LANES) {
+    const int hh = item / dm.tile_pad;
+    const int r = item % dm.tile_pad;
+    bf16* gq = gqkv + r * dm.ld_big + hh * hd;
+    if (r >= dm.tile) {
+      for (int d = il.sub; d < hd; d += LANES)
+        gq[d] = gq[H + d] = gq[2 * H + d] = zero;
+      continue;
+    }
+    const bf16* set = qkv + (r / S) * S * dm.ld_big;
+    float p[MAXS], mx, sum, gp[MAXS];
+    attn_row_split<MAXS, LANES>(qkv, r, hh, dm, km, il, p, mx, sum);
+    item_dots<MAXS, LANES>(go + r * dm.ld_h + hh * hd, set + 2 * H + hh * hd,
+                           dm.ld_big, hd, S, il, gp);
+    float D = 0.0f;
+#pragma unroll
+    for (int j = 0; j < MAXS; ++j) {
+      if (j < S) {
+        gp[j] = rnd(gp[j]);
+        D = fmaf(p[j], gp[j], D);
+      }
+    }
+    // the softmax's backward, then the 1/sqrt(hd) scale of the logits; a
+    // masked logit takes none
+    const int set0 = (r / S) * S;
+#pragma unroll
+    for (int j = 0; j < MAXS; ++j)
+      if (j < S)
+        gp[j] = key_masked(km, set0 + j) ? 0.0f
+                                         : p[j] * (gp[j] - D) * inv_root;
+    set_combine_split<MAXS, LANES>(gp, set + H + hh * hd, dm.ld_big, hd, S,
+                                   gq, il.sub);
+    if (il.sub == 0) {
+      float* st = stats + (hh * dm.tile_pad + r) * 3;
+      st[0] = mx;
+      st[1] = sum;
+      st[2] = D;
+    }
+  }
+}
+
+template <int MAXS, int LANES>
+__device__ __noinline__ void attention_bwd_kv_split(const bf16* qkv,
+                                                    const bf16* go,
+                                                    bf16* gqkv,
+                                                    const float* stats,
+                                                    const Dims& dm,
+                                                    KeyMask km) {
+  const int H = dm.hidden, nh = dm.heads, hd = H / nh, S = dm.set_size;
+  const float inv_root = 1.0f / sqrtf((float)hd);
+  const ItemLanes<LANES> il;
+  for (int item = threadIdx.x / LANES; item < dm.tile * nh;
+       item += blockDim.x / LANES) {
+    const int hh = item / dm.tile;
+    const int j = item % dm.tile;
+    const int set0 = (j / S) * S;
+    const bool masked = key_masked(km, j);
+    float gl[MAXS], pq[MAXS];
+    // q_i . k_j and go_i . v_j for the set's queries i
+    item_dots<MAXS, LANES>(qkv + j * dm.ld_big + H + hh * hd,
+                           qkv + set0 * dm.ld_big + hh * hd, dm.ld_big, hd,
+                           S, il, gl);
+    item_dots<MAXS, LANES>(qkv + j * dm.ld_big + 2 * H + hh * hd,
+                           go + set0 * dm.ld_h + hh * hd, dm.ld_h, hd, S, il,
+                           pq);
+#pragma unroll
+    for (int ii = 0; ii < MAXS; ++ii) {
+      if (ii < S) {
+        const float* st = stats + (hh * dm.tile_pad + set0 + ii) * 3;
+        // the unmasked expression as it was, so that its contraction and
+        // so its bits stay
+        const float p =
+            masked ? expf(kMaskedLogit - st[0]) * (1.0f / st[1])
+                   : expf(gl[ii] * inv_root - st[0]) * (1.0f / st[1]);
+        gl[ii] = masked ? 0.0f : p * (rnd(pq[ii]) - st[2]) * inv_root;
+        pq[ii] = rnd(p);
+      }
+    }
+    bf16* gk = gqkv + j * dm.ld_big + H + hh * hd;
+    set_combine_split<MAXS, LANES>(gl, qkv + set0 * dm.ld_big + hh * hd,
+                                   dm.ld_big, hd, S, gk, il.sub);
+    set_combine_split<MAXS, LANES>(pq, go + set0 * dm.ld_h + hh * hd,
+                                   dm.ld_h, hd, S, gk + H, il.sub);
+  }
+}
+
+template <int LANES>
+__device__ __forceinline__ void attention_split(const bf16* qkv, bf16* out,
+                                                const Dims& dm,
+                                                const KeyMask& km) {
+  if (dm.set_size <= 16)
+    attention_tile_split<16, LANES>(qkv, out, dm, km);
+  else
+    attention_tile_split<kMaxSet, LANES>(qkv, out, dm, km);
+}
+
+template <int LANES>
+__device__ __forceinline__ void attention_bwd_split(const bf16* qkv,
+                                                    const bf16* go,
+                                                    bf16* gqkv, float* stats,
+                                                    const Dims& dm,
+                                                    const KeyMask& km) {
+  if (dm.set_size <= 16) {
+    attention_bwd_q_split<16, LANES>(qkv, go, gqkv, stats, dm, km);
+    __syncthreads();
+    attention_bwd_kv_split<16, LANES>(qkv, go, gqkv, stats, dm, km);
+  } else {
+    attention_bwd_q_split<kMaxSet, LANES>(qkv, go, gqkv, stats, dm, km);
+    __syncthreads();
+    attention_bwd_kv_split<kMaxSet, LANES>(qkv, go, gqkv, stats, dm, km);
   }
 }
 
@@ -1557,6 +1829,93 @@ __host__ __device__ inline size_t smem_bytes(const Dims& dm, bool global_h) {
          4 * (size_t)dm.tile_pad * 3 * dm.heads;
 }
 
+// The operand images of the GLOBAL_H instance's weight gradients, which
+// it leaves in global memory for wgrad_tiles: each a [tile_pad, width
+// padded to 16] bf16 image of a tile's rows, pad rows included, so that the
+// products see the values the tile held.  Tile t's images start at t *
+// tile: x, g, R(LN(h_L)) (the output layer's input) and the cotangent of
+// h_0 (the embed's), then for each layer (layer apart) its LN outputs a1
+// and a2, the attention output o, the MLP's m = R(gelu(f)), and the
+// cotangents into fc2 (of the block's output), fc1 (of f), proj (of hm)
+// and qkv.
+struct Images {
+  long tile, layer;                               // elements of each
+  long x, g, a_out, g_embed;                      // in a tile
+  long a1, o, a2, m, g_fc2, g_fc1, g_proj, g_qkv;  // layer 0's, in a tile
+};
+
+__host__ __device__ inline Images images_of(const Dims& dm) {
+  const long tp = dm.tile_pad, ph = tp * dm.p_h, pf = tp * dm.p_f;
+  Images im;
+  im.x = 0;
+  im.g = tp * dm.p_in;
+  im.a_out = im.g + tp * dm.p_out;
+  im.g_embed = im.a_out + ph;
+  im.a1 = im.g_embed + ph;
+  im.o = im.a1 + ph;
+  im.a2 = im.o + ph;
+  im.m = im.a2 + ph;
+  im.g_fc2 = im.m + pf;
+  im.g_fc1 = im.g_fc2 + ph;
+  im.g_proj = im.g_fc1 + pf;
+  im.g_qkv = im.g_proj + ph;
+  im.layer = im.g_qkv + tp * dm.p_big - im.a1;
+  im.tile = im.a1 + dm.layers * im.layer;
+  return im;
+}
+
+// The [tile_pad, w] image of the tile's rows of src (rows ld apart; w a
+// multiple of 8) at dst: a warp a row, 16 bytes a lane, by streaming
+// stores (st.global.cs: evicted first from L2, where the images would
+// otherwise push out the weights that every tile's dense products read
+// from it; plain stores timed slower).  (TMA bulk copies, a row each,
+// issued by a lane a warp, timed no faster.)
+__device__ __forceinline__ void store_image(const bf16* src, int ld, int w,
+                                            bf16* __restrict__ dst,
+                                            const Dims& dm) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < dm.tile_pad; r += kWarps)
+    for (int c = 8 * lane; c < w; c += 8 * 32) {
+      uint4* to = reinterpret_cast<uint4*>(dst + (long)r * w + c);
+      const uint4 v = *reinterpret_cast<const uint4*>(src + r * ld + c);
+      __stcs(to, v);
+    }
+}
+
+// GLOBAL_H: qkv [tile, ld_big], o and hm [tile, ld_h] to (out) or from a
+// layer's stash in the workspace, whole images.  Phase 3 reads back what
+// phase 1 made of each h in place of its recompute (the same values: the
+// recompute is the forward's arithmetic on the same h).
+__device__ __forceinline__ void stash(bf16* qkv, bf16* o, bf16* hm, bf16* sg,
+                                      bool out, const Dims& dm) {
+  const int big = dm.tile_pad * dm.ld_big, hsz = dm.tile_pad * dm.ld_h;
+  if (out) {
+    copy16(qkv, sg, 2 * big);
+    copy16(o, sg + big, 2 * hsz);
+    copy16(hm, sg + big + hsz, 2 * hsz);
+  } else {
+    copy16(sg, qkv, 2 * big);
+    copy16(sg + big, o, 2 * hsz);
+    copy16(sg + big + hsz, hm, 2 * hsz);
+  }
+}
+
+// GLOBAL_H: a dense layer's operands X [tile, kd] and its output's
+// cotangent G [tile, n] stored as images for wgrad_tiles, at the offsets
+// xm and gm of Images in tile t's images (of all tiles' at ``images``), of
+// layer l's (l >= 0) or of the tile's.
+__device__ __forceinline__ void store_operands(const bf16* X, int ldx,
+                                               int kd, const bf16* G,
+                                               int ldg, int n, bf16* images,
+                                               long t, int l, long Images::*xm,
+                                               long Images::*gm,
+                                               const Dims& dm) {
+  const Images im = images_of(dm);
+  bf16* img = images + t * im.tile + (l >= 0 ? l * im.layer : 0);
+  store_image(X, ldx, pad16(kd), img + im.*xm, dm);
+  store_image(G, ldg, pad16(n), img + im.*gm, dm);
+}
+
 // GLOBAL_H is the layout of a net whose copies of h do not fit in shared
 // memory with the rest (the molecule nets of hidden 256 at sets of 24):
 // shared memory holds one residual stream, phase 1 writes h at the block
@@ -1566,8 +1925,19 @@ __host__ __device__ inline size_t smem_bytes(const Dims& dm, bool global_h) {
 // each back before that block's recompute.  The copies are whole
 // [tile_pad, ld_h] images, so every instruction of the arithmetic reads the
 // values the shared layout reads: the same bits, for one copy of h out and
-// one back through L2 a boundary and tile.
-// Without GLOBAL_H (every net that fits) the code is the shared layout's.
+// one back through L2 a boundary and tile.  Its weight gradients leave the
+// tile loop: at each of the six dense layers' sites the block stores the
+// operands as images (Images, 446 KB a 32-row tile at hidden 256), and
+// wgrad_tiles, launched after it, contracts them over all tiles in the
+// order the shared layout's slices and reduce_wgrad sum them, so dx and
+// the 12 gradients are the shared layout's bits where both fit (hws holds
+// the images after the copies of h and the stash; the instance takes no
+// part, writes no slice and dw stays for wgrad_tiles).
+// Phase 3 reads back the qkv, o, hm and f | m that phase 1 made from the
+// same h (stash, after the copies of h in hws) in place of recomputing
+// them, and the attention runs two lanes an item (attention_split); both
+// keep every sum as it was.  Without GLOBAL_H (every net that fits) the code is
+// the shared layout's, instruction for instruction (tools/sass_diff.py).
 //
 // BIG: the instance for sets above kMaxSet rows (one set a tile, over a
 // cluster of two where it does not fit one block; attention on warp tiles);
@@ -1598,7 +1968,8 @@ fused_set_transformer_bwd(const bf16* __restrict__ x,
   bf16* f = r2;                      // [TP, ld_f] pre-gelu, then its grad
   bf16* m = r2 + TP * dm.ld_f;       // [TP, ld_f] R(gelu(f))
   const Offsets og = grad_offsets(dm);
-  float* pw = part + blockIdx.x * og.off[12];
+  // this block's slice of the weight gradients (GLOBAL_H: none)
+  float* pw = GLOBAL_H ? nullptr : part + blockIdx.x * og.off[12];
   // a set in a cluster of two: the cluster walks the sets, each of its
   // blocks its part of one
   const bool clustered = BIG && dm.cluster == 2;
@@ -1607,7 +1978,14 @@ fused_set_transformer_bwd(const bf16* __restrict__ x,
   const long ntiles = clustered ? dm.rows / dm.set_size
                                 : (dm.rows + dm.tile - 1) / dm.tile;
   // GLOBAL_H: this block's copies of h at the block boundaries 0 .. L - 1
+  // and each layer's qkv, o, hm and f | m from phase 1; after every
+  // block's, the operand images of all tiles
   bf16* hg = GLOBAL_H ? hws + (long)blockIdx.x * L * hsz : nullptr;
+  const long st = (long)TP * (dm.ld_big + 2 * dm.ld_h + 2 * dm.ld_f);
+  bf16* sg = GLOBAL_H ? hws + (long)gridDim.x * L * hsz +
+                            (long)blockIdx.x * L * st
+                      : nullptr;
+  bf16* images = GLOBAL_H ? hws + (long)gridDim.x * L * (hsz + st) : nullptr;
 
   clear16(smem_raw, (int)smem_bytes(dm, GLOBAL_H));
   __syncthreads();
@@ -1640,18 +2018,32 @@ fused_set_transformer_bwd(const bf16* __restrict__ x,
                         3 * H, wt.b[1] + l * 3 * H, qkv, dm.ld_big, nullptr,
                         nullptr, valid, dm);
       set_sync(clustered);
-      attend<BIG>(qkv, o, dm, km, bs, stats, hm);  // hm | gs unused here
+      // hm | gs unused here
+      if constexpr (GLOBAL_H)
+        attention_split<2>(qkv, o, dm, km);
+      else
+        attend<BIG>(qkv, o, dm, km, bs, stats, hm);
       set_sync(clustered);
       mma_dense<kResidual>(o, dm.ld_h, PH, wt.wt[2] + (long)l * PH * PH, PH,
                            H, wt.b[2] + l * H, h, dm.ld_h, nullptr, nullptr,
                            valid, dm);
       __syncthreads();
+      if constexpr (GLOBAL_H) stash(qkv, o, h, sg + l * st, true, dm);
       layer_norm_tile(h, a, dm);
       __syncthreads();
-      mma_dense<kGelu>(a, dm.ld_h, PH, wt.wt[3] + (long)l * PF * PH, PF, RH,
-                       wt.b[3] + l * RH, m, dm.ld_f, nullptr, nullptr, valid,
-                       dm);
-      __syncthreads();
+      if constexpr (GLOBAL_H) {
+        // f too, for phase 3
+        mma_dense<kFc1>(a, dm.ld_h, PH, wt.wt[3] + (long)l * PF * PH, PF, RH,
+                        wt.b[3] + l * RH, f, dm.ld_f, m, nullptr, valid, dm);
+        __syncthreads();
+        copy16(f, sg + l * st + TP * (dm.ld_big + 2 * dm.ld_h),
+               4 * TP * dm.ld_f);
+      } else {
+        mma_dense<kGelu>(a, dm.ld_h, PH, wt.wt[3] + (long)l * PF * PH, PF,
+                         RH, wt.b[3] + l * RH, m, dm.ld_f, nullptr, nullptr,
+                         valid, dm);
+        __syncthreads();
+      }
       mma_dense<kResidual>(m, dm.ld_f, PF, wt.wt[4] + (long)l * PH * PF, PH,
                            H, wt.b[4] + l * H, h, dm.ld_h, nullptr, nullptr,
                            valid, dm);
@@ -1663,8 +2055,12 @@ fused_set_transformer_bwd(const bf16* __restrict__ x,
     layer_norm_tile(hs + (GLOBAL_H ? 0 : L) * hsz, a, dm);
     load_rows(g, row0, valid, OUT, r2, dm.ld_g, dm);
     __syncthreads();
-    mma_wgrad(a, dm.ld_h, H, r2, dm.ld_g, OUT, pw + og.off[10],
-              pw + og.off[11], first, dm);
+    if constexpr (GLOBAL_H)
+      store_operands(a, dm.ld_h, H, r2, dm.ld_g, OUT, images, t, -1,
+                     &Images::a_out, &Images::g, dm);
+    else
+      mma_wgrad(a, dm.ld_h, H, r2, dm.ld_g, OUT, pw + og.off[10],
+                pw + og.off[11], first, dm);
     mma_dense<kBwdStore>(r2, dm.ld_g, dm.p_out, wt.w[5], PH, H, nullptr, gs,
                          dm.ld_h, nullptr, nullptr, valid, dm);
     __syncthreads();
@@ -1676,44 +2072,60 @@ fused_set_transformer_bwd(const bf16* __restrict__ x,
       const bf16* h = hs;
       if constexpr (GLOBAL_H) {
         copy16(hg + (long)l * hsz, hs, 2 * hsz);  // h_l back from phase 1
+        // and what phase 1 made from it, in place of its recompute
+        stash(qkv, o, hm, sg + l * st, false, dm);
+        copy16(sg + l * st + TP * (dm.ld_big + 2 * dm.ld_h), f,
+               4 * TP * dm.ld_f);
         __syncthreads();
       } else {
         h = hs + l * hsz;
       }
-      layer_norm_tile(h, a, dm);
-      if constexpr (!BIG) copy16(h, hm, 2 * hsz);
-      __syncthreads();
-      mma_dense<kStore>(a, dm.ld_h, PH, wt.wt[1] + (long)l * PB * PH, PB,
-                        3 * H, wt.b[1] + l * 3 * H, qkv, dm.ld_big, nullptr,
-                        nullptr, valid, dm);
-      set_sync(clustered);
-      attend<BIG>(qkv, o, dm, km, bs, stats, hm);
-      set_sync(clustered);
-      if constexpr (BIG) {
-        // hm | gs held the other block's K and V during the attention
-        copy16(h, hm, 2 * hsz);
+      if constexpr (!GLOBAL_H) {
+        layer_norm_tile(h, a, dm);
+        if constexpr (!BIG) copy16(h, hm, 2 * hsz);
+        __syncthreads();
+        mma_dense<kStore>(a, dm.ld_h, PH, wt.wt[1] + (long)l * PB * PH, PB,
+                          3 * H, wt.b[1] + l * 3 * H, qkv, dm.ld_big, nullptr,
+                          nullptr, valid, dm);
+        set_sync(clustered);
+        attend<BIG>(qkv, o, dm, km, bs, stats, hm);
+        set_sync(clustered);
+        if constexpr (BIG) {
+          // hm | gs held the other block's K and V during the attention
+          copy16(h, hm, 2 * hsz);
+          __syncthreads();
+        }
+        mma_dense<kResidual>(o, dm.ld_h, PH, wt.wt[2] + (long)l * PH * PH,
+                             PH, H, wt.b[2] + l * H, hm, dm.ld_h, nullptr,
+                             nullptr, valid, dm);
         __syncthreads();
       }
-      mma_dense<kResidual>(o, dm.ld_h, PH, wt.wt[2] + (long)l * PH * PH, PH,
-                           H, wt.b[2] + l * H, hm, dm.ld_h, nullptr, nullptr,
-                           valid, dm);
-      __syncthreads();
       layer_norm_tile(hm, a, dm);
       __syncthreads();
-      mma_dense<kFc1>(a, dm.ld_h, PH, wt.wt[3] + (long)l * PF * PH, PF, RH,
-                      wt.b[3] + l * RH, f, dm.ld_f, m, nullptr, valid, dm);
-      __syncthreads();
+      if constexpr (!GLOBAL_H) {
+        mma_dense<kFc1>(a, dm.ld_h, PH, wt.wt[3] + (long)l * PF * PH, PF, RH,
+                        wt.b[3] + l * RH, f, dm.ld_f, m, nullptr, valid, dm);
+        __syncthreads();
+      }
       // MLP: h_out = R(hm + R(m @ W2 + b2)), m = R(gelu(f))
-      mma_wgrad(m, dm.ld_f, RH, gh, dm.ld_h, H,
-                pw + og.off[8] + (long)l * RH * H, pw + og.off[9] + l * H,
-                first, dm);
+      if constexpr (GLOBAL_H)
+        store_operands(m, dm.ld_f, RH, gh, dm.ld_h, H, images, t, l,
+                       &Images::m, &Images::g_fc2, dm);
+      else
+        mma_wgrad(m, dm.ld_f, RH, gh, dm.ld_h, H,
+                  pw + og.off[8] + (long)l * RH * H, pw + og.off[9] + l * H,
+                  first, dm);
       mma_dense<kBwdGelu>(gh, dm.ld_h, PH, wt.w[4] + (long)l * PF * PH, PF,
                           RH, nullptr, f, dm.ld_f, nullptr, nullptr, valid,
                           dm);
       __syncthreads();
-      mma_wgrad(a, dm.ld_h, H, f, dm.ld_f, RH,
-                pw + og.off[6] + (long)l * H * RH, pw + og.off[7] + l * RH,
-                first, dm);
+      if constexpr (GLOBAL_H)
+        store_operands(a, dm.ld_h, H, f, dm.ld_f, RH, images, t, l,
+                       &Images::a2, &Images::g_fc1, dm);
+      else
+        mma_wgrad(a, dm.ld_h, H, f, dm.ld_f, RH,
+                  pw + og.off[6] + (long)l * H * RH, pw + og.off[7] + l * RH,
+                  first, dm);
       mma_dense<kBwdStore>(f, dm.ld_f, PF, wt.w[3] + (long)l * PH * PF, PH,
                            H, nullptr, gs, dm.ld_h, nullptr, nullptr, valid,
                            dm);
@@ -1721,19 +2133,31 @@ fused_set_transformer_bwd(const bf16* __restrict__ x,
       layer_norm_bwd_tile<true>(hm, gs, gh, dm);
       __syncthreads();
       // attention: hm = R(h + R(o @ Wp + bp))
-      mma_wgrad(o, dm.ld_h, H, gh, dm.ld_h, H,
-                pw + og.off[4] + (long)l * H * H, pw + og.off[5] + l * H,
-                first, dm);
+      if constexpr (GLOBAL_H)
+        store_operands(o, dm.ld_h, H, gh, dm.ld_h, H, images, t, l,
+                       &Images::o, &Images::g_proj, dm);
+      else
+        mma_wgrad(o, dm.ld_h, H, gh, dm.ld_h, H,
+                  pw + og.off[4] + (long)l * H * H, pw + og.off[5] + l * H,
+                  first, dm);
       mma_dense<kBwdStore>(gh, dm.ld_h, PH, wt.w[2] + (long)l * PH * PH, PH,
                            H, nullptr, gs, dm.ld_h, nullptr, nullptr, valid,
                            dm);
       layer_norm_tile(h, a, dm);  // a1 again, for the qkv weights
       __syncthreads();
-      attend_bwd<BIG>(qkv, gs, r2, stats, dm, km, bs, o);  // o | hm dead
+      // o | hm dead
+      if constexpr (GLOBAL_H)
+        attention_bwd_split<2>(qkv, gs, r2, stats, dm, km);
+      else
+        attend_bwd<BIG>(qkv, gs, r2, stats, dm, km, bs, o);
       set_sync(clustered);
-      mma_wgrad(a, dm.ld_h, H, r2, dm.ld_big, 3 * H,
-                pw + og.off[2] + (long)l * H * 3 * H,
-                pw + og.off[3] + l * 3 * H, first, dm);
+      if constexpr (GLOBAL_H)
+        store_operands(a, dm.ld_h, H, r2, dm.ld_big, 3 * H, images, t, l,
+                       &Images::a1, &Images::g_qkv, dm);
+      else
+        mma_wgrad(a, dm.ld_h, H, r2, dm.ld_big, 3 * H,
+                  pw + og.off[2] + (long)l * H * 3 * H,
+                  pw + og.off[3] + l * 3 * H, first, dm);
       mma_dense<kBwdStore>(r2, dm.ld_big, PB, wt.w[1] + (long)l * PH * PB,
                            PH, H, nullptr, gs, dm.ld_h, nullptr, nullptr,
                            valid, dm);
@@ -1745,12 +2169,317 @@ fused_set_transformer_bwd(const bf16* __restrict__ x,
     // 4. embed: h_0 = R(x @ We + be)
     load_rows(x, row0, valid, IN, r2, dm.ld_x, dm);
     __syncthreads();
-    mma_wgrad(r2, dm.ld_x, IN, gh, dm.ld_h, H, pw + og.off[0],
-              pw + og.off[1], first, dm);
+    if constexpr (GLOBAL_H)
+      store_operands(r2, dm.ld_x, IN, gh, dm.ld_h, H, images, t, -1,
+                     &Images::x, &Images::g_embed, dm);
+    else
+      mma_wgrad(r2, dm.ld_x, IN, gh, dm.ld_h, H, pw + og.off[0],
+                pw + og.off[1], first, dm);
     mma_dense<kBwdGlobal>(gh, dm.ld_h, PH, wt.w[0], dm.p_in, IN, nullptr,
                           nullptr, 0, nullptr, dx + row0 * IN, valid, dm);
     __syncthreads();
   }
+}
+
+// ---- The GLOBAL_H instance's weight gradients ------------------------------
+//
+// wgrad_tiles replaces, for the GLOBAL_H instance, the sum that _bwd_kernel
+// (categoricalnf_tpu/ops/pallas/fused_transformer.py) keeps in its
+// VMEM-resident output blocks across the sequential grid: dW = X^T G and
+// db = sum G of the ten dense products (embed; each layer's qkv, proj,
+// fc1, fc2; out) over every row, from the operand images the instance left
+// (Images).  Each block owns a kWgK x kWgN tile of one product's dW, or
+// (the blocks after those) 2 kWgN columns of its db, and sums it over all
+// tiles: the tiles' two slices of X and G (of G alone for db) stream
+// through a ring of kWgStages stages in shared memory by cp.async,
+// fragments by ldmatrix.trans, products on mma.sync.m16n8k16 with fp32
+// accumulators, a warp 32 x 32; a thread a column of db.
+// The sum order is the shared layout's, so the bits are: that layout's
+// persistent block b (of ``grid``) took tiles b, b + grid, ... and kept
+// P = 0 + A(b), then P + A(t) for each later tile t, in its slice, and
+// reduce_wgrad summed S = ((0 + P_0) + P_1) + ... over the slices; A(t) is
+// the chain of tile_pad / 16 mma k-steps from zero accumulators over tile
+// t's rows in order (a bias: the fp32 sum of its rows in order, and P =
+// A(b) first).  The matrices are rounded to bf16 at the end, the biases stay
+// fp32.  Same instruction, fragments and positions give the same A(t); the
+// adds are the same adds.
+// Bound at runs/moses' node flow (4,608 rows in 192 tiles of 32, hidden
+// 256, MLP 512, out 300, 2 layers): the valid rows of X and G at their own
+// widths read once, 64.2 MB (4,608 x 6,962 bf16; the images' pad rows and
+// columns add nothing), and the 4.5 MB of dw written: 0.0205 ms at 3.35
+// TB/s; the 10.4 GFLOP of those rows' products take 0.011 ms at 989
+// TFLOP/s.  It is bound by bytes; it reads the 85.7 MB of images, and each
+// block reads its two slices of every tile: 440 MB from L2 over its 280 +
+// 33 blocks, 2-3 an SM in one wave.  (128 x 128 of dW a block, 278 MB over
+// 72 + 17 blocks of 8 warps, one an SM, ran slower on an H100: PERF.md.)
+constexpr int kWgK = 64, kWgN = 64;  // a block's tile of dW (rows, cols)
+constexpr int kWgThreads = 128;      // 4 warps, each 32 x 32 of it
+constexpr int kWgBlocks = 3;         // blocks an SM its launch bounds allow
+constexpr int kWgLd = kWgN + 8;  // a slice's rows in shared memory (bf16)
+constexpr int kWgStages = 4;     // tiles in flight a block
+static_assert(kWgThreads == 2 * kWgN, "a bias block: a thread a column");
+
+// One product of the weight gradients: its images (offsets in a tile,
+// widths), its sizes, and where its dW and db go in dw.
+struct WgProduct {
+  long x, g;
+  int wx, wg, kd, n;
+  long w, b;
+};
+
+// Product p: 0 the embed, 1 + 4 l + q layer l's qkv, proj, fc1, fc2 (q =
+// 0 .. 3), 1 + 4 L the output layer.
+__host__ __device__ inline WgProduct wg_product(const Dims& dm,
+                                                const Images& im,
+                                                const Offsets& og, int p) {
+  const long H = dm.hidden, RH = dm.mlp;
+  if (p == 0)
+    return {im.x, im.g_embed, dm.p_in, dm.p_h, dm.in_dim, dm.hidden,
+            og.off[0], og.off[1]};
+  if (p == 1 + 4 * dm.layers)
+    return {im.a_out, im.g, dm.p_h, dm.p_out, dm.hidden, dm.out_dim,
+            og.off[10], og.off[11]};
+  const long l = (p - 1) / 4, lo = l * im.layer;
+  switch ((p - 1) % 4) {
+    case 0:
+      return {im.a1 + lo, im.g_qkv + lo, dm.p_h, dm.p_big, dm.hidden,
+              3 * dm.hidden, og.off[2] + l * H * 3 * H, og.off[3] + l * 3 * H};
+    case 1:
+      return {im.o + lo, im.g_proj + lo, dm.p_h, dm.p_h, dm.hidden,
+              dm.hidden, og.off[4] + l * H * H, og.off[5] + l * H};
+    case 2:
+      return {im.a2 + lo, im.g_fc1 + lo, dm.p_h, dm.p_f, dm.hidden, dm.mlp,
+              og.off[6] + l * H * RH, og.off[7] + l * RH};
+    default:
+      return {im.m + lo, im.g_fc2 + lo, dm.p_f, dm.p_h, dm.mlp, dm.hidden,
+              og.off[8] + l * RH * H, og.off[9] + l * H};
+  }
+}
+
+// A product's blocks: its dW tiles, and its db's runs of 2 kWgN columns.
+__host__ __device__ inline int wg_mat_blocks(const WgProduct& pr) {
+  return (pr.kd + kWgK - 1) / kWgK * ((pr.n + kWgN - 1) / kWgN);
+}
+
+__host__ __device__ inline int wg_bias_blocks(const WgProduct& pr) {
+  return (pr.n + 2 * kWgN - 1) / (2 * kWgN);
+}
+
+// wgrad_tiles' grid: every product's dW blocks, then every product's db
+// blocks.
+__host__ __device__ inline int wg_grid(const Dims& dm) {
+  const Images im = images_of(dm);
+  const Offsets og = grad_offsets(dm);
+  int blocks = 0;
+  for (int p = 0; p < 2 + 4 * dm.layers; ++p) {
+    const WgProduct pr = wg_product(dm, im, og, p);
+    blocks += wg_mat_blocks(pr) + wg_bias_blocks(pr);
+  }
+  return blocks;
+}
+
+__host__ __device__ inline size_t wg_smem_bytes(const Dims& dm) {
+  return (size_t)kWgStages * 2 * dm.tile_pad * kWgLd * sizeof(bf16);
+}
+
+// 16 bytes from global to shared memory, or 16 zero bytes where !in.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The walk over the tiles in the shared layout's order: slice b (of grid)
+// its count tiles b, b + grid, ...; j the current one's place in its slice.
+struct TileWalk {
+  int per, extra, grid, b, j, count;
+  __device__ void start(int ntiles, int g) {
+    grid = g;
+    per = ntiles / g;
+    extra = ntiles % g;
+    b = j = 0;
+    count = extra > 0 ? per + 1 : per;
+  }
+  __device__ int tile() const { return b + j * grid; }
+  __device__ void next() {
+    if (++j == count) {
+      j = 0;
+      ++b;
+      count = b < extra ? per + 1 : per;
+    }
+  }
+};
+
+__global__ void __launch_bounds__(kWgThreads, kWgBlocks)
+wgrad_tiles(const bf16* __restrict__ images, float* __restrict__ dw,
+            Dims dm, int grid) {
+  extern __shared__ __align__(16) unsigned char wg_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(wg_raw);
+  const Images im = images_of(dm);
+  const Offsets og = grad_offsets(dm);
+  const int np = 2 + 4 * dm.layers;
+  // this block's product and part: a dW tile (k0, c0), or (bias) the db
+  // columns c0 .. c0 + 2 kWgN - 1
+  int p = 0, blk = blockIdx.x;
+  WgProduct pr = wg_product(dm, im, og, 0);
+  while (blk >= wg_mat_blocks(pr) && p + 1 < np) {
+    blk -= wg_mat_blocks(pr);
+    pr = wg_product(dm, im, og, ++p);
+  }
+  const bool bias = blk >= wg_mat_blocks(pr);
+  if (bias) {
+    blk -= wg_mat_blocks(pr);
+    p = 0;
+    pr = wg_product(dm, im, og, 0);
+    while (blk >= wg_bias_blocks(pr)) {
+      blk -= wg_bias_blocks(pr);
+      pr = wg_product(dm, im, og, ++p);
+    }
+  }
+  const int ncb = (pr.n + kWgN - 1) / kWgN;
+  const int k0 = bias ? 0 : blk / ncb * kWgK;
+  const int c0 = bias ? blk * 2 * kWgN : blk % ncb * kWgN;
+  const int TP = dm.tile_pad, stage = 2 * TP * kWgLd;
+  const int ntiles = (int)((dm.rows + dm.tile - 1) / dm.tile);
+  const int tid = threadIdx.x;
+  // this thread's copies of a stage: 16 bytes (chunk ch) of rows tid /
+  // (kWgN / 8) + u kWgThreads / (kWgN / 8) of the two slices (X's columns
+  // k0 .. k0 + kWgK - 1 then G's c0 .. c0 + kWgN - 1; a bias block: G's
+  // c0 .. c0 + kWgN - 1 then the next kWgN), zeros past the images' widths
+  constexpr int kChunks = kWgN / 8;
+  const int ch = tid % kChunks;
+  const auto load = [&](int slot, long tile) {
+    const bf16* src = images + tile * im.tile;
+    bf16* dst = ring + slot * stage + ch * 8;
+    for (int row = tid / kChunks; row < 2 * TP;
+         row += kWgThreads / kChunks) {
+      const int second = row >= TP, r = second ? row - TP : row;
+      const int col = (bias ? c0 + second * kWgN : second ? c0 : k0) + 8 * ch;
+      const int w = bias || second ? pr.wg : pr.wx;
+      const bool in = col < w;
+      cp_async16(dst + row * kWgLd,
+                 in ? src + (bias || second ? pr.g : pr.x) + (long)r * w + col
+                    : images,
+                 in);
+    }
+  };
+  TileWalk fetch, walk;
+  fetch.start(ntiles, grid);
+  walk.start(ntiles, grid);
+#pragma unroll
+  for (int i = 0; i < kWgStages - 1; ++i) {
+    if (i < ntiles) {
+      load(i, fetch.tile());
+      fetch.next();
+    }
+    cp_async_commit();
+  }
+  if (bias) {
+    // a thread a column: P and S of column c0 + tid
+    const int c = c0 + tid;
+    const bf16* col = ring + (tid >= kWgN) * TP * kWgLd + tid % kWgN;
+    float pb = 0.0f, sb = 0.0f;
+    for (int i = 0; i < ntiles; ++i) {
+      cp_async_wait<kWgStages - 2>();
+      __syncthreads();  // stage i landed; stage i - 1's slot is free
+      if (i + kWgStages - 1 < ntiles) {
+        load((i + kWgStages - 1) % kWgStages, fetch.tile());
+        fetch.next();
+      }
+      cp_async_commit();
+      const bf16* gc = col + (i % kWgStages) * stage;
+      float sum = 0.0f;
+#pragma unroll 8
+      for (int r = 0; r < TP; ++r) sum += bf(gc[r * kWgLd]);
+      pb = walk.j == 0 ? sum : pb + sum;
+      if (walk.j == walk.count - 1) sb += pb;
+      walk.next();
+    }
+    if (c < pr.n) dw[pr.b + c] = sb;
+    return;
+  }
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, m8 = lane >> 3, l8 = lane & 7;
+  const int wk = (warp >> 1) * 32, wc = (warp & 1) * 32;
+  // element e of n-tile q of m-tile mt: dW row k0 + wk + 16 mt + g + 8 (e
+  // >> 1), column c0 + wc + 8 q + 2 t + (e & 1)
+  float P[2][4][4], S[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) P[mt][q][e] = S[mt][q][e] = 0.0f;
+  // as mma_wgrad: A[m][kk] = X[16s + kk][k0 + m], B[kk][c] = G[16s + kk][c0
+  // + c], each lane's ldmatrix.trans rows
+  const int a_off = ((m8 >> 1) * 8 + l8) * kWgLd + wk + (m8 & 1) * 8;
+  const int b_off = (TP + (m8 & 1) * 8 + l8) * kWgLd + wc + (m8 >> 1) * 8;
+  for (int i = 0; i < ntiles; ++i) {
+    cp_async_wait<kWgStages - 2>();
+    __syncthreads();  // stage i landed; stage i - 1's slot is free
+    if (i + kWgStages - 1 < ntiles) {
+      load((i + kWgStages - 1) % kWgStages, fetch.tile());
+      fetch.next();
+    }
+    cp_async_commit();
+    const bf16* st = ring + (i % kWgStages) * stage;
+    float acc[2][4][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][q][e] = 0.0f;
+    for (int s = 0; s < TP / 16; ++s) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        ldsm_x4_trans(a[mt], st + a_off + s * 16 * kWgLd + 16 * mt);
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, st + b_off + s * 16 * kWgLd + 16 * nb);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_bf16(acc[mt][2 * nb], a[mt], b[0], b[1]);
+          mma_bf16(acc[mt][2 * nb + 1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+    const bool first = walk.j == 0, last = walk.j == walk.count - 1;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          P[mt][q][e] = (first ? 0.0f : P[mt][q][e]) + acc[mt][q][e];
+          if (last) S[mt][q][e] += P[mt][q][e];
+        }
+    walk.next();
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = k0 + wk + 16 * mt + g + 8 * (e >> 1);
+        const int c = c0 + wc + 8 * q + 2 * t + (e & 1);
+        if (k < pr.kd && c < pr.n)
+          dw[pr.w + (long)k * pr.n + c] = Cd<bf16>::round(S[mt][q][e]);
+      }
 }
 
 // Shared-memory bytes of one forward block: h and a [tile, ld_h], and the
@@ -2028,9 +2757,33 @@ int bwd_entry(const void* x, const void* key_mask, const void* g,
                          (const unsigned char*)key_mask, (const bf16*)g, wt,
                          (bf16*)dx, part, (bf16*)hws, dm);
   if (err != cudaSuccess) return (int)err;
+  // the global layout leaves its operand images in hws: the caller
+  // launches wgrad_tiles on them next (wgrad_tiles_bf16)
+  if (use_global) return (int)cudaSuccess;
   const Offsets og = grad_offsets(dm);
   reduce_wgrad<bf16><<<(unsigned)((og.off[12] + kThreads - 1) / kThreads),
                        kThreads, 0, s>>>(part, grid, og, dw);
+  return (int)cudaGetLastError();
+}
+
+int wgrad_entry(const void* images, float* dw, long rows, int set_size,
+                int in_dim, int hidden, int layers, int mlp, int out_dim,
+                int tile, int grid, void* stream) {
+  Dims dm = make_dims(rows, set_size, in_dim, hidden, 1, layers, mlp,
+                      out_dim);
+  dm.tile = tile;
+  dm.tile_pad = pad16(tile);
+  if (tile < 1 || dm.tile_pad > kTileTarget || layers < 1 || grid < 1 ||
+      rows < 0 || grid > (rows + tile - 1) / tile)
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0) return (int)cudaSuccess;
+  const int blocks = wg_grid(dm);
+  const size_t smem = wg_smem_bytes(dm);
+  cudaError_t err = cudaFuncSetAttribute(
+      wgrad_tiles, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  wgrad_tiles<<<blocks, kWgThreads, smem, (cudaStream_t)stream>>>(
+      (const bf16*)images, dw, dm, grid);
   return (int)cudaGetLastError();
 }
 
@@ -2065,10 +2818,13 @@ int fused_set_transformer_fwd_bf16(const void* x, const void* key_mask,
 // number of tiles) is the number of persistent blocks.  The layout: the
 // residual copies in shared memory at 64-row tiles, else at 32-row ones,
 // else (or with global_h = 1, which checks that only the storage moves)
-// in hws, bf16 scratch of grid x layers x tile_pad x ld_h (null where the
-// shared layout is taken), at 64 rows, else 32.  A set above 32 rows
-// takes the BIG instance: global_h must be 0 (its residual copies stay in
-// shared memory) and grid even where a set spans a cluster of two.
+// in hws (null where the shared layout is taken), at 64 rows, else 32.
+// The global layout takes no part and writes no dw: hws (bf16) holds
+// each block's copies of h and its stash, then the tiles' operand images
+// (ft.h_workspace_elems, stash_workspace_elems, wgrad_workspace_elems),
+// and wgrad_tiles_bf16 on the images, at the same grid, writes dw.  A set above
+// 32 rows takes the BIG instance: global_h must be 0 (its residual copies
+// stay in shared memory) and grid even where a set spans a cluster of two.
 int fused_set_transformer_bwd_bf16(const void* x, const void* key_mask,
                                    const void* g,
                                    const void* const* w,
@@ -2082,6 +2838,18 @@ int fused_set_transformer_bwd_bf16(const void* x, const void* key_mask,
   return entry(x, key_mask, g, w, b, dx, part, dw, hws, rows, set_size,
                in_dim, hidden, heads, layers, mlp, out_dim, grid, global_h,
                stream);
+}
+
+// The weight gradients of the backward's global layout: dw (fp32, flat in
+// flatten_params order, the matrices' rounded to bf16) from the operand
+// images that fused_set_transformer_bwd_bf16 left in its hws, over the
+// ceil(rows / tile) tiles of ``tile`` rows, summed in the order of the
+// shared layout's ``grid`` slices (the grid that call was given).
+int wgrad_tiles_bf16(const void* images, float* dw, long rows, int set_size,
+                     int in_dim, int hidden, int layers, int mlp,
+                     int out_dim, int tile, int grid, void* stream) {
+  return wgrad_entry(images, dw, rows, set_size, in_dim, hidden, layers, mlp,
+                     out_dim, tile, grid, stream);
 }
 
 }  // extern "C"

@@ -31,7 +31,10 @@ pair's at sets above 32 (its instances over clusters);
 mask, and ``GLOBAL_H_BWD_LAUNCHES`` the backward's with regions in a
 global workspace (nets whose tile does not fit otherwise: in bf16 the
 residual copies at hidden 256; in fp32 also the MLP pair at 192, and qkv
-at 256).
+at 256).  bf16's global layout leaves its dense layers' operands as images
+(``wgrad_images``) and ``wgrad_tiles_bf16``, a kernel of its own, sums its
+weight gradients from them (``GLOBAL_H_WGRAD_LAUNCHES``; plain version
+``wgrad_tiles_plain``).
 
 A key mask ``[B, S]`` (nonzero = a valid key) reaches every kernel as one
 byte a key, cast once here: the logits of masked keys are -1e9 before the
@@ -42,6 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -102,6 +106,9 @@ CLUSTER_TRAIN_FWD_LAUNCHES = {"float32": 0}
 CLUSTER_BWD_LAUNCHES = {"float32": 0}
 # the backward's launches with regions in its global workspace
 GLOBAL_H_BWD_LAUNCHES = {"bfloat16": 0, "float32": 0}
+# launches of wgrad_tiles_bf16: the weight gradients of #4 bf16's global
+# layout, from the operand images its backward leaves
+GLOBAL_H_WGRAD_LAUNCHES = {"bfloat16": 0}
 # the fp32 backward's regions that move to its workspace, in this order,
 # until its tile fits (csrc/fused_transformer_fma.cuh pick_bwd_regions)
 FMA_WS_REGIONS = ("copies", "mlp", "qkv")
@@ -319,6 +326,164 @@ def h_workspace_elems(tile: int, hidden: int, layers: int, grid: int) -> int:
     copies: for each of ``grid`` blocks, h at the block boundaries 0 ..
     layers - 1, each a [pad16(tile), pad16(hidden) + 8] image."""
     return grid * layers * pad16(tile) * (pad16(hidden) + 8)
+
+
+def stash_workspace_elems(tile: int, hidden: int, layers: int, mlp: int,
+                          grid: int) -> int:
+    """bf16 elements that the bf16 backward's global layout keeps after its
+    residual copies: for each of ``grid`` blocks and each layer, the
+    forward's qkv, attention output, h after it, and MLP pair f | m, whole
+    [pad16(tile), width padded to 16 + 8] images (``stash`` in the kernel),
+    read back in place of their recompute."""
+    ld = lambda n: pad16(n) + 8  # noqa: E731
+    return grid * layers * pad16(tile) * (ld(3 * hidden) + 2 * ld(hidden)
+                                          + 2 * ld(mlp))
+
+
+def weight_shapes(in_dim: int, hidden: int, layers: int, mlp: int,
+                  out_dim: int) -> list:
+    """The shapes of ``flatten_params``' 12 weights of a net."""
+    H, L, RH = hidden, layers, mlp
+    return [(in_dim, H), (1, H), (L, H, 3 * H), (L, 3 * H), (L, H, H),
+            (L, H), (L, H, RH), (L, RH), (L, RH, H), (L, H), (H, out_dim),
+            (1, out_dim)]
+
+
+class WgradShape(NamedTuple):
+    """The call of #4 bf16 whose weight gradients ``wgrad_tiles_bf16``
+    computes: x's rows, set size and width, and the net's widths."""
+    rows: int
+    set_size: int
+    in_dim: int
+    hidden: int
+    layers: int
+    mlp: int
+    out_dim: int
+
+    def weight_shapes(self) -> list:
+        return weight_shapes(self.in_dim, self.hidden, self.layers, self.mlp,
+                             self.out_dim)
+
+
+def wgrad_images(shape: WgradShape) -> list:
+    """(name, width) of each operand image of a tile, in the order of
+    ``Images`` in ``csrc/fused_transformer_bf16.cu``: each a [pad16(tile),
+    width] bf16 image, width the operand's padded to 16; x, g, the output
+    layer's input ``a_out`` and the embed's cotangent, then each layer's a1,
+    o, a2, m and the cotangents into fc2, fc1, proj and qkv (names with the
+    layer after a colon)."""
+    H, RH = pad16(shape.hidden), pad16(shape.mlp)
+    out = [("x", pad16(shape.in_dim)), ("g", pad16(shape.out_dim)),
+           ("a_out", H), ("g_embed", H)]
+    for layer in range(shape.layers):
+        out += [(f"{name}:{layer}", w) for name, w in (
+            ("a1", H), ("o", H), ("a2", H), ("m", RH), ("g_fc2", H),
+            ("g_fc1", RH), ("g_proj", H), ("g_qkv", pad16(3 * shape.hidden)))]
+    return out
+
+
+def wgrad_workspace_elems(shape: WgradShape, tile: int) -> int:
+    """bf16 elements of the operand images #4 bf16's global layout leaves
+    for ``wgrad_tiles_bf16``: every tile of ``tile`` rows, each image
+    ``pad16(tile)`` rows (``wgrad_images``)."""
+    tiles = -(-shape.rows // tile)
+    return tiles * pad16(tile) * sum(w for _, w in wgrad_images(shape))
+
+
+def wgrad_products(shape: WgradShape) -> list:
+    """The ten products of the weight gradients in ``flatten_params``
+    order, each (X's image, G's image, kd, n): the embed, each layer's qkv,
+    proj, fc1 and fc2 (layer-stacked in that order within each matrix), the
+    output layer."""
+    H, RH, L = shape.hidden, shape.mlp, shape.layers
+    layered = [(f"a1:{i}", f"g_qkv:{i}", H, 3 * H) for i in range(L)] \
+        + [(f"o:{i}", f"g_proj:{i}", H, H) for i in range(L)] \
+        + [(f"a2:{i}", f"g_fc1:{i}", H, RH) for i in range(L)] \
+        + [(f"m:{i}", f"g_fc2:{i}", RH, H) for i in range(L)]
+    return ([("x", "g_embed", shape.in_dim, H)] + layered
+            + [("a_out", "g", H, shape.out_dim)])
+
+
+def wgrad_tiles_plain(images, shape: WgradShape, tile: int, grid: int,
+                      round_matrices: bool = True) -> torch.Tensor:
+    """The plain version of ``wgrad_tiles_bf16``: the 12 weight gradients
+    (flat fp32, ``flatten_params`` order, the matrices rounded to bf16) from
+    the operand images ``images`` (``wgrad_images``) of every tile: each
+    tile's X^T G and G's column sums in fp32, summed over the tiles as the
+    kernel sums them (each slice b < ``grid`` its tiles b, b + grid, ... in
+    order, then the slices in order), the products' own sums in torch's
+    order; with ``round_matrices`` false the matrices' sums unrounded.
+    ``wgrad_tiles_bf16`` takes it for CPU images: the tests and
+    ``chip_smoke.py`` call it, no path of the port."""
+    tp, tiles = pad16(tile), -(-shape.rows // tile)
+    offsets, at = {}, 0
+    for name, w in wgrad_images(shape):
+        offsets[name] = (at, w)
+        at += tp * w
+    per_tile = images.view(tiles, at)
+
+    def image(name, width):
+        off, w = offsets[name]
+        return per_tile[:, off:off + tp * w].view(tiles, tp, w)[
+            :, :, :width].float()
+
+    def in_order(a):
+        # slice b's tiles b, b + grid, ... summed in order (zeros past the
+        # last tile), then the slices in order
+        pad = -(-tiles // grid) * grid - tiles
+        a = torch.cat([a, a.new_zeros((pad,) + a.shape[1:])]).view(
+            -1, grid, *a.shape[1:])
+        part = a[0]
+        for j in range(1, a.shape[0]):
+            part = part + a[j]
+        total = torch.zeros_like(part[0])
+        for b in range(grid):
+            total = total + part[b]
+        return total
+
+    ws, bs = [], []
+    for xi, gi, kd, n in wgrad_products(shape):
+        x, g = image(xi, kd), image(gi, n)
+        w = in_order(x.transpose(1, 2) @ g)
+        ws.append((w.to(torch.bfloat16).float() if round_matrices
+                   else w).flatten())
+        bs.append(in_order(g.sum(1)))
+    L = shape.layers
+    # flatten_params: embed w, b; qkv, proj, fc1, fc2 each w then b, their
+    # layers stacked; out w, b
+    flat = [ws[0], bs[0]]
+    for j in range(4):
+        flat += [torch.cat(ws[1 + j * L:1 + (j + 1) * L]),
+                 torch.cat(bs[1 + j * L:1 + (j + 1) * L])]
+    return torch.cat(flat + [ws[-1], bs[-1]])
+
+
+def wgrad_tiles_bf16(images, shape: WgradShape, tile: int, grid: int,
+                     dw=None) -> torch.Tensor:
+    """``wgrad_tiles`` of ``csrc/fused_transformer_bf16.cu`` on the operand
+    images ``images`` (bf16, CUDA, ``wgrad_workspace_elems``) that #4
+    bf16's global layout left at ``tile`` rows a tile: the 12 weight
+    gradients into ``dw`` (flat fp32, allocated if None), summed in the
+    order of that call's ``grid`` slices.  CPU images take its plain
+    version, ``wgrad_tiles_plain``."""
+    if images.dtype != torch.bfloat16 or \
+            images.numel() != wgrad_workspace_elems(shape, tile):
+        raise ValueError("wgrad_tiles_bf16: images must be a bf16 tensor of "
+                         f"{wgrad_workspace_elems(shape, tile)} elements")
+    if not images.is_cuda:
+        return wgrad_tiles_plain(images, shape, tile, grid)
+    total = sum(math.prod(s) for s in shape.weight_shapes())
+    if dw is None:
+        dw = torch.empty(total, dtype=torch.float32, device=images.device)
+    with torch.cuda.device(images.device):
+        fn = _fn("fused_transformer_bf16", "wgrad_tiles_bf16", _WGRAD_ARGS)
+        err = fn(images.data_ptr(), dw.data_ptr(), shape.rows,
+                 shape.set_size, shape.in_dim, shape.hidden, shape.layers,
+                 shape.mlp, shape.out_dim, tile, grid,
+                 torch.cuda.current_stream().cuda_stream)
+    build.check(err, "wgrad_tiles_bf16")
+    GLOBAL_H_WGRAD_LAUNCHES["bfloat16"] += 1
+    return dw
 
 
 def fma_workspace_elems(regions: tuple, tile: int, hidden: int, mlp: int,
@@ -567,6 +732,8 @@ _MASKED_FWD_ARGS = _FWD_ARGS[:1] + [_P] + _FWD_ARGS[1:]
 _MASKED_BWD_ARGS = (_BWD_ARGS[:1] + [_P] + _BWD_ARGS[1:7] + [_P]
                     + _BWD_ARGS[7:-1] + [_I, _P])
 _FMA_BWD_ARGS = _MASKED_BWD_ARGS
+# wgrad_tiles_bf16: images, dw, rows, the net's widths, tile, grid, stream
+_WGRAD_ARGS = [_P, _P, _L] + [_I] * 8 + [_P]
 # sets the FMA pair's shared-memory limit once a device, by source
 _FMA_INIT = {"fused_transformer": "fused_set_transformer_f32_init",
              _FMA_WS: "fused_set_transformer_f32_ws_init",
@@ -652,10 +819,8 @@ class PackedWeights:
         self.in_dim, self.hidden = embed_w.shape
         self.layers, self.mlp = qkv_w.shape[0], fc1_w.shape[2]
         self.out_dim = out_w.shape[1]
-        H, L, RH, OUT = self.hidden, self.layers, self.mlp, self.out_dim
-        want = [(self.in_dim, H), (1, H), (L, H, 3 * H), (L, 3 * H),
-                (L, H, H), (L, H), (L, H, RH), (L, RH), (L, RH, H), (L, H),
-                (H, OUT), (1, OUT)]
+        want = weight_shapes(self.in_dim, self.hidden, self.layers,
+                             self.mlp, self.out_dim)
         self.device = embed_w.device
         for j, (t, shape) in enumerate(zip(ws, want)):
             if tuple(t.shape) != shape:
@@ -666,9 +831,9 @@ class PackedWeights:
                                  "tensors on one device")
             if t.dtype != torch.float32:
                 raise TypeError("fused SetTransformer: weights must be fp32")
-        if RH % H:
-            raise ValueError(f"fused SetTransformer: MLP width {RH} is not a "
-                             f"multiple of H={H}")
+        if self.mlp % self.hidden:
+            raise ValueError(f"fused SetTransformer: MLP width {self.mlp} is "
+                             f"not a multiple of H={self.hidden}")
         self.dtype = compute_dtype
         self.shapes = tuple(tuple(t.shape) for t in ws)
         with torch.no_grad():
@@ -806,12 +971,19 @@ def fused_set_transformer_bwd(packed: PackedWeights, x, g, *,
     sizes = [math.prod(shape) for shape in packed.shapes]
     total = sum(sizes)
     dx = torch.empty_like(x2)
-    part = torch.empty(grid, total, dtype=torch.float32, device=x.device)
     dw = torch.empty(total, dtype=torch.float32, device=x.device)
+    # bf16's global layout: no per-block slices; its workspace holds the
+    # copies of h, the stash, then the operand images of its weight
+    # gradients (wgrad_tiles_bf16 sums them)
+    part = (None if bf16 and in_global else
+            torch.empty(grid, total, dtype=torch.float32, device=x.device))
+    wshape = WgradShape(B * S, S, in_dim, H, L, RH, OUT)
     if not in_global:
         ws = None
     elif bf16:
-        ws = torch.empty(h_workspace_elems(tile, H, L, grid),
+        kept = (h_workspace_elems(tile, H, L, grid)
+                + stash_workspace_elems(tile, H, L, RH, grid))
+        ws = torch.empty(kept + wgrad_workspace_elems(wshape, tile),
                          dtype=torch.bfloat16, device=x.device)
     else:
         ws = torch.empty(fma_workspace_elems(in_global, tile, H, RH, L, grid),
@@ -826,11 +998,14 @@ def fused_set_transformer_bwd(packed: PackedWeights, x, g, *,
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x2.data_ptr(), _mask_ptr(km), g2.data_ptr(),
                  packed.bwd_w_ptrs if bf16 else packed.fma_w_ptrs,
-                 packed.b_ptrs, dx.data_ptr(), part.data_ptr(),
+                 packed.b_ptrs, dx.data_ptr(),
+                 None if part is None else part.data_ptr(),
                  dw.data_ptr(), None if ws is None else ws.data_ptr(),
                  B * S, S, in_dim, H, num_heads, L, RH, OUT, grid,
                  int(_global_h), stream)
     build.check(err, name)
+    if bf16 and in_global:
+        wgrad_tiles_bf16(ws[kept:], wshape, tile, grid, dw)
     (CLUSTER_BWD_LAUNCHES if big else BWD_LAUNCHES)[_KEY[packed.dtype]] += 1
     if km is not None:
         MASKED_BWD_LAUNCHES[_KEY[packed.dtype]] += 1

@@ -791,13 +791,21 @@ PAIR_AND_BIG_SET_DIGESTS = {
     "bwd_float32_set128_masked": "b8c74ac9f4e2fa23"}
 
 
+# From commit 5d23eee (the tree before #4 bf16's GLOBAL_H instance moved
+# its weight gradients out of the tile loop into wgrad_tiles_bf16, in the
+# same sum order): #4 bf16's dx and 12 gradients at runs/moses' node flow.
+MOSES_DIGESTS = {"bwd_bfloat16_moses": "f6a8f5f4cbc4417d"}
+
+
 def set_digests(device) -> dict:
     """sha256 of the bytes of each kernel's outputs on the flagship's nets
     (in 4, out 104) on inputs from fixed seeds, by kernel and set size: #3
     bf16's output, #4 bf16's dx and 12 weight gradients, #3 fp32's output
     and the fp32 pair's (#3 fp32 with grad, #4 fp32) at 64 sets of 16 and,
     with a key mask (``set_mask``), 64 sets of 24; all five at 64 sets of
-    64 and of 128, and with a key mask at 128."""
+    64 and of 128, and with a key mask at 128; #4 bf16 at runs/moses' node
+    flow (hidden 256, out 300, 192 graphs of 24 nodes, under
+    ``molecule_key_mask``: the ``GLOBAL_H`` instance)."""
     import hashlib
 
     import torch
@@ -838,6 +846,19 @@ def set_digests(device) -> dict:
                     dx, dws = ft.fused_set_transformer_bwd(
                         packed, x, gf, num_heads=HEADS, mask=mask)
                     out[f"bwd_{cd}_{tag}"] = digest([dx, *dws])
+    # #4 bf16 at runs/moses' node flow, masked: its GLOBAL_H instance
+    g = torch.Generator(device).manual_seed(124)
+    x = torch.randn(MOSES_BATCH, MOL_NODES, MOL_NODE_DIM, generator=g,
+                    device=device)
+    gy = torch.randn(MOSES_BATCH, MOL_NODES, MOSES_OUT, generator=g,
+                     device=device).to(torch.bfloat16)
+    packed = molecule_net("bfloat16", device, 7, MOSES_HIDDEN,
+                          MOSES_OUT)._packed_weights(torch.bfloat16)
+    with torch.no_grad():
+        dx, dws = ft.fused_set_transformer_bwd(
+            packed, x, gy, num_heads=HEADS,
+            mask=molecule_key_mask(7, device, MOSES_BATCH))
+    out["bwd_bfloat16_moses"] = digest([dx, *dws])
     return out
 
 
@@ -975,9 +996,10 @@ def check_big_set_kernels(device, seeds, report):
     check(all(repeats.values()), "a fused kernel at a set above 32 gave "
           f"other bits on the same inputs: {repeats}")
     digests = set_digests(device)
-    pinned = {**SMALL_SET_DIGESTS, **PAIR_AND_BIG_SET_DIGESTS}
+    pinned = {**SMALL_SET_DIGESTS, **PAIR_AND_BIG_SET_DIGESTS,
+              **MOSES_DIGESTS}
     print("fused kernels against the trees before (SMALL_SET_DIGESTS, "
-          "PAIR_AND_BIG_SET_DIGESTS): " + json.dumps(
+          "PAIR_AND_BIG_SET_DIGESTS, MOSES_DIGESTS): " + json.dumps(
               {k: v == pinned.get(k) for k, v in digests.items()}),
           flush=True)
     check(digests == pinned, "a kernel's bits moved off the tree before: "
@@ -1632,7 +1654,7 @@ def reset_launches():
                    ft.TRAIN_FWD_LAUNCHES, ft.MASKED_LAUNCHES,
                    ft.MASKED_TRAIN_FWD_LAUNCHES, ft.MASKED_BWD_LAUNCHES,
                    ft.GLOBAL_H_BWD_LAUNCHES, ft.CLUSTER_TRAIN_FWD_LAUNCHES,
-                   ft.CLUSTER_BWD_LAUNCHES):
+                   ft.CLUSTER_BWD_LAUNCHES, ft.GLOBAL_H_WGRAD_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -1657,7 +1679,8 @@ def read_launches() -> dict:
             **{f"fused_set_transformer_bwd_{short[k]}_global_h": v
                for k, v in ft.GLOBAL_H_BWD_LAUNCHES.items()},
             FP32_BIG_PAIR[0]: ft.CLUSTER_TRAIN_FWD_LAUNCHES["float32"],
-            FP32_BIG_PAIR[1]: ft.CLUSTER_BWD_LAUNCHES["float32"]}
+            FP32_BIG_PAIR[1]: ft.CLUSTER_BWD_LAUNCHES["float32"],
+            "wgrad_tiles_bf16": ft.GLOBAL_H_WGRAD_LAUNCHES["bfloat16"]}
 
 
 TRAIN_STEPS, TRAIN_EVAL_EVERY, TRAIN_LOG_EVERY = 200, 100, 20
@@ -1728,8 +1751,8 @@ def profile_steps(task, optimizer, seed: int, *, warmup: int = PROFILE_WARMUP,
     for name, ms in kernels.items():
         group = next((g for g in ("fused_set_transformer_bwd",
                                   "fused_set_transformer_fwd", "reduce_wgrad",
-                                  "mixture_forward_bwd", "mixture_forward",
-                                  "mixture_inverse")
+                                  "wgrad_tiles", "mixture_forward_bwd",
+                                  "mixture_forward", "mixture_inverse")
                       if g in name), "plain torch")
         groups[group] = groups.get(group, 0.0) + ms / steps
     busy = sum(kernels.values()) / steps
@@ -3702,7 +3725,8 @@ def moses_fused_reports(device, seed: int, readings: dict) -> dict:
     """Masked #3 bf16 and #4 bf16 at runs/moses's node flow (hidden 256,
     out 300, 192 graphs of 24 nodes; #4 in its global layout), timed, with
     their readings at ``seed``, bounds' bytes and operations, and #4's
-    tile, grid, weight-gradient scratch and residual workspace."""
+    tile, grid, operand images and residual workspace; wgrad_tiles_bf16
+    at that call's shape (``wgrad_report``)."""
     import torch
     from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
     g = torch.Generator(device).manual_seed(seed + 53)
@@ -3742,18 +3766,77 @@ def moses_fused_reports(device, seed: int, readings: dict) -> dict:
     check(in_global, "#4 bf16 at hidden 256 did not take the global layout")
     grid = ft.bwd_grid(rows, tile, smem, torch.cuda.get_device_properties(
         x.device).multi_processor_count)
-    slice_bytes = (n_w + n_b) * 4
+    shape = ft.WgradShape(rows, MOL_NODES, MOL_NODE_DIM, MOSES_HIDDEN, 2,
+                          2 * MOSES_HIDDEN, MOSES_OUT)
+    images_mb = ft.wgrad_workspace_elems(shape, tile) * 2 / 2**20
     out["fused_set_transformer_bwd_bf16_global_h"] = dict(
         readings[f"{seed}/bwd_bf16_h{MOSES_HIDDEN}"], rows=rows, **t,
         dtype="bfloat16",
         bytes=rows * ((2 * MOL_NODE_DIM + MOSES_OUT) * 2 + 1) + n_w * 2
         + n_b * 4 + (n_w + n_b) * 4, ops=3 * 2 * rows * macs_row,
         tile=tile, smem=smem, grid=grid,
-        blocks_per_sm=ft.smem_blocks_per_sm(smem),
-        scratch_mb=grid * slice_bytes / 2**20,
-        scratch_written_mb=-(-rows // tile) * slice_bytes / 2**20,
-        workspace_mb=ft.h_workspace_elems(tile, MOSES_HIDDEN, 2, grid) * 2
-        / 2**20)
+        blocks_per_sm=ft.smem_blocks_per_sm(smem), images_mb=images_mb,
+        workspace_mb=(ft.h_workspace_elems(tile, MOSES_HIDDEN, 2, grid)
+                      + ft.stash_workspace_elems(tile, MOSES_HIDDEN, 2,
+                                                 2 * MOSES_HIDDEN, grid))
+        * 2 / 2**20)
+    out["wgrad_tiles_bf16"] = wgrad_readings(device, seed, MOSES_BATCH, grid,
+                                             report=True)
+    return out
+
+
+def wgrad_readings(device, seed: int, batch: int = MOSES_BATCH,
+                   grid: int | None = None, report: bool = False) -> dict:
+    """wgrad_tiles_bf16 at runs/moses' node flow (``batch`` graphs of 24
+    nodes, hidden 256, out 300; #4 bf16's tile and, unless given, its grid)
+    on random operand images of that call's shape, twice, against
+    ``wgrad_tiles_plain`` on them: the matrices within one bf16 rounding
+    (2^-7 of the plain value, plus 1e-5 of the largest: the two sum in
+    fp32 in other orders, then round), the biases (fp32) within 1e-5 of the
+    largest.  With ``report``, timed, and the bytes and operations of its
+    bound: its report entry."""
+    import torch
+    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+    rows = batch * MOL_NODES
+    net = (torch.bfloat16, MOL_NODES, MOL_NODE_DIM, MOSES_HIDDEN,
+           2 * MOSES_HIDDEN, MOSES_OUT, HEADS, 2)
+    tile = ft.bwd_layout(*net)[0]
+    if grid is None:
+        grid = ft.bwd_launch(*net, rows, torch.cuda.get_device_properties(
+            device).multi_processor_count)[3]
+    shape = ft.WgradShape(rows, MOL_NODES, MOL_NODE_DIM, MOSES_HIDDEN, 2,
+                          2 * MOSES_HIDDEN, MOSES_OUT)
+    g = torch.Generator(device).manual_seed(seed + 54)
+    images = torch.randn(ft.wgrad_workspace_elems(shape, tile), generator=g,
+                         device=device).to(torch.bfloat16)
+    with torch.no_grad():
+        dw = twice(lambda: ft.wgrad_tiles_bf16(images, shape, tile, grid))
+        want = ft.wgrad_tiles_plain(images, shape, tile, grid)
+    sizes = [math.prod(s) for s in shape.weight_shapes()]
+    err, ref = (dw - want).abs().split(sizes), want.split(sizes)
+    mats, ref_m = torch.cat(err[0::2]), torch.cat(ref[0::2]).abs()
+    bias, ref_b = torch.cat(err[1::2]), torch.cat(ref[1::2]).abs()
+    out = dict(
+        max_abs_err=float(torch.cat(err).max()), grid=grid, rows=rows,
+        matrices_within=bool((mats <= 2.0**-7 * ref_m + 1e-5 * ref_m.max())
+                             .all()),
+        biases_within=bool((bias <= 1e-5 * ref_b.max()).all()),
+        bitwise_share=float((dw == want).float().mean()))
+    check(out["matrices_within"] and out["biases_within"],
+          f"wgrad_tiles_bf16 at {batch} graphs, grid {grid}: off its plain "
+          f"version ({out})")
+    if report:
+        products = ft.wgrad_products(shape)
+        n_ops = sum(kd * n for _, _, kd, n in products)
+        widths = sum(kd + n for _, _, kd, n in products)
+        out.update(
+            timed(lambda: ft.wgrad_tiles_bf16(images, shape, tile, grid),
+                  lambda: ft.wgrad_tiles_plain(images, shape, tile, grid),
+                  20, 3),
+            dtype="bfloat16", images_mb=images.numel() * 2 / 2**20,
+            # the valid rows of X and G at their own widths read once (pad
+            # rows and columns add nothing) and dw written; their products
+            bytes=rows * widths * 2 + sum(sizes) * 4, ops=2 * rows * n_ops)
     return out
 
 
@@ -4007,7 +4090,8 @@ def molecule_phase(seed: int, timings: dict, card: str,
         final = train_checked(moses, cfg["task"], m_args, tcfg, out_dir,
                               moses_timings,
                               MOLECULE_KERNELS + MASKED_KERNELS
-                              + ("fused_set_transformer_bwd_bf16_global_h",))
+                              + ("fused_set_transformer_bwd_bf16_global_h",
+                                 "wgrad_tiles_bf16"))
         launches["moses_training"] = final["launches"]
         moses_timings["final_sample_metrics"] = {k: final[k]
                                                  for k in MOLECULE_QUALITY}
@@ -4671,11 +4755,12 @@ def mixture_entry(res: dict, kernel: str, g: int, c: int) -> dict:
 def fused_bwd_resources(log: str) -> dict:
     """ptxas's registers and spills of #4 bf16's three instances (the
     residual copies in shared memory, in global memory, and the one for
-    sets above 32: ``fused_set_transformer_bwd<GLOBAL_H, BIG>``) by the
-    report entries that launch them."""
+    sets above 32: ``fused_set_transformer_bwd<GLOBAL_H, BIG>``) and of the
+    global one's ``wgrad_tiles`` by the report entries that launch them."""
     res = kernel_resources(log)
     out = {}
-    for tag, names in (("fused_set_transformer_bwdILb0ELb0E",
+    for tag, names in (("11wgrad_tiles", ("wgrad_tiles_bf16",)),
+                       ("fused_set_transformer_bwdILb0ELb0E",
                         ("fused_set_transformer_bwd_bf16",
                          "fused_set_transformer_bwd_bf16_molecules")),
                        ("fused_set_transformer_bwdILb1ELb0E",
@@ -4807,6 +4892,11 @@ SOURCES = {
     "fused_set_transformer_bwd_f32": (
         "categoricalnf_tpu_torch/csrc/fused_transformer.cu",
         "categoricalnf_tpu/ops/pallas/fused_transformer.py:303"),
+    # the GLOBAL_H instance's weight gradients, from its operand images: the
+    # sum that _bwd_kernel keeps in its resident output blocks
+    "wgrad_tiles_bf16": (
+        "categoricalnf_tpu_torch/csrc/fused_transformer_bf16.cu",
+        "categoricalnf_tpu/ops/pallas/fused_transformer.py:303"),
     # #4 fp32 with regions of its tile in a global workspace: the instance
     # that the nets of hidden 192 and 256 launch in fp32 (molecules_v3-v7,
     # moses)
@@ -4899,7 +4989,8 @@ MOLECULE_REPORTS.update({
 # the readings of its masked check
 FUSED_KEYS = ("registers", "spill_bytes", "tile", "smem", "grid",
               "blocks_per_sm", "warps_per_sm_by_registers", "scratch_mb",
-              "workspace_mb", "regions", "rel_err", "control_rel_err",
+              "images_mb", "workspace_mb", "regions", "rel_err",
+              "control_rel_err", "matrices_within", "biases_within",
               "layout_bitwise_at_192", "layout_bitwise_at_96_128")
 MOLECULE_REPORT_KEYS = ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
                         "max_abs_err", "rel_err", "control_rel_err")
@@ -4910,6 +5001,7 @@ PATH_OF = {**{k: "serving" for k in SERVING_KERNELS},
            "mixture_forward_bwd": "training",
            "fused_set_transformer_bwd_bf16": "training",
            "fused_set_transformer_bwd_bf16_global_h": "moses_training",
+           "wgrad_tiles_bf16": "moses_training",
            "fused_set_transformer_bwd_f32": "set16_fp32_training",
            "fused_set_transformer_train_f32": "set16_fp32_training",
            "fused_set_transformer_bwd_f32_global_h":
@@ -5035,6 +5127,8 @@ def main() -> int:
                  if "control_rel_err" in r else "")
               + (f", scratch written {r['scratch_written_mb']:.1f} MB and "
                  "read as much" if "scratch_written_mb" in r else "")
+              + (f", operand images {r['images_mb']:.2f} MB"
+                 if "images_mb" in r else "")
               + (f", grid {r['grid']}" if "grid" in r else "")
               + (f", residual workspace {r['workspace_mb']:.2f} MB"
                  if "workspace_mb" in r and "regions" not in r else "")

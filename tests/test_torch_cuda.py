@@ -1117,9 +1117,23 @@ def test_hidden_256_bf16_training_matches_plain(dev):
         torch.bfloat16)
     mask = cs.molecule_key_mask(0, dev, cs.MOSES_BATCH)
     n = ft.MASKED_BWD_LAUNCHES["bfloat16"]
+    n_wgrad = ft.GLOBAL_H_WGRAD_LAUNCHES["bfloat16"]
     r = cs.masked_bwd_readings(net, x, mask, gy)
     assert ft.MASKED_BWD_LAUNCHES["bfloat16"] > n
+    assert ft.GLOBAL_H_WGRAD_LAUNCHES["bfloat16"] > n_wgrad
     assert r["rel_err"] <= cs.BF16_BWD_REL
+
+
+@pytest.mark.parametrize("batch,grid", [(192, None), (40, 7)])
+def test_wgrad_tiles_matches_plain(dev, batch, grid):
+    """wgrad_tiles_bf16 on random operand images at runs/moses' node flow
+    (192 graphs: 192 tiles of 24 rows padded to 32, at the backward's grid;
+    and 40 graphs at a grid of 7, slices of 5 and 6 tiles) against
+    ``wgrad_tiles_plain`` on the same images (``chip_smoke.wgrad_readings``:
+    the matrices within one bf16 rounding, the biases within 1e-5 of the
+    largest)."""
+    r = cs.wgrad_readings(dev, 0, batch, grid)
+    assert r["matrices_within"] and r["biases_within"]
 
 
 @pytest.mark.parametrize("hidden,b", [(96, 40), (192, 128)])

@@ -8,6 +8,8 @@ device code of ``csrc/fused_transformer.cu``) or, at sets above 32, of
     python3 tools/fma_variants.py --big [--variants base no_attention_big ...]
     python3 tools/fma_variants.py --big --dtype bfloat16 [--variants ...]
     python3 tools/fma_variants.py --big --twin [--variants base ...]
+    python3 tools/fma_variants.py --global_h [--variants base no_wgrad ...]
+    python3 tools/fma_variants.py --global_h --ab P C C P
 
 Each variant is a copy of the checkout DIR's port in a temporary directory
 with named edits of that source; ``tools/fused_ab.py --pair`` builds and
@@ -28,7 +30,20 @@ both trees: the recompute's attention (``no_attention_big``), the
 attention backward (``no_attention_bwd_big``) or its key-major pass
 (``no_attention_bwd_kv_big``); ``no_attention_fwd_big`` leaves out #3's
 attention at its call site in the forward, likewise the same text before
-and after #3's redesign, in both dtypes.  #3's register routes at sets
+and after #3's redesign, in both dtypes.
+``--global_h`` builds the variants (``GLOBAL_H_VARIANTS``) of
+``csrc/fused_transformer_bf16.cu`` and times #4 bf16's ``GLOBAL_H``
+instance at runs/moses' node flow (4,608 rows, hidden 256, out 300,
+masked), with autograd of its plain version, the digest of its outputs,
+``wgrad_tiles_bf16`` alone where the tree has it, and ptxas's registers
+and spills; ``--ab`` times whole checkouts so, in the order given, and
+compares their outputs bitwise.  Its ``no_`` variants leave out a phase
+(the parent's ``no_wgrad`` and ``no_reduce``; ``no_images``,
+``no_wgrad_tiles``, ``no_attention``, ``no_dense``, ``no_layer_norm``);
+``dense_one_ntile``, ``dense_no_mma``, ``dense_no_ldsm`` and ``wg_no_mma``
+take a part out of the dense products or of ``wgrad_tiles``;
+``attention_lanes_1``, ``no_stash``, ``images_plain``, ``kchunk_8`` and
+``wg_stages_*`` keep every output bitwise.  #3's register routes at sets
 above 64 (edits of a tree after that redesign): in bf16
 ``big_fwd_unsplit`` holds a warp's 16 n-tiles of logits whole at two
 blocks an SM, ``big_fwd_launch_1`` at one; in fp32 ``fwd_launch_1``
@@ -299,12 +314,19 @@ BF16_VARIANTS = {
                           "fused_set_transformer_fwd(",
                           "__launch_bounds__(kThreads, BIG ? 1 : kFwdBlocks)"
                           "\nfused_set_transformer_fwd(")],
-    "no_attention_big": [("      attend<BIG>(qkv, o, dm, km, bs",
-                          "      if (!BIG) attend<BIG>(qkv, o, dm, km, bs",
-                          2)],
+    # (the call sites' text before and after the GLOBAL_H instance's
+    # attention took kLanes lanes an item)
+    "no_attention_big": [(("      attend<BIG>(qkv, o, dm, km, bs",
+                           "      attend<BIG, 1, kLanes>(qkv, o, dm, km, bs"),
+                          ("      if (!BIG) attend<BIG>(qkv, o, dm, km, bs",
+                           "      if (!BIG) attend<BIG, 1, kLanes>(qkv, o, "
+                           "dm, km, bs"), 2)],
     "no_attention_bwd_big": [
-        ("      attend_bwd<BIG>(qkv, gs, r2, stats, dm, km, bs",
-         "      if (!BIG) attend_bwd<BIG>(qkv, gs, r2, stats, dm, km, bs")],
+        (("      attend_bwd<BIG>(qkv, gs, r2, stats, dm, km, bs",
+          "      attend_bwd<BIG, kLanes>(qkv, gs, r2, stats, dm, km, bs"),
+         ("      if (!BIG) attend_bwd<BIG>(qkv, gs, r2, stats, dm, km, bs",
+          "      if (!BIG) attend_bwd<BIG, kLanes>(qkv, gs, r2, stats, dm, "
+          "km, bs"))],
     "no_attention_bwd_kv_big": [(("  attention_bwd_kv_big(qkv, rows,",
                                   "  attention_bwd_kv_big<KT>(qkv, "
                                   "local_rows("),
@@ -341,8 +363,10 @@ BF16_VARIANTS = {
          "    if (false) warp_combine<KT, 2>(df, qs, hh * hd"),
         ("    warp_combine<KT, 1>(pf, gos, hh * hd",
          "    if (false) warp_combine<KT, 1>(pf, gos, hh * hd")],
-    "no_wgrad": [("                                       const Dims& dm) "
+    "no_wgrad": [("float* __restrict__ pb, bool first,\n"
+                  "                                       const Dims& dm) "
                   "{\n  const int warp = threadIdx.x >> 5, lane",
+                  "float* __restrict__ pb, bool first,\n"
                   "                                       const Dims& dm) "
                   "{\n  return;\n  const int warp = threadIdx.x >> 5, "
                   "lane")]}
@@ -409,6 +433,114 @@ TWIN_VARIANTS = {
                         "constexpr int kBigBlocks = 1;")],
 }
 
+# edits of BF16_SOURCE (--global_h), as VARIANTS: #4 bf16's GLOBAL_H
+# instance (hidden 256, runs/moses' node flow).  The weight gradients in
+# the tile loop (the parent's mma_wgrad) or, after their move to
+# wgrad_tiles_bf16, the operand images' stores and that kernel; the slices'
+# reduction (the parent's reduce_wgrad launch); the attention and its
+# backward by their call sites, the dense products and the LayerNorms (the
+# same text before and after that move)
+GLOBAL_H_VARIANTS = {
+    "base": [],
+    "no_wgrad": BF16_VARIANTS["no_wgrad"],
+    "no_reduce": [("  reduce_wgrad<bf16><<<", "  if (false) reduce_wgrad<bf16>"
+                   "<<<")],
+    "no_images": [("bf16* __restrict__ dst,\n"
+                   "                                            const Dims& "
+                   "dm) {\n",
+                   "bf16* __restrict__ dst,\n"
+                   "                                            const Dims& "
+                   "dm) {\n  return;\n")],
+    "no_wgrad_tiles": [("            Dims dm, int grid) {\n",
+                        "            Dims dm, int grid) {\n  return;\n")],
+    # (the text after the attention's split into two lanes an item, then
+    # the parent's, where both the recompute and phase 1 call attend)
+    "no_attention": [(("        attention_split<2>(qkv, o, dm, km);",
+                       "      attend<BIG>(qkv, o, dm, km, bs"),
+                      ("        if (false) attention_split<2>(qkv, o, dm, "
+                       "km);",
+                       "      if (false) attend<BIG>(qkv, o, dm, km, bs"),
+                      (1, 2)),
+                     (("        attention_bwd_split<2>(qkv, gs, r2, stats, "
+                       "dm, km);",
+                       "      attend_bwd<BIG>(qkv, gs, r2, stats, dm, km, "
+                       "bs"),
+                      ("        if (false) attention_bwd_split<2>(qkv, gs, "
+                       "r2, stats, dm, km);",
+                       "      if (false) attend_bwd<BIG>(qkv, gs, r2, stats, "
+                       "dm, km, bs"))],
+    # the GLOBAL_H instance's attention one thread an item, as the others
+    # (bitwise)
+    "attention_lanes_1": [("attention_split<2>(qkv, o, dm, km);",
+                           "attention(qkv, o, dm, km);"),
+                          ("attention_bwd_split<2>(qkv, gs, r2, stats, dm, "
+                           "km);",
+                           "attention_bwd(qkv, gs, r2, stats, dm, km);")],
+    "no_dense": [("  const int mtiles = dm.tile_pad >> 4, nk = kp >> 4;\n",
+                  "  return;\n  const int mtiles = dm.tile_pad >> 4, nk = kp "
+                  ">> 4;\n")],
+    # 8 k-steps a chunk of B fragments, every instance (bitwise)
+    "kchunk_8": [("constexpr int kKChunk = 4;", "constexpr int kKChunk = 8;")],
+    # wgrad_tiles with 8 or 2 tiles in flight a block (bitwise); without
+    # its products (the sums of zeros: what the rest of it costs)
+    "wg_stages_8": [("constexpr int kWgStages = 4;",
+                     "constexpr int kWgStages = 8;")],
+    "wg_stages_2": [("constexpr int kWgStages = 4;",
+                     "constexpr int kWgStages = 2;")],
+    "wg_no_mma": [("    for (int s = 0; s < TP / 16; ++s) {\n      uint32_t "
+                   "a[2][4];",
+                   "    for (int s = 0; s < 0; ++s) {\n      uint32_t "
+                   "a[2][4];")],
+    # every warp's B fragments from n-tile 0's rows (values wrong): the
+    # dense products with their weights in L1 (what their loads cost)
+    "dense_one_ntile": [("    const bf16* bp = bt + (long)(j * 8 + g) * kp "
+                         "+ 2 * t;",
+                         "    const bf16* bp = bt + (long)g * kp + 2 * t;")],
+    # phase 3 recomputes qkv, o, hm and f | m, as the other instances, in
+    # place of reading them back from phase 1's stash, which is not written
+    # (bitwise)
+    "no_stash": [
+        ("      if constexpr (GLOBAL_H) stash(qkv, o, h, sg + l * st, true, "
+         "dm);\n", ""),
+        ("      if constexpr (GLOBAL_H) {\n        // f too, for phase 3",
+         "      if constexpr (false) {\n        // f too, for phase 3"),
+        ("        stash(qkv, o, hm, sg + l * st, false, dm);\n"
+         "        copy16(sg + l * st + TP * (dm.ld_big + 2 * dm.ld_h), f,\n"
+         "               4 * TP * dm.ld_f);\n", ""),
+        ("      if constexpr (!GLOBAL_H) {", "      {", 2),
+        ("        attend<BIG>(qkv, o, dm, km, bs, stats, hm);\n"
+         "        set_sync(clustered);\n        if constexpr (BIG) {",
+         "        if constexpr (GLOBAL_H)\n"
+         "          attention_split<2>(qkv, o, dm, km);\n"
+         "        else\n"
+         "          attend<BIG>(qkv, o, dm, km, bs, stats, hm);\n"
+         "        set_sync(clustered);\n        if constexpr (BIG) {")],
+    # the images by plain stores, not streaming ones (bitwise)
+    "images_plain": [("      __stcs(to, v);", "      *to = v;")],
+    # the dense products without their mma.sync (an xor in its place) or
+    # without their A fragments' ldmatrix (values wrong): what each costs
+    "dense_no_mma": [("              mma_bf16(acc[mt], a, bq[s][0], "
+                      "bq[s][1]);",
+                      "              acc[mt][0] += __uint_as_float(a[0] ^ "
+                      "bq[s][0] ^ bq[s][1]);")],
+    "dense_no_ldsm": [("              ldsm_x4(a, A + (mt * 16 + (lane & 15)) "
+                       "* lda + k0);",
+                       "              a[0] = a[1] = a[2] = a[3] = k0 + "
+                       "lane;")],
+    "no_layer_norm": [
+        ("                                             const Dims& dm) {\n"
+         "  const int lane = threadIdx.x & 31, h = dm.hidden;\n",
+         "                                             const Dims& dm) {\n"
+         "  return;\n  const int lane = threadIdx.x & 31, h = dm.hidden;\n"),
+        ("                                                 bf16* gout, const "
+         "Dims& dm) {\n",
+         "                                                 bf16* gout, const "
+         "Dims& dm) {\n  return;\n")]}
+# the variants --global_h runs unless told others (the ones of the tree
+# before the weight gradients left the tile loop)
+GLOBAL_H_DEFAULT = ["base", "no_wgrad", "no_reduce", "no_attention",
+                    "no_dense", "no_layer_norm"]
+
 TILES_SOURCE = os.path.join("categoricalnf_tpu_torch", "csrc",
                             "fused_transformer_tiles.cuh")
 
@@ -419,7 +551,9 @@ KINDS = {"float32": ((SOURCE, TILES_SOURCE), VARIANTS,
          "bfloat16": ((BF16_SOURCE,), BF16_VARIANTS,
                       "fused_transformer_bf16"),
          "twin": ((TWIN_SOURCE,), TWIN_VARIANTS,
-                  "fused_transformer_tf32x3")}
+                  "fused_transformer_tf32x3"),
+         "global_h": ((BF16_SOURCE,), GLOBAL_H_VARIANTS,
+                      "fused_transformer_bf16")}
 
 
 def variant_tree(tree: str, name: str, root: str,
@@ -443,9 +577,11 @@ def variant_tree(tree: str, name: str, root: str,
         # after, whichever the tree has
         olds, news = (old, new) if isinstance(old, tuple) else ((old,),
                                                                  (new,))
+        # the times each text must occur: one for all, or one each
         want = times[0] if times else 1
+        wants = want if isinstance(want, tuple) else (want,) * len(olds)
         hits = [(src, i) for src, text in texts.items()
-                for i, o in enumerate(olds) if text.count(o) == want]
+                for i, o in enumerate(olds) if text.count(o) == wants[i]]
         if not hits:
             sys.exit(f"fma_variants: the edit of {name} does not match "
                      f"{' or '.join(sources)} as it should")
@@ -519,16 +655,92 @@ def time_big(tree: str, kind: str = "float32") -> dict:
     return out
 
 
+def time_global_h(tree: str) -> dict:
+    """#4 bf16 of ``tree``'s port at runs/moses' node flow (192 graphs x 24
+    nodes, in 6, hidden 256, MLP 512, 4 heads, 2 blocks, out 300, under
+    ``chip_smoke.molecule_key_mask``), its GLOBAL_H instance: device ms of
+    the wrapper's call (``bwd_ms``) and of autograd through the plain
+    version (``plain_ms``), the sha256 of dx and the 12 gradients
+    (``digest``), ptxas's registers and spills of the source's kernels;
+    where the tree has ``wgrad_tiles_bf16``, that kernel alone on operand
+    images of the call's shape (``wgrad_tiles_ms``)."""
+    import hashlib
+    sys.path.insert(0, os.path.abspath(tree))
+    cs = _chip_smoke()
+    import torch
+    from categoricalnf_tpu_torch.ops.cuda import build
+    from categoricalnf_tpu_torch.ops.cuda import fused_transformer as ft
+    dev = torch.device("cuda")
+    source = KINDS["global_h"][2]
+    ptxas = cs.kernel_resources(build.build_all([source])[source])
+    out: dict = {"registers": {k: v for k, v in ptxas.items()
+                               if "bwdILb1ELb0E" in k or "wgrad" in k}}
+    seed, batch, hidden, out_dim = 0, cs.MOSES_BATCH, cs.MOSES_HIDDEN, \
+        cs.MOSES_OUT
+    g = torch.Generator(dev).manual_seed(seed + 53)
+    mask = cs.molecule_key_mask(seed, dev, batch)
+    x = torch.randn(batch, cs.MOL_NODES, cs.MOL_NODE_DIM, generator=g,
+                    device=dev)
+    gy = torch.randn(batch, cs.MOL_NODES, out_dim, generator=g,
+                     device=dev).to(torch.bfloat16)
+    net = cs.molecule_net("bfloat16", dev, seed, hidden, out_dim)
+    packed = net._packed_weights(torch.bfloat16)
+    call = lambda: ft.fused_set_transformer_bwd(  # noqa: E731
+        packed, x, gy, num_heads=cs.HEADS, mask=mask)
+    with torch.no_grad():
+        dx, dws = call()
+        h = hashlib.sha256()
+        for t in (dx, *dws):
+            h.update(t.detach().cpu().contiguous().view(torch.uint8)
+                     .numpy().tobytes())
+        out["digest"] = h.hexdigest()[:16]
+        out["bwd_ms"] = cs.cuda_ms(call, 10)[0]
+    params = list(net.parameters())
+    xr = x.clone().requires_grad_(True)
+    y_p = net.plain_forward(xr, mask=mask)
+    out["plain_ms"] = cs.cuda_ms(lambda: torch.autograd.grad(
+        y_p, [xr] + params, gy, retain_graph=True), 5)[0]
+    if hasattr(ft, "wgrad_tiles_bf16"):
+        shape = ft.WgradShape(batch * cs.MOL_NODES, cs.MOL_NODES,
+                              cs.MOL_NODE_DIM, hidden, 2, 2 * hidden,
+                              out_dim)
+        tile = ft.bwd_layout(torch.bfloat16, cs.MOL_NODES, cs.MOL_NODE_DIM,
+                             hidden, 2 * hidden, out_dim, cs.HEADS, 2)[0]
+        grid = ft.bwd_launch(torch.bfloat16, cs.MOL_NODES, cs.MOL_NODE_DIM,
+                             hidden, 2 * hidden, out_dim, cs.HEADS, 2,
+                             batch * cs.MOL_NODES, torch.cuda
+                             .get_device_properties(dev)
+                             .multi_processor_count)[3]
+        images = torch.randn(ft.wgrad_workspace_elems(shape, tile),
+                             generator=g, device=dev).to(torch.bfloat16)
+        with torch.no_grad():
+            out["wgrad_tiles_ms"] = cs.cuda_ms(
+                lambda: ft.wgrad_tiles_bf16(images, shape, tile, grid),
+                20)[0]
+    return out
+
+
 def main_big(args) -> int:
-    """Build every variant's BIG source at once, then time each alone."""
-    kind = "twin" if args.twin else args.dtype
+    """Build every variant's BIG source at once, then time each alone
+    (``--global_h``: #4 bf16's GLOBAL_H instance; with ``--ab``, the
+    checkouts named there unedited, in that order)."""
+    kind = ("global_h" if args.global_h else "twin" if args.twin
+            else args.dtype)
     source = KINDS[kind][2]
     code = ("import sys; sys.path.insert(0, sys.argv[1]); from "
             "categoricalnf_tpu_torch.ops.cuda import build; "
             f"build.build_all([{source!r}])")
     with tempfile.TemporaryDirectory() as root:
-        trees = {name: variant_tree(args.tree, name, root, kind)
-                 for name in args.variants}
+        if args.ab:
+            # a copy of each checkout's port ("base": no edit), one build
+            # each, timed in the order given
+            trees = {f"{i}:{tree}": variant_tree(tree, "base",
+                                                 os.path.join(root, str(i)),
+                                                 kind)
+                     for i, tree in enumerate(args.ab)}
+        else:
+            trees = {name: variant_tree(args.tree, name, root, kind)
+                     for name in args.variants}
         builds = {name: subprocess.Popen(
                       [sys.executable, "-c", code, tree],
                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -543,6 +755,7 @@ def main_big(args) -> int:
                 failed = True
         if failed:
             return 1
+        digests = []
         for name, tree in trees.items():
             run = subprocess.run([sys.executable, os.path.abspath(__file__),
                                   "--time-big", tree, "--kind", kind],
@@ -552,6 +765,11 @@ def main_big(args) -> int:
                 return 1
             line = json.loads(run.stdout.strip().splitlines()[-1])
             print(json.dumps({"variant": name, **line}), flush=True)
+            digests.append(line.get("digest"))
+    if args.ab:
+        same = len(set(digests)) == 1
+        print(json.dumps({"bitwise_across_trees": same}), flush=True)
+        return 0 if same else 1
     return 0
 
 
@@ -561,7 +779,8 @@ def main() -> int:
                     help="checkout whose port to vary")
     ap.add_argument("--variants", nargs="+", default=None,
                     choices=sorted(set(VARIANTS) | set(BF16_VARIANTS)
-                                   | set(TWIN_VARIANTS)))
+                                   | set(TWIN_VARIANTS)
+                                   | set(GLOBAL_H_VARIANTS)))
     ap.add_argument("--big", action="store_true",
                     help="time the instances for sets of 33-128")
     ap.add_argument("--dtype", default="float32",
@@ -570,20 +789,32 @@ def main() -> int:
     ap.add_argument("--twin", action="store_true",
                     help="with --big: the 3xTF32 eval twin (#3 fp32 "
                     "without grad)")
+    ap.add_argument("--global_h", action="store_true",
+                    help="time #4 bf16's GLOBAL_H instance at runs/moses' "
+                    "node flow (GLOBAL_H_VARIANTS)")
+    ap.add_argument("--ab", nargs="+", metavar="TREE", default=None,
+                    help="with --global_h: time these checkouts as they are, "
+                    "in this order (say P C C P), and exit 1 unless their "
+                    "outputs are bitwise equal")
     ap.add_argument("--time-big", metavar="TREE", help=argparse.SUPPRESS)
     ap.add_argument("--kind", default="float32", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.time_big:
-        print(json.dumps(time_big(args.time_big, args.kind)), flush=True)
+        print(json.dumps(time_global_h(args.time_big)
+                         if args.kind == "global_h"
+                         else time_big(args.time_big, args.kind)),
+              flush=True)
         return 0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    if args.big:
-        kind = "twin" if args.twin else args.dtype
+    if args.big or args.global_h:
+        kind = ("global_h" if args.global_h else "twin" if args.twin
+                else args.dtype)
         table = KINDS[kind][1]
         args.variants = args.variants or (
-            BIG_VARIANTS if kind == "float32" else list(table))
+            BIG_VARIANTS if kind == "float32" else GLOBAL_H_DEFAULT
+            if kind == "global_h" else list(table))
         unknown = set(args.variants) - set(table)
         if unknown:
             ap.error(f"no {kind} variants {sorted(unknown)}")

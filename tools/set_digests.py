@@ -7,11 +7,12 @@ for a checkout's port, on one card.
 Imports the port from DIR, builds its kernels and prints one JSON line:
 the card, and the sha256 digests (first 16 hex digits) of #3 bf16's
 output, #4 bf16's gradients, #3 fp32's output and the fp32 train step's
-pair's at sets of 16 and 24, and of the first three at sets of 64 and 128
-(``chip_smoke.set_digests`` of this checkout).  Run on the tree before a
-change to the kernels, they are ``chip_smoke.SMALL_SET_DIGESTS`` and
-``PAIR_AND_BIG_SET_DIGESTS``, which chip_smoke holds the checkout's
-kernels to.  Imports nothing of JAX.
+pair's at sets of 16 and 24, of all five at sets of 64 and 128, and of #4
+bf16 at runs/moses' node flow (its ``GLOBAL_H`` instance;
+``chip_smoke.set_digests`` of this checkout).  Run on the tree before a
+change to the kernels, they are ``chip_smoke.SMALL_SET_DIGESTS``,
+``PAIR_AND_BIG_SET_DIGESTS`` and ``MOSES_DIGESTS``, which chip_smoke holds
+the checkout's kernels to.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
